@@ -1,0 +1,342 @@
+"""Fused HMC sampling phase: CUDA kernel for Hopper, its wrapper, and its
+plain PyTorch version.
+
+Replaces the Pallas TPU kernel ``rainier_tpu/ops/hmc_pallas.py::fused_hmc``
+(the one ``pl.pallas_call`` of the JAX package, hmc_pallas.py:506), which
+keeps every chain's state in VMEM for the whole sampling run.  The CUDA
+kernel (``csrc/fused_hmc.cu``) gives each chain one thread and keeps its
+state in registers: momentum refresh (Philox4x32-10 + Box-Muller,
+``csrc/philox.cuh``), ``n_steps`` kick-drift-kick leapfrog steps with the
+model's density and gradient from C generated out of the Real DAG
+(``compute/emit_cuda.py``), the Metropolis accept, and the accept-rate
+and divergence sums.  Device memory is touched only to load q0 and store
+the results and the collected draws.
+
+What bounds it on the H100: f32 ALU work and SFU work (``expf``, ``logf``,
+``cosf``, ``sqrtf``) of the density, its adjoints and the RNG — device
+bytes are only the collected draws.  With one thread per chain, a run
+with few chains fills few SMs, and then latency, not throughput, sets
+the time.  This first version is a simple, correct kernel; making it
+fast is later work (PERF.md holds its times beside its bound).
+
+Build: nvcc compiles the template plus the model's generated
+``rt_model.h`` for ``sm_90a``, with a plain C interface, into
+``_build/fused_hmc_<sha256>.so`` at first use (the hash covers the
+sources, the generated header and the flags), which is loaded with
+ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from ..compute import emit_cuda
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("fused_hmc.cu", "philox.cuh", "rt_math.cuh")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+TWO_PI = 6.28318530717958648
+_MASK = 0xFFFFFFFF
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+
+
+# ---------------------------------------------------------------------------
+# Philox4x32-10 in PyTorch: the same bits as csrc/philox.cuh
+# ---------------------------------------------------------------------------
+
+
+def _mulhilo(m: int, a: torch.Tensor):
+    """(hi, lo) 32-bit halves of m·a for uint32 values held in int64.
+    torch has no uint64 multiply, so a is split into 16-bit limbs and
+    every partial product stays below 2^49."""
+    x = (a >> 16) * m
+    y = (a & 0xFFFF) * m
+    s = y + ((x & 0xFFFF) << 16)
+    return (x >> 16) + (s >> 32), s & _MASK
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors holding uint32 values."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + _W0) & _MASK
+            k1 = (k1 + _W1) & _MASK
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 (in int64) → f32 uniform in (0, 1) by the exponent trick."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return (f - 1.0) + 1.1920929e-7
+
+
+def philox_noise(seed: int, it: int, dim: int, n: int, device):
+    """Iteration `it`'s momentum (dim, n) and Metropolis uniform (n,) for
+    chains 0..n-1 — word layout as in csrc/philox.cuh."""
+    n_words = 2 * dim + 1
+    groups = (n_words + 3) // 4
+    chain = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    grp = torch.arange(groups, dtype=torch.int64, device=device)[:, None]
+    zero = torch.zeros_like(grp)
+    words = torch.stack(philox4x32(zero + it, grp, zero, zero,
+                                   seed & _MASK, chain), dim=1)
+    u = uniform_from_bits(words.reshape(4 * groups, n)[:n_words])
+    p = torch.sqrt(-2.0 * torch.log(u[0:2 * dim:2])) * torch.cos(
+        TWO_PI * u[1:2 * dim:2])
+    return p, u[2 * dim]
+
+
+# ---------------------------------------------------------------------------
+# shared argument handling
+# ---------------------------------------------------------------------------
+
+
+def _prepare(density, q0, step_size, inv_mass_diag, n_steps, n_iterations,
+             collect_every, noise):
+    if density.columns:
+        raise emit_cuda.UnsupportedNode(
+            "the fused kernel does not take data columns yet (they come "
+            "in a later slice)")
+    if n_steps < 1 or n_iterations < 1 or collect_every < 0:
+        raise ValueError(f"need n_steps >= 1, n_iterations >= 1 and "
+                         f"collect_every >= 0, got {n_steps}, "
+                         f"{n_iterations}, {collect_every}")
+    if q0.dim() != 2 or q0.dtype != torch.float32:
+        raise ValueError(f"q0 must be a float32 (dim, n_chains) tensor, got "
+                         f"{tuple(q0.shape)} {q0.dtype}")
+    dim, n = q0.shape
+    if dim != density.n_vars:
+        raise ValueError(f"q0 has {dim} rows, the model {density.n_vars}")
+    dev = q0.device
+    eps = torch.as_tensor(step_size, dtype=torch.float32, device=dev)
+    eps = eps.reshape(-1).expand(n).contiguous()
+    scale = None
+    if inv_mass_diag is not None:
+        imd = torch.as_tensor(inv_mass_diag, dtype=torch.float32, device=dev)
+        if imd.shape not in ((dim,), (n, dim)):
+            raise ValueError(f"inv_mass_diag must be ({dim},) or "
+                             f"({n}, {dim}), got {tuple(imd.shape)}")
+        scale = torch.sqrt(imd.T if imd.dim() == 2 else imd).contiguous()
+    if noise is not None:
+        p_noise, u_noise = (torch.as_tensor(t, dtype=torch.float32,
+                                            device=dev).contiguous()
+                            for t in noise)
+        if (tuple(p_noise.shape) != (n_iterations, dim, n)
+                or tuple(u_noise.shape) != (n_iterations, n)):
+            raise ValueError("noise must be (p (n_iterations, dim, n), "
+                             "u (n_iterations, n))")
+        noise = (p_noise, u_noise)
+    return q0.contiguous(), eps, scale, noise
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def fused_hmc_reference(density, q0, *, step_size, n_steps: int,
+                        n_iterations: int, seed: int, inv_mass_diag=None,
+                        collect_every: int = 0, noise=None):
+    """The kernel's loop in PyTorch on (dim, n) tensors: the same order of
+    operations, the density and gradient from
+    ``CompiledDensity.logp_lanes_fn`` and autograd, and the same Philox
+    bits when ``noise`` is None.  Used on the CPU and to check the kernel;
+    never by the card's main path."""
+    q0, eps, scale, noise = _prepare(density, q0, step_size, inv_mass_diag,
+                                     n_steps, n_iterations, collect_every,
+                                     noise)
+    dim, n = q0.shape
+    dev = q0.device
+    sc = torch.ones_like(q0) if scale is None else \
+        (scale if scale.dim() == 2 else scale[:, None]).expand(dim, n)
+    eps = eps[None, :]
+    lanes = density.logp_lanes_fn()
+
+    def lp_grad(qs):
+        with torch.enable_grad():
+            x = (qs * sc).detach().requires_grad_(True)
+            lp = lanes(x, ())
+            g = torch.autograd.grad(lp.sum(), x, allow_unused=True)[0] \
+                if lp.requires_grad else None
+        g = torch.zeros_like(qs) if g is None else g
+        return lp.detach(), sc * g
+
+    q = q0 / sc
+    lp, g = lp_grad(q)
+    acc = torch.zeros(n, dtype=torch.float32, device=dev)
+    div = torch.zeros(n, dtype=torch.float32, device=dev)
+    n_out = n_iterations // collect_every if collect_every else 0
+    samples = torch.empty((n_out, dim, n), dtype=torch.float32, device=dev) \
+        if collect_every else None
+    for it in range(n_iterations):
+        if noise is not None:
+            p0, u = noise[0][it], noise[1][it]
+        else:
+            p0, u = philox_noise(seed, it, dim, n, dev)
+        h0 = -lp + 0.5 * torch.sum(p0 * p0, dim=0)
+        p = p0 + 0.5 * eps * g
+        qn = q + eps * p
+        lpn, gn = lp_grad(qn)
+        for _ in range(n_steps - 1):
+            p = p + eps * gn
+            qn = qn + eps * p
+            lpn, gn = lp_grad(qn)
+        p = p + 0.5 * eps * gn
+        h1 = -lpn + 0.5 * torch.sum(p * p, dim=0)
+        la = torch.clamp(-(h1 - h0), max=0.0)
+        la = torch.where(torch.isfinite(h0) & torch.isfinite(h1), la,
+                         torch.full_like(la, -float("inf")))
+        take = torch.log(u) < la
+        q = torch.where(take, qn, q)
+        lp = torch.where(take, lpn, lp)
+        g = torch.where(take, gn, g)
+        acc = acc + torch.exp(la)
+        div = div + torch.isinf(la).to(torch.float32)
+        if collect_every and it % collect_every == collect_every - 1:
+            samples[it // collect_every] = q * sc
+    return q * sc, samples, acc / n_iterations, div
+
+
+# ---------------------------------------------------------------------------
+# kernel build and launch
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the fused kernel is built from "
+                           "csrc/ at first use on a machine with the CUDA "
+                           "toolkit")
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def _load(so_path: str):
+    lib = ctypes.CDLL(so_path)
+    fn = lib.rt_fused_hmc_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                   + [ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build(density):
+    """Emit the model's rt_model.h and compile the kernel (cached by the
+    content hash).  Returns (launch function, build seconds, emitted)."""
+    t0 = time.perf_counter()
+    em = emit_cuda.emit(density)
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    h.update(em.source.encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    key = h.hexdigest()[:24]
+    so = BUILD_DIR / f"fused_hmc_{key}.so"
+    if not so.exists():
+        inc = BUILD_DIR / key
+        inc.mkdir(parents=True, exist_ok=True)
+        (inc / emit_cuda.HEADER_NAME).write_text(em.source)
+        tmp = BUILD_DIR / f".fused_hmc_{key}.{os.getpid()}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(inc), "-I", str(CSRC),
+               "-o", str(tmp), str(CSRC / "fused_hmc.cu")]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{res.stderr}\n{' '.join(cmd)}")
+        os.replace(tmp, so)
+    return _load(str(so)), time.perf_counter() - t0, em
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
+              seed: int, inv_mass_diag=None, collect_every: int = 0,
+              noise=None):
+    """HMC with ``n_steps`` leapfrog steps × ``n_iterations`` for every
+    chain of ``q0`` (dim, n_chains), the whole run in one kernel.
+
+    Argument names follow ``rainier_tpu.ops.fused_hmc``: ``step_size`` is
+    a scalar or (n_chains,) per-chain ε; ``inv_mass_diag`` the adapted Σ̂
+    diagonal, (dim,) shared or (n_chains, dim) per chain, or None
+    (identity); ``collect_every`` k > 0 also returns every k-th draw.
+    ``noise=(p (n_iterations, dim, n), u (n_iterations, n))`` replaces the
+    in-kernel Philox streams with explicit momenta and uniforms (the
+    ``host_rng`` counterpart).
+
+    On CUDA tensors this launches the kernel or raises; on CPU tensors it
+    runs :func:`fused_hmc_reference`.  Returns (final q (dim, n),
+    samples (n_out, dim, n) or None, accept rate (n,), divergences (n,)).
+    """
+    if q0.device.type == "cpu":
+        return fused_hmc_reference(
+            density, q0, step_size=step_size, n_steps=n_steps,
+            n_iterations=n_iterations, seed=seed,
+            inv_mass_diag=inv_mass_diag, collect_every=collect_every,
+            noise=noise)
+    if q0.device.type != "cuda":
+        raise ValueError(f"fused_hmc runs on CUDA or CPU tensors, not "
+                         f"{q0.device}")
+    q0, eps, scale, noise = _prepare(density, q0, step_size, inv_mass_diag,
+                                     n_steps, n_iterations, collect_every,
+                                     noise)
+    launch, _, _ = build(density)
+    dim, n = q0.shape
+    dev = q0.device
+    qf = torch.empty((dim, n), dtype=torch.float32, device=dev)
+    acc = torch.empty((n,), dtype=torch.float32, device=dev)
+    div = torch.empty((n,), dtype=torch.float32, device=dev)
+    samples = torch.empty((n_iterations // collect_every, dim, n),
+                          dtype=torch.float32, device=dev) \
+        if collect_every else None
+    p_noise, u_noise = noise if noise is not None else (None, None)
+    # 32-thread blocks spread a small chain count over more SMs
+    threads = 128 if n >= 128 * 132 else 32
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(n, _ptr(q0), _ptr(scale),
+                    int(scale is not None and scale.dim() == 2), _ptr(eps),
+                    _ptr(p_noise), _ptr(u_noise), _ptr(qf), _ptr(samples),
+                    _ptr(acc), _ptr(div), n_iterations, n_steps,
+                    collect_every, seed & _MASK, threads, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_hmc kernel launch failed: cudaError {rc}")
+    fused_hmc.launches += 1
+    return qf, samples, acc, div
+
+
+fused_hmc.launches = 0
+
+
+def op_count(density_ops: int, dim: int, n_steps: int) -> int:
+    """f32 and 32-bit integer operations of ONE chain iteration of the
+    kernel with on-device Philox, for the bound in PERF.md and
+    chip_smoke.py: the density + gradient ``n_steps`` times, the leapfrog
+    arithmetic, kinetic energies, the accept, and the RNG."""
+    per_grad = density_ops + 2 * dim           # x = q·sc, g = sc·∇
+    leap = n_steps * 4 * dim + 2 * dim         # kicks + drifts, half kicks
+    kinetic = 2 * 2 * dim + 4                  # k0, k1, h0, h1
+    accept = 10                                # la, guard, log u, acc, div
+    groups = (2 * dim + 1 + 3) // 4
+    rng = groups * (10 * 8 + 9 * 2)            # rounds + key bumps
+    rng += (2 * dim + 1) * 4 + dim * 6         # bits→f32, Box-Muller
+    return n_steps * per_grad + leap + kinetic + accept + rng

@@ -1,0 +1,48 @@
+"""Carried sampler telemetry (port of rainier_tpu/sampler/stats.py;
+counterpart of sampler/Stats.scala).  Every field is a (C,) tensor.
+BFMI = Σ(E_t − E_{t−1})² / Σ(E_t − Ē)², exactly Stats.bfmi's
+energyTransitions2 / energyVariance.raw.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class StatsState(NamedTuple):
+    iterations: torch.Tensor
+    divergences: torch.Tensor
+    accept_sum: torch.Tensor    # Σ exp(log_accept) → mean acceptance rate
+    grad_evals: torch.Tensor
+    prev_energy: torch.Tensor
+    energy_trans2: torch.Tensor  # Σ (E_t − E_{t−1})²
+    e_count: torch.Tensor        # Welford over retained energies
+    e_mean: torch.Tensor
+    e_raw: torch.Tensor
+
+
+def stats_init(initial_energy: torch.Tensor) -> StatsState:
+    z = torch.zeros_like(initial_energy)
+    iz = torch.zeros(initial_energy.shape, dtype=torch.int32,
+                     device=initial_energy.device)
+    return StatsState(iterations=iz, divergences=iz, accept_sum=z,
+                      grad_evals=iz, prev_energy=initial_energy.clone(),
+                      energy_trans2=z, e_count=z, e_mean=z, e_raw=z)
+
+
+def stats_update(st: StatsState, log_accept, divergent, energy,
+                 n_grad_evals: int) -> StatsState:
+    e_count = st.e_count + 1
+    old = energy - st.e_mean
+    e_mean = st.e_mean + old / e_count
+    e_raw = st.e_raw + old * (energy - e_mean)
+    return StatsState(
+        iterations=st.iterations + 1,
+        divergences=st.divergences + divergent.to(torch.int32),
+        accept_sum=st.accept_sum + torch.exp(log_accept),
+        grad_evals=st.grad_evals + n_grad_evals,
+        prev_energy=energy,
+        energy_trans2=st.energy_trans2 + (energy - st.prev_energy) ** 2,
+        e_count=e_count, e_mean=e_mean, e_raw=e_raw)
