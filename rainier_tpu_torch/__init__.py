@@ -18,9 +18,9 @@ from .compute import (Real, Vec, const, to_real, parameter,
                       infinity, neg_infinity, Column, IntColumn, MatColumn)
 from . import config
 from . import core
-from .core import (Beta, Cauchy, Continuous, Distribution, Exponential,
-                   Gamma, Laplace, LogNormal, Mixture, Model, Normal,
-                   Uniform)
+from .core import (Bernoulli, Beta, Cauchy, Continuous, Distribution,
+                   Exponential, Gamma, Laplace, LogNormal, Mixture, Model,
+                   Normal, Uniform)
 from . import sampler
 from .sampler import (EHMC, HMC, NUTS, SamplerConfig, StaticMassMatrix,
                       StaticStepSize)

@@ -106,6 +106,39 @@ def prior_total(parameters: Sequence[R.Real]) -> R.Real:
     return R.sum_(terms)
 
 
+def _bind_lane_columns(env, columns, cols) -> None:
+    """Bind column values in the lanes layout: a Column as (n, 1), so it
+    broadcasts over chains; IntColumn and MatColumn as they are."""
+    for c, v in zip(columns, cols):
+        env[c.id] = v if isinstance(c, (R.IntColumn, R.MatColumn)) \
+            else v.reshape(-1, 1)
+
+
+def _lane_total(vals, qb) -> torch.Tensor:
+    """Sum of lanes-layout root values: (n, C) terms over rows, then all
+    terms; (C,)."""
+    C = qb.shape[1]
+    total = torch.zeros((1, C), dtype=qb.dtype, device=qb.device)
+    for v in vals:
+        if v.dim() == 2 and v.shape[0] > 1:
+            v = torch.sum(v, dim=0, keepdim=True)
+        total = total + v
+    return total.reshape(C)
+
+
+def row_tile_sum(tile_fn, qb, cols, tile_rows: int) -> torch.Tensor:
+    """Σ over consecutive slices of `tile_rows` rows of
+    ``tile_fn(qb, ones mask, slice)`` (a ``logp_lanes_split_fn`` tile
+    function), each slice's total added in f64: (C,) float64."""
+    total = torch.zeros(qb.shape[1], dtype=torch.float64, device=qb.device)
+    for a in range(0, int(cols[0].shape[0]), tile_rows):
+        tile = tuple(c[a:a + tile_rows] for c in cols)
+        mask = torch.ones((tile[0].shape[0], 1), dtype=qb.dtype,
+                          device=qb.device)
+        total = total + tile_fn(qb, mask, tile).double()
+    return total
+
+
 def _value_and_grad(f, q, *args):
     """(f(q), ∇f(q)) by autograd; a density that does not depend on q
     has a zero gradient."""
@@ -196,20 +229,60 @@ class CompiledDensity:
 
         def logp(qb, cols):
             env = layout.env_for_lanes(qb)
-            for c, v in zip(columns, cols):
-                env[c.id] = v if isinstance(c, (R.IntColumn, R.MatColumn)) \
-                    else v.reshape(-1, 1)                    # (n, 1)
+            _bind_lane_columns(env, columns, cols)
             vals = interp.evaluate_lanes(roots, env,
                                          self._backend(qb.device), qb.dtype)
-            C = qb.shape[1]
-            total = torch.zeros((1, C), dtype=qb.dtype, device=qb.device)
-            for v in vals:
-                if v.dim() == 2 and v.shape[0] > 1:
-                    v = torch.sum(v, dim=0, keepdim=True)
-                total = total + v
-            return total.reshape(C)
+            return _lane_total(vals, qb)
 
         return logp
+
+    def logp_lanes_split_fn(self):
+        """Base/row-term split of logp_lanes_fn for row-tiled evaluation
+        (rainier_tpu/compute/compiler.py:223-294): ``(base_fn, tile_fn)``
+        with
+
+        * ``base_fn(qb) -> (C,)``: every column-free term, the prior total
+          plus any likelihood root that is not a ``RowSum``;
+        * ``tile_fn(qb, mask, cols_tile) -> (C,)``: each ``RowSum``
+          likelihood's per-row child on a row slice of every column,
+          times ``mask`` ((R, 1), 0 for padding rows), summed over the
+          slice's rows; a row-independent child contributes
+          ``child · Σmask``,
+
+        so ``logp(qb, cols) == base_fn(qb) + Σ_tiles tile_fn(...)`` for any
+        tiling of the rows.  None when the base terms reference columns
+        (no clean split exists).  This is the plain version of what the
+        fused kernel computes over its row tiles."""
+        row_roots = [r.child for r in self.likelihoods
+                     if isinstance(r, R.RowSum)]
+        base_roots = [r for r in self.likelihoods
+                      if not isinstance(r, R.RowSum)] + [self._prior]
+        if find_columns(base_roots):
+            return None
+        layout, columns = self.layout, self.columns
+
+        def base_fn(qb):
+            vals = interp.evaluate_lanes(base_roots,
+                                         layout.env_for_lanes(qb),
+                                         self._backend(qb.device), qb.dtype)
+            return _lane_total(vals, qb)
+
+        def tile_fn(qb, mask, cols_tile):
+            env = layout.env_for_lanes(qb)
+            _bind_lane_columns(env, columns, cols_tile)
+            vals = interp.evaluate_lanes(row_roots, env,
+                                         self._backend(qb.device), qb.dtype)
+            total = torch.zeros((1, qb.shape[1]), dtype=qb.dtype,
+                                device=qb.device)
+            for v in vals:
+                if v.dim() == 2 and v.shape[0] > 1:
+                    total = total + torch.sum(v * mask, dim=0, keepdim=True)
+                else:
+                    # row-independent child: each unmasked row adds it once
+                    total = total + v * torch.sum(mask)
+            return total.reshape(qb.shape[1])
+
+        return base_fn, tile_fn
 
     def batched_logp_and_grad_fn(self) -> Callable:
         """(q (C, n_vars), cols) -> (logp (C,), grad (C, n_vars)): the

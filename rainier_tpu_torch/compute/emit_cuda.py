@@ -19,19 +19,33 @@ Each derivative follows the convention of ``jax.grad`` (the reference):
 ``pow``'s exponent adjoint uses ``log(x == 0 ? 1 : x)``, ``lgamma``'s is
 a hand-written digamma, and ``softplus``/``logistic`` use stable forms.
 
-Data columns (``Column``, ``IntColumn``, ``MatColumn``) and the nodes
-over them (``MatVec``, ``RowSum``, a ``Gather`` by a column) come in a
-later slice; :class:`UnsupportedNode` says so.
+A model with data is emitted in the split of
+``CompiledDensity.logp_lanes_split_fn``: the column-free terms (prior and
+every likelihood that is not a ``RowSum``) as ``rt_logp_grad``, and each
+top-level ``RowSum``'s child as a per-row function ``rt_row`` that reads
+one row of every column from a tile and accumulates its adjoints.  The
+nodes under that child that depend on no column are *row-invariant*:
+``rt_rows_pre`` computes the ones the row function reads once per density
+call, the row function accumulates their adjoints over the rows, and
+``rt_rows_post`` runs their reverse pass once after the last row — reverse
+mode through a broadcast, as the lanes evaluator's (1, C)-against-(n, C)
+broadcasting is.  ``MatVec`` is p multiply-adds per row, and a ``Column``
+view of a ``MatColumn`` that the tile holds reads the matrix's entry.
+``IntColumn``, a ``Gather`` by a column, a ``RowSum`` below the top level,
+and a model whose column-free terms reference columns raise
+:class:`UnsupportedNode`.
 """
 
 from __future__ import annotations
 
 import math
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
 
 from . import real as R
+from .compiler import find_columns
 
 HEADER_NAME = "rt_model.h"
 
@@ -40,11 +54,38 @@ class UnsupportedNode(NotImplementedError):
     """The graph holds a node the CUDA emitter does not cover yet."""
 
 
+# Row tiles: at most TILE_ROWS_MAX rows, halved until a tile fits the
+# shared memory one block can use on an H100; below TILE_ROWS_MIN rows
+# the kernel does not take the model
+TILE_ROWS_MAX = 256
+TILE_ROWS_MIN = 32
+SMEM_BYTES_MAX = 232448
+
+
+def tile_rows(row_width: int) -> int:
+    """Rows per tile for rows of `row_width` floats (0 when even a
+    TILE_ROWS_MIN-row tile does not fit shared memory)."""
+    r = TILE_ROWS_MAX
+    while r * row_width * 4 > SMEM_BYTES_MAX and r >= TILE_ROWS_MIN:
+        r //= 2
+    return r if r >= TILE_ROWS_MIN else 0
+
+
 @dataclass(frozen=True)
 class EmittedDensity:
     source: str           # the rt_model.h text
     n_vars: int
-    ops: int              # f32 operations of one logp + gradient
+    ops: int              # f32 operations of one logp + gradient, apart
+                          # from the row terms: the column-free terms plus
+                          # the row-invariant forward and reverse passes
+    row_ops: int = 0      # f32 operations of one row's forward + adjoints
+    row_width: int = 0    # floats of one row in a tile (0: no row terms)
+    tile_rows: int = 0    # rows per tile (0 with row_width: too wide)
+    n_rows: int = 0       # rows of the columns
+
+    def density_ops(self) -> int:
+        """f32 operations of one density + gradient over all rows."""
+        return self.ops + self.n_rows * self.row_ops
 
 
 def _lit(v: float) -> str:
@@ -97,16 +138,20 @@ _PRED = {"eq": "==", "lt": "<", "gt": ">", "lte": "<=", "gte": ">="}
 
 
 def _children_checked(node):
-    if isinstance(node, (R.Column, R.IntColumn, R.MatColumn, R.MatVec,
-                         R.RowSum)):
+    if isinstance(node, R.IntColumn):
         raise UnsupportedNode(
-            f"{type(node).__name__} is not yet supported by the CUDA "
-            "emitter (data columns come in a later slice)")
+            "IntColumn (integer index data, as in the GLMMs) is not yet "
+            "supported by the CUDA emitter")
+    if isinstance(node, (R.Column, R.MatColumn)):
+        raise UnsupportedNode(
+            f"{type(node).__name__} outside the per-row child of a "
+            "top-level RowSum likelihood is not supported by the CUDA "
+            "emitter")
     if isinstance(node, R.Gather) and not isinstance(node.index,
                                                      R.Constant):
         raise UnsupportedNode(
-            "Gather by a non-constant index is not yet supported by the "
-            "CUDA emitter (data columns come in a later slice)")
+            "Gather by a column or other non-constant index is not yet "
+            "supported by the CUDA emitter")
     return R.children_of(node)
 
 
@@ -121,6 +166,7 @@ class _Emitter:
         self.fops = 0
         self.rops = 0
         self.lse: dict[int, tuple] = {}   # LogSumExp node → (maxes, sums)
+        self.mats: dict[int, int] = {}    # MatColumn → offset in the row
 
     # -- helpers ----------------------------------------------------------
     def size(self, node) -> int:
@@ -158,6 +204,8 @@ class _Emitter:
     def forward(self, node) -> None:
         nid = node.id
         layout = self.cd.layout
+        if nid in self.vals or nid in self.mats:
+            return          # bound by the caller: a row's column or an input
         if isinstance(node, R.Constant):
             self.vals[nid] = [_lit(node.value)]
             self.grad[nid] = False
@@ -171,6 +219,12 @@ class _Emitter:
             self.grad[nid] = True
             return
         kids = _children_checked(node)
+        for k in kids:
+            if k.id in self.mats and not (isinstance(node, R.MatVec)
+                                          and k is node.mat):
+                raise UnsupportedNode(
+                    "a MatColumn used other than as MatVec's matrix is not "
+                    "supported by the CUDA emitter")
         if isinstance(node, R.Compare):
             self.grad[nid] = False
         elif isinstance(node, R.Select):
@@ -243,13 +297,26 @@ class _Emitter:
                     f"({ix} == {k} ? {self.el(t, i)} : 0.0f)"
                     for k, t in enumerate(node.table)) + ")")
             self.define(node, outs, 2 * len(node.table))
-        elif isinstance(node, R.VecSum):
+        elif isinstance(node, (R.VecSum, R.RowSum)):
+            # a RowSum reaches here only with a column-free child, which
+            # every row adds once (compiler.py's tile_fn: child · Σmask)
             c = node.child
             if self.size(c) == 1:
-                self.define(node, [f"({self.el(c, 0)} * {_lit(node.k)})"], 1)
+                self.define(node, [f"({self.el(c, 0)} * "
+                                   f"{_lit(_count(node))})"], 1)
             else:
                 self.define(node, ["(" + " + ".join(self.vals[c.id]) + ")"],
                             self.size(c) - 1)
+        elif isinstance(node, R.MatVec):
+            # one row of the matrix times a row-invariant vector
+            off, p = self.mats[node.mat.id], node.mat.n_cols
+            if self.size(node.vec) != p:
+                raise UnsupportedNode(
+                    f"MatVec of a {p}-column matrix by a vector of "
+                    f"{self.size(node.vec)}")
+            self.define(node, ["(" + " + ".join(
+                f"x[{off + j}] * {self.el(node.vec, j)}"
+                for j in range(p)) + ")"], 2 * p - 1)
         elif isinstance(node, R.Gather):
             k = self.size(node.source)
             j = min(max(int(node.index.value), 0), k - 1)
@@ -294,13 +361,17 @@ class _Emitter:
                 ix = f"i{nid}_{i}"
                 for k, t in enumerate(node.table):
                     self.acc(t, i, f"({ix} == {k} ? {a} : 0.0f)", 1)
-            elif isinstance(node, R.VecSum):
+            elif isinstance(node, (R.VecSum, R.RowSum)):
                 c = node.child
                 if self.size(c) == 1:
-                    self.acc(c, 0, f"{a} * {_lit(node.k)}", 1)
+                    self.acc(c, 0, f"{a} * {_lit(_count(node))}", 1)
                 else:
                     for j in range(self.size(c)):
                         self.acc(c, j, a, 0)
+            elif isinstance(node, R.MatVec):
+                off = self.mats[node.mat.id]
+                for j in range(node.mat.n_cols):
+                    self.acc(node.vec, j, f"{a} * x[{off + j}]", 1)
             elif isinstance(node, R.Gather):
                 k = self.size(node.source)
                 j = min(max(int(node.index.value), 0), k - 1)
@@ -336,28 +407,220 @@ class _Emitter:
             raise UnsupportedNode(op)
 
 
-def emit(cd) -> EmittedDensity:
-    """C source of ``rt_logp_grad`` for the CompiledDensity `cd`."""
-    roots = cd.roots
+def _count(node) -> int:
+    return node.k if isinstance(node, R.VecSum) else node.n_rows
+
+
+def _seeds(em, roots) -> list[str]:
+    """adjoint(root) += 1 for every root that depends on q."""
+    out = []
+    for r in roots:
+        if em.grad[r.id]:
+            a = em.adj[r.id]
+            out += [f"  {a[i if len(a) > 1 else 0]} += 1.0f;"
+                    for i in range(em.size(r))]
+    return out
+
+
+def _decls(em, nodes) -> list[str]:
+    return [f"  float {a} = 0.0f;" for node in nodes
+            if em.grad.get(node.id)
+            and not isinstance(node, (R.Parameter, R.VectorParameter))
+            for a in em.adj[node.id]]
+
+
+def _straight_line(cd, roots):
+    """Forward and reverse pass over `roots`: (emitter, order)."""
     em = _Emitter(cd)
     order = R.topological(roots)
     for node in order:
         em.forward(node)
-    total = [em.el(r, i) for r in roots for i in range(em.size(r))]
-    lp_ops = max(len(total) - 1, 0)
-    seeds = []
-    for r in roots:
-        if em.grad[r.id]:
-            for i in range(em.size(r)):
-                a = em.adj[r.id]
-                seeds.append(f"  {a[i if len(a) > 1 else 0]} += 1.0f;")
     for node in reversed(order):
         em.backward(node)
-    decls = [f"  float {a} = 0.0f;"
-             for node in order if em.grad.get(node.id)
-             and not isinstance(node, (R.Parameter, R.VectorParameter))
-             for a in em.adj[node.id]]
+    return em, order
+
+
+def _row_layout(cd):
+    """Where each column sits in a tile row: ({column id: offset of its
+    first float}, [floats loaded per column], row width).  A Column view
+    of a MatColumn that the tile holds reads the matrix's entry and loads
+    nothing of its own."""
+    held = {c.id for c in cd.columns if isinstance(c, R.MatColumn)}
+    offs, widths, w = {}, [], 0
+    for c in cd.columns:
+        if isinstance(c, R.MatColumn):
+            offs[c.id], width = w, c.n_cols
+        elif c.matrix_ref is not None and c.matrix_ref[0].id in held:
+            width = 0
+        else:
+            offs[c.id], width = w, 1
+        widths.append(width)
+        w += width
+    for c in cd.columns:
+        if c.id not in offs:
+            mat, j = c.matrix_ref
+            offs[c.id] = offs[mat.id] + j
+    return offs, widths, w
+
+
+def _row_dependence(order) -> dict:
+    """node id → whether its value differs from row to row."""
+    dep = {}
+    for node in order:
+        if isinstance(node, (R.Column, R.MatColumn)):
+            dep[node.id] = True
+            continue
+        kids = _children_checked(node)
+        dep[node.id] = any(dep[k.id] for k in kids)
+        if not dep[node.id]:
+            continue
+        if isinstance(node, R.RowSum):
+            raise UnsupportedNode(
+                "a RowSum over data that is not a top-level likelihood is "
+                "not supported by the CUDA emitter")
+        if isinstance(node, R.VecSum) or (isinstance(node, R.Gather)
+                                          and dep[node.source.id]):
+            raise UnsupportedNode(
+                f"{type(node).__name__} across the rows of a column is not "
+                "supported by the CUDA emitter")
+    return dep
+
+
+def _emit_rows(cd, row_roots):
+    """The per-row part of a data model: (C lines, row ops, invariant
+    ops, row width, per-column load widths)."""
+    order = R.topological(row_roots)
+    dep = _row_dependence(order)
+    n_rows = {c.n_rows for c in cd.columns}
+    if len(n_rows) != 1:
+        raise UnsupportedNode(f"columns of different lengths {sorted(n_rows)}"
+                              " are not supported by the CUDA emitter")
+    # row-invariant inputs of the row function, computed once per call
+    frontier, seen = [], set()
+    for node in order:
+        if dep[node.id]:
+            for k in R.children_of(node):
+                if (not dep[k.id] and not isinstance(k, R.Constant)
+                        and k.id not in seen):
+                    seen.add(k.id)
+                    frontier.append(k)
+    pre, pre_order = _straight_line(cd, frontier)
+
+    row = _Emitter(cd)
+    store, post_seeds, k = [], [], 0
+    for f in frontier:
+        size = pre.size(f)
+        row.vals[f.id] = [f"inv[{k + i}]" for i in range(size)]
+        row.grad[f.id] = pre.grad[f.id]
+        store += [f"  inv[{k + i}] = {pre.el(f, i)};" for i in range(size)]
+        if pre.grad[f.id]:
+            row.adj[f.id] = [f"ainv[{k + i}]" for i in range(size)]
+            a = pre.adj[f.id]
+            post_seeds += [f"  {a[i if len(a) > 1 else 0]} += ainv[{k + i}];"
+                           for i in range(size)]
+        k += size
+    n_inv = k
+    offs, widths, width = _row_layout(cd)
+    for c in cd.columns:
+        row.grad[c.id] = False
+        if isinstance(c, R.MatColumn):
+            row.mats[c.id] = offs[c.id]
+        else:
+            row.vals[c.id] = [f"x[{offs[c.id]}]"]
+    for node in order:
+        if dep[node.id] or isinstance(node, R.Constant):
+            row.forward(node)
+            if (dep[node.id] and node.id not in row.mats
+                    and row.size(node) > 1):
+                raise UnsupportedNode(
+                    f"a per-row value of vector width {row.size(node)} is "
+                    "not supported by the CUDA emitter")
+    seeds = _seeds(row, row_roots)
+    for node in reversed(order):
+        if dep[node.id]:
+            row.backward(node)
+    total = " + ".join(row.el(r, 0) for r in row_roots)
+    n_ninv = max(n_inv, 1)
+    fill = []
+    for j, (c, w) in enumerate(zip(cd.columns, widths)):
+        o = offs[c.id]
+        if w == 1:
+            fill.append(f"  for (int i = tid; i < rows; i += nt) "
+                        f"tile[i * RT_ROW_W + {o}] = cols.p[{j}][row0 + i];")
+        elif w > 1:
+            fill += [f"  for (int i = tid; i < rows * {w}; i += nt) {{",
+                     f"    const int r = i / {w};",
+                     f"    tile[r * RT_ROW_W + {o} + i - r * {w}] = "
+                     f"cols.p[{j}][(size_t)row0 * {w} + i];",
+                     "  }"]
+    lines = [
+        f"#define RT_NINV {n_inv}",
+        f"#define RT_NINV_ALLOC {n_ninv}",
+        "",
+        "// the row-invariant values the row function reads",
+        "RT_HD void rt_rows_pre(const float* q, float* inv) {",
+        *pre.fwd, *store,
+        "}",
+        "",
+        "// one row's log-density; adds its adjoints of the row-invariant",
+        "// values into ainv",
+        "RT_HD float rt_row(const float* x, const float* inv, float* ainv) {",
+        *row.fwd,
+        *_decls(row, [n for n in order if dep[n.id]]),
+        *seeds, *row.rev,
+        f"  return {total};",
+        "}",
+        "",
+        "// the reverse pass of the row-invariant values, from the adjoints",
+        "// summed over all rows; adds into g",
+        "RT_HD void rt_rows_post(const float* q, const float* ainv, "
+        "float* g) {",
+        *pre.fwd, *_decls(pre, pre_order), *post_seeds, *pre.rev,
+        "}",
+        "",
+        "// rows [row0, row0 + rows) of every column into the tile, thread",
+        "// tid of nt",
+        "RT_HD void rt_fill_tile(float* tile, const RtCols& cols, int row0, "
+        "int rows, int tid, int nt) {",
+        *fill,
+        "}",
+    ]
+    row_ops = row.fops + row.rops + len(row_roots)
+    inv_ops = 2 * pre.fops + pre.rops + len(post_seeds)
+    return lines, row_ops, inv_ops, width, n_rows.pop()
+
+
+# CompiledDensity -> its EmittedDensity: a density is emitted once per
+# process, however many checks and launches read it
+_EMITTED = weakref.WeakKeyDictionary()
+
+
+def emit(cd) -> EmittedDensity:
+    """C source of the density for the CompiledDensity `cd`:
+    ``rt_logp_grad`` over the column-free terms and, for a model with
+    data, the row functions and tile loader of its RowSum likelihoods."""
+    if cd not in _EMITTED:
+        _EMITTED[cd] = _emit(cd)
+    return _EMITTED[cd]
+
+
+def _emit(cd) -> EmittedDensity:
+    row_lh = [l for l in cd.likelihoods if isinstance(l, R.RowSum)
+              and cd.columns and find_columns([l.child])]
+    if cd.columns and cd.logp_lanes_split_fn() is None:
+        raise UnsupportedNode(
+            "the model's column-free terms reference data columns, so its "
+            "density has no base/row split for the CUDA emitter")
+    row_ids = {l.id for l in row_lh}
+    roots = [l for l in cd.likelihoods if l.id not in row_ids] + [cd._prior]
+    em, order = _straight_line(cd, roots)
+    total = [em.el(r, i) for r in roots for i in range(em.size(r))]
+    lp_ops = max(len(total) - 1, 0)
     n = cd.n_vars
+    rows, row_ops, inv_ops, width, n_rows = (
+        _emit_rows(cd, [l.child for l in row_lh]) if row_lh
+        else ([], 0, 0, 0, 0))
+    tile = tile_rows(width) if width else 0
     src = "\n".join([
         "// Generated by rainier_tpu_torch.compute.emit_cuda: the model's",
         "// log-density and its reverse-mode gradient for one chain.",
@@ -365,17 +628,28 @@ def emit(cd) -> EmittedDensity:
         '#include "rt_math.cuh"',
         "",
         f"#define RT_DIM {n}",
+        f"#define RT_NCOLS {len(cd.columns)}",
+        f"#define RT_ROW_W {width}",
+        f"#define RT_TILE {max(tile, 1)}",
+        "",
+        "struct RtCols {",
+        f"  const float* p[{max(len(cd.columns), 1)}];",
+        "};",
         "",
         "RT_HD float rt_logp_grad(const float* q, float* g) {",
         f"  for (int j = 0; j < {n}; ++j) g[j] = 0.0f;",
         *em.fwd,
         "  const float lp = " + (" + ".join(total) or "0.0f") + ";",
-        *decls,
-        *seeds,
+        *_decls(em, order),
+        *_seeds(em, roots),
         *em.rev,
         "  return lp;",
         "}",
         "",
+        *rows,
+        "",
     ])
     return EmittedDensity(source=src, n_vars=n,
-                          ops=em.fops + lp_ops + em.rops)
+                          ops=em.fops + lp_ops + em.rops + inv_ops,
+                          row_ops=row_ops, row_width=width, tile_rows=tile,
+                          n_rows=n_rows)

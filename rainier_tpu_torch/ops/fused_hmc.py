@@ -3,27 +3,39 @@ plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``rainier_tpu/ops/hmc_pallas.py::fused_hmc``
 (the one ``pl.pallas_call`` of the JAX package, hmc_pallas.py:506), which
-keeps every chain's state in VMEM for the whole sampling run.  The CUDA
-kernel (``csrc/fused_hmc.cu``) gives each chain one thread and keeps its
-state in registers: momentum refresh (Philox4x32-10 + Box-Muller,
-``csrc/philox.cuh``), ``n_steps`` kick-drift-kick leapfrog steps with the
-model's density and gradient from C generated out of the Real DAG
-(``compute/emit_cuda.py``), the Metropolis accept, and the accept-rate
-and divergence sums.  Device memory is touched only to load q0 and store
+keeps every chain's state in VMEM for the whole sampling run, including
+its resident-column and row-tiled branches (hmc_pallas.py:157-222, 280,
+302-381, 483-491).  The CUDA kernel (``csrc/fused_hmc.cu``) gives each
+chain one thread and keeps its state in registers: momentum refresh
+(Philox4x32-10 + Box-Muller, ``csrc/philox.cuh``), ``n_steps``
+kick-drift-kick leapfrog steps with the model's density and gradient from
+C generated out of the Real DAG (``compute/emit_cuda.py``), the
+Metropolis accept, and the accept-rate and divergence sums.  A model with
+data adds, in every density call, its RowSum likelihoods over row tiles
+that the block's threads load into shared memory together; X·β and its
+adjoint are f32 multiply-adds in the kernel's body, on the CUDA cores.
+Device memory is touched only to load q0, the column tiles, and to store
 the results and the collected draws.
 
 What bounds it on the H100: f32 ALU work and SFU work (``expf``, ``logf``,
-``cosf``, ``sqrtf``) of the density, its adjoints and the RNG — device
-bytes are only the collected draws.  With one thread per chain, a run
-with few chains fills few SMs, and then latency, not throughput, sets
-the time.  This first version is a simple, correct kernel; making it
-fast is later work (PERF.md holds its times beside its bound).
+``cosf``, ``sqrtf``) of the density, its adjoints and the RNG.  With data,
+the row terms dominate: n_rows × (row operations) per density call, on
+columns that are read from L2 (the 100k × 11 floats of the logistic
+regression are 4.4 MB, against a 50 MB L2).  With one thread per chain, a
+run with few chains fills few SMs (1024 chains: 32 SMs with one warp
+each), and then instruction latency, not throughput, sets the time; the
+row loop is unrolled by four so independent rows overlap.  One warp per
+chain, its lanes splitting each tile's rows, is the redesign for a later
+PR (ROADMAP).  This version is a simple, correct kernel; PERF.md holds its
+times beside its bound.
 
 Build: nvcc compiles the template plus the model's generated
 ``rt_model.h`` for ``sm_90a``, with a plain C interface, into
 ``_build/fused_hmc_<sha256>.so`` at first use (the hash covers the
 sources, the generated header and the flags), which is loaded with
-ctypes.
+ctypes.  The same library holds ``rt_logp_grad_launch``, the density and
+gradient alone through the same tile loop, which checks the kernel's
+density at full width.
 """
 
 from __future__ import annotations
@@ -35,17 +47,20 @@ import os
 import shutil
 import subprocess
 import time
+import weakref
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from ..compute import emit_cuda
+from ..compute.compiler import row_tile_sum
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("fused_hmc.cu", "philox.cuh", "rt_math.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 TWO_PI = 6.28318530717958648
 _MASK = 0xFFFFFFFF
@@ -107,12 +122,32 @@ def philox_noise(seed: int, it: int, dim: int, n: int, device):
 # ---------------------------------------------------------------------------
 
 
+def _columns(density, columns, dev):
+    """The model's data as the kernel takes it: one contiguous float32
+    tensor on `dev` per column of ``density.columns``, all with the same
+    number of rows.  None means the model's own data."""
+    if columns is None:
+        columns = density.column_values(torch.float32, dev)
+    columns = tuple(columns)
+    if len(columns) != len(density.columns):
+        raise ValueError(f"the model has {len(density.columns)} data "
+                         f"columns, got {len(columns)}")
+    for node, c in zip(density.columns, columns):
+        want = tuple(node.values.shape)
+        if (not isinstance(c, torch.Tensor) or c.dtype != torch.float32
+                or c.device != dev or not c.is_contiguous()
+                or tuple(c.shape) != want):
+            raise ValueError(
+                f"each column must be a contiguous float32 tensor on {dev} "
+                f"shaped like its data {want}, got "
+                + (f"{c.dtype} {tuple(c.shape)} on {c.device}, contiguous "
+                   f"{c.is_contiguous()}" if isinstance(c, torch.Tensor)
+                   else type(c).__name__))
+    return columns
+
+
 def _prepare(density, q0, step_size, inv_mass_diag, n_steps, n_iterations,
-             collect_every, noise):
-    if density.columns:
-        raise emit_cuda.UnsupportedNode(
-            "the fused kernel does not take data columns yet (they come "
-            "in a later slice)")
+             collect_every, noise, columns):
     if n_steps < 1 or n_iterations < 1 or collect_every < 0:
         raise ValueError(f"need n_steps >= 1, n_iterations >= 1 and "
                          f"collect_every >= 0, got {n_steps}, "
@@ -124,6 +159,7 @@ def _prepare(density, q0, step_size, inv_mass_diag, n_steps, n_iterations,
     if dim != density.n_vars:
         raise ValueError(f"q0 has {dim} rows, the model {density.n_vars}")
     dev = q0.device
+    columns = _columns(density, columns, dev)
     eps = torch.as_tensor(step_size, dtype=torch.float32, device=dev)
     eps = eps.reshape(-1).expand(n).contiguous()
     scale = None
@@ -142,40 +178,81 @@ def _prepare(density, q0, step_size, inv_mass_diag, n_steps, n_iterations,
             raise ValueError("noise must be (p (n_iterations, dim, n), "
                              "u (n_iterations, n))")
         noise = (p_noise, u_noise)
-    return q0.contiguous(), eps, scale, noise
+    return q0.contiguous(), eps, scale, noise, columns
 
 
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 # ---------------------------------------------------------------------------
 
+# rows per evaluation of the plain version's row terms: bounds the memory
+# of its (rows, chains) intermediates
+PLAIN_TILE_ROWS = 32768
+
+
+def density_lanes(density, columns):
+    """(x (dim, n)) -> (n,): the density in the kernel's order — the
+    column-free terms, plus the row terms (``logp_lanes_split_fn``) summed
+    in f64 over row slices and rounded to f32 once — differentiable by
+    autograd.  The plain version of the kernel's density."""
+    if not density.columns:
+        lanes = density.logp_lanes_fn()
+        return lambda x: lanes(x, ())
+    split = density.logp_lanes_split_fn()
+    if split is None:
+        raise emit_cuda.UnsupportedNode(
+            "the model's column-free terms reference data columns, so its "
+            "density has no base/row split")
+    base_fn, tile_fn = split
+
+    def lp(x):
+        rows = row_tile_sum(tile_fn, x, columns, PLAIN_TILE_ROWS)
+        return base_fn(x) + rows.to(x.dtype)
+
+    return lp
+
+
+def _lp_grad_fn(density, columns):
+    lanes = density_lanes(density, columns)
+
+    def lp_grad(x):
+        with torch.enable_grad():
+            x = x.detach().requires_grad_(True)
+            lp = lanes(x)
+            g = torch.autograd.grad(lp.sum(), x, allow_unused=True)[0] \
+                if lp.requires_grad else None
+        return lp.detach(), torch.zeros_like(x) if g is None else g
+
+    return lp_grad
+
+
+def logp_grad_reference(density, q, columns=None):
+    """Plain version of ``rt_logp_grad_launch``: (lp (n,), g (dim, n)) at
+    every column of q (dim, n)."""
+    columns = _columns(density, columns, q.device)
+    return _lp_grad_fn(density, columns)(q)
+
 
 def fused_hmc_reference(density, q0, *, step_size, n_steps: int,
                         n_iterations: int, seed: int, inv_mass_diag=None,
-                        collect_every: int = 0, noise=None):
+                        collect_every: int = 0, noise=None, columns=None):
     """The kernel's loop in PyTorch on (dim, n) tensors: the same order of
-    operations, the density and gradient from
-    ``CompiledDensity.logp_lanes_fn`` and autograd, and the same Philox
-    bits when ``noise`` is None.  Used on the CPU and to check the kernel;
-    never by the card's main path."""
-    q0, eps, scale, noise = _prepare(density, q0, step_size, inv_mass_diag,
-                                     n_steps, n_iterations, collect_every,
-                                     noise)
+    operations, the density and gradient from :func:`density_lanes` and
+    autograd, and the same Philox bits when ``noise`` is None.  Used on
+    the CPU and to check the kernel; never by the card's main path."""
+    q0, eps, scale, noise, columns = _prepare(
+        density, q0, step_size, inv_mass_diag, n_steps, n_iterations,
+        collect_every, noise, columns)
     dim, n = q0.shape
     dev = q0.device
     sc = torch.ones_like(q0) if scale is None else \
         (scale if scale.dim() == 2 else scale[:, None]).expand(dim, n)
     eps = eps[None, :]
-    lanes = density.logp_lanes_fn()
+    lpg = _lp_grad_fn(density, columns)
 
     def lp_grad(qs):
-        with torch.enable_grad():
-            x = (qs * sc).detach().requires_grad_(True)
-            lp = lanes(x, ())
-            g = torch.autograd.grad(lp.sum(), x, allow_unused=True)[0] \
-                if lp.requires_grad else None
-        g = torch.zeros_like(qs) if g is None else g
-        return lp.detach(), sc * g
+        lp, g = lpg(qs * sc)
+        return lp, sc * g
 
     q = q0 / sc
     lp, g = lp_grad(q)
@@ -227,20 +304,43 @@ def _nvcc() -> str:
     return path
 
 
+class Kernels(NamedTuple):
+    """The two entry points of one model's library (ctypes functions)."""
+
+    fused_hmc: object
+    logp_grad: object
+    log: str        # nvcc's output for the build: registers, spills
+
+
 @functools.lru_cache(maxsize=None)
-def _load(so_path: str):
+def _load(so_path: str) -> Kernels:
     lib = ctypes.CDLL(so_path)
-    fn = lib.rt_fused_hmc_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                   + [ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    hmc = lib.rt_fused_hmc_launch
+    hmc.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                    + [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p])
+    hmc.restype = ctypes.c_int
+    lpg = lib.rt_logp_grad_launch
+    lpg.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lpg.restype = ctypes.c_int
+    log = Path(so_path).with_suffix(".log")
+    return Kernels(hmc, lpg, log.read_text() if log.exists() else "")
+
+
+# density -> (Kernels, emitted) of its last build in this process
+_BUILT = weakref.WeakKeyDictionary()
 
 
 def build(density):
     """Emit the model's rt_model.h and compile the kernel (cached by the
-    content hash).  Returns (launch function, build seconds, emitted)."""
+    content hash on disk, and per density in the process, so a launch
+    neither emits nor hashes again).  Returns (Kernels, build seconds,
+    emitted)."""
+    if density in _BUILT:
+        kernels, em = _BUILT[density]
+        return kernels, 0.0, em
     t0 = time.perf_counter()
     em = emit_cuda.emit(density)
     h = hashlib.sha256()
@@ -261,17 +361,37 @@ def build(density):
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                                f"{res.stderr}\n{' '.join(cmd)}")
+        so.with_suffix(".log").write_text(res.stdout + res.stderr)
         os.replace(tmp, so)
-    return _load(str(so)), time.perf_counter() - t0, em
+    _BUILT[density] = (_load(str(so)), em)
+    return _BUILT[density][0], time.perf_counter() - t0, em
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _launch_setup(density, columns, n):
+    """(Kernels, emitted, column pointer array, n_rows, threads) for a
+    launch over n chains; raises on a row the kernel's tile cannot hold."""
+    kernels, _, em = build(density)
+    if em.row_width and not em.tile_rows:
+        raise ValueError(
+            f"a row of the model's columns is {em.row_width} floats: even "
+            f"a {emit_cuda.TILE_ROWS_MIN}-row tile needs "
+            f"{4 * em.row_width * emit_cuda.TILE_ROWS_MIN} bytes of shared "
+            f"memory, over the {emit_cuda.SMEM_BYTES_MAX} a block can use")
+    ptrs = (ctypes.c_void_p * max(len(columns), 1))(
+        *[c.data_ptr() for c in columns])
+    n_rows = int(columns[0].shape[0]) if columns else 0
+    # 32-thread blocks spread a small chain count over more SMs
+    threads = 128 if n >= 128 * 132 else 32
+    return kernels, em, ptrs, n_rows, threads
+
+
 def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
               seed: int, inv_mass_diag=None, collect_every: int = 0,
-              noise=None):
+              noise=None, columns=None):
     """HMC with ``n_steps`` leapfrog steps × ``n_iterations`` for every
     chain of ``q0`` (dim, n_chains), the whole run in one kernel.
 
@@ -281,26 +401,28 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
     (identity); ``collect_every`` k > 0 also returns every k-th draw.
     ``noise=(p (n_iterations, dim, n), u (n_iterations, n))`` replaces the
     in-kernel Philox streams with explicit momenta and uniforms (the
-    ``host_rng`` counterpart).
+    ``host_rng`` counterpart).  ``columns``: one contiguous float32 tensor
+    per ``density.columns`` on q0's device, or None for the model's own
+    data.
 
     On CUDA tensors this launches the kernel or raises; on CPU tensors it
     runs :func:`fused_hmc_reference`.  Returns (final q (dim, n),
     samples (n_out, dim, n) or None, accept rate (n,), divergences (n,)).
     """
+    kw = dict(step_size=step_size, n_steps=n_steps,
+              n_iterations=n_iterations, seed=seed,
+              inv_mass_diag=inv_mass_diag, collect_every=collect_every,
+              noise=noise, columns=columns)
     if q0.device.type == "cpu":
-        return fused_hmc_reference(
-            density, q0, step_size=step_size, n_steps=n_steps,
-            n_iterations=n_iterations, seed=seed,
-            inv_mass_diag=inv_mass_diag, collect_every=collect_every,
-            noise=noise)
+        return fused_hmc_reference(density, q0, **kw)
     if q0.device.type != "cuda":
         raise ValueError(f"fused_hmc runs on CUDA or CPU tensors, not "
                          f"{q0.device}")
-    q0, eps, scale, noise = _prepare(density, q0, step_size, inv_mass_diag,
-                                     n_steps, n_iterations, collect_every,
-                                     noise)
-    launch, _, _ = build(density)
+    q0, eps, scale, noise, columns = _prepare(
+        density, q0, step_size, inv_mass_diag, n_steps, n_iterations,
+        collect_every, noise, columns)
     dim, n = q0.shape
+    kernels, _, ptrs, n_rows, threads = _launch_setup(density, columns, n)
     dev = q0.device
     qf = torch.empty((dim, n), dtype=torch.float32, device=dev)
     acc = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -309,15 +431,14 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
                           dtype=torch.float32, device=dev) \
         if collect_every else None
     p_noise, u_noise = noise if noise is not None else (None, None)
-    # 32-thread blocks spread a small chain count over more SMs
-    threads = 128 if n >= 128 * 132 else 32
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(n, _ptr(q0), _ptr(scale),
-                    int(scale is not None and scale.dim() == 2), _ptr(eps),
-                    _ptr(p_noise), _ptr(u_noise), _ptr(qf), _ptr(samples),
-                    _ptr(acc), _ptr(div), n_iterations, n_steps,
-                    collect_every, seed & _MASK, threads, stream)
+        rc = kernels.fused_hmc(
+            n, _ptr(q0), _ptr(scale),
+            int(scale is not None and scale.dim() == 2), _ptr(eps),
+            _ptr(p_noise), _ptr(u_noise), _ptr(qf), _ptr(samples),
+            _ptr(acc), _ptr(div), n_iterations, n_steps, collect_every,
+            seed & _MASK, ptrs, n_rows, threads, stream)
     if rc != 0:
         raise RuntimeError(f"fused_hmc kernel launch failed: cudaError {rc}")
     fused_hmc.launches += 1
@@ -327,12 +448,46 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
 fused_hmc.launches = 0
 
 
-def op_count(density_ops: int, dim: int, n_steps: int) -> int:
+def logp_grad(density, q, columns=None):
+    """The model's log-density and gradient at every column of q
+    (dim, n): (lp (n,), g (dim, n)).  On CUDA tensors this launches
+    ``rt_logp_grad_launch`` — the kernel's own density function and tile
+    loop — or raises; on CPU tensors it runs
+    :func:`logp_grad_reference`."""
+    if q.device.type == "cpu":
+        return logp_grad_reference(density, q, columns)
+    if q.device.type != "cuda" or q.dim() != 2 or \
+            q.dtype != torch.float32 or q.shape[0] != density.n_vars:
+        raise ValueError(f"q must be a float32 ({density.n_vars}, n) CUDA "
+                         f"tensor, got {tuple(q.shape)} {q.dtype} on "
+                         f"{q.device}")
+    q = q.contiguous()
+    columns = _columns(density, columns, q.device)
+    n = q.shape[1]
+    kernels, _, ptrs, n_rows, threads = _launch_setup(density, columns, n)
+    lp = torch.empty((n,), dtype=torch.float32, device=q.device)
+    g = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = kernels.logp_grad(n, _ptr(q), _ptr(lp), _ptr(g), ptrs, n_rows,
+                               threads, stream)
+    if rc != 0:
+        raise RuntimeError(f"logp_grad kernel launch failed: cudaError {rc}")
+    logp_grad.launches += 1
+    return lp, g
+
+
+logp_grad.launches = 0
+
+
+def op_count(em, n_steps: int) -> int:
     """f32 and 32-bit integer operations of ONE chain iteration of the
     kernel with on-device Philox, for the bound in PERF.md and
-    chip_smoke.py: the density + gradient ``n_steps`` times, the leapfrog
-    arithmetic, kinetic energies, the accept, and the RNG."""
-    per_grad = density_ops + 2 * dim           # x = q·sc, g = sc·∇
+    chip_smoke.py: the density + gradient ``n_steps`` times (its row
+    terms over every row included), the leapfrog arithmetic, kinetic
+    energies, the accept, and the RNG."""
+    dim = em.n_vars
+    per_grad = em.density_ops() + 2 * dim      # x = q·sc, g = sc·∇
     leap = n_steps * 4 * dim + 2 * dim         # kicks + drifts, half kicks
     kinetic = 2 * 2 * dim + 4                  # k0, k1, h0, h1
     accept = 10                                # la, guard, log u, acc, div

@@ -27,6 +27,7 @@ import torch
 
 from .. import config as global_config
 from ..compute import emit_cuda
+from ..compute.compiler import row_tile_sum
 from . import config as C
 from . import samplers
 from .dualavg import (current_step_size, dual_avg_init, dual_avg_reset,
@@ -217,15 +218,28 @@ def sample(model, cfg: C.SamplerConfig, n_chains: int = 4, seed: int = 0,
     ops; 'fused' runs scan-path warmup, then the whole sampling phase as
     one fused CUDA kernel (ops/fused_hmc.py; its plain PyTorch version
     on the CPU).  Outside the kernel's envelope (non-HMC samplers, dense
-    mass, a mesh, data columns) 'fused' warns and runs the scan path;
+    mass, a mesh, nodes the CUDA emitter does not cover such as an
+    IntColumn, a density without a clean base/row split) 'fused' warns
+    and runs the scan path;
     'fused!' raises, for callers who need the kernel or nothing.
     `mesh`: multi-device runs come in a later slice of the port.
     """
     if kernel in ("fused", "fused!"):
         reason = _fused_unsupported_reason(model, cfg, n_chains, mesh)
         if reason is None:
+            # the split check, warmup and the kernel read one copy of the
+            # columns on the device
+            cd = model.density()
+            cols = cd.column_values(torch.float32,
+                                    global_config.resolve_device(device))
+            if cols and not _verify_split(cd, cols,
+                                          emit_cuda.emit(cd).tile_rows):
+                reason = ("the density's base/row split failed its numeric "
+                          "check (base + sum over row tiles != the whole "
+                          "density)")
+        if reason is None:
             return _fused_sample(model, cfg, n_chains, seed, collect_idx,
-                                 device)
+                                 device, cols)
         if kernel == "fused!":
             raise ValueError(f"kernel='fused!': {reason}")
         warnings.warn(f"kernel='fused' falling back to the scan path: "
@@ -295,14 +309,32 @@ def _fused_unsupported_reason(model, cfg, n_chains, mesh) -> Optional[str]:
         return "the fused kernel supports identity/diagonal mass only"
     cd = model.density()
     try:
-        emit_cuda.emit(cd)
+        em = emit_cuda.emit(cd)
     except emit_cuda.UnsupportedNode as e:
         return str(e)
+    if em.row_width and not em.tile_rows:
+        return (f"a row of the model's columns is {em.row_width} floats, "
+                "too wide for the fused kernel's shared-memory tile")
     return None
 
 
+def _verify_split(cd, cols, tile_rows: int) -> bool:
+    """Check numerically that logp(qb, cols) == base(qb) + Σ_tiles
+    tile(qb, ...) over the kernel's row tiles, the identity the fused
+    kernel relies on (rainier_tpu/sampler/driver.py:622-648)."""
+    base_fn, tile_fn = cd.logp_lanes_split_fn()
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    qb = torch.randn((cd.n_vars, 8), generator=gen) * 0.5
+    qb = qb.to(cols[0].device)
+    got = base_fn(qb).double() + row_tile_sum(tile_fn, qb, cols, tile_rows)
+    ref = cd.logp_lanes_fn()(qb, cols).double()
+    scale = 1.0 + float(ref.abs().max())
+    return bool(torch.isfinite(got).all()) and bool(torch.allclose(
+        got, ref, rtol=1e-4, atol=1e-4 * scale))
+
+
 def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
-                  device):
+                  device, cols):
     """kernel='fused' path: scan-path warmup (full adaptation semantics),
     then the sampling phase as ONE fused kernel (ops/fused_hmc.py) — the
     counterpart of the JAX package's _pallas_sample (driver.py:651-788).
@@ -310,7 +342,9 @@ def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
     Each chain samples with its own adapted ε and Σ̂ diagonal; with
     cfg.pooled_adaptation the product is pooled (geometric-mean step,
     mean variance) as warmup pooled it.  Energy/E-BFMI telemetry is not
-    carried (acceptance and divergence counts are)."""
+    carried (acceptance and divergence counts are).  `cols` are the
+    model's columns on the device (``column_values``), which warmup and
+    the kernel both read."""
     from ..ops.fused_hmc import build, fused_hmc
 
     dev = global_config.resolve_device(device)
@@ -321,7 +355,7 @@ def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
     lpg_raw = cd.batched_logp_and_grad_fn()
 
     def lpg(q):
-        return lpg_raw(q, ())
+        return lpg_raw(q, cols)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     timings["build_s"] = _time.perf_counter() - t_build
@@ -348,7 +382,7 @@ def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
     qf, samples, acc, div = fused_hmc(
         cd, q0, step_size=eps, n_steps=cfg.sampler.n_steps,
         n_iterations=cfg.iterations, seed=seed + 1, inv_mass_diag=imd,
-        collect_every=thin)
+        collect_every=thin, columns=cols)
     _sync(dev)
     timings["sample_s"] = _time.perf_counter() - t_kernel
     walltime = _time.perf_counter() - t0

@@ -9,7 +9,8 @@ function; inputs come from numpy seeds.  Checked here:
 * ``logp_lanes_fn`` (chains-last block) against the scalar ``logp_fn``;
 * the C source of ``compute/emit_cuda.py``, compiled for the host with
   g++, against torch autograd and ``jax.grad`` — including the digamma
-  adjoint of lgamma, min/max ties, abs at 0 and pow with base <= 0;
+  adjoint of lgamma, min/max ties, abs at 0 and pow with base <= 0 —
+  and its refusal of an IntColumn;
 * that the port imports neither jax nor rainier_tpu.
 """
 
@@ -194,14 +195,16 @@ def _compile_host(cd, tmp_path):
     assert res.returncode == 0, res.stderr
     lib = ctypes.CDLL(str(so))
     fn = lib.rt_logp_grad_host
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_float
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int])
+    no_cols = (ctypes.c_void_p * 1)()
 
     def lpg(q):
         q = np.ascontiguousarray(q, dtype=np.float32)
         g = np.zeros_like(q)
-        lp = fn(q.ctypes.data, g.ctypes.data)
-        return float(lp), g
+        lp = np.zeros(1, np.float32)
+        fn(1, q.ctypes.data, lp.ctypes.data, g.ctypes.data, no_cols, 0)
+        return float(lp[0]), g
 
     return lpg, em
 
@@ -302,9 +305,23 @@ def test_edge_case_adjoints_are_jax_conventions(tmp_path):
     np.testing.assert_allclose(lpg(xs)[1], digamma(xs), rtol=2e-6, atol=1e-6)
 
 
+def gather_by_int_column(rt, R):
+    """benchmarks/models.py:111-142's structure at small size: latent
+    effects gathered by an integer index column."""
+    effects = rt.Normal(0, 1).latent_vec(4)
+    idx = R.IntColumn(np.repeat(np.arange(4), 3))
+    y = np.random.default_rng(8).normal(size=12)
+    return rt.Model.likelihood(R.RowSum(rt.Normal(
+        R.Gather(effects.element, idx), 1.0).log_density_at(R.Column(y)), 12))
+
+
 def test_emitter_refuses_data_columns():
-    m = readme_regression(rtt)
-    with pytest.raises(emit_cuda.UnsupportedNode, match="later slice"):
+    """Columns the emitter does not cover yet (an IntColumn and the Gather
+    by it, as in the GLMMs) raise, naming the node."""
+    from rainier_tpu_torch.compute import real as R
+
+    m = gather_by_int_column(rtt, R)
+    with pytest.raises(emit_cuda.UnsupportedNode, match="IntColumn"):
         emit_cuda.emit(m.density())
 
 

@@ -33,6 +33,7 @@ from rainier_tpu.ops import fused_hmc as fused_hmc_jax
 from rainier_tpu.sampler.driver import build_warmup_fn
 from rainier_tpu_torch import interop
 from rainier_tpu_torch.compute import emit_cuda
+from rainier_tpu_torch.compute import real as R
 from rainier_tpu_torch.ops import fused_hmc as F
 
 torch.set_num_threads(2)
@@ -191,7 +192,7 @@ def host_kernel(tmp_path_factory):
     fn = ctypes.CDLL(str(so)).rt_fused_hmc_host
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                   + [ctypes.c_uint32])
+                   + [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int])
     return cd, fn
 
 
@@ -203,7 +204,7 @@ def _run_host(fn, q0, eps, scale, noise, n_it, n_steps, collect, seed):
     p, u = noise if noise is not None else (None, None)
     fn(n, ptr(q0), ptr(scale), int(scale is not None and scale.dim() == 2),
        ptr(eps), ptr(p), ptr(u), ptr(qf), ptr(samples), ptr(acc), ptr(div),
-       n_it, n_steps, collect, seed)
+       n_it, n_steps, collect, seed, (ctypes.c_void_p * 1)(), 0)
     return qf, samples, acc, div
 
 
@@ -227,8 +228,8 @@ def test_host_compiled_kernel_matches_plain_version(host_kernel, noise,
                                 n_iterations=n_it, seed=seed,
                                 inv_mass_diag=imd, collect_every=collect,
                                 noise=nz)
-    _, _, scale, _ = F._prepare(cd, q0, eps, imd, n_steps, n_it, collect,
-                                nz)
+    _, _, scale, _, _ = F._prepare(cd, q0, eps, imd, n_steps, n_it,
+                                   collect, nz, None)
     got = _run_host(fn, q0, eps, scale, nz, n_it, n_steps, collect, seed)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
@@ -267,10 +268,14 @@ def test_wrapper_validates_its_arguments(monkeypatch):
                     noise=(torch.zeros(2, 10, 3), torch.zeros(2, 3)), **kw)
     with pytest.raises(ValueError, match="n_steps >= 1"):
         F.fused_hmc(cd, torch.zeros(10, 4), **{**kw, "n_steps": 0})
-    data = rtt.Model.observe([0.1, 0.2], rtt.Normal(rtt.Normal(0, 1).latent(),
-                                                     1.0))
-    with pytest.raises(emit_cuda.UnsupportedNode, match="columns"):
-        F.fused_hmc(data.density(), torch.zeros(1, 4), **kw)
+    # a Gather by an IntColumn: refused when the kernel is built, before
+    # nvcc runs
+    effects = rtt.Normal(0, 1).latent_vec(2)
+    data = rtt.Model.likelihood(R.RowSum(rtt.Normal(
+        R.Gather(effects.element, R.IntColumn([0, 1, 1])), 1.0)
+        .log_density_at(R.Column([0.1, 0.2, 0.3])), 3))
+    with pytest.raises(emit_cuda.UnsupportedNode, match="IntColumn"):
+        F.build(data.density())
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.setattr(F.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -280,4 +285,5 @@ def test_wrapper_validates_its_arguments(monkeypatch):
 def test_op_count_covers_density_and_rng():
     em = emit_cuda.emit(funnel(rtt).density())
     # 5 density+gradient evaluations plus 6 Philox blocks of 98 operations
-    assert F.op_count(em.ops, 10, 5) > 5 * em.ops + 6 * 98
+    assert em.density_ops() == em.ops and em.row_ops == 0
+    assert F.op_count(em, 5) > 5 * em.ops + 6 * 98

@@ -208,16 +208,30 @@ def test_funnel_moments_match_pallas(kernel, pallas_funnel):
                                "sample_s", "transfer_s"}
 
 
+def gather_by_int_column(rt):
+    """benchmarks/models.py:111-142's structure at small size: latent
+    effects gathered by an integer index column."""
+    from rainier_tpu_torch.compute import real as R
+
+    effects = rt.Normal(0, 1).latent_vec(4)
+    idx = R.IntColumn(np.repeat(np.arange(4), 3))
+    y = np.random.default_rng(8).normal(size=12)
+    return rt.Model.likelihood(R.RowSum(rt.Normal(
+        R.Gather(effects.element, idx), 1.0).log_density_at(R.Column(y)), 12))
+
+
 def test_fused_refuses_or_falls_back_outside_its_envelope():
-    model = normal_observe(rtt)
+    """A Gather by an IntColumn (the GLMMs) stays outside the kernel:
+    'fused!' raises and 'fused' warns and runs the scan path."""
+    model = gather_by_int_column(rtt)
     cfg = SamplerConfig(30, 20, sampler=HMC(3))
     reason = _fused_unsupported_reason(model, cfg, 2, None)
-    assert "data columns" in reason
-    with pytest.raises(ValueError, match="data columns"):
+    assert "IntColumn" in reason
+    with pytest.raises(ValueError, match="IntColumn"):
         model.sample(cfg, n_chains=2, kernel="fused!")
-    with pytest.warns(UserWarning, match="data columns"):
+    with pytest.warns(UserWarning, match="IntColumn"):
         tr = model.sample(cfg, n_chains=2, kernel="fused")
-    assert tr.chains.shape == (2, 20, 2)    # the scan path ran
+    assert tr.chains.shape == (2, 20, 4)    # the scan path ran
     fm, _ = funnel(rtt)
     with pytest.raises(ValueError, match="fixed-step HMC"):
         fm.sample(SamplerConfig(10, 10), n_chains=2, kernel="fused!")
