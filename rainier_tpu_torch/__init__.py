@@ -20,7 +20,7 @@ from . import config
 from . import core
 from .core import (Bernoulli, Beta, Cauchy, Continuous, Distribution,
                    Exponential, Gamma, Laplace, LogNormal, Mixture, Model,
-                   Normal, Uniform)
+                   Normal, Poisson, Uniform)
 from . import sampler
 from .sampler import (EHMC, HMC, NUTS, SamplerConfig, StaticMassMatrix,
                       StaticStepSize)

@@ -31,9 +31,22 @@ call, the row function accumulates their adjoints over the rows, and
 mode through a broadcast, as the lanes evaluator's (1, C)-against-(n, C)
 broadcasting is.  ``MatVec`` is p multiply-adds per row, and a ``Column``
 view of a ``MatColumn`` that the tile holds reads the matrix's entry.
-``IntColumn``, a ``Gather`` by a column, a ``RowSum`` below the top level,
-and a model whose column-free terms reference columns raise
-:class:`UnsupportedNode`.
+
+An ``IntColumn`` is an int32 field of the tile row, carried bit for bit in
+its float slot, so every int32 index is exact.  A ``Gather`` of a
+row-invariant vector by it reads ``inv[k + clamp(i, 0, K - 1)]`` from the
+vector's contiguous block of the row-invariant values (the clamp is
+``mode="clip"`` of the lanes evaluator's take) and scatters its adjoint
+to ``ainv[k + clamp(i, 0, K - 1)]``; one thread owns one chain, so the
+scatter needs no atomics.  A ``Lookup`` by an ``IntColumn`` compares the
+int index with each table entry, as for a float index.
+
+Outside the envelope, :class:`UnsupportedNode` names what is wrong: a
+``Gather`` whose source varies by row or whose index is neither a
+constant nor an ``IntColumn``, an ``IntColumn`` used as a value, a
+``RowSum`` below the top level, a model whose column-free terms reference
+columns, and a model over ``DIM_MAX`` parameters or ``NINV_MAX``
+row-invariant values, the caps of the one-thread-per-chain design.
 """
 
 from __future__ import annotations
@@ -60,6 +73,18 @@ class UnsupportedNode(NotImplementedError):
 TILE_ROWS_MAX = 256
 TILE_ROWS_MIN = 32
 SMEM_BYTES_MAX = 232448
+
+# Caps of the one-thread-per-chain design, which keeps a chain's state as
+# float[RT_DIM] arrays in one thread (local memory past the registers)
+# and unrolls every vector node into scalars: at the caps the state
+# (seven arrays of RT_DIM floats) and the row-invariant values (RT_NINV
+# floats, twice, and RT_NINV doubles) are 11 KB a thread, and the emitted
+# source, which nvcc compiles at first use, grows with both (GLMMPoisson2,
+# 146 and 143, is some 3,300 lines).  Larger models
+# (benchmarks/models.py::glmm_large, with 10,002 parameters) need the
+# state in device memory and vector nodes emitted as loops.
+DIM_MAX = 256
+NINV_MAX = 256
 
 
 def tile_rows(row_width: int) -> int:
@@ -138,20 +163,16 @@ _PRED = {"eq": "==", "lt": "<", "gt": ">", "lte": "<=", "gte": ">="}
 
 
 def _children_checked(node):
-    if isinstance(node, R.IntColumn):
-        raise UnsupportedNode(
-            "IntColumn (integer index data, as in the GLMMs) is not yet "
-            "supported by the CUDA emitter")
-    if isinstance(node, (R.Column, R.MatColumn)):
+    if isinstance(node, (R.Column, R.IntColumn, R.MatColumn)):
         raise UnsupportedNode(
             f"{type(node).__name__} outside the per-row child of a "
             "top-level RowSum likelihood is not supported by the CUDA "
             "emitter")
-    if isinstance(node, R.Gather) and not isinstance(node.index,
-                                                     R.Constant):
+    if isinstance(node, R.Gather) and not isinstance(
+            node.index, (R.Constant, R.IntColumn)):
         raise UnsupportedNode(
-            "Gather by a column or other non-constant index is not yet "
-            "supported by the CUDA emitter")
+            "Gather by an index that is neither a constant nor an "
+            "IntColumn is not supported by the CUDA emitter")
     return R.children_of(node)
 
 
@@ -167,6 +188,9 @@ class _Emitter:
         self.rops = 0
         self.lse: dict[int, tuple] = {}   # LogSumExp node → (maxes, sums)
         self.mats: dict[int, int] = {}    # MatColumn → offset in the row
+        self.ints: dict[int, str] = {}    # IntColumn → its int32 in the row
+        self.inv_base: dict[int, int] = {}  # row-invariant node → its
+                                            # first slot in inv / ainv
 
     # -- helpers ----------------------------------------------------------
     def size(self, node) -> int:
@@ -204,7 +228,7 @@ class _Emitter:
     def forward(self, node) -> None:
         nid = node.id
         layout = self.cd.layout
-        if nid in self.vals or nid in self.mats:
+        if nid in self.vals or nid in self.mats or nid in self.ints:
             return          # bound by the caller: a row's column or an input
         if isinstance(node, R.Constant):
             self.vals[nid] = [_lit(node.value)]
@@ -225,6 +249,12 @@ class _Emitter:
                 raise UnsupportedNode(
                     "a MatColumn used other than as MatVec's matrix is not "
                     "supported by the CUDA emitter")
+            if k.id in self.ints and not (
+                    isinstance(node, (R.Gather, R.Lookup))
+                    and k is node.index):
+                raise UnsupportedNode(
+                    "an IntColumn used other than as the index of a Gather "
+                    "or a Lookup is not supported by the CUDA emitter")
         if isinstance(node, R.Compare):
             self.grad[nid] = False
         elif isinstance(node, R.Select):
@@ -287,12 +317,14 @@ class _Emitter:
                                f"{self.el(node.right, i)})"
                                for i in range(n)], 2)
         elif isinstance(node, R.Lookup):
-            n = self.bsize([node.index] + list(node.table))
+            int_ix = self.ints.get(node.index.id)
+            n = self.bsize(list(node.table) if int_ix else
+                           [node.index] + list(node.table))
             outs = []
             for i in range(n):
                 ix = f"i{nid}_{i}"
-                self.fwd.append(f"  const int {ix} = rt_f2i("
-                                f"{self.el(node.index, i)}) - {node.low};")
+                src = int_ix or f"rt_f2i({self.el(node.index, i)})"
+                self.fwd.append(f"  const int {ix} = {src} - {node.low};")
                 outs.append("(" + " + ".join(
                     f"({ix} == {k} ? {self.el(t, i)} : 0.0f)"
                     for k, t in enumerate(node.table)) + ")")
@@ -319,8 +351,16 @@ class _Emitter:
                 for j in range(p)) + ")"], 2 * p - 1)
         elif isinstance(node, R.Gather):
             k = self.size(node.source)
-            j = min(max(int(node.index.value), 0), k - 1)
-            self.define(node, [self.el(node.source, j)], 0)
+            j = _static_slot(node, k)
+            if j is not None:
+                self.define(node, [self.el(node.source, j)], 0)
+            else:
+                # per-row index into the source's block of inv: clamp and
+                # address, then the load
+                base = self.inv_base[node.source.id]
+                self.fwd.append(f"  const int j{nid} = rt_clampi("
+                                f"{self.ints[node.index.id]}, 0, {k - 1});")
+                self.define(node, [f"inv[{base} + j{nid}]"], 3)
         else:
             raise UnsupportedNode(f"{type(node).__name__} is not yet "
                                   "supported by the CUDA emitter")
@@ -373,9 +413,14 @@ class _Emitter:
                 for j in range(node.mat.n_cols):
                     self.acc(node.vec, j, f"{a} * x[{off + j}]", 1)
             elif isinstance(node, R.Gather):
-                k = self.size(node.source)
-                j = min(max(int(node.index.value), 0), k - 1)
-                self.acc(node.source, j, a, 0)
+                j = _static_slot(node, self.size(node.source))
+                if j is not None:
+                    self.acc(node.source, j, a, 0)
+                elif self.grad[node.source.id]:
+                    # the scatter: the thread owns its chain's ainv
+                    base = self.inv_base[node.source.id]
+                    self.rev.append(f"  ainv[{base} + j{nid}] += {a};")
+                    self.rops += 2
 
     def _binary_adj(self, node, i, a, v):
         x, y = self.el(node.left, i), self.el(node.right, i)
@@ -405,6 +450,17 @@ class _Emitter:
                             f"0.0f) * {a}", 3)
         else:  # pragma: no cover - BINARY_OPS is closed
             raise UnsupportedNode(op)
+
+
+def _static_slot(node, k: int):
+    """The slot a Gather from a k-vector reads when it is the same in every
+    row: its constant index, clamped, or 0 for a scalar source; None for
+    a per-row index."""
+    if k == 1:
+        return 0
+    if isinstance(node.index, R.Constant):
+        return min(max(int(node.index.value), 0), k - 1)
+    return None
 
 
 def _count(node) -> int:
@@ -444,13 +500,14 @@ def _row_layout(cd):
     """Where each column sits in a tile row: ({column id: offset of its
     first float}, [floats loaded per column], row width).  A Column view
     of a MatColumn that the tile holds reads the matrix's entry and loads
-    nothing of its own."""
+    nothing of its own; an IntColumn takes one 32-bit slot."""
     held = {c.id for c in cd.columns if isinstance(c, R.MatColumn)}
     offs, widths, w = {}, [], 0
     for c in cd.columns:
         if isinstance(c, R.MatColumn):
             offs[c.id], width = w, c.n_cols
-        elif c.matrix_ref is not None and c.matrix_ref[0].id in held:
+        elif (isinstance(c, R.Column) and c.matrix_ref is not None
+              and c.matrix_ref[0].id in held):
             width = 0
         else:
             offs[c.id], width = w, 1
@@ -467,7 +524,7 @@ def _row_dependence(order) -> dict:
     """node id → whether its value differs from row to row."""
     dep = {}
     for node in order:
-        if isinstance(node, (R.Column, R.MatColumn)):
+        if isinstance(node, (R.Column, R.IntColumn, R.MatColumn)):
             dep[node.id] = True
             continue
         kids = _children_checked(node)
@@ -478,11 +535,14 @@ def _row_dependence(order) -> dict:
             raise UnsupportedNode(
                 "a RowSum over data that is not a top-level likelihood is "
                 "not supported by the CUDA emitter")
-        if isinstance(node, R.VecSum) or (isinstance(node, R.Gather)
-                                          and dep[node.source.id]):
+        if isinstance(node, R.VecSum):
             raise UnsupportedNode(
-                f"{type(node).__name__} across the rows of a column is not "
-                "supported by the CUDA emitter")
+                "VecSum across the rows of a column is not supported by "
+                "the CUDA emitter")
+        if isinstance(node, R.Gather) and dep[node.source.id]:
+            raise UnsupportedNode(
+                "a Gather whose source varies by row is not supported by "
+                "the CUDA emitter")
     return dep
 
 
@@ -511,6 +571,7 @@ def _emit_rows(cd, row_roots):
     for f in frontier:
         size = pre.size(f)
         row.vals[f.id] = [f"inv[{k + i}]" for i in range(size)]
+        row.inv_base[f.id] = k
         row.grad[f.id] = pre.grad[f.id]
         store += [f"  inv[{k + i}] = {pre.el(f, i)};" for i in range(size)]
         if pre.grad[f.id]:
@@ -520,17 +581,23 @@ def _emit_rows(cd, row_roots):
                            for i in range(size)]
         k += size
     n_inv = k
+    if n_inv > NINV_MAX:
+        raise UnsupportedNode(
+            f"the row function reads {n_inv} row-invariant values, over the "
+            f"fused kernel's cap of {NINV_MAX} (RT_NINV)")
     offs, widths, width = _row_layout(cd)
     for c in cd.columns:
         row.grad[c.id] = False
         if isinstance(c, R.MatColumn):
             row.mats[c.id] = offs[c.id]
+        elif isinstance(c, R.IntColumn):
+            row.ints[c.id] = f"rt_bits_int(x[{offs[c.id]}])"
         else:
             row.vals[c.id] = [f"x[{offs[c.id]}]"]
     for node in order:
         if dep[node.id] or isinstance(node, R.Constant):
             row.forward(node)
-            if (dep[node.id] and node.id not in row.mats
+            if (dep[node.id] and node.id in row.vals
                     and row.size(node) > 1):
                 raise UnsupportedNode(
                     f"a per-row value of vector width {row.size(node)} is "
@@ -545,13 +612,16 @@ def _emit_rows(cd, row_roots):
     for j, (c, w) in enumerate(zip(cd.columns, widths)):
         o = offs[c.id]
         if w == 1:
+            v = f"cols.c{j}[row0 + i]"
+            if isinstance(c, R.IntColumn):
+                v = f"rt_int_bits({v})"
             fill.append(f"  for (int i = tid; i < rows; i += nt) "
-                        f"tile[i * RT_ROW_W + {o}] = cols.p[{j}][row0 + i];")
+                        f"tile[i * RT_ROW_W + {o}] = {v};")
         elif w > 1:
             fill += [f"  for (int i = tid; i < rows * {w}; i += nt) {{",
                      f"    const int r = i / {w};",
                      f"    tile[r * RT_ROW_W + {o} + i - r * {w}] = "
-                     f"cols.p[{j}][(size_t)row0 * {w} + i];",
+                     f"cols.c{j}[(size_t)row0 * {w} + i];",
                      "  }"]
     lines = [
         f"#define RT_NINV {n_inv}",
@@ -590,6 +660,28 @@ def _emit_rows(cd, row_roots):
     return lines, row_ops, inv_ops, width, n_rows.pop()
 
 
+def _cols_struct(columns):
+    """RtCols, one pointer of its own type per column (int32 for an
+    IntColumn), and rt_cols, which fills it from the launch's pointer
+    array on the host."""
+    types = ["const int*" if isinstance(c, R.IntColumn) else "const float*"
+             for c in columns]
+    return [
+        "// the model's data columns, each with its own type",
+        "struct RtCols {",
+        *[f"  {t} c{j};" for j, t in enumerate(types)],
+        *(["  const float* unused;"] if not columns else []),
+        "};",
+        "",
+        "static inline RtCols rt_cols(const void* const* cols) {",
+        "  RtCols out = {};",
+        *[f"  out.c{j} = ({t})cols[{j}];" for j, t in enumerate(types)],
+        "  (void)cols;",
+        "  return out;",
+        "}",
+    ]
+
+
 # CompiledDensity -> its EmittedDensity: a density is emitted once per
 # process, however many checks and launches read it
 _EMITTED = weakref.WeakKeyDictionary()
@@ -605,6 +697,10 @@ def emit(cd) -> EmittedDensity:
 
 
 def _emit(cd) -> EmittedDensity:
+    if cd.n_vars > DIM_MAX:
+        raise UnsupportedNode(
+            f"the model has {cd.n_vars} parameters, over the fused kernel's "
+            f"cap of {DIM_MAX} (RT_DIM)")
     row_lh = [l for l in cd.likelihoods if isinstance(l, R.RowSum)
               and cd.columns and find_columns([l.child])]
     if cd.columns and cd.logp_lanes_split_fn() is None:
@@ -628,13 +724,10 @@ def _emit(cd) -> EmittedDensity:
         '#include "rt_math.cuh"',
         "",
         f"#define RT_DIM {n}",
-        f"#define RT_NCOLS {len(cd.columns)}",
         f"#define RT_ROW_W {width}",
         f"#define RT_TILE {max(tile, 1)}",
         "",
-        "struct RtCols {",
-        f"  const float* p[{max(len(cd.columns), 1)}];",
-        "};",
+        *_cols_struct(cd.columns),
         "",
         "RT_HD float rt_logp_grad(const float* q, float* g) {",
         f"  for (int j = 0; j < {n}; ++j) g[j] = 0.0f;",

@@ -3,7 +3,7 @@ from .combinatorics import beta as log_beta, choose as log_choose
 from .combinatorics import factorial as log_factorial, gamma as log_gamma
 from .continuous import (Beta, Cauchy, Continuous, Exponential, Gamma,
                          Laplace, LogNormal, Mixture, Normal, Uniform)
-from .discrete import Bernoulli, Discrete
+from .discrete import Bernoulli, Discrete, Poisson
 from .distribution import Distribution
 from .injection import Exp, Injection, Scale, Translate
 from .model import Model
@@ -14,7 +14,7 @@ from .trace import Diagnostics, Trace
 __all__ = [
     "combinatorics", "log_beta", "log_choose", "log_factorial", "log_gamma",
     "Beta", "Cauchy", "Continuous", "Exponential", "Gamma", "Laplace",
-    "LogNormal", "Mixture", "Normal", "Uniform", "Bernoulli", "Discrete",
+    "LogNormal", "Mixture", "Normal", "Uniform", "Bernoulli", "Discrete", "Poisson",
     "Distribution", "Exp",
     "Injection", "Scale", "Translate", "Model", "BoundedAboveSupport",
     "BoundedBelowSupport", "BoundedSupport", "Support", "UnboundedSupport",

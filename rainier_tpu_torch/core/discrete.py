@@ -2,14 +2,15 @@
 counterpart of core/Discrete.scala).
 
 This slice ports ``Bernoulli``, the likelihood of the logistic
-regression; the other families and every ``generator()`` come in a later
-slice.
+regression, and ``Poisson``, the likelihood of the GLMMs; the other
+families and every ``generator()`` come in a later slice.
 """
 
 from __future__ import annotations
 
 from ..compute import bounds
 from ..compute import real as R
+from . import combinatorics
 from .distribution import Distribution
 
 
@@ -32,3 +33,13 @@ class Bernoulli(Discrete):
                         R.to_real(x).softplus() * -1,
                         R.to_real(x * -1).softplus() * -1)
         return R.eq(R.to_real(v), R.zero, (1 - self.p).log(), self.p.log())
+
+
+class Poisson(Discrete):
+    def __init__(self, lam):
+        self.lam = R.to_real(lam)
+        bounds.check(self.lam, "λ >= 0", lambda v: v >= 0.0)
+
+    def log_density_at(self, v):
+        v = R.to_real(v)
+        return self.lam.log() * v - self.lam - combinatorics.factorial(v)

@@ -31,6 +31,13 @@
 // warp read the same row of the tile, a broadcast without bank
 // conflicts.  Rows at or past n_rows are skipped, not padded.
 //
+// Integer index columns.  The generated RtCols holds each column with its
+// own type (int32 for an IntColumn), and the loader keeps an index's bits
+// in its float slot of the tile.  A gather of a row-invariant vector by
+// that index reads the chain's inv[] at a per-row offset, and its adjoint
+// adds into the chain's ainv[] there; with a dynamic index both arrays
+// live in local memory (RT_NINV floats each, capped by the emitter).
+//
 // Summation error.  Each tile's rows are summed in f32 (the error of a
 // sequential sum of R terms is at most about R·u·Σ|terms|, u = 6e-8, and
 // typically √R·u·Σ|terms|), and the tile totals of lp and of every
@@ -228,12 +235,6 @@ RT_HD void rt_logp_grad_chain(int c, int n, const float* q, float* lp,
   lp[c] = l;
 #pragma unroll
   for (int d = 0; d < RT_DIM; ++d) g[(size_t)d * n + c] = gx[d];
-}
-
-static RtCols rt_cols(const void* const* cols) {
-  RtCols out = {};
-  for (int j = 0; j < RT_NCOLS; ++j) out.p[j] = (const float*)cols[j];
-  return out;
 }
 
 #define RT_SMEM_BYTES (RT_ROW_W * RT_TILE * (int)sizeof(float))

@@ -9,6 +9,7 @@
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifndef RT_HD
 #ifdef __CUDACC__
@@ -43,6 +44,34 @@ RT_HD int rt_f2i(float x) {
   if (x >= 2147483520.0f) return 2147483647;
   if (x <= -2147483648.0f) return -2147483647 - 1;
   return (int)x;
+}
+
+// an int32 index carried bit for bit in a float slot of the row tile, so
+// every int32 value is exact (an index never passes through a float
+// conversion)
+RT_HD float rt_int_bits(int i) {
+#ifdef __CUDA_ARCH__
+  return __int_as_float(i);
+#else
+  float f;
+  memcpy(&f, &i, sizeof f);
+  return f;
+#endif
+}
+
+RT_HD int rt_bits_int(float f) {
+#ifdef __CUDA_ARCH__
+  return __float_as_int(f);
+#else
+  int i;
+  memcpy(&i, &f, sizeof i);
+  return i;
+#endif
+}
+
+// i clamped to [lo, hi]: the gather's mode="clip"
+RT_HD int rt_clampi(int i, int lo, int hi) {
+  return i < lo ? lo : (i > hi ? hi : i);
 }
 
 // digamma, the derivative of lgamma (CUDA has no device digamma):

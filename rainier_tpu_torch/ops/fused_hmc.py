@@ -14,6 +14,11 @@ Metropolis accept, and the accept-rate and divergence sums.  A model with
 data adds, in every density call, its RowSum likelihoods over row tiles
 that the block's threads load into shared memory together; X·β and its
 adjoint are f32 multiply-adds in the kernel's body, on the CUDA cores.
+An integer index column (``IntColumn``, the GLMMs' site and year) is an
+int32 field of the tile; a ``Gather`` by it reads the chain's
+row-invariant vector at a clamped per-row index, and its adjoint adds
+there (``mode="clip"`` of the JAX kernel's gather, hmc_pallas.py:157 with
+rainier_tpu/compute/interp.py:379-383).
 Device memory is touched only to load q0, the column tiles, and to store
 the results and the collected draws.
 
@@ -54,6 +59,7 @@ from typing import NamedTuple
 import torch
 
 from ..compute import emit_cuda
+from ..compute import real as R
 from ..compute.compiler import row_tile_sum
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -123,9 +129,10 @@ def philox_noise(seed: int, it: int, dim: int, n: int, device):
 
 
 def _columns(density, columns, dev):
-    """The model's data as the kernel takes it: one contiguous float32
-    tensor on `dev` per column of ``density.columns``, all with the same
-    number of rows.  None means the model's own data."""
+    """The model's data as the kernel takes it: one contiguous tensor on
+    `dev` per column of ``density.columns``, int32 for an ``IntColumn``
+    and float32 for the others, all with the same number of rows.  None
+    means the model's own data."""
     if columns is None:
         columns = density.column_values(torch.float32, dev)
     columns = tuple(columns)
@@ -134,12 +141,15 @@ def _columns(density, columns, dev):
                          f"columns, got {len(columns)}")
     for node, c in zip(density.columns, columns):
         want = tuple(node.values.shape)
-        if (not isinstance(c, torch.Tensor) or c.dtype != torch.float32
+        dtype = torch.int32 if isinstance(node, R.IntColumn) \
+            else torch.float32
+        if (not isinstance(c, torch.Tensor) or c.dtype != dtype
                 or c.device != dev or not c.is_contiguous()
                 or tuple(c.shape) != want):
             raise ValueError(
-                f"each column must be a contiguous float32 tensor on {dev} "
-                f"shaped like its data {want}, got "
+                f"{type(node).__name__} columns must be contiguous "
+                f"{str(dtype).split('.')[-1]} tensors on {dev}; this one "
+                f"must be shaped like its data {want}, got "
                 + (f"{c.dtype} {tuple(c.shape)} on {c.device}, contiguous "
                    f"{c.is_contiguous()}" if isinstance(c, torch.Tensor)
                    else type(c).__name__))
@@ -401,9 +411,9 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
     (identity); ``collect_every`` k > 0 also returns every k-th draw.
     ``noise=(p (n_iterations, dim, n), u (n_iterations, n))`` replaces the
     in-kernel Philox streams with explicit momenta and uniforms (the
-    ``host_rng`` counterpart).  ``columns``: one contiguous float32 tensor
-    per ``density.columns`` on q0's device, or None for the model's own
-    data.
+    ``host_rng`` counterpart).  ``columns``: one contiguous tensor per
+    ``density.columns`` on q0's device (int32 for an ``IntColumn``,
+    float32 otherwise), or None for the model's own data.
 
     On CUDA tensors this launches the kernel or raises; on CPU tensors it
     runs :func:`fused_hmc_reference`.  Returns (final q (dim, n),
@@ -484,8 +494,9 @@ def op_count(em, n_steps: int) -> int:
     """f32 and 32-bit integer operations of ONE chain iteration of the
     kernel with on-device Philox, for the bound in PERF.md and
     chip_smoke.py: the density + gradient ``n_steps`` times (its row
-    terms over every row included), the leapfrog arithmetic, kinetic
-    energies, the accept, and the RNG."""
+    terms over every row included, with each row's gathers and adjoint
+    scatters), the leapfrog arithmetic, kinetic energies, the accept, and
+    the RNG."""
     dim = em.n_vars
     per_grad = em.density_ops() + 2 * dim      # x = q·sc, g = sc·∇
     leap = n_steps * 4 * dim + 2 * dim         # kicks + drifts, half kicks

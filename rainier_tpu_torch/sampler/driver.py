@@ -218,9 +218,10 @@ def sample(model, cfg: C.SamplerConfig, n_chains: int = 4, seed: int = 0,
     ops; 'fused' runs scan-path warmup, then the whole sampling phase as
     one fused CUDA kernel (ops/fused_hmc.py; its plain PyTorch version
     on the CPU).  Outside the kernel's envelope (non-HMC samplers, dense
-    mass, a mesh, nodes the CUDA emitter does not cover such as an
-    IntColumn, a density without a clean base/row split) 'fused' warns
-    and runs the scan path;
+    mass, a mesh, nodes the CUDA emitter does not cover such as a Gather
+    whose source varies by row, a density without a clean base/row split,
+    a model over the kernel's caps of emit_cuda.DIM_MAX parameters or
+    NINV_MAX row-invariant values) 'fused' warns and runs the scan path;
     'fused!' raises, for callers who need the kernel or nothing.
     `mesh`: multi-device runs come in a later slice of the port.
     """

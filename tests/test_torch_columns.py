@@ -254,7 +254,7 @@ def test_matrix_views_read_the_matrix_from_the_tile():
     em = emit_cuda.emit(matrix_views(rtt).density())
     # the 2-column matrix and the observed y: the views load nothing
     assert em.row_width == 3 and em.tile_rows == emit_cuda.TILE_ROWS_MAX
-    assert em.source.count("cols.p[") == 2
+    assert em.source.count("= cols.c") == 2
 
 
 def _laplace_start(n, seed):

@@ -10,7 +10,8 @@ function; inputs come from numpy seeds.  Checked here:
 * the C source of ``compute/emit_cuda.py``, compiled for the host with
   g++, against torch autograd and ``jax.grad`` — including the digamma
   adjoint of lgamma, min/max ties, abs at 0 and pow with base <= 0 —
-  and its refusal of an IntColumn;
+  and what it still refuses (a Gather across rows, an IntColumn used
+  as a value);
 * that the port imports neither jax nor rainier_tpu.
 """
 
@@ -305,24 +306,38 @@ def test_edge_case_adjoints_are_jax_conventions(tmp_path):
     np.testing.assert_allclose(lpg(xs)[1], digamma(xs), rtol=2e-6, atol=1e-6)
 
 
-def gather_by_int_column(rt, R):
+def gather_by_int_column(rt, R, source=None, index_as_value=False):
     """benchmarks/models.py:111-142's structure at small size: latent
-    effects gathered by an integer index column."""
+    effects gathered by an integer index column.  `source` replaces the
+    gathered vector; `index_as_value` also adds the index to the mean."""
     effects = rt.Normal(0, 1).latent_vec(4)
     idx = R.IntColumn(np.repeat(np.arange(4), 3))
     y = np.random.default_rng(8).normal(size=12)
-    return rt.Model.likelihood(R.RowSum(rt.Normal(
-        R.Gather(effects.element, idx), 1.0).log_density_at(R.Column(y)), 12))
+    mean = R.Gather(effects.element if source is None else source, idx)
+    if index_as_value:
+        mean = mean + idx * effects[0]
+    return rt.Model.likelihood(R.RowSum(rt.Normal(mean, 1.0).log_density_at(
+        R.Column(y)), 12))
 
 
 def test_emitter_refuses_data_columns():
-    """Columns the emitter does not cover yet (an IntColumn and the Gather
-    by it, as in the GLMMs) raise, naming the node."""
+    """What stays outside the emitter raises, naming the node: a Gather
+    whose source varies by row (a gather across the rows of a column),
+    and an IntColumn used as a value rather than as an index.  The
+    gather of a row-invariant vector by an IntColumn is emitted."""
     from rainier_tpu_torch.compute import real as R
 
-    m = gather_by_int_column(rtt, R)
-    with pytest.raises(emit_cuda.UnsupportedNode, match="IntColumn"):
-        emit_cuda.emit(m.density())
+    assert "rt_clampi" in emit_cuda.emit(
+        gather_by_int_column(rtt, R).density()).source
+    across = gather_by_int_column(
+        rtt, R, source=R.Column(np.arange(12.0)) * rtt.Normal(0, 1).latent())
+    with pytest.raises(emit_cuda.UnsupportedNode,
+                       match="Gather whose source varies by row"):
+        emit_cuda.emit(across.density())
+    as_value = gather_by_int_column(rtt, R, index_as_value=True)
+    with pytest.raises(emit_cuda.UnsupportedNode,
+                       match="IntColumn used other than as the index"):
+        emit_cuda.emit(as_value.density())
 
 
 # -- import guard ------------------------------------------------------------

@@ -268,13 +268,15 @@ def test_wrapper_validates_its_arguments(monkeypatch):
                     noise=(torch.zeros(2, 10, 3), torch.zeros(2, 3)), **kw)
     with pytest.raises(ValueError, match="n_steps >= 1"):
         F.fused_hmc(cd, torch.zeros(10, 4), **{**kw, "n_steps": 0})
-    # a Gather by an IntColumn: refused when the kernel is built, before
-    # nvcc runs
-    effects = rtt.Normal(0, 1).latent_vec(2)
+    # a model over the design's RT_DIM cap: refused when the kernel is
+    # built, before nvcc runs, naming its size
+    k = emit_cuda.DIM_MAX + 1
+    effects = rtt.Normal(0, 1).latent_vec(k)
     data = rtt.Model.likelihood(R.RowSum(rtt.Normal(
-        R.Gather(effects.element, R.IntColumn([0, 1, 1])), 1.0)
-        .log_density_at(R.Column([0.1, 0.2, 0.3])), 3))
-    with pytest.raises(emit_cuda.UnsupportedNode, match="IntColumn"):
+        R.Gather(effects.element, R.IntColumn(np.arange(k))), 1.0)
+        .log_density_at(R.Column(np.zeros(k))), k))
+    with pytest.raises(emit_cuda.UnsupportedNode,
+                       match=f"{k} parameters, over the fused kernel's cap"):
         F.build(data.density())
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.setattr(F.os.path, "exists", lambda p: False)

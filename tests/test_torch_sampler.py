@@ -28,6 +28,7 @@ from rainier_tpu.sampler.leapfrog import leapfrog as leapfrog_j
 from rainier_tpu.sampler.leapfrog import log_accept_prob as lap_j
 from rainier_tpu.sampler.leapfrog import try_stepping as try_stepping_j
 from rainier_tpu_torch import interop
+from rainier_tpu_torch.compute import emit_cuda
 from rainier_tpu_torch.sampler import HMC, SamplerConfig
 from rainier_tpu_torch.sampler import dualavg, mass
 from rainier_tpu_torch.sampler.leapfrog import (ChainState, leapfrog,
@@ -208,30 +209,36 @@ def test_funnel_moments_match_pallas(kernel, pallas_funnel):
                                "sample_s", "transfer_s"}
 
 
-def gather_by_int_column(rt):
-    """benchmarks/models.py:111-142's structure at small size: latent
-    effects gathered by an integer index column."""
+def gather_by_int_column(rt, k=4):
+    """benchmarks/models.py:111-142's structure: k latent effects
+    gathered by an integer index column, three rows each."""
     from rainier_tpu_torch.compute import real as R
 
-    effects = rt.Normal(0, 1).latent_vec(4)
-    idx = R.IntColumn(np.repeat(np.arange(4), 3))
-    y = np.random.default_rng(8).normal(size=12)
+    effects = rt.Normal(0, 1).latent_vec(k)
+    idx = R.IntColumn(np.repeat(np.arange(k), 3))
+    y = np.random.default_rng(8).normal(size=3 * k)
     return rt.Model.likelihood(R.RowSum(rt.Normal(
-        R.Gather(effects.element, idx), 1.0).log_density_at(R.Column(y)), 12))
+        R.Gather(effects.element, idx), 1.0).log_density_at(R.Column(y)),
+        3 * k))
 
 
 def test_fused_refuses_or_falls_back_outside_its_envelope():
-    """A Gather by an IntColumn (the GLMMs) stays outside the kernel:
-    'fused!' raises and 'fused' warns and runs the scan path."""
-    model = gather_by_int_column(rtt)
+    """A gather model (the GLMMs) over the kernel's cap of DIM_MAX
+    parameters (benchmarks/models.py::glmm_large has 10,002) stays outside
+    the kernel: 'fused!' raises and 'fused' warns and runs the scan path,
+    each naming the size; the same structure at 4 effects is inside."""
     cfg = SamplerConfig(30, 20, sampler=HMC(3))
+    assert _fused_unsupported_reason(gather_by_int_column(rtt), cfg, 2,
+                                     None) is None
+    k = emit_cuda.DIM_MAX + 8
+    model = gather_by_int_column(rtt, k)
     reason = _fused_unsupported_reason(model, cfg, 2, None)
-    assert "IntColumn" in reason
-    with pytest.raises(ValueError, match="IntColumn"):
+    assert f"{k} parameters" in reason and "cap" in reason
+    with pytest.raises(ValueError, match=f"{k} parameters"):
         model.sample(cfg, n_chains=2, kernel="fused!")
-    with pytest.warns(UserWarning, match="IntColumn"):
+    with pytest.warns(UserWarning, match=f"{k} parameters"):
         tr = model.sample(cfg, n_chains=2, kernel="fused")
-    assert tr.chains.shape == (2, 20, 4)    # the scan path ran
+    assert tr.chains.shape == (2, 20, k)    # the scan path ran
     fm, _ = funnel(rtt)
     with pytest.raises(ValueError, match="fixed-step HMC"):
         fm.sample(SamplerConfig(10, 10), n_chains=2, kernel="fused!")
