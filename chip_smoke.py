@@ -31,7 +31,20 @@ printing one line:
   version and against f64, the kernel against its plain version over 100
   iterations from those draws, ``Model.sample(kernel="fused!")`` held to
   the scan-path run by a two-sample test of per-chain moments, and the
-  kernel's time.
+  kernel's time;
+* ``benchmarks/models.py::glmm_large`` (10,000 group effects × 5 rows,
+  10,002 parameters, centred VIP; its data regenerated here from the same
+  seed), whose chain state lives in the kernel's workspace: a scan-path
+  run keeping mu, sd and every 100th effect, the kernel's density and
+  gradient at that run's last full-width states and at inits against
+  autograd on the plain version and against f64 (bounds widened to each
+  point's f32 conditioning from three Hessian-vector products), the
+  kernel against its plain version over 100 iterations from those
+  states at 1001 chains, a ragged last block (the chains compared on
+  every coordinate after 20 iterations, the law of all the draws),
+  ``Model.sample(kernel="fused!", collect_idx=...)`` held to the
+  scan-path run by per-chain moments, and the kernel against its plain
+  version at the main path's shapes, compared the same way.
 
 Any failed check raises and exits nonzero.  The third line from the end
 is a JSON object with each kernel's launches on its main path, error
@@ -68,6 +81,9 @@ README_ROWS, README_SEED = 200, 0
 LOGIT_ROWS, LOGIT_FEATURES, LOGIT_SEED, LOGIT_PRIOR_SD = 100_000, 10, 5, 5.0
 LOGIT_WARMUP, LOGIT_DRAWS, LOGIT_STEPS = 1000, 1000, 5
 LOGIT_PARITY_ITERS = 100
+# the logistic's kernel timed again at the main path's width over this
+# many iterations (its main path's sample_s is the 1000-iteration time)
+LOGIT_TIME_ITERS = 100
 LOGIT_CHECK_MAP, LOGIT_CHECK_INIT = 1024, 64
 # GLMMPoisson2 (benchmarks/models.py:111-142) and its runs: the main path
 # at 1024 chains, and a scan-path run of the same configuration
@@ -75,6 +91,20 @@ GLMM_SITES, GLMM_YEARS, GLMM_SEED = 100, 40, 4
 GLMM_WARMUP, GLMM_DRAWS, GLMM_STEPS = 1000, 1000, 5
 GLMM_PARITY_ITERS, GLMM_CHECK_INIT = 100, 64
 GLMM_MOMENT_Z = 5.0   # two-sample bound on each per-chain moment's mean
+# glmm_large (benchmarks/models.py:162-202, BASELINE config 5) and its
+# runs, collecting mu, sd and every 100th group effect (layout slots 0, 1,
+# 2, 102, ..., 9902)
+LARGE_GROUPS, LARGE_OBS, LARGE_SEED, LARGE_LAM = 10_000, 5, 6, 1.0
+LARGE_WARMUP, LARGE_DRAWS, LARGE_STEPS = 1000, 1000, 5
+LARGE_PARITY_ITERS, LARGE_CHECK_INIT = 100, 64
+# its kernel runs 4-thread blocks: 1001 chains leave a last block of one
+# chain and three copies of it, each in its own slot of the workspace
+LARGE_PARITY_CHAINS = 1001
+# at |lp| ~ 1e5 an f32 ulp is 0.008 nats, so accepts flip and the
+# trajectories part within 100 iterations: the chains are compared after
+# this many, and the law of all the draws
+LARGE_AGREE_AT = 20
+LARGE_COLLECT_EVERY = 100
 
 
 def funnel(rt):
@@ -148,6 +178,32 @@ def glmm_poisson(rt):
     lh = R.RowSum(rt.Poisson(log_lam.exp()).log_density_at(
         R.Column(counts)), n_years * n_sites)
     return rt.Model.likelihood(lh)
+
+
+def glmm_large(rt):
+    """benchmarks/models.py:162-202, data regenerated from its seed: one
+    VectorParameter of group effects (VIP weight LARGE_LAM) gathered by
+    an IntColumn into a Poisson likelihood."""
+    from rainier_tpu_torch.compute import real as R
+
+    rng = np.random.default_rng(LARGE_SEED)
+    n = LARGE_GROUPS * LARGE_OBS
+    mu = rt.Normal(0, 1).latent()
+    sd = rt.Exponential(1.0).latent()
+    effects = rt.vip_latent_vec(mu, sd, LARGE_GROUPS, lam=LARGE_LAM)
+    group_idx = R.IntColumn(np.repeat(np.arange(LARGE_GROUPS), LARGE_OBS))
+    true_effects = rng.normal(np.log(5.0), 0.3, size=LARGE_GROUPS)
+    counts = rng.poisson(
+        np.exp(np.repeat(true_effects, LARGE_OBS))).astype(float)
+    log_lam = R.Gather(effects.element, group_idx)
+    lh = R.RowSum(rt.Poisson(log_lam.exp()).log_density_at(
+        R.Column(counts)), n)
+    return rt.Model.likelihood(lh)
+
+
+def large_collect():
+    """mu, sd and every LARGE_COLLECT_EVERY-th group effect."""
+    return np.r_[0, 1, np.arange(2, 2 + LARGE_GROUPS, LARGE_COLLECT_EVERY)]
 
 
 def laplace_reference(x, ys):
@@ -231,13 +287,49 @@ def agreement(a, b, tol=REL_TOL):
             bool((a[3] == b[3]).all()))
 
 
+def chaotic(F, cd, q0, kw, ker, plain, agree_at, tol, device):
+    """Where the trajectories are chaotic, f32 differences grow until the
+    chains part, and the law of the draws is what stays: the two runs'
+    draws of every iteration (outputs `ker` and `plain` of `fused_hmc`
+    and its plain version on q0 and `kw`) held to each other by
+    `moment_z`, and the chains compared after `agree_at` iterations, at
+    that iteration's draw.  Where `kw` collects some coordinates only,
+    every coordinate is compared there instead: the final q of both
+    versions run again for `agree_at` iterations.  Returns (the outputs
+    with the state after `agree_at` iterations in place of the final q,
+    the text to print, the largest z)."""
+    z, stat, param = moment_z(ker[1].permute(2, 0, 1),
+                              plain[1].permute(2, 0, 1), device)
+    end = agreement(ker, plain, tol)[0]
+    law = (f"; draws of all {ker[1].shape[0]} iterations max {z:.3f} "
+           f"standard errors apart (chain {stat}s of collected coordinate "
+           f"{param}; bound {GLMM_MOMENT_Z}); at the end {end:.4f} of "
+           f"chains within {tol} rel")
+    if kw.get("collect_idx") is None:
+        at = [out[1][agree_at - 1] for out in (ker, plain)]
+    else:
+        short = dict(kw, n_iterations=agree_at, collect_every=0,
+                     collect_idx=None)
+        if kw.get("noise") is not None:
+            short["noise"] = tuple(x[:agree_at] for x in kw["noise"])
+        at = [F.fused_hmc(cd, q0, **short)[0],
+              F.fused_hmc_reference(cd, q0, **short)[0]]
+        law += f"; compared after {agree_at} it on all {cd.n_vars} " \
+            f"coordinates"
+    ker, plain = ((x,) + out[1:] for x, out in zip(at, (ker, plain)))
+    return ker, plain, law, z
+
+
 def parity_phase(F, cd, device, n_chains, n_iters, explicit_noise: bool,
                  center=None, var=None, min_frac=0.99, tol=REL_TOL,
-                 max_dacc=0.01, start=None):
+                 max_dacc=0.01, start=None, collect_idx=None,
+                 agree_at=None):
     """Kernel vs plain version on one input: per-chain ε and Σ̂, a ragged
-    chain count, every draw collected.  q0 ~ N(center, var) and Σ̂ = var
-    times a per-chain factor in [0.5, 2] (standard normal without them);
-    or, with `start` = (q0 (dim, n), ε (n,), Σ̂ (n, dim)), those."""
+    chain count, every draw collected (of `collect_idx`'s coordinates).
+    q0 ~ N(center, var) and Σ̂ = var times a per-chain factor in [0.5, 2]
+    (standard normal without them); or, with `start` = (q0 (dim, n),
+    ε (n,), Σ̂ (n, dim)), those.  The explicit noise is drawn on the card.
+    With `agree_at`, the comparison of `chaotic`.  Returns max |Δq|."""
     import torch
 
     rng = np.random.default_rng(1 if explicit_noise else 2)
@@ -256,34 +348,59 @@ def parity_phase(F, cd, device, n_chains, n_iters, explicit_noise: bool,
     else:
         q0, eps, imd = (t(x) for x in start)
     kw = dict(step_size=eps, n_steps=N_STEPS, n_iterations=n_iters, seed=11,
-              inv_mass_diag=imd, collect_every=1)
+              inv_mass_diag=imd, collect_every=1, collect_idx=collect_idx)
     if explicit_noise:
-        kw["noise"] = (t(rng.normal(size=(n_iters, dim, n_chains))),
-                       t(rng.uniform(1.1920929e-7, 1.0, (n_iters, n_chains))))
+        gen = torch.Generator(device=device).manual_seed(1)
+        kw["noise"] = (
+            torch.randn((n_iters, dim, n_chains), generator=gen,
+                        device=device),
+            torch.rand((n_iters, n_chains), generator=gen, device=device)
+            .clamp(min=1.1920929e-7))
     a = F.fused_hmc(cd, q0, **kw)
     b = F.fused_hmc_reference(cd, q0, **kw)
+    law, z = "", 0.0
+    if agree_at is not None:
+        a, b, law, z = chaotic(F, cd, q0, kw, a, b, agree_at, tol, device)
     frac, max_err, dacc, div_eq = agreement(a, b, tol)
     mode = "explicit noise" if explicit_noise else "on-device Philox"
     print(f"phase kernel-vs-plain ({mode}): {n_chains} chains x {n_iters} "
-          f"it: {frac:.4f} of chains within {tol} rel (need {min_frac:.4f}),"
-          f" max |dq| {max_err:.3g}, mean |d accept| {dacc:.3g}, "
-          f"divergences equal {div_eq}", flush=True)
-    check(frac >= min_frac and dacc < max_dacc and div_eq,
-          (frac, dacc, div_eq))
+          f"it: {frac:.4f} of chains within {tol} rel after "
+          f"{agree_at or n_iters} it (need {min_frac:.4f}), max |dq| "
+          f"{max_err:.3g}, mean |d accept| {dacc:.3g}, divergences equal "
+          f"{div_eq}{law}", flush=True)
+    check(frac >= min_frac and dacc < max_dacc and div_eq
+          and z <= GLMM_MOMENT_Z, (frac, dacc, div_eq, z))
     return max_err
 
 
+def workspace_call_bytes(em):
+    """Bytes one density call must move through a chain's workspace slot
+    (0 for a model whose state stays in the thread): x read, g written,
+    and the row-invariant values and their adjoints each written and
+    read."""
+    return 4 * (2 * em.n_vars + 4 * em.n_inv) if em.workspace else 0
+
+
 def kernel_bound_ms(em, n_chains, n_iters, n_steps, collect_every, F,
-                    col_bytes=0):
+                    col_bytes=0, n_collect=None):
     """Least time the card could take for one fused_hmc call: the larger
     of its bytes over the memory rate and its operations over the f32
-    rate (Philox integer operations counted at the f32 rate)."""
+    rate (Philox integer operations counted at the f32 rate).  For a
+    model with its state in the workspace, each density call's workspace
+    bytes and each leapfrog step's momentum and position (read and
+    written) count too."""
     ops = n_chains * n_iters * F.op_count(em, n_steps)
     n_out = n_iters // collect_every if collect_every else 0
     dim = em.n_vars
+    n_collect = dim if n_collect is None else n_collect
     # columns, q0, ε, Σ̂ read; final q, accept, divergences, draws written
     nbytes = col_bytes + 4 * (n_chains * (dim + 1 + dim)
-                              + n_chains * (dim + 2) + n_out * dim * n_chains)
+                              + n_chains * (dim + 2)
+                              + n_out * n_collect * n_chains)
+    if em.workspace:
+        calls = n_iters * n_steps + 1
+        nbytes += n_chains * (calls * workspace_call_bytes(em)
+                              + n_iters * n_steps * 4 * 4 * dim)
     return _bound(ops, nbytes)
 
 
@@ -319,50 +436,48 @@ def build_all(F, models):
         print(f"phase build: {name}: {em.n_vars} dims, {em.ops} ops per "
               f"logp+grad apart from rows, {em.row_ops} ops per row, "
               f"{em.n_rows} rows of {em.row_width} floats, tile "
-              f"{em.tile_rows} rows; {secs:.2f} s; ptxas: {ptxas}",
-              flush=True)
+              f"{em.tile_rows} rows, {em.n_inv} row-invariant values, "
+              f"workspace {em.workspace} floats a chain; "
+              f"{len(em.source.splitlines())} lines emitted; {secs:.2f} s; "
+              f"ptxas: {ptxas}", flush=True)
         ems[name] = em
     return ems
 
 
 def time_kernel(F, cd, em, tr, n_steps, device, col_bytes, what, reps=1,
-                min_frac=0.99, tol=REL_TOL, max_dacc=0.01, agree_at=None):
+                min_frac=0.99, tol=REL_TOL, max_dacc=0.01, agree_at=None,
+                n_iters=None, collect_idx=None):
     """The kernel at a main path's shapes, on its warmup product's inputs:
-    per-chain ε and Σ̂, every draw collected, q0 the last draws; held to
-    its plain version as the parity phases are (at least `min_frac` of
+    per-chain ε and Σ̂, every draw collected (of `collect_idx`'s
+    coordinates), q0 the main path's last full-width states; held to its
+    plain version as the parity phases are (at least `min_frac` of
     chains within `tol`, mean |Δaccept| < `max_dacc`, divergences
-    equal).  With `agree_at` the chains are compared at that iteration's
-    draw, not at the end, and the two runs' draws of every iteration by
-    `moment_z`: where the trajectories are chaotic, f32 differences grow
-    until the chains part, and the law of the draws is what stays."""
+    equal), with `agree_at` by `chaotic`.
+    `n_iters` cuts the run's depth (default: the main path's)."""
     import torch
 
-    n_chains, n_iters = tr.chains.shape[0], tr.chains.shape[1]
-    q0 = torch.as_tensor(tr.chains[:, -1, :].T.copy(), device=device)
+    n_chains, n_iters = tr.chains.shape[0], n_iters or tr.chains.shape[1]
+    q0 = torch.as_tensor(tr.final_q.T.copy(), device=device)
     kw = dict(step_size=torch.as_tensor(tr.step_size, device=device),
               n_steps=n_steps, n_iterations=n_iters, seed=1,
               inv_mass_diag=torch.as_tensor(tr.mass.diag, device=device),
-              collect_every=1)
+              collect_every=1, collect_idx=collect_idx)
     ker, ker_ms = timed(lambda: F.fused_hmc(cd, q0, **kw), device, reps,
                         reps > 1)
     plain, plain_ms = timed(lambda: F.fused_hmc_reference(cd, q0, **kw),
                             device, 1, False)
     law, z = "", 0.0
     if agree_at is not None:
-        z, stat, param = moment_z(ker[1].permute(2, 0, 1),
-                                  plain[1].permute(2, 0, 1), device)
-        end = agreement(ker, plain, tol)[0]
-        law = (f"; draws of all {n_iters} iterations max {z:.3f} standard "
-               f"errors apart (chain {stat}s of parameter {param}; bound "
-               f"{GLMM_MOMENT_Z}); at the end {end:.4f} of chains within "
-               f"{tol} rel")
-        ker, plain = ((out[1][agree_at - 1],) + out[1:]
-                      for out in (ker, plain))
+        ker, plain, law, z = chaotic(F, cd, q0, kw, ker, plain, agree_at,
+                                     tol, device)
     frac, max_err, dacc, div_eq = agreement(ker, plain, tol)
+    n_collect = cd.n_vars if collect_idx is None else len(collect_idx)
     bound_ms, bound_by = kernel_bound_ms(em, n_chains, n_iters, n_steps, 1,
-                                         F, col_bytes)
+                                         F, col_bytes, n_collect)
     print(f"phase kernel at main-path shapes, {what} ({n_chains} chains x "
-          f"{n_iters} it x {n_steps} steps, draws collected): kernel "
+          f"{n_iters} it x {n_steps} steps, {n_collect} coordinates of "
+          f"each draw collected, workspace "
+          f"{F.workspace_bytes(em, n_chains)} bytes): kernel "
           f"{ker_ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} "
           f"ms ({bound_by}), {frac:.4f} of chains agree within {tol} rel "
           f"after {agree_at or n_iters} it (need {min_frac:.4f}), "
@@ -555,7 +670,8 @@ def density_check(F, cd, em, q, truth, n_near, near_name, device,
             for k, sl in groups.items()))
     n = q.shape[1]
     ops = n * em.density_ops()
-    nbytes = 4 * (em.n_rows * em.row_width + 2 * n * (cd.n_vars + 1))
+    nbytes = 4 * (em.n_rows * em.row_width + 2 * n * (cd.n_vars + 1)) \
+        + n * workspace_call_bytes(em)
     bound_ms, bound_by = _bound(ops, nbytes)
     print(f"phase density at full width: rt_logp_grad_launch at {n} q "
           f"({n_near} {near_name}, {n - n_near} inits; "
@@ -646,8 +762,8 @@ def readme_phases(F, readme, em, device):
 def logistic_main(F, model, cd, em, w_map, cov, device, min_frac):
     """The logistic regression through Model.sample(kernel="fused!"),
     against the Laplace reference, then timed against its plain version
-    with the logistic parity phases' bar (`min_frac` within 1e-3 rel);
-    returns its JSON entry."""
+    over LOGIT_TIME_ITERS iterations with the logistic parity phases' bar
+    (`min_frac` within 1e-3 rel); returns its JSON entry."""
     from rainier_tpu_torch.sampler import HMC, SamplerConfig
 
     cfg = SamplerConfig(LOGIT_WARMUP, LOGIT_DRAWS, sampler=HMC(LOGIT_STEPS))
@@ -677,7 +793,8 @@ def logistic_main(F, model, cd, em, w_map, cov, device, min_frac):
     check(float(dsd.max()) < 0.1, dsd)
     entry = time_kernel(F, cd, em, tr, LOGIT_STEPS, device,
                         4 * em.n_rows * em.row_width, "logistic regression",
-                        min_frac=min_frac, tol=1e-3, max_dacc=0.02)
+                        min_frac=min_frac, tol=1e-3, max_dacc=0.02,
+                        n_iters=LOGIT_TIME_ITERS)
     return {"name": "fused_hmc (logistic regression, row-tiled)",
             "route": "cuda", "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
             "replaces": "rainier_tpu/ops/hmc_pallas.py:302",
@@ -777,6 +894,134 @@ def glmm_phases(F, model, cd, em, device):
              "launches": 0}]
 
 
+def large_conditioning(lanes64, q):
+    """`conditioning` for glmm_large from three Hessian-vector products in
+    f64, not one density call per input: the density is a sum of terms
+    in (mu, sd, z_i), so each group effect z_i couples only to itself, mu
+    and sd, and H's columns for mu and sd (H e_mu, H e_sd) and its
+    diagonal over the effects (H · 1 over the effects) give every entry
+    (H is symmetric).  Returns (lp (n,), g (dim, n)) as `conditioning`
+    does, each input moved by two f32 rounding units."""
+    import torch
+
+    x = q.double().detach().requires_grad_(True)
+    with torch.enable_grad():
+        lp = lanes64(x)
+        (g,) = torch.autograd.grad(lp.sum(), x, create_graph=True)
+
+        def hvp(rows):
+            v = torch.zeros_like(x)
+            v[rows] = 1.0
+            return torch.autograd.grad((g * v).sum(), x,
+                                       retain_graph=True)[0].abs()
+
+        h_mu, h_sd, h_z = hvp(slice(0, 1)), hvp(slice(1, 2)), \
+            hvp(slice(2, None))
+    step = 2 * torch.finfo(torch.float32).eps * x.detach().abs()
+    cond_g = h_mu * step[0] + h_sd * step[1]
+    cond_g[2:] += h_z[2:] * step[2:]
+    cond_g[0] += (h_mu[2:] * step[2:]).sum(0)
+    cond_g[1] += (h_sd[2:] * step[2:]).sum(0)
+    return (g.detach() * step).abs().sum(0), cond_g
+
+
+def large_phases(F, model, cd, em, device):
+    """glmm_large: the scan-path run, the density at full width at its
+    last states and at inits, kernel vs plain from those states, the main
+    path held to the scan-path run, and the kernel at the main path's
+    shapes.  Every run keeps only the collected coordinates of each draw;
+    the full-width states come from the scan-path run's `final_q`.
+    Returns its JSON entries."""
+    import torch
+
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    cfg = SamplerConfig(LARGE_WARMUP, LARGE_DRAWS, sampler=HMC(LARGE_STEPS))
+    idx = large_collect()
+
+    def summary(tr):
+        return (f"rank-r_hat max {rank_rhat(tr, device):.5f}, accept "
+                f"{float(np.mean(tr.accept_rate())):.3f}, divergences "
+                f"{tr.divergences()}, step size median "
+                f"{float(np.median(tr.step_size)):.4g}, timings "
+                f"{tr.timings}")
+
+    tr_scan = model.sample(cfg, n_chains=MAIN_CHAINS, seed=1, kernel="scan",
+                           device=device, collect_idx=idx)
+    print(f"phase scan path, glmm_large: Model.sample(kernel='scan', "
+          f"collect_idx={len(idx)} coordinates) {MAIN_CHAINS} chains x "
+          f"({LARGE_WARMUP} warmup + {LARGE_DRAWS} draws), HMC({LARGE_STEPS})"
+          f", {LARGE_GROUPS} groups x {LARGE_OBS} rows, {cd.n_vars} "
+          f"parameters: {summary(tr_scan)}", flush=True)
+
+    # density at the scan-path run's last states (one a chain, full
+    # width) and at inits, against f32 autograd and f64 on the card
+    last = tr_scan.final_q.T
+    inits = cfg.init_scale * np.random.default_rng(8).normal(
+        size=(cd.n_vars, LARGE_CHECK_INIT))
+    q = torch.as_tensor(np.hstack([last, inits]), dtype=torch.float32,
+                        device=device)
+    cols64 = tuple(c.double() if c.is_floating_point() else c
+                   for c in cd.column_values(torch.float32, device))
+    lanes64 = F.density_lanes(cd, cols64)
+    cond = large_conditioning(lanes64, q)
+    with torch.enable_grad():
+        x = q.double().requires_grad_(True)
+        lp64 = lanes64(x)
+        truth = (lp64.detach(), torch.autograd.grad(lp64.sum(), x)[0])
+    dlp_mean, density_entry = density_check(
+        F, cd, em, q, truth, MAIN_CHAINS, "scan-path states", device,
+        "rainier_tpu/ops/hmc_pallas.py:282", cond=cond)
+    del cond, truth, x, lp64
+
+    # kernel vs plain from those states, with the run's per-chain ε and
+    # Σ̂: the bar of the other models' parity phases
+    def min_frac(n_iters):
+        return max(0.5, 1.0 - 2.0 * n_iters * dlp_mean)
+
+    n_par = LARGE_PARITY_CHAINS
+    start = (last[:, :n_par], tr_scan.step_size[:n_par],
+             tr_scan.mass.diag[:n_par])
+    for explicit in (True, False):
+        parity_phase(F, cd, device, n_par, LARGE_PARITY_ITERS, explicit,
+                     min_frac=min_frac(LARGE_AGREE_AT), tol=1e-3,
+                     max_dacc=0.02, start=start, collect_idx=idx,
+                     agree_at=LARGE_AGREE_AT)
+
+    # the main path, held to the scan-path run as GLMMPoisson2's is
+    F.fused_hmc.launches = 0
+    tr = model.sample(cfg, n_chains=MAIN_CHAINS, seed=0, kernel="fused!",
+                      device=device, collect_idx=idx)
+    launches = F.fused_hmc.launches
+    z, stat, param = moment_z(tr.chains, tr_scan.chains, device)
+    print(f"phase main path, glmm_large: Model.sample(kernel='fused!', "
+          f"collect_idx={len(idx)} coordinates) {MAIN_CHAINS} chains x "
+          f"({LARGE_WARMUP} warmup + {LARGE_DRAWS} draws), HMC({LARGE_STEPS})"
+          f": fused_hmc launches {launches}, {summary(tr)}; per-chain means "
+          f"and variances against the scan-path run: max {z:.3f} standard "
+          f"errors apart (chain {stat}s of collected coordinate {param}; "
+          f"bound {GLMM_MOMENT_Z})", flush=True)
+    check(launches >= 1, f"fused_hmc launches {launches}")
+    check(np.all(np.isfinite(tr.chains)) and tr.chains.shape == (
+        MAIN_CHAINS, LARGE_DRAWS, len(idx)), tr.chains.shape)
+    check(z <= GLMM_MOMENT_Z, (z, stat, param))
+
+    # the kernel and its plain version at the main path's shapes, from
+    # its last states with its ε and Σ̂, keeping the collected coordinates
+    entry = time_kernel(F, cd, em, tr, LARGE_STEPS, device,
+                        4 * em.n_rows * em.row_width, "glmm_large",
+                        min_frac=min_frac(LARGE_AGREE_AT), tol=1e-3,
+                        max_dacc=0.02, agree_at=LARGE_AGREE_AT,
+                        collect_idx=idx)
+    return [{"name": "fused_hmc (glmm_large, state in the workspace)",
+             "route": "cuda",
+             "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
+             "replaces": "rainier_tpu/ops/hmc_pallas.py:282",
+             "launches": launches, **entry, "library_ms": None},
+            {**density_entry, "name": "rt_logp_grad_launch (glmm_large)",
+             "launches": 0}]
+
+
 def main() -> int:
     import torch
 
@@ -787,6 +1032,7 @@ def main() -> int:
     import rainier_tpu_torch as rt
     from rainier_tpu_torch.ops import fused_hmc as F
 
+    t_start = time.perf_counter()
     device = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -798,10 +1044,12 @@ def main() -> int:
     lmodel, x, ys = logistic_regression(rt)
     readme = readme_regression(rt)
     gmodel = glmm_poisson(rt)
+    large = glmm_large(rt)
     cds = {"funnel": fmodel.density(),
            "README regression": readme[0].density(),
            "logistic regression": lmodel.density(),
-           "GLMMPoisson2": gmodel.density()}
+           "GLMMPoisson2": gmodel.density(),
+           "glmm_large": large.density()}
     ems = build_all(F, cds)
 
     # -- the funnel: the column-free phases ----------------------------------
@@ -838,12 +1086,17 @@ def main() -> int:
     kernels.append(readme_phases(F, readme, ems["README regression"],
                                  device))
     kernels.append(logistic_main(F, lmodel, lcd, lem, w_map, cov, device,
-                                 logit_min_frac(LOGIT_DRAWS)))
+                                 logit_min_frac(LOGIT_TIME_ITERS)))
     kernels.append({**density_entry, "launches": 0})
 
     # -- GLMMPoisson2: integer index columns ---------------------------------
     kernels += glmm_phases(F, gmodel, cds["GLMMPoisson2"],
                            ems["GLMMPoisson2"], device)
+
+    # -- glmm_large: the chain state in the kernel's workspace ---------------
+    kernels += large_phases(F, large, cds["glmm_large"], ems["glmm_large"],
+                            device)
+    print(f"phase total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

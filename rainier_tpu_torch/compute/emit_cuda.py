@@ -9,10 +9,17 @@ this module plays the part of the reference's Gradient + bytecode codegen
     RT_HD float rt_logp_grad(const float* q, float* g)
 
 for ONE chain in natural coordinates — the forward pass in topological
-order, then reverse-mode adjoints in reverse order — as straight-line
-code over scalars.  A ``VectorParameter(k)`` and everything that
-broadcasts from it is unrolled into k scalars, so every value lives in a
-register of the thread that owns the chain.
+order, then reverse-mode adjoints in reverse order.  Scalars and vectors
+of at most ``UNROLL_MAX`` elements are straight-line code over scalars.
+A longer vector (a ``VectorParameter(k)`` and everything that broadcasts
+from it) is a loop over its elements ``i`` whose body is the same scalar
+code for element i: the forward pass emits one loop per run of such
+nodes (a stage, ended by whatever reads the vector as a scalar: a
+``VecSum`` sums it in f64, a constant-index ``Gather`` captures one
+element), and the reverse pass one loop per run that recomputes the
+body's values, seeds their adjoints from the stage's readers, and runs
+their adjoints back; a scalar's adjoint summed over the elements is
+accumulated in f64.
 
 Each derivative follows the convention of ``jax.grad`` (the reference):
 ``min``/``max`` split the adjoint at ties, ``abs`` has derivative 1 at 0,
@@ -41,12 +48,23 @@ to ``ainv[k + clamp(i, 0, K - 1)]``; one thread owns one chain, so the
 scatter needs no atomics.  A ``Lookup`` by an ``IntColumn`` compares the
 int index with each table entry, as for a float index.
 
+The row-invariant values that only a per-row gather reads have their
+adjoints accumulated in place over all rows; the ones every row reads
+come first in ``inv`` (``RT_NINV_DENSE``), and the kernel sums their
+adjoints in f32 per tile and f64 across tiles.
+
+A model over ``LOCAL_STATE_MAX`` parameters or row-invariant values keeps
+its chain state in a device-memory workspace (``RT_WS_FLOATS`` floats a
+chain, csrc/fused_hmc.cu): its functions then take ``__restrict__``
+pointers and its loops are unrolled by eight, so that loads of several
+elements are in flight.  Smaller models emit exactly the text they did
+before the workspace existed.
+
 Outside the envelope, :class:`UnsupportedNode` names what is wrong: a
 ``Gather`` whose source varies by row or whose index is neither a
 constant nor an ``IntColumn``, an ``IntColumn`` used as a value, a
-``RowSum`` below the top level, a model whose column-free terms reference
-columns, and a model over ``DIM_MAX`` parameters or ``NINV_MAX``
-row-invariant values, the caps of the one-thread-per-chain design.
+``RowSum`` below the top level, and a model whose column-free terms
+reference columns.
 """
 
 from __future__ import annotations
@@ -74,17 +92,17 @@ TILE_ROWS_MAX = 256
 TILE_ROWS_MIN = 32
 SMEM_BYTES_MAX = 232448
 
-# Caps of the one-thread-per-chain design, which keeps a chain's state as
-# float[RT_DIM] arrays in one thread (local memory past the registers)
-# and unrolls every vector node into scalars: at the caps the state
-# (seven arrays of RT_DIM floats) and the row-invariant values (RT_NINV
-# floats, twice, and RT_NINV doubles) are 11 KB a thread, and the emitted
-# source, which nvcc compiles at first use, grows with both (GLMMPoisson2,
-# 146 and 143, is some 3,300 lines).  Larger models
-# (benchmarks/models.py::glmm_large, with 10,002 parameters) need the
-# state in device memory and vector nodes emitted as loops.
-DIM_MAX = 256
-NINV_MAX = 256
+# Vectors longer than this are emitted as loops over their elements; the
+# funnel's 9, the README's 3 and the logistic's 10 stay unrolled
+UNROLL_MAX = 16
+
+# Over this many parameters or row-invariant values a chain's state
+# lives in the kernel's device-memory workspace, not in per-thread arrays
+LOCAL_STATE_MAX = 256
+
+# The workspace's arrays do not overlap: said to nvcc, it may issue the
+# loads of later elements before the stores of earlier ones
+_RESTRICT = " __restrict__"
 
 
 def tile_rows(row_width: int) -> int:
@@ -107,6 +125,9 @@ class EmittedDensity:
     row_width: int = 0    # floats of one row in a tile (0: no row terms)
     tile_rows: int = 0    # rows per tile (0 with row_width: too wide)
     n_rows: int = 0       # rows of the columns
+    n_inv: int = 0        # row-invariant values the row function reads
+    workspace: int = 0    # floats of one chain's slot in the kernel's
+                          # device-memory workspace (0: state in registers)
 
     def density_ops(self) -> int:
         """f32 operations of one density + gradient over all rows."""
@@ -177,8 +198,9 @@ def _children_checked(node):
 
 
 class _Emitter:
-    def __init__(self, cd):
+    def __init__(self, cd, ws: bool = False):
         self.cd = cd
+        self.ws = ws                      # state in the workspace
         self.fwd: list[str] = []
         self.rev: list[str] = []
         self.vals: dict[int, list[str]] = {}
@@ -191,10 +213,15 @@ class _Emitter:
         self.ints: dict[int, str] = {}    # IntColumn → its int32 in the row
         self.inv_base: dict[int, int] = {}  # row-invariant node → its
                                             # first slot in inv / ainv
+        self.loop_len: dict[int, int] = {}  # vector emitted as a loop over
+                                            # i → its length
+        self.mult = 1          # elements one emitted line stands for
+        self.loop_acc = None   # in a reverse loop body: scalar node id →
+                               # its adjoint's f64 sum over the elements
 
     # -- helpers ----------------------------------------------------------
     def size(self, node) -> int:
-        return len(self.vals[node.id])
+        return self.loop_len.get(node.id) or len(self.vals[node.id])
 
     def el(self, node, i: int) -> str:
         v = self.vals[node.id]
@@ -207,22 +234,38 @@ class _Emitter:
                 f"cannot broadcast vector lengths {sorted(sizes)}")
         return sizes.pop() if sizes else 1
 
-    def define(self, node, exprs: list[str], ops_each: int) -> None:
+    def width(self, nodes) -> tuple[int, int]:
+        """(length of the broadcast, expressions to emit): one, the loop
+        body's, where a node is a loop."""
+        n = self.bsize(nodes)
+        return n, 1 if any(k.id in self.loop_len for k in nodes) else n
+
+    def define(self, node, exprs: list[str], ops_each: int,
+               n: int = 0) -> None:
+        """Name each expression; a vector of length n > 1 given as one
+        expression is a loop."""
         names = []
         for i, e in enumerate(exprs):
             name = f"v{node.id}" + (f"_{i}" if len(exprs) > 1 else "")
             self.fwd.append(f"  const float {name} = {e};")
             names.append(name)
         self.vals[node.id] = names
-        self.fops += ops_each * len(exprs)
+        if len(exprs) == 1 and n > 1:
+            self.loop_len[node.id] = n
+        self.fops += ops_each * len(exprs) * self.mult
 
     def acc(self, node, i: int, expr: str, ops: int) -> None:
-        """adjoint(node)[i] += expr (broadcast children accumulate)."""
+        """adjoint(node)[i] += expr (broadcast children accumulate); in a
+        loop body a scalar's adjoint sums over the elements in f64."""
         if not self.grad[node.id]:
             return
-        a = self.adj[node.id]
-        self.rev.append(f"  {a[i if len(a) > 1 else 0]} += {expr};")
-        self.rops += ops + 1
+        if self.loop_acc is not None and node.id not in self.loop_len:
+            target = self.loop_acc.setdefault(node.id, f"t{node.id}")
+        else:
+            a = self.adj[node.id]
+            target = a[i if len(a) > 1 else 0]
+        self.rev.append(f"  {target} += {expr};")
+        self.rops += (ops + 1) * self.mult
 
     # -- forward ----------------------------------------------------------
     def forward(self, node) -> None:
@@ -238,8 +281,13 @@ class _Emitter:
             if node not in layout.parameters:
                 raise UnsupportedNode(f"parameter {node!r} outside layout")
             a, b = layout.slices[layout.parameters.index(node)]
-            self.vals[nid] = [f"q[{j}]" for j in range(a, b)]
-            self.adj[nid] = [f"g[{j}]" for j in range(a, b)]
+            if b - a > UNROLL_MAX:
+                self.loop_len[nid] = b - a
+                self.vals[nid] = [f"q[{a} + i]"]
+                self.adj[nid] = [f"g[{a} + i]"]
+            else:
+                self.vals[nid] = [f"q[{j}]" for j in range(a, b)]
+                self.adj[nid] = [f"g[{j}]" for j in range(a, b)]
             self.grad[nid] = True
             return
         kids = _children_checked(node)
@@ -267,23 +315,24 @@ class _Emitter:
 
         if isinstance(node, R.Unary):
             fmt, ops = _UNARY[node.op]
+            n, m = self.width([node.child])
             self.define(node, [fmt.format(x=self.el(node.child, i))
-                               for i in range(self.size(node.child))], ops)
+                               for i in range(m)], ops, n)
         elif isinstance(node, R.Binary):
-            n = self.bsize([node.left, node.right])
+            n, m = self.width([node.left, node.right])
             self.define(node, [_BINARY[node.op].format(
                 x=self.el(node.left, i), y=self.el(node.right, i))
-                for i in range(n)], 1)
+                for i in range(m)], 1, n)
         elif isinstance(node, R.NArySum):
-            n = self.bsize(node.children)
+            n, m = self.width(node.children)
             self.define(node, ["(" + " + ".join(
                 self.el(c, i) for c in node.children) + ")"
-                for i in range(n)], len(node.children) - 1)
+                for i in range(m)], len(node.children) - 1, n)
         elif isinstance(node, R.LogSumExp):
             # pairwise max, shifted exp sum: the lanes evaluator's formula
-            n = self.bsize(node.children)
+            n, w = self.width(node.children)
             ms, ss, outs = [], [], []
-            for i in range(n):
+            for i in range(w):
                 xs = [self.el(c, i) for c in node.children]
                 m = xs[0]
                 for x in xs[1:]:
@@ -296,44 +345,47 @@ class _Emitter:
                 ss.append(sname)
                 outs.append(f"{mname} + logf({sname})")
             self.fops += n * 4 * len(node.children)
-            self.define(node, outs, 2)
+            self.define(node, outs, 2, n)
             self.lse[nid] = (ms, ss)
         elif isinstance(node, R.Select):
-            n = self.bsize([node.left, node.right, node.if_true,
-                            node.if_false])
+            n, w = self.width([node.left, node.right, node.if_true,
+                               node.if_false])
             op = _PRED[node.pred]
             conds = []
-            for i in range(n):
+            for i in range(w):
                 c = f"c{nid}_{i}"
                 self.fwd.append(f"  const bool {c} = {self.el(node.left, i)}"
                                 f" {op} {self.el(node.right, i)};")
                 conds.append(c)
             self.define(node, [f"({c} ? {self.el(node.if_true, i)} : "
                                f"{self.el(node.if_false, i)})"
-                               for i, c in enumerate(conds)], 2)
+                               for i, c in enumerate(conds)], 2, n)
         elif isinstance(node, R.Compare):
-            n = self.bsize([node.left, node.right])
+            n, w = self.width([node.left, node.right])
             self.define(node, [f"rt_sign({self.el(node.left, i)} - "
                                f"{self.el(node.right, i)})"
-                               for i in range(n)], 2)
+                               for i in range(w)], 2, n)
         elif isinstance(node, R.Lookup):
             int_ix = self.ints.get(node.index.id)
-            n = self.bsize(list(node.table) if int_ix else
-                           [node.index] + list(node.table))
+            n, w = self.width(list(node.table) if int_ix else
+                              [node.index] + list(node.table))
             outs = []
-            for i in range(n):
+            for i in range(w):
                 ix = f"i{nid}_{i}"
                 src = int_ix or f"rt_f2i({self.el(node.index, i)})"
                 self.fwd.append(f"  const int {ix} = {src} - {node.low};")
                 outs.append("(" + " + ".join(
                     f"({ix} == {k} ? {self.el(t, i)} : 0.0f)"
                     for k, t in enumerate(node.table)) + ")")
-            self.define(node, outs, 2 * len(node.table))
+            self.define(node, outs, 2 * len(node.table), n)
         elif isinstance(node, (R.VecSum, R.RowSum)):
             # a RowSum reaches here only with a column-free child, which
             # every row adds once (compiler.py's tile_fn: child · Σmask)
             c = node.child
-            if self.size(c) == 1:
+            if c.id in self.loop_len:
+                # the child's loop sums it into r<id> in f64
+                self.define(node, [f"(float)r{nid}"], 0)
+            elif self.size(c) == 1:
                 self.define(node, [f"({self.el(c, 0)} * "
                                    f"{_lit(_count(node))})"], 1)
             else:
@@ -352,7 +404,10 @@ class _Emitter:
         elif isinstance(node, R.Gather):
             k = self.size(node.source)
             j = _static_slot(node, k)
-            if j is not None:
+            if j is not None and node.source.id in self.loop_len:
+                # the source's loop keeps element j in k<id>
+                self.define(node, [f"k{nid}"], 0)
+            elif j is not None:
                 self.define(node, [self.el(node.source, j)], 0)
             else:
                 # per-row index into the source's block of inv: clamp and
@@ -403,7 +458,9 @@ class _Emitter:
                     self.acc(t, i, f"({ix} == {k} ? {a} : 0.0f)", 1)
             elif isinstance(node, (R.VecSum, R.RowSum)):
                 c = node.child
-                if self.size(c) == 1:
+                if c.id in self.loop_len:
+                    pass        # seeded in the child's loop
+                elif self.size(c) == 1:
                     self.acc(c, 0, f"{a} * {_lit(_count(node))}", 1)
                 else:
                     for j in range(self.size(c)):
@@ -414,7 +471,9 @@ class _Emitter:
                     self.acc(node.vec, j, f"{a} * x[{off + j}]", 1)
             elif isinstance(node, R.Gather):
                 j = _static_slot(node, self.size(node.source))
-                if j is not None:
+                if j is not None and node.source.id in self.loop_len:
+                    pass        # seeded in the source's loop
+                elif j is not None:
                     self.acc(node.source, j, a, 0)
                 elif self.grad[node.source.id]:
                     # the scatter: the thread owns its chain's ainv
@@ -468,10 +527,11 @@ def _count(node) -> int:
 
 
 def _seeds(em, roots) -> list[str]:
-    """adjoint(root) += 1 for every root that depends on q."""
+    """adjoint(root) += 1 for every root that depends on q (a loop's root
+    is seeded in its loop)."""
     out = []
     for r in roots:
-        if em.grad[r.id]:
+        if em.grad[r.id] and r.id not in em.loop_len:
             a = em.adj[r.id]
             out += [f"  {a[i if len(a) > 1 else 0]} += 1.0f;"
                     for i in range(em.size(r))]
@@ -479,21 +539,191 @@ def _seeds(em, roots) -> list[str]:
 
 
 def _decls(em, nodes) -> list[str]:
+    """The scalar adjoints (a loop's are declared in its body)."""
     return [f"  float {a} = 0.0f;" for node in nodes
-            if em.grad.get(node.id)
+            if em.grad.get(node.id) and node.id not in em.loop_len
             and not isinstance(node, (R.Parameter, R.VectorParameter))
             for a in em.adj[node.id]]
 
 
-def _straight_line(cd, roots):
-    """Forward and reverse pass over `roots`: (emitter, order)."""
-    em = _Emitter(cd)
+def _indent(lines):
+    return ["  " + line for line in lines]
+
+
+class _Loop:
+    """One loop of a function: vector nodes of one length k computed in
+    one stage, and what reads them there (`outs`: (kind, vector node,
+    reader) with kind "sum" for a VecSum or RowSum, "capture" for a
+    constant-index Gather, "root" for a root of the function)."""
+
+    def __init__(self, k):
+        self.k = k
+        self.outs = []
+        self.body = []       # the nodes computed in the body, in order
+
+
+def _program(em, roots, total=False, store=None, seed=None,
+             reverse=True):
+    """Code of one function over `roots` on the emitter `em`:
+    (forward lines, reverse lines, terms of the roots' sum).
+
+    Each node has a stage: a scalar that reads a loop's vector (its sum
+    or one element) is one stage after it, every other node the latest
+    of its children.
+    The forward pass emits, stage by stage, the stage's scalars and then
+    one loop per length over the vectors its readers need, recomputing
+    vectors of earlier stages that the body reads; the reverse pass runs
+    the stages backwards, each loop recomputing its body, seeding the
+    adjoints of what its readers read and running the body's adjoints
+    back.  A looped root adds to the total through an f64 sum (`total`),
+    or `store(node, "i", value)` writes it out; `seed(node, "i")` is added
+    to its adjoint (with `total`, 1).  `reverse=False` emits the forward
+    pass only."""
     order = R.topological(roots)
-    for node in order:
+    for node in order:                 # lengths and gradient flags
         em.forward(node)
-    for node in reversed(order):
-        em.backward(node)
-    return em, order
+    looped = dict(em.loop_len)
+    stage = {}
+    for node in order:
+        stage[node.id] = max([stage[c.id] + (c.id in looped
+                                             and node.id not in looped)
+                              for c in R.children_of(node)], default=0)
+    loops = {}
+
+    def out(kind, c, reader=None):
+        key = (stage[c.id], looped[c.id])
+        loops.setdefault(key, _Loop(key[1])).outs.append((kind, c, reader))
+
+    for node in order:
+        if node.id not in looped:
+            for c in set(R.children_of(node)):
+                if c.id not in looped:
+                    continue
+                if not isinstance(node, (R.Gather, R.VecSum, R.RowSum)):
+                    raise UnsupportedNode(
+                        f"{type(node).__name__} reading a vector of "
+                        f"{looped[c.id]} as a scalar is not supported by "
+                        "the CUDA emitter")
+                out("capture" if isinstance(node, R.Gather) else "sum", c,
+                    node)
+    for r in roots:
+        if r.id in looped:
+            out("root", r)
+    for loop in loops.values():
+        need = {c.id for _, c, _ in loop.outs}
+        for node in reversed(order):
+            if node.id in need:
+                need.update(c.id for c in R.children_of(node)
+                            if c.id in looped)
+        loop.body = [n for n in order if n.id in need]
+
+    em.vals, em.adj, em.lse, em.fops = {}, {}, {}, 0
+    fwd, rev = [], []
+    n_stages = max(stage.values()) + 1
+    for s in range(n_stages):
+        em.fwd = fwd
+        for node in order:
+            if stage[node.id] == s and node.id not in looped:
+                em.forward(node)
+        for (ls, _), loop in sorted(loops.items()):
+            if ls == s:
+                fwd += _loop_forward(em, loop, total, store)
+    terms = [t for r in roots for t in (
+        [f"(float)r{r.id}"] if r.id in looped
+        else [em.el(r, i) for i in range(em.size(r))])]
+    for s in reversed(range(n_stages if reverse else 0)):
+        for (ls, _), loop in sorted(loops.items(), reverse=True):
+            if ls == s:
+                rev += _loop_reverse(em, loop, total, seed)
+        em.rev = rev
+        for node in reversed(order):
+            if stage[node.id] == s and node.id not in looped:
+                em.backward(node)
+    em.fwd, em.rev = fwd, rev
+    return fwd, rev, terms
+
+
+def _loop_body(em, loop):
+    """The body's forward lines, its nodes (re)defined for element i."""
+    for n in loop.body:
+        em.vals.pop(n.id, None)
+    em.fwd, em.mult = [], loop.k
+    for n in loop.body:
+        em.forward(n)
+    return em.fwd
+
+
+def _loop(em, k, pre, body, post):
+    """A loop over the k elements.  In registers nvcc would unroll it to
+    keep the arrays there; over the workspace, unrolling by eight keeps
+    loads of several elements in flight."""
+    return [*pre, f"#pragma unroll {8 if em.ws else 1}",
+            f"  for (int i = 0; i < {k}; ++i) {{", *_indent(body), "  }",
+            *post]
+
+
+def _loop_forward(em, loop, total, store):
+    """The forward loop: the body, then each reader's sum or element, and
+    the roots' sum or store.  Empty where nothing reads the body in the
+    forward pass."""
+    if not any(kind != "root" or total or store is not None
+               for kind, _, _ in loop.outs):
+        return []
+    body = _loop_body(em, loop)
+    pre = []
+    for kind, c, reader in loop.outs:
+        v = em.el(c, 0)
+        if kind == "sum":
+            pre.append(f"  double r{reader.id} = 0.0;")
+            body.append(f"  r{reader.id} += {v};")
+            em.fops += loop.k
+        elif kind == "capture":
+            j = _static_slot(reader, loop.k)
+            pre.append(f"  float k{reader.id} = 0.0f;")
+            body.append(f"  if (i == {j}) k{reader.id} = {v};")
+        elif total:
+            pre.append(f"  double r{c.id} = 0.0;")
+            body.append(f"  r{c.id} += {v};")
+            em.fops += loop.k
+        elif store is not None:
+            body.append(store(c, "i", v))
+    em.mult = 1
+    return _loop(em, loop.k, pre, body, [])
+
+
+def _loop_reverse(em, loop, total, seed):
+    """The reverse loop: the body recomputed, its adjoints declared and
+    seeded from its readers (and roots), then run back; scalars' adjoints
+    are summed over the elements in f64 and added after the loop."""
+    body = _loop_body(em, loop)
+    for n in loop.body:
+        if em.grad[n.id] and not isinstance(n, R.VectorParameter):
+            em.adj[n.id] = [f"a{n.id}"]
+            body.append(f"  float a{n.id} = 0.0f;")
+    for kind, c, reader in loop.outs:
+        if not em.grad[c.id]:
+            continue
+        a = em.adj[c.id][0]
+        if kind == "sum" and em.grad[reader.id]:
+            body.append(f"  {a} += {em.adj[reader.id][0]};")
+        elif kind == "capture" and em.grad[reader.id]:
+            j = _static_slot(reader, loop.k)
+            body.append(f"  {a} += (i == {j} ? {em.adj[reader.id][0]} "
+                        ": 0.0f);")
+        elif kind == "root" and (total or seed is not None):
+            body.append(f"  {a} += {'1.0f' if total else seed(c, 'i')};")
+        else:
+            continue
+        em.rops += loop.k
+    em.rev, em.loop_acc = body, {}
+    for n in reversed(loop.body):
+        em.backward(n)
+    accs, em.loop_acc, em.mult = em.loop_acc, None, 1
+    # a block of its own: another loop may sum into the same scalars
+    return ["  {", *_indent(_loop(
+        em, loop.k, [f"  double {t} = 0.0;" for t in accs.values()], body,
+        [f"  {em.adj[nid][0]} += (float){t};" for nid, t in accs.items()])),
+        "  }"]
 
 
 def _row_layout(cd):
@@ -546,45 +776,68 @@ def _row_dependence(order) -> dict:
     return dep
 
 
-def _emit_rows(cd, row_roots):
+def _emit_rows(cd, row_roots, ws):
     """The per-row part of a data model: (C lines, row ops, invariant
-    ops, row width, per-column load widths)."""
+    ops, row width, n_rows, row-invariant values)."""
     order = R.topological(row_roots)
     dep = _row_dependence(order)
     n_rows = {c.n_rows for c in cd.columns}
     if len(n_rows) != 1:
         raise UnsupportedNode(f"columns of different lengths {sorted(n_rows)}"
                               " are not supported by the CUDA emitter")
-    # row-invariant inputs of the row function, computed once per call
-    frontier, seen = [], set()
+    # row-invariant inputs of the row function, computed once per call;
+    # `dense`: the ones some row reads other than by a per-row gather
+    frontier, seen, dense = [], set(), set()
     for node in order:
         if dep[node.id]:
             for k in R.children_of(node):
-                if (not dep[k.id] and not isinstance(k, R.Constant)
-                        and k.id not in seen):
+                if dep[k.id] or isinstance(k, R.Constant):
+                    continue
+                if k.id not in seen:
                     seen.add(k.id)
                     frontier.append(k)
-    pre, pre_order = _straight_line(cd, frontier)
-
-    row = _Emitter(cd)
-    store, post_seeds, k = [], [], 0
+                if not (isinstance(node, R.Gather) and k is node.source
+                        and isinstance(node.index, R.IntColumn)):
+                    dense.add(k.id)
+    sizer = _Emitter(cd, ws)
+    for node in R.topological(frontier):
+        sizer.forward(node)
+    size = {f.id: sizer.size(f) for f in frontier}
+    dense |= {f.id for f in frontier if size[f.id] == 1}
+    # inv: the dense values first, then the gathered blocks
+    frontier = ([f for f in frontier if f.id in dense]
+                + [f for f in frontier if f.id not in dense])
+    base, k = {}, 0
     for f in frontier:
-        size = pre.size(f)
-        row.vals[f.id] = [f"inv[{k + i}]" for i in range(size)]
-        row.inv_base[f.id] = k
-        row.grad[f.id] = pre.grad[f.id]
-        store += [f"  inv[{k + i}] = {pre.el(f, i)};" for i in range(size)]
-        if pre.grad[f.id]:
-            row.adj[f.id] = [f"ainv[{k + i}]" for i in range(size)]
-            a = pre.adj[f.id]
-            post_seeds += [f"  {a[i if len(a) > 1 else 0]} += ainv[{k + i}];"
-                           for i in range(size)]
-        k += size
+        base[f.id], k = k, k + size[f.id]
     n_inv = k
-    if n_inv > NINV_MAX:
-        raise UnsupportedNode(
-            f"the row function reads {n_inv} row-invariant values, over the "
-            f"fused kernel's cap of {NINV_MAX} (RT_NINV)")
+    n_dense = sum(size[f] for f in dense)
+
+    pre = _Emitter(cd, ws)
+    pre_fwd, _, _ = _program(
+        pre, frontier, reverse=False,
+        store=lambda f, i, v: f"  inv[{base[f.id]} + {i}] = {v};")
+    post = _Emitter(cd, ws)
+    post_fwd, post_rev, _ = _program(
+        post, frontier,
+        seed=lambda f, i: f"ainv[{base[f.id]} + {i}]")
+
+    row = _Emitter(cd, ws)
+    store, post_seeds = [], []
+    for f in frontier:
+        b, looped = base[f.id], f.id in pre.loop_len
+        row.vals[f.id] = [f"inv[{b + i}]" for i in range(size[f.id])]
+        row.inv_base[f.id] = b
+        row.grad[f.id] = pre.grad[f.id]
+        if not looped:
+            store += [f"  inv[{b + i}] = {pre.el(f, i)};"
+                      for i in range(size[f.id])]
+        if pre.grad[f.id]:
+            row.adj[f.id] = [f"ainv[{b + i}]" for i in range(size[f.id])]
+            a = post.adj[f.id]
+            if not looped:
+                post_seeds += [f"  {a[i if len(a) > 1 else 0]} += "
+                               f"ainv[{b + i}];" for i in range(size[f.id])]
     offs, widths, width = _row_layout(cd)
     for c in cd.columns:
         row.grad[c.id] = False
@@ -623,18 +876,23 @@ def _emit_rows(cd, row_roots):
                      f"    tile[r * RT_ROW_W + {o} + i - r * {w}] = "
                      f"cols.c{j}[(size_t)row0 * {w} + i];",
                      "  }"]
+    r = _RESTRICT if ws else ""
     lines = [
         f"#define RT_NINV {n_inv}",
         f"#define RT_NINV_ALLOC {n_ninv}",
+        *([f"#define RT_NINV_DENSE {n_dense}",
+           f"#define RT_NINV_DENSE_ALLOC {max(n_dense, 1)}"]
+          if n_dense != n_inv else []),
         "",
         "// the row-invariant values the row function reads",
-        "RT_HD void rt_rows_pre(const float* q, float* inv) {",
-        *pre.fwd, *store,
+        f"RT_HD void rt_rows_pre(const float*{r} q, float*{r} inv) {{",
+        *pre_fwd, *store,
         "}",
         "",
         "// one row's log-density; adds its adjoints of the row-invariant",
         "// values into ainv",
-        "RT_HD float rt_row(const float* x, const float* inv, float* ainv) {",
+        f"RT_HD float rt_row(const float*{r} x, const float*{r} inv, "
+        f"float*{r} ainv) {{",
         *row.fwd,
         *_decls(row, [n for n in order if dep[n.id]]),
         *seeds, *row.rev,
@@ -643,9 +901,10 @@ def _emit_rows(cd, row_roots):
         "",
         "// the reverse pass of the row-invariant values, from the adjoints",
         "// summed over all rows; adds into g",
-        "RT_HD void rt_rows_post(const float* q, const float* ainv, "
-        "float* g) {",
-        *pre.fwd, *_decls(pre, pre_order), *post_seeds, *pre.rev,
+        f"RT_HD void rt_rows_post(const float*{r} q, const float*{r} ainv, "
+        f"float*{r} g) {{",
+        *post_fwd, *_decls(post, R.topological(frontier)), *post_seeds,
+        *post_rev,
         "}",
         "",
         "// rows [row0, row0 + rows) of every column into the tile, thread",
@@ -656,8 +915,8 @@ def _emit_rows(cd, row_roots):
         "}",
     ]
     row_ops = row.fops + row.rops + len(row_roots)
-    inv_ops = 2 * pre.fops + pre.rops + len(post_seeds)
-    return lines, row_ops, inv_ops, width, n_rows.pop()
+    inv_ops = pre.fops + post.fops + post.rops + len(post_seeds)
+    return lines, row_ops, inv_ops, width, n_rows.pop(), n_inv
 
 
 def _cols_struct(columns):
@@ -690,17 +949,26 @@ _EMITTED = weakref.WeakKeyDictionary()
 def emit(cd) -> EmittedDensity:
     """C source of the density for the CompiledDensity `cd`:
     ``rt_logp_grad`` over the column-free terms and, for a model with
-    data, the row functions and tile loader of its RowSum likelihoods."""
+    data, the row functions and tile loader of its RowSum likelihoods;
+    with the chain state in the kernel's workspace where the model has
+    over LOCAL_STATE_MAX parameters or row-invariant values."""
     if cd not in _EMITTED:
-        _EMITTED[cd] = _emit(cd)
+        em = _emit(cd, cd.n_vars > LOCAL_STATE_MAX)
+        if not em.workspace and em.n_inv > LOCAL_STATE_MAX:
+            em = _emit(cd, True)
+        _EMITTED[cd] = em
     return _EMITTED[cd]
 
 
-def _emit(cd) -> EmittedDensity:
-    if cd.n_vars > DIM_MAX:
-        raise UnsupportedNode(
-            f"the model has {cd.n_vars} parameters, over the fused kernel's "
-            f"cap of {DIM_MAX} (RT_DIM)")
+def workspace_floats(n_vars: int, n_inv: int, rows: bool) -> int:
+    """Floats of one chain's slot of the workspace: the seven state
+    arrays (sc, q, g, qn, gn, p, x) and, with rows, inv and ainv, rounded
+    up to an even count (csrc/fused_hmc.cu, RT_WS_FLOATS)."""
+    n = 7 * n_vars + (2 * max(n_inv, 1) if rows else 0)
+    return n + n % 2
+
+
+def _emit(cd, ws: bool) -> EmittedDensity:
     row_lh = [l for l in cd.likelihoods if isinstance(l, R.RowSum)
               and cd.columns and find_columns([l.child])]
     if cd.columns and cd.logp_lanes_split_fn() is None:
@@ -709,13 +977,15 @@ def _emit(cd) -> EmittedDensity:
             "density has no base/row split for the CUDA emitter")
     row_ids = {l.id for l in row_lh}
     roots = [l for l in cd.likelihoods if l.id not in row_ids] + [cd._prior]
-    em, order = _straight_line(cd, roots)
-    total = [em.el(r, i) for r in roots for i in range(em.size(r))]
+    em = _Emitter(cd, ws)
+    fwd, rev, total = _program(em, roots, total=True)
     lp_ops = max(len(total) - 1, 0)
     n = cd.n_vars
-    rows, row_ops, inv_ops, width, n_rows = (
-        _emit_rows(cd, [l.child for l in row_lh]) if row_lh
-        else ([], 0, 0, 0, 0))
+    rows, row_ops, inv_ops, width, n_rows, n_inv = (
+        _emit_rows(cd, [l.child for l in row_lh], ws) if row_lh
+        else ([], 0, 0, 0, 0, 0))
+    slot = workspace_floats(n, n_inv, bool(row_lh)) if ws else 0
+    r = _RESTRICT if ws else ""
     tile = tile_rows(width) if width else 0
     src = "\n".join([
         "// Generated by rainier_tpu_torch.compute.emit_cuda: the model's",
@@ -726,16 +996,17 @@ def _emit(cd) -> EmittedDensity:
         f"#define RT_DIM {n}",
         f"#define RT_ROW_W {width}",
         f"#define RT_TILE {max(tile, 1)}",
+        *([f"#define RT_WS_FLOATS {slot}"] if ws else []),
         "",
         *_cols_struct(cd.columns),
         "",
-        "RT_HD float rt_logp_grad(const float* q, float* g) {",
+        f"RT_HD float rt_logp_grad(const float*{r} q, float*{r} g) {{",
         f"  for (int j = 0; j < {n}; ++j) g[j] = 0.0f;",
-        *em.fwd,
+        *fwd,
         "  const float lp = " + (" + ".join(total) or "0.0f") + ";",
-        *_decls(em, order),
+        *_decls(em, R.topological(roots)),
         *_seeds(em, roots),
-        *em.rev,
+        *rev,
         "  return lp;",
         "}",
         "",
@@ -745,4 +1016,4 @@ def _emit(cd) -> EmittedDensity:
     return EmittedDensity(source=src, n_vars=n,
                           ops=em.fops + lp_ops + em.rops + inv_ops,
                           row_ops=row_ops, row_width=width, tile_rows=tile,
-                          n_rows=n_rows)
+                          n_rows=n_rows, n_inv=n_inv, workspace=slot)

@@ -133,9 +133,13 @@ def _to_numpy(tree):
 class Trace:
     def __init__(self, chains, model, compiled, config,
                  mass=None, stats=None, warmup_stats=None, step_size=None,
-                 collect_idx=None, walltime: Optional[float] = None):
+                 collect_idx=None, walltime: Optional[float] = None,
+                 final_q=None):
         #: (n_chains, n_iters, n_collect) host draws
         self.chains = np.asarray(chains)
+        #: (n_chains, n_vars) every chain's last state, all coordinates
+        #: whatever `collect_idx` kept: where a run continues from
+        self.final_q = None if final_q is None else np.asarray(final_q)
         self.model = model
         self.compiled = compiled
         self.config = config
@@ -159,7 +163,8 @@ class Trace:
             mass=_to_numpy(result.mass), stats=_to_numpy(result.stats),
             warmup_stats=_to_numpy(result.warmup_stats),
             step_size=result.step_size.detach().cpu().numpy(),
-            collect_idx=collect_idx, walltime=walltime)
+            collect_idx=collect_idx, walltime=walltime,
+            final_q=result.final_q.detach().cpu().numpy())
 
     # -- basic shape ------------------------------------------------------
     @property

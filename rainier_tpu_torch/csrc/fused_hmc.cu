@@ -5,13 +5,16 @@
 // rainier_tpu_torch/ops/fused_hmc.py for the wrapper, the plain PyTorch
 // version and the notes on what bounds this kernel.
 //
-// One thread owns one chain for the whole sampling phase.  Its position,
-// momentum, gradient and proposal live in registers as float[RT_DIM];
+// One thread owns one chain for the whole sampling phase.  For a model of
+// up to 256 parameters and row-invariant values (emit_cuda.
+// LOCAL_STATE_MAX) its position, momentum, gradient and proposal are
+// per-thread arrays float[RT_DIM] in registers and local memory, and
 // nothing touches device memory between the load of q0 and the final
 // stores except the collected draws, written as
-// samples[it / collect_every][d][chain] so neighbouring threads write
-// neighbouring addresses, and the data columns.  The model's density and
-// gradient come from the generated rt_model.h (compute/emit_cuda.py),
+// samples[it / collect_every][j][chain] for the j-th collected
+// coordinate so neighbouring threads write neighbouring addresses, and
+// the data columns.  The model's density and gradient come from the
+// generated rt_model.h (compute/emit_cuda.py),
 // evaluated in natural coordinates; the loop runs in standardized
 // coordinates q' = q / sqrt(S) for the adapted mass diagonal S, exactly
 // as hmc_pallas.py:224-240 does.
@@ -35,23 +38,48 @@
 // own type (int32 for an IntColumn), and the loader keeps an index's bits
 // in its float slot of the tile.  A gather of a row-invariant vector by
 // that index reads the chain's inv[] at a per-row offset, and its adjoint
-// adds into the chain's ainv[] there; with a dynamic index both arrays
-// live in local memory (RT_NINV floats each, capped by the emitter).
+// adds into the chain's ainv[] there.
+//
+// Larger models (the header defines RT_WS_FLOATS) keep every per-chain
+// array in a workspace in device memory that the wrapper allocates: one
+// slot of RT_WS_FLOATS floats per thread, the ragged edge's copies
+// included, holding the seven state arrays and inv/ainv contiguously.
+// The loops over the state and the emitted vector loops then run over
+// memory, not unrolled registers.  A thread walks its own arrays in
+// order, so one 128-byte line brought into L1 serves 32 elements; an
+// interleaved layout, where a warp's 32 chains share each line, was
+// slower on the card, since every element is then a line of its own and
+// one warp per SM has few loads in flight.  What bounds the kernel is the
+// latency of those passes (about 25 over arrays of RT_DIM floats per
+// density call) and of the rows, with one warp on each SM: the wrapper
+// launches blocks of fewer threads for such models, spreading the chains
+// over every SM.
 //
 // Summation error.  Each tile's rows are summed in f32 (the error of a
 // sequential sum of R terms is at most about R·u·Σ|terms|, u = 6e-8, and
 // typically √R·u·Σ|terms|), and the tile totals of lp and of every
-// row-invariant adjoint are accumulated in f64, so the error does not
-// grow with the number of tiles beyond a random walk of the per-tile
-// errors.  For the 100k-row logistic regression (R = 256, ~0.3 nats a
-// row) that is ~1e-4 per tile and ~2e-3 nats in all, plus half an ulp
-// (~2e-3) when the f64 total is rounded to f32, against a per-chain f32
-// running sum's O(0.1).
+// row-invariant adjoint that all rows read (the first RT_NINV_DENSE of
+// inv) are accumulated in f64, so the error does not grow with the
+// number of tiles beyond a random walk of the per-tile errors.  For the
+// 100k-row logistic regression (R = 256, ~0.3 nats a row) that is ~1e-4
+// per tile and ~2e-3 nats in all, plus half an ulp (~2e-3) when the f64
+// total is rounded to f32, against a per-chain f32 running sum's O(0.1).
+// A model with its state in the workspace sums its rows in f64
+// (rt_row_sum) and rounds lp once: at glmm_large's 50,000 rows and
+// |lp| ~ 1e5, f32 tile sums and two roundings drift by a few ulps of lp.
+// The register models keep f32 tile sums: f64 row sums made
+// GLMMPoisson2's kernel 7% slower and the README regression's 2% on an
+// H100 (rainier_tpu_torch/tools/kernel_ab.py row-sums).  The adjoint of
+// a block that only a per-row gather reads accumulates in place in f32:
+// each entry receives its own rows only (5 a group effect in glmm_large,
+// 40 or 100 in GLMMPoisson2), and flushing every entry each tile would
+// cost more than the rows.
 //
 // The same file compiles as host C++ (no __CUDACC__): rt_fused_hmc_host
-// then runs the chains one after another through the same tile loop, with
-// the "block" one thread, which is how the CPU tests check the loop and
-// the generated adjoints without a card.
+// then runs every slot of the launch's blocks one after another through
+// the same tile loop, with the "block" one thread, which is how the CPU
+// tests check the loop, the ragged edge and the generated adjoints
+// without a card.
 #include "philox.cuh"
 #include "rt_model.h"
 
@@ -70,124 +98,243 @@
 #define RT_NTHREADS 1
 #endif
 
+#if RT_ROW_W > 0
+#define RT_WS_NINV RT_NINV_ALLOC
+#ifndef RT_NINV_DENSE
+#define RT_NINV_DENSE RT_NINV
+#define RT_NINV_DENSE_ALLOC RT_NINV_ALLOC
+#endif
+#else
+#define RT_WS_NINV 0
+#endif
+
+// A chain's arrays: per-thread arrays, fully unrolled loops over them; or
+// arrays in the thread's slot of the workspace at offset `off`, loops
+// unrolled by four.  RT_STATE(name, n, off) declares one.
+#ifdef RT_WS_FLOATS
+static_assert(RT_WS_FLOATS >= 7 * RT_DIM + 2 * RT_WS_NINV,
+              "the workspace slot holds every per-chain array");
+#define RT_UNROLL _Pragma("unroll 4")
+#define RT_STATE(name, n, off) float* name = ws + (off)
+typedef double rt_row_sum;
+#else
+#define RT_UNROLL _Pragma("unroll")
+#define RT_STATE(name, n, off) float name[n]
+typedef float rt_row_sum;
+#endif
+#define RT_OFF_X (6 * RT_DIM)
+#define RT_OFF_INV (7 * RT_DIM)
+
+// The loops over a chain's arrays take pointers that do not alias, so
+// that over the workspace the loads of later elements may be issued
+// before the stores of earlier ones.
+
+// out = a * b
+RT_HD void rt_mul(float* __restrict__ out, const float* __restrict__ a,
+                  const float* __restrict__ b) {
+  RT_UNROLL
+  for (int d = 0; d < RT_DIM; ++d) out[d] = a[d] * b[d];
+}
+
+// g = b * g
+RT_HD void rt_mul_in(float* __restrict__ g, const float* __restrict__ b) {
+  RT_UNROLL
+  for (int d = 0; d < RT_DIM; ++d) g[d] = b[d] * g[d];
+}
+
+// the first leapfrog step's kick and drift: p += h * g, qn = q + eps * p
+RT_HD void rt_kick_drift(float* __restrict__ p, float* __restrict__ qn,
+                         const float* __restrict__ q,
+                         const float* __restrict__ g, float h, float eps) {
+  RT_UNROLL
+  for (int d = 0; d < RT_DIM; ++d) {
+    p[d] = p[d] + h * g[d];
+    qn[d] = q[d] + eps * p[d];
+  }
+}
+
+// a later step's: p += eps * gn, qn += eps * p
+RT_HD void rt_kick_drift_in(float* __restrict__ p, float* __restrict__ qn,
+                            const float* __restrict__ gn, float eps) {
+  RT_UNROLL
+  for (int d = 0; d < RT_DIM; ++d) {
+    p[d] = p[d] + eps * gn[d];
+    qn[d] = qn[d] + eps * p[d];
+  }
+}
+
+// the last half kick, p += h * gn; returns p·p
+RT_HD float rt_kick_energy(float* __restrict__ p,
+                           const float* __restrict__ gn, float h) {
+  float k = 0.0f;
+  RT_UNROLL
+  for (int d = 0; d < RT_DIM; ++d) {
+    p[d] = p[d] + h * gn[d];
+    k += p[d] * p[d];
+  }
+  return k;
+}
+
+// the accept: q = qn, g = gn
+RT_HD void rt_take(float* __restrict__ q, float* __restrict__ g,
+                   const float* __restrict__ qn,
+                   const float* __restrict__ gn) {
+  RT_UNROLL
+  for (int d = 0; d < RT_DIM; ++d) {
+    q[d] = qn[d];
+    g[d] = gn[d];
+  }
+}
+
+// one draw of chain c of n into out[j * n + c]: for a model with its
+// state in the workspace, the coordinates collect_pos names (all where it
+// is null); otherwise every coordinate, which the wrapper slices (a load
+// and a branch per coordinate here changed the code of the whole chain
+// loop and slowed the row-tiled kernels on the card)
+RT_HD void rt_collect(float* __restrict__ out, const float* __restrict__ q,
+                      const float* __restrict__ sc,
+                      const int* __restrict__ collect_pos, int n, int c) {
+#ifdef RT_WS_FLOATS
+  RT_UNROLL
+  for (int d = 0; d < RT_DIM; ++d) {
+    const int j = collect_pos == 0 ? d : collect_pos[d];
+    if (j >= 0) out[(size_t)j * n + c] = q[d] * sc[d];
+  }
+#else
+  (void)collect_pos;
+  RT_UNROLL
+  for (int d = 0; d < RT_DIM; ++d) out[(size_t)d * n + c] = q[d] * sc[d];
+#endif
+}
+
 // log-density and gradient at natural coordinates x for one chain: the
 // column-free terms, then the row terms over every tile of the columns
+// `ws`: the thread's base in the workspace (unused for small models)
 RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
-                       int n_rows, float* tile) {
+                       int n_rows, float* tile, float* ws) {
   float lp = rt_logp_grad(x, g);
 #if RT_ROW_W > 0
-  float inv[RT_NINV_ALLOC], ainv[RT_NINV_ALLOC];
-  double ainv_acc[RT_NINV_ALLOC];
+  RT_STATE(inv, RT_NINV_ALLOC, RT_OFF_INV);
+  RT_STATE(ainv, RT_NINV_ALLOC, RT_OFF_INV + RT_NINV_ALLOC);
+  double ainv_acc[RT_NINV_DENSE_ALLOC];
   double lp_acc = 0.0;
   rt_rows_pre(x, inv);
+  // the gathered blocks' adjoints accumulate over every tile
+  RT_UNROLL
+  for (int k = RT_NINV_DENSE; k < RT_NINV; ++k) ainv[k] = 0.0f;
 #pragma unroll
-  for (int k = 0; k < RT_NINV_ALLOC; ++k) ainv_acc[k] = 0.0;
+  for (int k = 0; k < RT_NINV_DENSE; ++k) ainv_acc[k] = 0.0;
   for (int row0 = 0; row0 < n_rows; row0 += RT_TILE) {
     const int rows = n_rows - row0 < RT_TILE ? n_rows - row0 : RT_TILE;
     rt_fill_tile(tile, cols, row0, rows, RT_TID, RT_NTHREADS);
     RT_TILE_SYNC();
-    float lp_t = 0.0f;
+    rt_row_sum lp_t = 0.0f;
 #pragma unroll
-    for (int k = 0; k < RT_NINV_ALLOC; ++k) ainv[k] = 0.0f;
+    for (int k = 0; k < RT_NINV_DENSE; ++k) ainv[k] = 0.0f;
 #pragma unroll 4
     for (int r = 0; r < rows; ++r)
       lp_t += rt_row(tile + r * RT_ROW_W, inv, ainv);
     lp_acc += (double)lp_t;
 #pragma unroll
-    for (int k = 0; k < RT_NINV_ALLOC; ++k) ainv_acc[k] += (double)ainv[k];
+    for (int k = 0; k < RT_NINV_DENSE; ++k)
+      ainv_acc[k] += (double)ainv[k];
     RT_TILE_SYNC();
   }
 #pragma unroll
-  for (int k = 0; k < RT_NINV_ALLOC; ++k) ainv[k] = (float)ainv_acc[k];
+  for (int k = 0; k < RT_NINV_DENSE; ++k)
+    ainv[k] = (float)ainv_acc[k];
   rt_rows_post(x, ainv, g);
+#ifdef RT_WS_FLOATS
+  lp = (float)((double)lp + lp_acc);
+#else
   lp += (float)lp_acc;
+#endif
+#else
+  (void)cols, (void)n_rows, (void)tile, (void)ws;
 #endif
   return lp;
 }
 
 // density + gradient at standardized q: x = q * sc, grad = sc * dlogp/dx
 RT_HD float rt_lp_grad(const float* q, const float* sc, float* g,
-                       const RtCols& cols, int n_rows, float* tile) {
-  float x[RT_DIM];
-#pragma unroll
-  for (int d = 0; d < RT_DIM; ++d) x[d] = q[d] * sc[d];
-  const float lp = rt_density(x, g, cols, n_rows, tile);
-#pragma unroll
-  for (int d = 0; d < RT_DIM; ++d) g[d] = sc[d] * g[d];
+                       const RtCols& cols, int n_rows, float* tile,
+                       float* ws) {
+  RT_STATE(x, RT_DIM, RT_OFF_X);
+  rt_mul(x, q, sc);
+  const float lp = rt_density(x, g, cols, n_rows, tile, ws);
+  rt_mul_in(g, sc);
   return lp;
 }
 
-// chain c of n; c >= n runs a copy of chain n - 1 and stores nothing
+// chain c of n; c >= n runs a copy of chain n - 1 and stores nothing.
+// collect_pos (dim) is the slot of coordinate d among the n_collect
+// collected ones, or -1; null collects every coordinate in order.
 RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
                         int scale_per_chain, const float* eps_in,
                         const float* p_noise, const float* u_noise,
                         float* qf, float* samples, float* acc_out,
                         float* div_out, int n_iterations, int n_steps,
-                        int collect_every, uint32_t seed, const RtCols& cols,
-                        int n_rows, float* tile) {
+                        int collect_every, const int* collect_pos,
+                        int n_collect, uint32_t seed, const RtCols& cols,
+                        int n_rows, float* tile, float* ws) {
   const bool live = c < n;
   if (!live) c = n - 1;
-  float sc[RT_DIM], q[RT_DIM], g[RT_DIM], qn[RT_DIM], gn[RT_DIM],
-      p[RT_DIM];
-#pragma unroll
+  RT_STATE(sc, RT_DIM, 0);
+  RT_STATE(q, RT_DIM, RT_DIM);
+  RT_STATE(g, RT_DIM, 2 * RT_DIM);
+  RT_STATE(qn, RT_DIM, 3 * RT_DIM);
+  RT_STATE(gn, RT_DIM, 4 * RT_DIM);
+  RT_STATE(p, RT_DIM, 5 * RT_DIM);
+  RT_UNROLL
   for (int d = 0; d < RT_DIM; ++d) {
-    sc[d] = scale == 0 ? 1.0f
-                       : scale[scale_per_chain ? (size_t)d * n + c : d];
+    sc[d] = scale == 0
+                      ? 1.0f
+                      : scale[scale_per_chain ? (size_t)d * n + c : d];
     q[d] = q0[(size_t)d * n + c] / sc[d];
   }
   const float eps = eps_in[c];
-  float lp = rt_lp_grad(q, sc, g, cols, n_rows, tile);
+  float lp = rt_lp_grad(q, sc, g, cols, n_rows, tile, ws);
   float acc = 0.0f, div = 0.0f;
 
   for (int it = 0; it < n_iterations; ++it) {
     // momentum refresh and the Metropolis uniform
-    float u;
+    float u = 0.0f;
     if (p_noise != 0) {
-#pragma unroll
+      RT_UNROLL
       for (int d = 0; d < RT_DIM; ++d)
         p[d] = p_noise[((size_t)it * RT_DIM + d) * n + c];
       u = u_noise[(size_t)it * n + c];
     } else {
-      uint32_t w[4 * RT_GROUPS];
-#pragma unroll
+      // Philox words 4k..4k+3 of (it, k): words 2d and 2d + 1 make p[d],
+      // word 2 * RT_DIM the uniform
+      RT_UNROLL
       for (int k = 0; k < RT_GROUPS; ++k) {
-        uint32_t ctr[4] = {(uint32_t)it, (uint32_t)k, 0u, 0u};
-        rt_philox4x32_10(ctr, seed, (uint32_t)c);
+        uint32_t w[4] = {(uint32_t)it, (uint32_t)k, 0u, 0u};
+        rt_philox4x32_10(w, seed, (uint32_t)c);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) w[4 * k + j] = ctr[j];
+        for (int j = 0; j < 2; ++j) {
+          const int d = 2 * k + j;
+          if (d < RT_DIM)
+            p[d] = rt_box_muller(rt_uniform_from_bits(w[2 * j]),
+                                       rt_uniform_from_bits(w[2 * j + 1]));
+          else if (d == RT_DIM)
+            u = rt_uniform_from_bits(w[2 * j]);
+        }
       }
-#pragma unroll
-      for (int d = 0; d < RT_DIM; ++d)
-        p[d] = rt_box_muller(rt_uniform_from_bits(w[2 * d]),
-                             rt_uniform_from_bits(w[2 * d + 1]));
-      u = rt_uniform_from_bits(w[2 * RT_DIM]);
     }
     float k0 = 0.0f;
-#pragma unroll
+    RT_UNROLL
     for (int d = 0; d < RT_DIM; ++d) k0 += p[d] * p[d];
     const float h0 = -lp + 0.5f * k0;
 
     // kick-drift-kick leapfrog, the order of hmc_pallas.py:395-408
-#pragma unroll
-    for (int d = 0; d < RT_DIM; ++d) {
-      p[d] = p[d] + 0.5f * eps * g[d];
-      qn[d] = q[d] + eps * p[d];
-    }
-    float lpn = rt_lp_grad(qn, sc, gn, cols, n_rows, tile);
+    rt_kick_drift(p, qn, q, g, 0.5f * eps, eps);
+    float lpn = rt_lp_grad(qn, sc, gn, cols, n_rows, tile, ws);
     for (int s = 1; s < n_steps; ++s) {
-#pragma unroll
-      for (int d = 0; d < RT_DIM; ++d) {
-        p[d] = p[d] + eps * gn[d];
-        qn[d] = qn[d] + eps * p[d];
-      }
-      lpn = rt_lp_grad(qn, sc, gn, cols, n_rows, tile);
+      rt_kick_drift_in(p, qn, gn, eps);
+      lpn = rt_lp_grad(qn, sc, gn, cols, n_rows, tile, ws);
     }
-    float k1 = 0.0f;
-#pragma unroll
-    for (int d = 0; d < RT_DIM; ++d) {
-      p[d] = p[d] + 0.5f * eps * gn[d];
-      k1 += p[d] * p[d];
-    }
+    const float k1 = rt_kick_energy(p, gn, 0.5f * eps);
     const float h1 = -lpn + 0.5f * k1;
 
     // any non-finite energy rejects (sampler/leapfrog.py:63-76), not
@@ -196,26 +343,20 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
     if (!(isfinite(h0) && isfinite(h1))) la = -INFINITY;
     if (logf(u) < la) {
       lp = lpn;
-#pragma unroll
-      for (int d = 0; d < RT_DIM; ++d) {
-        q[d] = qn[d];
-        g[d] = gn[d];
-      }
+      rt_take(q, g, qn, gn);
     }
     acc += expf(la);
     div += isinf(la) ? 1.0f : 0.0f;
 
     if (live && collect_every > 0 &&
-        it % collect_every == collect_every - 1) {
-      const size_t o = (size_t)(it / collect_every);
-#pragma unroll
-      for (int d = 0; d < RT_DIM; ++d)
-        samples[(o * RT_DIM + d) * n + c] = q[d] * sc[d];
-    }
+        it % collect_every == collect_every - 1)
+      rt_collect(samples + (size_t)(it / collect_every) * n_collect * n, q,
+                 sc, collect_pos, n, c);
   }
   if (!live) return;
-#pragma unroll
-  for (int d = 0; d < RT_DIM; ++d) qf[(size_t)d * n + c] = q[d] * sc[d];
+  RT_UNROLL
+  for (int d = 0; d < RT_DIM; ++d)
+    qf[(size_t)d * n + c] = q[d] * sc[d];
   acc_out[c] = acc / (float)n_iterations;
   div_out[c] = div;
 }
@@ -224,16 +365,17 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
 // the same density function and tile loop as the sampler
 RT_HD void rt_logp_grad_chain(int c, int n, const float* q, float* lp,
                               float* g, const RtCols& cols, int n_rows,
-                              float* tile) {
+                              float* tile, float* ws) {
   const bool live = c < n;
   if (!live) c = n - 1;
-  float x[RT_DIM], gx[RT_DIM];
-#pragma unroll
+  RT_STATE(x, RT_DIM, RT_OFF_X);
+  RT_STATE(gx, RT_DIM, 2 * RT_DIM);
+  RT_UNROLL
   for (int d = 0; d < RT_DIM; ++d) x[d] = q[(size_t)d * n + c];
-  const float l = rt_density(x, gx, cols, n_rows, tile);
+  const float l = rt_density(x, gx, cols, n_rows, tile, ws);
   if (!live) return;
   lp[c] = l;
-#pragma unroll
+  RT_UNROLL
   for (int d = 0; d < RT_DIM; ++d) g[(size_t)d * n + c] = gx[d];
 }
 
@@ -241,26 +383,36 @@ RT_HD void rt_logp_grad_chain(int c, int n, const float* q, float* lp,
 
 #ifdef __CUDACC__
 
+// the thread's slot of the workspace
+static __device__ __forceinline__ float* rt_slot(float* ws) {
+#ifdef RT_WS_FLOATS
+  return ws + ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * RT_WS_FLOATS;
+#else
+  return ws;
+#endif
+}
+
 __global__ void __launch_bounds__(128)
     fused_hmc_kernel(int n, const float* q0, const float* scale,
                      int scale_per_chain, const float* eps,
                      const float* p_noise, const float* u_noise, float* qf,
                      float* samples, float* acc, float* div,
                      int n_iterations, int n_steps, int collect_every,
-                     uint32_t seed, RtCols cols, int n_rows) {
+                     const int* collect_pos, int n_collect, uint32_t seed,
+                     RtCols cols, int n_rows, float* ws) {
   extern __shared__ float tile[];
   rt_hmc_chain(blockIdx.x * blockDim.x + threadIdx.x, n, q0, scale,
                scale_per_chain, eps, p_noise, u_noise, qf, samples, acc, div,
-               n_iterations, n_steps, collect_every, seed, cols, n_rows,
-               tile);
+               n_iterations, n_steps, collect_every, collect_pos, n_collect,
+               seed, cols, n_rows, tile, rt_slot(ws));
 }
 
 __global__ void __launch_bounds__(128)
     logp_grad_kernel(int n, const float* q, float* lp, float* g,
-                     RtCols cols, int n_rows) {
+                     RtCols cols, int n_rows, float* ws) {
   extern __shared__ float tile[];
   rt_logp_grad_chain(blockIdx.x * blockDim.x + threadIdx.x, n, q, lp, g,
-                     cols, n_rows, tile);
+                     cols, n_rows, tile, rt_slot(ws));
 }
 
 // A tile above the 48 KB default needs the opt-in attribute
@@ -272,33 +424,38 @@ static int rt_smem_opt_in(K kernel) {
 }
 
 // Both launches go on `stream` and return cudaGetLastError(): a refused
-// launch never runs, so the wrapper raises on any nonzero code.
+// launch never runs, so the wrapper raises on any nonzero code.  `ws`
+// holds RT_WS_FLOATS floats for each of blocks × threads slots (null for
+// a model without a workspace).
 extern "C" int rt_fused_hmc_launch(int n, const float* q0,
                                    const float* scale, int scale_per_chain,
                                    const float* eps, const float* p_noise,
                                    const float* u_noise, float* qf,
                                    float* samples, float* acc, float* div,
                                    int n_iterations, int n_steps,
-                                   int collect_every, uint32_t seed,
+                                   int collect_every, const int* collect_pos,
+                                   int n_collect, uint32_t seed,
                                    const void* const* cols, int n_rows,
-                                   int threads, void* stream) {
+                                   float* ws, int threads, void* stream) {
   const int rc = rt_smem_opt_in(fused_hmc_kernel);
   if (rc != 0) return rc;
   const int blocks = (n + threads - 1) / threads;
   fused_hmc_kernel<<<blocks, threads, RT_SMEM_BYTES, (cudaStream_t)stream>>>(
       n, q0, scale, scale_per_chain, eps, p_noise, u_noise, qf, samples, acc,
-      div, n_iterations, n_steps, collect_every, seed, rt_cols(cols), n_rows);
+      div, n_iterations, n_steps, collect_every, collect_pos, n_collect, seed,
+      rt_cols(cols), n_rows, ws);
   return (int)cudaGetLastError();
 }
 
 extern "C" int rt_logp_grad_launch(int n, const float* q, float* lp,
                                    float* g, const void* const* cols,
-                                   int n_rows, int threads, void* stream) {
+                                   int n_rows, float* ws, int threads,
+                                   void* stream) {
   const int rc = rt_smem_opt_in(logp_grad_kernel);
   if (rc != 0) return rc;
   const int blocks = (n + threads - 1) / threads;
   logp_grad_kernel<<<blocks, threads, RT_SMEM_BYTES, (cudaStream_t)stream>>>(
-      n, q, lp, g, rt_cols(cols), n_rows);
+      n, q, lp, g, rt_cols(cols), n_rows, ws);
   return (int)cudaGetLastError();
 }
 
@@ -306,28 +463,51 @@ extern "C" int rt_logp_grad_launch(int n, const float* q, float* lp,
 
 #include <vector>
 
+// The host entries run every slot of the launch's `threads`-thread blocks
+// one after another, the ragged edge's copies included, each in its own
+// slot of the workspace (blocks × threads slots, as on the card).
+
+// slot c of the workspace
+static float* rt_slot(float* ws, int c) {
+#ifdef RT_WS_FLOATS
+  return ws + (size_t)c * RT_WS_FLOATS;
+#else
+  (void)c;
+  return ws;
+#endif
+}
+
+static int rt_slots(int n, int threads) {
+  return (n + threads - 1) / threads * threads;
+}
+
 extern "C" int rt_fused_hmc_host(int n, const float* q0, const float* scale,
                                  int scale_per_chain, const float* eps,
                                  const float* p_noise, const float* u_noise,
                                  float* qf, float* samples, float* acc,
                                  float* div, int n_iterations, int n_steps,
-                                 int collect_every, uint32_t seed,
-                                 const void* const* cols, int n_rows) {
+                                 int collect_every, const int* collect_pos,
+                                 int n_collect, uint32_t seed,
+                                 const void* const* cols, int n_rows,
+                                 float* ws, int threads) {
   std::vector<float> tile(RT_ROW_W * RT_TILE + 1);
   const RtCols c_cols = rt_cols(cols);
-  for (int c = 0; c < n; ++c)
+  for (int c = 0; c < rt_slots(n, threads); ++c)
     rt_hmc_chain(c, n, q0, scale, scale_per_chain, eps, p_noise, u_noise,
                  qf, samples, acc, div, n_iterations, n_steps, collect_every,
-                 seed, c_cols, n_rows, tile.data());
+                 collect_pos, n_collect, seed, c_cols, n_rows, tile.data(),
+                 rt_slot(ws, c));
   return 0;
 }
 
 extern "C" int rt_logp_grad_host(int n, const float* q, float* lp, float* g,
-                                 const void* const* cols, int n_rows) {
+                                 const void* const* cols, int n_rows,
+                                 float* ws, int threads) {
   std::vector<float> tile(RT_ROW_W * RT_TILE + 1);
   const RtCols c_cols = rt_cols(cols);
-  for (int c = 0; c < n; ++c)
-    rt_logp_grad_chain(c, n, q, lp, g, c_cols, n_rows, tile.data());
+  for (int c = 0; c < rt_slots(n, threads); ++c)
+    rt_logp_grad_chain(c, n, q, lp, g, c_cols, n_rows, tile.data(),
+                       rt_slot(ws, c));
   return 0;
 }
 

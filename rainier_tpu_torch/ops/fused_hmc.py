@@ -19,11 +19,30 @@ int32 field of the tile; a ``Gather`` by it reads the chain's
 row-invariant vector at a clamped per-row index, and its adjoint adds
 there (``mode="clip"`` of the JAX kernel's gather, hmc_pallas.py:157 with
 rainier_tpu/compute/interp.py:379-383).
-Device memory is touched only to load q0, the column tiles, and to store
-the results and the collected draws.
+For a model of up to ``emit_cuda.LOCAL_STATE_MAX`` parameters and
+row-invariant values, device memory is touched only to load q0, the
+column tiles, and to store the results and the collected draws.  A
+larger model (``benchmarks/models.py::glmm_large``: 10,002 parameters,
+10,000 row-invariant values) keeps each chain's arrays in a workspace
+that this wrapper allocates with ``torch.empty``: one contiguous slot of
+``EmittedDensity.workspace`` floats per thread of the launch, the
+ragged edge's copies included, so that each thread walks its own arrays
+in order and a line in L1 serves 32 elements.  The emitted density then
+runs its vectors as loops over memory, and the Philox words are
+generated group by group straight into the momentum.  The wrapper
+refuses, naming the bytes, a launch whose workspace does not fit the
+card's free memory.
+``collect_idx`` stores only the chosen coordinates of each draw, so a
+large model's draws need not hold all its coordinates.
 
 What bounds it on the H100: f32 ALU work and SFU work (``expf``, ``logf``,
-``cosf``, ``sqrtf``) of the density, its adjoints and the RNG.  With data,
+``cosf``, ``sqrtf``) of the density, its adjoints and the RNG.  For a
+model with its state in the workspace, the bytes every density call
+moves per chain instead (some 25 passes over arrays of its dimension: x,
+g, inv and ainv, the state), at one thread's memory latency, one warp
+on an SM; its blocks are of 4 threads, so that the 1024 chains of the
+main path spread over every SM and each warp access touches few lines.
+With data,
 the row terms dominate: n_rows × (row operations) per density call, on
 columns that are read from L2 (the 100k × 11 floats of the logistic
 regression are 4.4 MB, against a 50 MB L2).  With one thread per chain, a
@@ -191,6 +210,19 @@ def _prepare(density, q0, step_size, inv_mass_diag, n_steps, n_iterations,
     return q0.contiguous(), eps, scale, noise, columns
 
 
+def _collect_idx(collect_idx, dim, dev):
+    """``collect_idx`` as an int64 tensor on `dev` (None: every
+    coordinate)."""
+    if collect_idx is None:
+        return None
+    idx = torch.as_tensor(collect_idx, dtype=torch.int64, device=dev)
+    if idx.dim() != 1 or idx.numel() == 0 or int(idx.min()) < 0 \
+            or int(idx.max()) >= dim:
+        raise ValueError(f"collect_idx must be a non-empty 1-d index into "
+                         f"the {dim} coordinates")
+    return idx
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 # ---------------------------------------------------------------------------
@@ -245,7 +277,8 @@ def logp_grad_reference(density, q, columns=None):
 
 def fused_hmc_reference(density, q0, *, step_size, n_steps: int,
                         n_iterations: int, seed: int, inv_mass_diag=None,
-                        collect_every: int = 0, noise=None, columns=None):
+                        collect_every: int = 0, collect_idx=None,
+                        noise=None, columns=None):
     """The kernel's loop in PyTorch on (dim, n) tensors: the same order of
     operations, the density and gradient from :func:`density_lanes` and
     autograd, and the same Philox bits when ``noise`` is None.  Used on
@@ -253,6 +286,7 @@ def fused_hmc_reference(density, q0, *, step_size, n_steps: int,
     q0, eps, scale, noise, columns = _prepare(
         density, q0, step_size, inv_mass_diag, n_steps, n_iterations,
         collect_every, noise, columns)
+    cidx = _collect_idx(collect_idx, density.n_vars, q0.device)
     dim, n = q0.shape
     dev = q0.device
     sc = torch.ones_like(q0) if scale is None else \
@@ -269,8 +303,9 @@ def fused_hmc_reference(density, q0, *, step_size, n_steps: int,
     acc = torch.zeros(n, dtype=torch.float32, device=dev)
     div = torch.zeros(n, dtype=torch.float32, device=dev)
     n_out = n_iterations // collect_every if collect_every else 0
-    samples = torch.empty((n_out, dim, n), dtype=torch.float32, device=dev) \
-        if collect_every else None
+    n_collect = dim if cidx is None else cidx.numel()
+    samples = torch.empty((n_out, n_collect, n), dtype=torch.float32,
+                          device=dev) if collect_every else None
     for it in range(n_iterations):
         if noise is not None:
             p0, u = noise[0][it], noise[1][it]
@@ -296,7 +331,8 @@ def fused_hmc_reference(density, q0, *, step_size, n_steps: int,
         acc = acc + torch.exp(la)
         div = div + torch.isinf(la).to(torch.float32)
         if collect_every and it % collect_every == collect_every - 1:
-            samples[it // collect_every] = q * sc
+            x = q * sc
+            samples[it // collect_every] = x if cidx is None else x[cidx]
     return q * sc, samples, acc / n_iterations, div
 
 
@@ -314,6 +350,18 @@ def _nvcc() -> str:
     return path
 
 
+# the arguments shared by rt_fused_hmc_launch and rt_fused_hmc_host, and by
+# rt_logp_grad_launch and rt_logp_grad_host, the threads of a block last
+# (the launches add the stream)
+HMC_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int])
+LOGP_GRAD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                      + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
+
+
 class Kernels(NamedTuple):
     """The two entry points of one model's library (ctypes functions)."""
 
@@ -326,14 +374,10 @@ class Kernels(NamedTuple):
 def _load(so_path: str) -> Kernels:
     lib = ctypes.CDLL(so_path)
     hmc = lib.rt_fused_hmc_launch
-    hmc.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                    + [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p])
+    hmc.argtypes = HMC_ARGTYPES + [ctypes.c_void_p]
     hmc.restype = ctypes.c_int
     lpg = lib.rt_logp_grad_launch
-    lpg.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lpg.argtypes = LOGP_GRAD_ARGTYPES + [ctypes.c_void_p]
     lpg.restype = ctypes.c_int
     log = Path(so_path).with_suffix(".log")
     return Kernels(hmc, lpg, log.read_text() if log.exists() else "")
@@ -381,34 +425,78 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_setup(density, columns, n):
-    """(Kernels, emitted, column pointer array, n_rows, threads) for a
-    launch over n chains; raises on a row the kernel's tile cannot hold."""
-    kernels, _, em = build(density)
+def threads_per_block(em, n: int) -> int:
+    """Threads of each block for a launch over n chains: 32-thread blocks
+    spread a small chain count over more SMs.  A model with its state in
+    the workspace is bound by each thread's memory latency, with one warp
+    on an SM, and runs faster the fewer lanes of a warp are live (fewer
+    L1 lines per access): 4-thread blocks."""
+    if em.workspace:
+        return 4
+    return 128 if n >= 128 * 132 else 32
+
+
+def workspace_bytes(em, n: int) -> int:
+    """Bytes of the workspace a launch over n chains allocates: one slot
+    for every thread of its blocks (0 for a model without one)."""
+    t = threads_per_block(em, n)
+    return 4 * em.workspace * t * -(-n // t)
+
+
+def free_bytes(device) -> int:
+    """Free memory of `device`: the card's, or the host's for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[0])
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def workspace_check(em, n: int, device):
+    """None if a launch over n chains has room for its workspace on
+    `device`, else why not, naming the bytes."""
+    need = workspace_bytes(em, n)
+    free = free_bytes(device) if need else 0
+    if need > free:
+        return (f"the fused kernel's workspace for {n} chains is {need} "
+                f"bytes ({em.workspace} floats a chain), over the "
+                f"{free} bytes free on {device}")
+    return None
+
+
+def _launch_setup(density, columns, n, dev):
+    """(Kernels, column pointer array, n_rows, threads, workspace) for a
+    launch over n chains; raises, before building, on a row the kernel's
+    tile cannot hold and on a workspace the card has no room for."""
+    em = emit_cuda.emit(density)
     if em.row_width and not em.tile_rows:
         raise ValueError(
             f"a row of the model's columns is {em.row_width} floats: even "
             f"a {emit_cuda.TILE_ROWS_MIN}-row tile needs "
             f"{4 * em.row_width * emit_cuda.TILE_ROWS_MIN} bytes of shared "
             f"memory, over the {emit_cuda.SMEM_BYTES_MAX} a block can use")
+    reason = workspace_check(em, n, dev)
+    if reason is not None:
+        raise ValueError(reason)
+    kernels = build(density)[0]
     ptrs = (ctypes.c_void_p * max(len(columns), 1))(
         *[c.data_ptr() for c in columns])
     n_rows = int(columns[0].shape[0]) if columns else 0
-    # 32-thread blocks spread a small chain count over more SMs
-    threads = 128 if n >= 128 * 132 else 32
-    return kernels, em, ptrs, n_rows, threads
+    ws = torch.empty(workspace_bytes(em, n) // 4, dtype=torch.float32,
+                     device=dev) if em.workspace else None
+    return kernels, ptrs, n_rows, threads_per_block(em, n), ws
 
 
 def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
               seed: int, inv_mass_diag=None, collect_every: int = 0,
-              noise=None, columns=None):
+              collect_idx=None, noise=None, columns=None):
     """HMC with ``n_steps`` leapfrog steps × ``n_iterations`` for every
     chain of ``q0`` (dim, n_chains), the whole run in one kernel.
 
     Argument names follow ``rainier_tpu.ops.fused_hmc``: ``step_size`` is
     a scalar or (n_chains,) per-chain ε; ``inv_mass_diag`` the adapted Σ̂
     diagonal, (dim,) shared or (n_chains, dim) per chain, or None
-    (identity); ``collect_every`` k > 0 also returns every k-th draw.
+    (identity); ``collect_every`` k > 0 also returns every k-th draw,
+    of the coordinates ``collect_idx`` (an index array; None: all).
     ``noise=(p (n_iterations, dim, n), u (n_iterations, n))`` replaces the
     in-kernel Philox streams with explicit momenta and uniforms (the
     ``host_rng`` counterpart).  ``columns``: one contiguous tensor per
@@ -417,12 +505,13 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
 
     On CUDA tensors this launches the kernel or raises; on CPU tensors it
     runs :func:`fused_hmc_reference`.  Returns (final q (dim, n),
-    samples (n_out, dim, n) or None, accept rate (n,), divergences (n,)).
+    samples (n_out, n_collect, n) or None, accept rate (n,), divergences
+    (n,)).
     """
     kw = dict(step_size=step_size, n_steps=n_steps,
               n_iterations=n_iterations, seed=seed,
               inv_mass_diag=inv_mass_diag, collect_every=collect_every,
-              noise=noise, columns=columns)
+              collect_idx=collect_idx, noise=noise, columns=columns)
     if q0.device.type == "cpu":
         return fused_hmc_reference(density, q0, **kw)
     if q0.device.type != "cuda":
@@ -432,12 +521,15 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
         density, q0, step_size, inv_mass_diag, n_steps, n_iterations,
         collect_every, noise, columns)
     dim, n = q0.shape
-    kernels, _, ptrs, n_rows, threads = _launch_setup(density, columns, n)
     dev = q0.device
+    pos, n_collect, expand = _collect_pos(collect_idx, emit_cuda.emit(density),
+                                          dev)
+    kernels, ptrs, n_rows, threads, ws = _launch_setup(density, columns, n,
+                                                       dev)
     qf = torch.empty((dim, n), dtype=torch.float32, device=dev)
     acc = torch.empty((n,), dtype=torch.float32, device=dev)
     div = torch.empty((n,), dtype=torch.float32, device=dev)
-    samples = torch.empty((n_iterations // collect_every, dim, n),
+    samples = torch.empty((n_iterations // collect_every, n_collect, n),
                           dtype=torch.float32, device=dev) \
         if collect_every else None
     p_noise, u_noise = noise if noise is not None else (None, None)
@@ -448,14 +540,34 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
             int(scale is not None and scale.dim() == 2), _ptr(eps),
             _ptr(p_noise), _ptr(u_noise), _ptr(qf), _ptr(samples),
             _ptr(acc), _ptr(div), n_iterations, n_steps, collect_every,
-            seed & _MASK, ptrs, n_rows, threads, stream)
+            _ptr(pos), n_collect, seed & _MASK, ptrs, n_rows, _ptr(ws),
+            threads, stream)
     if rc != 0:
         raise RuntimeError(f"fused_hmc kernel launch failed: cudaError {rc}")
     fused_hmc.launches += 1
+    if samples is not None and expand is not None:
+        samples = samples[:, expand]
     return qf, samples, acc, div
 
 
 fused_hmc.launches = 0
+
+
+def _collect_pos(collect_idx, em, dev):
+    """The kernel's form of ``collect_idx`` for the emitted model `em`:
+    (int32 (dim,) slot of each coordinate among the stored ones or -1, or
+    None for all; stored count; None, or the index that takes the stored
+    coordinates to ``collect_idx``).  A model without a workspace stores
+    every coordinate, and its draws are sliced."""
+    dim = em.n_vars
+    idx = _collect_idx(collect_idx, dim, dev)
+    if idx is None or not em.workspace:
+        return None, dim, idx
+    uniq, inverse = torch.unique(idx, return_inverse=True)
+    keep = idx if uniq.numel() == idx.numel() else uniq
+    pos = torch.full((dim,), -1, dtype=torch.int32, device=dev)
+    pos[keep] = torch.arange(keep.numel(), dtype=torch.int32, device=dev)
+    return pos, keep.numel(), None if keep is idx else inverse
 
 
 def logp_grad(density, q, columns=None):
@@ -474,13 +586,14 @@ def logp_grad(density, q, columns=None):
     q = q.contiguous()
     columns = _columns(density, columns, q.device)
     n = q.shape[1]
-    kernels, _, ptrs, n_rows, threads = _launch_setup(density, columns, n)
+    kernels, ptrs, n_rows, threads, ws = _launch_setup(density, columns, n,
+                                                       q.device)
     lp = torch.empty((n,), dtype=torch.float32, device=q.device)
     g = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = kernels.logp_grad(n, _ptr(q), _ptr(lp), _ptr(g), ptrs, n_rows,
-                               threads, stream)
+                               _ptr(ws), threads, stream)
     if rc != 0:
         raise RuntimeError(f"logp_grad kernel launch failed: cudaError {rc}")
     logp_grad.launches += 1
@@ -496,7 +609,7 @@ def op_count(em, n_steps: int) -> int:
     chip_smoke.py: the density + gradient ``n_steps`` times (its row
     terms over every row included, with each row's gathers and adjoint
     scatters), the leapfrog arithmetic, kinetic energies, the accept, and
-    the RNG."""
+    the RNG.  The draws' stores are bytes, not operations."""
     dim = em.n_vars
     per_grad = em.density_ops() + 2 * dim      # x = q·sc, g = sc·∇
     leap = n_steps * 4 * dim + 2 * dim         # kicks + drifts, half kicks

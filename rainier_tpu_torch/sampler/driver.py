@@ -220,13 +220,16 @@ def sample(model, cfg: C.SamplerConfig, n_chains: int = 4, seed: int = 0,
     on the CPU).  Outside the kernel's envelope (non-HMC samplers, dense
     mass, a mesh, nodes the CUDA emitter does not cover such as a Gather
     whose source varies by row, a density without a clean base/row split,
-    a model over the kernel's caps of emit_cuda.DIM_MAX parameters or
-    NINV_MAX row-invariant values) 'fused' warns and runs the scan path;
-    'fused!' raises, for callers who need the kernel or nothing.
+    a kernel workspace larger than the device's free memory) 'fused'
+    warns and runs the scan path; 'fused!' raises, for callers who need
+    the kernel or nothing.  `collect_idx` (an index array into the
+    parameters) keeps only those coordinates of each draw, on either
+    path; a kernel with its state in the workspace stores only them.
     `mesh`: multi-device runs come in a later slice of the port.
     """
     if kernel in ("fused", "fused!"):
-        reason = _fused_unsupported_reason(model, cfg, n_chains, mesh)
+        reason = _fused_unsupported_reason(model, cfg, n_chains, mesh,
+                                           device)
         if reason is None:
             # the split check, warmup and the kernel read one copy of the
             # columns on the device
@@ -295,9 +298,12 @@ def _finish(model, cd, result, cfg, collect_idx, walltime, timings):
     return trace
 
 
-def _fused_unsupported_reason(model, cfg, n_chains, mesh) -> Optional[str]:
-    """None if the fused kernel can run this config, else a
+def _fused_unsupported_reason(model, cfg, n_chains, mesh,
+                              device=None) -> Optional[str]:
+    """None if the fused kernel can run this config on `device`, else a
     human-readable reason (the caller warns-and-falls-back or raises)."""
+    from ..ops.fused_hmc import workspace_check
+
     if mesh is not None:
         return ("the fused kernel is single-device; multi-device runs use "
                 "the scan path")
@@ -316,7 +322,8 @@ def _fused_unsupported_reason(model, cfg, n_chains, mesh) -> Optional[str]:
     if em.row_width and not em.tile_rows:
         return (f"a row of the model's columns is {em.row_width} floats, "
                 "too wide for the fused kernel's shared-memory tile")
-    return None
+    return workspace_check(em, n_chains,
+                           global_config.resolve_device(device))
 
 
 def _verify_split(cd, cols, tile_rows: int) -> bool:
@@ -383,16 +390,13 @@ def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
     qf, samples, acc, div = fused_hmc(
         cd, q0, step_size=eps, n_steps=cfg.sampler.n_steps,
         n_iterations=cfg.iterations, seed=seed + 1, inv_mass_diag=imd,
-        collect_every=thin, columns=cols)
+        collect_every=thin, collect_idx=collect_idx, columns=cols)
     _sync(dev)
     timings["sample_s"] = _time.perf_counter() - t_kernel
     walltime = _time.perf_counter() - t0
 
-    # (n_out, n_vars, n_chains) -> per-chain (n_chains, n_out, n_collect)
+    # (n_out, n_collect, n_chains) -> per-chain (n_chains, n_out, n_collect)
     chains = samples.permute(2, 0, 1)
-    if collect_idx is not None:
-        chains = chains[:, :, torch.as_tensor(np.asarray(collect_idx),
-                                              device=dev)]
     n_grads = cfg.iterations * cfg.sampler.n_steps + 1
     z = torch.zeros(n_chains, dtype=dtype, device=dev)
     full = torch.full((n_chains,), cfg.iterations, dtype=torch.int32,

@@ -208,18 +208,34 @@ def _host_library(cd, tmp_path):
          str(F.CSRC / "fused_hmc.cu")], capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
     lib = ctypes.CDLL(str(so))
-    lib.rt_logp_grad_host.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                                      + [ctypes.c_int])
-    lib.rt_fused_hmc_host.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-        + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-        + [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int])
+    lib.rt_logp_grad_host.argtypes = F.LOGP_GRAD_ARGTYPES
+    lib.rt_fused_hmc_host.argtypes = F.HMC_ARGTYPES
     return lib, em
 
 
 def _col_ptrs(cols):
     return (ctypes.c_void_p * max(len(cols), 1))(
         *[c.data_ptr() for c in cols])
+
+
+def _host_ws(em, n):
+    """(the workspace the wrapper would allocate for a launch over n
+    chains, NaN-filled, or None for a model whose state lives in the
+    thread; the threads of its blocks)."""
+    ws = torch.full((F.workspace_bytes(em, n) // 4,), float("nan")) \
+        if em.workspace else None
+    return ws, F.threads_per_block(em, n)
+
+
+def _host_logp_grad(lib, em, q, cols):
+    """rt_logp_grad_host at every column of q (dim, n): (lp, g)."""
+    n = q.shape[1]
+    lp, g = torch.empty(n), torch.empty_like(q)
+    ws, threads = _host_ws(em, n)
+    lib.rt_logp_grad_host(n, q.data_ptr(), lp.data_ptr(), g.data_ptr(),
+                          _col_ptrs(cols), cols[0].shape[0],
+                          None if ws is None else ws.data_ptr(), threads)
+    return lp, g
 
 
 @pytest.mark.parametrize("name", sorted(SPLIT_MODELS))
@@ -235,9 +251,7 @@ def test_host_compiled_density_matches_autograd_and_jax(name, tmp_path):
     assert em.row_width > 0 and em.row_ops > 0
     q = torch.as_tensor(_points(cd.n_vars, 2, 5), dtype=torch.float32)
     cols = cd.column_values(torch.float32, "cpu")
-    lp, g = torch.empty(5), torch.empty_like(q)
-    lib.rt_logp_grad_host(5, q.data_ptr(), lp.data_ptr(), g.data_ptr(),
-                          _col_ptrs(cols), cols[0].shape[0])
+    lp, g = _host_logp_grad(lib, em, q, cols)
     lp_t, g_t = cd.batched_logp_and_grad_fn()(q.T.contiguous(), cols)
     lpg_j = jax.vmap(jax.value_and_grad(cdj.logp_fn()), in_axes=(0, None))
     lp_j, g_j = lpg_j(jnp.asarray(q.numpy().T),
@@ -314,21 +328,31 @@ def test_plain_version_matches_row_tiled_pallas_kernel():
     assert float(np.sum(div.numpy())) == float(np.sum(np.asarray(div_j)))
 
 
-def _run_host(lib, cd, q0, kw, noise, cols):
+def _run_host(lib, cd, q0, kw, noise, cols, collect_idx=None, ws_out=None):
+    """rt_fused_hmc_host over the slots of the wrapper's launch, in the
+    workspace it would allocate (appended to `ws_out` if given):
+    (final q, samples, accept, divergences)."""
     dim, n = q0.shape
     n_it, collect = kw["n_iterations"], kw["collect_every"]
     _, eps, scale, noise, cols = F._prepare(
         cd, q0, kw["step_size"], kw["inv_mass_diag"], kw["n_steps"], n_it,
         collect, noise, cols)
+    em = emit_cuda.emit(cd)
+    pos, n_collect, expand = F._collect_pos(collect_idx, em, q0.device)
     qf, acc, div = torch.empty(dim, n), torch.empty(n), torch.empty(n)
-    samples = torch.empty(n_it // collect, dim, n)
+    samples = torch.empty(n_it // collect, n_collect, n)
+    ws, threads = _host_ws(em, n)
+    if ws_out is not None:
+        ws_out.append(ws)
     ptr = (lambda t: None if t is None else t.data_ptr())
     p, u = noise if noise is not None else (None, None)
     lib.rt_fused_hmc_host(
         n, ptr(q0), ptr(scale), int(scale is not None and scale.dim() == 2),
         ptr(eps), ptr(p), ptr(u), ptr(qf), ptr(samples), ptr(acc), ptr(div),
-        n_it, kw["n_steps"], collect, kw["seed"], _col_ptrs(cols),
-        cols[0].shape[0])
+        n_it, kw["n_steps"], collect, ptr(pos), n_collect, kw["seed"],
+        _col_ptrs(cols), cols[0].shape[0], ptr(ws), threads)
+    if expand is not None:
+        samples = samples[:, expand]
     return qf, samples, acc, div
 
 

@@ -196,15 +196,16 @@ def _compile_host(cd, tmp_path):
     assert res.returncode == 0, res.stderr
     lib = ctypes.CDLL(str(so))
     fn = lib.rt_logp_grad_host
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int])
+    fn.argtypes = F.LOGP_GRAD_ARGTYPES
     no_cols = (ctypes.c_void_p * 1)()
+    ws = np.zeros(max(em.workspace, 1), np.float32)
 
     def lpg(q):
         q = np.ascontiguousarray(q, dtype=np.float32)
         g = np.zeros_like(q)
         lp = np.zeros(1, np.float32)
-        fn(1, q.ctypes.data, lp.ctypes.data, g.ctypes.data, no_cols, 0)
+        fn(1, q.ctypes.data, lp.ctypes.data, g.ctypes.data, no_cols, 0,
+           ws.ctypes.data, 1)
         return float(lp[0]), g
 
     return lpg, em

@@ -190,9 +190,7 @@ def host_kernel(tmp_path_factory):
          str(F.CSRC / "fused_hmc.cu")], capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
     fn = ctypes.CDLL(str(so)).rt_fused_hmc_host
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                   + [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int])
+    fn.argtypes = F.HMC_ARGTYPES
     return cd, fn
 
 
@@ -204,7 +202,8 @@ def _run_host(fn, q0, eps, scale, noise, n_it, n_steps, collect, seed):
     p, u = noise if noise is not None else (None, None)
     fn(n, ptr(q0), ptr(scale), int(scale is not None and scale.dim() == 2),
        ptr(eps), ptr(p), ptr(u), ptr(qf), ptr(samples), ptr(acc), ptr(div),
-       n_it, n_steps, collect, seed, (ctypes.c_void_p * 1)(), 0)
+       n_it, n_steps, collect, None, dim, seed, (ctypes.c_void_p * 1)(), 0,
+       None, 32)
     return qf, samples, acc, div
 
 
@@ -268,16 +267,25 @@ def test_wrapper_validates_its_arguments(monkeypatch):
                     noise=(torch.zeros(2, 10, 3), torch.zeros(2, 3)), **kw)
     with pytest.raises(ValueError, match="n_steps >= 1"):
         F.fused_hmc(cd, torch.zeros(10, 4), **{**kw, "n_steps": 0})
-    # a model over the design's RT_DIM cap: refused when the kernel is
-    # built, before nvcc runs, naming its size
-    k = emit_cuda.DIM_MAX + 1
+    # a model over LOCAL_STATE_MAX parameters keeps its state in the
+    # workspace, one slot for every thread of the launch (the ragged
+    # edge's copies included); a launch whose workspace the device has no
+    # room for is refused, naming the bytes
+    k = emit_cuda.LOCAL_STATE_MAX + 1
     effects = rtt.Normal(0, 1).latent_vec(k)
     data = rtt.Model.likelihood(R.RowSum(rtt.Normal(
         R.Gather(effects.element, R.IntColumn(np.arange(k))), 1.0)
         .log_density_at(R.Column(np.zeros(k))), k))
-    with pytest.raises(emit_cuda.UnsupportedNode,
-                       match=f"{k} parameters, over the fused kernel's cap"):
-        F.build(data.density())
+    em = emit_cuda.emit(data.density())
+    assert em.workspace == emit_cuda.workspace_floats(k, k, True) == 9 * k + 1
+    assert F.workspace_bytes(em, 37) == 4 * em.workspace * 40  # 4-thread
+                                                                # blocks
+    assert F.workspace_bytes(emit_cuda.emit(cd), 37) == 0
+    assert F.workspace_check(em, 37, "cpu") is None
+    monkeypatch.setattr(F, "free_bytes", lambda device: 1000)
+    with pytest.raises(ValueError, match=f"workspace for 37 chains is "
+                                         f"{4 * em.workspace * 40} bytes"):
+        F._launch_setup(data.density(), (), 37, "cpu")
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.setattr(F.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc"):

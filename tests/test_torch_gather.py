@@ -39,7 +39,8 @@ from rainier_tpu_torch.ops import fused_hmc as F
 from rainier_tpu_torch.sampler import HMC, SamplerConfig
 from rainier_tpu_torch.sampler.driver import (_fused_unsupported_reason,
                                               _verify_split)
-from test_torch_columns import _col_ptrs, _host_library, _jax_noise, _run_host
+from test_torch_columns import (_host_library, _host_logp_grad, _jax_noise,
+                                _run_host)
 
 torch.set_num_threads(2)
 rtt.config.set_device("cpu")
@@ -252,9 +253,7 @@ def test_host_compiled_density_matches_autograd_and_jax(name, tmp_path):
     lib, em = _host_library(cd, tmp_path)
     q = torch.as_tensor(_points(cd.n_vars, 2, 5), dtype=torch.float32)
     cols = cd.column_values(torch.float32, "cpu")
-    lp, g = torch.empty(5), torch.empty_like(q)
-    lib.rt_logp_grad_host(5, q.data_ptr(), lp.data_ptr(), g.data_ptr(),
-                          _col_ptrs(cols), cols[0].shape[0])
+    lp, g = _host_logp_grad(lib, em, q, cols)
     lp_t, g_t = cd.batched_logp_and_grad_fn()(q.T.contiguous(), cols)
     lanes_j, cols_j = cdj.logp_lanes_fn(), cdj.column_values(jnp.float32)
     qj = jnp.asarray(q.numpy())
@@ -408,26 +407,35 @@ def test_fused_sample_on_a_glmm_matches_scan():
     assert float(np.mean(tr_fused.accept_rate())) > 0.5
 
 
-def test_caps_refuse_larger_models_naming_the_size():
-    """Over DIM_MAX parameters or NINV_MAX row-invariant values the
-    emitter refuses, naming the size, before it writes any code: the
-    GLMM at 10,000 sites stands for benchmarks/models.py::glmm_large."""
-    k = emit_cuda.NINV_MAX // 2 + 72
+def test_caps_refuse_larger_models_naming_the_size(monkeypatch):
+    """The old caps (256 parameters, 256 row-invariant values) now split
+    the two layouts of the kernel's state: past them a model emits with
+    its state in the workspace and its vectors as loops, and the glmm at
+    10,000 sites (benchmarks/models.py::glmm_large's size) emits.  What
+    bounds a model is the workspace: a run whose workspace exceeds the
+    device's free memory is refused, naming the bytes."""
+    k = emit_cuda.LOCAL_STATE_MAX // 2 + 72
     z = rtt.Normal(0, 1).latent_vec(k)
     idx = Rt.IntColumn(np.arange(2 * k) % k)
     y = Rt.Column(np.zeros(2 * k))
     # z·2 and exp(z) are two row-invariant blocks of k values each: 2k
-    # values from k parameters, so only the NINV cap is passed
+    # values from k parameters, so only the row-invariant count is past
     wide = rtt.Model.likelihood(Rt.RowSum(rtt.Normal(
         Rt.Gather(z.element * 2.0, idx) + Rt.Gather(z.element.exp(), idx),
         1.0).log_density_at(y), 2 * k))
-    assert k <= emit_cuda.DIM_MAX
-    with pytest.raises(emit_cuda.UnsupportedNode,
-                       match=f"{2 * k} row-invariant values, over the fused "
-                             f"kernel's cap of {emit_cuda.NINV_MAX}"):
-        emit_cuda.emit(wide.density())
+    assert k <= emit_cuda.LOCAL_STATE_MAX
+    em = emit_cuda.emit(wide.density())
+    assert em.n_inv == 2 * k and em.workspace == 7 * k + 4 * k
+    assert f"#define RT_WS_FLOATS {em.workspace}" in em.source
     glmm_large = glmm_poisson(rtt, 10_000, 1)[0]
-    with pytest.raises(emit_cuda.UnsupportedNode,
-                       match=f"10007 parameters, over the fused kernel's cap "
-                             f"of {emit_cuda.DIM_MAX}"):
-        emit_cuda.emit(glmm_large.density())
+    em = emit_cuda.emit(glmm_large.density())
+    assert em.n_vars == 10_007 and em.n_inv == 10_004 and em.workspace
+    assert len(em.source.splitlines()) < 400       # loops, not unrolled
+    cfg = SamplerConfig(10, 10, sampler=HMC(5))
+    assert _fused_unsupported_reason(glmm_large, cfg, 1024, None) is None
+    need = F.workspace_bytes(em, 1024)
+    assert need == 4 * em.workspace * 1024
+    monkeypatch.setattr(F, "free_bytes", lambda device: need - 1)
+    reason = _fused_unsupported_reason(glmm_large, cfg, 1024, None)
+    assert f"workspace for 1024 chains is {need} bytes" in reason
+    assert f"over the {need - 1} bytes free" in reason

@@ -222,21 +222,26 @@ def gather_by_int_column(rt, k=4):
         3 * k))
 
 
-def test_fused_refuses_or_falls_back_outside_its_envelope():
-    """A gather model (the GLMMs) over the kernel's cap of DIM_MAX
-    parameters (benchmarks/models.py::glmm_large has 10,002) stays outside
-    the kernel: 'fused!' raises and 'fused' warns and runs the scan path,
-    each naming the size; the same structure at 4 effects is inside."""
+def test_fused_refuses_or_falls_back_outside_its_envelope(monkeypatch):
+    """A gather model (the GLMMs) past LOCAL_STATE_MAX parameters runs in
+    the kernel with its state in the workspace; where the device has no
+    room for that workspace, 'fused!' raises and 'fused' warns and runs
+    the scan path, each naming the bytes."""
+    from rainier_tpu_torch.ops import fused_hmc as F
+
     cfg = SamplerConfig(30, 20, sampler=HMC(3))
     assert _fused_unsupported_reason(gather_by_int_column(rtt), cfg, 2,
                                      None) is None
-    k = emit_cuda.DIM_MAX + 8
+    k = emit_cuda.LOCAL_STATE_MAX + 8
     model = gather_by_int_column(rtt, k)
+    assert _fused_unsupported_reason(model, cfg, 2, None) is None
+    monkeypatch.setattr(F, "free_bytes", lambda device: 4096)
     reason = _fused_unsupported_reason(model, cfg, 2, None)
-    assert f"{k} parameters" in reason and "cap" in reason
-    with pytest.raises(ValueError, match=f"{k} parameters"):
+    need = F.workspace_bytes(emit_cuda.emit(model.density()), 2)
+    assert f"workspace for 2 chains is {need} bytes" in reason
+    with pytest.raises(ValueError, match=f"{need} bytes"):
         model.sample(cfg, n_chains=2, kernel="fused!")
-    with pytest.warns(UserWarning, match=f"{k} parameters"):
+    with pytest.warns(UserWarning, match=f"{need} bytes"):
         tr = model.sample(cfg, n_chains=2, kernel="fused")
     assert tr.chains.shape == (2, 20, k)    # the scan path ran
     fm, _ = funnel(rtt)
