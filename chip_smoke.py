@@ -6,7 +6,7 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the fused HMC kernel for four models from the checkout's
+It builds the fused HMC kernel for six models from the checkout's
 sources (one nvcc each, all started together), and then, each phase
 printing one line:
 
@@ -44,7 +44,17 @@ printing one line:
   every coordinate after 20 iterations, the law of all the draws),
   ``Model.sample(kernel="fused!", collect_idx=...)`` held to the
   scan-path run by per-chain moments, and the kernel against its plain
-  version at the main path's shapes, compared the same way.
+  version at the main path's shapes, compared the same way;
+* the 2M-row logistic regression of ``benchmarks/data_scale.py:35-50``
+  (the 100k model at n = 2,000,000, 512 chains, 100 + 100 iterations of
+  HMC(8)), whose 88 MB of columns exceed the card's L2, so its launches
+  stream their row tiles: a scan-path run, the streamed density at full
+  width at its last draws and at inits against the plain version and
+  f64, the kernel streamed against synchronous bit for bit (on the 100k
+  logistic too) and, at the main path's 512 chains, against its plain
+  version, and ``Model.sample(kernel="fused!")`` held to the scan-path
+  run by per-chain moments.  Its phases print their seconds and the card's peak
+  memory.
 
 Any failed check raises and exits nonzero.  The third line from the end
 is a JSON object with each kernel's launches on its main path, error
@@ -56,6 +66,7 @@ of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -79,8 +90,11 @@ README_ROWS, README_SEED = 200, 0
 # 100k logistic regression (benchmarks/models.py:145-159) and its run on
 # the main path: fixed-step HMC with the sampler's defaults otherwise
 LOGIT_ROWS, LOGIT_FEATURES, LOGIT_SEED, LOGIT_PRIOR_SD = 100_000, 10, 5, 5.0
-LOGIT_WARMUP, LOGIT_DRAWS, LOGIT_STEPS = 1000, 1000, 5
+# draws cut from 1000 to 200 to make room for the 2M-row path
+LOGIT_WARMUP, LOGIT_DRAWS, LOGIT_STEPS = 1000, 200, 5
 LOGIT_PARITY_ITERS = 100
+# its kernel streamed against synchronous: bit for bit
+STREAM_AB_CHAINS, STREAM_AB_ITERS = 1000, 100
 # the logistic's kernel timed again at the main path's width over this
 # many iterations (its main path's sample_s is the 1000-iteration time)
 LOGIT_TIME_ITERS = 100
@@ -95,7 +109,8 @@ GLMM_MOMENT_Z = 5.0   # two-sample bound on each per-chain moment's mean
 # runs, collecting mu, sd and every 100th group effect (layout slots 0, 1,
 # 2, 102, ..., 9902)
 LARGE_GROUPS, LARGE_OBS, LARGE_SEED, LARGE_LAM = 10_000, 5, 6, 1.0
-LARGE_WARMUP, LARGE_DRAWS, LARGE_STEPS = 1000, 1000, 5
+# draws cut from 1000 to 200 to make room for the 2M-row path
+LARGE_WARMUP, LARGE_DRAWS, LARGE_STEPS = 1000, 200, 5
 LARGE_PARITY_ITERS, LARGE_CHECK_INIT = 100, 64
 # its kernel runs 4-thread blocks: 1001 chains leave a last block of one
 # chain and three copies of it, each in its own slot of the workspace
@@ -105,6 +120,17 @@ LARGE_PARITY_CHAINS = 1001
 # this many, and the law of all the draws
 LARGE_AGREE_AT = 20
 LARGE_COLLECT_EVERY = 100
+# the 2M-row logistic regression of benchmarks/data_scale.py:35-50 (the
+# 100k model's graph at n = 2,000,000; docs/performance.md:60-82): 88 MB
+# of columns, past the card's L2, so its launches stream their tiles
+LOGIT2M_ROWS, LOGIT2M_CHAINS = 2_000_000, 512
+LOGIT2M_WARMUP, LOGIT2M_DRAWS, LOGIT2M_STEPS = 100, 100, 8
+# the density check at this many of the scan-path run's last draws and
+# inits (the f64 truth holds several (rows, points) arrays)
+LOGIT2M_CHECK_DRAWS, LOGIT2M_CHECK_INIT = 128, 32
+# streamed against synchronous and against the plain version, at the main
+# path's width over this many iterations
+LOGIT2M_AB_ITERS = 2
 
 
 def funnel(rt):
@@ -129,13 +155,14 @@ def readme_regression(rt):
     return model, np.asarray(xs), np.asarray(ys), (sigma, alpha, betas)
 
 
-def logistic_regression(rt):
-    """benchmarks/models.py:145-159, data regenerated from its seed:
-    (model, x (n, p), ys (n,)); the parameters are alpha, then betas."""
+def logistic_regression(rt, n=None):
+    """benchmarks/models.py:145-159 at n rows (default LOGIT_ROWS), data
+    regenerated from its seed: (model, x (n, p), ys (n,)); the parameters
+    are alpha, then betas."""
     from rainier_tpu_torch.compute import real as R
 
     rng = np.random.default_rng(LOGIT_SEED)
-    n, p = LOGIT_ROWS, LOGIT_FEATURES
+    n, p = n or LOGIT_ROWS, LOGIT_FEATURES
     x = rng.normal(size=(n, p)).astype(np.float64)
     true_b = rng.normal(size=p)
     logits = x @ true_b - 0.5
@@ -320,16 +347,27 @@ def chaotic(F, cd, q0, kw, ker, plain, agree_at, tol, device):
     return ker, plain, law, z
 
 
-def parity_phase(F, cd, device, n_chains, n_iters, explicit_noise: bool,
-                 center=None, var=None, min_frac=0.99, tol=REL_TOL,
-                 max_dacc=0.01, start=None, collect_idx=None,
-                 agree_at=None):
-    """Kernel vs plain version on one input: per-chain ε and Σ̂, a ragged
-    chain count, every draw collected (of `collect_idx`'s coordinates).
-    q0 ~ N(center, var) and Σ̂ = var times a per-chain factor in [0.5, 2]
-    (standard normal without them); or, with `start` = (q0 (dim, n),
-    ε (n,), Σ̂ (n, dim)), those.  The explicit noise is drawn on the card.
-    With `agree_at`, the comparison of `chaotic`.  Returns max |Δq|."""
+def agree_frac(n_iters, dlp_mean):
+    """The least fraction of chains that must agree after `n_iters`
+    iterations.  An accept flips where log u falls between the two
+    versions' log α, which differ by at most |Δlp| at two points, and
+    log u - log α has a density of at most 1: so a chain flips with
+    probability at most 2·E|Δlp| per iteration, with E|Δlp| `dlp_mean`
+    from a density check near the states run.  Over many iterations the
+    bound falls below one half, where it says little: half the chains is
+    the floor."""
+    return max(0.5, 1.0 - 2.0 * n_iters * dlp_mean)
+
+
+def parity_inputs(cd, device, n_chains, n_iters, explicit_noise: bool,
+                  center=None, var=None, start=None, n_steps=N_STEPS,
+                  collect_every=1, collect_idx=None):
+    """(q0, keywords of `fused_hmc`) for a comparison run: per-chain ε and
+    Σ̂, every `collect_every`-th draw collected (of `collect_idx`'s
+    coordinates).  q0 ~ N(center, var) and Σ̂ = var times a per-chain
+    factor in [0.5, 2] (standard normal without them); or, with `start`
+    = (q0 (dim, n), ε (n,), Σ̂ (n, dim)), those.  The explicit noise is
+    drawn on the card."""
     import torch
 
     rng = np.random.default_rng(1 if explicit_noise else 2)
@@ -347,8 +385,9 @@ def parity_phase(F, cd, device, n_chains, n_iters, explicit_noise: bool,
         imd = t(var * rng.uniform(0.5, 2.0, (n_chains, dim)))
     else:
         q0, eps, imd = (t(x) for x in start)
-    kw = dict(step_size=eps, n_steps=N_STEPS, n_iterations=n_iters, seed=11,
-              inv_mass_diag=imd, collect_every=1, collect_idx=collect_idx)
+    kw = dict(step_size=eps, n_steps=n_steps, n_iterations=n_iters, seed=11,
+              inv_mass_diag=imd, collect_every=collect_every,
+              collect_idx=collect_idx)
     if explicit_noise:
         gen = torch.Generator(device=device).manual_seed(1)
         kw["noise"] = (
@@ -356,21 +395,37 @@ def parity_phase(F, cd, device, n_chains, n_iters, explicit_noise: bool,
                         device=device),
             torch.rand((n_iters, n_chains), generator=gen, device=device)
             .clamp(min=1.1920929e-7))
-    a = F.fused_hmc(cd, q0, **kw)
-    b = F.fused_hmc_reference(cd, q0, **kw)
+    return q0, kw
+
+
+def parity_phase(F, cd, device, n_chains, n_iters, explicit_noise: bool,
+                 center=None, var=None, min_frac=0.99, tol=REL_TOL,
+                 max_dacc=0.01, start=None, collect_idx=None,
+                 agree_at=None, n_steps=N_STEPS):
+    """Kernel vs plain version on the inputs of `parity_inputs`, a ragged
+    chain count and every draw collected.  With `agree_at`, the
+    comparison of `chaotic`.  Returns (max |Δq|, the kernel's ms, the
+    plain version's ms), each timed once, cold."""
+    q0, kw = parity_inputs(cd, device, n_chains, n_iters, explicit_noise,
+                           center, var, start, n_steps,
+                           collect_idx=collect_idx)
+    a, ker_ms = timed(lambda: F.fused_hmc(cd, q0, **kw), device, 1, False)
+    b, plain_ms = timed(lambda: F.fused_hmc_reference(cd, q0, **kw),
+                        device, 1, False)
     law, z = "", 0.0
     if agree_at is not None:
         a, b, law, z = chaotic(F, cd, q0, kw, a, b, agree_at, tol, device)
     frac, max_err, dacc, div_eq = agreement(a, b, tol)
     mode = "explicit noise" if explicit_noise else "on-device Philox"
     print(f"phase kernel-vs-plain ({mode}): {n_chains} chains x {n_iters} "
-          f"it: {frac:.4f} of chains within {tol} rel after "
-          f"{agree_at or n_iters} it (need {min_frac:.4f}), max |dq| "
+          f"it x {n_steps} steps: {frac:.4f} of chains within {tol} rel "
+          f"after {agree_at or n_iters} it (need {min_frac:.4f}), max |dq| "
           f"{max_err:.3g}, mean |d accept| {dacc:.3g}, divergences equal "
-          f"{div_eq}{law}", flush=True)
+          f"{div_eq}{law}; kernel {ker_ms:.1f} ms, plain {plain_ms:.1f} ms",
+          flush=True)
     check(frac >= min_frac and dacc < max_dacc and div_eq
           and z <= GLMM_MOMENT_Z, (frac, dacc, div_eq, z))
-    return max_err
+    return max_err, ker_ms, plain_ms
 
 
 def workspace_call_bytes(em):
@@ -382,23 +437,29 @@ def workspace_call_bytes(em):
 
 
 def kernel_bound_ms(em, n_chains, n_iters, n_steps, collect_every, F,
-                    col_bytes=0, n_collect=None):
+                    col_bytes=0, n_collect=None, past_l2=False,
+                    noise=False):
     """Least time the card could take for one fused_hmc call: the larger
     of its bytes over the memory rate and its operations over the f32
     rate (Philox integer operations counted at the f32 rate).  For a
     model with its state in the workspace, each density call's workspace
     bytes and each leapfrog step's momentum and position (read and
-    written) count too."""
-    ops = n_chains * n_iters * F.op_count(em, n_steps)
+    written) count too.  Columns past the card's L2 (`past_l2`) come from
+    device memory in every density call, so their bytes count once a
+    call.  With explicit `noise` the kernel reads every iteration's
+    momenta and uniform and runs no RNG."""
+    ops = n_chains * n_iters * F.op_count(em, n_steps, rng=not noise)
     n_out = n_iters // collect_every if collect_every else 0
     dim = em.n_vars
     n_collect = dim if n_collect is None else n_collect
+    calls = n_iters * n_steps + 1
     # columns, q0, ε, Σ̂ read; final q, accept, divergences, draws written
-    nbytes = col_bytes + 4 * (n_chains * (dim + 1 + dim)
-                              + n_chains * (dim + 2)
-                              + n_out * n_collect * n_chains)
+    nbytes = col_bytes * (calls if past_l2 else 1) + 4 * (
+        n_chains * (dim + 1 + dim) + n_chains * (dim + 2)
+        + n_out * n_collect * n_chains)
+    if noise:
+        nbytes += 4 * n_iters * n_chains * (dim + 1)
     if em.workspace:
-        calls = n_iters * n_steps + 1
         nbytes += n_chains * (calls * workspace_call_bytes(em)
                               + n_iters * n_steps * 4 * 4 * dim)
     return _bound(ops, nbytes)
@@ -408,6 +469,24 @@ def _bound(ops, nbytes):
     t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+@contextlib.contextmanager
+def phase(name, device):
+    """Prints the seconds the block took and, on the card, its peak
+    device memory."""
+    import torch
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    yield
+    peak = (f", peak device memory "
+            f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+            if cuda else "")
+    print(f"phase time, {name}: {time.perf_counter() - t0:.1f} s{peak}",
+          flush=True)
 
 
 def nvidia_smi() -> str:
@@ -446,10 +525,11 @@ def build_all(F, models):
 
 def time_kernel(F, cd, em, tr, n_steps, device, col_bytes, what, reps=1,
                 min_frac=0.99, tol=REL_TOL, max_dacc=0.01, agree_at=None,
-                n_iters=None, collect_idx=None):
+                n_iters=None, collect_idx=None, explicit_noise=False):
     """The kernel at a main path's shapes, on its warmup product's inputs:
     per-chain ε and Σ̂, every draw collected (of `collect_idx`'s
-    coordinates), q0 the main path's last full-width states; held to its
+    coordinates), q0 the main path's last full-width states, with
+    `explicit_noise` drawn on the card in place of Philox; held to its
     plain version as the parity phases are (at least `min_frac` of
     chains within `tol`, mean |Δaccept| < `max_dacc`, divergences
     equal), with `agree_at` by `chaotic`.
@@ -457,11 +537,11 @@ def time_kernel(F, cd, em, tr, n_steps, device, col_bytes, what, reps=1,
     import torch
 
     n_chains, n_iters = tr.chains.shape[0], n_iters or tr.chains.shape[1]
-    q0 = torch.as_tensor(tr.final_q.T.copy(), device=device)
-    kw = dict(step_size=torch.as_tensor(tr.step_size, device=device),
-              n_steps=n_steps, n_iterations=n_iters, seed=1,
-              inv_mass_diag=torch.as_tensor(tr.mass.diag, device=device),
-              collect_every=1, collect_idx=collect_idx)
+    q0, kw = parity_inputs(
+        cd, device, n_chains, n_iters, explicit_noise,
+        start=(tr.final_q.T, tr.step_size, tr.mass.diag), n_steps=n_steps,
+        collect_idx=collect_idx)
+    kw["seed"] = 1
     ker, ker_ms = timed(lambda: F.fused_hmc(cd, q0, **kw), device, reps,
                         reps > 1)
     plain, plain_ms = timed(lambda: F.fused_hmc_reference(cd, q0, **kw),
@@ -473,10 +553,12 @@ def time_kernel(F, cd, em, tr, n_steps, device, col_bytes, what, reps=1,
     frac, max_err, dacc, div_eq = agreement(ker, plain, tol)
     n_collect = cd.n_vars if collect_idx is None else len(collect_idx)
     bound_ms, bound_by = kernel_bound_ms(em, n_chains, n_iters, n_steps, 1,
-                                         F, col_bytes, n_collect)
+                                         F, col_bytes, n_collect,
+                                         noise=explicit_noise)
     print(f"phase kernel at main-path shapes, {what} ({n_chains} chains x "
-          f"{n_iters} it x {n_steps} steps, {n_collect} coordinates of "
-          f"each draw collected, workspace "
+          f"{n_iters} it x {n_steps} steps, "
+          f"{'explicit noise' if explicit_noise else 'on-device Philox'}, "
+          f"{n_collect} coordinates of each draw collected, workspace "
           f"{F.workspace_bytes(em, n_chains)} bytes): kernel "
           f"{ker_ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} "
           f"ms ({bound_by}), {frac:.4f} of chains agree within {tol} rel "
@@ -578,6 +660,9 @@ def funnel_phases(F, cd, model, y, em, device, smi):
     # (an allocation right after the main path) does not set the mean
     entry = time_kernel(F, cd, em, tr, N_STEPS, device, 0, "funnel",
                         reps=20)
+    # the same with explicit noise (the host_rng counterpart)
+    noise_entry = time_kernel(F, cd, em, tr, N_STEPS, device, 0,
+                              "funnel", reps=20, explicit_noise=True)
 
     # throughput: bench.py's configuration on the model-built funnel
     qz = torch.zeros((cd.n_vars, THROUGHPUT_CHAINS), device=device)
@@ -596,10 +681,14 @@ def funnel_phases(F, cd, model, y, em, device, smi):
           f"(bound {tp_bound_ms:.3f} ms, {tp_bound_by}); plain version "
           f"{tp_plain_ms * THROUGHPUT_ITERS / 50:.1f} ms (50 it timed, "
           f"scaled) on {smi}", flush=True)
-    return {"name": "fused_hmc", "route": "cuda",
-            "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
-            "replaces": "rainier_tpu/ops/hmc_pallas.py:506",
-            "launches": launches, **entry, "library_ms": None}
+    return [{"name": "fused_hmc", "route": "cuda",
+             "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
+             "replaces": "rainier_tpu/ops/hmc_pallas.py:506",
+             "launches": launches, **entry, "library_ms": None},
+            {"name": "fused_hmc (funnel, explicit noise)", "route": "cuda",
+             "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
+             "replaces": "rainier_tpu/ops/hmc_pallas.py:244",
+             "launches": 0, **noise_entry, "library_ms": None}]
 
 
 def density_phase(F, cd, em, x, ys, w_map, cov, device):
@@ -637,13 +726,14 @@ def density_check(F, cd, em, q, truth, n_near, near_name, device,
     plain over the near points, the JSON entry)."""
     import torch
 
-    before = F.logp_grad.launches
+    before = F.logp_grad.launches, F.logp_grad.streamed
     # one warm-up launch, then the mean of three
     (lp_k, g_k), ms = timed(lambda: F.logp_grad(cd, q), device, 3)
     (lp_p, g_p), plain_ms = timed(lambda: F.logp_grad_reference(cd, q),
                                   device, 1, False)
     lp_t, g_t = truth
-    check(F.logp_grad.launches == before + 4, "logp_grad did not launch")
+    check(F.logp_grad.launches == before[0] + 4, "logp_grad did not launch")
+    streamed = F.logp_grad.streamed - before[1]
     tol_lp = torch.clamp(2 * torch.finfo(torch.float32).eps
                          * lp_t.abs().float(), min=0.01)
     gmax = g_t.abs().amax(0).float()
@@ -673,7 +763,8 @@ def density_check(F, cd, em, q, truth, n_near, near_name, device,
     nbytes = 4 * (em.n_rows * em.row_width + 2 * n * (cd.n_vars + 1)) \
         + n * workspace_call_bytes(em)
     bound_ms, bound_by = _bound(ops, nbytes)
-    print(f"phase density at full width: rt_logp_grad_launch at {n} q "
+    print(f"phase density at full width: rt_logp_grad_launch at {n} q, "
+          f"{streamed} of 4 launches streamed "
           f"({n_near} {near_name}, {n - n_near} inits; "
           f"max |g| {float(gmax[groups[near_name]].max()):.4g} and "
           f"{float(gmax[groups['inits']].max()):.4g}, |lp| up to "
@@ -852,14 +943,12 @@ def glmm_phases(F, model, cd, em, device):
 
     # kernel vs plain from the scan-path run's last draws, with its
     # per-chain ε and Σ̂; the bar of the logistic's parity phases
-    def min_frac(n_iters):
-        return max(0.5, 1.0 - 2.0 * n_iters * dlp_mean)
-
     start = (last[:, :PARITY_CHAINS], tr_scan.step_size[:PARITY_CHAINS],
              tr_scan.mass.diag[:PARITY_CHAINS])
     for explicit in (True, False):
         parity_phase(F, cd, device, PARITY_CHAINS, GLMM_PARITY_ITERS,
-                     explicit, min_frac=min_frac(GLMM_PARITY_ITERS),
+                     explicit,
+                     min_frac=agree_frac(GLMM_PARITY_ITERS, dlp_mean),
                      tol=1e-3, max_dacc=0.02, start=start)
 
     # the main path: chains start i.i.d. and adapt per chain, so each
@@ -883,8 +972,8 @@ def glmm_phases(F, model, cd, em, device):
     check(z <= GLMM_MOMENT_Z, (z, stat, param))
     entry = time_kernel(F, cd, em, tr, GLMM_STEPS, device,
                         4 * em.n_rows * em.row_width, "GLMMPoisson2",
-                        min_frac=min_frac(GLMM_PARITY_ITERS), tol=1e-3,
-                        max_dacc=0.02, agree_at=GLMM_PARITY_ITERS)
+                        min_frac=agree_frac(GLMM_PARITY_ITERS, dlp_mean),
+                        tol=1e-3, max_dacc=0.02, agree_at=GLMM_PARITY_ITERS)
     return [{"name": "fused_hmc (GLMMPoisson2, integer index columns)",
              "route": "cuda",
              "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
@@ -976,16 +1065,13 @@ def large_phases(F, model, cd, em, device):
 
     # kernel vs plain from those states, with the run's per-chain ε and
     # Σ̂: the bar of the other models' parity phases
-    def min_frac(n_iters):
-        return max(0.5, 1.0 - 2.0 * n_iters * dlp_mean)
-
     n_par = LARGE_PARITY_CHAINS
     start = (last[:, :n_par], tr_scan.step_size[:n_par],
              tr_scan.mass.diag[:n_par])
     for explicit in (True, False):
         parity_phase(F, cd, device, n_par, LARGE_PARITY_ITERS, explicit,
-                     min_frac=min_frac(LARGE_AGREE_AT), tol=1e-3,
-                     max_dacc=0.02, start=start, collect_idx=idx,
+                     min_frac=agree_frac(LARGE_AGREE_AT, dlp_mean),
+                     tol=1e-3, max_dacc=0.02, start=start, collect_idx=idx,
                      agree_at=LARGE_AGREE_AT)
 
     # the main path, held to the scan-path run as GLMMPoisson2's is
@@ -1010,8 +1096,8 @@ def large_phases(F, model, cd, em, device):
     # its last states with its ε and Σ̂, keeping the collected coordinates
     entry = time_kernel(F, cd, em, tr, LARGE_STEPS, device,
                         4 * em.n_rows * em.row_width, "glmm_large",
-                        min_frac=min_frac(LARGE_AGREE_AT), tol=1e-3,
-                        max_dacc=0.02, agree_at=LARGE_AGREE_AT,
+                        min_frac=agree_frac(LARGE_AGREE_AT, dlp_mean),
+                        tol=1e-3, max_dacc=0.02, agree_at=LARGE_AGREE_AT,
                         collect_idx=idx)
     return [{"name": "fused_hmc (glmm_large, state in the workspace)",
              "route": "cuda",
@@ -1020,6 +1106,168 @@ def large_phases(F, model, cd, em, device):
              "launches": launches, **entry, "library_ms": None},
             {**density_entry, "name": "rt_logp_grad_launch (glmm_large)",
              "launches": 0}]
+
+
+def stream_phase(F, cd, device, n_chains, n_iters, n_steps, what,
+                 plain=None, **inputs):
+    """The kernel with its column tiles streamed and synchronous
+    (``stream_columns`` True and False) on the inputs of `parity_inputs`,
+    in both RNG modes: bit for bit the same final q, draws, accept rates
+    and divergences (``torch.equal``), one streamed launch each.  With
+    `plain` = (min_frac, tol, max_dacc), the plain version runs on the
+    same inputs too and the streamed kernel is held to it as the parity
+    phases hold theirs.  Returns ({(explicit noise, True, False or
+    "plain"): ms}, each run timed once, and the largest |Δq| against the
+    plain version)."""
+    import torch
+
+    times, max_err = {}, 0.0
+    for explicit in (True, False):
+        q0, kw = parity_inputs(cd, device, n_chains, n_iters, explicit,
+                               n_steps=n_steps, **inputs)
+        before = F.fused_hmc.streamed
+        outs = {}
+        for flag in (True, False):
+            outs[flag], times[explicit, flag] = timed(
+                lambda: F.fused_hmc(cd, q0, stream_columns=flag, **kw),
+                device, 1, False)
+        same = all(torch.equal(a, b) for a, b in zip(outs[True],
+                                                     outs[False]))
+        streamed = F.fused_hmc.streamed - before
+        mode = "explicit noise" if explicit else "on-device Philox"
+        vs_plain, ok = "", True
+        if plain is not None:
+            min_frac, tol, max_dacc = plain
+            ref, times[explicit, "plain"] = timed(
+                lambda: F.fused_hmc_reference(cd, q0, **kw), device, 1,
+                False)
+            frac, err, dacc, div_eq = agreement(outs[True], ref, tol)
+            max_err = max(max_err, err)
+            ok = frac >= min_frac and dacc < max_dacc and div_eq
+            plain_ms = times[explicit, "plain"]
+            vs_plain = (f"; against the plain version ({plain_ms:.1f} "
+                        f"ms) {frac:.4f} of chains within "
+                        f"{tol} rel (need {min_frac:.4f}), max |dq| "
+                        f"{err:.3g}, mean |d accept| {dacc:.3g}, "
+                        f"divergences equal {div_eq}")
+        print(f"phase streamed-vs-synchronous, {what} ({mode}): {n_chains} "
+              f"chains x {n_iters} it x {n_steps} steps: final q, draws, "
+              f"accept rates and divergences identical {same}; streamed "
+              f"{times[explicit, True]:.1f} ms, synchronous "
+              f"{times[explicit, False]:.1f} ms; {streamed} launch streamed"
+              f"{vs_plain}", flush=True)
+        check(same and streamed == 1 and ok, (what, mode, same, streamed,
+                                              vs_plain))
+    return times, max_err
+
+
+def logit2m_phases(F, model, cd, em, x, ys, lcd, w_map, cov, device):
+    """The 2M-row logistic regression, whose columns stream: a scan-path
+    run, the density at full width at its last draws and at inits, the
+    kernel streamed against synchronous (on the 100k logistic `lcd` too,
+    around its Laplace mode `w_map`, `cov`) and against its plain version
+    from the scan-path draws, and the main path held to the scan-path run by
+    per-chain moments (the reference does not converge it at this
+    budget either: rank-r̂ 10.6 on its scan path,
+    benchmarks/data_scale_tpu_r5.jsonl).  Returns its JSON entries."""
+    import torch
+
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    cfg = SamplerConfig(LOGIT2M_WARMUP, LOGIT2M_DRAWS,
+                        sampler=HMC(LOGIT2M_STEPS))
+    n, n_steps = LOGIT2M_CHAINS, LOGIT2M_STEPS
+    col_bytes = 4 * em.n_rows * em.row_width
+    l2 = (torch.cuda.get_device_properties(device).L2_cache_size
+          if device.type == "cuda" else 0)
+
+    def summary(tr):
+        return (f"rank-r_hat max {rank_rhat(tr, device):.5f}, accept "
+                f"{float(np.mean(tr.accept_rate())):.3f}, divergences "
+                f"{tr.divergences()}, step size median "
+                f"{float(np.median(tr.step_size)):.4g}, timings "
+                f"{tr.timings}")
+
+    head = (f"{n} chains x ({LOGIT2M_WARMUP} warmup + {LOGIT2M_DRAWS} "
+            f"draws), HMC({n_steps})")
+    with phase("scan path, logistic 2M", device):
+        tr_scan = model.sample(cfg, n_chains=n, seed=1, kernel="scan",
+                               device=device)
+        print(f"phase scan path, logistic 2M: Model.sample(kernel='scan') "
+              f"{head}, {em.n_rows} rows x {LOGIT_FEATURES} features, "
+              f"{col_bytes} bytes of columns against an L2 of {l2}: "
+              f"{summary(tr_scan)}", flush=True)
+
+    # the density at the scan-path run's last draws and at inits, the
+    # launches streamed, against f32 autograd and f64 on the card
+    last = tr_scan.chains[:, -1, :].T
+    with phase("density at full width, logistic 2M", device):
+        inits = cfg.init_scale * np.random.default_rng(9).normal(
+            size=(cd.n_vars, LOGIT2M_CHECK_INIT))
+        q = torch.as_tensor(np.hstack([last[:, :LOGIT2M_CHECK_DRAWS],
+                                       inits]), dtype=torch.float32,
+                            device=device)
+        before = F.logp_grad.streamed
+        dlp_mean, density_entry = density_check(
+            F, cd, em, q, logistic_truth(x, ys, q, device),
+            LOGIT2M_CHECK_DRAWS, "scan-path draws", device,
+            "rainier_tpu/ops/hmc_pallas.py:305")
+        check(F.logp_grad.streamed - before == 4,
+              "the 2M-row density launches did not stream")
+        del q
+
+    with phase("streamed vs synchronous, logistic 100k", device):
+        stream_phase(F, lcd, device, STREAM_AB_CHAINS, STREAM_AB_ITERS,
+                     LOGIT_STEPS, "logistic 100k", center=w_map,
+                     var=np.diag(cov))
+    # at the main path's width from the scan-path run's last draws, with
+    # its per-chain ε and Σ̂, the plain version on the same inputs too,
+    # held to the streamed kernel with the bar of the logistic's parity
+    # phases
+    with phase("streamed vs synchronous vs plain, logistic 2M", device):
+        times, max_err = stream_phase(
+            F, cd, device, n, LOGIT2M_AB_ITERS, n_steps, "logistic 2M",
+            plain=(agree_frac(LOGIT2M_AB_ITERS, dlp_mean), 1e-3, 0.02),
+            start=(last, tr_scan.step_size, tr_scan.mass.diag))
+
+    with phase("main path, logistic 2M", device):
+        F.fused_hmc.launches = F.fused_hmc.streamed = 0
+        tr = model.sample(cfg, n_chains=n, seed=0, kernel="fused!",
+                          device=device)
+        launches, streamed = F.fused_hmc.launches, F.fused_hmc.streamed
+        z, stat, param = moment_z(tr.chains, tr_scan.chains, device)
+        print(f"phase main path, logistic 2M: Model.sample(kernel='fused!') "
+              f"{head}: fused_hmc launches {launches}, streamed {streamed}, "
+              f"{summary(tr)}; per-chain means and variances against the "
+              f"scan-path run: max {z:.3f} standard errors apart (chain "
+              f"{stat}s of parameter {param}; bound {GLMM_MOMENT_Z}); the "
+              f"kernel's sample_s {tr.timings['sample_s']} s against the "
+              f"scan path's {tr_scan.timings['sample_s']} s", flush=True)
+        check(launches == 1 and streamed == 1, (launches, streamed))
+        check(np.all(np.isfinite(tr.chains)) and tr.chains.shape == (
+            n, LOGIT2M_DRAWS, cd.n_vars), tr.chains.shape)
+        check(z <= GLMM_MOMENT_Z, (z, stat, param))
+
+    # ms, plain_ms and bound_ms all of the Philox run of the 2M stream
+    # phase: the main path's width and inputs, its depth cut
+    bound_ms, bound_by = kernel_bound_ms(em, n, LOGIT2M_AB_ITERS, n_steps,
+                                         1, F, col_bytes, past_l2=True)
+    return [{"name": "fused_hmc (logistic regression 2M rows, streamed "
+                     "columns)", "route": "cuda",
+             "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
+             "replaces": "rainier_tpu/ops/hmc_pallas.py:305",
+             "launches": launches, "max_abs_err": max_err,
+             "ms": times[False, True], "plain_ms": times[False, "plain"],
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "ms_of": f"{n} chains x {LOGIT2M_AB_ITERS} it x {n_steps} "
+                      f"steps, on-device Philox, from the scan-path run's "
+                      f"last draws; the plain version on the same inputs",
+             "main_path_ms": tr.timings["sample_s"] * 1e3,
+             "main_path_ms_of": f"the main path's sample_s, {n} chains x "
+                                f"{LOGIT2M_DRAWS} it x {n_steps} steps"},
+            {**density_entry,
+             "name": "rt_logp_grad_launch (logistic regression 2M rows, "
+                     "streamed)", "launches": 0}]
 
 
 def main() -> int:
@@ -1045,16 +1293,18 @@ def main() -> int:
     readme = readme_regression(rt)
     gmodel = glmm_poisson(rt)
     large = glmm_large(rt)
+    l2model, x2, ys2 = logistic_regression(rt, LOGIT2M_ROWS)
     cds = {"funnel": fmodel.density(),
            "README regression": readme[0].density(),
            "logistic regression": lmodel.density(),
            "GLMMPoisson2": gmodel.density(),
-           "glmm_large": large.density()}
+           "glmm_large": large.density(),
+           "logistic regression 2M": l2model.density()}
     ems = build_all(F, cds)
 
     # -- the funnel: the column-free phases ----------------------------------
-    kernels = [funnel_phases(F, cds["funnel"], fmodel, y, ems["funnel"],
-                             device, smi)]
+    kernels = funnel_phases(F, cds["funnel"], fmodel, y, ems["funnel"],
+                            device, smi)
 
     # -- the logistic regression at full width ------------------------------
     lcd, lem = cds["logistic regression"], ems["logistic regression"]
@@ -1066,27 +1316,19 @@ def main() -> int:
           f"({time.perf_counter() - t0:.2f} s)", flush=True)
     dlp_mean, density_entry = density_phase(F, lcd, lem, x, ys, w_map, cov,
                                             device)
-    # an accept flips where log u falls between the two versions' log α,
-    # which differ by at most |Δlp| at two points, and log u - log α has
-    # a density of at most 1: so a chain flips with probability at most
-    # 2·E|Δlp| per iteration, with E|Δlp| near the MAP from the density
-    # phase; 1e-3 rel allows the f32 gradient differences to compound
-    # over the iterations.  Over many iterations the bound falls below
-    # one half, where it says little: half the chains is the floor
-    def logit_min_frac(n_iters):
-        return max(0.5, 1.0 - 2.0 * n_iters * dlp_mean)
-
+    # E|Δlp| near the MAP from the density phase; 1e-3 rel allows the f32
+    # gradient differences to compound over the iterations
     for explicit in (True, False):
         parity_phase(F, lcd, device, PARITY_CHAINS, LOGIT_PARITY_ITERS,
                      explicit, center=w_map, var=np.diag(cov),
-                     min_frac=logit_min_frac(LOGIT_PARITY_ITERS), tol=1e-3,
-                     max_dacc=0.02)
+                     min_frac=agree_frac(LOGIT_PARITY_ITERS, dlp_mean),
+                     tol=1e-3, max_dacc=0.02)
 
     # -- main paths with data -----------------------------------------------
     kernels.append(readme_phases(F, readme, ems["README regression"],
                                  device))
     kernels.append(logistic_main(F, lmodel, lcd, lem, w_map, cov, device,
-                                 logit_min_frac(LOGIT_TIME_ITERS)))
+                                 agree_frac(LOGIT_TIME_ITERS, dlp_mean)))
     kernels.append({**density_entry, "launches": 0})
 
     # -- GLMMPoisson2: integer index columns ---------------------------------
@@ -1096,6 +1338,11 @@ def main() -> int:
     # -- glmm_large: the chain state in the kernel's workspace ---------------
     kernels += large_phases(F, large, cds["glmm_large"], ems["glmm_large"],
                             device)
+
+    # -- the 2M-row logistic regression: streamed columns ---------------------
+    kernels += logit2m_phases(F, l2model, cds["logistic regression 2M"],
+                              ems["logistic regression 2M"], x2, ys2, lcd,
+                              w_map, cov, device)
     print(f"phase total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}))

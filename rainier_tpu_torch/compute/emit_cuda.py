@@ -38,6 +38,9 @@ call, the row function accumulates their adjoints over the rows, and
 mode through a broadcast, as the lanes evaluator's (1, C)-against-(n, C)
 broadcasting is.  ``MatVec`` is p multiply-adds per row, and a ``Column``
 view of a ``MatColumn`` that the tile holds reads the matrix's entry.
+The tile loader comes twice: ``rt_fill_tile`` stores every element, and
+``rt_fill_tile_async`` issues the same copies asynchronously, for a
+launch that streams its columns through two tile slots.
 
 An ``IntColumn`` is an int32 field of the tile row, carried bit for bit in
 its float slot, so every int32 index is exact.  A ``Gather`` of a
@@ -85,9 +88,10 @@ class UnsupportedNode(NotImplementedError):
     """The graph holds a node the CUDA emitter does not cover yet."""
 
 
-# Row tiles: at most TILE_ROWS_MAX rows, halved until a tile fits the
-# shared memory one block can use on an H100; below TILE_ROWS_MIN rows
-# the kernel does not take the model
+# Row tiles: at most TILE_ROWS_MAX rows, halved until two tiles fit the
+# shared memory one block can use on an H100 (a launch that streams its
+# columns fills one slot while the block reads the other); below
+# TILE_ROWS_MIN rows the kernel does not take the model
 TILE_ROWS_MAX = 256
 TILE_ROWS_MIN = 32
 SMEM_BYTES_MAX = 232448
@@ -106,10 +110,10 @@ _RESTRICT = " __restrict__"
 
 
 def tile_rows(row_width: int) -> int:
-    """Rows per tile for rows of `row_width` floats (0 when even a
-    TILE_ROWS_MIN-row tile does not fit shared memory)."""
+    """Rows per tile for rows of `row_width` floats (0 when even two
+    TILE_ROWS_MIN-row tiles do not fit shared memory)."""
     r = TILE_ROWS_MAX
-    while r * row_width * 4 > SMEM_BYTES_MAX and r >= TILE_ROWS_MIN:
+    while 2 * r * row_width * 4 > SMEM_BYTES_MAX and r >= TILE_ROWS_MIN:
         r //= 2
     return r if r >= TILE_ROWS_MIN else 0
 
@@ -861,21 +865,24 @@ def _emit_rows(cd, row_roots, ws):
             row.backward(node)
     total = " + ".join(row.el(r, 0) for r in row_roots)
     n_ninv = max(n_inv, 1)
-    fill = []
+    fill, fill_async = [], []
     for j, (c, w) in enumerate(zip(cd.columns, widths)):
         o = offs[c.id]
         if w == 1:
             v = f"cols.c{j}[row0 + i]"
-            if isinstance(c, R.IntColumn):
-                v = f"rt_int_bits({v})"
-            fill.append(f"  for (int i = tid; i < rows; i += nt) "
-                        f"tile[i * RT_ROW_W + {o}] = {v};")
+            loop = "  for (int i = tid; i < rows; i += nt) "
+            dst = f"tile[i * RT_ROW_W + {o}]"
+            fill.append(f"{loop}{dst} = " + (
+                f"rt_int_bits({v})" if isinstance(c, R.IntColumn) else v)
+                + ";")
+            fill_async.append(f"{loop}rt_copy_async(&{dst}, &{v});")
         elif w > 1:
-            fill += [f"  for (int i = tid; i < rows * {w}; i += nt) {{",
-                     f"    const int r = i / {w};",
-                     f"    tile[r * RT_ROW_W + {o} + i - r * {w}] = "
-                     f"cols.c{j}[(size_t)row0 * {w} + i];",
-                     "  }"]
+            dst = f"tile[r * RT_ROW_W + {o} + i - r * {w}]"
+            v = f"cols.c{j}[(size_t)row0 * {w} + i]"
+            head = [f"  for (int i = tid; i < rows * {w}; i += nt) {{",
+                    f"    const int r = i / {w};"]
+            fill += [*head, f"    {dst} = {v};", "  }"]
+            fill_async += [*head, f"    rt_copy_async(&{dst}, &{v});", "  }"]
     r = _RESTRICT if ws else ""
     lines = [
         f"#define RT_NINV {n_inv}",
@@ -912,6 +919,13 @@ def _emit_rows(cd, row_roots, ws):
         "RT_HD void rt_fill_tile(float* tile, const RtCols& cols, int row0, "
         "int rows, int tid, int nt) {",
         *fill,
+        "}",
+        "",
+        "// the same copies as rt_fill_tile, issued asynchronously (cp.async",
+        "// on the card, a plain copy in host code); an index keeps its bits",
+        "RT_HD void rt_fill_tile_async(float* tile, const RtCols& cols, "
+        "int row0, int rows, int tid, int nt) {",
+        *fill_async,
         "}",
     ]
     row_ops = row.fops + row.rops + len(row_roots)

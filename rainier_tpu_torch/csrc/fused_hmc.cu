@@ -1,7 +1,7 @@
 // Fused HMC sampling loop for Hopper (sm_90a): the hand-written
 // counterpart of the Pallas TPU kernel rainier_tpu/ops/hmc_pallas.py::
-// fused_hmc, with its resident-column and row-tiled branches
-// (hmc_pallas.py:157-222, 280, 302-381, 483-491).  See
+// fused_hmc, with its resident-column, row-tiled and streamed-column
+// branches (hmc_pallas.py:157-222, 280, 302-381, 483-497).  See
 // rainier_tpu_torch/ops/fused_hmc.py for the wrapper, the plain PyTorch
 // version and the notes on what bounds this kernel.
 //
@@ -33,6 +33,23 @@
 // of every tile, pass every barrier, and store nothing.  All threads of a
 // warp read the same row of the tile, a broadcast without bank
 // conflicts.  Rows at or past n_rows are skipped, not padded.
+//
+// Streamed columns (stream_cols, the counterpart of hmc_pallas.py:186-191,
+// 305-351, 484-486, 492-497).  Columns larger than the card's L2 are read
+// from device memory again in every density call, so a launch may stream
+// them: the shared memory holds two tile slots, each thread issues its
+// share of tile t + 1's copies as cp.async into the other slot before it
+// waits for tile t's, and the rows of tile t are computed while tile
+// t + 1 is in flight.  Every thread commits one group per tile (an empty
+// one after the last), the ragged edge's copies included, so that each
+// thread's wait counts the same groups.  Both tile loops sum a tile's
+// rows with one function, rt_tile_rows, reading the tile's slot, so a
+// streamed launch gives the synchronous launch's results bit for bit.  The
+// synchronous loop keeps its own form, and each kernel is compiled once
+// for each flag (below): a loop shared by both flags, with the slot chosen
+// per tile, made the synchronous kernel 13% slower on the 100k-row
+// logistic regression, and both loops in one kernel 8% slower
+// (rainier_tpu_torch/tools/kernel_ab.py tiles, H100).
 //
 // Integer index columns.  The generated RtCols holds each column with its
 // own type (int32 for an IntColumn), and the loader keeps an index's bits
@@ -207,11 +224,48 @@ RT_HD void rt_collect(float* __restrict__ out, const float* __restrict__ q,
 #endif
 }
 
+#define RT_TILE_FLOATS (RT_TILE * RT_ROW_W)
+
+#if RT_ROW_W > 0
+// rows [row0, row0 + RT_TILE) of the columns, cut at n_rows, as this
+// thread's asynchronous copies into `slot`, committed as one group (an
+// empty group past the last row)
+RT_HD void rt_stream_tile(float* slot, const RtCols& cols, int row0,
+                          int n_rows) {
+  if (row0 < n_rows)
+    rt_fill_tile_async(slot, cols, row0,
+                       n_rows - row0 < RT_TILE ? n_rows - row0 : RT_TILE,
+                       RT_TID, RT_NTHREADS);
+  rt_copy_commit();
+}
+
+// the rows of one tile, read from `slot`, for this chain: lp and the
+// dense row-invariant adjoints summed per tile (rt_row_sum) and added to
+// the f64 totals.  Both tile loops, synchronous and streamed, sum their
+// rows here, so the two give the same results bit for bit.
+RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
+                        float* ainv, double& lp_acc, double* ainv_acc) {
+  rt_row_sum lp_t = 0.0f;
+#pragma unroll
+  for (int k = 0; k < RT_NINV_DENSE; ++k) ainv[k] = 0.0f;
+#pragma unroll 4
+  for (int r = 0; r < rows; ++r)
+    lp_t += rt_row(slot + r * RT_ROW_W, inv, ainv);
+  lp_acc += (double)lp_t;
+#pragma unroll
+  for (int k = 0; k < RT_NINV_DENSE; ++k)
+    ainv_acc[k] += (double)ainv[k];
+}
+#endif
+
 // log-density and gradient at natural coordinates x for one chain: the
-// column-free terms, then the row terms over every tile of the columns
-// `ws`: the thread's base in the workspace (unused for small models)
+// column-free terms, then the row terms over every tile of the columns.
+// `tile`: the block's shared memory, two slots of RT_TILE_FLOATS floats
+// where `stream_cols` is set; `ws`: the thread's base in the workspace
+// (unused for small models)
 RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
-                       int n_rows, float* tile, float* ws) {
+                       int n_rows, int stream_cols, float* tile,
+                       float* ws) {
   float lp = rt_logp_grad(x, g);
 #if RT_ROW_W > 0
   RT_STATE(inv, RT_NINV_ALLOC, RT_OFF_INV);
@@ -224,21 +278,29 @@ RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
   for (int k = RT_NINV_DENSE; k < RT_NINV; ++k) ainv[k] = 0.0f;
 #pragma unroll
   for (int k = 0; k < RT_NINV_DENSE; ++k) ainv_acc[k] = 0.0;
-  for (int row0 = 0; row0 < n_rows; row0 += RT_TILE) {
-    const int rows = n_rows - row0 < RT_TILE ? n_rows - row0 : RT_TILE;
-    rt_fill_tile(tile, cols, row0, rows, RT_TID, RT_NTHREADS);
-    RT_TILE_SYNC();
-    rt_row_sum lp_t = 0.0f;
-#pragma unroll
-    for (int k = 0; k < RT_NINV_DENSE; ++k) ainv[k] = 0.0f;
-#pragma unroll 4
-    for (int r = 0; r < rows; ++r)
-      lp_t += rt_row(tile + r * RT_ROW_W, inv, ainv);
-    lp_acc += (double)lp_t;
-#pragma unroll
-    for (int k = 0; k < RT_NINV_DENSE; ++k)
-      ainv_acc[k] += (double)ainv[k];
-    RT_TILE_SYNC();
+  if (stream_cols) {
+    // tile t is in slot t & 1: tile 0 before the loop, then tile t + 1
+    // into the other slot, whose last reader passed the barrier that
+    // ended tile t - 1, before the wait for tile t's copies
+    rt_stream_tile(tile, cols, 0, n_rows);
+    for (int t = 0, row0 = 0; row0 < n_rows; ++t, row0 += RT_TILE) {
+      rt_stream_tile(tile + ((t + 1) & 1) * RT_TILE_FLOATS, cols,
+                     row0 + RT_TILE, n_rows);
+      rt_copy_wait_prior1();
+      RT_TILE_SYNC();
+      rt_tile_rows(tile + (t & 1) * RT_TILE_FLOATS,
+                   n_rows - row0 < RT_TILE ? n_rows - row0 : RT_TILE, inv,
+                   ainv, lp_acc, ainv_acc);
+      RT_TILE_SYNC();
+    }
+  } else {
+    for (int row0 = 0; row0 < n_rows; row0 += RT_TILE) {
+      const int rows = n_rows - row0 < RT_TILE ? n_rows - row0 : RT_TILE;
+      rt_fill_tile(tile, cols, row0, rows, RT_TID, RT_NTHREADS);
+      RT_TILE_SYNC();
+      rt_tile_rows(tile, rows, inv, ainv, lp_acc, ainv_acc);
+      RT_TILE_SYNC();
+    }
   }
 #pragma unroll
   for (int k = 0; k < RT_NINV_DENSE; ++k)
@@ -250,18 +312,18 @@ RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
   lp += (float)lp_acc;
 #endif
 #else
-  (void)cols, (void)n_rows, (void)tile, (void)ws;
+  (void)cols, (void)n_rows, (void)stream_cols, (void)tile, (void)ws;
 #endif
   return lp;
 }
 
 // density + gradient at standardized q: x = q * sc, grad = sc * dlogp/dx
 RT_HD float rt_lp_grad(const float* q, const float* sc, float* g,
-                       const RtCols& cols, int n_rows, float* tile,
-                       float* ws) {
+                       const RtCols& cols, int n_rows, int stream_cols,
+                       float* tile, float* ws) {
   RT_STATE(x, RT_DIM, RT_OFF_X);
   rt_mul(x, q, sc);
-  const float lp = rt_density(x, g, cols, n_rows, tile, ws);
+  const float lp = rt_density(x, g, cols, n_rows, stream_cols, tile, ws);
   rt_mul_in(g, sc);
   return lp;
 }
@@ -276,7 +338,8 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
                         float* div_out, int n_iterations, int n_steps,
                         int collect_every, const int* collect_pos,
                         int n_collect, uint32_t seed, const RtCols& cols,
-                        int n_rows, float* tile, float* ws) {
+                        int n_rows, int stream_cols, float* tile,
+                        float* ws) {
   const bool live = c < n;
   if (!live) c = n - 1;
   RT_STATE(sc, RT_DIM, 0);
@@ -293,7 +356,7 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
     q[d] = q0[(size_t)d * n + c] / sc[d];
   }
   const float eps = eps_in[c];
-  float lp = rt_lp_grad(q, sc, g, cols, n_rows, tile, ws);
+  float lp = rt_lp_grad(q, sc, g, cols, n_rows, stream_cols, tile, ws);
   float acc = 0.0f, div = 0.0f;
 
   for (int it = 0; it < n_iterations; ++it) {
@@ -329,10 +392,10 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
 
     // kick-drift-kick leapfrog, the order of hmc_pallas.py:395-408
     rt_kick_drift(p, qn, q, g, 0.5f * eps, eps);
-    float lpn = rt_lp_grad(qn, sc, gn, cols, n_rows, tile, ws);
+    float lpn = rt_lp_grad(qn, sc, gn, cols, n_rows, stream_cols, tile, ws);
     for (int s = 1; s < n_steps; ++s) {
       rt_kick_drift_in(p, qn, gn, eps);
-      lpn = rt_lp_grad(qn, sc, gn, cols, n_rows, tile, ws);
+      lpn = rt_lp_grad(qn, sc, gn, cols, n_rows, stream_cols, tile, ws);
     }
     const float k1 = rt_kick_energy(p, gn, 0.5f * eps);
     const float h1 = -lpn + 0.5f * k1;
@@ -365,21 +428,22 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
 // the same density function and tile loop as the sampler
 RT_HD void rt_logp_grad_chain(int c, int n, const float* q, float* lp,
                               float* g, const RtCols& cols, int n_rows,
-                              float* tile, float* ws) {
+                              int stream_cols, float* tile, float* ws) {
   const bool live = c < n;
   if (!live) c = n - 1;
   RT_STATE(x, RT_DIM, RT_OFF_X);
   RT_STATE(gx, RT_DIM, 2 * RT_DIM);
   RT_UNROLL
   for (int d = 0; d < RT_DIM; ++d) x[d] = q[(size_t)d * n + c];
-  const float l = rt_density(x, gx, cols, n_rows, tile, ws);
+  const float l = rt_density(x, gx, cols, n_rows, stream_cols, tile, ws);
   if (!live) return;
   lp[c] = l;
   RT_UNROLL
   for (int d = 0; d < RT_DIM; ++d) g[(size_t)d * n + c] = gx[d];
 }
 
-#define RT_SMEM_BYTES (RT_ROW_W * RT_TILE * (int)sizeof(float))
+// bytes of one tile slot of shared memory; a streamed launch takes two
+#define RT_SMEM_BYTES (RT_TILE_FLOATS * (int)sizeof(float))
 
 #ifdef __CUDACC__
 
@@ -392,6 +456,10 @@ static __device__ __forceinline__ float* rt_slot(float* ws) {
 #endif
 }
 
+// Each kernel is instantiated once for each value of the streaming flag,
+// a constant there, so that the other tile loop is compiled out (the note
+// on streamed columns above says why); the launch picks one at run time.
+template <int kStream>
 __global__ void __launch_bounds__(128)
     fused_hmc_kernel(int n, const float* q0, const float* scale,
                      int scale_per_chain, const float* eps,
@@ -404,29 +472,39 @@ __global__ void __launch_bounds__(128)
   rt_hmc_chain(blockIdx.x * blockDim.x + threadIdx.x, n, q0, scale,
                scale_per_chain, eps, p_noise, u_noise, qf, samples, acc, div,
                n_iterations, n_steps, collect_every, collect_pos, n_collect,
-               seed, cols, n_rows, tile, rt_slot(ws));
+               seed, cols, n_rows, kStream, tile, rt_slot(ws));
 }
 
+template <int kStream>
 __global__ void __launch_bounds__(128)
     logp_grad_kernel(int n, const float* q, float* lp, float* g,
                      RtCols cols, int n_rows, float* ws) {
   extern __shared__ float tile[];
   rt_logp_grad_chain(blockIdx.x * blockDim.x + threadIdx.x, n, q, lp, g,
-                     cols, n_rows, tile, rt_slot(ws));
+                     cols, n_rows, kStream, tile, rt_slot(ws));
 }
 
-// A tile above the 48 KB default needs the opt-in attribute
+// the instantiation for the flag `s` (a column-free model has one)
+#if RT_ROW_W > 0
+#define RT_PICK(kernel, s) ((s) ? kernel<1> : kernel<0>)
+#else
+#define RT_PICK(kernel, s) (kernel<0>)
+#endif
+
+// A block's shared memory: one tile slot, or two when streaming.  Above
+// the 48 KB default it needs the opt-in attribute.
 template <typename K>
-static int rt_smem_opt_in(K kernel) {
-  if (RT_SMEM_BYTES <= 48 * 1024) return 0;
+static int rt_smem_opt_in(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, RT_SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // Both launches go on `stream` and return cudaGetLastError(): a refused
 // launch never runs, so the wrapper raises on any nonzero code.  `ws`
 // holds RT_WS_FLOATS floats for each of blocks × threads slots (null for
-// a model without a workspace).
+// a model without a workspace).  `stream_cols` streams the column tiles
+// through two slots of shared memory.
 extern "C" int rt_fused_hmc_launch(int n, const float* q0,
                                    const float* scale, int scale_per_chain,
                                    const float* eps, const float* p_noise,
@@ -436,11 +514,14 @@ extern "C" int rt_fused_hmc_launch(int n, const float* q0,
                                    int collect_every, const int* collect_pos,
                                    int n_collect, uint32_t seed,
                                    const void* const* cols, int n_rows,
-                                   float* ws, int threads, void* stream) {
-  const int rc = rt_smem_opt_in(fused_hmc_kernel);
+                                   float* ws, int threads, int stream_cols,
+                                   void* stream) {
+  const auto kernel = RT_PICK(fused_hmc_kernel, stream_cols);
+  const int smem = (stream_cols ? 2 : 1) * RT_SMEM_BYTES;
+  const int rc = rt_smem_opt_in(kernel, smem);
   if (rc != 0) return rc;
   const int blocks = (n + threads - 1) / threads;
-  fused_hmc_kernel<<<blocks, threads, RT_SMEM_BYTES, (cudaStream_t)stream>>>(
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       n, q0, scale, scale_per_chain, eps, p_noise, u_noise, qf, samples, acc,
       div, n_iterations, n_steps, collect_every, collect_pos, n_collect, seed,
       rt_cols(cols), n_rows, ws);
@@ -450,11 +531,13 @@ extern "C" int rt_fused_hmc_launch(int n, const float* q0,
 extern "C" int rt_logp_grad_launch(int n, const float* q, float* lp,
                                    float* g, const void* const* cols,
                                    int n_rows, float* ws, int threads,
-                                   void* stream) {
-  const int rc = rt_smem_opt_in(logp_grad_kernel);
+                                   int stream_cols, void* stream) {
+  const auto kernel = RT_PICK(logp_grad_kernel, stream_cols);
+  const int smem = (stream_cols ? 2 : 1) * RT_SMEM_BYTES;
+  const int rc = rt_smem_opt_in(kernel, smem);
   if (rc != 0) return rc;
   const int blocks = (n + threads - 1) / threads;
-  logp_grad_kernel<<<blocks, threads, RT_SMEM_BYTES, (cudaStream_t)stream>>>(
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       n, q, lp, g, rt_cols(cols), n_rows, ws);
   return (int)cudaGetLastError();
 }
@@ -465,7 +548,8 @@ extern "C" int rt_logp_grad_launch(int n, const float* q, float* lp,
 
 // The host entries run every slot of the launch's `threads`-thread blocks
 // one after another, the ragged edge's copies included, each in its own
-// slot of the workspace (blocks × threads slots, as on the card).
+// slot of the workspace (blocks × threads slots, as on the card), with two
+// tile slots for `stream_cols`.
 
 // slot c of the workspace
 static float* rt_slot(float* ws, int c) {
@@ -489,25 +573,25 @@ extern "C" int rt_fused_hmc_host(int n, const float* q0, const float* scale,
                                  int collect_every, const int* collect_pos,
                                  int n_collect, uint32_t seed,
                                  const void* const* cols, int n_rows,
-                                 float* ws, int threads) {
-  std::vector<float> tile(RT_ROW_W * RT_TILE + 1);
+                                 float* ws, int threads, int stream_cols) {
+  std::vector<float> tile(2 * RT_TILE_FLOATS + 1);
   const RtCols c_cols = rt_cols(cols);
   for (int c = 0; c < rt_slots(n, threads); ++c)
     rt_hmc_chain(c, n, q0, scale, scale_per_chain, eps, p_noise, u_noise,
                  qf, samples, acc, div, n_iterations, n_steps, collect_every,
-                 collect_pos, n_collect, seed, c_cols, n_rows, tile.data(),
-                 rt_slot(ws, c));
+                 collect_pos, n_collect, seed, c_cols, n_rows, stream_cols,
+                 tile.data(), rt_slot(ws, c));
   return 0;
 }
 
 extern "C" int rt_logp_grad_host(int n, const float* q, float* lp, float* g,
                                  const void* const* cols, int n_rows,
-                                 float* ws, int threads) {
-  std::vector<float> tile(RT_ROW_W * RT_TILE + 1);
+                                 float* ws, int threads, int stream_cols) {
+  std::vector<float> tile(2 * RT_TILE_FLOATS + 1);
   const RtCols c_cols = rt_cols(cols);
   for (int c = 0; c < rt_slots(n, threads); ++c)
-    rt_logp_grad_chain(c, n, q, lp, g, c_cols, n_rows, tile.data(),
-                       rt_slot(ws, c));
+    rt_logp_grad_chain(c, n, q, lp, g, c_cols, n_rows, stream_cols,
+                       tile.data(), rt_slot(ws, c));
   return 0;
 }
 

@@ -69,6 +69,36 @@ RT_HD int rt_bits_int(float f) {
 #endif
 }
 
+// Asynchronous 4-byte copies from device memory into shared memory, for
+// streamed row tiles: cp.async on the card (each thread's copies since its
+// last commit form one group; a thread waits for its own groups, and a
+// barrier then shows every thread's copies to the block), a plain copy in
+// host code, where commit and wait do nothing.  The bytes are copied as
+// they are, so an int32 index keeps its bits in its float slot.
+RT_HD void rt_copy_async(float* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+#else
+  memcpy(dst, src, sizeof(float));
+#endif
+}
+
+RT_HD void rt_copy_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// wait until at most the newest group of this thread's copies is in flight
+RT_HD void rt_copy_wait_prior1() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+#endif
+}
+
 // i clamped to [lo, hi]: the gather's mode="clip"
 RT_HD int rt_clampi(int i, int lo, int hi) {
   return i < lo ? lo : (i > hi ? hi : i);

@@ -4,9 +4,10 @@ plain PyTorch version.
 Replaces the Pallas TPU kernel ``rainier_tpu/ops/hmc_pallas.py::fused_hmc``
 (the one ``pl.pallas_call`` of the JAX package, hmc_pallas.py:506), which
 keeps every chain's state in VMEM for the whole sampling run, including
-its resident-column and row-tiled branches (hmc_pallas.py:157-222, 280,
-302-381, 483-491).  The CUDA kernel (``csrc/fused_hmc.cu``) gives each
-chain one thread and keeps its state in registers: momentum refresh
+its resident-column, row-tiled and streamed-column branches
+(hmc_pallas.py:157-222, 280, 302-381, 483-497).  The CUDA kernel
+(``csrc/fused_hmc.cu``) gives each chain one thread and keeps its state
+in registers: momentum refresh
 (Philox4x32-10 + Box-Muller, ``csrc/philox.cuh``), ``n_steps``
 kick-drift-kick leapfrog steps with the model's density and gradient from
 C generated out of the Real DAG (``compute/emit_cuda.py``), the
@@ -44,8 +45,15 @@ on an SM; its blocks are of 4 threads, so that the 1024 chains of the
 main path spread over every SM and each warp access touches few lines.
 With data,
 the row terms dominate: n_rows × (row operations) per density call, on
-columns that are read from L2 (the 100k × 11 floats of the logistic
-regression are 4.4 MB, against a 50 MB L2).  With one thread per chain, a
+columns that are read from L2 where they fit it (the 100k × 11 floats of
+the logistic regression are 4.4 MB, against a 50 MB L2).  Larger columns
+(the 2M-row logistic's 88 MB) come from device memory in every density
+call, so such a launch streams them (``stream_columns``, the Pallas
+kernel's streamed branch, hmc_pallas.py:186-191, 305-351): each thread
+issues its share of tile t + 1 as ``cp.async`` copies into one of two
+shared-memory slots, then computes tile t's rows from the other, so the
+copies' latency, which the synchronous loader pays load after load, is
+hidden behind the rows (PERF.md times both).  And a
 run with few chains fills few SMs (1024 chains: 32 SMs with one warp
 each), and then instruction latency, not throughput, sets the time; the
 row loop is unrolled by four so independent rows overlap.  One warp per
@@ -351,15 +359,16 @@ def _nvcc() -> str:
 
 
 # the arguments shared by rt_fused_hmc_launch and rt_fused_hmc_host, and by
-# rt_logp_grad_launch and rt_logp_grad_host, the threads of a block last
-# (the launches add the stream)
+# rt_logp_grad_launch and rt_logp_grad_host, the threads of a block and
+# the streaming flag last (the launches add the CUDA stream)
 HMC_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int])
+                   ctypes.c_int, ctypes.c_int])
 LOGP_GRAD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                      + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
+                      + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_int])
 
 
 class Kernels(NamedTuple):
@@ -463,10 +472,37 @@ def workspace_check(em, n: int, device):
     return None
 
 
-def _launch_setup(density, columns, n, dev):
-    """(Kernels, column pointer array, n_rows, threads, workspace) for a
-    launch over n chains; raises, before building, on a row the kernel's
-    tile cannot hold and on a workspace the card has no room for."""
+def l2_bytes(device):
+    """The L2 cache of a CUDA `device` in bytes; None on another device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
+def streams(density, columns, stream_columns, device) -> bool:
+    """Whether a launch over `columns` (the tensors of ``density.columns``)
+    streams its row tiles, as ``stream_columns`` of
+    ``rainier_tpu.ops.fused_hmc`` decides: True and False force it, None
+    streams where the columns' bytes exceed the L2 of the CUDA `device`
+    (:func:`l2_bytes`; nothing streams on another device), as the Pallas
+    kernel streams past its VMEM budget.  True on a model without columns
+    raises."""
+    if stream_columns and not density.columns:
+        raise ValueError("stream_columns=True needs data columns: the "
+                         "model has none, so there are no tiles to stream")
+    if stream_columns is not None or not density.columns:
+        return bool(stream_columns)
+    limit = l2_bytes(device)
+    return (limit is not None
+            and sum(c.numel() * c.element_size() for c in columns) > limit)
+
+
+def _launch_setup(density, columns, n, dev, stream_columns=None):
+    """(Kernels, column pointer array, n_rows, threads, workspace, whether
+    the tiles stream) for a launch over n chains; raises, before building,
+    on a row the kernel's tile cannot hold, on a workspace the card has no
+    room for, and on ``stream_columns`` without columns."""
     em = emit_cuda.emit(density)
     if em.row_width and not em.tile_rows:
         raise ValueError(
@@ -477,18 +513,20 @@ def _launch_setup(density, columns, n, dev):
     reason = workspace_check(em, n, dev)
     if reason is not None:
         raise ValueError(reason)
+    stream = streams(density, columns, stream_columns, dev)
     kernels = build(density)[0]
     ptrs = (ctypes.c_void_p * max(len(columns), 1))(
         *[c.data_ptr() for c in columns])
     n_rows = int(columns[0].shape[0]) if columns else 0
     ws = torch.empty(workspace_bytes(em, n) // 4, dtype=torch.float32,
                      device=dev) if em.workspace else None
-    return kernels, ptrs, n_rows, threads_per_block(em, n), ws
+    return kernels, ptrs, n_rows, threads_per_block(em, n), ws, stream
 
 
 def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
               seed: int, inv_mass_diag=None, collect_every: int = 0,
-              collect_idx=None, noise=None, columns=None):
+              collect_idx=None, noise=None, columns=None,
+              stream_columns=None):
     """HMC with ``n_steps`` leapfrog steps × ``n_iterations`` for every
     chain of ``q0`` (dim, n_chains), the whole run in one kernel.
 
@@ -502,9 +540,14 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
     ``host_rng`` counterpart).  ``columns``: one contiguous tensor per
     ``density.columns`` on q0's device (int32 for an ``IntColumn``,
     float32 otherwise), or None for the model's own data.
+    ``stream_columns``: None streams the row tiles through two slots of
+    shared memory where the columns are larger than the card's L2, True
+    and False force it (:func:`streams`); the results are the same bit
+    for bit.
 
     On CUDA tensors this launches the kernel or raises; on CPU tensors it
-    runs :func:`fused_hmc_reference`.  Returns (final q (dim, n),
+    checks ``stream_columns`` and runs :func:`fused_hmc_reference`, which
+    streams nothing.  Returns (final q (dim, n),
     samples (n_out, n_collect, n) or None, accept rate (n,), divergences
     (n,)).
     """
@@ -513,6 +556,7 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
               inv_mass_diag=inv_mass_diag, collect_every=collect_every,
               collect_idx=collect_idx, noise=noise, columns=columns)
     if q0.device.type == "cpu":
+        streams(density, (), stream_columns, "cpu")
         return fused_hmc_reference(density, q0, **kw)
     if q0.device.type != "cuda":
         raise ValueError(f"fused_hmc runs on CUDA or CPU tensors, not "
@@ -524,8 +568,8 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
     dev = q0.device
     pos, n_collect, expand = _collect_pos(collect_idx, emit_cuda.emit(density),
                                           dev)
-    kernels, ptrs, n_rows, threads, ws = _launch_setup(density, columns, n,
-                                                       dev)
+    kernels, ptrs, n_rows, threads, ws, stream_cols = _launch_setup(
+        density, columns, n, dev, stream_columns)
     qf = torch.empty((dim, n), dtype=torch.float32, device=dev)
     acc = torch.empty((n,), dtype=torch.float32, device=dev)
     div = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -541,16 +585,19 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
             _ptr(p_noise), _ptr(u_noise), _ptr(qf), _ptr(samples),
             _ptr(acc), _ptr(div), n_iterations, n_steps, collect_every,
             _ptr(pos), n_collect, seed & _MASK, ptrs, n_rows, _ptr(ws),
-            threads, stream)
+            threads, int(stream_cols), stream)
     if rc != 0:
         raise RuntimeError(f"fused_hmc kernel launch failed: cudaError {rc}")
     fused_hmc.launches += 1
+    fused_hmc.streamed += stream_cols
     if samples is not None and expand is not None:
         samples = samples[:, expand]
     return qf, samples, acc, div
 
 
+# kernel launches, and those of them that streamed their column tiles
 fused_hmc.launches = 0
+fused_hmc.streamed = 0
 
 
 def _collect_pos(collect_idx, em, dev):
@@ -570,13 +617,15 @@ def _collect_pos(collect_idx, em, dev):
     return pos, keep.numel(), None if keep is idx else inverse
 
 
-def logp_grad(density, q, columns=None):
+def logp_grad(density, q, columns=None, stream_columns=None):
     """The model's log-density and gradient at every column of q
     (dim, n): (lp (n,), g (dim, n)).  On CUDA tensors this launches
     ``rt_logp_grad_launch`` — the kernel's own density function and tile
-    loop — or raises; on CPU tensors it runs
+    loop, streamed as :func:`fused_hmc` decides — or raises; on CPU
+    tensors it checks ``stream_columns`` and runs
     :func:`logp_grad_reference`."""
     if q.device.type == "cpu":
+        streams(density, (), stream_columns, "cpu")
         return logp_grad_reference(density, q, columns)
     if q.device.type != "cuda" or q.dim() != 2 or \
             q.dtype != torch.float32 or q.shape[0] != density.n_vars:
@@ -586,36 +635,39 @@ def logp_grad(density, q, columns=None):
     q = q.contiguous()
     columns = _columns(density, columns, q.device)
     n = q.shape[1]
-    kernels, ptrs, n_rows, threads, ws = _launch_setup(density, columns, n,
-                                                       q.device)
+    kernels, ptrs, n_rows, threads, ws, stream_cols = _launch_setup(
+        density, columns, n, q.device, stream_columns)
     lp = torch.empty((n,), dtype=torch.float32, device=q.device)
     g = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = kernels.logp_grad(n, _ptr(q), _ptr(lp), _ptr(g), ptrs, n_rows,
-                               _ptr(ws), threads, stream)
+                               _ptr(ws), threads, int(stream_cols), stream)
     if rc != 0:
         raise RuntimeError(f"logp_grad kernel launch failed: cudaError {rc}")
     logp_grad.launches += 1
+    logp_grad.streamed += stream_cols
     return lp, g
 
 
 logp_grad.launches = 0
+logp_grad.streamed = 0
 
 
-def op_count(em, n_steps: int) -> int:
+def op_count(em, n_steps: int, rng: bool = True) -> int:
     """f32 and 32-bit integer operations of ONE chain iteration of the
-    kernel with on-device Philox, for the bound in PERF.md and
-    chip_smoke.py: the density + gradient ``n_steps`` times (its row
-    terms over every row included, with each row's gathers and adjoint
-    scatters), the leapfrog arithmetic, kinetic energies, the accept, and
-    the RNG.  The draws' stores are bytes, not operations."""
+    kernel, for the bound in PERF.md and chip_smoke.py: the density +
+    gradient ``n_steps`` times (its row terms over every row included,
+    with each row's gathers and adjoint scatters), the leapfrog
+    arithmetic, kinetic energies, the accept, and with `rng` the
+    on-device Philox (explicit noise is bytes instead).  The draws'
+    stores are bytes, not operations."""
     dim = em.n_vars
     per_grad = em.density_ops() + 2 * dim      # x = q·sc, g = sc·∇
     leap = n_steps * 4 * dim + 2 * dim         # kicks + drifts, half kicks
     kinetic = 2 * 2 * dim + 4                  # k0, k1, h0, h1
     accept = 10                                # la, guard, log u, acc, div
     groups = (2 * dim + 1 + 3) // 4
-    rng = groups * (10 * 8 + 9 * 2)            # rounds + key bumps
-    rng += (2 * dim + 1) * 4 + dim * 6         # bits→f32, Box-Muller
-    return n_steps * per_grad + leap + kinetic + accept + rng
+    philox = groups * (10 * 8 + 9 * 2)         # rounds + key bumps
+    philox += (2 * dim + 1) * 4 + dim * 6      # bits→f32, Box-Muller
+    return n_steps * per_grad + leap + kinetic + accept + philox * rng

@@ -227,14 +227,16 @@ def _host_ws(em, n):
     return ws, F.threads_per_block(em, n)
 
 
-def _host_logp_grad(lib, em, q, cols):
-    """rt_logp_grad_host at every column of q (dim, n): (lp, g)."""
+def _host_logp_grad(lib, em, q, cols, stream=False):
+    """rt_logp_grad_host at every column of q (dim, n), its tiles
+    streamed through two slots with `stream`: (lp, g)."""
     n = q.shape[1]
     lp, g = torch.empty(n), torch.empty_like(q)
     ws, threads = _host_ws(em, n)
     lib.rt_logp_grad_host(n, q.data_ptr(), lp.data_ptr(), g.data_ptr(),
                           _col_ptrs(cols), cols[0].shape[0],
-                          None if ws is None else ws.data_ptr(), threads)
+                          None if ws is None else ws.data_ptr(), threads,
+                          int(stream))
     return lp, g
 
 
@@ -328,10 +330,12 @@ def test_plain_version_matches_row_tiled_pallas_kernel():
     assert float(np.sum(div.numpy())) == float(np.sum(np.asarray(div_j)))
 
 
-def _run_host(lib, cd, q0, kw, noise, cols, collect_idx=None, ws_out=None):
+def _run_host(lib, cd, q0, kw, noise, cols, collect_idx=None, ws_out=None,
+              stream=False):
     """rt_fused_hmc_host over the slots of the wrapper's launch, in the
-    workspace it would allocate (appended to `ws_out` if given):
-    (final q, samples, accept, divergences)."""
+    workspace it would allocate (appended to `ws_out` if given), its
+    tiles streamed through two slots with `stream`: (final q, samples,
+    accept, divergences)."""
     dim, n = q0.shape
     n_it, collect = kw["n_iterations"], kw["collect_every"]
     _, eps, scale, noise, cols = F._prepare(
@@ -350,7 +354,7 @@ def _run_host(lib, cd, q0, kw, noise, cols, collect_idx=None, ws_out=None):
         n, ptr(q0), ptr(scale), int(scale is not None and scale.dim() == 2),
         ptr(eps), ptr(p), ptr(u), ptr(qf), ptr(samples), ptr(acc), ptr(div),
         n_it, kw["n_steps"], collect, ptr(pos), n_collect, kw["seed"],
-        _col_ptrs(cols), cols[0].shape[0], ptr(ws), threads)
+        _col_ptrs(cols), cols[0].shape[0], ptr(ws), threads, int(stream))
     if expand is not None:
         samples = samples[:, expand]
     return qf, samples, acc, div
@@ -421,9 +425,12 @@ def test_wrapper_validates_columns():
 
 
 def test_tile_rows_fit_shared_memory():
-    assert emit_cuda.tile_rows(11) == 256     # 11 KB
-    assert emit_cuda.tile_rows(300) == 128    # 300 KB at 256 rows
-    assert emit_cuda.tile_rows(2000) == 0     # 32 rows are 250 KB
+    # two tiles (a streamed launch's slots) fit the 227 KB of a block
+    assert emit_cuda.tile_rows(11) == 256     # 2 x 11 KB
+    assert emit_cuda.tile_rows(113) == 256    # 2 x 113 KB
+    assert emit_cuda.tile_rows(114) == 128    # 2 x 114 KB at 256 rows
+    assert emit_cuda.tile_rows(300) == 64     # 2 x 150 KB at 128 rows
+    assert emit_cuda.tile_rows(2000) == 0     # 32 rows are 2 x 250 KB
     em = emit_cuda.emit(logistic(rtt).density())
     assert (em.row_width, em.tile_rows, em.n_rows) == (4, 256, 1500)
     assert em.density_ops() == em.ops + 1500 * em.row_ops

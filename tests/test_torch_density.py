@@ -205,7 +205,7 @@ def _compile_host(cd, tmp_path):
         g = np.zeros_like(q)
         lp = np.zeros(1, np.float32)
         fn(1, q.ctypes.data, lp.ctypes.data, g.ctypes.data, no_cols, 0,
-           ws.ctypes.data, 1)
+           ws.ctypes.data, 1, 0)
         return float(lp[0]), g
 
     return lpg, em

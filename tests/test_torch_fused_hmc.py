@@ -203,7 +203,7 @@ def _run_host(fn, q0, eps, scale, noise, n_it, n_steps, collect, seed):
     fn(n, ptr(q0), ptr(scale), int(scale is not None and scale.dim() == 2),
        ptr(eps), ptr(p), ptr(u), ptr(qf), ptr(samples), ptr(acc), ptr(div),
        n_it, n_steps, collect, None, dim, seed, (ctypes.c_void_p * 1)(), 0,
-       None, 32)
+       None, 32, 0)
     return qf, samples, acc, div
 
 

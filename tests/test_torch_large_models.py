@@ -394,12 +394,18 @@ SMALL_HEADERS = {"funnel": "a5ff30fef7ba2450c660",
 
 @pytest.mark.parametrize("name", sorted(SMALL_HEADERS))
 def test_small_models_emit_their_header_unchanged(name):
+    """Unchanged apart from the streamed tile loader, which a model with
+    rows has after every other function: the same copies as its
+    synchronous loader."""
     model = {"funnel": funnel, "readme_regression": readme_regression,
              "logistic": logistic}[name](rtt)
     em = emit_cuda.emit(model.density())
-    src = em.source
+    src, _, loader = em.source.partition(
+        "\n// the same copies as rt_fill_tile")
     assert em.workspace == 0
     assert "for (int i = 0;" not in src and "__restrict__" not in src
     assert "RT_WS_FLOATS" not in src and "RT_NINV_DENSE" not in src
     assert hashlib.sha256(_canonical(src).encode()).hexdigest()[:20] == \
         SMALL_HEADERS[name]
+    assert loader.count("rt_copy_async(") == src.count("= cols.c") == (
+        0 if name == "funnel" else 2)
