@@ -6,7 +6,7 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the fused HMC kernel for six models from the checkout's
+It builds the fused HMC kernel for eight models from the checkout's
 sources (one nvcc each, all started together), and then, each phase
 printing one line:
 
@@ -24,6 +24,18 @@ printing one line:
   checked against the numpy least-squares fit, and the kernel's time;
 * the logistic regression through ``Model.sample(kernel="fused!")``,
   checked against the Laplace reference, and the kernel's time;
+* the same data under a correlated prior, betas ~ ``MVNormal`` (AR(1)
+  at the prior's scale, built with the Vec API), whose rows read a
+  Cholesky factor that the kernel reads whole: its Laplace reference on
+  its design in the sampler's coordinates, the kernel's density at full
+  width against the plain version and f64, ``Model.sample(kernel="fused!")``
+  with pooled adaptation held to the Laplace reference, the betas it
+  draws against L·z, and the kernel against its plain version at the
+  main path's shapes;
+* the same logistic regression observed as two merged blocks of 60,000
+  and 40,000 rows (two row spaces): its density at full width against
+  the plain version, f64 and the one-block model's kernel, and its kernel
+  streamed against synchronous bit for bit;
 * GLMMPoisson2 of ``benchmarks/models.py::glmm_poisson`` (100 sites × 40
   years, 146 parameters, two integer index columns; its data regenerated
   here from the same seed): a scan-path run, the kernel's density and
@@ -94,7 +106,8 @@ LOGIT_ROWS, LOGIT_FEATURES, LOGIT_SEED, LOGIT_PRIOR_SD = 100_000, 10, 5, 5.0
 LOGIT_WARMUP, LOGIT_DRAWS, LOGIT_STEPS = 1000, 200, 5
 LOGIT_PARITY_ITERS = 100
 # its kernel streamed against synchronous: bit for bit
-STREAM_AB_CHAINS, STREAM_AB_ITERS = 1000, 100
+# (iterations cut from 100 to 50 to make room for the untiled density)
+STREAM_AB_CHAINS, STREAM_AB_ITERS = 1000, 50
 # the logistic's kernel timed again at the main path's width over this
 # many iterations (its main path's sample_s is the 1000-iteration time)
 LOGIT_TIME_ITERS = 100
@@ -102,7 +115,8 @@ LOGIT_CHECK_MAP, LOGIT_CHECK_INIT = 1024, 64
 # GLMMPoisson2 (benchmarks/models.py:111-142) and its runs: the main path
 # at 1024 chains, and a scan-path run of the same configuration
 GLMM_SITES, GLMM_YEARS, GLMM_SEED = 100, 40, 4
-GLMM_WARMUP, GLMM_DRAWS, GLMM_STEPS = 1000, 1000, 5
+# draws cut from 1000 to 500 to make room for the untiled density
+GLMM_WARMUP, GLMM_DRAWS, GLMM_STEPS = 1000, 500, 5
 GLMM_PARITY_ITERS, GLMM_CHECK_INIT = 100, 64
 GLMM_MOMENT_Z = 5.0   # two-sample bound on each per-chain moment's mean
 # glmm_large (benchmarks/models.py:162-202, BASELINE config 5) and its
@@ -111,7 +125,8 @@ GLMM_MOMENT_Z = 5.0   # two-sample bound on each per-chain moment's mean
 LARGE_GROUPS, LARGE_OBS, LARGE_SEED, LARGE_LAM = 10_000, 5, 6, 1.0
 # draws cut from 1000 to 200 to make room for the 2M-row path
 LARGE_WARMUP, LARGE_DRAWS, LARGE_STEPS = 1000, 200, 5
-LARGE_PARITY_ITERS, LARGE_CHECK_INIT = 100, 64
+# parity iterations cut from 100 to 50 to make room for the untiled density
+LARGE_PARITY_ITERS, LARGE_CHECK_INIT = 50, 64
 # its kernel runs 4-thread blocks: 1001 chains leave a last block of one
 # chain and three copies of it, each in its own slot of the workspace
 LARGE_PARITY_CHAINS = 1001
@@ -120,11 +135,21 @@ LARGE_PARITY_CHAINS = 1001
 # this many, and the law of all the draws
 LARGE_AGREE_AT = 20
 LARGE_COLLECT_EVERY = 100
+# the 100k logistic's data under a correlated prior on the coefficients,
+# betas = MVNormal(0, Σ).latent_vec() with Σᵢⱼ = 25 · 0.5^|i−j| (an AR(1)
+# correlation at the original prior's scale), built with the Vec API; its
+# run on the main path is the 100k logistic's
+MV_RHO = 0.5
+# the 100k logistic observed as two merged blocks of these rows: two row
+# spaces, the one-block model's density; its kernel streamed against
+# synchronous over this many iterations
+SPLIT_ROWS, SPLIT_AB_ITERS = 60_000, 20
 # the 2M-row logistic regression of benchmarks/data_scale.py:35-50 (the
 # 100k model's graph at n = 2,000,000; docs/performance.md:60-82): 88 MB
 # of columns, past the card's L2, so its launches stream their tiles
 LOGIT2M_ROWS, LOGIT2M_CHAINS = 2_000_000, 512
-LOGIT2M_WARMUP, LOGIT2M_DRAWS, LOGIT2M_STEPS = 100, 100, 8
+# draws cut from 100 to 50 to make room for the untiled density
+LOGIT2M_WARMUP, LOGIT2M_DRAWS, LOGIT2M_STEPS = 100, 50, 8
 # the density check at this many of the scan-path run's last draws and
 # inits (the f64 truth holds several (rows, points) arrays)
 LOGIT2M_CHECK_DRAWS, LOGIT2M_CHECK_INIT = 128, 32
@@ -173,6 +198,40 @@ def logistic_regression(rt, n=None):
     lh = R.RowSum(rt.Bernoulli(lin.logistic()).log_density_at(
         R.Column(ys)), n)
     return rt.Model.likelihood(lh), x, ys
+
+
+def mv_cov():
+    """The coefficients' prior covariance: AR(1) at the prior's scale."""
+    i = np.arange(LOGIT_FEATURES)
+    return LOGIT_PRIOR_SD ** 2 * MV_RHO ** np.abs(i[:, None] - i[None, :])
+
+
+def mvnormal_logistic(rt, x, ys):
+    """The logistic regression of `x`, `ys` with betas ~ MVNormal(0,
+    mv_cov()), built with the documented Vec API (docs/model.md:23-30):
+    each element of betas reads the Cholesky factor, a (10, 10) column
+    that the kernel reads whole.  Returns (model, alpha, betas)."""
+    alpha = rt.Normal(0, LOGIT_PRIOR_SD).latent()
+    betas = rt.MVNormal([0.0] * x.shape[1], mv_cov()).latent_vec()
+    model = rt.Model.observe(list(ys), rt.Vec.from_(
+        [tuple(r) for r in x]).map(lambda t: rt.Bernoulli(
+            (alpha + rt.Vec.of(*t).dot(betas)).logistic())))
+    return model, alpha, betas
+
+
+def split_logistic(rt, x, ys):
+    """The logistic regression of `x`, `ys` (the 100k model's graph)
+    observed as two merged blocks, rows [0, SPLIT_ROWS) and the rest,
+    under one set of parameters: two row spaces, one density."""
+    from rainier_tpu_torch.compute import real as R
+
+    alpha = rt.Normal(0, LOGIT_PRIOR_SD).latent()
+    betas = rt.Normal(0, LOGIT_PRIOR_SD).latent_vec(x.shape[1])
+    cut, n = SPLIT_ROWS, len(ys)
+    return rt.Model.likelihoods([R.RowSum(rt.Bernoulli(
+        (alpha + R.MatVec(R.MatColumn(x[a:b]), betas.element)).logistic())
+        .log_density_at(R.Column(ys[a:b])), b - a)
+        for a, b in ((0, cut), (cut, n))])
 
 
 def glmm_poisson(rt):
@@ -233,47 +292,83 @@ def large_collect():
     return np.r_[0, 1, np.arange(2, 2 + LARGE_GROUPS, LARGE_COLLECT_EVERY)]
 
 
-def laplace_reference(x, ys):
-    """MAP and inverse negative Hessian of the logistic posterior (prior
-    included) by Newton's method in numpy f64, in the sampler's
-    coordinates: (map (p+1,), cov).  The latent of Normal(0, s) is s·z
-    with z standard (the Scale injection of core/continuous.py), so the
-    sampler's parameters are (alpha, betas) / s."""
-    xa = np.hstack([np.ones((x.shape[0], 1)), x])
-    prec = 1.0 / LOGIT_PRIOR_SD ** 2
-    w = np.zeros(xa.shape[1])
+def logistic_design(x):
+    """The 100k logistic's design in the sampler's coordinates: the latent
+    of Normal(0, s) is s·z with z standard (the Scale injection of
+    core/continuous.py), so lin = [s·1, s·x] · (z_alpha, z_betas)."""
+    s = LOGIT_PRIOR_SD
+    return np.hstack([np.full((x.shape[0], 1), s), s * x])
+
+
+def mv_design(cd, x, alpha, betas):
+    """The MVNormal logistic's design in the sampler's coordinates, its
+    columns in the layout's order: alpha = s·z_alpha and betas = L·z, so
+    lin = [s·1, x·L] · (z_alpha, z)."""
+    from rainier_tpu_torch.compute.compiler import find_parameters
+
+    (pa,) = find_parameters([alpha])
+    (pz,) = find_parameters(betas.to_list())
+    block = {pa.id: np.full((x.shape[0], 1), LOGIT_PRIOR_SD),
+             pz.id: x @ np.linalg.cholesky(mv_cov())}
+    d = np.empty((x.shape[0], cd.n_vars))
+    for p, (a, b) in zip(cd.layout.parameters, cd.layout.slices):
+        d[:, a:b] = block[p.id]
+    return d
+
+
+def laplace_design(design, ys):
+    """MAP and inverse negative Hessian by Newton's method in numpy f64 of
+    a logistic regression with this design and a standard-normal prior,
+    in the sampler's coordinates: (map (d,), cov)."""
+    w = np.zeros(design.shape[1])
+    eye = np.eye(design.shape[1])
     for _ in range(100):
-        mu = 1.0 / (1.0 + np.exp(-(xa @ w)))
-        g = xa.T @ (ys - mu) - prec * w
-        h = (xa.T * (mu * (1 - mu))) @ xa + prec * np.eye(xa.shape[1])
+        mu = 1.0 / (1.0 + np.exp(-(design @ w)))
+        g = design.T @ (ys - mu) - w
+        h = (design.T * (mu * (1 - mu))) @ design + eye
         step = np.linalg.solve(h, g)
         w = w + step
         if np.max(np.abs(step)) < 1e-13:
             break
-    mu = 1.0 / (1.0 + np.exp(-(xa @ w)))
-    h = (xa.T * (mu * (1 - mu))) @ xa + prec * np.eye(xa.shape[1])
-    s = LOGIT_PRIOR_SD
-    return w / s, np.linalg.inv(h) / s ** 2
+    mu = 1.0 / (1.0 + np.exp(-(design @ w)))
+    h = (design.T * (mu * (1 - mu))) @ design + eye
+    return w, np.linalg.inv(h)
+
+
+def laplace_reference(x, ys):
+    """MAP and inverse negative Hessian of the 100k logistic posterior
+    (prior included) in the sampler's coordinates (`laplace_design`)."""
+    return laplace_design(logistic_design(x), ys)
+
+
+def design_truth(design, ys, qs, device):
+    """lp and gradient at every column of qs (d, m), in float64 on the
+    card, of a logistic regression with this design (n, d) and a
+    standard-normal prior in the sampler's coordinates: the reference
+    both f32 versions are held to."""
+    import torch
+
+    xa = torch.as_tensor(design, dtype=torch.float64, device=device)
+    y = torch.as_tensor(ys, dtype=torch.float64, device=device)[:, None]
+    b = qs.to(device=device, dtype=torch.float64)
+    lin = xa @ b
+    ll = y * lin - torch.nn.functional.softplus(lin)
+    lp = ll.sum(0) - 0.5 * (b * b).sum(0) - b.shape[0] * 0.5 * np.log(
+        2 * np.pi)
+    return lp, xa.T @ (y - torch.sigmoid(lin)) - b
 
 
 def logistic_truth(x, ys, qs, device):
-    """lp and gradient of the logistic posterior at every column of qs
-    (p+1, m) in the sampler's coordinates (alpha, betas) / s, in float64
-    on the card: the reference both f32 versions are held to.  The change
-    of coordinates adds log s per parameter to lp and scales g by s."""
-    import torch
+    """`design_truth` of the 100k logistic (`logistic_design`)."""
+    return design_truth(logistic_design(x), ys, qs, device)
 
-    xa = torch.cat([torch.ones((x.shape[0], 1), dtype=torch.float64),
-                    torch.as_tensor(x)], dim=1).to(device)
-    y = torch.as_tensor(ys, dtype=torch.float64, device=device)[:, None]
-    s = LOGIT_PRIOR_SD
-    b = s * qs.to(device=device, dtype=torch.float64)
-    lin = xa @ b
-    ll = y * lin - torch.nn.functional.softplus(lin)
-    lp = (ll.sum(0) - 0.5 * (b * b).sum(0) / s ** 2
-          - b.shape[0] * 0.5 * np.log(2 * np.pi))
-    g = s * (xa.T @ (y - torch.sigmoid(lin)) - b / s ** 2)
-    return lp, g
+
+def whole_bytes(cd):
+    """Bytes of the columns that no row space reads row by row: the
+    kernel reads them whole, outside the rows."""
+    rows = {j for sp in cd.row_split().spaces for j in sp.columns}
+    return sum(4 * c.values.size for j, c in enumerate(cd.columns)
+               if j not in rows)
 
 
 def check(ok: bool, what) -> None:
@@ -438,7 +533,7 @@ def workspace_call_bytes(em):
 
 def kernel_bound_ms(em, n_chains, n_iters, n_steps, collect_every, F,
                     col_bytes=0, n_collect=None, past_l2=False,
-                    noise=False):
+                    noise=False, whole=0):
     """Least time the card could take for one fused_hmc call: the larger
     of its bytes over the memory rate and its operations over the f32
     rate (Philox integer operations counted at the f32 rate).  For a
@@ -447,14 +542,15 @@ def kernel_bound_ms(em, n_chains, n_iters, n_steps, collect_every, F,
     written) count too.  Columns past the card's L2 (`past_l2`) come from
     device memory in every density call, so their bytes count once a
     call.  With explicit `noise` the kernel reads every iteration's
-    momenta and uniform and runs no RNG."""
+    momenta and uniform and runs no RNG.  The `whole` bytes of columns
+    read whole, outside the rows, count once a density call."""
     ops = n_chains * n_iters * F.op_count(em, n_steps, rng=not noise)
     n_out = n_iters // collect_every if collect_every else 0
     dim = em.n_vars
     n_collect = dim if n_collect is None else n_collect
     calls = n_iters * n_steps + 1
     # columns, q0, ε, Σ̂ read; final q, accept, divergences, draws written
-    nbytes = col_bytes * (calls if past_l2 else 1) + 4 * (
+    nbytes = col_bytes * (calls if past_l2 else 1) + whole * calls + 4 * (
         n_chains * (dim + 1 + dim) + n_chains * (dim + 2)
         + n_out * n_collect * n_chains)
     if noise:
@@ -512,10 +608,13 @@ def build_all(F, models):
             line.split("ptxas info    : ")[-1].strip()
             for line in kernels.log.splitlines()
             if "registers" in line or "spill" in line)
+        spaces = "; ".join(f"{sp.n_rows} rows of {sp.row_width} floats, "
+                           f"{sp.row_ops} ops a row, tile {sp.tile_rows} "
+                           f"rows" for sp in em.spaces) or "no rows"
         print(f"phase build: {name}: {em.n_vars} dims, {em.ops} ops per "
-              f"logp+grad apart from rows, {em.row_ops} ops per row, "
-              f"{em.n_rows} rows of {em.row_width} floats, tile "
-              f"{em.tile_rows} rows, {em.n_inv} row-invariant values, "
+              f"logp+grad apart from rows, row spaces: {spaces}, "
+              f"{whole_bytes(models[name])} bytes of columns read whole, "
+              f"{em.n_inv} row-invariant values, "
               f"workspace {em.workspace} floats a chain; "
               f"{len(em.source.splitlines())} lines emitted; {secs:.2f} s; "
               f"ptxas: {ptxas}", flush=True)
@@ -525,7 +624,8 @@ def build_all(F, models):
 
 def time_kernel(F, cd, em, tr, n_steps, device, col_bytes, what, reps=1,
                 min_frac=0.99, tol=REL_TOL, max_dacc=0.01, agree_at=None,
-                n_iters=None, collect_idx=None, explicit_noise=False):
+                n_iters=None, collect_idx=None, explicit_noise=False,
+                whole=0):
     """The kernel at a main path's shapes, on its warmup product's inputs:
     per-chain ε and Σ̂, every draw collected (of `collect_idx`'s
     coordinates), q0 the main path's last full-width states, with
@@ -554,7 +654,7 @@ def time_kernel(F, cd, em, tr, n_steps, device, col_bytes, what, reps=1,
     n_collect = cd.n_vars if collect_idx is None else len(collect_idx)
     bound_ms, bound_by = kernel_bound_ms(em, n_chains, n_iters, n_steps, 1,
                                          F, col_bytes, n_collect,
-                                         noise=explicit_noise)
+                                         noise=explicit_noise, whole=whole)
     print(f"phase kernel at main-path shapes, {what} ({n_chains} chains x "
           f"{n_iters} it x {n_steps} steps, "
           f"{'explicit noise' if explicit_noise else 'on-device Philox'}, "
@@ -696,20 +796,26 @@ def density_phase(F, cd, em, x, ys, w_map, cov, device):
     q drawn from the Laplace approximation and LOGIT_CHECK_INIT
     overdispersed inits, where the gradient is large, against the f64
     truth of `logistic_truth`."""
+    q = check_points(w_map, cov, device)
+    return density_check(F, cd, em, q, logistic_truth(x, ys, q, device),
+                         LOGIT_CHECK_MAP, "near the MAP", device,
+                         "rainier_tpu/ops/hmc_pallas.py:302")
+
+
+def check_points(w_map, cov, device):
+    """LOGIT_CHECK_MAP q drawn from the Laplace approximation (w_map, cov)
+    and LOGIT_CHECK_INIT overdispersed inits, as (d, m) f32 on `device`."""
     import torch
 
     from rainier_tpu_torch.sampler import SamplerConfig
 
     rng = np.random.default_rng(7)
     near = w_map[:, None] + np.linalg.cholesky(cov) @ rng.normal(
-        size=(cd.n_vars, LOGIT_CHECK_MAP))
+        size=(w_map.size, LOGIT_CHECK_MAP))
     inits = SamplerConfig().init_scale * rng.normal(
-        size=(cd.n_vars, LOGIT_CHECK_INIT))
-    q = torch.as_tensor(np.hstack([near, inits]), dtype=torch.float32,
-                        device=device)
-    return density_check(F, cd, em, q, logistic_truth(x, ys, q, device),
-                         LOGIT_CHECK_MAP, "near the MAP", device,
-                         "rainier_tpu/ops/hmc_pallas.py:302")
+        size=(w_map.size, LOGIT_CHECK_INIT))
+    return torch.as_tensor(np.hstack([near, inits]), dtype=torch.float32,
+                           device=device)
 
 
 def density_check(F, cd, em, q, truth, n_near, near_name, device,
@@ -734,10 +840,7 @@ def density_check(F, cd, em, q, truth, n_near, near_name, device,
     lp_t, g_t = truth
     check(F.logp_grad.launches == before[0] + 4, "logp_grad did not launch")
     streamed = F.logp_grad.streamed - before[1]
-    tol_lp = torch.clamp(2 * torch.finfo(torch.float32).eps
-                         * lp_t.abs().float(), min=0.01)
-    gmax = g_t.abs().amax(0).float()
-    tol_g = 1e-4 * gmax.expand_as(g_t)
+    tol_lp, tol_g, gmax = density_bars(lp_t, g_t)
     if cond is not None:
         tol_lp = torch.maximum(tol_lp, cond[0].float())
         tol_g = torch.maximum(tol_g, cond[1].float())
@@ -760,8 +863,8 @@ def density_check(F, cd, em, q, truth, n_near, near_name, device,
             for k, sl in groups.items()))
     n = q.shape[1]
     ops = n * em.density_ops()
-    nbytes = 4 * (em.n_rows * em.row_width + 2 * n * (cd.n_vars + 1)) \
-        + n * workspace_call_bytes(em)
+    nbytes = em.row_bytes() + whole_bytes(cd) + 4 * 2 * n * (
+        cd.n_vars + 1) + n * workspace_call_bytes(em)
     bound_ms, bound_by = _bound(ops, nbytes)
     print(f"phase density at full width: rt_logp_grad_launch at {n} q, "
           f"{streamed} of 4 launches streamed "
@@ -779,6 +882,17 @@ def density_check(F, cd, em, q, truth, n_near, near_name, device,
         source="rainier_tpu_torch/csrc/fused_hmc.cu", replaces=replaces,
         max_abs_err=worst["kernel-vs-plain"][0], ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def density_bars(lp_t, g_t):
+    """`density_check`'s tolerances at the truth (lp (n,), g (dim, n)):
+    (|Δlp| bound (n,), |Δg| bound (dim, n), max |g| (n,))."""
+    import torch
+
+    tol_lp = torch.clamp(2 * torch.finfo(torch.float32).eps
+                         * lp_t.abs().float(), min=0.01)
+    gmax = g_t.abs().amax(0).float()
+    return tol_lp, 1e-4 * gmax.expand_as(g_t), gmax
 
 
 def conditioning(lp_grad64, q):
@@ -842,7 +956,7 @@ def readme_phases(F, readme, em, device):
     check(abs(float(sig.mean()) / resid_sd - 1.0) < 0.05,
           (float(sig.mean()), resid_sd))
     entry = time_kernel(F, cd, em, tr, N_STEPS, device,
-                        4 * em.n_rows * em.row_width, "README regression",
+                        em.row_bytes(), "README regression",
                         reps=3)
     return {"name": "fused_hmc (README regression, one tile)",
             "route": "cuda", "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
@@ -850,14 +964,18 @@ def readme_phases(F, readme, em, device):
             "launches": launches, **entry, "library_ms": None}
 
 
-def logistic_main(F, model, cd, em, w_map, cov, device, min_frac):
-    """The logistic regression through Model.sample(kernel="fused!"),
-    against the Laplace reference, then timed against its plain version
+def logistic_main(F, model, cd, em, w_map, cov, device, min_frac,
+                  what="logistic regression", pooled=False):
+    """A logistic regression through Model.sample(kernel="fused!"),
+    against its Laplace reference, then timed against its plain version
     over LOGIT_TIME_ITERS iterations with the logistic parity phases' bar
-    (`min_frac` within 1e-3 rel); returns its JSON entry."""
+    (`min_frac` within 1e-3 rel); `pooled` adapts ε and Σ̂ pooled over the
+    chains.  Returns (its JSON entry's numbers and launches, the
+    trace)."""
     from rainier_tpu_torch.sampler import HMC, SamplerConfig
 
-    cfg = SamplerConfig(LOGIT_WARMUP, LOGIT_DRAWS, sampler=HMC(LOGIT_STEPS))
+    cfg = SamplerConfig(LOGIT_WARMUP, LOGIT_DRAWS, sampler=HMC(LOGIT_STEPS),
+                        pooled_adaptation=pooled)
     F.fused_hmc.launches = 0
     tr = model.sample(cfg, n_chains=MAIN_CHAINS, seed=0, kernel="fused!",
                       device=device)
@@ -867,9 +985,11 @@ def logistic_main(F, model, cd, em, w_map, cov, device, min_frac):
     dmean = np.abs(flat.mean(0) - w_map) / sd_ref
     dsd = np.abs(flat.std(0) / sd_ref - 1.0)
     rhat = rank_rhat(tr, device)
-    print(f"phase main path, logistic regression: Model.sample(kernel="
+    print(f"phase main path, {what}: Model.sample(kernel="
           f"'fused!') {MAIN_CHAINS} chains x ({LOGIT_WARMUP} warmup + "
-          f"{LOGIT_DRAWS} draws), HMC({LOGIT_STEPS}), {LOGIT_ROWS} rows x "
+          f"{LOGIT_DRAWS} draws), HMC({LOGIT_STEPS}), "
+          f"{'pooled' if pooled else 'per-chain'} adaptation, "
+          f"{em.n_rows} rows x "
           f"{LOGIT_FEATURES} features: fused_hmc launches {launches}, "
           f"rank-r_hat max {rhat:.5f}, means max {float(dmean.max()):.4f} "
           f"Laplace SD from the MAP, SDs max {float(dsd.max()):.4f} off the "
@@ -882,14 +1002,97 @@ def logistic_main(F, model, cd, em, w_map, cov, device, min_frac):
     check(rhat < 1.01, rhat)
     check(float(dmean.max()) < 0.1, dmean)
     check(float(dsd.max()) < 0.1, dsd)
-    entry = time_kernel(F, cd, em, tr, LOGIT_STEPS, device,
-                        4 * em.n_rows * em.row_width, "logistic regression",
-                        min_frac=min_frac, tol=1e-3, max_dacc=0.02,
-                        n_iters=LOGIT_TIME_ITERS)
-    return {"name": "fused_hmc (logistic regression, row-tiled)",
-            "route": "cuda", "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
-            "replaces": "rainier_tpu/ops/hmc_pallas.py:302",
-            "launches": launches, **entry, "library_ms": None}
+    entry = time_kernel(F, cd, em, tr, LOGIT_STEPS, device, em.row_bytes(),
+                        what, min_frac=min_frac, tol=1e-3, max_dacc=0.02,
+                        n_iters=LOGIT_TIME_ITERS, whole=whole_bytes(cd))
+    return {"route": "cuda", "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
+            "launches": launches, **entry, "library_ms": None}, tr
+
+
+def mvnormal_phases(F, mv, cd, em, x, ys, device):
+    """The 100k logistic under the MVNormal prior: its Laplace reference
+    (on its design, `mv_design`), the density at full width near the MAP
+    and at inits, the main path held to the Laplace reference as the
+    logistic's is, the betas it draws (Trace.evaluate) against L·z in
+    numpy, and the kernel against its plain version at the main path's
+    shapes.  Returns its JSON entries."""
+    from rainier_tpu_torch.compute.compiler import find_parameters
+
+    model, alpha, betas = mv
+    design = mv_design(cd, x, alpha, betas)
+    t0 = time.perf_counter()
+    w_map, cov = laplace_design(design, ys)
+    print(f"phase Laplace reference, MVNormal logistic: Newton in f64 on "
+          f"the design [5, x L] in the sampler's coordinates, MAP "
+          f"{np.round(w_map, 5).tolist()}, Laplace SDs "
+          f"{np.round(np.sqrt(np.diag(cov)), 6).tolist()} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    q = check_points(w_map, cov, device)
+    dlp_mean, density_entry = density_check(
+        F, cd, em, q, design_truth(design, ys, q, device), LOGIT_CHECK_MAP,
+        "near the MAP", device, "rainier_tpu/ops/hmc_pallas.py:300")
+    del q, design
+
+    # pooled adaptation: adapted per chain, the chains' ε and Σ̂ differ
+    # along the posterior's correlated directions (the AR(1) prior
+    # whitened), and rank-r̂ stays at 1.016 over 200 draws (1.017 on the
+    # scan path) and 1.011 over 600; pooled, 1.002 over 200
+    entry, tr = logistic_main(F, model, cd, em, w_map, cov, device,
+                              agree_frac(LOGIT_TIME_ITERS, dlp_mean),
+                              "MVNormal logistic", pooled=True)
+    # betas on the model's scale: L·z from the draws of z, in numpy f64
+    (pz,) = find_parameters(betas.to_list())
+    a, b = cd.layout.slices[cd.layout.parameters.index(pz)]
+    want = tr.flat()[:, a:b].astype(np.float64) @ np.linalg.cholesky(
+        mv_cov()).T
+    got = np.stack(tr.evaluate(betas.to_list()), axis=1)
+    err = float(np.abs(got - want).max())
+    print(f"phase Trace.evaluate, MVNormal logistic: betas at "
+          f"{got.shape[0]} draws against L z in numpy: max |d| {err:.3g}, "
+          f"posterior means {np.round(got.mean(0), 4).tolist()}",
+          flush=True)
+    check(got.shape == want.shape and err <= 1e-9 * max(
+        1.0, float(np.abs(want).max())), ("betas", got.shape, err))
+    return [{"name": "fused_hmc (MVNormal logistic, columns read whole)",
+             "replaces": "rainier_tpu/ops/hmc_pallas.py:282", **entry},
+            {**density_entry, "name": "rt_logp_grad_launch (MVNormal "
+                                      "logistic, columns read whole)",
+             "launches": 0}]
+
+
+def split_phases(F, cd, em, lcd, x, ys, w_map, cov, device):
+    """The 100k logistic as two row spaces (`split_logistic`):
+    rt_logp_grad_launch at the one-block density phase's points held to
+    the plain version, to the f64 truth and to the one-block model's
+    kernel (`lcd`) with the same bars, and its kernel streamed against
+    synchronous bit for bit in both RNG modes.  Returns its density's
+    JSON entry."""
+    import torch
+
+    q = check_points(w_map, cov, device)
+    truth = logistic_truth(x, ys, q, device)
+    _, entry = density_check(F, cd, em, q, truth, LOGIT_CHECK_MAP,
+                             "near the MAP", device,
+                             "rainier_tpu/ops/hmc_pallas.py:300")
+    (lp2, g2), (lp1, g1) = F.logp_grad(cd, q), F.logp_grad(lcd, q)
+    tol_lp, tol_g, _ = density_bars(*truth)
+    rel_lp = float(((lp2 - lp1).abs() / tol_lp).max())
+    rel_g = float(((g2 - g1).abs() / tol_g).max())
+    print(f"phase two row spaces, logistic {SPLIT_ROWS} + "
+          f"{em.n_rows - SPLIT_ROWS} rows: rt_logp_grad_launch at "
+          f"{q.shape[1]} q against the one-block model's kernel: max |dlp| "
+          f"{float((lp2 - lp1).abs().max()):.3g} ({rel_lp:.3f} of the "
+          f"tolerance), max |dg| {float((g2 - g1).abs().max()):.3g} "
+          f"({rel_g:.3f} of the tolerance)", flush=True)
+    check(rel_lp <= 1.0 and rel_g <= 1.0, ("two spaces", rel_lp, rel_g))
+    del q, truth, lp1, g1, lp2, g2
+    torch.cuda.empty_cache()
+    stream_phase(F, cd, device, STREAM_AB_CHAINS, SPLIT_AB_ITERS,
+                 LOGIT_STEPS, f"logistic {SPLIT_ROWS} + "
+                 f"{em.n_rows - SPLIT_ROWS}", center=w_map,
+                 var=np.diag(cov))
+    return {**entry, "name": "rt_logp_grad_launch (logistic regression "
+                             "in two row spaces)", "launches": 0}
 
 
 def glmm_phases(F, model, cd, em, device):
@@ -971,7 +1174,7 @@ def glmm_phases(F, model, cd, em, device):
         MAIN_CHAINS, GLMM_DRAWS, cd.n_vars), tr.chains.shape)
     check(z <= GLMM_MOMENT_Z, (z, stat, param))
     entry = time_kernel(F, cd, em, tr, GLMM_STEPS, device,
-                        4 * em.n_rows * em.row_width, "GLMMPoisson2",
+                        em.row_bytes(), "GLMMPoisson2",
                         min_frac=agree_frac(GLMM_PARITY_ITERS, dlp_mean),
                         tol=1e-3, max_dacc=0.02, agree_at=GLMM_PARITY_ITERS)
     return [{"name": "fused_hmc (GLMMPoisson2, integer index columns)",
@@ -1095,7 +1298,7 @@ def large_phases(F, model, cd, em, device):
     # the kernel and its plain version at the main path's shapes, from
     # its last states with its ε and Σ̂, keeping the collected coordinates
     entry = time_kernel(F, cd, em, tr, LARGE_STEPS, device,
-                        4 * em.n_rows * em.row_width, "glmm_large",
+                        em.row_bytes(), "glmm_large",
                         min_frac=agree_frac(LARGE_AGREE_AT, dlp_mean),
                         tol=1e-3, max_dacc=0.02, agree_at=LARGE_AGREE_AT,
                         collect_idx=idx)
@@ -1177,7 +1380,7 @@ def logit2m_phases(F, model, cd, em, x, ys, lcd, w_map, cov, device):
     cfg = SamplerConfig(LOGIT2M_WARMUP, LOGIT2M_DRAWS,
                         sampler=HMC(LOGIT2M_STEPS))
     n, n_steps = LOGIT2M_CHAINS, LOGIT2M_STEPS
-    col_bytes = 4 * em.n_rows * em.row_width
+    col_bytes = em.row_bytes()
     l2 = (torch.cuda.get_device_properties(device).L2_cache_size
           if device.type == "cuda" else 0)
 
@@ -1294,50 +1497,74 @@ def main() -> int:
     gmodel = glmm_poisson(rt)
     large = glmm_large(rt)
     l2model, x2, ys2 = logistic_regression(rt, LOGIT2M_ROWS)
+    mv = mvnormal_logistic(rt, x, ys)
+    smodel = split_logistic(rt, x, ys)
     cds = {"funnel": fmodel.density(),
            "README regression": readme[0].density(),
            "logistic regression": lmodel.density(),
+           "MVNormal logistic": mv[0].density(),
+           "logistic regression, two row spaces": smodel.density(),
            "GLMMPoisson2": gmodel.density(),
            "glmm_large": large.density(),
            "logistic regression 2M": l2model.density()}
-    ems = build_all(F, cds)
+    with phase("build", device):
+        ems = build_all(F, cds)
 
     # -- the funnel: the column-free phases ----------------------------------
-    kernels = funnel_phases(F, cds["funnel"], fmodel, y, ems["funnel"],
-                            device, smi)
+    with phase("funnel", device):
+        kernels = funnel_phases(F, cds["funnel"], fmodel, y, ems["funnel"],
+                                device, smi)
 
     # -- the logistic regression at full width ------------------------------
     lcd, lem = cds["logistic regression"], ems["logistic regression"]
-    t0 = time.perf_counter()
-    w_map, cov = laplace_reference(x, ys)
-    print(f"phase Laplace reference: Newton in f64, MAP "
-          f"{np.round(w_map, 5).tolist()}, Laplace SDs "
-          f"{np.round(np.sqrt(np.diag(cov)), 6).tolist()} "
-          f"({time.perf_counter() - t0:.2f} s)", flush=True)
-    dlp_mean, density_entry = density_phase(F, lcd, lem, x, ys, w_map, cov,
-                                            device)
-    # E|Δlp| near the MAP from the density phase; 1e-3 rel allows the f32
-    # gradient differences to compound over the iterations
-    for explicit in (True, False):
-        parity_phase(F, lcd, device, PARITY_CHAINS, LOGIT_PARITY_ITERS,
-                     explicit, center=w_map, var=np.diag(cov),
-                     min_frac=agree_frac(LOGIT_PARITY_ITERS, dlp_mean),
-                     tol=1e-3, max_dacc=0.02)
+    with phase("logistic regression: density, parity", device):
+        t0 = time.perf_counter()
+        w_map, cov = laplace_reference(x, ys)
+        print(f"phase Laplace reference: Newton in f64, MAP "
+              f"{np.round(w_map, 5).tolist()}, Laplace SDs "
+              f"{np.round(np.sqrt(np.diag(cov)), 6).tolist()} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        dlp_mean, density_entry = density_phase(F, lcd, lem, x, ys, w_map,
+                                                cov, device)
+        # E|Δlp| near the MAP from the density phase; 1e-3 rel allows the
+        # f32 gradient differences to compound over the iterations
+        for explicit in (True, False):
+            parity_phase(F, lcd, device, PARITY_CHAINS, LOGIT_PARITY_ITERS,
+                         explicit, center=w_map, var=np.diag(cov),
+                         min_frac=agree_frac(LOGIT_PARITY_ITERS, dlp_mean),
+                         tol=1e-3, max_dacc=0.02)
 
     # -- main paths with data -----------------------------------------------
-    kernels.append(readme_phases(F, readme, ems["README regression"],
-                                 device))
-    kernels.append(logistic_main(F, lmodel, lcd, lem, w_map, cov, device,
-                                 agree_frac(LOGIT_TIME_ITERS, dlp_mean)))
+    with phase("README regression", device):
+        kernels.append(readme_phases(F, readme, ems["README regression"],
+                                     device))
+    with phase("logistic regression: main path", device):
+        entry, _ = logistic_main(F, lmodel, lcd, lem, w_map, cov, device,
+                                 agree_frac(LOGIT_TIME_ITERS, dlp_mean))
+    kernels.append({"name": "fused_hmc (logistic regression, row-tiled)",
+                    "replaces": "rainier_tpu/ops/hmc_pallas.py:302",
+                    **entry})
     kernels.append({**density_entry, "launches": 0})
 
+    # -- the untiled density: columns read whole, several row spaces ---------
+    with phase("MVNormal logistic", device):
+        kernels += mvnormal_phases(F, mv, cds["MVNormal logistic"],
+                                   ems["MVNormal logistic"], x, ys, device)
+    with phase("logistic regression, two row spaces", device):
+        kernels.append(split_phases(
+            F, cds["logistic regression, two row spaces"],
+            ems["logistic regression, two row spaces"], lcd, x, ys, w_map,
+            cov, device))
+
     # -- GLMMPoisson2: integer index columns ---------------------------------
-    kernels += glmm_phases(F, gmodel, cds["GLMMPoisson2"],
-                           ems["GLMMPoisson2"], device)
+    with phase("GLMMPoisson2", device):
+        kernels += glmm_phases(F, gmodel, cds["GLMMPoisson2"],
+                               ems["GLMMPoisson2"], device)
 
     # -- glmm_large: the chain state in the kernel's workspace ---------------
-    kernels += large_phases(F, large, cds["glmm_large"], ems["glmm_large"],
-                            device)
+    with phase("glmm_large", device):
+        kernels += large_phases(F, large, cds["glmm_large"],
+                                ems["glmm_large"], device)
 
     # -- the 2M-row logistic regression: streamed columns ---------------------
     kernels += logit2m_phases(F, l2model, cds["logistic regression 2M"],

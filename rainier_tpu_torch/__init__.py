@@ -20,7 +20,8 @@ from . import config
 from . import core
 from .core import (Bernoulli, Beta, Cauchy, Continuous, Distribution,
                    Exponential, Gamma, Laplace, LogNormal, Mixture, Model,
-                   Normal, Poisson, Uniform, vip_latent, vip_latent_vec)
+                   MVNormal, Normal, Poisson, Uniform, vip_latent,
+                   vip_latent_vec)
 from . import sampler
 from .sampler import (EHMC, HMC, NUTS, SamplerConfig, StaticMassMatrix,
                       StaticStepSize)

@@ -15,7 +15,7 @@ are passed as a tuple of tensors, never baked into the function.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -106,7 +106,7 @@ def prior_total(parameters: Sequence[R.Real]) -> R.Real:
     return R.sum_(terms)
 
 
-def _bind_lane_columns(env, columns, cols) -> None:
+def bind_lane_columns(env, columns, cols) -> None:
     """Bind column values in the lanes layout: a Column as (n, 1), so it
     broadcasts over chains; IntColumn and MatColumn as they are."""
     for c, v in zip(columns, cols):
@@ -126,17 +126,103 @@ def _lane_total(vals, qb) -> torch.Tensor:
     return total.reshape(C)
 
 
-def row_tile_sum(tile_fn, qb, cols, tile_rows: int) -> torch.Tensor:
-    """Σ over consecutive slices of `tile_rows` rows of
-    ``tile_fn(qb, ones mask, slice)`` (a ``logp_lanes_split_fn`` tile
-    function), each slice's total added in f64: (C,) float64."""
-    total = torch.zeros(qb.shape[1], dtype=torch.float64, device=qb.device)
-    for a in range(0, int(cols[0].shape[0]), tile_rows):
-        tile = tuple(c[a:a + tile_rows] for c in cols)
-        mask = torch.ones((tile[0].shape[0], 1), dtype=qb.dtype,
-                          device=qb.device)
-        total = total + tile_fn(qb, mask, tile).double()
-    return total
+class RowSpace(NamedTuple):
+    """The rows of one length n that top-level RowSum likelihoods sum: a
+    row of every column they read row by row at a time."""
+
+    n_rows: int
+    roots: tuple       # the per-row children of those RowSums
+    columns: tuple     # indices into CompiledDensity.columns of the
+                       # columns read row by row
+    dep: dict          # node id -> whether its value differs by row
+    frontier: tuple    # the row-invariant values the rows read, each
+                       # computed once per density call over whole columns
+
+
+class RowSplit(NamedTuple):
+    """A density as ``base`` (every other likelihood and the prior,
+    columns read whole) plus the rows of each row space."""
+
+    base: tuple
+    spaces: tuple
+
+
+class NoRowSplit(NotImplementedError):
+    """The density's rows cannot be summed space by space."""
+
+
+def _per_row_children(node) -> tuple:
+    """The children whose rows are the node's rows: all, except what a
+    node reads whole — the child a RowSum or VecSum sums, the source a
+    Gather indexes, the vector a MatVec multiplies."""
+    if isinstance(node, (R.RowSum, R.VecSum)):
+        return ()
+    if isinstance(node, R.Gather):
+        return (node.index,)
+    if isinstance(node, R.MatVec):
+        return (node.mat,)
+    return R.children_of(node)
+
+
+def _row_space(roots, col_pos) -> Optional[RowSpace]:
+    """The row space of RowSum children `roots`, or None where they read
+    no column row by row."""
+    per_row, seen, stack = {}, set(), list(roots)
+    while stack:
+        node = stack.pop()
+        if node.id in seen:
+            continue
+        seen.add(node.id)
+        if isinstance(node, (R.Column, R.IntColumn, R.MatColumn)):
+            per_row[node.id] = node
+        stack.extend(_per_row_children(node))
+    if not per_row:
+        return None
+    lengths = sorted({c.n_rows for c in per_row.values()})
+    if len(lengths) != 1:
+        raise NoRowSplit(f"a RowSum over columns of different lengths "
+                         f"{lengths} row by row")
+    order = R.topological(list(roots))
+    dep, frontier, found = {}, [], set()
+    for node in order:
+        # only what the rows reach row by row (`seen`) varies by row
+        dep[node.id] = node.id in seen and (node.id in per_row or any(
+            dep[k.id] for k in _per_row_children(node)))
+    for node in order:
+        if not dep[node.id]:
+            continue
+        for k in R.children_of(node):
+            if dep[k.id] and not any(k is c for c in _per_row_children(node)):
+                # a Gather's source or a MatVec's vector, read whole
+                raise NoRowSplit(
+                    f"a {type(node).__name__} whose "
+                    f"{'source' if isinstance(node, R.Gather) else 'vector'}"
+                    " varies by row")
+            if not dep[k.id] and not isinstance(k, R.Constant) \
+                    and k.id not in found:
+                found.add(k.id)
+                frontier.append(k)
+    return RowSpace(lengths[0], tuple(roots),
+                    tuple(sorted(col_pos[i] for i in per_row)), dep,
+                    tuple(frontier))
+
+
+def row_split(likelihoods, prior, columns) -> RowSplit:
+    """Group the top-level RowSum likelihoods that read columns row by row
+    by their length into row spaces; every other term is base.  Raises
+    NoRowSplit where a RowSum reads columns of two lengths row by row, or
+    reads whole a value that varies by row."""
+    col_pos = {c.id: j for j, c in enumerate(columns)}
+    base, groups = [], {}
+    for lh in likelihoods:
+        space = _row_space([lh.child], col_pos) \
+            if isinstance(lh, R.RowSum) else None
+        if space is None:
+            base.append(lh)
+        else:
+            groups.setdefault(space.n_rows, []).append(lh.child)
+    spaces = tuple(_row_space(roots, col_pos) for roots in groups.values())
+    return RowSplit(tuple(base) + (prior,), spaces)
 
 
 def _value_and_grad(f, q, *args):
@@ -170,6 +256,7 @@ class CompiledDensity:
             self.likelihoods + [self._prior] +
             [p.prior for p in self.layout.parameters if p.prior is not None])
         self._backends: dict = {}
+        self._row_split: Optional[RowSplit] = None
 
     @property
     def n_vars(self) -> int:
@@ -229,7 +316,7 @@ class CompiledDensity:
 
         def logp(qb, cols):
             env = layout.env_for_lanes(qb)
-            _bind_lane_columns(env, columns, cols)
+            bind_lane_columns(env, columns, cols)
             vals = interp.evaluate_lanes(roots, env,
                                          self._backend(qb.device), qb.dtype)
             return _lane_total(vals, qb)
@@ -251,8 +338,9 @@ class CompiledDensity:
 
         so ``logp(qb, cols) == base_fn(qb) + Σ_tiles tile_fn(...)`` for any
         tiling of the rows.  None when the base terms reference columns
-        (no clean split exists).  This is the plain version of what the
-        fused kernel computes over its row tiles."""
+        (no clean split exists).  The JAX package's split, tiling every
+        column alike; what the fused kernel computes, over several row
+        spaces and with columns read whole, is :meth:`logp_rows_fn`."""
         row_roots = [r.child for r in self.likelihoods
                      if isinstance(r, R.RowSum)]
         base_roots = [r for r in self.likelihoods
@@ -269,7 +357,7 @@ class CompiledDensity:
 
         def tile_fn(qb, mask, cols_tile):
             env = layout.env_for_lanes(qb)
-            _bind_lane_columns(env, columns, cols_tile)
+            bind_lane_columns(env, columns, cols_tile)
             vals = interp.evaluate_lanes(row_roots, env,
                                          self._backend(qb.device), qb.dtype)
             total = torch.zeros((1, qb.shape[1]), dtype=qb.dtype,
@@ -283,6 +371,65 @@ class CompiledDensity:
             return total.reshape(qb.shape[1])
 
         return base_fn, tile_fn
+
+    def row_split(self) -> RowSplit:
+        """The density's base terms and row spaces (:func:`row_split`)."""
+        if self._row_split is None:
+            self._row_split = row_split(self.likelihoods, self._prior,
+                                        self.columns)
+        return self._row_split
+
+    def logp_rows_fn(self):
+        """The density as the fused kernel sums it: ``(base_fn, rows_fn)``
+        with
+
+        * ``base_fn(qb, cols) -> (C,)``: the base terms of
+          :meth:`row_split`, their columns read whole;
+        * ``rows_fn(qb, cols, tile_rows) -> (C,)`` float64: each row
+          space's rows in consecutive slices of ``tile_rows`` rows (an
+          int, or one per space), each slice's sum added in f64; a slice
+          holds only the space's own columns, and the row-invariant values
+          its rows read are computed once per call over whole columns,
+
+        so ``logp_lanes_fn(qb, cols) == base_fn + rows_fn`` for any
+        tiling.  The plain version of what the kernel computes; raises
+        NoRowSplit where :meth:`row_split` does."""
+        split = self.row_split()
+        layout, columns = self.layout, self.columns
+
+        def env_of(qb, cols):
+            env = layout.env_for_lanes(qb)
+            bind_lane_columns(env, columns, cols)
+            return env
+
+        def base_fn(qb, cols):
+            vals = interp.evaluate_lanes(split.base, env_of(qb, cols),
+                                         self._backend(qb.device), qb.dtype)
+            return _lane_total(vals, qb)
+
+        def rows_fn(qb, cols, tile_rows):
+            be = self._backend(qb.device)
+            tiles = ([tile_rows] * len(split.spaces)
+                     if isinstance(tile_rows, int) else list(tile_rows))
+            total = torch.zeros(qb.shape[1], dtype=torch.float64,
+                                device=qb.device)
+            for space, r in zip(split.spaces, tiles):
+                inv = dict(zip((f.id for f in space.frontier),
+                               interp.evaluate_lanes(
+                                   space.frontier, env_of(qb, cols), be,
+                                   qb.dtype)))
+                own = [columns[j] for j in space.columns]
+                for a in range(0, space.n_rows, r):
+                    env = layout.env_for_lanes(qb)
+                    env.update(inv)
+                    bind_lane_columns(env, own, [cols[j][a:a + r]
+                                                  for j in space.columns])
+                    vals = interp.evaluate_lanes(space.roots, env, be,
+                                                 qb.dtype)
+                    total = total + _lane_total(vals, qb).double()
+            return total
+
+        return base_fn, rows_fn
 
     def batched_logp_and_grad_fn(self) -> Callable:
         """(q (C, n_vars), cols) -> (logp (C,), grad (C, n_vars)): the

@@ -27,20 +27,38 @@ Each derivative follows the convention of ``jax.grad`` (the reference):
 a hand-written digamma, and ``softplus``/``logistic`` use stable forms.
 
 A model with data is emitted in the split of
-``CompiledDensity.logp_lanes_split_fn``: the column-free terms (prior and
-every likelihood that is not a ``RowSum``) as ``rt_logp_grad``, and each
-top-level ``RowSum``'s child as a per-row function ``rt_row`` that reads
-one row of every column from a tile and accumulates its adjoints.  The
-nodes under that child that depend on no column are *row-invariant*:
-``rt_rows_pre`` computes the ones the row function reads once per density
-call, the row function accumulates their adjoints over the rows, and
-``rt_rows_post`` runs their reverse pass once after the last row — reverse
-mode through a broadcast, as the lanes evaluator's (1, C)-against-(n, C)
-broadcasting is.  ``MatVec`` is p multiply-adds per row, and a ``Column``
-view of a ``MatColumn`` that the tile holds reads the matrix's entry.
-The tile loader comes twice: ``rt_fill_tile`` stores every element, and
-``rt_fill_tile_async`` issues the same copies asynchronously, for a
-launch that streams its columns through two tile slots.
+``CompiledDensity.row_split``: the base terms (prior and every likelihood
+that is not a top-level ``RowSum`` reading columns row by row) as
+``rt_logp_grad``, and the children of the top-level ``RowSum``s as per-row
+functions that read one row of their columns from a tile and accumulate
+their adjoints.  The ``RowSum``s whose columns have one length form a
+row space: one row function, one tile layout and one tile loader each.
+A header of one space names them ``rt_row``, ``rt_fill_tile`` and
+``rt_fill_tile_async``; one of several defines ``RT_SPACES`` and an
+``RtSpace<s>`` each.  The nodes under a row function that do not vary by
+row are *row-invariant*: ``rt_rows_pre`` computes the ones the rows read
+once per density call, the row functions accumulate their adjoints over
+the rows, and ``rt_rows_post`` runs their reverse pass once after the
+last row — reverse mode through a broadcast, as the lanes evaluator's
+(1, C)-against-(n, C) broadcasting is.  ``MatVec`` is p multiply-adds per
+row, and a ``Column`` view of a ``MatColumn`` that the tile holds reads
+the matrix's entry.  The tile loader comes twice: ``rt_fill_tile`` stores
+every element, and ``rt_fill_tile_async`` issues the same copies
+asynchronously, for a launch that streams its columns through two tile
+slots.
+
+Outside the rows a column is read whole, from its device pointer, the
+way the JAX kernel's untiled branch reads its columns
+(rainier_tpu/ops/hmc_pallas.py:282-301): a column that a base term reads,
+or that a row reads through what sums or indexes it (a ``RowSum`` or
+``VecSum`` of it, a ``Gather`` from it, the ``MatVec`` of a matrix by a
+vector) is a vector of its k rows, ``cols.c<j>[i]``, a loop past
+``UNROLL_MAX`` rows; the ``MatVec`` of a matrix read whole is a vector of
+its rows, and its reverse pass adds the matrix's transpose times the
+adjoint into the vector's.  The values are read at every call, never
+baked into the source, so ``Model.with_data`` swaps them under one build.
+Such a header defines ``RT_WHOLE_COLS``, and its functions outside the
+rows take the columns.
 
 An ``IntColumn`` is an int32 field of the tile row, carried bit for bit in
 its float slot, so every int32 index is exact.  A ``Gather`` of a
@@ -65,9 +83,11 @@ before the workspace existed.
 
 Outside the envelope, :class:`UnsupportedNode` names what is wrong: a
 ``Gather`` whose source varies by row or whose index is neither a
-constant nor an ``IntColumn``, an ``IntColumn`` used as a value, a
-``RowSum`` below the top level, and a model whose column-free terms
-reference columns.
+constant nor an ``IntColumn``, an ``IntColumn`` used as a value or read
+outside the rows, a ``MatColumn`` other than as ``MatVec``'s matrix, a
+per-row value of vector width over 1, a ``MatVec`` of a matrix read
+whole by a vector of more than ``UNROLL_MAX`` elements, and one
+``RowSum`` over columns of two lengths.
 """
 
 from __future__ import annotations
@@ -75,11 +95,12 @@ from __future__ import annotations
 import math
 import weakref
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 
 from . import real as R
-from .compiler import find_columns
+from .compiler import NoRowSplit, find_columns
 
 HEADER_NAME = "rt_model.h"
 
@@ -123,19 +144,42 @@ class EmittedDensity:
     source: str           # the rt_model.h text
     n_vars: int
     ops: int              # f32 operations of one logp + gradient, apart
-                          # from the row terms: the column-free terms plus
-                          # the row-invariant forward and reverse passes
-    row_ops: int = 0      # f32 operations of one row's forward + adjoints
-    row_width: int = 0    # floats of one row in a tile (0: no row terms)
-    tile_rows: int = 0    # rows per tile (0 with row_width: too wide)
-    n_rows: int = 0       # rows of the columns
-    n_inv: int = 0        # row-invariant values the row function reads
+                          # from the row terms: the base terms plus the
+                          # row-invariant forward and reverse passes
+    spaces: tuple = ()    # SpaceTiles of each row space, in the kernel's
+                          # order (empty: no row terms)
+    n_inv: int = 0        # row-invariant values the row functions read
     workspace: int = 0    # floats of one chain's slot in the kernel's
                           # device-memory workspace (0: state in registers)
 
+    @property
+    def n_rows(self) -> int:
+        """Rows of every row space."""
+        return sum(s.n_rows for s in self.spaces)
+
+    @property
+    def row_width(self) -> int:
+        """Floats of the widest space's row (0: no row terms)."""
+        return max((s.row_width for s in self.spaces), default=0)
+
+    @property
+    def tile_rows(self) -> int:
+        """The fewest rows of a space's tile (0: a row too wide)."""
+        return min((s.tile_rows for s in self.spaces), default=0)
+
+    @property
+    def row_ops(self) -> int:
+        """f32 operations of one row's forward + adjoints, the most of any
+        space."""
+        return max((s.row_ops for s in self.spaces), default=0)
+
+    def row_bytes(self) -> int:
+        """Bytes of every space's tiles over all its rows."""
+        return sum(4 * s.n_rows * s.row_width for s in self.spaces)
+
     def density_ops(self) -> int:
         """f32 operations of one density + gradient over all rows."""
-        return self.ops + self.n_rows * self.row_ops
+        return self.ops + sum(s.n_rows * s.row_ops for s in self.spaces)
 
 
 def _lit(v: float) -> str:
@@ -188,11 +232,6 @@ _PRED = {"eq": "==", "lt": "<", "gt": ">", "lte": "<=", "gte": ">="}
 
 
 def _children_checked(node):
-    if isinstance(node, (R.Column, R.IntColumn, R.MatColumn)):
-        raise UnsupportedNode(
-            f"{type(node).__name__} outside the per-row child of a "
-            "top-level RowSum likelihood is not supported by the CUDA "
-            "emitter")
     if isinstance(node, R.Gather) and not isinstance(
             node.index, (R.Constant, R.IntColumn)):
         raise UnsupportedNode(
@@ -217,6 +256,9 @@ class _Emitter:
         self.ints: dict[int, str] = {}    # IntColumn → its int32 in the row
         self.inv_base: dict[int, int] = {}  # row-invariant node → its
                                             # first slot in inv / ainv
+        self.col_index = {c.id: j for j, c in enumerate(cd.columns)}
+        self.wmats: dict[int, int] = {}   # MatColumn read whole → its
+                                          # index among the columns
         self.loop_len: dict[int, int] = {}  # vector emitted as a loop over
                                             # i → its length
         self.mult = 1          # elements one emitted line stands for
@@ -264,7 +306,10 @@ class _Emitter:
         if not self.grad[node.id]:
             return
         if self.loop_acc is not None and node.id not in self.loop_len:
-            target = self.loop_acc.setdefault(node.id, f"t{node.id}")
+            j = i if len(self.adj[node.id]) > 1 else 0
+            target = self.loop_acc.setdefault(
+                (node.id, j), f"t{node.id}" + (
+                    f"_{j}" if len(self.adj[node.id]) > 1 else ""))
         else:
             a = self.adj[node.id]
             target = a[i if len(a) > 1 else 0]
@@ -275,7 +320,8 @@ class _Emitter:
     def forward(self, node) -> None:
         nid = node.id
         layout = self.cd.layout
-        if nid in self.vals or nid in self.mats or nid in self.ints:
+        if nid in self.vals or nid in self.mats or nid in self.ints \
+                or nid in self.wmats:
             return          # bound by the caller: a row's column or an input
         if isinstance(node, R.Constant):
             self.vals[nid] = [_lit(node.value)]
@@ -294,10 +340,13 @@ class _Emitter:
                 self.adj[nid] = [f"g[{j}]" for j in range(a, b)]
             self.grad[nid] = True
             return
+        if isinstance(node, (R.Column, R.IntColumn, R.MatColumn)):
+            self._whole_column(node)
+            return
         kids = _children_checked(node)
         for k in kids:
-            if k.id in self.mats and not (isinstance(node, R.MatVec)
-                                          and k is node.mat):
+            if (k.id in self.mats or k.id in self.wmats) and not (
+                    isinstance(node, R.MatVec) and k is node.mat):
                 raise UnsupportedNode(
                     "a MatColumn used other than as MatVec's matrix is not "
                     "supported by the CUDA emitter")
@@ -383,8 +432,9 @@ class _Emitter:
                     for k, t in enumerate(node.table)) + ")")
             self.define(node, outs, 2 * len(node.table), n)
         elif isinstance(node, (R.VecSum, R.RowSum)):
-            # a RowSum reaches here only with a column-free child, which
-            # every row adds once (compiler.py's tile_fn: child · Σmask)
+            # a child of one element is added once per row or element (the
+            # lanes evaluator's v · count); a RowSum nested in a term sums
+            # its child over whole columns
             c = node.child
             if c.id in self.loop_len:
                 # the child's loop sums it into r<id> in f64
@@ -396,15 +446,26 @@ class _Emitter:
                 self.define(node, ["(" + " + ".join(self.vals[c.id]) + ")"],
                             self.size(c) - 1)
         elif isinstance(node, R.MatVec):
-            # one row of the matrix times a row-invariant vector
-            off, p = self.mats[node.mat.id], node.mat.n_cols
+            # one row of the matrix times a row-invariant vector; a matrix
+            # read whole gives a vector of its rows
+            p = node.mat.n_cols
             if self.size(node.vec) != p:
                 raise UnsupportedNode(
                     f"MatVec of a {p}-column matrix by a vector of "
                     f"{self.size(node.vec)}")
+            if node.mat.id in self.mats:
+                rows, n = [None], 1
+            elif node.vec.id in self.loop_len:
+                raise UnsupportedNode(
+                    f"a MatVec of a data matrix read whole by a vector of "
+                    f"{p} > {UNROLL_MAX} elements is not supported by the "
+                    "CUDA emitter")
+            else:
+                n = node.mat.n_rows
+                rows = ["i"] if n > UNROLL_MAX else list(range(n))
             self.define(node, ["(" + " + ".join(
-                f"x[{off + j}] * {self.el(node.vec, j)}"
-                for j in range(p)) + ")"], 2 * p - 1)
+                f"{self.mat_entry(node.mat, r, j)} * {self.el(node.vec, j)}"
+                for j in range(p)) + ")" for r in rows], 2 * p - 1, n)
         elif isinstance(node, R.Gather):
             k = self.size(node.source)
             j = _static_slot(node, k)
@@ -428,6 +489,33 @@ class _Emitter:
                                   else "")
                      for i in range(len(self.vals[nid]))]
             self.adj[nid] = names
+
+    def _whole_column(self, node) -> None:
+        """A column read whole, outside the rows of a top-level RowSum: a
+        vector of its rows, each a load from its device pointer (a loop
+        past UNROLL_MAX rows); a MatColumn only as MatVec's matrix."""
+        if isinstance(node, R.IntColumn):
+            raise UnsupportedNode(
+                "an IntColumn read outside the rows of a top-level RowSum "
+                "likelihood is not supported by the CUDA emitter")
+        j, nid = self.col_index[node.id], node.id
+        self.grad[nid] = False
+        if isinstance(node, R.MatColumn):
+            self.wmats[nid] = j
+        elif node.n_rows > UNROLL_MAX:
+            self.loop_len[nid] = node.n_rows
+            self.vals[nid] = [f"cols.c{j}[i]"]
+        else:
+            self.vals[nid] = [f"cols.c{j}[{i}]" for i in range(node.n_rows)]
+
+    def mat_entry(self, mat, r, j) -> str:
+        """Entry (r, j) of a MatColumn: column j of the tile's row (r is
+        None), or of row r read whole (r an int, or "i" in a loop)."""
+        if mat.id in self.mats:
+            return f"x[{self.mats[mat.id] + j}]"
+        p, c = mat.n_cols, self.wmats[mat.id]
+        return (f"cols.c{c}[i * {p} + {j}]" if r == "i"
+                else f"cols.c{c}[{r * p + j}]")
 
     # -- reverse ----------------------------------------------------------
     def backward(self, node) -> None:
@@ -470,9 +558,12 @@ class _Emitter:
                     for j in range(self.size(c)):
                         self.acc(c, j, a, 0)
             elif isinstance(node, R.MatVec):
-                off = self.mats[node.mat.id]
+                # the matrix's transpose times the adjoint, into vec's
+                r = None if node.mat.id in self.mats else (
+                    "i" if nid in self.loop_len else i)
                 for j in range(node.mat.n_cols):
-                    self.acc(node.vec, j, f"{a} * x[{off + j}]", 1)
+                    self.acc(node.vec, j,
+                             f"{a} * {self.mat_entry(node.mat, r, j)}", 1)
             elif isinstance(node, R.Gather):
                 j = _static_slot(node, self.size(node.source))
                 if j is not None and node.source.id in self.loop_len:
@@ -726,18 +817,20 @@ def _loop_reverse(em, loop, total, seed):
     # a block of its own: another loop may sum into the same scalars
     return ["  {", *_indent(_loop(
         em, loop.k, [f"  double {t} = 0.0;" for t in accs.values()], body,
-        [f"  {em.adj[nid][0]} += (float){t};" for nid, t in accs.items()])),
+        [f"  {em.adj[nid][j]} += (float){t};"
+         for (nid, j), t in accs.items()])),
         "  }"]
 
 
-def _row_layout(cd):
-    """Where each column sits in a tile row: ({column id: offset of its
-    first float}, [floats loaded per column], row width).  A Column view
-    of a MatColumn that the tile holds reads the matrix's entry and loads
-    nothing of its own; an IntColumn takes one 32-bit slot."""
-    held = {c.id for c in cd.columns if isinstance(c, R.MatColumn)}
+def _row_layout(columns):
+    """Where each of a row space's columns sits in its tile row: ({column
+    id: offset of its first float}, [floats loaded per column], row
+    width).  A Column view of a MatColumn that the tile holds reads the
+    matrix's entry and loads nothing of its own; an IntColumn takes one
+    32-bit slot."""
+    held = {c.id for c in columns if isinstance(c, R.MatColumn)}
     offs, widths, w = {}, [], 0
-    for c in cd.columns:
+    for c in columns:
         if isinstance(c, R.MatColumn):
             offs[c.id], width = w, c.n_cols
         elif (isinstance(c, R.Column) and c.matrix_ref is not None
@@ -747,55 +840,107 @@ def _row_layout(cd):
             offs[c.id], width = w, 1
         widths.append(width)
         w += width
-    for c in cd.columns:
+    for c in columns:
         if c.id not in offs:
             mat, j = c.matrix_ref
             offs[c.id] = offs[mat.id] + j
     return offs, widths, w
 
 
-def _row_dependence(order) -> dict:
-    """node id → whether its value differs from row to row."""
-    dep = {}
+class SpaceTiles(NamedTuple):
+    """One row space of an emitted density, as the kernel tiles it."""
+
+    n_rows: int
+    row_width: int      # floats of one row in a tile
+    tile_rows: int      # rows per tile (0: even the least tile is too wide)
+    row_ops: int        # f32 operations of one row's forward + adjoints
+
+
+def _fill(cd, space, offs, widths, row_w):
+    """The space's tile loader, synchronous and asynchronous: rows [row0,
+    row0 + rows) of each of its columns into the tile (`row_w` floats a
+    row), thread tid of nt."""
+    fill, fill_async = [], []
+    for j, w in zip(space.columns, widths):
+        c = cd.columns[j]
+        o = offs[c.id]
+        if w == 1:
+            v = f"cols.c{j}[row0 + i]"
+            loop = "  for (int i = tid; i < rows; i += nt) "
+            dst = f"tile[i * {row_w} + {o}]"
+            fill.append(f"{loop}{dst} = " + (
+                f"rt_int_bits({v})" if isinstance(c, R.IntColumn) else v)
+                + ";")
+            fill_async.append(f"{loop}rt_copy_async(&{dst}, &{v});")
+        elif w > 1:
+            dst = f"tile[r * {row_w} + {o} + i - r * {w}]"
+            v = f"cols.c{j}[(size_t)row0 * {w} + i]"
+            head = [f"  for (int i = tid; i < rows * {w}; i += nt) {{",
+                    f"    const int r = i / {w};"]
+            fill += [*head, f"    {dst} = {v};", "  }"]
+            fill_async += [*head, f"    rt_copy_async(&{dst}, &{v});", "  }"]
+    return fill, fill_async
+
+
+def _space_rows(cd, space, ws, grad, base, size, row_w):
+    """One row space's row function and tile loaders: (body lines,
+    SpaceTiles, fill lines, asynchronous fill lines).  The row-invariant
+    values (`base`: slot in inv, `size`: their elements, `grad`: whether
+    they depend on q) come from inv, their adjoints go to ainv; `row_w`
+    names the tile's row width (None: the number)."""
+    row = _Emitter(cd, ws)
+    for fid, b in base.items():
+        row.vals[fid] = [f"inv[{b + i}]" for i in range(size[fid])]
+        row.inv_base[fid] = b
+        row.grad[fid] = grad[fid]
+        if grad[fid]:
+            row.adj[fid] = [f"ainv[{b + i}]" for i in range(size[fid])]
+    own = [cd.columns[j] for j in space.columns]
+    offs, widths, width = _row_layout(own)
+    for c in own:
+        row.grad[c.id] = False
+        if isinstance(c, R.MatColumn):
+            row.mats[c.id] = offs[c.id]
+        elif isinstance(c, R.IntColumn):
+            row.ints[c.id] = f"rt_bits_int(x[{offs[c.id]}])"
+        else:
+            row.vals[c.id] = [f"x[{offs[c.id]}]"]
+    order = R.topological(list(space.roots))
+    dep = space.dep
     for node in order:
-        if isinstance(node, (R.Column, R.IntColumn, R.MatColumn)):
-            dep[node.id] = True
-            continue
-        kids = _children_checked(node)
-        dep[node.id] = any(dep[k.id] for k in kids)
-        if not dep[node.id]:
-            continue
-        if isinstance(node, R.RowSum):
-            raise UnsupportedNode(
-                "a RowSum over data that is not a top-level likelihood is "
-                "not supported by the CUDA emitter")
-        if isinstance(node, R.VecSum):
-            raise UnsupportedNode(
-                "VecSum across the rows of a column is not supported by "
-                "the CUDA emitter")
-        if isinstance(node, R.Gather) and dep[node.source.id]:
-            raise UnsupportedNode(
-                "a Gather whose source varies by row is not supported by "
-                "the CUDA emitter")
-    return dep
+        if dep[node.id] or isinstance(node, R.Constant):
+            row.forward(node)
+            if dep[node.id] and node.id in row.vals and row.size(node) > 1:
+                raise UnsupportedNode(
+                    f"a per-row value of vector width {row.size(node)} is "
+                    "not supported by the CUDA emitter")
+    seeds = _seeds(row, space.roots)
+    for node in reversed(order):
+        if dep[node.id]:
+            row.backward(node)
+    total = " + ".join(row.el(x, 0) for x in space.roots)
+    body = [*row.fwd, *_decls(row, [n for n in order if dep[n.id]]),
+            *seeds, *row.rev, f"  return {total};"]
+    tile = SpaceTiles(space.n_rows, width, tile_rows(width),
+                      row.fops + row.rops + len(space.roots))
+    return (body, tile, *_fill(cd, space, offs, widths, row_w or width))
 
 
-def _emit_rows(cd, row_roots, ws):
-    """The per-row part of a data model: (C lines, row ops, invariant
-    ops, row width, n_rows, row-invariant values)."""
-    order = R.topological(row_roots)
-    dep = _row_dependence(order)
-    n_rows = {c.n_rows for c in cd.columns}
-    if len(n_rows) != 1:
-        raise UnsupportedNode(f"columns of different lengths {sorted(n_rows)}"
-                              " are not supported by the CUDA emitter")
-    # row-invariant inputs of the row function, computed once per call;
+def _emit_rows(cd, spaces, ws, whole):
+    """The per-row part of a data model: (C lines, invariant ops, the
+    row-invariant values' count, SpaceTiles per row space).  One row space
+    keeps the names rt_row, rt_fill_tile and rt_fill_tile_async; several
+    define RT_SPACES and a RtSpace<s> each.  `whole`: the functions take
+    the columns, which they read whole."""
+    # row-invariant inputs of the row functions, computed once per call;
     # `dense`: the ones some row reads other than by a per-row gather
     frontier, seen, dense = [], set(), set()
-    for node in order:
-        if dep[node.id]:
+    for space in spaces:
+        for node in R.topological(list(space.roots)):
+            if not space.dep[node.id]:
+                continue
             for k in R.children_of(node):
-                if dep[k.id] or isinstance(k, R.Constant):
+                if space.dep[k.id] or isinstance(k, R.Constant):
                     continue
                 if k.id not in seen:
                     seen.add(k.id)
@@ -825,112 +970,95 @@ def _emit_rows(cd, row_roots, ws):
     post_fwd, post_rev, _ = _program(
         post, frontier,
         seed=lambda f, i: f"ainv[{base[f.id]} + {i}]")
-
-    row = _Emitter(cd, ws)
     store, post_seeds = [], []
     for f in frontier:
         b, looped = base[f.id], f.id in pre.loop_len
-        row.vals[f.id] = [f"inv[{b + i}]" for i in range(size[f.id])]
-        row.inv_base[f.id] = b
-        row.grad[f.id] = pre.grad[f.id]
         if not looped:
             store += [f"  inv[{b + i}] = {pre.el(f, i)};"
                       for i in range(size[f.id])]
-        if pre.grad[f.id]:
-            row.adj[f.id] = [f"ainv[{b + i}]" for i in range(size[f.id])]
+        if pre.grad[f.id] and not looped:
             a = post.adj[f.id]
-            if not looped:
-                post_seeds += [f"  {a[i if len(a) > 1 else 0]} += "
-                               f"ainv[{b + i}];" for i in range(size[f.id])]
-    offs, widths, width = _row_layout(cd)
-    for c in cd.columns:
-        row.grad[c.id] = False
-        if isinstance(c, R.MatColumn):
-            row.mats[c.id] = offs[c.id]
-        elif isinstance(c, R.IntColumn):
-            row.ints[c.id] = f"rt_bits_int(x[{offs[c.id]}])"
-        else:
-            row.vals[c.id] = [f"x[{offs[c.id]}]"]
-    for node in order:
-        if dep[node.id] or isinstance(node, R.Constant):
-            row.forward(node)
-            if (dep[node.id] and node.id in row.vals
-                    and row.size(node) > 1):
-                raise UnsupportedNode(
-                    f"a per-row value of vector width {row.size(node)} is "
-                    "not supported by the CUDA emitter")
-    seeds = _seeds(row, row_roots)
-    for node in reversed(order):
-        if dep[node.id]:
-            row.backward(node)
-    total = " + ".join(row.el(r, 0) for r in row_roots)
-    n_ninv = max(n_inv, 1)
-    fill, fill_async = [], []
-    for j, (c, w) in enumerate(zip(cd.columns, widths)):
-        o = offs[c.id]
-        if w == 1:
-            v = f"cols.c{j}[row0 + i]"
-            loop = "  for (int i = tid; i < rows; i += nt) "
-            dst = f"tile[i * RT_ROW_W + {o}]"
-            fill.append(f"{loop}{dst} = " + (
-                f"rt_int_bits({v})" if isinstance(c, R.IntColumn) else v)
-                + ";")
-            fill_async.append(f"{loop}rt_copy_async(&{dst}, &{v});")
-        elif w > 1:
-            dst = f"tile[r * RT_ROW_W + {o} + i - r * {w}]"
-            v = f"cols.c{j}[(size_t)row0 * {w} + i]"
-            head = [f"  for (int i = tid; i < rows * {w}; i += nt) {{",
-                    f"    const int r = i / {w};"]
-            fill += [*head, f"    {dst} = {v};", "  }"]
-            fill_async += [*head, f"    rt_copy_async(&{dst}, &{v});", "  }"]
+            post_seeds += [f"  {a[i if len(a) > 1 else 0]} += "
+                           f"ainv[{b + i}];" for i in range(size[f.id])]
+
     r = _RESTRICT if ws else ""
+    wc = ", const RtCols& cols" if whole else ""
+    one = len(spaces) == 1
+    row_sig = f"float*{r} x, const float*{r} inv, float*{r} ainv)"
+    fill_sig = "(float* tile, const RtCols& cols, int row0, int rows, " \
+               "int tid, int nt)"
+    tiles, spaces_text = [], []
+    for s, space in enumerate(spaces):
+        body, tile, fill, fill_async = _space_rows(
+            cd, space, ws, pre.grad, base, size, "RT_ROW_W" if one else None)
+        tiles.append(tile)
+        if one:
+            row_fn = [
+                "// one row's log-density; adds its adjoints of the "
+                "row-invariant",
+                "// values into ainv",
+                f"RT_HD float rt_row(const {row_sig} {{", *body, "}"]
+            fills = [
+                "// rows [row0, row0 + rows) of every column into the tile, "
+                "thread",
+                "// tid of nt",
+                f"RT_HD void rt_fill_tile{fill_sig} {{", *fill, "}",
+                "",
+                "// the same copies as rt_fill_tile, issued asynchronously "
+                "(cp.async",
+                "// on the card, a plain copy in host code); an index keeps "
+                "its bits",
+                f"RT_HD void rt_fill_tile_async{fill_sig} {{", *fill_async,
+                "}"]
+            continue
+        spaces_text += [
+            "",
+            f"// row space {s}: {tile.n_rows} rows of {tile.row_width} "
+            f"floats, tiles of {tile.tile_rows}",
+            "template <>",
+            f"struct RtSpace<{s}> {{",
+            f"  enum {{ kW = {tile.row_width}, kTile = "
+            f"{max(tile.tile_rows, 1)} }};",
+            "  // one row's log-density; adds its adjoints of the",
+            "  // row-invariant values into ainv",
+            f"  static RT_HD float row(const {row_sig} {{",
+            *_indent(body), "  }",
+            "  // rows [row0, row0 + rows) of the space's columns into the "
+            "tile,",
+            "  // thread tid of nt; then the same copies issued",
+            "  // asynchronously",
+            f"  static RT_HD void fill{fill_sig} {{", *_indent(fill), "  }",
+            f"  static RT_HD void fill_async{fill_sig} {{",
+            *_indent(fill_async), "  }",
+            "};"]
+    post_fn = [
+        "// the reverse pass of the row-invariant values, from the adjoints",
+        "// summed over all rows; adds into g",
+        f"RT_HD void rt_rows_post(const float*{r} q, const float*{r} ainv, "
+        f"float*{r} g{wc}) {{",
+        *post_fwd, *_decls(post, R.topological(frontier)), *post_seeds,
+        *post_rev,
+        "}"]
     lines = [
         f"#define RT_NINV {n_inv}",
-        f"#define RT_NINV_ALLOC {n_ninv}",
+        f"#define RT_NINV_ALLOC {max(n_inv, 1)}",
         *([f"#define RT_NINV_DENSE {n_dense}",
            f"#define RT_NINV_DENSE_ALLOC {max(n_dense, 1)}"]
           if n_dense != n_inv else []),
         "",
-        "// the row-invariant values the row function reads",
-        f"RT_HD void rt_rows_pre(const float*{r} q, float*{r} inv) {{",
+        "// the row-invariant values the row function"
+        + (" reads" if one else "s read"),
+        f"RT_HD void rt_rows_pre(const float*{r} q, float*{r} inv{wc}) {{",
         *pre_fwd, *store,
         "}",
-        "",
-        "// one row's log-density; adds its adjoints of the row-invariant",
-        "// values into ainv",
-        f"RT_HD float rt_row(const float*{r} x, const float*{r} inv, "
-        f"float*{r} ainv) {{",
-        *row.fwd,
-        *_decls(row, [n for n in order if dep[n.id]]),
-        *seeds, *row.rev,
-        f"  return {total};",
-        "}",
-        "",
-        "// the reverse pass of the row-invariant values, from the adjoints",
-        "// summed over all rows; adds into g",
-        f"RT_HD void rt_rows_post(const float*{r} q, const float*{r} ainv, "
-        f"float*{r} g) {{",
-        *post_fwd, *_decls(post, R.topological(frontier)), *post_seeds,
-        *post_rev,
-        "}",
-        "",
-        "// rows [row0, row0 + rows) of every column into the tile, thread",
-        "// tid of nt",
-        "RT_HD void rt_fill_tile(float* tile, const RtCols& cols, int row0, "
-        "int rows, int tid, int nt) {",
-        *fill,
-        "}",
-        "",
-        "// the same copies as rt_fill_tile, issued asynchronously (cp.async",
-        "// on the card, a plain copy in host code); an index keeps its bits",
-        "RT_HD void rt_fill_tile_async(float* tile, const RtCols& cols, "
-        "int row0, int rows, int tid, int nt) {",
-        *fill_async,
-        "}",
-    ]
-    row_ops = row.fops + row.rops + len(row_roots)
+        ""]
+    if one:
+        lines += [*row_fn, "", *post_fn, "", *fills]
+    else:
+        lines += [*post_fn, "", f"#define RT_SPACES {len(spaces)}",
+                  "template <int S> struct RtSpace;", *spaces_text]
     inv_ops = pre.fops + post.fops + post.rops + len(post_seeds)
-    return lines, row_ops, inv_ops, width, n_rows.pop(), n_inv
+    return lines, inv_ops, n_inv, tuple(tiles)
 
 
 def _cols_struct(columns):
@@ -983,24 +1111,28 @@ def workspace_floats(n_vars: int, n_inv: int, rows: bool) -> int:
 
 
 def _emit(cd, ws: bool) -> EmittedDensity:
-    row_lh = [l for l in cd.likelihoods if isinstance(l, R.RowSum)
-              and cd.columns and find_columns([l.child])]
-    if cd.columns and cd.logp_lanes_split_fn() is None:
+    try:
+        split = cd.row_split()
+    except NoRowSplit as e:
         raise UnsupportedNode(
-            "the model's column-free terms reference data columns, so its "
-            "density has no base/row split for the CUDA emitter")
-    row_ids = {l.id for l in row_lh}
-    roots = [l for l in cd.likelihoods if l.id not in row_ids] + [cd._prior]
+            f"{e} is not supported by the CUDA emitter") from None
+    # the base terms read their columns whole, and so do the row-invariant
+    # values of the rows
+    whole = bool(find_columns(split.base)) or any(
+        find_columns(list(sp.frontier)) for sp in split.spaces)
+    roots = list(split.base)
     em = _Emitter(cd, ws)
     fwd, rev, total = _program(em, roots, total=True)
     lp_ops = max(len(total) - 1, 0)
     n = cd.n_vars
-    rows, row_ops, inv_ops, width, n_rows, n_inv = (
-        _emit_rows(cd, [l.child for l in row_lh], ws) if row_lh
-        else ([], 0, 0, 0, 0, 0))
-    slot = workspace_floats(n, n_inv, bool(row_lh)) if ws else 0
+    rows, inv_ops, n_inv, spaces = (
+        _emit_rows(cd, split.spaces, ws, whole) if split.spaces
+        else ([], 0, 0, ()))
+    slot = workspace_floats(n, n_inv, bool(spaces)) if ws else 0
     r = _RESTRICT if ws else ""
-    tile = tile_rows(width) if width else 0
+    # the shared memory of a tile slot: the widest space's tile
+    top = max(spaces, key=lambda t: t.tile_rows * t.row_width,
+              default=SpaceTiles(0, 0, 0, 0))
     src = "\n".join([
         "// Generated by rainier_tpu_torch.compute.emit_cuda: the model's",
         "// log-density and its reverse-mode gradient for one chain.",
@@ -1008,13 +1140,15 @@ def _emit(cd, ws: bool) -> EmittedDensity:
         '#include "rt_math.cuh"',
         "",
         f"#define RT_DIM {n}",
-        f"#define RT_ROW_W {width}",
-        f"#define RT_TILE {max(tile, 1)}",
+        f"#define RT_ROW_W {top.row_width}",
+        f"#define RT_TILE {max(top.tile_rows, 1)}",
         *([f"#define RT_WS_FLOATS {slot}"] if ws else []),
+        *(["#define RT_WHOLE_COLS 1"] if whole else []),
         "",
         *_cols_struct(cd.columns),
         "",
-        f"RT_HD float rt_logp_grad(const float*{r} q, float*{r} g) {{",
+        f"RT_HD float rt_logp_grad(const float*{r} q, float*{r} g"
+        + (", const RtCols& cols" if whole else "") + ") {",
         f"  for (int j = 0; j < {n}; ++j) g[j] = 0.0f;",
         *fwd,
         "  const float lp = " + (" + ".join(total) or "0.0f") + ";",
@@ -1029,5 +1163,4 @@ def _emit(cd, ws: bool) -> EmittedDensity:
     ])
     return EmittedDensity(source=src, n_vars=n,
                           ops=em.fops + lp_ops + em.rops + inv_ops,
-                          row_ops=row_ops, row_width=width, tile_rows=tile,
-                          n_rows=n_rows, n_inv=n_inv, workspace=slot)
+                          spaces=spaces, n_inv=n_inv, workspace=slot)

@@ -351,7 +351,8 @@ def evaluate_lanes(roots, env: Mapping[int, object], backend, dtype):
     """
     xp = backend.np
     memo: dict[int, object] = dict(env)
-    for node in R.topological(list(roots)):
+    # a node bound in env is a leaf here, whatever lies below it
+    for node in R.topological(list(roots), stop=memo):
         nid = node.id
         if nid in memo:
             continue

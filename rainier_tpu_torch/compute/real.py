@@ -813,8 +813,9 @@ def children_of(node: Real) -> tuple[Real, ...]:
     raise TypeError(f"unknown node type {type(node)}")
 
 
-def topological(roots: Sequence[Real]) -> list[Real]:
-    """Post-order over the DAG reachable from roots (iterative)."""
+def topological(roots: Sequence[Real], stop=()) -> list[Real]:
+    """Post-order over the DAG reachable from roots (iterative); a node
+    whose id is in `stop` is listed without its children."""
     seen: set[int] = set()
     order: list[Real] = []
     stack: list[tuple[Real, bool]] = [(r, False) for r in reversed(roots)]
@@ -827,6 +828,8 @@ def topological(roots: Sequence[Real]) -> list[Real]:
             continue
         seen.add(id(node))
         stack.append((node, True))
+        if node.id in stop:
+            continue
         for c in reversed(children_of(node)):
             if id(c) not in seen:
                 stack.append((c, False))

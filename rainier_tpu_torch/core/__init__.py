@@ -7,6 +7,7 @@ from .discrete import Bernoulli, Discrete, Poisson
 from .distribution import Distribution
 from .injection import Exp, Injection, Scale, Translate
 from .model import Model
+from .mvnormal import MVNormal
 from .reparam import vip_latent, vip_latent_vec
 from .support import (BoundedAboveSupport, BoundedBelowSupport,
                       BoundedSupport, Support, UnboundedSupport)
@@ -19,5 +20,5 @@ __all__ = [
     "Distribution", "Exp",
     "Injection", "Scale", "Translate", "Model", "BoundedAboveSupport",
     "BoundedBelowSupport", "BoundedSupport", "Support", "UnboundedSupport",
-    "Diagnostics", "Trace", "vip_latent", "vip_latent_vec",
+    "Diagnostics", "Trace", "vip_latent", "vip_latent_vec", "MVNormal",
 ]

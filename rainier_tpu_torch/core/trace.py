@@ -6,8 +6,6 @@ equations exactly as the reference does (Trace.scala:49-120), vectorized
 over all parameters.  This slice ports the float64 host pipeline, which
 is numpy/scipy and a verbatim copy (rainier_tpu/core/trace.py:82-165);
 the device pipeline and ``predict`` come in a later slice.
-``evaluate`` covers column-free expressions, which is what ``mean`` and
-``std`` of a latent need.
 """
 
 from __future__ import annotations
@@ -18,6 +16,7 @@ import numpy as np
 
 from ..compute import interp
 from ..compute import real as R
+from ..compute.compiler import bind_lane_columns, find_columns
 
 
 class Diagnostics(NamedTuple):
@@ -219,9 +218,11 @@ class Trace:
 
     # -- evaluation over draws --------------------------------------------
     def evaluate(self, exprs) -> np.ndarray:
-        """Evaluate column-free Real expression(s) at every draw →
-        (n_draws, ...), in float64 on the host (the numpy oracle over the
-        chains-last layout of interp.evaluate_lanes)."""
+        """Evaluate Real expression(s) at every draw → (n_draws, ...), in
+        float64 on the host (the numpy oracle over the chains-last layout
+        of interp.evaluate_lanes).  The data columns the expressions read
+        are bound whole, whether or not a likelihood reads them: an
+        expression over n rows gives (n_draws, n)."""
         if self.collect_idx is not None:
             raise ValueError("evaluate requires the full parameter "
                              "vector; re-run sample with collect_idx=None")
@@ -229,13 +230,12 @@ class Trace:
         exprs = [R.to_real(e) for e in ([exprs] if single else exprs)]
         qb = self.flat().astype(np.float64).T          # (n_vars, N)
         env = self.compiled.layout.env_for_lanes(qb)
-        try:
-            vals = interp.evaluate_lanes(exprs, env, interp.NUMPY_BACKEND,
-                                         np.float64)
-        except KeyError as e:
-            raise NotImplementedError(
-                "Trace.evaluate covers column-free expressions in this "
-                f"slice of the port ({e})") from None
+        columns = find_columns(exprs)
+        bind_lane_columns(env, columns, [
+            np.asarray(c.values, dtype=np.int32 if isinstance(
+                c, R.IntColumn) else np.float64) for c in columns])
+        vals = interp.evaluate_lanes(exprs, env, interp.NUMPY_BACKEND,
+                                     np.float64)
         n = qb.shape[1]
         out = [np.broadcast_to(np.asarray(v), (1, n))[0] if np.ndim(v) < 2
                or np.shape(v)[0] == 1 else np.asarray(v).T for v in vals]

@@ -1,7 +1,7 @@
 // Fused HMC sampling loop for Hopper (sm_90a): the hand-written
 // counterpart of the Pallas TPU kernel rainier_tpu/ops/hmc_pallas.py::
-// fused_hmc, with its resident-column, row-tiled and streamed-column
-// branches (hmc_pallas.py:157-222, 280, 302-381, 483-497).  See
+// fused_hmc, with its resident-column, row-tiled, streamed-column and
+// untiled branches (hmc_pallas.py:157-222, 280-381, 483-497).  See
 // rainier_tpu_torch/ops/fused_hmc.py for the wrapper, the plain PyTorch
 // version and the notes on what bounds this kernel.
 //
@@ -50,6 +50,20 @@
 // per tile, made the synchronous kernel 13% slower on the 100k-row
 // logistic regression, and both loops in one kernel 8% slower
 // (rainier_tpu_torch/tools/kernel_ab.py tiles, H100).
+//
+// Row spaces and columns read whole (the untiled branch,
+// hmc_pallas.py:282-291, 300-301, which evaluates the density over whole
+// columns of any lengths).  The top-level RowSum likelihoods whose columns
+// have one length form a row space; rt_density runs one tile loop per
+// space, over the space's own rows, in its own tile (RtSpace<s>: kW floats
+// a row, kTile rows), through the same two slots, sized for the widest
+// space.  lp and the dense row-invariant adjoints are summed in f32 per
+// tile and in f64 across the tiles of every space.  Every thread runs every
+// space's loop, so the barriers and, when streaming, the copy groups of a
+// thread stay those of every other.  A column that no row reads row by row
+// (an MVNormal's Cholesky factor, a data vector dotted with a latent one)
+// is read whole by the column-free and row-invariant functions, from its
+// pointer in RtCols, at every call.
 //
 // Integer index columns.  The generated RtCols holds each column with its
 // own type (int32 for an IntColumn), and the loader keeps an index's bits
@@ -123,6 +137,53 @@
 #endif
 #else
 #define RT_WS_NINV 0
+#endif
+
+// Row spaces.  A header with one row space names its row function and
+// tile loaders rt_row, rt_fill_tile and rt_fill_tile_async; one with
+// several defines RT_SPACES and an RtSpace<s> for each.  The tile loops
+// read a space through RtSpace<s>: kW floats a row, kTile rows a tile.
+#if RT_ROW_W > 0 && !defined(RT_SPACES)
+#define RT_SPACES 1
+template <int S>
+struct RtSpace;
+template <>
+struct RtSpace<0> {
+  enum { kW = RT_ROW_W, kTile = RT_TILE };
+  static RT_HD float row(const float* x, const float* inv, float* ainv) {
+    return rt_row(x, inv, ainv);
+  }
+  static RT_HD void fill(float* tile, const RtCols& cols, int row0, int rows,
+                         int tid, int nt) {
+    rt_fill_tile(tile, cols, row0, rows, tid, nt);
+  }
+  static RT_HD void fill_async(float* tile, const RtCols& cols, int row0,
+                               int rows, int tid, int nt) {
+    rt_fill_tile_async(tile, cols, row0, rows, tid, nt);
+  }
+};
+#endif
+#ifndef RT_SPACES
+#define RT_SPACES 1
+#endif
+
+// the rows of each row space, as the launch gives them (null: none)
+struct RtRows {
+  int n[RT_SPACES];
+};
+
+static inline RtRows rt_rows(const int* n_rows) {
+  RtRows out = {};
+  for (int s = 0; s < RT_SPACES && n_rows != 0; ++s) out.n[s] = n_rows[s];
+  return out;
+}
+
+// A density that reads columns whole, outside the rows (RT_WHOLE_COLS),
+// takes them in its column-free and row-invariant functions too.
+#ifdef RT_WHOLE_COLS
+#define RT_WHOLE(cols) , cols
+#else
+#define RT_WHOLE(cols)
 #endif
 
 // A chain's arrays: per-thread arrays, fully unrolled loops over them; or
@@ -227,22 +288,25 @@ RT_HD void rt_collect(float* __restrict__ out, const float* __restrict__ q,
 #define RT_TILE_FLOATS (RT_TILE * RT_ROW_W)
 
 #if RT_ROW_W > 0
-// rows [row0, row0 + RT_TILE) of the columns, cut at n_rows, as this
+// rows [row0, row0 + kTile) of space S's columns, cut at n_rows, as this
 // thread's asynchronous copies into `slot`, committed as one group (an
 // empty group past the last row)
+template <int S>
 RT_HD void rt_stream_tile(float* slot, const RtCols& cols, int row0,
                           int n_rows) {
+  typedef RtSpace<S> Sp;
   if (row0 < n_rows)
-    rt_fill_tile_async(slot, cols, row0,
-                       n_rows - row0 < RT_TILE ? n_rows - row0 : RT_TILE,
-                       RT_TID, RT_NTHREADS);
+    Sp::fill_async(slot, cols, row0,
+                   n_rows - row0 < Sp::kTile ? n_rows - row0 : Sp::kTile,
+                   RT_TID, RT_NTHREADS);
   rt_copy_commit();
 }
 
-// the rows of one tile, read from `slot`, for this chain: lp and the
-// dense row-invariant adjoints summed per tile (rt_row_sum) and added to
-// the f64 totals.  Both tile loops, synchronous and streamed, sum their
-// rows here, so the two give the same results bit for bit.
+// the rows of one tile of space S, read from `slot`, for this chain: lp
+// and the dense row-invariant adjoints summed per tile (rt_row_sum) and
+// added to the f64 totals.  Both tile loops, synchronous and streamed,
+// sum their rows here, so the two give the same results bit for bit.
+template <int S>
 RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
                         float* ainv, double& lp_acc, double* ainv_acc) {
   rt_row_sum lp_t = 0.0f;
@@ -250,80 +314,96 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
   for (int k = 0; k < RT_NINV_DENSE; ++k) ainv[k] = 0.0f;
 #pragma unroll 4
   for (int r = 0; r < rows; ++r)
-    lp_t += rt_row(slot + r * RT_ROW_W, inv, ainv);
+    lp_t += RtSpace<S>::row(slot + r * RtSpace<S>::kW, inv, ainv);
   lp_acc += (double)lp_t;
 #pragma unroll
   for (int k = 0; k < RT_NINV_DENSE; ++k)
     ainv_acc[k] += (double)ainv[k];
 }
+
+// every tile of space S's n_rows rows, then of the spaces after it.
+// `tile`: the block's shared memory, two slots of RT_TILE_FLOATS floats
+// where `stream_cols` is set.  Each space's loops pass the same barriers
+// in every thread, and a streamed loop commits one group a tile in every
+// thread, so the waits of the next space count the same groups.
+template <int S>
+RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
+                         int stream_cols, float* tile, const float* inv,
+                         float* ainv, double& lp_acc, double* ainv_acc) {
+  const int n_rows = rows.n[S], kTile = RtSpace<S>::kTile;
+  if (stream_cols) {
+    // tile t is in slot t & 1: tile 0 before the loop, then tile t + 1
+    // into the other slot, whose last reader passed the barrier that
+    // ended tile t - 1, before the wait for tile t's copies
+    rt_stream_tile<S>(tile, cols, 0, n_rows);
+    for (int t = 0, row0 = 0; row0 < n_rows; ++t, row0 += kTile) {
+      rt_stream_tile<S>(tile + ((t + 1) & 1) * RT_TILE_FLOATS, cols,
+                        row0 + kTile, n_rows);
+      rt_copy_wait_prior1();
+      RT_TILE_SYNC();
+      rt_tile_rows<S>(tile + (t & 1) * RT_TILE_FLOATS,
+                      n_rows - row0 < kTile ? n_rows - row0 : kTile, inv,
+                      ainv, lp_acc, ainv_acc);
+      RT_TILE_SYNC();
+    }
+  } else {
+    for (int row0 = 0; row0 < n_rows; row0 += kTile) {
+      const int n = n_rows - row0 < kTile ? n_rows - row0 : kTile;
+      RtSpace<S>::fill(tile, cols, row0, n, RT_TID, RT_NTHREADS);
+      RT_TILE_SYNC();
+      rt_tile_rows<S>(tile, n, inv, ainv, lp_acc, ainv_acc);
+      RT_TILE_SYNC();
+    }
+  }
+  if constexpr (S + 1 < RT_SPACES)
+    rt_space_rows<S + 1>(cols, rows, stream_cols, tile, inv, ainv, lp_acc,
+                         ainv_acc);
+}
 #endif
 
 // log-density and gradient at natural coordinates x for one chain: the
-// column-free terms, then the row terms over every tile of the columns.
-// `tile`: the block's shared memory, two slots of RT_TILE_FLOATS floats
-// where `stream_cols` is set; `ws`: the thread's base in the workspace
-// (unused for small models)
+// column-free terms, then the row terms over every tile of each row
+// space.  `tile`: the block's shared memory; `ws`: the thread's base in
+// the workspace (unused for small models)
 RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
-                       int n_rows, int stream_cols, float* tile,
+                       const RtRows& rows, int stream_cols, float* tile,
                        float* ws) {
-  float lp = rt_logp_grad(x, g);
+  float lp = rt_logp_grad(x, g RT_WHOLE(cols));
 #if RT_ROW_W > 0
   RT_STATE(inv, RT_NINV_ALLOC, RT_OFF_INV);
   RT_STATE(ainv, RT_NINV_ALLOC, RT_OFF_INV + RT_NINV_ALLOC);
   double ainv_acc[RT_NINV_DENSE_ALLOC];
   double lp_acc = 0.0;
-  rt_rows_pre(x, inv);
+  rt_rows_pre(x, inv RT_WHOLE(cols));
   // the gathered blocks' adjoints accumulate over every tile
   RT_UNROLL
   for (int k = RT_NINV_DENSE; k < RT_NINV; ++k) ainv[k] = 0.0f;
 #pragma unroll
   for (int k = 0; k < RT_NINV_DENSE; ++k) ainv_acc[k] = 0.0;
-  if (stream_cols) {
-    // tile t is in slot t & 1: tile 0 before the loop, then tile t + 1
-    // into the other slot, whose last reader passed the barrier that
-    // ended tile t - 1, before the wait for tile t's copies
-    rt_stream_tile(tile, cols, 0, n_rows);
-    for (int t = 0, row0 = 0; row0 < n_rows; ++t, row0 += RT_TILE) {
-      rt_stream_tile(tile + ((t + 1) & 1) * RT_TILE_FLOATS, cols,
-                     row0 + RT_TILE, n_rows);
-      rt_copy_wait_prior1();
-      RT_TILE_SYNC();
-      rt_tile_rows(tile + (t & 1) * RT_TILE_FLOATS,
-                   n_rows - row0 < RT_TILE ? n_rows - row0 : RT_TILE, inv,
-                   ainv, lp_acc, ainv_acc);
-      RT_TILE_SYNC();
-    }
-  } else {
-    for (int row0 = 0; row0 < n_rows; row0 += RT_TILE) {
-      const int rows = n_rows - row0 < RT_TILE ? n_rows - row0 : RT_TILE;
-      rt_fill_tile(tile, cols, row0, rows, RT_TID, RT_NTHREADS);
-      RT_TILE_SYNC();
-      rt_tile_rows(tile, rows, inv, ainv, lp_acc, ainv_acc);
-      RT_TILE_SYNC();
-    }
-  }
+  rt_space_rows<0>(cols, rows, stream_cols, tile, inv, ainv, lp_acc,
+                   ainv_acc);
 #pragma unroll
   for (int k = 0; k < RT_NINV_DENSE; ++k)
     ainv[k] = (float)ainv_acc[k];
-  rt_rows_post(x, ainv, g);
+  rt_rows_post(x, ainv, g RT_WHOLE(cols));
 #ifdef RT_WS_FLOATS
   lp = (float)((double)lp + lp_acc);
 #else
   lp += (float)lp_acc;
 #endif
 #else
-  (void)cols, (void)n_rows, (void)stream_cols, (void)tile, (void)ws;
+  (void)cols, (void)rows, (void)stream_cols, (void)tile, (void)ws;
 #endif
   return lp;
 }
 
 // density + gradient at standardized q: x = q * sc, grad = sc * dlogp/dx
 RT_HD float rt_lp_grad(const float* q, const float* sc, float* g,
-                       const RtCols& cols, int n_rows, int stream_cols,
-                       float* tile, float* ws) {
+                       const RtCols& cols, const RtRows& rows,
+                       int stream_cols, float* tile, float* ws) {
   RT_STATE(x, RT_DIM, RT_OFF_X);
   rt_mul(x, q, sc);
-  const float lp = rt_density(x, g, cols, n_rows, stream_cols, tile, ws);
+  const float lp = rt_density(x, g, cols, rows, stream_cols, tile, ws);
   rt_mul_in(g, sc);
   return lp;
 }
@@ -338,7 +418,7 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
                         float* div_out, int n_iterations, int n_steps,
                         int collect_every, const int* collect_pos,
                         int n_collect, uint32_t seed, const RtCols& cols,
-                        int n_rows, int stream_cols, float* tile,
+                        const RtRows& rows, int stream_cols, float* tile,
                         float* ws) {
   const bool live = c < n;
   if (!live) c = n - 1;
@@ -356,7 +436,7 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
     q[d] = q0[(size_t)d * n + c] / sc[d];
   }
   const float eps = eps_in[c];
-  float lp = rt_lp_grad(q, sc, g, cols, n_rows, stream_cols, tile, ws);
+  float lp = rt_lp_grad(q, sc, g, cols, rows, stream_cols, tile, ws);
   float acc = 0.0f, div = 0.0f;
 
   for (int it = 0; it < n_iterations; ++it) {
@@ -392,10 +472,10 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
 
     // kick-drift-kick leapfrog, the order of hmc_pallas.py:395-408
     rt_kick_drift(p, qn, q, g, 0.5f * eps, eps);
-    float lpn = rt_lp_grad(qn, sc, gn, cols, n_rows, stream_cols, tile, ws);
+    float lpn = rt_lp_grad(qn, sc, gn, cols, rows, stream_cols, tile, ws);
     for (int s = 1; s < n_steps; ++s) {
       rt_kick_drift_in(p, qn, gn, eps);
-      lpn = rt_lp_grad(qn, sc, gn, cols, n_rows, stream_cols, tile, ws);
+      lpn = rt_lp_grad(qn, sc, gn, cols, rows, stream_cols, tile, ws);
     }
     const float k1 = rt_kick_energy(p, gn, 0.5f * eps);
     const float h1 = -lpn + 0.5f * k1;
@@ -427,15 +507,16 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
 // the check entry: lp and gradient at column c of q (dim, n), through
 // the same density function and tile loop as the sampler
 RT_HD void rt_logp_grad_chain(int c, int n, const float* q, float* lp,
-                              float* g, const RtCols& cols, int n_rows,
-                              int stream_cols, float* tile, float* ws) {
+                              float* g, const RtCols& cols,
+                              const RtRows& rows, int stream_cols,
+                              float* tile, float* ws) {
   const bool live = c < n;
   if (!live) c = n - 1;
   RT_STATE(x, RT_DIM, RT_OFF_X);
   RT_STATE(gx, RT_DIM, 2 * RT_DIM);
   RT_UNROLL
   for (int d = 0; d < RT_DIM; ++d) x[d] = q[(size_t)d * n + c];
-  const float l = rt_density(x, gx, cols, n_rows, stream_cols, tile, ws);
+  const float l = rt_density(x, gx, cols, rows, stream_cols, tile, ws);
   if (!live) return;
   lp[c] = l;
   RT_UNROLL
@@ -467,21 +548,21 @@ __global__ void __launch_bounds__(128)
                      float* samples, float* acc, float* div,
                      int n_iterations, int n_steps, int collect_every,
                      const int* collect_pos, int n_collect, uint32_t seed,
-                     RtCols cols, int n_rows, float* ws) {
+                     RtCols cols, RtRows rows, float* ws) {
   extern __shared__ float tile[];
   rt_hmc_chain(blockIdx.x * blockDim.x + threadIdx.x, n, q0, scale,
                scale_per_chain, eps, p_noise, u_noise, qf, samples, acc, div,
                n_iterations, n_steps, collect_every, collect_pos, n_collect,
-               seed, cols, n_rows, kStream, tile, rt_slot(ws));
+               seed, cols, rows, kStream, tile, rt_slot(ws));
 }
 
 template <int kStream>
 __global__ void __launch_bounds__(128)
     logp_grad_kernel(int n, const float* q, float* lp, float* g,
-                     RtCols cols, int n_rows, float* ws) {
+                     RtCols cols, RtRows rows, float* ws) {
   extern __shared__ float tile[];
   rt_logp_grad_chain(blockIdx.x * blockDim.x + threadIdx.x, n, q, lp, g,
-                     cols, n_rows, kStream, tile, rt_slot(ws));
+                     cols, rows, kStream, tile, rt_slot(ws));
 }
 
 // the instantiation for the flag `s` (a column-free model has one)
@@ -513,8 +594,9 @@ extern "C" int rt_fused_hmc_launch(int n, const float* q0,
                                    int n_iterations, int n_steps,
                                    int collect_every, const int* collect_pos,
                                    int n_collect, uint32_t seed,
-                                   const void* const* cols, int n_rows,
-                                   float* ws, int threads, int stream_cols,
+                                   const void* const* cols,
+                                   const int* n_rows, float* ws,
+                                   int threads, int stream_cols,
                                    void* stream) {
   const auto kernel = RT_PICK(fused_hmc_kernel, stream_cols);
   const int smem = (stream_cols ? 2 : 1) * RT_SMEM_BYTES;
@@ -524,21 +606,22 @@ extern "C" int rt_fused_hmc_launch(int n, const float* q0,
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       n, q0, scale, scale_per_chain, eps, p_noise, u_noise, qf, samples, acc,
       div, n_iterations, n_steps, collect_every, collect_pos, n_collect, seed,
-      rt_cols(cols), n_rows, ws);
+      rt_cols(cols), rt_rows(n_rows), ws);
   return (int)cudaGetLastError();
 }
 
 extern "C" int rt_logp_grad_launch(int n, const float* q, float* lp,
                                    float* g, const void* const* cols,
-                                   int n_rows, float* ws, int threads,
-                                   int stream_cols, void* stream) {
+                                   const int* n_rows, float* ws,
+                                   int threads, int stream_cols,
+                                   void* stream) {
   const auto kernel = RT_PICK(logp_grad_kernel, stream_cols);
   const int smem = (stream_cols ? 2 : 1) * RT_SMEM_BYTES;
   const int rc = rt_smem_opt_in(kernel, smem);
   if (rc != 0) return rc;
   const int blocks = (n + threads - 1) / threads;
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      n, q, lp, g, rt_cols(cols), n_rows, ws);
+      n, q, lp, g, rt_cols(cols), rt_rows(n_rows), ws);
   return (int)cudaGetLastError();
 }
 
@@ -572,25 +655,29 @@ extern "C" int rt_fused_hmc_host(int n, const float* q0, const float* scale,
                                  float* div, int n_iterations, int n_steps,
                                  int collect_every, const int* collect_pos,
                                  int n_collect, uint32_t seed,
-                                 const void* const* cols, int n_rows,
-                                 float* ws, int threads, int stream_cols) {
+                                 const void* const* cols,
+                                 const int* n_rows, float* ws, int threads,
+                                 int stream_cols) {
   std::vector<float> tile(2 * RT_TILE_FLOATS + 1);
   const RtCols c_cols = rt_cols(cols);
+  const RtRows rows = rt_rows(n_rows);
   for (int c = 0; c < rt_slots(n, threads); ++c)
     rt_hmc_chain(c, n, q0, scale, scale_per_chain, eps, p_noise, u_noise,
                  qf, samples, acc, div, n_iterations, n_steps, collect_every,
-                 collect_pos, n_collect, seed, c_cols, n_rows, stream_cols,
+                 collect_pos, n_collect, seed, c_cols, rows, stream_cols,
                  tile.data(), rt_slot(ws, c));
   return 0;
 }
 
 extern "C" int rt_logp_grad_host(int n, const float* q, float* lp, float* g,
-                                 const void* const* cols, int n_rows,
-                                 float* ws, int threads, int stream_cols) {
+                                 const void* const* cols,
+                                 const int* n_rows, float* ws, int threads,
+                                 int stream_cols) {
   std::vector<float> tile(2 * RT_TILE_FLOATS + 1);
   const RtCols c_cols = rt_cols(cols);
+  const RtRows rows = rt_rows(n_rows);
   for (int c = 0; c < rt_slots(n, threads); ++c)
-    rt_logp_grad_chain(c, n, q, lp, g, c_cols, n_rows, stream_cols,
+    rt_logp_grad_chain(c, n, q, lp, g, c_cols, rows, stream_cols,
                        tile.data(), rt_slot(ws, c));
   return 0;
 }

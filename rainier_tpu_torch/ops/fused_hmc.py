@@ -4,10 +4,14 @@ plain PyTorch version.
 Replaces the Pallas TPU kernel ``rainier_tpu/ops/hmc_pallas.py::fused_hmc``
 (the one ``pl.pallas_call`` of the JAX package, hmc_pallas.py:506), which
 keeps every chain's state in VMEM for the whole sampling run, including
-its resident-column, row-tiled and streamed-column branches
-(hmc_pallas.py:157-222, 280, 302-381, 483-497).  The CUDA kernel
-(``csrc/fused_hmc.cu``) gives each chain one thread and keeps its state
-in registers: momentum refresh
+its resident-column, row-tiled, streamed-column and untiled branches
+(hmc_pallas.py:157-222, 280-381, 483-497).  The untiled branch evaluates
+the density over whole columns of any lengths; here the rows of each
+length are a row space with its own tile loop, and the columns no row
+reads row by row are read whole by the code outside the rows, so the
+wrapper passes every column's pointer and the rows of each space.  The
+CUDA kernel (``csrc/fused_hmc.cu``) gives each chain one thread and keeps
+its state in registers: momentum refresh
 (Philox4x32-10 + Box-Muller, ``csrc/philox.cuh``), ``n_steps``
 kick-drift-kick leapfrog steps with the model's density and gradient from
 C generated out of the Real DAG (``compute/emit_cuda.py``), the
@@ -87,7 +91,7 @@ import torch
 
 from ..compute import emit_cuda
 from ..compute import real as R
-from ..compute.compiler import row_tile_sum
+from ..compute.compiler import NoRowSplit
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -158,8 +162,9 @@ def philox_noise(seed: int, it: int, dim: int, n: int, device):
 def _columns(density, columns, dev):
     """The model's data as the kernel takes it: one contiguous tensor on
     `dev` per column of ``density.columns``, int32 for an ``IntColumn``
-    and float32 for the others, all with the same number of rows.  None
-    means the model's own data."""
+    and float32 for the others, each shaped like its data (the row spaces
+    differ in rows, and a column read whole has its own).  None means the
+    model's own data."""
     if columns is None:
         columns = density.column_values(torch.float32, dev)
     columns = tuple(columns)
@@ -241,23 +246,21 @@ PLAIN_TILE_ROWS = 32768
 
 
 def density_lanes(density, columns):
-    """(x (dim, n)) -> (n,): the density in the kernel's order — the
-    column-free terms, plus the row terms (``logp_lanes_split_fn``) summed
-    in f64 over row slices and rounded to f32 once — differentiable by
+    """(x (dim, n)) -> (n,): the density in the kernel's order — the base
+    terms, plus each row space's rows (``logp_rows_fn``) summed in f64
+    over row slices and rounded to f32 once — differentiable by
     autograd.  The plain version of the kernel's density."""
     if not density.columns:
         lanes = density.logp_lanes_fn()
         return lambda x: lanes(x, ())
-    split = density.logp_lanes_split_fn()
-    if split is None:
-        raise emit_cuda.UnsupportedNode(
-            "the model's column-free terms reference data columns, so its "
-            "density has no base/row split")
-    base_fn, tile_fn = split
+    try:
+        base_fn, rows_fn = density.logp_rows_fn()
+    except NoRowSplit as e:
+        raise emit_cuda.UnsupportedNode(str(e)) from None
 
     def lp(x):
-        rows = row_tile_sum(tile_fn, x, columns, PLAIN_TILE_ROWS)
-        return base_fn(x) + rows.to(x.dtype)
+        rows = rows_fn(x, columns, PLAIN_TILE_ROWS)
+        return base_fn(x, columns) + rows.to(x.dtype)
 
     return lp
 
@@ -359,16 +362,16 @@ def _nvcc() -> str:
 
 
 # the arguments shared by rt_fused_hmc_launch and rt_fused_hmc_host, and by
-# rt_logp_grad_launch and rt_logp_grad_host, the threads of a block and
-# the streaming flag last (the launches add the CUDA stream)
+# rt_logp_grad_launch and rt_logp_grad_host: the column pointers, then the
+# rows of each row space (row_counts), and the threads of a block and the
+# streaming flag last (the launches add the CUDA stream)
 HMC_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int])
-LOGP_GRAD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                      + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                         ctypes.c_int])
+LOGP_GRAD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                      + [ctypes.c_int, ctypes.c_int])
 
 
 class Kernels(NamedTuple):
@@ -484,25 +487,38 @@ def streams(density, columns, stream_columns, device) -> bool:
     """Whether a launch over `columns` (the tensors of ``density.columns``)
     streams its row tiles, as ``stream_columns`` of
     ``rainier_tpu.ops.fused_hmc`` decides: True and False force it, None
-    streams where the columns' bytes exceed the L2 of the CUDA `device`
-    (:func:`l2_bytes`; nothing streams on another device), as the Pallas
-    kernel streams past its VMEM budget.  True on a model without columns
-    raises."""
-    if stream_columns and not density.columns:
-        raise ValueError("stream_columns=True needs data columns: the "
-                         "model has none, so there are no tiles to stream")
-    if stream_columns is not None or not density.columns:
-        return bool(stream_columns)
-    limit = l2_bytes(device)
-    return (limit is not None
-            and sum(c.numel() * c.element_size() for c in columns) > limit)
+    streams where the bytes of all the columns exceed the L2 of the CUDA
+    `device` (:func:`l2_bytes`; nothing streams on another device), as the
+    Pallas kernel streams past its VMEM budget.  True on a model whose
+    columns are all read whole, or that has none, raises: it has no
+    tiles."""
+    if stream_columns is None:
+        limit = l2_bytes(device)
+        return (limit is not None and bool(density.columns)
+                and bool(density.row_split().spaces)
+                and sum(c.numel() * c.element_size() for c in columns)
+                > limit)
+    if stream_columns and not (density.columns
+                               and density.row_split().spaces):
+        raise ValueError("stream_columns=True needs data columns read row "
+                         "by row: the model has none, so there are no "
+                         "tiles to stream")
+    return bool(stream_columns)
+
+
+def row_counts(em):
+    """The rows of each row space of the emitted density `em`, as the
+    kernel's entry points take them (an int array; null without rows)."""
+    return (ctypes.c_int * len(em.spaces))(
+        *[s.n_rows for s in em.spaces]) if em.spaces else None
 
 
 def _launch_setup(density, columns, n, dev, stream_columns=None):
-    """(Kernels, column pointer array, n_rows, threads, workspace, whether
-    the tiles stream) for a launch over n chains; raises, before building,
-    on a row the kernel's tile cannot hold, on a workspace the card has no
-    room for, and on ``stream_columns`` without columns."""
+    """(Kernels, column pointer array, rows of each row space, threads,
+    workspace, whether the tiles stream) for a launch over n chains;
+    raises, before building, on a row the kernel's tile cannot hold, on a
+    workspace the card has no room for, and on ``stream_columns`` without
+    tiles."""
     em = emit_cuda.emit(density)
     if em.row_width and not em.tile_rows:
         raise ValueError(
@@ -517,10 +533,10 @@ def _launch_setup(density, columns, n, dev, stream_columns=None):
     kernels = build(density)[0]
     ptrs = (ctypes.c_void_p * max(len(columns), 1))(
         *[c.data_ptr() for c in columns])
-    n_rows = int(columns[0].shape[0]) if columns else 0
     ws = torch.empty(workspace_bytes(em, n) // 4, dtype=torch.float32,
                      device=dev) if em.workspace else None
-    return kernels, ptrs, n_rows, threads_per_block(em, n), ws, stream
+    return kernels, ptrs, row_counts(em), threads_per_block(em, n), ws, \
+        stream
 
 
 def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
@@ -568,7 +584,7 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
     dev = q0.device
     pos, n_collect, expand = _collect_pos(collect_idx, emit_cuda.emit(density),
                                           dev)
-    kernels, ptrs, n_rows, threads, ws, stream_cols = _launch_setup(
+    kernels, ptrs, rows, threads, ws, stream_cols = _launch_setup(
         density, columns, n, dev, stream_columns)
     qf = torch.empty((dim, n), dtype=torch.float32, device=dev)
     acc = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -584,7 +600,7 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
             int(scale is not None and scale.dim() == 2), _ptr(eps),
             _ptr(p_noise), _ptr(u_noise), _ptr(qf), _ptr(samples),
             _ptr(acc), _ptr(div), n_iterations, n_steps, collect_every,
-            _ptr(pos), n_collect, seed & _MASK, ptrs, n_rows, _ptr(ws),
+            _ptr(pos), n_collect, seed & _MASK, ptrs, rows, _ptr(ws),
             threads, int(stream_cols), stream)
     if rc != 0:
         raise RuntimeError(f"fused_hmc kernel launch failed: cudaError {rc}")
@@ -635,13 +651,13 @@ def logp_grad(density, q, columns=None, stream_columns=None):
     q = q.contiguous()
     columns = _columns(density, columns, q.device)
     n = q.shape[1]
-    kernels, ptrs, n_rows, threads, ws, stream_cols = _launch_setup(
+    kernels, ptrs, rows, threads, ws, stream_cols = _launch_setup(
         density, columns, n, q.device, stream_columns)
     lp = torch.empty((n,), dtype=torch.float32, device=q.device)
     g = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = kernels.logp_grad(n, _ptr(q), _ptr(lp), _ptr(g), ptrs, n_rows,
+        rc = kernels.logp_grad(n, _ptr(q), _ptr(lp), _ptr(g), ptrs, rows,
                                _ptr(ws), threads, int(stream_cols), stream)
     if rc != 0:
         raise RuntimeError(f"logp_grad kernel launch failed: cudaError {rc}")

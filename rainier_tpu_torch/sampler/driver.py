@@ -27,7 +27,6 @@ import torch
 
 from .. import config as global_config
 from ..compute import emit_cuda
-from ..compute.compiler import row_tile_sum
 from . import config as C
 from . import samplers
 from .dualavg import (current_step_size, dual_avg_init, dual_avg_reset,
@@ -236,8 +235,8 @@ def sample(model, cfg: C.SamplerConfig, n_chains: int = 4, seed: int = 0,
             cd = model.density()
             cols = cd.column_values(torch.float32,
                                     global_config.resolve_device(device))
-            if cols and not _verify_split(cd, cols,
-                                          emit_cuda.emit(cd).tile_rows):
+            if cols and not _verify_split(cd, cols, [
+                    s.tile_rows for s in emit_cuda.emit(cd).spaces]):
                 reason = ("the density's base/row split failed its numeric "
                           "check (base + sum over row tiles != the whole "
                           "density)")
@@ -326,15 +325,16 @@ def _fused_unsupported_reason(model, cfg, n_chains, mesh,
                            global_config.resolve_device(device))
 
 
-def _verify_split(cd, cols, tile_rows: int) -> bool:
-    """Check numerically that logp(qb, cols) == base(qb) + Σ_tiles
-    tile(qb, ...) over the kernel's row tiles, the identity the fused
+def _verify_split(cd, cols, tile_rows) -> bool:
+    """Check numerically that logp(qb, cols) == base(qb) + Σ over each row
+    space's tiles of its rows, with `tile_rows` rows a tile (an int, or
+    one per row space, as the kernel tiles them), the identity the fused
     kernel relies on (rainier_tpu/sampler/driver.py:622-648)."""
-    base_fn, tile_fn = cd.logp_lanes_split_fn()
+    base_fn, rows_fn = cd.logp_rows_fn()
     gen = torch.Generator(device="cpu").manual_seed(0)
     qb = torch.randn((cd.n_vars, 8), generator=gen) * 0.5
     qb = qb.to(cols[0].device)
-    got = base_fn(qb).double() + row_tile_sum(tile_fn, qb, cols, tile_rows)
+    got = base_fn(qb, cols).double() + rows_fn(qb, cols, tile_rows)
     ref = cd.logp_lanes_fn()(qb, cols).double()
     scale = 1.0 + float(ref.abs().max())
     return bool(torch.isfinite(got).all()) and bool(torch.allclose(

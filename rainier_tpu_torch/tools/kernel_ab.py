@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 rainier_tpu_torch/tools/kernel_ab.py plain LABEL
     python3 rainier_tpu_torch/tools/kernel_ab.py stream
     python3 rainier_tpu_torch/tools/kernel_ab.py tiles LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py adapt
 
 ``row-sums``: the kernels of the README regression, the 100k-row
 logistic regression and GLMMPoisson2 (``chip_smoke.py``'s models), whose
@@ -37,6 +38,14 @@ model and order, with the results' equality.
 import finds, as ``plain`` does: run it with another checkout's root on
 PYTHONPATH and with this one's, in turns, to compare two trees.  Prints
 one line per model tagged LABEL.
+
+``adapt``: the MVNormal logistic of ``chip_smoke.py`` (the 100k
+logistic's data under an AR(1) ``MVNormal`` prior) at 1024 chains × (1000
+warmup + 200 draws), sampled four ways from the same seed: the kernel
+and the scan path with per-chain adaptation, the kernel with pooled
+adaptation, and the kernel with HMC(10).  Prints each run's rank-r̂ per
+parameter and the quantiles of its per-chain step sizes and accept
+rates: which chains, and which parameters, keep r̂ over 1.01.
 """
 
 from __future__ import annotations
@@ -247,6 +256,37 @@ def stream() -> None:
               f"identical {same}", flush=True)
 
 
+def adapt() -> None:
+    import torch
+
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    device = torch.device("cuda")
+    _, x, ys = cs.logistic_regression(rt)
+    model = cs.mvnormal_logistic(rt, x, ys)[0]
+    runs = (("kernel, per chain", "fused!", False, 5),
+            ("scan path, per chain", "scan", False, 5),
+            ("kernel, pooled", "fused!", True, 5),
+            ("kernel, per chain, HMC(10)", "fused!", False, 10))
+    for name, kernel, pooled, steps in runs:
+        cfg = SamplerConfig(1000, 200, sampler=HMC(steps),
+                            pooled_adaptation=pooled)
+        tr = model.sample(cfg, n_chains=CHAINS, seed=0, kernel=kernel,
+                          device=device)
+        rhat = []
+        for j in range(tr.chains.shape[2]):
+            one = type("T", (), {"chains": tr.chains[:, :, j:j + 1]})
+            rhat.append(round(cs.rank_rhat(one, device), 5))
+        q = [0, 0.01, 0.5, 0.99, 1]
+        print(f"RESULT adapt {name}: rank-r_hat by parameter {rhat}; "
+              f"step size quantiles {q}: "
+              f"{np.round(np.quantile(tr.step_size, q), 4).tolist()}; "
+              f"accept {np.round(np.quantile(tr.accept_rate(), q), 3)}; "
+              f"timings {tr.timings}", flush=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -261,6 +301,8 @@ def main(argv) -> int:
         stream()
     elif argv[:1] == ["tiles"] and len(argv) == 2:
         tiles(argv[1])
+    elif argv[:1] == ["adapt"]:
+        adapt()
     else:
         print(__doc__, file=sys.stderr)
         return 2

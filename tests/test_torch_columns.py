@@ -174,10 +174,13 @@ def test_split_matches_jax(name):
 
 
 def test_split_is_none_where_jax_has_none():
+    """Neither package splits a density whose column-free base reads a
+    column; the JAX kernel runs it untiled, and the emitter reads the
+    column whole in the base terms, with no row space."""
     assert base_with_columns(rtj).density().logp_lanes_split_fn() is None
     assert base_with_columns(rtt).density().logp_lanes_split_fn() is None
-    with pytest.raises(emit_cuda.UnsupportedNode, match="base/row split"):
-        emit_cuda.emit(base_with_columns(rtt).density())
+    em = emit_cuda.emit(base_with_columns(rtt).density())
+    assert em.spaces == () and "#define RT_WHOLE_COLS" in em.source
 
 
 @pytest.mark.parametrize("name", sorted(SPLIT_MODELS))
@@ -234,7 +237,7 @@ def _host_logp_grad(lib, em, q, cols, stream=False):
     lp, g = torch.empty(n), torch.empty_like(q)
     ws, threads = _host_ws(em, n)
     lib.rt_logp_grad_host(n, q.data_ptr(), lp.data_ptr(), g.data_ptr(),
-                          _col_ptrs(cols), cols[0].shape[0],
+                          _col_ptrs(cols), F.row_counts(em),
                           None if ws is None else ws.data_ptr(), threads,
                           int(stream))
     return lp, g
@@ -354,7 +357,7 @@ def _run_host(lib, cd, q0, kw, noise, cols, collect_idx=None, ws_out=None,
         n, ptr(q0), ptr(scale), int(scale is not None and scale.dim() == 2),
         ptr(eps), ptr(p), ptr(u), ptr(qf), ptr(samples), ptr(acc), ptr(div),
         n_it, kw["n_steps"], collect, ptr(pos), n_collect, kw["seed"],
-        _col_ptrs(cols), cols[0].shape[0], ptr(ws), threads, int(stream))
+        _col_ptrs(cols), F.row_counts(em), ptr(ws), threads, int(stream))
     if expand is not None:
         samples = samples[:, expand]
     return qf, samples, acc, div
@@ -442,8 +445,11 @@ def test_op_count_adds_the_row_terms():
 
 
 @pytest.mark.parametrize("build,match", [
-    (lambda rt: rt.Model.likelihood(_R(rt).RowSum(
-        _R(rt).RowSum(rt.parameter() * _R(rt).Column(np.ones(4)), 4), 4)),
+    # a RowSum below the top level reads its columns whole, which an
+    # index column cannot be
+    (lambda rt: rt.Model.likelihood(_R(rt).RowSum(_R(rt).RowSum(
+        _R(rt).Gather(rt.Normal(0, 1).latent_vec(2).element,
+                      _R(rt).IntColumn(np.arange(4) % 2)), 4), 4)),
      "top-level"),
     (lambda rt: rt.Model.likelihood(_R(rt).RowSum(
         rt.Normal(0, 1).latent_vec(3).element * _R(rt).Column(np.ones(3)),

@@ -307,14 +307,19 @@ def test_edge_case_adjoints_are_jax_conventions(tmp_path):
     np.testing.assert_allclose(lpg(xs)[1], digamma(xs), rtol=2e-6, atol=1e-6)
 
 
-def gather_by_int_column(rt, R, source=None, index_as_value=False):
+def gather_by_int_column(rt, R, source=None, index_as_value=False,
+                         source_in_row=False):
     """benchmarks/models.py:111-142's structure at small size: latent
-    effects gathered by an integer index column.  `source` replaces the
-    gathered vector; `index_as_value` also adds the index to the mean."""
+    effects gathered by an integer index column.  `source(idx)` replaces
+    the gathered vector, which `source_in_row` also adds to the mean;
+    `index_as_value` also adds the index to the mean."""
     effects = rt.Normal(0, 1).latent_vec(4)
     idx = R.IntColumn(np.repeat(np.arange(4), 3))
     y = np.random.default_rng(8).normal(size=12)
-    mean = R.Gather(effects.element if source is None else source, idx)
+    src = effects.element if source is None else source(idx)
+    mean = R.Gather(src, idx)
+    if source_in_row:
+        mean = mean + src
     if index_as_value:
         mean = mean + idx * effects[0]
     return rt.Model.likelihood(R.RowSum(rt.Normal(mean, 1.0).log_density_at(
@@ -323,15 +328,21 @@ def gather_by_int_column(rt, R, source=None, index_as_value=False):
 
 def test_emitter_refuses_data_columns():
     """What stays outside the emitter raises, naming the node: a Gather
-    whose source varies by row (a gather across the rows of a column),
-    and an IntColumn used as a value rather than as an index.  The
-    gather of a row-invariant vector by an IntColumn is emitted."""
+    whose source varies by row (the rows read the source itself), and an
+    IntColumn used as a value rather than as an index.  The gather of a
+    row-invariant vector by an IntColumn is emitted, and so is a gather
+    from a column that no row reads row by row, which is read whole."""
     from rainier_tpu_torch.compute import real as R
+
+    def column_source(idx):
+        return R.Column(np.arange(12.0)) * rtt.Normal(0, 1).latent()
 
     assert "rt_clampi" in emit_cuda.emit(
         gather_by_int_column(rtt, R).density()).source
-    across = gather_by_int_column(
-        rtt, R, source=R.Column(np.arange(12.0)) * rtt.Normal(0, 1).latent())
+    whole = gather_by_int_column(rtt, R, source=column_source)
+    assert "RT_WHOLE_COLS" in emit_cuda.emit(whole.density()).source
+    across = gather_by_int_column(rtt, R, source=column_source,
+                                  source_in_row=True)
     with pytest.raises(emit_cuda.UnsupportedNode,
                        match="Gather whose source varies by row"):
         emit_cuda.emit(across.density())
@@ -348,7 +359,8 @@ def test_port_imports_no_jax_and_no_rainier_tpu():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['rainier_tpu'] = None; "
             "import rainier_tpu_torch, rainier_tpu_torch.interop, "
-            "rainier_tpu_torch.ops.fused_hmc, chip_smoke; "
+            "rainier_tpu_torch.ops.fused_hmc, "
+            "rainier_tpu_torch.core.mvnormal, chip_smoke; "
             "bad = [m for m, v in sys.modules.items() if v is not None "
             "and m.split('.')[0] in ('jax', 'jaxlib', 'rainier_tpu')]; "
             "assert not bad, bad")
