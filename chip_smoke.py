@@ -23,7 +23,8 @@ printing one line:
 * the README regression (200 rows) through ``Model.sample(kernel="fused!")``,
   checked against the numpy least-squares fit, and the kernel's time;
 * the logistic regression through ``Model.sample(kernel="fused!")``,
-  checked against the Laplace reference, and the kernel's time;
+  checked against the Laplace reference, the kernel's time, and the same
+  run on the scan path for its ``sample_s``;
 * the same data under a correlated prior, betas ~ ``MVNormal`` (AR(1)
   at the prior's scale, built with the Vec API), whose rows read a
   Cholesky factor that the kernel reads whole: its Laplace reference on
@@ -127,8 +128,9 @@ LARGE_GROUPS, LARGE_OBS, LARGE_SEED, LARGE_LAM = 10_000, 5, 6, 1.0
 LARGE_WARMUP, LARGE_DRAWS, LARGE_STEPS = 1000, 200, 5
 # parity iterations cut from 100 to 50 to make room for the untiled density
 LARGE_PARITY_ITERS, LARGE_CHECK_INIT = 50, 64
-# its kernel runs 4-thread blocks: 1001 chains leave a last block of one
-# chain and three copies of it, each in its own slot of the workspace
+# its kernel runs blocks of 4 chains, a warp each: 1001 chains leave a
+# last block of one chain and three copies of it, each in its own slot of
+# the workspace
 LARGE_PARITY_CHAINS = 1001
 # at |lp| ~ 1e5 an f32 ulp is 0.008 nats, so accepts flip and the
 # trajectories part within 100 iterations: the chains are compared after
@@ -592,6 +594,14 @@ def nvidia_smi() -> str:
         check=True).stdout.strip()
 
 
+def layout(F, em, n_chains):
+    """How a launch over n_chains lays out the chains: lanes a chain and
+    chains a block."""
+    return (f"{F.lanes_per_chain(em)} lanes a chain, "
+            f"{F.chains_per_block(em, n_chains)} chains a block of "
+            f"{F.threads_per_block(em, n_chains)} threads")
+
+
 def build_all(F, models):
     """Build every model's kernel, one nvcc each, all started together;
     print each build's sizes and what ptxas reports."""
@@ -611,7 +621,8 @@ def build_all(F, models):
         spaces = "; ".join(f"{sp.n_rows} rows of {sp.row_width} floats, "
                            f"{sp.row_ops} ops a row, tile {sp.tile_rows} "
                            f"rows" for sp in em.spaces) or "no rows"
-        print(f"phase build: {name}: {em.n_vars} dims, {em.ops} ops per "
+        print(f"phase build: {name}: {layout(F, em, MAIN_CHAINS)}; "
+              f"{em.n_vars} dims, {em.ops} ops per "
               f"logp+grad apart from rows, row spaces: {spaces}, "
               f"{whole_bytes(models[name])} bytes of columns read whole, "
               f"{em.n_inv} row-invariant values, "
@@ -656,7 +667,7 @@ def time_kernel(F, cd, em, tr, n_steps, device, col_bytes, what, reps=1,
                                          F, col_bytes, n_collect,
                                          noise=explicit_noise, whole=whole)
     print(f"phase kernel at main-path shapes, {what} ({n_chains} chains x "
-          f"{n_iters} it x {n_steps} steps, "
+          f"{n_iters} it x {n_steps} steps, {layout(F, em, n_chains)}, "
           f"{'explicit noise' if explicit_noise else 'on-device Philox'}, "
           f"{n_collect} coordinates of each draw collected, workspace "
           f"{F.workspace_bytes(em, n_chains)} bytes): kernel "
@@ -1007,6 +1018,25 @@ def logistic_main(F, model, cd, em, w_map, cov, device, min_frac,
                         n_iters=LOGIT_TIME_ITERS, whole=whole_bytes(cd))
     return {"route": "cuda", "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
             "launches": launches, **entry, "library_ms": None}, tr
+
+
+def scan_timing(model, tr, device, what):
+    """The logistic's main path on the scan path (seed 1, the same
+    configuration): its sample_s beside the kernel's `tr`, the
+    comparison of ROADMAP C1."""
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    cfg = SamplerConfig(LOGIT_WARMUP, LOGIT_DRAWS, sampler=HMC(LOGIT_STEPS))
+    tr_scan = model.sample(cfg, n_chains=MAIN_CHAINS, seed=1, kernel="scan",
+                           device=device)
+    print(f"phase scan path, {what}: Model.sample(kernel='scan') "
+          f"{MAIN_CHAINS} chains x ({LOGIT_WARMUP} warmup + {LOGIT_DRAWS} "
+          f"draws), HMC({LOGIT_STEPS}): accept "
+          f"{float(np.mean(tr_scan.accept_rate())):.3f}, timings "
+          f"{tr_scan.timings}; the kernel's sample_s "
+          f"{tr.timings['sample_s']} s against the scan path's "
+          f"{tr_scan.timings['sample_s']} s", flush=True)
+    check(np.all(np.isfinite(tr_scan.chains)), "non-finite scan-path draws")
 
 
 def mvnormal_phases(F, mv, cd, em, x, ys, device):
@@ -1539,8 +1569,9 @@ def main() -> int:
         kernels.append(readme_phases(F, readme, ems["README regression"],
                                      device))
     with phase("logistic regression: main path", device):
-        entry, _ = logistic_main(F, lmodel, lcd, lem, w_map, cov, device,
-                                 agree_frac(LOGIT_TIME_ITERS, dlp_mean))
+        entry, tr = logistic_main(F, lmodel, lcd, lem, w_map, cov, device,
+                                  agree_frac(LOGIT_TIME_ITERS, dlp_mean))
+        scan_timing(lmodel, tr, device, "logistic regression")
     kernels.append({"name": "fused_hmc (logistic regression, row-tiled)",
                     "replaces": "rainier_tpu/ops/hmc_pallas.py:302",
                     **entry})

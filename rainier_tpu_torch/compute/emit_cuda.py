@@ -65,21 +65,34 @@ its float slot, so every int32 index is exact.  A ``Gather`` of a
 row-invariant vector by it reads ``inv[k + clamp(i, 0, K - 1)]`` from the
 vector's contiguous block of the row-invariant values (the clamp is
 ``mode="clip"`` of the lanes evaluator's take) and scatters its adjoint
-to ``ainv[k + clamp(i, 0, K - 1)]``; one thread owns one chain, so the
-scatter needs no atomics.  A ``Lookup`` by an ``IntColumn`` compares the
-int index with each table entry, as for a float index.
+to entry ``k + clamp(i, 0, K - 1)``.  A chain with rows is a warp whose
+32 lanes split the rows, and lanes hit one entry together, so the
+scatter must sum them in a fixed order without atomics: in per-thread
+arrays the row adds into its lane's own ``ainv``, which the kernel sums
+over the lanes after the last row; over the workspace the row hands the
+entry and the adjoint back (``sidx[g]``, ``sval[g]``, one pair per
+per-row gather, ``RT_GATHERS`` or ``RtSpace<s>::kGathers``), and the warp
+adds each step's into the chain's ``ainv`` (``rt_scatter``).  A
+``Lookup`` by an ``IntColumn`` compares the int index with each table
+entry, as for a float index.
 
 The row-invariant values that only a per-row gather reads have their
-adjoints accumulated in place over all rows; the ones every row reads
-come first in ``inv`` (``RT_NINV_DENSE``), and the kernel sums their
-adjoints in f32 per tile and f64 across tiles.
+adjoints accumulated over all rows; the ones every row reads come first
+in ``inv`` (``RT_NINV_DENSE``), each lane sums their adjoints over its
+rows of a tile, and the kernel adds the lanes' in f32 per tile and f64
+across tiles.
 
-A model over ``LOCAL_STATE_MAX`` parameters or row-invariant values keeps
-its chain state in a device-memory workspace (``RT_WS_FLOATS`` floats a
-chain, csrc/fused_hmc.cu): its functions then take ``__restrict__``
-pointers and its loops are unrolled by eight, so that loads of several
-elements are in flight.  Smaller models emit exactly the text they did
-before the workspace existed.
+A model over ``LOCAL_STATE_MAX`` parameters or row-invariant values, or
+with rows over ``LANE_STATE_MAX``, keeps its chain state in a
+device-memory workspace (``RT_WS_FLOATS`` floats a chain,
+csrc/fused_hmc.cu): its functions then take ``__restrict__`` pointers,
+its loops split their elements over the ``RT_LANES`` lanes of the chain
+(lane l takes l, l + 32, ...) and are unrolled by eight, so that loads of
+several elements are in flight, their sums are lane partials added up by
+``RT_SUM``, an element read as a scalar comes from its lane
+(``RT_BCAST``), and a parameter's scalar adjoint is added to ``g`` by lane
+0 alone.  Smaller models emit exactly the text they did before the
+workspace existed.
 
 Outside the envelope, :class:`UnsupportedNode` names what is wrong: a
 ``Gather`` whose source varies by row or whose index is neither a
@@ -124,6 +137,17 @@ UNROLL_MAX = 16
 # Over this many parameters or row-invariant values a chain's state
 # lives in the kernel's device-memory workspace, not in per-thread arrays
 LOCAL_STATE_MAX = 256
+# ... and over this many for a model with rows, whose chain is a warp: in
+# per-thread arrays every lane holds the whole state, and past a few
+# dozen floats an array each spills to local memory that all 32 lanes
+# read and write, where the workspace splits each pass over the lanes
+# (GLMMPoisson2, 146 parameters: 756 ms against 1,239 ms for 1024 chains
+# x 500 iterations on an H100, tools/kernel_ab.py layouts, PERF.md §6)
+LANE_STATE_MAX = 32
+
+# Lanes of a chain with rows: the 32 threads of a warp split its rows
+# and, over the workspace, its passes (csrc/fused_hmc.cu, RT_LANES)
+LANES = 32
 
 # The workspace's arrays do not overlap: said to nvcc, it may issue the
 # loads of later elements before the stores of earlier ones
@@ -249,6 +273,10 @@ class _Emitter:
         self.vals: dict[int, list[str]] = {}
         self.adj: dict[int, list[str]] = {}
         self.grad: dict[int, bool] = {}
+        self.params: set[int] = set()     # parameter nodes: adjoints in g
+        self.scatters = 0      # per-row gathers' adjoints a row hands back
+        self.n_dense = 0       # row-invariant values some row reads other
+                               # than by a per-row gather (first in inv)
         self.fops = 0
         self.rops = 0
         self.lse: dict[int, tuple] = {}   # LogSumExp node → (maxes, sums)
@@ -310,10 +338,11 @@ class _Emitter:
             target = self.loop_acc.setdefault(
                 (node.id, j), f"t{node.id}" + (
                     f"_{j}" if len(self.adj[node.id]) > 1 else ""))
+            self.rev.append(_part_add(self.ws, target, expr))
         else:
             a = self.adj[node.id]
-            target = a[i if len(a) > 1 else 0]
-        self.rev.append(f"  {target} += {expr};")
+            self.rev.append(_add_to(self, node.id,
+                                    a[i if len(a) > 1 else 0], expr))
         self.rops += (ops + 1) * self.mult
 
     # -- forward ----------------------------------------------------------
@@ -339,6 +368,7 @@ class _Emitter:
                 self.vals[nid] = [f"q[{j}]" for j in range(a, b)]
                 self.adj[nid] = [f"g[{j}]" for j in range(a, b)]
             self.grad[nid] = True
+            self.params.add(nid)
             return
         if isinstance(node, (R.Column, R.IntColumn, R.MatColumn)):
             self._whole_column(node)
@@ -570,8 +600,18 @@ class _Emitter:
                     pass        # seeded in the source's loop
                 elif j is not None:
                     self.acc(node.source, j, a, 0)
+                elif self.grad[node.source.id] and self.ws and \
+                        self.inv_base[node.source.id] >= self.n_dense:
+                    # the scatter into the chain's ainv, left to the warp:
+                    # its lanes hit one entry together (csrc/fused_hmc.cu,
+                    # rt_scatter)
+                    base, g = self.inv_base[node.source.id], self.scatters
+                    self.rev.append(f"  sidx[{g}] = {base} + j{nid};")
+                    self.rev.append(f"  sval[{g}] = {a};")
+                    self.scatters += 1
+                    self.rops += 2
                 elif self.grad[node.source.id]:
-                    # the scatter: the thread owns its chain's ainv
+                    # the scatter into the lane's own copy of ainv
                     base = self.inv_base[node.source.id]
                     self.rev.append(f"  ainv[{base} + j{nid}] += {a};")
                     self.rops += 2
@@ -621,6 +661,16 @@ def _count(node) -> int:
     return node.k if isinstance(node, R.VecSum) else node.n_rows
 
 
+def _add_to(em, nid: int, target: str, expr: str) -> str:
+    """The statement target += expr for node nid's adjoint.  Over the
+    workspace a parameter's adjoint outside a loop is an entry of g that
+    every lane would add to at once, so lane 0 alone adds (the kernel
+    syncs the warp before g is read)."""
+    if em.ws and nid in em.params and nid not in em.loop_len:
+        return f"  if (RT_LANE == 0) {target} += {expr};"
+    return f"  {target} += {expr};"
+
+
 def _seeds(em, roots) -> list[str]:
     """adjoint(root) += 1 for every root that depends on q (a loop's root
     is seeded in its loop)."""
@@ -628,7 +678,7 @@ def _seeds(em, roots) -> list[str]:
     for r in roots:
         if em.grad[r.id] and r.id not in em.loop_len:
             a = em.adj[r.id]
-            out += [f"  {a[i if len(a) > 1 else 0]} += 1.0f;"
+            out += [_add_to(em, r.id, a[i if len(a) > 1 else 0], "1.0f")
                     for i in range(em.size(r))]
     return out
 
@@ -750,11 +800,32 @@ def _loop_body(em, loop):
 
 def _loop(em, k, pre, body, post):
     """A loop over the k elements.  In registers nvcc would unroll it to
-    keep the arrays there; over the workspace, unrolling by eight keeps
-    loads of several elements in flight."""
-    return [*pre, f"#pragma unroll {8 if em.ws else 1}",
-            f"  for (int i = 0; i < {k}; ++i) {{", *_indent(body), "  }",
-            *post]
+    keep the arrays there; over the workspace the lanes of a chain split
+    the elements (lane l takes l, l + 32, ...: RT_LANE, RT_LSTEP in
+    csrc/rt_math.cuh), and unrolling by eight keeps loads of several
+    elements in flight."""
+    head = ("  for (int i = RT_LANE; i < {k}; i += RT_LSTEP) {{" if em.ws
+            else "  for (int i = 0; i < {k}; ++i) {{").format(k=k)
+    return [*pre, f"#pragma unroll {8 if em.ws else 1}", head,
+            *_indent(body), "  }", *post]
+
+
+def _part(ws: bool, name: str) -> str:
+    """The declaration of an f64 sum over a loop's elements: over the
+    workspace, a lane's partial sum, which _part_sum adds up over the
+    lanes (RT_PART in csrc/rt_math.cuh)."""
+    return f"  RT_PART(double, {name});" if ws else f"  double {name} = 0.0;"
+
+
+def _part_add(ws: bool, name: str, value: str) -> str:
+    """Element i's value added to the sum `name`."""
+    return f"  RT_ADD({name}, i, {value});" if ws else f"  {name} += {value};"
+
+
+def _part_sum(ws: bool, names) -> list[str]:
+    """After the loop: the lanes' partial sums added up, the same bits in
+    every lane."""
+    return [f"  RT_SUM({n});" for n in names] if ws else []
 
 
 def _loop_forward(em, loop, total, store):
@@ -765,25 +836,25 @@ def _loop_forward(em, loop, total, store):
                for kind, _, _ in loop.outs):
         return []
     body = _loop_body(em, loop)
-    pre = []
+    pre, post = [], []
     for kind, c, reader in loop.outs:
         v = em.el(c, 0)
-        if kind == "sum":
-            pre.append(f"  double r{reader.id} = 0.0;")
-            body.append(f"  r{reader.id} += {v};")
+        if kind == "sum" or (kind == "root" and total):
+            r = f"r{reader.id if kind == 'sum' else c.id}"
+            pre.append(_part(em.ws, r))
+            body.append(_part_add(em.ws, r, v))
+            post += _part_sum(em.ws, [r])
             em.fops += loop.k
         elif kind == "capture":
             j = _static_slot(reader, loop.k)
             pre.append(f"  float k{reader.id} = 0.0f;")
             body.append(f"  if (i == {j}) k{reader.id} = {v};")
-        elif total:
-            pre.append(f"  double r{c.id} = 0.0;")
-            body.append(f"  r{c.id} += {v};")
-            em.fops += loop.k
+            if em.ws:       # from the lane that holds element j
+                post.append(f"  RT_BCAST(k{reader.id}, {j});")
         elif store is not None:
             body.append(store(c, "i", v))
     em.mult = 1
-    return _loop(em, loop.k, pre, body, [])
+    return _loop(em, loop.k, pre, body, post)
 
 
 def _loop_reverse(em, loop, total, seed):
@@ -816,9 +887,10 @@ def _loop_reverse(em, loop, total, seed):
     accs, em.loop_acc, em.mult = em.loop_acc, None, 1
     # a block of its own: another loop may sum into the same scalars
     return ["  {", *_indent(_loop(
-        em, loop.k, [f"  double {t} = 0.0;" for t in accs.values()], body,
-        [f"  {em.adj[nid][j]} += (float){t};"
-         for (nid, j), t in accs.items()])),
+        em, loop.k, [_part(em.ws, t) for t in accs.values()], body,
+        [*_part_sum(em.ws, accs.values()),
+         *[_add_to(em, nid, em.adj[nid][j], f"(float){t}")
+           for (nid, j), t in accs.items()]])),
         "  }"]
 
 
@@ -882,13 +954,17 @@ def _fill(cd, space, offs, widths, row_w):
     return fill, fill_async
 
 
-def _space_rows(cd, space, ws, grad, base, size, row_w):
+def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense):
     """One row space's row function and tile loaders: (body lines,
-    SpaceTiles, fill lines, asynchronous fill lines).  The row-invariant
-    values (`base`: slot in inv, `size`: their elements, `grad`: whether
-    they depend on q) come from inv, their adjoints go to ainv; `row_w`
-    names the tile's row width (None: the number)."""
+    SpaceTiles, fill lines, asynchronous fill lines, per-row gathers).
+    The row-invariant values (`base`: slot in inv, `size`: their
+    elements, `grad`: whether they depend on q) come from inv, their
+    adjoints go to ainv, or, over the workspace, a per-row gather's to
+    sidx/sval, one pair per gather; `row_w` names the tile's row width
+    (None: the number); the first `n_dense` of inv are those some row
+    reads other than by a per-row gather."""
     row = _Emitter(cd, ws)
+    row.n_dense = n_dense
     for fid, b in base.items():
         row.vals[fid] = [f"inv[{b + i}]" for i in range(size[fid])]
         row.inv_base[fid] = b
@@ -923,12 +999,14 @@ def _space_rows(cd, space, ws, grad, base, size, row_w):
             *seeds, *row.rev, f"  return {total};"]
     tile = SpaceTiles(space.n_rows, width, tile_rows(width),
                       row.fops + row.rops + len(space.roots))
-    return (body, tile, *_fill(cd, space, offs, widths, row_w or width))
+    return (body, tile, *_fill(cd, space, offs, widths, row_w or width),
+            row.scatters)
 
 
 def _emit_rows(cd, spaces, ws, whole):
     """The per-row part of a data model: (C lines, invariant ops, the
-    row-invariant values' count, SpaceTiles per row space).  One row space
+    row-invariant values' count, the count of those some row reads other
+    than by a per-row gather, SpaceTiles per row space).  One row space
     keeps the names rt_row, rt_fill_tile and rt_fill_tile_async; several
     define RT_SPACES and a RtSpace<s> each.  `whole`: the functions take
     the columns, which they read whole."""
@@ -978,22 +1056,29 @@ def _emit_rows(cd, spaces, ws, whole):
                       for i in range(size[f.id])]
         if pre.grad[f.id] and not looped:
             a = post.adj[f.id]
-            post_seeds += [f"  {a[i if len(a) > 1 else 0]} += "
-                           f"ainv[{b + i}];" for i in range(size[f.id])]
+            post_seeds += [_add_to(post, f.id, a[i if len(a) > 1 else 0],
+                                   f"ainv[{b + i}]")
+                           for i in range(size[f.id])]
 
     r = _RESTRICT if ws else ""
     wc = ", const RtCols& cols" if whole else ""
     one = len(spaces) == 1
-    row_sig = f"float*{r} x, const float*{r} inv, float*{r} ainv)"
+    row_sig = (f"float*{r} x, const float*{r} inv, float*{r} ainv"
+               + (f", int*{r} sidx, float*{r} sval)" if ws else ")"))
     fill_sig = "(float* tile, const RtCols& cols, int row0, int rows, " \
                "int tid, int nt)"
     tiles, spaces_text = [], []
     for s, space in enumerate(spaces):
-        body, tile, fill, fill_async = _space_rows(
-            cd, space, ws, pre.grad, base, size, "RT_ROW_W" if one else None)
+        body, tile, fill, fill_async, n_gathers = _space_rows(
+            cd, space, ws, pre.grad, base, size, "RT_ROW_W" if one else None,
+            n_dense)
         tiles.append(tile)
+        gathers = ([f"// the row's {n_gathers} per-row gathers hand their "
+                    "adjoints back in sidx/sval",
+                    f"#define RT_GATHERS {n_gathers}"] if ws else [])
         if one:
             row_fn = [
+                *gathers,
                 "// one row's log-density; adds its adjoints of the "
                 "row-invariant",
                 "// values into ainv",
@@ -1018,7 +1103,8 @@ def _emit_rows(cd, spaces, ws, whole):
             "template <>",
             f"struct RtSpace<{s}> {{",
             f"  enum {{ kW = {tile.row_width}, kTile = "
-            f"{max(tile.tile_rows, 1)} }};",
+            f"{max(tile.tile_rows, 1)}"
+            + (f", kGathers = {n_gathers}" if ws else "") + " };",
             "  // one row's log-density; adds its adjoints of the",
             "  // row-invariant values into ainv",
             f"  static RT_HD float row(const {row_sig} {{",
@@ -1058,7 +1144,7 @@ def _emit_rows(cd, spaces, ws, whole):
         lines += [*post_fn, "", f"#define RT_SPACES {len(spaces)}",
                   "template <int S> struct RtSpace;", *spaces_text]
     inv_ops = pre.fops + post.fops + post.rops + len(post_seeds)
-    return lines, inv_ops, n_inv, tuple(tiles)
+    return lines, inv_ops, n_inv, n_dense, tuple(tiles)
 
 
 def _cols_struct(columns):
@@ -1093,20 +1179,26 @@ def emit(cd) -> EmittedDensity:
     ``rt_logp_grad`` over the column-free terms and, for a model with
     data, the row functions and tile loader of its RowSum likelihoods;
     with the chain state in the kernel's workspace where the model has
-    over LOCAL_STATE_MAX parameters or row-invariant values."""
+    over LOCAL_STATE_MAX parameters or row-invariant values, or, with
+    rows, over LANE_STATE_MAX."""
     if cd not in _EMITTED:
         em = _emit(cd, cd.n_vars > LOCAL_STATE_MAX)
-        if not em.workspace and em.n_inv > LOCAL_STATE_MAX:
+        cap = LANE_STATE_MAX if em.spaces else LOCAL_STATE_MAX
+        if not em.workspace and max(em.n_vars, em.n_inv) > cap:
             em = _emit(cd, True)
         _EMITTED[cd] = em
     return _EMITTED[cd]
 
 
-def workspace_floats(n_vars: int, n_inv: int, rows: bool) -> int:
+def workspace_floats(n_vars: int, n_inv: int, rows: bool,
+                     n_dense: int = 0) -> int:
     """Floats of one chain's slot of the workspace: the seven state
-    arrays (sc, q, g, qn, gn, p, x) and, with rows, inv and ainv, rounded
-    up to an even count (csrc/fused_hmc.cu, RT_WS_FLOATS)."""
-    n = 7 * n_vars + (2 * max(n_inv, 1) if rows else 0)
+    arrays (sc, q, g, qn, gn, p, x) and, with rows, inv, ainv and the
+    LANES lanes' own copies of the `n_dense` adjoints that every row
+    reads, rounded up to an even count (csrc/fused_hmc.cu,
+    RT_WS_FLOATS)."""
+    n = 7 * n_vars + (2 * max(n_inv, 1) + LANES * max(n_dense, 1)
+                      if rows else 0)
     return n + n % 2
 
 
@@ -1125,10 +1217,10 @@ def _emit(cd, ws: bool) -> EmittedDensity:
     fwd, rev, total = _program(em, roots, total=True)
     lp_ops = max(len(total) - 1, 0)
     n = cd.n_vars
-    rows, inv_ops, n_inv, spaces = (
+    rows, inv_ops, n_inv, n_dense, spaces = (
         _emit_rows(cd, split.spaces, ws, whole) if split.spaces
-        else ([], 0, 0, ()))
-    slot = workspace_floats(n, n_inv, bool(spaces)) if ws else 0
+        else ([], 0, 0, 0, ()))
+    slot = workspace_floats(n, n_inv, bool(spaces), n_dense) if ws else 0
     r = _RESTRICT if ws else ""
     # the shared memory of a tile slot: the widest space's tile
     top = max(spaces, key=lambda t: t.tile_rows * t.row_width,
@@ -1142,14 +1234,17 @@ def _emit(cd, ws: bool) -> EmittedDensity:
         f"#define RT_DIM {n}",
         f"#define RT_ROW_W {top.row_width}",
         f"#define RT_TILE {max(top.tile_rows, 1)}",
-        *([f"#define RT_WS_FLOATS {slot}"] if ws else []),
+        *([f"#define RT_WS_FLOATS {slot}",
+           f"#define RT_LANES {LANES if spaces else 1}"] if ws else []),
         *(["#define RT_WHOLE_COLS 1"] if whole else []),
         "",
         *_cols_struct(cd.columns),
         "",
         f"RT_HD float rt_logp_grad(const float*{r} q, float*{r} g"
         + (", const RtCols& cols" if whole else "") + ") {",
-        f"  for (int j = 0; j < {n}; ++j) g[j] = 0.0f;",
+        *([f"  for (int j = RT_LANE; j < {n}; j += RT_LSTEP) g[j] = 0.0f;",
+           "  RT_WARP_SYNC();"] if ws
+          else [f"  for (int j = 0; j < {n}; ++j) g[j] = 0.0f;"]),
         *fwd,
         "  const float lp = " + (" + ".join(total) or "0.0f") + ";",
         *_decls(em, R.topological(roots)),

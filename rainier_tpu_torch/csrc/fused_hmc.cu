@@ -5,34 +5,54 @@
 // rainier_tpu_torch/ops/fused_hmc.py for the wrapper, the plain PyTorch
 // version and the notes on what bounds this kernel.
 //
-// One thread owns one chain for the whole sampling phase.  For a model of
-// up to 256 parameters and row-invariant values (emit_cuda.
-// LOCAL_STATE_MAX) its position, momentum, gradient and proposal are
-// per-thread arrays float[RT_DIM] in registers and local memory, and
-// nothing touches device memory between the load of q0 and the final
-// stores except the collected draws, written as
-// samples[it / collect_every][j][chain] for the j-th collected
-// coordinate so neighbouring threads write neighbouring addresses, and
-// the data columns.  The model's density and gradient come from the
-// generated rt_model.h (compute/emit_cuda.py),
-// evaluated in natural coordinates; the loop runs in standardized
-// coordinates q' = q / sqrt(S) for the adapted mass diagonal S, exactly
-// as hmc_pallas.py:224-240 does.
+// Chains and lanes.  A model with rows runs each chain on one warp, its
+// RT_LANES = 32 lanes, and a block holds W chains, one warp each (the
+// wrapper's threads_per_block sets W).  A model without rows runs each
+// chain on one thread, with 32 or 128 chains a block.  The model's
+// density and gradient come from the generated rt_model.h
+// (compute/emit_cuda.py), evaluated in natural coordinates; the loop runs
+// in standardized coordinates q' = q / sqrt(S) for the adapted mass
+// diagonal S, exactly as hmc_pallas.py:224-240 does.
+//
+// A model of up to 256 parameters and row-invariant values (emit_cuda.
+// LOCAL_STATE_MAX), or with rows of up to 32 (LANE_STATE_MAX: the README
+// regression and the logistics), keeps its chain's position, momentum,
+// gradient and proposal in per-thread arrays float[RT_DIM] in registers
+// and local memory, and every lane holds all of them: whatever lies
+// outside the rows (the column-free terms, the row-invariant passes
+// rt_rows_pre and rt_rows_post, Philox, the leapfrog and the accept) runs
+// redundantly in every lane, with no broadcast.  The lanes split the
+// rows alone.  The design rests on one invariant: every value that
+// decides control flow (lp, lpn, k0, k1, u and the accept) has the same
+// bits in the 32 lanes of a warp, so the lanes never part, and every
+// shuffle and barrier is reached by all of them.  Each stored element is stored by one lane
+// (rt_mine: element d by lane d mod 32), the scalars by lane 0; nothing
+// touches device memory between the load of q0 and the final stores
+// except the collected draws, samples[it / collect_every][j][chain] for
+// the j-th collected coordinate, and the data columns.
 //
 // Data columns.  A model with RowSum likelihoods adds, in every density
 // call, the sum over all rows of the generated per-row function rt_row.
-// The rows are walked in tiles of RT_TILE rows: the threads of a block
-// copy a tile of every column into shared memory together (coalesced),
-// pass a barrier, each accumulate the tile's rows for their own chain,
-// and pass a second barrier before the next tile is loaded.  Fixed-step
+// The rows are walked in tiles of RT_TILE rows: the W x 32 threads of a
+// block copy a tile of every column into shared memory together
+// (coalesced), pass a barrier, and every chain of the block reads that
+// one tile: lane l takes the tile's rows l, l + 32, l + 64, ..., keeps its
+// own partial sums of lp and of the dense row-invariant adjoints, and at
+// the end of the tile an xor butterfly (five __shfl_xor_sync stages) sums
+// the lanes' partials.  Each stage adds a pair of values in both of its
+// lanes, and f32 addition commutes, so every lane ends with the same bits,
+// which go to the f64 totals.  A second barrier ends the tile.  Fixed-step
 // HMC gives every chain the same number of density calls (n_steps per
-// iteration, plus one), so all threads of a block reach every barrier
-// together; the accept branch holds no barrier and may diverge.  Threads
-// past the last chain (the ragged edge of the last block) therefore do
-// not return early: they run a copy of the last chain, load their share
-// of every tile, pass every barrier, and store nothing.  All threads of a
-// warp read the same row of the tile, a broadcast without bank
-// conflicts.  Rows at or past n_rows are skipped, not padded.
+// iteration, plus one), so all warps of a block reach every barrier
+// together; the accept branch holds no barrier.  Warps past the last
+// chain (the ragged edge of the last block) therefore do not return
+// early: they run a copy of the last chain, load their share of every
+// tile, pass every barrier, and store nothing.  Rows at or past n_rows
+// are skipped, not padded.  A tile is row-major, kW floats a row
+// (RtSpace<s>), so lane l reads shared-memory word l·kW + f: no bank
+// conflicts for an odd kW (the logistic's 11), 2-way for glmm_large's 2,
+// 4-way for the README regression's and GLMMPoisson2's 4 (the stride is
+// not padded: what padding would save is not measured).
 //
 // Streamed columns (stream_cols, the counterpart of hmc_pallas.py:186-191,
 // 305-351, 484-486, 492-497).  Columns larger than the card's L2 are read
@@ -43,13 +63,15 @@
 // t + 1 is in flight.  Every thread commits one group per tile (an empty
 // one after the last), the ragged edge's copies included, so that each
 // thread's wait counts the same groups.  Both tile loops sum a tile's
-// rows with one function, rt_tile_rows, reading the tile's slot, so a
+// rows with one function, rt_tile_rows, through the same lanes, so a
 // streamed launch gives the synchronous launch's results bit for bit.  The
 // synchronous loop keeps its own form, and each kernel is compiled once
 // for each flag (below): a loop shared by both flags, with the slot chosen
 // per tile, made the synchronous kernel 13% slower on the 100k-row
 // logistic regression, and both loops in one kernel 8% slower
-// (rainier_tpu_torch/tools/kernel_ab.py tiles, H100).
+// (rainier_tpu_torch/tools/kernel_ab.py tiles, H100, one thread a chain).
+// A block of W chains reads each tile once for all of them, so W divides
+// the bytes a streamed density call moves through L2.
 //
 // Row spaces and columns read whole (the untiled branch,
 // hmc_pallas.py:282-291, 300-301, which evaluates the density over whole
@@ -57,65 +79,105 @@
 // have one length form a row space; rt_density runs one tile loop per
 // space, over the space's own rows, in its own tile (RtSpace<s>: kW floats
 // a row, kTile rows), through the same two slots, sized for the widest
-// space.  lp and the dense row-invariant adjoints are summed in f32 per
-// tile and in f64 across the tiles of every space.  Every thread runs every
-// space's loop, so the barriers and, when streaming, the copy groups of a
-// thread stay those of every other.  A column that no row reads row by row
-// (an MVNormal's Cholesky factor, a data vector dotted with a latent one)
-// is read whole by the column-free and row-invariant functions, from its
-// pointer in RtCols, at every call.
+// space.  Every warp runs every space's loop, so the barriers and, when
+// streaming, the copy groups of a thread stay those of every other.  A
+// column that no row reads row by row (an MVNormal's Cholesky factor, a
+// data vector dotted with a latent one) is read whole by the column-free
+// and row-invariant functions, from its pointer in RtCols, at every call.
 //
 // Integer index columns.  The generated RtCols holds each column with its
 // own type (int32 for an IntColumn), and the loader keeps an index's bits
 // in its float slot of the tile.  A gather of a row-invariant vector by
 // that index reads the chain's inv[] at a per-row offset, and its adjoint
-// adds into the chain's ainv[] there.
+// adds into ainv[] there.  The lanes of a warp hit one entry together
+// (GLMMPoisson2's year index is the same in 32 neighbouring rows,
+// glmm_large's group in 5), and the adjoints are summed without atomics,
+// in a fixed order, so that every launch and both tile loops give the
+// same bits: in a register model each lane adds into its own per-thread
+// copy of ainv, and at the end of the density call each gathered entry is
+// summed over the lanes by the butterfly (rt_gathered_sum); in a
+// workspace model, where 32 copies of glmm_large's 10,000 entries would
+// be 1.3 MB a chain to clear and sum in every call, a row hands its
+// gathers' adjoints back and the warp adds each step of 32 rows into the
+// chain's one ainv: the lanes with one entry form a group
+// (__match_any_sync) whose lowest lane adds their values in lane order
+// (rt_scatter).
 //
 // Larger models (the header defines RT_WS_FLOATS) keep every per-chain
 // array in a workspace in device memory that the wrapper allocates: one
-// slot of RT_WS_FLOATS floats per thread, the ragged edge's copies
-// included, holding the seven state arrays and inv/ainv contiguously.
-// The loops over the state and the emitted vector loops then run over
-// memory, not unrolled registers.  A thread walks its own arrays in
-// order, so one 128-byte line brought into L1 serves 32 elements; an
-// interleaved layout, where a warp's 32 chains share each line, was
-// slower on the card, since every element is then a line of its own and
-// one warp per SM has few loads in flight.  What bounds the kernel is the
-// latency of those passes (about 25 over arrays of RT_DIM floats per
-// density call) and of the rows, with one warp on each SM: the wrapper
-// launches blocks of fewer threads for such models, spreading the chains
-// over every SM.
+// slot of RT_WS_FLOATS floats per chain, the ragged edge's copies
+// included, holding the seven state arrays, inv, ainv, and the 32 lanes'
+// copies of the adjoints that every row reads (RT_OFF_LANES).  Every pass
+// over the state (rt_mul, the kicks and drifts, rt_take, rt_collect) and
+// every emitted loop over a vector splits its elements over the lanes,
+// lane l taking l, l + 32, ... (RT_FOR), so a warp's access is one
+// 128-byte line; p·p and every emitted sum are lane partials and a
+// butterfly, identical in every lane; the Philox groups are split the
+// same way, and the uniform comes from the lane that owns its group by a
+// shuffle.  Scalar adjoints of parameters are added to g by lane 0 alone.
+// A __syncwarp (RT_WS_SYNC) separates two passes where a lane reads what
+// another wrote: the natural coordinates x before the density, inv
+// before the rows, ainv after each step's scatter and before
+// rt_rows_post, the gradient before it is scaled.  What bounds such a
+// model is the latency of those passes (about 25 over arrays of RT_DIM
+// floats per density call, 313 elements a lane for glmm_large) and of the
+// rows' gathers and scatters into the slot, with 8 warps on an SM.
 //
-// Summation error.  Each tile's rows are summed in f32 (the error of a
-// sequential sum of R terms is at most about R·u·Σ|terms|, u = 6e-8, and
-// typically √R·u·Σ|terms|), and the tile totals of lp and of every
-// row-invariant adjoint that all rows read (the first RT_NINV_DENSE of
-// inv) are accumulated in f64, so the error does not grow with the
-// number of tiles beyond a random walk of the per-tile errors.  For the
-// 100k-row logistic regression (R = 256, ~0.3 nats a row) that is ~1e-4
-// per tile and ~2e-3 nats in all, plus half an ulp (~2e-3) when the f64
-// total is rounded to f32, against a per-chain f32 running sum's O(0.1).
-// A model with its state in the workspace sums its rows in f64
-// (rt_row_sum) and rounds lp once: at glmm_large's 50,000 rows and
-// |lp| ~ 1e5, f32 tile sums and two roundings drift by a few ulps of lp.
-// The register models keep f32 tile sums: f64 row sums made
-// GLMMPoisson2's kernel 7% slower and the README regression's 2% on an
-// H100 (rainier_tpu_torch/tools/kernel_ab.py row-sums).  The adjoint of
-// a block that only a per-row gather reads accumulates in place in f32:
-// each entry receives its own rows only (5 a group effect in glmm_large,
-// 40 or 100 in GLMMPoisson2), and flushing every entry each tile would
-// cost more than the rows.
+// Summation error.  Each lane sums its rows of a tile in f32 (the error of
+// a sequential sum of R terms is at most about R·u·Σ|terms|, u = 6e-8, and
+// typically √R·u·Σ|terms|), the butterfly adds 32 such sums, and the tile
+// totals of lp and of every row-invariant adjoint that all rows read (the
+// first RT_NINV_DENSE of inv) are accumulated in f64, so the error does
+// not grow with the number of tiles beyond a random walk of the per-tile
+// errors.  For the 100k-row logistic regression (R = 256 rows a tile, 8 a
+// lane, ~0.3 nats a row) that is below 1e-4 per tile and ~2e-3 nats in
+// all, plus half an ulp (~2e-3) when the f64 total is rounded to f32,
+// against a per-chain f32 running sum's O(0.1).  A model with its state in
+// the workspace sums its rows in f64 (rt_row_sum) and rounds lp once: at
+// glmm_large's 50,000 rows and |lp| ~ 1e5, f32 tile sums and two roundings
+// drift by a few ulps of lp.  The register models keep f32 tile sums: f64
+// row sums made GLMMPoisson2's kernel 7% slower and the README
+// regression's 2% on an H100 with one thread a chain
+// (rainier_tpu_torch/tools/kernel_ab.py row-sums).  The adjoint of a block
+// that only a per-row gather reads accumulates in f32, in each lane's copy
+// or through rt_scatter: each entry receives its own rows only (5 a group
+// effect in glmm_large, 40 or 100 in GLMMPoisson2).
 //
 // The same file compiles as host C++ (no __CUDACC__): rt_fused_hmc_host
-// then runs every slot of the launch's blocks one after another through
-// the same tile loop, with the "block" one thread, which is how the CPU
-// tests check the loop, the ragged edge and the generated adjoints
+// then runs every chain slot of the launch's blocks one after another,
+// the ragged edge's copies included, with the tile's "block" one thread.
+// It emulates the lanes: the rows of a tile are walked in steps of 32,
+// lane by lane within a step, each lane's partial sums and adjoint copy
+// kept apart, each step's gather adjoints added as rt_scatter adds them,
+// and the lanes' sums added in the butterfly's order (rt_lane_tree); a
+// workspace model's passes walk every element and keep each lane's
+// partial sums (RT_PART).
+// So the host build sums in the card's order, which is how the CPU tests
+// check the lanes, the loop, the ragged edge and the generated adjoints
 // without a card.
 #include "philox.cuh"
 #include "rt_model.h"
 
 #define RT_WORDS (2 * RT_DIM + 1)
 #define RT_GROUPS ((RT_WORDS + 3) / 4)
+
+// the lanes of a chain: a warp for a model with rows, a thread for one
+// without (a workspace model's header defines RT_LANES itself)
+#if RT_ROW_W > 0
+#ifndef RT_LANES
+#define RT_LANES 32
+#endif
+static_assert(RT_LANES == 32, "a chain with rows is one warp");
+#else
+#ifndef RT_LANES
+#define RT_LANES 1
+#endif
+static_assert(RT_LANES == 1, "a chain without rows is one thread");
+#endif
+
+// the most threads a block may have: the wrapper's rule gives a model
+// with rows at most 8 chains a block (ops/fused_hmc.py, threads_per_block)
+#define RT_MAX_THREADS (RT_LANES > 1 ? 256 : 128)
 
 // the block's threads in device code; one thread in host code (and in
 // nvcc's host pass over the __host__ __device__ functions)
@@ -135,8 +197,10 @@
 #define RT_NINV_DENSE RT_NINV
 #define RT_NINV_DENSE_ALLOC RT_NINV_ALLOC
 #endif
+#define RT_WS_NDENSE RT_NINV_DENSE_ALLOC
 #else
 #define RT_WS_NINV 0
+#define RT_WS_NDENSE 0
 #endif
 
 // Row spaces.  A header with one row space names its row function and
@@ -149,10 +213,18 @@ template <int S>
 struct RtSpace;
 template <>
 struct RtSpace<0> {
+#ifdef RT_WS_FLOATS
+  enum { kW = RT_ROW_W, kTile = RT_TILE, kGathers = RT_GATHERS };
+  static RT_HD float row(const float* x, const float* inv, float* ainv,
+                         int* sidx, float* sval) {
+    return rt_row(x, inv, ainv, sidx, sval);
+  }
+#else
   enum { kW = RT_ROW_W, kTile = RT_TILE };
   static RT_HD float row(const float* x, const float* inv, float* ainv) {
     return rt_row(x, inv, ainv);
   }
+#endif
   static RT_HD void fill(float* tile, const RtCols& cols, int row0, int rows,
                          int tid, int nt) {
     rt_fill_tile(tile, cols, row0, rows, tid, nt);
@@ -186,22 +258,44 @@ static inline RtRows rt_rows(const int* n_rows) {
 #define RT_WHOLE(cols)
 #endif
 
-// A chain's arrays: per-thread arrays, fully unrolled loops over them; or
-// arrays in the thread's slot of the workspace at offset `off`, loops
-// unrolled by four.  RT_STATE(name, n, off) declares one.
+// A chain's arrays: per-thread arrays, fully unrolled loops over every
+// element in every lane; or arrays in the chain's slot of the workspace
+// at offset `off`, each pass over them split over the lanes (RT_FOR),
+// unrolled by four, with a pass's sum a lane partial and a butterfly
+// (RT_PASS_*) and a __syncwarp where a lane reads what another wrote
+// (RT_WS_SYNC).  RT_STATE(name, n, off) declares one.
 #ifdef RT_WS_FLOATS
-static_assert(RT_WS_FLOATS >= 7 * RT_DIM + 2 * RT_WS_NINV,
+static_assert(RT_WS_FLOATS >=
+                  7 * RT_DIM + 2 * RT_WS_NINV + RT_LANES * RT_WS_NDENSE,
               "the workspace slot holds every per-chain array");
 #define RT_UNROLL _Pragma("unroll 4")
 #define RT_STATE(name, n, off) float* name = ws + (off)
+#define RT_FOR(d, n) for (int d = RT_LANE; d < (n); d += RT_LSTEP)
+#define RT_PASS_PART(T, name) RT_PART(T, name)
+#define RT_PASS_ADD(name, d, v) RT_ADD(name, d, v)
+#define RT_PASS_SUM(name) RT_SUM(name)
+#define RT_WS_SYNC() RT_WARP_SYNC()
 typedef double rt_row_sum;
 #else
 #define RT_UNROLL _Pragma("unroll")
 #define RT_STATE(name, n, off) float name[n]
+#define RT_FOR(d, n) for (int d = 0; d < (n); ++d)
+#define RT_PASS_PART(T, name) T name = 0
+#define RT_PASS_ADD(name, d, v) name += (v)
+#define RT_PASS_SUM(name) (void)0
+#define RT_WS_SYNC() \
+  do {               \
+  } while (0)
 typedef float rt_row_sum;
 #endif
 #define RT_OFF_X (6 * RT_DIM)
 #define RT_OFF_INV (7 * RT_DIM)
+#define RT_OFF_AINV (RT_OFF_INV + RT_WS_NINV)
+#define RT_OFF_LANES (RT_OFF_AINV + RT_WS_NINV)
+
+// whether this lane stores element d of a register model's arrays, which
+// every lane holds (every element in host code and without rows)
+RT_HD bool rt_mine(int d) { return d % RT_LSTEP == RT_LANE; }
 
 // The loops over a chain's arrays take pointers that do not alias, so
 // that over the workspace the loads of later elements may be issued
@@ -211,13 +305,13 @@ typedef float rt_row_sum;
 RT_HD void rt_mul(float* __restrict__ out, const float* __restrict__ a,
                   const float* __restrict__ b) {
   RT_UNROLL
-  for (int d = 0; d < RT_DIM; ++d) out[d] = a[d] * b[d];
+  RT_FOR(d, RT_DIM) out[d] = a[d] * b[d];
 }
 
 // g = b * g
 RT_HD void rt_mul_in(float* __restrict__ g, const float* __restrict__ b) {
   RT_UNROLL
-  for (int d = 0; d < RT_DIM; ++d) g[d] = b[d] * g[d];
+  RT_FOR(d, RT_DIM) g[d] = b[d] * g[d];
 }
 
 // the first leapfrog step's kick and drift: p += h * g, qn = q + eps * p
@@ -225,7 +319,7 @@ RT_HD void rt_kick_drift(float* __restrict__ p, float* __restrict__ qn,
                          const float* __restrict__ q,
                          const float* __restrict__ g, float h, float eps) {
   RT_UNROLL
-  for (int d = 0; d < RT_DIM; ++d) {
+  RT_FOR(d, RT_DIM) {
     p[d] = p[d] + h * g[d];
     qn[d] = q[d] + eps * p[d];
   }
@@ -235,21 +329,31 @@ RT_HD void rt_kick_drift(float* __restrict__ p, float* __restrict__ qn,
 RT_HD void rt_kick_drift_in(float* __restrict__ p, float* __restrict__ qn,
                             const float* __restrict__ gn, float eps) {
   RT_UNROLL
-  for (int d = 0; d < RT_DIM; ++d) {
+  RT_FOR(d, RT_DIM) {
     p[d] = p[d] + eps * gn[d];
     qn[d] = qn[d] + eps * p[d];
   }
 }
 
+// p·p
+RT_HD float rt_energy(const float* __restrict__ p) {
+  RT_PASS_PART(float, k);
+  RT_UNROLL
+  RT_FOR(d, RT_DIM) RT_PASS_ADD(k, d, p[d] * p[d]);
+  RT_PASS_SUM(k);
+  return k;
+}
+
 // the last half kick, p += h * gn; returns p·p
 RT_HD float rt_kick_energy(float* __restrict__ p,
                            const float* __restrict__ gn, float h) {
-  float k = 0.0f;
+  RT_PASS_PART(float, k);
   RT_UNROLL
-  for (int d = 0; d < RT_DIM; ++d) {
+  RT_FOR(d, RT_DIM) {
     p[d] = p[d] + h * gn[d];
-    k += p[d] * p[d];
+    RT_PASS_ADD(k, d, p[d] * p[d]);
   }
+  RT_PASS_SUM(k);
   return k;
 }
 
@@ -258,7 +362,7 @@ RT_HD void rt_take(float* __restrict__ q, float* __restrict__ g,
                    const float* __restrict__ qn,
                    const float* __restrict__ gn) {
   RT_UNROLL
-  for (int d = 0; d < RT_DIM; ++d) {
+  RT_FOR(d, RT_DIM) {
     q[d] = qn[d];
     g[d] = gn[d];
   }
@@ -274,14 +378,15 @@ RT_HD void rt_collect(float* __restrict__ out, const float* __restrict__ q,
                       const int* __restrict__ collect_pos, int n, int c) {
 #ifdef RT_WS_FLOATS
   RT_UNROLL
-  for (int d = 0; d < RT_DIM; ++d) {
+  RT_FOR(d, RT_DIM) {
     const int j = collect_pos == 0 ? d : collect_pos[d];
     if (j >= 0) out[(size_t)j * n + c] = q[d] * sc[d];
   }
 #else
   (void)collect_pos;
   RT_UNROLL
-  for (int d = 0; d < RT_DIM; ++d) out[(size_t)d * n + c] = q[d] * sc[d];
+  for (int d = 0; d < RT_DIM; ++d)
+    if (rt_mine(d)) out[(size_t)d * n + c] = q[d] * sc[d];
 #endif
 }
 
@@ -302,23 +407,193 @@ RT_HD void rt_stream_tile(float* slot, const RtCols& cols, int row0,
   rt_copy_commit();
 }
 
-// the rows of one tile of space S, read from `slot`, for this chain: lp
-// and the dense row-invariant adjoints summed per tile (rt_row_sum) and
-// added to the f64 totals.  Both tile loops, synchronous and streamed,
-// sum their rows here, so the two give the same results bit for bit.
+// The lanes' own copies of the row-invariant adjoints, which their rows
+// add into.  A register model's lane holds a whole copy, its per-thread
+// `ainv` on the card (`lanes` is that array), and the gathered blocks'
+// entries are summed over the lanes once a density call
+// (rt_gathered_sum); host code keeps all RT_LANES copies, lane l's at
+// lanes + l * RT_NINV_ALLOC.  A workspace model's lanes keep copies of
+// the dense adjoints only (RT_NINV_DENSE_ALLOC floats each, at
+// RT_OFF_LANES of the slot): a row hands its per-row gathers' adjoints
+// back, and the warp adds each step's into the chain's one ainv
+// (rt_scatter), so 32 copies of glmm_large's 10,000 gathered entries are
+// neither written nor summed.
+#ifdef RT_WS_FLOATS
+#define RT_LANE_COPY RT_NINV_DENSE_ALLOC
+#else
+#define RT_LANE_COPY RT_NINV_ALLOC
+#endif
+
+// the gathered blocks' adjoints [RT_NINV_DENSE, RT_NINV) set to 0: every
+// lane's copy of them, or the chain's ainv over the workspace (lane l
+// clears entries l, l + 32, ...)
+RT_HD void rt_gathered_zero(float* lanes, float* ainv) {
+#if defined(RT_WS_FLOATS)
+  (void)lanes;
+  for (int k = RT_NINV_DENSE + RT_LANE; k < RT_NINV; k += RT_LSTEP)
+    ainv[k] = 0.0f;
+#elif defined(__CUDA_ARCH__)
+  (void)ainv;
+  RT_UNROLL
+  for (int k = RT_NINV_DENSE; k < RT_NINV; ++k) lanes[k] = 0.0f;
+#else
+  (void)ainv;
+  for (int l = 0; l < RT_LANES; ++l)
+    for (int k = RT_NINV_DENSE; k < RT_NINV; ++k)
+      lanes[(size_t)l * RT_LANE_COPY + k] = 0.0f;
+#endif
+}
+
+// the gathered blocks' adjoints in ainv: each entry of the lanes' copies
+// summed in the butterfly's order, the same bits in every lane (a
+// register model's lane sums its copy in place, ainv being that copy);
+// over the workspace rt_scatter has added them there already
+RT_HD void rt_gathered_sum(float* lanes, float* ainv) {
+#if defined(RT_WS_FLOATS)
+  (void)lanes, (void)ainv;
+#elif defined(__CUDA_ARCH__)
+  (void)ainv;
+  for (int k = RT_NINV_DENSE; k < RT_NINV; ++k)
+    lanes[k] = rt_warp_sum<RT_LANES>(lanes[k]);
+#else
+  for (int k = RT_NINV_DENSE; k < RT_NINV; ++k) {
+    float v[RT_LANES];
+    for (int l = 0; l < RT_LANES; ++l)
+      v[l] = lanes[(size_t)l * RT_LANE_COPY + k];
+    ainv[k] = rt_lane_tree<RT_LANES>(v);
+  }
+#endif
+}
+
+// One step's per-row gather adjoints, value v at entry k of this lane's
+// row (k < 0: a lane past the tile's rows), added into the chain's ainv:
+// the lanes with one k form a group (__match_any_sync), and its lowest
+// lane adds their values in lane order and stores the sum.  Groups hold
+// distinct entries, so no two lanes store to one, and the order is fixed:
+// deterministic, without atomics.  Host code takes the lanes' k and v as
+// arrays and adds in the same order.
+#ifdef __CUDA_ARCH__
+__device__ __forceinline__ void rt_scatter(float* ainv, int k, float v) {
+  const unsigned m = __match_any_sync(0xffffffffu, k);
+  float s = v;
+  for (unsigned rest = m & (m - 1); rest != 0; rest &= rest - 1)
+    s = s + __shfl_sync(m, v, __ffs(rest) - 1);
+  if (RT_LANE == __ffs(m) - 1 && k >= 0) ainv[k] += s;
+}
+#else
+inline void rt_scatter(float* ainv, const int* k, const float* v) {
+  for (int l = 0; l < RT_LANES; ++l) {
+    bool lead = k[l] >= 0;
+    for (int m = 0; m < l && lead; ++m) lead = k[m] != k[l];
+    if (!lead) continue;
+    float s = v[l];
+    for (int m = l + 1; m < RT_LANES; ++m)
+      if (k[m] == k[l]) s = s + v[m];
+    ainv[k[l]] += s;
+  }
+}
+#endif
+
+// the per-row gathers whose adjoints a row of space S hands back (a
+// workspace model's, RtSpace<S>::kGathers), and the row called with
+// their pairs (sidx, sval) where it has them
+#ifdef RT_WS_FLOATS
+template <int S>
+struct RtGathers {
+  enum { value = RtSpace<S>::kGathers };
+};
+template <int S>
+RT_HD float rt_row_at(const float* x, const float* inv, float* own,
+                      int* sidx, float* sval) {
+  return RtSpace<S>::row(x, inv, own, sidx, sval);
+}
+#else
+template <int S>
+struct RtGathers {
+  enum { value = 0 };
+};
+template <int S>
+RT_HD float rt_row_at(const float* x, const float* inv, float* own,
+                      int* sidx, float* sval) {
+  (void)sidx, (void)sval;
+  return RtSpace<S>::row(x, inv, own);
+}
+#endif
+
+// the rows of one tile of space S, read from `slot`, for this chain: lane
+// l sums rows l, l + 32, ... into its own lp and dense adjoints
+// (rt_row_sum), the butterfly sums the lanes', and the sums are added to
+// the f64 totals; over the workspace the lanes walk the rows in steps of
+// 32, each step's gather adjoints added into `ainv` by rt_scatter.  Both
+// tile loops, synchronous and streamed, sum their rows here, so the two
+// give the same results bit for bit.  Host code walks the steps, and in
+// each the lanes one after another.
 template <int S>
 RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
-                        float* ainv, double& lp_acc, double* ainv_acc) {
+                        float* lanes, float* ainv, double& lp_acc,
+                        double* ainv_acc) {
+  typedef RtSpace<S> Sp;
+  enum { kG = RtGathers<S>::value > 0 ? RtGathers<S>::value : 1 };
+#ifdef __CUDA_ARCH__
+#ifdef RT_WS_FLOATS
+  float* own = lanes + (size_t)RT_LANE * RT_LANE_COPY;
+  rt_row_sum lp_t = 0.0f;
+  for (int k = 0; k < RT_NINV_DENSE; ++k) own[k] = 0.0f;
+  for (int r0 = 0; r0 < rows; r0 += RT_LANES) {
+    const int r = r0 + RT_LANE;
+    int sidx[kG];
+    float sval[kG];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) sidx[g] = -1, sval[g] = 0.0f;
+    if (r < rows)
+      lp_t += rt_row_at<S>(slot + r * Sp::kW, inv, own, sidx, sval);
+#pragma unroll
+    for (int g = 0; g < RtGathers<S>::value; ++g)
+      rt_scatter(ainv, sidx[g], sval[g]);
+    RT_WARP_SYNC();
+  }
+#else
+  (void)ainv;
+  float* own = lanes;
   rt_row_sum lp_t = 0.0f;
 #pragma unroll
-  for (int k = 0; k < RT_NINV_DENSE; ++k) ainv[k] = 0.0f;
+  for (int k = 0; k < RT_NINV_DENSE; ++k) own[k] = 0.0f;
 #pragma unroll 4
-  for (int r = 0; r < rows; ++r)
-    lp_t += RtSpace<S>::row(slot + r * RtSpace<S>::kW, inv, ainv);
-  lp_acc += (double)lp_t;
+  for (int r = RT_LANE; r < rows; r += RT_LANES)
+    lp_t += Sp::row(slot + r * Sp::kW, inv, own);
+#endif
+  lp_acc += (double)rt_warp_sum<RT_LANES>(lp_t);
 #pragma unroll
   for (int k = 0; k < RT_NINV_DENSE; ++k)
-    ainv_acc[k] += (double)ainv[k];
+    ainv_acc[k] += (double)rt_warp_sum<RT_LANES>(own[k]);
+#else
+  rt_row_sum lp_t[RT_LANES] = {};
+  for (int l = 0; l < RT_LANES; ++l)
+    for (int k = 0; k < RT_NINV_DENSE; ++k)
+      lanes[(size_t)l * RT_LANE_COPY + k] = 0.0f;
+  for (int r0 = 0; r0 < rows; r0 += RT_LANES) {
+    int sidx[kG][RT_LANES];
+    float sval[kG][RT_LANES];
+    for (int l = 0; l < RT_LANES; ++l) {
+      int si[kG];
+      float sv[kG];
+      for (int g = 0; g < kG; ++g) si[g] = -1, sv[g] = 0.0f;
+      if (r0 + l < rows)
+        lp_t[l] += rt_row_at<S>(slot + (r0 + l) * Sp::kW, inv,
+                                lanes + (size_t)l * RT_LANE_COPY, si, sv);
+      for (int g = 0; g < kG; ++g) sidx[g][l] = si[g], sval[g][l] = sv[g];
+    }
+    for (int g = 0; g < RtGathers<S>::value; ++g)
+      rt_scatter(ainv, sidx[g], sval[g]);
+  }
+  lp_acc += (double)rt_lane_tree<RT_LANES>(lp_t);
+  for (int k = 0; k < RT_NINV_DENSE; ++k) {
+    float v[RT_LANES];
+    for (int l = 0; l < RT_LANES; ++l)
+      v[l] = lanes[(size_t)l * RT_LANE_COPY + k];
+    ainv_acc[k] += (double)rt_lane_tree<RT_LANES>(v);
+  }
+#endif
 }
 
 // every tile of space S's n_rows rows, then of the spaces after it.
@@ -329,7 +604,8 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
 template <int S>
 RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
                          int stream_cols, float* tile, const float* inv,
-                         float* ainv, double& lp_acc, double* ainv_acc) {
+                         float* lanes, float* ainv, double& lp_acc,
+                         double* ainv_acc) {
   const int n_rows = rows.n[S], kTile = RtSpace<S>::kTile;
   if (stream_cols) {
     // tile t is in slot t & 1: tile 0 before the loop, then tile t + 1
@@ -343,7 +619,7 @@ RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
       RT_TILE_SYNC();
       rt_tile_rows<S>(tile + (t & 1) * RT_TILE_FLOATS,
                       n_rows - row0 < kTile ? n_rows - row0 : kTile, inv,
-                      ainv, lp_acc, ainv_acc);
+                      lanes, ainv, lp_acc, ainv_acc);
       RT_TILE_SYNC();
     }
   } else {
@@ -351,19 +627,19 @@ RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
       const int n = n_rows - row0 < kTile ? n_rows - row0 : kTile;
       RtSpace<S>::fill(tile, cols, row0, n, RT_TID, RT_NTHREADS);
       RT_TILE_SYNC();
-      rt_tile_rows<S>(tile, n, inv, ainv, lp_acc, ainv_acc);
+      rt_tile_rows<S>(tile, n, inv, lanes, ainv, lp_acc, ainv_acc);
       RT_TILE_SYNC();
     }
   }
   if constexpr (S + 1 < RT_SPACES)
-    rt_space_rows<S + 1>(cols, rows, stream_cols, tile, inv, ainv, lp_acc,
-                         ainv_acc);
+    rt_space_rows<S + 1>(cols, rows, stream_cols, tile, inv, lanes, ainv,
+                         lp_acc, ainv_acc);
 }
 #endif
 
 // log-density and gradient at natural coordinates x for one chain: the
 // column-free terms, then the row terms over every tile of each row
-// space.  `tile`: the block's shared memory; `ws`: the thread's base in
+// space.  `tile`: the block's shared memory; `ws`: the chain's slot of
 // the workspace (unused for small models)
 RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
                        const RtRows& rows, int stream_cols, float* tile,
@@ -371,20 +647,34 @@ RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
   float lp = rt_logp_grad(x, g RT_WHOLE(cols));
 #if RT_ROW_W > 0
   RT_STATE(inv, RT_NINV_ALLOC, RT_OFF_INV);
-  RT_STATE(ainv, RT_NINV_ALLOC, RT_OFF_INV + RT_NINV_ALLOC);
+  // ainv: the adjoints summed over the lanes, which rt_rows_post reads;
+  // lanes: the lanes' own copies
+#ifdef RT_WS_FLOATS
+  float* ainv = ws + RT_OFF_AINV;
+  float* lanes = ws + RT_OFF_LANES;
+#elif defined(__CUDA_ARCH__)
+  float ainv[RT_NINV_ALLOC];
+  float* lanes = ainv;
+#else
+  float ainv[RT_NINV_ALLOC];
+  float lanes[RT_LANES * RT_LANE_COPY];
+#endif
   double ainv_acc[RT_NINV_DENSE_ALLOC];
   double lp_acc = 0.0;
   rt_rows_pre(x, inv RT_WHOLE(cols));
   // the gathered blocks' adjoints accumulate over every tile
-  RT_UNROLL
-  for (int k = RT_NINV_DENSE; k < RT_NINV; ++k) ainv[k] = 0.0f;
+  rt_gathered_zero(lanes, ainv);
+  RT_WS_SYNC();
 #pragma unroll
   for (int k = 0; k < RT_NINV_DENSE; ++k) ainv_acc[k] = 0.0;
-  rt_space_rows<0>(cols, rows, stream_cols, tile, inv, ainv, lp_acc,
+  rt_space_rows<0>(cols, rows, stream_cols, tile, inv, lanes, ainv, lp_acc,
                    ainv_acc);
+  RT_WS_SYNC();
+  rt_gathered_sum(lanes, ainv);
 #pragma unroll
   for (int k = 0; k < RT_NINV_DENSE; ++k)
     ainv[k] = (float)ainv_acc[k];
+  RT_WS_SYNC();
   rt_rows_post(x, ainv, g RT_WHOLE(cols));
 #ifdef RT_WS_FLOATS
   lp = (float)((double)lp + lp_acc);
@@ -403,7 +693,9 @@ RT_HD float rt_lp_grad(const float* q, const float* sc, float* g,
                        int stream_cols, float* tile, float* ws) {
   RT_STATE(x, RT_DIM, RT_OFF_X);
   rt_mul(x, q, sc);
+  RT_WS_SYNC();
   const float lp = rt_density(x, g, cols, rows, stream_cols, tile, ws);
+  RT_WS_SYNC();
   rt_mul_in(g, sc);
   return lp;
 }
@@ -429,7 +721,7 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
   RT_STATE(gn, RT_DIM, 4 * RT_DIM);
   RT_STATE(p, RT_DIM, 5 * RT_DIM);
   RT_UNROLL
-  for (int d = 0; d < RT_DIM; ++d) {
+  RT_FOR(d, RT_DIM) {
     sc[d] = scale == 0
                       ? 1.0f
                       : scale[scale_per_chain ? (size_t)d * n + c : d];
@@ -442,16 +734,17 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
   for (int it = 0; it < n_iterations; ++it) {
     // momentum refresh and the Metropolis uniform
     float u = 0.0f;
+    RT_WS_SYNC();
     if (p_noise != 0) {
       RT_UNROLL
-      for (int d = 0; d < RT_DIM; ++d)
-        p[d] = p_noise[((size_t)it * RT_DIM + d) * n + c];
+      RT_FOR(d, RT_DIM) p[d] = p_noise[((size_t)it * RT_DIM + d) * n + c];
       u = u_noise[(size_t)it * n + c];
     } else {
       // Philox words 4k..4k+3 of (it, k): words 2d and 2d + 1 make p[d],
-      // word 2 * RT_DIM the uniform
+      // word 2 * RT_DIM the uniform; over the workspace lane l takes the
+      // groups l, l + 32, ..., and the uniform comes from its group's lane
       RT_UNROLL
-      for (int k = 0; k < RT_GROUPS; ++k) {
+      RT_FOR(k, RT_GROUPS) {
         uint32_t w[4] = {(uint32_t)it, (uint32_t)k, 0u, 0u};
         rt_philox4x32_10(w, seed, (uint32_t)c);
 #pragma unroll
@@ -464,10 +757,12 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
             u = rt_uniform_from_bits(w[2 * j]);
         }
       }
+#ifdef RT_WS_FLOATS
+      u = rt_lane_bcast<RT_LANES>(u, (RT_DIM / 2) % RT_LANES);
+#endif
     }
-    float k0 = 0.0f;
-    RT_UNROLL
-    for (int d = 0; d < RT_DIM; ++d) k0 += p[d] * p[d];
+    RT_WS_SYNC();
+    const float k0 = rt_energy(p);
     const float h0 = -lp + 0.5f * k0;
 
     // kick-drift-kick leapfrog, the order of hmc_pallas.py:395-408
@@ -497,15 +792,22 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
                  sc, collect_pos, n, c);
   }
   if (!live) return;
+#ifdef RT_WS_FLOATS
+  RT_UNROLL
+  RT_FOR(d, RT_DIM) qf[(size_t)d * n + c] = q[d] * sc[d];
+#else
   RT_UNROLL
   for (int d = 0; d < RT_DIM; ++d)
-    qf[(size_t)d * n + c] = q[d] * sc[d];
-  acc_out[c] = acc / (float)n_iterations;
-  div_out[c] = div;
+    if (rt_mine(d)) qf[(size_t)d * n + c] = q[d] * sc[d];
+#endif
+  if (RT_LANE == 0) {
+    acc_out[c] = acc / (float)n_iterations;
+    div_out[c] = div;
+  }
 }
 
 // the check entry: lp and gradient at column c of q (dim, n), through
-// the same density function and tile loop as the sampler
+// the same density function, lanes and tile loop as the sampler
 RT_HD void rt_logp_grad_chain(int c, int n, const float* q, float* lp,
                               float* g, const RtCols& cols,
                               const RtRows& rows, int stream_cols,
@@ -515,33 +817,60 @@ RT_HD void rt_logp_grad_chain(int c, int n, const float* q, float* lp,
   RT_STATE(x, RT_DIM, RT_OFF_X);
   RT_STATE(gx, RT_DIM, 2 * RT_DIM);
   RT_UNROLL
-  for (int d = 0; d < RT_DIM; ++d) x[d] = q[(size_t)d * n + c];
+  RT_FOR(d, RT_DIM) x[d] = q[(size_t)d * n + c];
+  RT_WS_SYNC();
   const float l = rt_density(x, gx, cols, rows, stream_cols, tile, ws);
+  RT_WS_SYNC();
   if (!live) return;
-  lp[c] = l;
+  if (RT_LANE == 0) lp[c] = l;
+#ifdef RT_WS_FLOATS
   RT_UNROLL
-  for (int d = 0; d < RT_DIM; ++d) g[(size_t)d * n + c] = gx[d];
+  RT_FOR(d, RT_DIM) g[(size_t)d * n + c] = gx[d];
+#else
+  RT_UNROLL
+  for (int d = 0; d < RT_DIM; ++d)
+    if (rt_mine(d)) g[(size_t)d * n + c] = gx[d];
+#endif
 }
 
 // bytes of one tile slot of shared memory; a streamed launch takes two
 #define RT_SMEM_BYTES (RT_TILE_FLOATS * (int)sizeof(float))
 
+// chain slots of a launch over n chains in blocks of `chains`: the
+// chains, then the copies that fill the last block
+static inline int rt_slots(int n, int chains) {
+  return (n + chains - 1) / chains * chains;
+}
+
+// whether `threads` make whole chains within the block limit
+static inline bool rt_threads_ok(int threads) {
+  return threads > 0 && threads % RT_LANES == 0 &&
+         threads <= RT_MAX_THREADS;
+}
+
 #ifdef __CUDACC__
 
-// the thread's slot of the workspace
-static __device__ __forceinline__ float* rt_slot(float* ws) {
+// the chain slot's part of the workspace
+static __device__ __forceinline__ float* rt_slot(float* ws, int s) {
 #ifdef RT_WS_FLOATS
-  return ws + ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * RT_WS_FLOATS;
+  return ws + (size_t)s * RT_WS_FLOATS;
 #else
+  (void)s;
   return ws;
 #endif
+}
+
+// this warp's chain slot (this thread's, without rows): a block's chains
+// one after another
+static __device__ __forceinline__ int rt_chain_slot() {
+  return (int)(blockIdx.x * (blockDim.x / RT_LANES) + threadIdx.x / RT_LANES);
 }
 
 // Each kernel is instantiated once for each value of the streaming flag,
 // a constant there, so that the other tile loop is compiled out (the note
 // on streamed columns above says why); the launch picks one at run time.
 template <int kStream>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(RT_MAX_THREADS)
     fused_hmc_kernel(int n, const float* q0, const float* scale,
                      int scale_per_chain, const float* eps,
                      const float* p_noise, const float* u_noise, float* qf,
@@ -550,19 +879,21 @@ __global__ void __launch_bounds__(128)
                      const int* collect_pos, int n_collect, uint32_t seed,
                      RtCols cols, RtRows rows, float* ws) {
   extern __shared__ float tile[];
-  rt_hmc_chain(blockIdx.x * blockDim.x + threadIdx.x, n, q0, scale,
-               scale_per_chain, eps, p_noise, u_noise, qf, samples, acc, div,
-               n_iterations, n_steps, collect_every, collect_pos, n_collect,
-               seed, cols, rows, kStream, tile, rt_slot(ws));
+  const int s = rt_chain_slot();
+  rt_hmc_chain(s, n, q0, scale, scale_per_chain, eps, p_noise, u_noise, qf,
+               samples, acc, div, n_iterations, n_steps, collect_every,
+               collect_pos, n_collect, seed, cols, rows, kStream, tile,
+               rt_slot(ws, s));
 }
 
 template <int kStream>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(RT_MAX_THREADS)
     logp_grad_kernel(int n, const float* q, float* lp, float* g,
                      RtCols cols, RtRows rows, float* ws) {
   extern __shared__ float tile[];
-  rt_logp_grad_chain(blockIdx.x * blockDim.x + threadIdx.x, n, q, lp, g,
-                     cols, rows, kStream, tile, rt_slot(ws));
+  const int s = rt_chain_slot();
+  rt_logp_grad_chain(s, n, q, lp, g, cols, rows, kStream, tile,
+                     rt_slot(ws, s));
 }
 
 // the instantiation for the flag `s` (a column-free model has one)
@@ -582,10 +913,11 @@ static int rt_smem_opt_in(K kernel, int bytes) {
 }
 
 // Both launches go on `stream` and return cudaGetLastError(): a refused
-// launch never runs, so the wrapper raises on any nonzero code.  `ws`
-// holds RT_WS_FLOATS floats for each of blocks × threads slots (null for
-// a model without a workspace).  `stream_cols` streams the column tiles
-// through two slots of shared memory.
+// launch never runs, so the wrapper raises on any nonzero code.  Blocks
+// of `threads` threads hold threads / RT_LANES chains each; `ws` holds
+// RT_WS_FLOATS floats for each of their chain slots (null for a model
+// without a workspace).  `stream_cols` streams the column tiles through
+// two slots of shared memory.
 extern "C" int rt_fused_hmc_launch(int n, const float* q0,
                                    const float* scale, int scale_per_chain,
                                    const float* eps, const float* p_noise,
@@ -598,11 +930,12 @@ extern "C" int rt_fused_hmc_launch(int n, const float* q0,
                                    const int* n_rows, float* ws,
                                    int threads, int stream_cols,
                                    void* stream) {
+  if (!rt_threads_ok(threads)) return (int)cudaErrorInvalidValue;
   const auto kernel = RT_PICK(fused_hmc_kernel, stream_cols);
   const int smem = (stream_cols ? 2 : 1) * RT_SMEM_BYTES;
   const int rc = rt_smem_opt_in(kernel, smem);
   if (rc != 0) return rc;
-  const int blocks = (n + threads - 1) / threads;
+  const int blocks = rt_slots(n, threads / RT_LANES) / (threads / RT_LANES);
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       n, q0, scale, scale_per_chain, eps, p_noise, u_noise, qf, samples, acc,
       div, n_iterations, n_steps, collect_every, collect_pos, n_collect, seed,
@@ -615,11 +948,12 @@ extern "C" int rt_logp_grad_launch(int n, const float* q, float* lp,
                                    const int* n_rows, float* ws,
                                    int threads, int stream_cols,
                                    void* stream) {
+  if (!rt_threads_ok(threads)) return (int)cudaErrorInvalidValue;
   const auto kernel = RT_PICK(logp_grad_kernel, stream_cols);
   const int smem = (stream_cols ? 2 : 1) * RT_SMEM_BYTES;
   const int rc = rt_smem_opt_in(kernel, smem);
   if (rc != 0) return rc;
-  const int blocks = (n + threads - 1) / threads;
+  const int blocks = rt_slots(n, threads / RT_LANES) / (threads / RT_LANES);
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       n, q, lp, g, rt_cols(cols), rt_rows(n_rows), ws);
   return (int)cudaGetLastError();
@@ -629,23 +963,19 @@ extern "C" int rt_logp_grad_launch(int n, const float* q, float* lp,
 
 #include <vector>
 
-// The host entries run every slot of the launch's `threads`-thread blocks
-// one after another, the ragged edge's copies included, each in its own
-// slot of the workspace (blocks × threads slots, as on the card), with two
-// tile slots for `stream_cols`.
+// The host entries run every chain slot of the launch's `threads`-thread
+// blocks one after another, the ragged edge's copies included, each in
+// its own slot of the workspace (as on the card), with two tile slots for
+// `stream_cols`.  They return 1 for threads that make no whole chains.
 
-// slot c of the workspace
-static float* rt_slot(float* ws, int c) {
+// chain slot s's part of the workspace
+static float* rt_slot(float* ws, int s) {
 #ifdef RT_WS_FLOATS
-  return ws + (size_t)c * RT_WS_FLOATS;
+  return ws + (size_t)s * RT_WS_FLOATS;
 #else
-  (void)c;
+  (void)s;
   return ws;
 #endif
-}
-
-static int rt_slots(int n, int threads) {
-  return (n + threads - 1) / threads * threads;
 }
 
 extern "C" int rt_fused_hmc_host(int n, const float* q0, const float* scale,
@@ -658,14 +988,15 @@ extern "C" int rt_fused_hmc_host(int n, const float* q0, const float* scale,
                                  const void* const* cols,
                                  const int* n_rows, float* ws, int threads,
                                  int stream_cols) {
+  if (!rt_threads_ok(threads)) return 1;
   std::vector<float> tile(2 * RT_TILE_FLOATS + 1);
   const RtCols c_cols = rt_cols(cols);
   const RtRows rows = rt_rows(n_rows);
-  for (int c = 0; c < rt_slots(n, threads); ++c)
-    rt_hmc_chain(c, n, q0, scale, scale_per_chain, eps, p_noise, u_noise,
+  for (int s = 0; s < rt_slots(n, threads / RT_LANES); ++s)
+    rt_hmc_chain(s, n, q0, scale, scale_per_chain, eps, p_noise, u_noise,
                  qf, samples, acc, div, n_iterations, n_steps, collect_every,
                  collect_pos, n_collect, seed, c_cols, rows, stream_cols,
-                 tile.data(), rt_slot(ws, c));
+                 tile.data(), rt_slot(ws, s));
   return 0;
 }
 
@@ -673,12 +1004,13 @@ extern "C" int rt_logp_grad_host(int n, const float* q, float* lp, float* g,
                                  const void* const* cols,
                                  const int* n_rows, float* ws, int threads,
                                  int stream_cols) {
+  if (!rt_threads_ok(threads)) return 1;
   std::vector<float> tile(2 * RT_TILE_FLOATS + 1);
   const RtCols c_cols = rt_cols(cols);
   const RtRows rows = rt_rows(n_rows);
-  for (int c = 0; c < rt_slots(n, threads); ++c)
-    rt_logp_grad_chain(c, n, q, lp, g, c_cols, rows, stream_cols,
-                       tile.data(), rt_slot(ws, c));
+  for (int s = 0; s < rt_slots(n, threads / RT_LANES); ++s)
+    rt_logp_grad_chain(s, n, q, lp, g, c_cols, rows, stream_cols,
+                       tile.data(), rt_slot(ws, s));
   return 0;
 }
 

@@ -99,6 +99,82 @@ RT_HD void rt_copy_wait_prior1() {
 #endif
 }
 
+// Lanes.  A chain with rows runs on the RT_LANES = 32 lanes of one warp
+// (the kernel defines RT_LANES, or a workspace model's header does: 1
+// for a model without rows, whose chain is one thread): each lane takes
+// every 32nd row of a tile, and in a workspace model every 32nd element
+// of each pass over the chain's arrays (RT_LANE, RT_LSTEP).  The lanes'
+// partial sums meet in an xor butterfly: each stage adds a pair of
+// values in both of its lanes, and f32 addition commutes, so every lane
+// ends with the same bits.  Host code is one lane that walks every
+// element (RT_LANE 0, RT_LSTEP 1) and keeps each lane's partial sum in an
+// array, added up in the butterfly's order (rt_lane_tree), so the host
+// build sums in the card's order.  The macros expand where they are
+// used, after RT_LANES is defined.
+#ifdef __CUDA_ARCH__
+#define RT_LANE ((int)threadIdx.x % RT_LANES)
+#define RT_LSTEP RT_LANES
+#define RT_WARP_SYNC()                 \
+  do {                                 \
+    if (RT_LANES > 1) __syncwarp();    \
+  } while (0)
+// a lane's partial sum `name` of values v of elements i, then the sum
+// over the lanes in every lane; element j's value, broadcast from its lane
+#define RT_PART(T, name) T name = 0
+#define RT_ADD(name, i, v) name += (v)
+#define RT_SUM(name) name = rt_warp_sum<RT_LANES>(name)
+#define RT_BCAST(name, j) name = rt_lane_bcast<RT_LANES>(name, (j) % RT_LANES)
+#else
+#define RT_LANE 0
+#define RT_LSTEP 1
+#define RT_WARP_SYNC() \
+  do {                 \
+  } while (0)
+#define RT_PART(T, name) \
+  T name##_l[RT_LANES] = {}; \
+  T name = 0
+#define RT_ADD(name, i, v) name##_l[(i) % RT_LANES] += (v)
+#define RT_SUM(name) name = rt_lane_tree<RT_LANES>(name##_l)
+#define RT_BCAST(name, j) (void)(j)
+#endif
+
+// the sum of L lanes' values v[0, L) in the butterfly's order (v is
+// overwritten): after the stage of offset o, v[l] for l < o holds what
+// lane l holds on the card
+template <int L, typename T>
+RT_HD T rt_lane_tree(T* v) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) {
+#pragma unroll
+    for (int l = 0; l < o; ++l) v[l] = v[l] + v[l + o];
+  }
+  return v[0];
+}
+
+// x summed over the L lanes of a warp, the same bits in every lane (host
+// code: x)
+template <int L, typename T>
+RT_HD T rt_warp_sum(T x) {
+#ifdef __CUDA_ARCH__
+  if constexpr (L > 1) {
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1)
+      x = x + __shfl_xor_sync(0xffffffffu, x, o);
+  }
+#endif
+  return x;
+}
+
+// lane src's x in every lane (host code: x)
+template <int L, typename T>
+RT_HD T rt_lane_bcast(T x, int src) {
+#ifdef __CUDA_ARCH__
+  if constexpr (L > 1) return __shfl_sync(0xffffffffu, x, src);
+#endif
+  (void)src;
+  return x;
+}
+
 // i clamped to [lo, hi]: the gather's mode="clip"
 RT_HD int rt_clampi(int i, int lo, int hi) {
   return i < lo ? lo : (i > hi ? hi : i);

@@ -10,60 +10,58 @@ the density over whole columns of any lengths; here the rows of each
 length are a row space with its own tile loop, and the columns no row
 reads row by row are read whole by the code outside the rows, so the
 wrapper passes every column's pointer and the rows of each space.  The
-CUDA kernel (``csrc/fused_hmc.cu``) gives each chain one thread and keeps
-its state in registers: momentum refresh
-(Philox4x32-10 + Box-Muller, ``csrc/philox.cuh``), ``n_steps``
-kick-drift-kick leapfrog steps with the model's density and gradient from
-C generated out of the Real DAG (``compute/emit_cuda.py``), the
-Metropolis accept, and the accept-rate and divergence sums.  A model with
-data adds, in every density call, its RowSum likelihoods over row tiles
-that the block's threads load into shared memory together; X·β and its
-adjoint are f32 multiply-adds in the kernel's body, on the CUDA cores.
-An integer index column (``IntColumn``, the GLMMs' site and year) is an
-int32 field of the tile; a ``Gather`` by it reads the chain's
-row-invariant vector at a clamped per-row index, and its adjoint adds
-there (``mode="clip"`` of the JAX kernel's gather, hmc_pallas.py:157 with
-rainier_tpu/compute/interp.py:379-383).
-For a model of up to ``emit_cuda.LOCAL_STATE_MAX`` parameters and
-row-invariant values, device memory is touched only to load q0, the
-column tiles, and to store the results and the collected draws.  A
-larger model (``benchmarks/models.py::glmm_large``: 10,002 parameters,
-10,000 row-invariant values) keeps each chain's arrays in a workspace
-that this wrapper allocates with ``torch.empty``: one contiguous slot of
-``EmittedDensity.workspace`` floats per thread of the launch, the
-ragged edge's copies included, so that each thread walks its own arrays
-in order and a line in L1 serves 32 elements.  The emitted density then
-runs its vectors as loops over memory, and the Philox words are
-generated group by group straight into the momentum.  The wrapper
-refuses, naming the bytes, a launch whose workspace does not fit the
-card's free memory.
-``collect_idx`` stores only the chosen coordinates of each draw, so a
-large model's draws need not hold all its coordinates.
+CUDA kernel (``csrc/fused_hmc.cu``) runs the whole sampling phase in one
+launch: momentum refresh (Philox4x32-10 + Box-Muller,
+``csrc/philox.cuh``), ``n_steps`` kick-drift-kick leapfrog steps with the
+model's density and gradient from C generated out of the Real DAG
+(``compute/emit_cuda.py``), the Metropolis accept, and the accept-rate
+and divergence sums.  A model without rows gives each chain one thread,
+its state in registers.  A model with data gives each chain one warp:
+its RowSum likelihoods are summed over row tiles that the block's
+threads load into shared memory together, and within a tile the warp's
+32 lanes split the rows (lane l takes rows l, l + 32, ...), their
+partial sums met by an xor butterfly that leaves the same bits in every
+lane; a block holds ``chains_per_block`` such warps, which all read each
+tile.  Up to ``emit_cuda.LANE_STATE_MAX`` parameters and row-invariant
+values every lane holds the whole chain state and runs the rest of the
+iteration redundantly; past it (GLMMPoisson2, 146 parameters;
+``benchmarks/models.py::glmm_large``, 10,002) each chain's arrays live in
+a workspace that this wrapper allocates with ``torch.empty``, one slot a
+chain, the ragged edge's copies included, and every pass over them is
+split over the lanes.  X·β and its adjoint are f32 multiply-adds in the
+kernel's body, on the CUDA cores.  An integer index column
+(``IntColumn``, the GLMMs' site and year) is an int32 field of the tile;
+a ``Gather`` by it reads the chain's row-invariant vector at a clamped
+per-row index, and its adjoint adds there (``mode="clip"`` of the JAX
+kernel's gather, hmc_pallas.py:157 with
+rainier_tpu/compute/interp.py:379-383), in a fixed order without
+atomics: into each lane's own copy, summed over the lanes once a density
+call, or, over the workspace, added by the warp row step by row step.
+The wrapper refuses, naming the bytes, a launch whose workspace does not
+fit the card's free memory.  ``collect_idx`` stores only the chosen
+coordinates of each draw, so a large model's draws need not hold all its
+coordinates.
 
-What bounds it on the H100: f32 ALU work and SFU work (``expf``, ``logf``,
-``cosf``, ``sqrtf``) of the density, its adjoints and the RNG.  For a
-model with its state in the workspace, the bytes every density call
-moves per chain instead (some 25 passes over arrays of its dimension: x,
-g, inv and ainv, the state), at one thread's memory latency, one warp
-on an SM; its blocks are of 4 threads, so that the 1024 chains of the
-main path spread over every SM and each warp access touches few lines.
-With data,
-the row terms dominate: n_rows × (row operations) per density call, on
-columns that are read from L2 where they fit it (the 100k × 11 floats of
-the logistic regression are 4.4 MB, against a 50 MB L2).  Larger columns
-(the 2M-row logistic's 88 MB) come from device memory in every density
-call, so such a launch streams them (``stream_columns``, the Pallas
-kernel's streamed branch, hmc_pallas.py:186-191, 305-351): each thread
-issues its share of tile t + 1 as ``cp.async`` copies into one of two
-shared-memory slots, then computes tile t's rows from the other, so the
-copies' latency, which the synchronous loader pays load after load, is
-hidden behind the rows (PERF.md times both).  And a
-run with few chains fills few SMs (1024 chains: 32 SMs with one warp
-each), and then instruction latency, not throughput, sets the time; the
-row loop is unrolled by four so independent rows overlap.  One warp per
-chain, its lanes splitting each tile's rows, is the redesign for a later
-PR (ROADMAP).  This version is a simple, correct kernel; PERF.md holds its
-times beside its bound.
+What bounds it on the H100: f32 ALU work and SFU work (``expf``,
+``logf``, ``cosf``, ``sqrtf``) of the density, its adjoints and the RNG,
+and, with data, the row terms: n_rows × (row operations) per density
+call and chain, on columns read from L2 where they fit it (the 100k × 11
+floats of the logistic regression are 4.4 MB, against a 50 MB L2).  With
+one warp a chain, 1024 chains are 1024 warps, 8 on each SM in blocks of
+8 chains, and a block's 256 threads load each tile once for its 8
+chains, so the L2 traffic of the tiles falls with W, and the time with
+it (PERF.md §6: the 100k logistic's kernel 793 ms at W = 8, 1,166 ms at
+W = 4); the ~2 barriers and one tile load per 8 rows a lane then stay
+in the way of the row arithmetic.  Larger columns (the 2M-row logistic's
+88 MB) come from device memory in every density call, so such a launch
+streams them (``stream_columns``, the Pallas kernel's streamed branch,
+hmc_pallas.py:186-191, 305-351): each thread issues its share of tile
+t + 1 as ``cp.async`` copies into one of two shared-memory slots, then
+computes tile t's rows from the other; its 512 chains run 4 to a block,
+so that 128 blocks keep the SMs busy.  A workspace model is bound by the
+latency of its passes over the slot (about 25 a density call) and of its
+rows' gathers and scatters there.  PERF.md holds every kernel's time
+beside its bound.
 
 Build: nvcc compiles the template plus the model's generated
 ``rt_model.h`` for ``sm_90a``, with a plain C interface, into
@@ -437,22 +435,44 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def threads_per_block(em, n: int) -> int:
-    """Threads of each block for a launch over n chains: 32-thread blocks
-    spread a small chain count over more SMs.  A model with its state in
-    the workspace is bound by each thread's memory latency, with one warp
-    on an SM, and runs faster the fewer lanes of a warp are live (fewer
-    L1 lines per access): 4-thread blocks."""
-    if em.workspace:
-        return 4
+# chains in a block of a model with rows, each a warp of emit_cuda.LANES
+# lanes, which share each row tile: WIDE_BLOCK where that still leaves
+# BLOCKS_MIN blocks for the card's 132 SMs (1024 chains: 128 blocks of
+# 8), else NARROW_BLOCK (512 chains: 128 blocks of 4).  On an H100 the
+# 100k logistic's kernel at 1024 chains took 793 ms at W = 8, 1,166 ms at
+# 4 and 1,911 ms at 2; the 2M-row logistic's at 512 chains 735 ms at 4
+# and 819 ms at 8 (tools/kernel_ab.py lanes, PERF.md §6).  At most 8:
+# csrc/fused_hmc.cu's launch bounds allow 256 threads.
+WIDE_BLOCK, NARROW_BLOCK, BLOCKS_MIN = 8, 4, 128
+
+
+def lanes_per_chain(em) -> int:
+    """Threads that run one chain: a warp for a model with rows, which
+    its lanes split; one thread for a model without."""
+    return emit_cuda.LANES if em.spaces else 1
+
+
+def chains_per_block(em, n: int) -> int:
+    """Chains of each block for a launch over n chains: for a model with
+    rows, warps that share each row tile (WIDE_BLOCK or NARROW_BLOCK);
+    without rows, threads, 32 a block to spread a small chain count over
+    more SMs."""
+    if em.spaces:
+        return WIDE_BLOCK if n >= WIDE_BLOCK * BLOCKS_MIN else NARROW_BLOCK
     return 128 if n >= 128 * 132 else 32
+
+
+def threads_per_block(em, n: int) -> int:
+    """Threads of each block for a launch over n chains."""
+    return chains_per_block(em, n) * lanes_per_chain(em)
 
 
 def workspace_bytes(em, n: int) -> int:
     """Bytes of the workspace a launch over n chains allocates: one slot
-    for every thread of its blocks (0 for a model without one)."""
-    t = threads_per_block(em, n)
-    return 4 * em.workspace * t * -(-n // t)
+    for every chain of its blocks, the ragged edge's copies included (0
+    for a model without one)."""
+    w = chains_per_block(em, n)
+    return 4 * em.workspace * w * -(-n // w)
 
 
 def free_bytes(device) -> int:

@@ -268,17 +268,19 @@ def test_wrapper_validates_its_arguments(monkeypatch):
     with pytest.raises(ValueError, match="n_steps >= 1"):
         F.fused_hmc(cd, torch.zeros(10, 4), **{**kw, "n_steps": 0})
     # a model over LOCAL_STATE_MAX parameters keeps its state in the
-    # workspace, one slot for every thread of the launch (the ragged
-    # edge's copies included); a launch whose workspace the device has no
-    # room for is refused, naming the bytes
+    # workspace, one slot for every chain of the launch's blocks (the
+    # ragged edge's copies included), with the 32 lanes' copies of the
+    # adjoints every row reads (here none: one float each); a launch whose
+    # workspace the device has no room for is refused, naming the bytes
     k = emit_cuda.LOCAL_STATE_MAX + 1
     effects = rtt.Normal(0, 1).latent_vec(k)
     data = rtt.Model.likelihood(R.RowSum(rtt.Normal(
         R.Gather(effects.element, R.IntColumn(np.arange(k))), 1.0)
         .log_density_at(R.Column(np.zeros(k))), k))
     em = emit_cuda.emit(data.density())
-    assert em.workspace == emit_cuda.workspace_floats(k, k, True) == 9 * k + 1
-    assert F.workspace_bytes(em, 37) == 4 * em.workspace * 40  # 4-thread
+    assert em.workspace == emit_cuda.workspace_floats(k, k, True) == \
+        9 * k + emit_cuda.LANES + 1
+    assert F.workspace_bytes(em, 37) == 4 * em.workspace * 40  # 4-chain
                                                                 # blocks
     assert F.workspace_bytes(emit_cuda.emit(cd), 37) == 0
     assert F.workspace_check(em, 37, "cpu") is None

@@ -221,7 +221,10 @@ def test_split_identity_holds_over_the_kernel_tiles(name):
 
 def test_emitted_gather_reads_and_scatters_the_invariant_block():
     """Each gather clamps its int32 index, reads inv at its block's
-    offset and scatters its adjoint to ainv there; the index columns are
+    offset and scatters its adjoint there: GLMMPoisson2, a model with
+    rows past emit_cuda.LANE_STATE_MAX parameters, keeps its state in the
+    workspace, so its row hands each gather's entry and adjoint to the
+    warp (sidx/sval), which adds them into ainv; the index columns are
     int32 fields of RtCols, carried bit for bit in the tile."""
     em = emit_cuda.emit(glmm_poisson(rtt)[0].density())
     assert (em.n_vars, em.n_rows, em.row_width, em.tile_rows) == (
@@ -232,7 +235,9 @@ def test_emitted_gather_reads_and_scatters_the_invariant_block():
     assert src.count("rt_int_bits(cols.c") == 2
     assert "rt_clampi(rt_bits_int(x[1]), 0, 39)" in src
     assert "rt_clampi(rt_bits_int(x[2]), 0, 99)" in src
-    assert src.count("ainv[3 + j") == 1 and src.count("ainv[43 + j") == 1
+    assert em.workspace and "#define RT_GATHERS 2" in src
+    assert src.count("sidx[1] = 3 + j") == 1       # eps, by year
+    assert src.count("sidx[0] = 43 + j") == 1      # alphas, by site
     # the row ops count the two gathers (clamp, address) and scatters
     assert F.op_count(em, 5) > 5 * em.n_rows * em.row_ops
 
@@ -425,7 +430,8 @@ def test_caps_refuse_larger_models_naming_the_size(monkeypatch):
         1.0).log_density_at(y), 2 * k))
     assert k <= emit_cuda.LOCAL_STATE_MAX
     em = emit_cuda.emit(wide.density())
-    assert em.n_inv == 2 * k and em.workspace == 7 * k + 4 * k
+    assert em.n_inv == 2 * k and em.workspace == \
+        7 * k + 2 * 2 * k + emit_cuda.LANES
     assert f"#define RT_WS_FLOATS {em.workspace}" in em.source
     glmm_large = glmm_poisson(rtt, 10_000, 1)[0]
     em = emit_cuda.emit(glmm_large.density())

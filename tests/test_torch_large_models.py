@@ -113,9 +113,10 @@ def test_full_size_glmm_large_matches_jax():
 def test_full_size_glmm_large_emits_loops_over_a_workspace():
     """The emitted density of glmm_large: every vector a loop (the header
     is a few hundred lines, not one per element), the 10,000 group
-    effects' block read only by the gather (so its adjoint accumulates in
-    place), restrict-qualified chain arrays, and the operation count of
-    every element."""
+    effects' block read only by the gather (so the row hands its adjoint
+    to the warp, which adds the lanes' into the chain's ainv),
+    restrict-qualified chain arrays, and the operation count of every
+    element."""
     cd = glmm_large(rtt).density()
     em = emit_cuda.emit(cd)
     assert (em.n_vars, em.n_inv, em.n_rows, em.row_width) == (
@@ -123,10 +124,11 @@ def test_full_size_glmm_large_emits_loops_over_a_workspace():
     assert em.workspace == emit_cuda.workspace_floats(10_002, 10_000, True)
     src = em.source
     assert len(src.splitlines()) < 300
-    assert src.count("for (int i = 0; i < 10000; ++i)") == 4
+    assert src.count(
+        "for (int i = RT_LANE; i < 10000; i += RT_LSTEP)") == 4
     assert "#define RT_NINV_DENSE 0" in src
-    assert "inv[0 + j" in src and "ainv[0 + j" in src
-    assert src.count("__restrict__") == 10          # every chain array
+    assert "inv[0 + j" in src and "sidx[0] = 0 + j" in src
+    assert src.count("__restrict__") == 12          # every chain array
     # each group's prior (forward and adjoint, the forward recomputed in
     # the adjoint loop) and its invariant value, 30 to 60 operations
     assert 30 * 10_000 < em.ops < 60 * 10_000
@@ -185,10 +187,10 @@ def warm_300():
 def test_host_compiled_kernel_matches_plain_version(noise, warm_300,
                                                     tmp_path):
     """The kernel's loop over its workspace on 300 groups against the
-    plain version: 13 chains in the wrapper's 4-thread blocks, so the
-    last block holds one chain and three copies of it, each copy in a
-    workspace slot of its own (the host build runs every slot, as the
-    card does); per-chain ε and Σ̂ from a scan-path warmup, and the
+    plain version: 13 chains in the wrapper's blocks of 4 chains (a warp
+    each), so the last block holds one chain and three copies of it, each
+    copy in a workspace slot of its own (the host build runs every slot,
+    its lanes emulated, as the card does); per-chain ε and Σ̂ from a scan-path warmup, and the
     collected coordinates mu, sd and every 100th effect.  The two sum
     the rows and the 300 priors in other orders, so ≥ 90% of chains end
     within 1e-3 (a flipped borderline accept sends a chain away), accept
@@ -199,7 +201,8 @@ def test_host_compiled_kernel_matches_plain_version(noise, warm_300,
     cd = model.density()
     lib, em = _host_library(cd, tmp_path)
     n, n_it, dim = 13, 12, cd.n_vars
-    assert F.threads_per_block(em, n) == 4
+    assert F.chains_per_block(em, n) == 4
+    assert F.threads_per_block(em, n) == 4 * 32
     assert F.workspace_bytes(em, n) == 4 * em.workspace * 16
     rng = np.random.default_rng(2)
     kw = dict(step_size=eps * torch.as_tensor(rng.uniform(0.8, 1.2, n),
@@ -356,8 +359,11 @@ def test_loop_shapes_match_autograd_and_jax(k, tmp_path):
     lpg, em = _compile_host(cd, tmp_path)
     assert bool(em.workspace) == (k > emit_cuda.LOCAL_STATE_MAX)
     src = em.source
-    assert f"for (int i = 0; i < {k}; ++i)" in src
-    assert "for (int i = 0; i < 24; ++i)" in src
+    # over the workspace the lanes of a chain split each loop's elements
+    head = ("for (int i = RT_LANE; i < {}; i += RT_LSTEP)" if em.workspace
+            else "for (int i = 0; i < {}; ++i)")
+    assert head.format(k) in src
+    assert head.format(24) in src
     assert "if (i == 3) k" in src                 # the element read
     lpg_j = jax.value_and_grad(cdj.logp_fn())
     rng = np.random.default_rng(4)

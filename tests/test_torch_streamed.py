@@ -75,7 +75,7 @@ def test_host_streamed_kernel_is_bit_identical(model, noise, tmp_path):
     """The kernel's loop with its tiles streamed through two slots gives
     the synchronous loop's final q, draws, accept rates and divergences
     exactly: both read the same rows from a slot in the same order.
-    37 chains in 32-thread blocks leave a ragged block; both models end
+    37 chains in blocks of 4 leave a ragged block; both models end
     on a ragged tile, and the GLMM's index columns are int32."""
     cd = (logistic if model == "logistic" else small_glmm)(rtt).density()
     lib, em = _host_library(cd, tmp_path)

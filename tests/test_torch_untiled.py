@@ -256,11 +256,12 @@ def _inputs(cd, model, n, n_it, noise, seed=2):
 
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_host_kernel_matches_plain_version(name, tmp_path):
-    """The kernel's loop (g++ host build, 37 chains in 32-thread blocks:
-    a ragged block) against the plain version with explicit noise: the
-    two sum rows in other orders, so ≥ 90% of chains end within 1e-3 (a
-    flipped borderline accept sends a chain away) and accept rates agree
-    within 0.05 on average, the bar of test_torch_columns.py."""
+    """The kernel's loop (g++ host build, 37 chains in blocks of 4, a
+    warp each: a ragged block) against the plain version with explicit
+    noise: the two sum rows in other orders, so ≥ 90% of chains end
+    within 1e-3 (a flipped borderline accept sends a chain away) and
+    accept rates agree within 0.05 on average, the bar of
+    test_torch_columns.py."""
     model = MODELS[name](rtt)
     cd = model.density()
     lib, em = _host_library(cd, tmp_path)
