@@ -67,7 +67,15 @@ printing one line:
   logistic too) and, at the main path's 512 chains, against its plain
   version, and ``Model.sample(kernel="fused!")`` held to the scan-path
   run by per-chain moments.  Its phases print their seconds and the card's peak
-  memory.
+  memory;
+* the samplers that run outside the kernel, on the scan path, through
+  ``Model.sample``: eight schools (``benchmarks/models.py:49-60``) with
+  NUTS(max_depth=8) and dense mass, held to a quadrature of its posterior
+  in numpy f64 (means of mu, tau and theta_1 within 0.05 posterior SD, SDs
+  of mu and tau within 5%, rank-r̂ < 1.01), and the funnel under the
+  default config, EHMC(1024) synchronized, held to the funnel's bars with
+  the same gradient evaluations on every chain; each prints what its
+  lockstep loops paid (steps and host syncs an iteration).
 
 Any failed check raises and exits nonzero.  The third line from the end
 is a JSON object with each kernel's launches on its main path, error
@@ -158,6 +166,26 @@ LOGIT2M_CHECK_DRAWS, LOGIT2M_CHECK_INIT = 128, 32
 # streamed against synchronous and against the plain version, at the main
 # path's width over this many iterations
 LOGIT2M_AB_ITERS = 2
+# eight schools (benchmarks/models.py:44-60, non-centred, 10 parameters)
+# under the reference's eight_schools_nuts (benchmarks/e2e.py:92-95) with
+# the BASELINE's full adaptation (dense mass), held to a quadrature on a
+# grid of (mu from, to, points) and (tau from, to, points)
+EIGHT_Y = [28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0]
+EIGHT_SIGMA = [15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0]
+# iterations cut from the reference's 1000 + 1000 for the script's time:
+# a lockstep leaf costs 6-9 ms of host-bound eager PyTorch on the card's
+# host, some 31 of them a warmup iteration and 21 a draw.  Rank-r̂ sits
+# near √(1 + (τ_int − 1)/n) for n draws a half chain, τ_int ~5, and a
+# shorter warmup raises it too, so neither is cut below what keeps it
+# clear of 1.01 (PERF.md §4)
+NUTS_WARMUP, NUTS_DRAWS, NUTS_DEPTH = 500, 750, 8
+QUAD_MU, QUAD_TAU = (-40.0, 50.0, 1801), (0.0, 200.0, 8001)
+# bars: means within this many posterior SDs, SDs within this fraction
+NUTS_MEAN_SD, NUTS_SD_REL = 0.05, 0.05
+# the funnel under the default config (the reference's ehmc_default,
+# benchmarks/e2e.py:96-104): EHMC(1024), synchronized; iterations cut from
+# 1000 + 1000 for the script's time (PERF.md §4)
+EHMC_WARMUP, EHMC_DRAWS = 500, 500
 
 
 def funnel(rt):
@@ -166,6 +194,48 @@ def funnel(rt):
     y = rt.Normal(0.0, 3.0).latent()
     xv = rt.Normal(0.0, (y / 2).exp()).latent_vec(9)
     return rt.Model.track_({y} | set(xv.to_list())), y
+
+
+def eight_schools(rt):
+    """benchmarks/models.py:49-60: mu ~ N(0, 5), tau = |Cauchy(0, 5)|,
+    theta_i ~ N(mu, tau) non-centred, y_i ~ N(theta_i, sigma_i).
+    Returns (model, mu, tau, theta_1)."""
+    mu = rt.Normal(0, 5).latent()
+    tau = rt.Cauchy(0, 5).latent().abs()
+    thetas = rt.Normal(mu, tau).latent_vec(len(EIGHT_Y))
+    model = rt.Model.empty()
+    for i, (y, s) in enumerate(zip(EIGHT_Y, EIGHT_SIGMA)):
+        model = model.merge(rt.Model.observe([y], rt.Normal(thetas[i], s)))
+    return model, mu, tau, thetas[0]
+
+
+def eight_schools_quadrature(mu_grid=QUAD_MU, tau_grid=QUAD_TAU):
+    """Posterior (mean, SD) of mu, tau and theta_1 of eight schools, by
+    quadrature in numpy f64, independent of the port: theta integrated out
+    (y_i | mu, tau ~ N(mu, sigma_i² + tau²)), then a grid over (mu, tau)
+    of N(mu; 0, 5²) · half-Cauchy(tau; 5) · Π_i N(y_i; mu, sigma_i² +
+    tau²).  theta_1 | mu, tau, y is normal with the precision-weighted
+    mean and variance tau²·sigma_1² / (tau² + sigma_1²)."""
+    mu = np.linspace(*mu_grid)[:, None]
+    tau = np.linspace(*tau_grid)[None, :]
+    y, s2 = np.asarray(EIGHT_Y), np.asarray(EIGHT_SIGMA) ** 2
+    logp = -0.5 * (mu / 5.0) ** 2 - np.log1p((tau / 5.0) ** 2)
+    for yi, si2 in zip(y, s2):
+        v = si2 + tau ** 2
+        logp = logp - 0.5 * np.log(v) - 0.5 * (yi - mu) ** 2 / v
+    w = np.exp(logp - logp.max())
+    w /= w.sum()
+
+    def moments(mean, var=0.0):
+        m = float(np.sum(w * mean))
+        return m, float(np.sqrt(np.sum(w * ((mean - m) ** 2 + var))))
+
+    t2 = tau ** 2
+    grid = np.broadcast_to
+    return {"mu": moments(grid(mu, w.shape)),
+            "tau": moments(grid(tau, w.shape)),
+            "theta_1": moments((y[0] * t2 + mu * s2[0]) / (t2 + s2[0]),
+                               t2 * s2[0] / (t2 + s2[0]))}
 
 
 def readme_regression(rt):
@@ -682,15 +752,16 @@ def time_kernel(F, cd, em, tr, n_steps, device, col_bytes, what, reps=1,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def rank_rhat(tr, device):
+def rank_rhat(chains, device):
     """Max over the parameters of the rank-normalized split r̂ (Vehtari et
-    al. 2021), the statistic of Trace.diagnostics(rank_normalized=True),
-    computed in f64 on the card: pooled ranks with ties averaged, normal
-    scores, then split-chain r̂.  The host pipeline takes minutes for the
-    GLMM's 146 parameters × 1024 chains × 1000 draws."""
+    al. 2021) of draws (chains, draws, parameters), the statistic of
+    Trace.diagnostics(rank_normalized=True), computed in f64 on the card:
+    pooled ranks with ties averaged, normal scores, then split-chain r̂.
+    The host pipeline takes minutes for the GLMM's 146 parameters × 1024
+    chains × 1000 draws."""
     import torch
 
-    x = torch.as_tensor(tr.chains, dtype=torch.float64, device=device)
+    x = torch.as_tensor(chains, dtype=torch.float64, device=device)
     h = x.shape[1] // 2
     x = torch.cat([x[:, :h], x[:, h:2 * h]], dim=0)        # (2m, h, k)
     m, k = x.shape[0], x.shape[2]
@@ -750,7 +821,7 @@ def funnel_phases(F, cd, model, y, em, device, smi):
     launches = F.fused_hmc.launches
     ys = tr.evaluate(y)
     mean_y, var_y = float(np.mean(ys)), float(np.var(ys))
-    rhat = rank_rhat(tr, device)
+    rhat = rank_rhat(tr.chains, device)
     rhat_host = max(d.r_hat for d in tr.diagnostics(rank_normalized=True))
     check(abs(rhat - rhat_host) < 1e-9, ("rank r_hat card vs host", rhat,
                                          rhat_host))
@@ -949,7 +1020,7 @@ def readme_phases(F, readme, em, device):
     sig = tr.evaluate(sigma)
     mean, sd = draws.mean(0), draws.std(0)
     z = np.abs(mean - coef) / sd
-    rhat = rank_rhat(tr, device)
+    rhat = rank_rhat(tr.chains, device)
     print(f"phase main path, README regression: Model.sample(kernel="
           f"'fused!') {MAIN_CHAINS} chains x ({N_WARMUP} warmup + {N_DRAWS}"
           f" draws), HMC({N_STEPS}): fused_hmc launches {launches}, "
@@ -995,7 +1066,7 @@ def logistic_main(F, model, cd, em, w_map, cov, device, min_frac,
     sd_ref = np.sqrt(np.diag(cov))
     dmean = np.abs(flat.mean(0) - w_map) / sd_ref
     dsd = np.abs(flat.std(0) / sd_ref - 1.0)
-    rhat = rank_rhat(tr, device)
+    rhat = rank_rhat(tr.chains, device)
     print(f"phase main path, {what}: Model.sample(kernel="
           f"'fused!') {MAIN_CHAINS} chains x ({LOGIT_WARMUP} warmup + "
           f"{LOGIT_DRAWS} draws), HMC({LOGIT_STEPS}), "
@@ -1137,8 +1208,8 @@ def glmm_phases(F, model, cd, em, device):
     cfg = SamplerConfig(GLMM_WARMUP, GLMM_DRAWS, sampler=HMC(GLMM_STEPS))
 
     def summary(tr):
-        return (f"rank-r_hat max {rank_rhat(tr, device):.5f}, accept "
-                f"{float(np.mean(tr.accept_rate())):.3f}, divergences "
+        return (f"rank-r_hat max {rank_rhat(tr.chains, device):.5f}, "
+                f"accept {float(np.mean(tr.accept_rate())):.3f}, divergences "
                 f"{tr.divergences()}, step size median "
                 f"{float(np.median(tr.step_size)):.4g}, timings "
                 f"{tr.timings}")
@@ -1262,8 +1333,8 @@ def large_phases(F, model, cd, em, device):
     idx = large_collect()
 
     def summary(tr):
-        return (f"rank-r_hat max {rank_rhat(tr, device):.5f}, accept "
-                f"{float(np.mean(tr.accept_rate())):.3f}, divergences "
+        return (f"rank-r_hat max {rank_rhat(tr.chains, device):.5f}, "
+                f"accept {float(np.mean(tr.accept_rate())):.3f}, divergences "
                 f"{tr.divergences()}, step size median "
                 f"{float(np.median(tr.step_size)):.4g}, timings "
                 f"{tr.timings}")
@@ -1415,8 +1486,8 @@ def logit2m_phases(F, model, cd, em, x, ys, lcd, w_map, cov, device):
           if device.type == "cuda" else 0)
 
     def summary(tr):
-        return (f"rank-r_hat max {rank_rhat(tr, device):.5f}, accept "
-                f"{float(np.mean(tr.accept_rate())):.3f}, divergences "
+        return (f"rank-r_hat max {rank_rhat(tr.chains, device):.5f}, "
+                f"accept {float(np.mean(tr.accept_rate())):.3f}, divergences "
                 f"{tr.divergences()}, step size median "
                 f"{float(np.median(tr.step_size)):.4g}, timings "
                 f"{tr.timings}")
@@ -1501,6 +1572,117 @@ def logit2m_phases(F, model, cd, em, x, ys, lcd, w_map, cov, device):
             {**density_entry,
              "name": "rt_logp_grad_launch (logistic regression 2M rows, "
                      "streamed)", "launches": 0}]
+
+
+def loop_summary(counts, n_iters):
+    """What the batched loops of EHMC or NUTS paid over a run of
+    `n_iters` transitions (sampler.stats.COUNTS)."""
+    return (f"{counts.steps / n_iters:.2f} lockstep steps an iteration, "
+            f"{counts.syncs / n_iters:.2f} host syncs an iteration")
+
+
+def nuts_phase(rt, device):
+    """Eight schools through Model.sample with NUTS(max_depth=8) and dense
+    mass at 1024 chains, held to the quadrature: the means of mu, tau and
+    theta_1 (evaluated: tau, not the Cauchy coordinate, whose posterior is
+    symmetric in sign) within NUTS_MEAN_SD posterior SDs, the SDs of mu
+    and tau within NUTS_SD_REL, rank-r̂ < 1.01 on the three."""
+    from rainier_tpu_torch.ops import fused_hmc as F
+    from rainier_tpu_torch.sampler import (NUTS, DenseMassMatrixTuner,
+                                           SamplerConfig)
+    from rainier_tpu_torch.sampler.stats import COUNTS
+
+    t0 = time.perf_counter()
+    quad = eight_schools_quadrature()
+    print(f"phase quadrature, eight schools: {QUAD_MU[2]} x {QUAD_TAU[2]} "
+          f"grid in f64, (mean, SD) {quad} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    model, mu, tau, theta1 = eight_schools(rt)
+    cfg = SamplerConfig(NUTS_WARMUP, NUTS_DRAWS,
+                        sampler=NUTS(max_depth=NUTS_DEPTH),
+                        mass_matrix=DenseMassMatrixTuner())
+    F.fused_hmc.launches = 0
+    COUNTS.reset()
+    tr = model.sample(cfg, n_chains=MAIN_CHAINS, seed=0, device=device)
+    launches = F.fused_hmc.launches
+    n_iters = NUTS_WARMUP + NUTS_DRAWS
+    check(COUNTS.iterations == n_iters, COUNTS.iterations)
+    depths = COUNTS.depths.cpu().numpy()
+    got = {name: tr.evaluate(e).reshape(MAIN_CHAINS, NUTS_DRAWS)
+           for name, e in (("mu", mu), ("tau", tau), ("theta_1", theta1))}
+    rhat = rank_rhat(np.stack(list(got.values()), axis=-1), device)
+    secs = tr.timings["warmup_s"] + tr.timings["sample_s"]
+    print(f"phase main path, eight schools (NUTS, dense mass): "
+          f"Model.sample {MAIN_CHAINS} chains x ({NUTS_WARMUP} warmup + "
+          f"{NUTS_DRAWS} draws), NUTS(max_depth={NUTS_DEPTH}), "
+          f"DenseMassMatrixTuner: fused_hmc launches {launches}; (mean, SD) "
+          + ", ".join(f"{k} ({np.mean(v):.4f}, {np.std(v):.4f})"
+                      for k, v in got.items())
+          + f"; rank-r_hat max {rhat:.5f}, divergences {tr.divergences()}, "
+          f"tree depth mean "
+          f"{np.dot(depths, np.arange(len(depths))) / depths.sum():.3f} "
+          f"max {int(np.flatnonzero(depths).max())} (histogram "
+          f"{depths.tolist()}), {loop_summary(COUNTS, n_iters)}, "
+          f"{secs / COUNTS.steps * 1e3:.3f} ms a lockstep leaf, "
+          f"sampling-phase leaves a chain an iteration "
+          f"{np.mean(tr.stats.grad_evals) / NUTS_DRAWS:.2f}, "
+          f"accept {float(np.mean(tr.accept_rate())):.3f}, step size median "
+          f"{float(np.median(tr.step_size)):.4g}, timings {tr.timings}",
+          flush=True)
+    check(np.all(np.isfinite(tr.chains)) and tr.chains.shape == (
+        MAIN_CHAINS, NUTS_DRAWS, 10), tr.chains.shape)
+    check(tr.mass.cov.shape == (MAIN_CHAINS, 10, 10), tr.mass.cov.shape)
+    for k, v in got.items():
+        m, sd = quad[k]
+        check(abs(np.mean(v) - m) < NUTS_MEAN_SD * sd,
+              (k, "mean", float(np.mean(v)), m, sd))
+        if k != "theta_1":
+            check(abs(np.std(v) / sd - 1.0) < NUTS_SD_REL,
+                  (k, "SD", float(np.std(v)), sd))
+    check(rhat < 1.01, rhat)
+
+
+def ehmc_phase(rt, device):
+    """The model-built funnel under the default config, EHMC(1024)
+    synchronized, at 1024 chains: the funnel's bars, and the same
+    sampling-phase gradient evaluations on every chain (the shared draw)."""
+    from rainier_tpu_torch.ops import fused_hmc as F
+    from rainier_tpu_torch.sampler import SamplerConfig
+    from rainier_tpu_torch.sampler.stats import COUNTS
+
+    model, y = funnel(rt)
+    cfg = SamplerConfig(EHMC_WARMUP, EHMC_DRAWS)
+    F.fused_hmc.launches = 0
+    COUNTS.reset()
+    tr = model.sample(cfg, n_chains=MAIN_CHAINS, seed=0, device=device)
+    launches = F.fused_hmc.launches
+    n_iters = EHMC_WARMUP + EHMC_DRAWS
+    check(COUNTS.iterations == n_iters, COUNTS.iterations)
+    ys = tr.evaluate(y)
+    mean_y, var_y = float(np.mean(ys)), float(np.var(ys))
+    rhat = rank_rhat(tr.chains, device)
+    evals = tr.stats.grad_evals
+    secs = tr.timings["warmup_s"] + tr.timings["sample_s"]
+    print(f"phase main path, funnel (default config: EHMC): Model.sample "
+          f"{MAIN_CHAINS} chains x ({EHMC_WARMUP} warmup + {EHMC_DRAWS} "
+          f"draws), {cfg.sampler}: fused_hmc launches {launches}; mean(y) "
+          f"{mean_y:.4f}, var(y) {var_y:.4f}, rank-r_hat max {rhat:.5f}, "
+          f"divergences {tr.divergences()}, counting lanes a warmup "
+          f"iteration {float(COUNTS.counting) / EHMC_WARMUP:.3f}, E[L] in "
+          f"sampling {evals[0] / EHMC_DRAWS:.3f} (every chain's gradient "
+          f"evaluations equal: {bool(np.all(evals == evals[0]))}), "
+          f"{loop_summary(COUNTS, n_iters)}, "
+          f"{secs / n_iters * 1e3:.3f} ms an iteration, accept "
+          f"{float(np.mean(tr.accept_rate())):.3f}, step size median "
+          f"{float(np.median(tr.step_size)):.4g}, timings {tr.timings}",
+          flush=True)
+    check(np.all(np.isfinite(tr.chains)) and tr.chains.shape == (
+        MAIN_CHAINS, EHMC_DRAWS, 10), tr.chains.shape)
+    check(abs(mean_y) < 0.3 and abs(var_y / 9.0 - 1.0) < 0.15,
+          (mean_y, var_y))
+    check(rhat < 1.01, rhat)
+    check(np.all(evals == evals[0]), ("grad evals differ", evals.min(),
+                                      evals.max()))
 
 
 def main() -> int:
@@ -1601,6 +1783,12 @@ def main() -> int:
     kernels += logit2m_phases(F, l2model, cds["logistic regression 2M"],
                               ems["logistic regression 2M"], x2, ys2, lcd,
                               w_map, cov, device)
+
+    # -- samplers outside the kernel: NUTS with dense mass, and EHMC --------
+    with phase("eight schools (NUTS, dense mass)", device):
+        nuts_phase(rt, device)
+    with phase("funnel (default config: EHMC)", device):
+        ehmc_phase(rt, device)
     print(f"phase total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}))

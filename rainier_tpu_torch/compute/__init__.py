@@ -1,4 +1,4 @@
-from . import bounds, compiler, emit_cuda, interp, real, vec
+from . import bounds, cholesky, compiler, emit_cuda, interp, real, vec
 from .real import (Real, Constant, Parameter, VectorParameter, Column,
                    IntColumn, MatColumn, const, to_real, parameter,
                    vector_parameter, sum_, log_sum_exp, eq, lt, gt, lte,
@@ -8,8 +8,8 @@ from .vec import Vec
 from .compiler import CompiledDensity
 
 __all__ = [
-    "bounds", "compiler", "emit_cuda", "interp", "real", "vec", "Real",
-    "Constant", "Parameter", "VectorParameter", "Column", "IntColumn",
+    "bounds", "cholesky", "compiler", "emit_cuda", "interp", "real", "vec",
+    "Real", "Constant", "Parameter", "VectorParameter", "Column", "IntColumn",
     "MatColumn", "const", "to_real", "parameter", "vector_parameter",
     "sum_", "log_sum_exp", "eq", "lt", "gt", "lte", "gte", "compare",
     "lookup", "zero", "one", "two", "neg_one", "pi", "infinity",

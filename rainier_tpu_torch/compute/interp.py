@@ -159,6 +159,16 @@ class _TorchBackend:
 NUMPY_BACKEND = _NumpyBackend()
 
 
+def _gather(backend, node, memo):
+    """A Gather's value: the source's rows at the index, clamped.  A
+    literal index (``vec[i]``) is read on the host: as a 0-dim tensor on
+    the card, indexing by it would wait for the device at every call."""
+    src = memo[node.source.id]
+    if isinstance(node.index, R.Constant) and np.ndim(node.index.value) == 0:
+        return src[min(max(int(node.index.value), 0), src.shape[0] - 1)]
+    return backend.take(src, backend.to_int(memo[node.index.id]))
+
+
 def torch_backend(device) -> _TorchBackend:
     return _TorchBackend(device)
 
@@ -315,9 +325,7 @@ def evaluate(roots, env: Mapping[int, object], backend, dtype):
                         else torch.stack
                     memo[nid] = backend.take_along0(stack(vals), idx)
             elif isinstance(node, R.Gather):
-                src = memo[node.source.id]
-                idx = backend.to_int(memo[node.index.id])
-                memo[nid] = backend.take(src, idx)
+                memo[nid] = _gather(backend, node, memo)
             elif isinstance(node, (R.RowSum, R.VecSum)):
                 v = memo[node.child.id]
                 count = node.n_rows if isinstance(node, R.RowSum) else node.k
@@ -404,9 +412,7 @@ def evaluate_lanes(roots, env: Mapping[int, object], backend, dtype):
                 acc = term if acc is None else acc + term
             memo[nid] = acc
         elif isinstance(node, R.Gather):
-            src = memo[node.source.id]    # (k, C)
-            idx = backend.to_int(memo[node.index.id])
-            memo[nid] = backend.take(src, idx)  # (n, C)
+            memo[nid] = _gather(backend, node, memo)    # (k, C) -> (n, C)
         elif isinstance(node, (R.RowSum, R.VecSum)):
             v = memo[node.child.id]
             count = node.n_rows if isinstance(node, R.RowSum) else node.k

@@ -2,10 +2,12 @@
 
 The model itself needs no conversion — ``build(rt)`` rebuilds it through
 either package.  What crosses is the warmup's product (the JAX package's
-``WarmupProduct``, rainier_tpu/sampler/driver.py:70-78): chain positions,
-potentials and gradients, the mass diagonal and the step sizes, as numpy
-arrays with chains first.  With it a test can feed the JAX warmup into
-the port's sampling phase and compare the two kernels draw by draw.
+``WarmupProduct``, rainier_tpu/sampler/driver.py:70-78) as numpy arrays
+with chains first: chain positions, potentials and gradients, the mass
+diagonal or the dense Σ̂ and its Cholesky factor, the step sizes, and
+EHMC's ring of trajectory lengths.  With it a test can feed the JAX
+warmup into the port's sampling phase and compare the two kernels draw by
+draw.
 """
 
 from __future__ import annotations
@@ -17,45 +19,57 @@ from . import config
 from .sampler.driver import WarmupProduct
 from .sampler.leapfrog import ChainState
 from .sampler.mass import MassState
+from .sampler.samplers import RingBuffer
 from .sampler.stats import StatsState
-
-_KEYS = ("q", "potential", "grad", "mass_diag", "step_size")
 
 
 def warmup_product_from_numpy(d: dict, device=None) -> WarmupProduct:
-    """{'q' (C, n), 'potential' (C,), 'grad' (C, n), 'mass_diag' (C, n) or
-    None, 'step_size' (C,)} → the port's WarmupProduct in float32, the
-    fused kernel's type.  Warmup statistics are not carried: they start at
-    zero with prev_energy = potential."""
+    """{'q' (C, n), 'potential' (C,), 'grad' (C, n), 'mass_diag' (C, n),
+    'mass_cov' and 'mass_chol' (C, n, n), 'step_size' (C,), 'ring_buf'
+    (C, size), 'ring_idx' and 'ring_count' (C,)}, the mass and ring keys
+    None or absent where the run has none → the port's WarmupProduct in
+    float32, the fused kernel's type (the ring's positions int32).  Warmup
+    statistics are not carried: they start at zero with prev_energy =
+    potential."""
     dev = config.resolve_device(device)
 
-    def t(x):
-        return torch.as_tensor(np.array(x), dtype=torch.float32, device=dev)
+    def t(key, dtype=torch.float32):
+        x = d.get(key)
+        return None if x is None else torch.as_tensor(
+            np.array(x), dtype=dtype, device=dev)
 
-    potential = t(d["potential"])
+    potential = t("potential")
     zi = torch.zeros(potential.shape, dtype=torch.int32, device=dev)
     z = torch.zeros_like(potential)
     stats = StatsState(iterations=zi, divergences=zi, accept_sum=z,
                        grad_evals=zi, prev_energy=potential, energy_trans2=z,
                        e_count=z, e_mean=z, e_raw=z)
-    diag = d.get("mass_diag")
+    extra = () if d.get("ring_buf") is None else RingBuffer(
+        buf=t("ring_buf"), idx=t("ring_idx", torch.int32),
+        count=t("ring_count", torch.int32))
     return WarmupProduct(
-        chain=ChainState(q=t(d["q"]), potential=potential,
-                         grad=t(d["grad"])),
-        extra=(), mass=MassState(diag=None if diag is None else t(diag)),
-        step_size=t(d["step_size"]), warmup_stats=stats)
+        chain=ChainState(q=t("q"), potential=potential, grad=t("grad")),
+        extra=extra,
+        mass=MassState(diag=t("mass_diag"), cov=t("mass_cov"),
+                       chol=t("mass_chol")),
+        step_size=t("step_size"), warmup_stats=stats)
 
 
 def warmup_product_to_numpy(wp) -> dict:
     """The inverse: any WarmupProduct-shaped object (the port's, or the
     JAX package's with its arrays) → the dict of numpy arrays above."""
     def a(x):
+        if x is None:
+            return None
         if isinstance(x, torch.Tensor):
             x = x.detach().cpu()
         return np.asarray(x)
 
-    diag = wp.mass.diag
+    ring = wp.extra if hasattr(wp.extra, "buf") else None
     return {"q": a(wp.chain.q), "potential": a(wp.chain.potential),
-            "grad": a(wp.chain.grad),
-            "mass_diag": None if diag is None else a(diag),
-            "step_size": a(wp.step_size)}
+            "grad": a(wp.chain.grad), "mass_diag": a(wp.mass.diag),
+            "mass_cov": a(wp.mass.cov), "mass_chol": a(wp.mass.chol),
+            "step_size": a(wp.step_size),
+            "ring_buf": None if ring is None else a(ring.buf),
+            "ring_idx": None if ring is None else a(ring.idx),
+            "ring_count": None if ring is None else a(ring.count)}

@@ -23,16 +23,16 @@ class HMC:
 class EHMC:
     """Empirical HMC, Wu et al. 2018 (sampler/EHMC.scala).
 
-    `synchronized` (TPU extension, default on): at each sampling
-    iteration the per-chain empirical draws of the trajectory length are
-    replaced by their cross-chain maximum (`lax.pmax` over the vmapped
-    chain axis).  A vmapped batch already *pays* max(L) leapfrog steps
-    per iteration — lanes that drew shorter lengths sit masked — so
-    synchronizing is free in wall-clock and lets every chain integrate
-    the full trajectory (L remains independent of the chain state, so
-    the transition stays a valid MH kernel).  Set False for the
-    reference's strictly per-chain replay (EHMC.scala:52-63), e.g. when
-    running a single chain or reproducing reference behavior."""
+    `synchronized` (an extension of the reference, default on): every
+    chain replays ONE empirical draw of the trajectory length, the first
+    chain's, so a batch pays that draw's steps an iteration and not the
+    longest of its chains' draws; and in warmup each counting chain's
+    length lands in every chain's ring, at a counting rate scaled so the
+    batch adds p_count·buf_size lengths an iteration.  L stays independent
+    of every chain's state, so the transition remains a valid MH kernel
+    (rainier_tpu/sampler/samplers.py:164-246).  Set False for the
+    reference's strictly per-chain counting and replay
+    (EHMC.scala:52-63)."""
 
     max_steps: int = 1024
     min_steps: int = 1

@@ -13,7 +13,12 @@ counterpart of sampler/Driver.scala:6-120).
   package's ``kernel="pallas"``.
 
 Cross-chain pooled adaptation (config.pooled_adaptation) averages the
-acceptance statistics and variance estimates over the chain dimension.
+acceptance statistics and the Welford state (the variances, and the
+covariance of dense mass) over the chain dimension.
+
+EHMC, NUTS and dense mass run on the scan path only, as in the JAX
+package (its driver.py:532-536): the fused kernel samples with
+fixed-step HMC and identity or diagonal mass.
 """
 
 from __future__ import annotations
@@ -33,8 +38,8 @@ from .dualavg import (current_step_size, dual_avg_init, dual_avg_reset,
                       dual_avg_update, final_step_size,
                       find_reasonable_step_size)
 from .leapfrog import ChainState, try_stepping
-from .mass import (MassState, diag_mass, identity_mass, kinetic,
-                   mass_from_welford, welford_init, welford_update,
+from .mass import (MassState, dense_mass, diag_mass, identity_mass,
+                   kinetic, mass_from_welford, welford_init, welford_update,
                    window_masks)
 from .stats import StatsState, stats_init, stats_update
 
@@ -72,16 +77,21 @@ def _mass_kind(mass_cfg) -> str:
 
 
 def _initial_mass(mass_cfg, shape, dtype, device) -> MassState:
-    if isinstance(mass_cfg, C.DenseMassMatrixTuner) or (
-            isinstance(mass_cfg, C.StaticMassMatrix)
-            and mass_cfg.cov is not None):
-        raise NotImplementedError("dense mass comes in a later slice of the "
-                                  "port")
-    if isinstance(mass_cfg, C.StaticMassMatrix) and mass_cfg.diag is not None:
-        d = torch.as_tensor(mass_cfg.diag, dtype=dtype, device=device)
-        return diag_mass(d.expand(shape).clone())
+    """One mass a chain (rainier_tpu/sampler/driver.py:109-120)."""
+    n_chains, n_vars = shape
+    if isinstance(mass_cfg, C.StaticMassMatrix):
+        if mass_cfg.diag is not None:
+            d = torch.as_tensor(mass_cfg.diag, dtype=dtype, device=device)
+            return diag_mass(d.expand(shape).clone())
+        if mass_cfg.cov is not None:
+            cov = torch.as_tensor(mass_cfg.cov, dtype=dtype, device=device)
+            return dense_mass(cov.expand(n_chains, n_vars, n_vars).clone())
     if isinstance(mass_cfg, C.DiagonalMassMatrixTuner):
         return diag_mass(torch.ones(shape, dtype=dtype, device=device))
+    if isinstance(mass_cfg, C.DenseMassMatrixTuner):
+        # identity-valued placeholder with the dense structure
+        eye = torch.eye(n_vars, dtype=dtype, device=device)
+        return dense_mass(eye.expand(n_chains, n_vars, n_vars).clone())
     return identity_mass()
 
 
@@ -147,8 +157,9 @@ def run_warmup(lpg, n_vars: int, cfg: C.SamplerConfig, n_chains: int, gen,
         static_eps = torch.full((n_chains,), cfg.step_size.step_size,
                                 dtype=dtype, device=device)
         da = dual_avg_init(static_eps)
-    welford = welford_init(shape, dtype, device)
-    extra = samplers.init_extra(cfg.sampler)
+    dense = kind == "dense"
+    welford = welford_init(shape, dtype, device, dense)
+    extra = samplers.init_extra(cfg.sampler, n_chains, dtype, device)
     stats = stats_init(chain.potential + kinetic(mass, p_init))
 
     for it in range(W):
@@ -166,12 +177,16 @@ def run_warmup(lpg, n_vars: int, cfg: C.SamplerConfig, n_chains: int, gen,
         if close_mask[it]:
             w = welford
             if pooled:
-                w = w._replace(mean=w.mean.mean(0).expand(shape),
-                               raw=w.raw.mean(0).expand(shape))
+                # the JAX package's pmean of the whole Welford state
+                w = w._replace(
+                    mean=w.mean.mean(0).expand(shape),
+                    raw=w.raw.mean(0).expand(shape),
+                    cov_raw=None if w.cov_raw is None
+                    else w.cov_raw.mean(0).expand_as(w.cov_raw))
             mass = mass_from_welford(w, kind)
             if adaptive_step:
                 da = dual_avg_reset(da)
-            welford = welford_init(shape, dtype, device)
+            welford = welford_init(shape, dtype, device, dense)
         stats = stats_update(stats, res.log_accept, res.divergent,
                              res.energy, n_grads)
         chain = res.state

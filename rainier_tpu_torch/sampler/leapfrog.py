@@ -70,11 +70,24 @@ class TransitionResult(NamedTuple):
     energy: torch.Tensor     # H of the retained state (for E-BFMI)
 
 
-def _select(mask, a: ChainState, b: ChainState) -> ChainState:
-    m = mask[:, None]
-    return ChainState(q=torch.where(m, a.q, b.q),
-                      potential=torch.where(mask, a.potential, b.potential),
-                      grad=torch.where(m, a.grad, b.grad))
+def _select(mask, a, b):
+    """a where mask (C,), else b, field by field: tuples of (C,) and
+    (C, n) tensors such as ChainState."""
+    vals = (torch.where(mask if x.dim() == 1 else mask[:, None], x, y)
+            for x, y in zip(a, b))
+    return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
+
+
+def kdk_step(q, p, grad, step_size, mass: MassState, lpg: Callable):
+    """One fused kick-drift-kick leapfrog step, one gradient evaluation:
+    (q', p', logp', grad').  Chained, these are exactly an L-step
+    leapfrog; EHMC and NUTS take them one at a time."""
+    eps = _col(step_size)
+    p = p + 0.5 * eps * grad
+    q = q + eps * velocity(mass, p)
+    lp, grad = lpg(q)
+    p = p + 0.5 * eps * grad
+    return q, p, lp, grad
 
 
 def hmc_transition(gen, state: ChainState, step_size, n_steps: int,
@@ -105,3 +118,9 @@ def try_stepping(state: ChainState, p, step_size, mass: MassState,
     s1, p1 = leapfrog(state, p, step_size, 1, mass, lpg)
     h1 = s1.potential + kinetic(mass, p1)
     return log_accept_prob(h0, h1)
+
+
+def is_uturn(q_start, q_new, p_new):
+    """(q′−q)·p < 0 per chain, NaN ⇒ True (LeapFrog.isUTurn:35-47)."""
+    d = torch.sum((q_new - q_start) * p_new, dim=-1)
+    return torch.isnan(d) | (d < 0)

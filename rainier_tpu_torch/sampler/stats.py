@@ -46,3 +46,43 @@ def stats_update(st: StatsState, log_accept, divergent, energy,
         prev_energy=energy,
         energy_trans2=st.energy_trans2 + (energy - st.prev_energy) ** 2,
         e_count=e_count, e_mean=e_mean, e_raw=e_raw)
+
+
+class LoopCounts:
+    """What the batched loops of EHMC and NUTS paid since `reset()`.
+    Chains run in lockstep, so a loop takes a step while any chain still
+    needs one; each check of that (``bool(mask.any())``) waits for the
+    device.  Host integers cost nothing to keep; the per-chain sums stay
+    on the device until read.
+
+    * ``iterations``: EHMC and NUTS transitions;
+    * ``steps``: lockstep leapfrog steps (NUTS: leaves), what the batch
+      paid, steps of finished chains included;
+    * ``syncs``: device→host waits of the loops;
+    * ``counting``: EHMC counting lanes, summed over warmup iterations;
+    * ``depths``: NUTS tree depths, a histogram over chains and
+      iterations (index d counts trees of d doublings)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.iterations = 0
+        self.steps = 0
+        self.syncs = 0
+        self.counting = 0
+        self.depths = 0
+
+    def add_depths(self, hist) -> None:
+        """Add a depth histogram, padding the shorter of the two (runs of
+        another max_depth)."""
+        if isinstance(self.depths, torch.Tensor):
+            old = self.depths.to(hist.device)
+            n = max(len(old), len(hist))
+            hist = (torch.nn.functional.pad(hist, (0, n - len(hist)))
+                    + torch.nn.functional.pad(old, (0, n - len(old))))
+        self.depths = hist
+
+
+#: the process's counts, reset and read by callers that report them
+COUNTS = LoopCounts()

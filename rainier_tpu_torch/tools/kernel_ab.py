@@ -383,8 +383,8 @@ def adapt() -> None:
                           device=device)
         rhat = []
         for j in range(tr.chains.shape[2]):
-            one = type("T", (), {"chains": tr.chains[:, :, j:j + 1]})
-            rhat.append(round(cs.rank_rhat(one, device), 5))
+            rhat.append(round(cs.rank_rhat(tr.chains[:, :, j:j + 1],
+                                           device), 5))
         q = [0, 0.01, 0.5, 0.99, 1]
         print(f"RESULT adapt {name}: rank-r_hat by parameter {rhat}; "
               f"step size quantiles {q}: "

@@ -360,7 +360,9 @@ def test_port_imports_no_jax_and_no_rainier_tpu():
             "sys.modules['rainier_tpu'] = None; "
             "import rainier_tpu_torch, rainier_tpu_torch.interop, "
             "rainier_tpu_torch.ops.fused_hmc, "
-            "rainier_tpu_torch.core.mvnormal, chip_smoke; "
+            "rainier_tpu_torch.core.mvnormal, "
+            "rainier_tpu_torch.sampler.nuts, "
+            "rainier_tpu_torch.compute.cholesky, chip_smoke; "
             "bad = [m for m, v in sys.modules.items() if v is not None "
             "and m.split('.')[0] in ('jax', 'jaxlib', 'rainier_tpu')]; "
             "assert not bad, bad")

@@ -33,7 +33,8 @@ from rainier_tpu_torch.sampler import HMC, SamplerConfig
 from rainier_tpu_torch.sampler import dualavg, mass
 from rainier_tpu_torch.sampler.leapfrog import (ChainState, leapfrog,
                                                 log_accept_prob, try_stepping)
-from rainier_tpu_torch.sampler.driver import _fused_unsupported_reason
+from rainier_tpu_torch.sampler.driver import (_fused_unsupported_reason,
+                                              run_sampling)
 
 torch.set_num_threads(2)
 rtt.config.set_device("cpu")
@@ -270,16 +271,72 @@ def test_scan_path_adapts_per_chain_and_pooled():
         assert same if pooled else not same
 
 
-def test_unported_samplers_and_devices_raise(monkeypatch):
+def test_default_sampler_runs_and_devices_raise(monkeypatch):
     fm, _ = funnel(rtt)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fm.sample(SamplerConfig(5, 5), n_chains=2)
+    # the default config, EHMC(1024), samples on the scan path
+    tr = fm.sample(SamplerConfig(5, 5), n_chains=2, device="cpu")
+    assert tr.chains.shape == (2, 5, 10)
     monkeypatch.setattr(rtt.config, "_DEVICE", "cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fm.sample(SamplerConfig(5, 5, sampler=HMC(2)), n_chains=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fm.density().logp(np.zeros(10))
+
+
+@pytest.mark.parametrize("cfg", [
+    SamplerConfig(10, 10, sampler=rtt.sampler.EHMC(max_steps=16)),
+    SamplerConfig(10, 10, sampler=rtt.sampler.NUTS(max_depth=4)),
+    SamplerConfig(10, 10, sampler=HMC(3),
+                  mass_matrix=rtt.sampler.DenseMassMatrixTuner(4, 1.5, 2, 2)),
+], ids=["ehmc", "nuts", "dense-mass"])
+def test_fused_falls_back_to_the_scan_path_outside_fixed_step_diag(cfg):
+    fm, _ = funnel(rtt)
+    reason = ("fixed-step HMC" if not isinstance(cfg.sampler, HMC)
+              else "diagonal")
+    with pytest.raises(ValueError, match=reason):
+        fm.sample(cfg, n_chains=2, kernel="fused!")
+    with pytest.warns(UserWarning, match=reason):
+        tr = fm.sample(cfg, n_chains=2, kernel="fused")
+    assert tr.chains.shape == (2, 10, 10) and np.all(np.isfinite(tr.chains))
+
+
+def test_interop_round_trip_of_jax_ehmc_dense_warmup_product():
+    """A JAX warmup product under EHMC and dense mass (its ring and Σ̂
+    with its Cholesky factor) crosses to the port and back exactly, and
+    the port's scan path samples from it."""
+    model, _ = funnel(rtj)
+    cd = model.density()
+    lpg = cd.logp_and_grad_fn()
+    from rainier_tpu.sampler.driver import build_warmup_fn
+
+    cfg_j = rtj.SamplerConfig(
+        60, 10, sampler=rtj.sampler.EHMC(max_steps=32),
+        mass_matrix=rtj.sampler.DenseMassMatrixTuner(10, 1.5, 10, 10))
+    warm = jax.vmap(build_warmup_fn(lambda q: lpg(q, ()), cd.n_vars, cfg_j,
+                                    jnp.float32), axis_name="chains")
+    wp_j = warm(jax.random.split(jax.random.PRNGKey(0), 4))
+    d = interop.warmup_product_to_numpy(wp_j)
+    assert d["mass_diag"] is None and d["mass_cov"].shape == (4, 10, 10)
+    assert d["ring_buf"].shape == (4, 100) and int(d["ring_count"][0]) > 0
+    wp_t = interop.warmup_product_from_numpy(d, device="cpu")
+    back = interop.warmup_product_to_numpy(wp_t)
+    assert back.keys() == d.keys()
+    for k, v in d.items():
+        if v is None:
+            assert back[k] is None
+        else:
+            np.testing.assert_array_equal(back[k], v)
+    assert wp_t.extra.idx.dtype == torch.int32
+    cfg_t = SamplerConfig(60, 10, sampler=rtt.sampler.EHMC(max_steps=32))
+    cd_t = funnel(rtt)[0].density()
+    raw = cd_t.batched_logp_and_grad_fn()
+    cols = cd_t.column_values(torch.float32, torch.device("cpu"))
+    samples, stats, _ = run_sampling(lambda q: raw(q, cols), cfg_t, wp_t,
+                                     torch.Generator().manual_seed(0))
+    assert samples.shape == (4, 10, 10) and torch.isfinite(samples).all()
+    # synchronized replay: every chain took the same steps
+    assert (stats.grad_evals == stats.grad_evals[0]).all()
 
 
 def test_interop_round_trip_of_jax_warmup_product():
