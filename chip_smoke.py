@@ -13,7 +13,13 @@ printing one line:
 * the model-built Neal's funnel (column-free): the kernel against its
   plain PyTorch version in both RNG modes, ``Model.sample(kernel="fused!")``
   at 1024 chains with its posterior checked, the kernel's time at the
-  main path's shapes and at bench.py's throughput configuration;
+  main path's shapes (16 lanes a chain) and at bench.py's throughput
+  configuration (one thread a chain);
+* the same funnel at 1000 dimensions, past 256 parameters, so that its
+  chain state lives in the kernel's workspace, a warp a chain: the kernel
+  against its plain version in both RNG modes, ``Model.sample(kernel=
+  "fused!")`` at 1024 chains keeping 10 coordinates with y's posterior
+  checked, and the kernel's time at the main path's shapes;
 * the 100k-row, 10-feature logistic regression of
   ``benchmarks/models.py::logistic_regression`` (its data regenerated
   here from the same seed): the MAP and Laplace covariance by Newton's
@@ -101,6 +107,14 @@ PEAK_F32_OPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 N_WARMUP, N_DRAWS, MAIN_CHAINS, N_STEPS = 1000, 1000, 1024, 5
+# the funnel at WIDE_DIM dimensions (past 256 parameters: its state in the
+# kernel's workspace); its main path keeps WIDE_COLLECT coordinates (y's
+# and the first x's) of each draw, and its draws and parity iterations are
+# cut from the funnel's 1000 to 500 and 200 for the script's time (at 200
+# draws the rank-r_hat of the 10 coordinates came out 1.00992, too near
+# its bar of 1.01 for draws of a correct sampler)
+WIDE_DIM, WIDE_COLLECT = 1000, 10
+WIDE_WARMUP, WIDE_DRAWS, WIDE_PARITY_ITERS = 1000, 500, 200
 THROUGHPUT_CHAINS, THROUGHPUT_ITERS, THROUGHPUT_EPS = 524288, 500, 0.18
 PARITY_CHAINS, PARITY_ITERS = 1000, 200
 REL_TOL = 1e-4   # |kernel - plain| <= REL_TOL * max(1, |plain|), per chain
@@ -188,12 +202,27 @@ NUTS_MEAN_SD, NUTS_SD_REL = 0.05, 0.05
 EHMC_WARMUP, EHMC_DRAWS = 500, 500
 
 
-def funnel(rt):
+def funnel(rt, dim=10):
     """Neal's funnel, 10 dims, built through the model API
-    (__graft_entry__.py:9-14)."""
+    (__graft_entry__.py:9-14), or at `dim` dims (y and a (dim - 1)-vector).
+    Returns (model, y)."""
     y = rt.Normal(0.0, 3.0).latent()
-    xv = rt.Normal(0.0, (y / 2).exp()).latent_vec(9)
+    xv = rt.Normal(0.0, (y / 2).exp()).latent_vec(dim - 1)
     return rt.Model.track_({y} | set(xv.to_list())), y
+
+
+def linear_slot(cd, expr):
+    """(slot, factor) of an expression that is a factor times one
+    coordinate of the sampler's layout (the funnel's y = 3·z), found by
+    evaluating it at every unit vector in f64."""
+    from rainier_tpu_torch.compute import interp
+
+    vals = np.asarray(interp.evaluate_lanes(
+        [expr], cd.layout.env_for_lanes(np.eye(cd.n_vars)),
+        interp.NUMPY_BACKEND, np.float64)[0], dtype=np.float64).ravel()
+    check(np.count_nonzero(vals) == 1, ("not one coordinate", vals))
+    slot = int(np.flatnonzero(vals)[0])
+    return slot, float(vals[slot])
 
 
 def eight_schools(rt):
@@ -609,9 +638,11 @@ def kernel_bound_ms(em, n_chains, n_iters, n_steps, collect_every, F,
     """Least time the card could take for one fused_hmc call: the larger
     of its bytes over the memory rate and its operations over the f32
     rate (Philox integer operations counted at the f32 rate).  For a
-    model with its state in the workspace, each density call's workspace
-    bytes and each leapfrog step's momentum and position (read and
-    written) count too.  Columns past the card's L2 (`past_l2`) come from
+    model with its state in a workspace larger than the card's L2
+    (glmm_large's 369 MB), each density call's workspace bytes and each
+    leapfrog step's momentum and position (read and written) count too: a
+    workspace inside L2 (the 1000-dim funnel's 28.7 MB) need not reach
+    device memory.  Columns past the card's L2 (`past_l2`) come from
     device memory in every density call, so their bytes count once a
     call.  With explicit `noise` the kernel reads every iteration's
     momenta and uniform and runs no RNG.  The `whole` bytes of columns
@@ -627,7 +658,7 @@ def kernel_bound_ms(em, n_chains, n_iters, n_steps, collect_every, F,
         + n_out * n_collect * n_chains)
     if noise:
         nbytes += 4 * n_iters * n_chains * (dim + 1)
-    if em.workspace:
+    if F.workspace_bytes(em, n_chains) > (F.l2_bytes(DEVICE) or 0):
         nbytes += n_chains * (calls * workspace_call_bytes(em)
                               + n_iters * n_steps * 4 * 4 * dim)
     return _bound(ops, nbytes)
@@ -666,24 +697,35 @@ def nvidia_smi() -> str:
 
 def layout(F, em, n_chains):
     """How a launch over n_chains lays out the chains: lanes a chain and
-    chains a block."""
-    return (f"{F.lanes_per_chain(em)} lanes a chain, "
+    chains a block, and where a chain's state lives."""
+    return (f"{F.lanes_per_chain(em, n_chains)} lanes a chain, "
             f"{F.chains_per_block(em, n_chains)} chains a block of "
-            f"{F.threads_per_block(em, n_chains)} threads")
+            f"{F.threads_per_block(em, n_chains)} threads, state "
+            f"{'in a workspace slot' if em.workspace else 'in registers'}")
 
 
-def build_all(F, models):
-    """Build every model's kernel, one nvcc each, all started together;
-    print each build's sizes and what ptxas reports."""
+def build_all(F, models, launches):
+    """Build every model's kernel for each chain count its launches use
+    (`launches`: {name: counts}), one nvcc each, all started together;
+    print each build's layout, sizes and what ptxas reports.  Returns
+    each model's emitted density."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from rainier_tpu_torch.compute import emit_cuda
+
+    def build(job):
+        cd = models[job[0]]
+        return F.build(cd, F.lanes_per_chain(emit_cuda.emit(cd), job[1]))
+
+    jobs = [(name, n) for name in models for n in launches.get(
+        name, (MAIN_CHAINS,))]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(models)) as pool:
-        built = dict(zip(models, pool.map(F.build, models.values())))
-    print(f"phase build: {len(models)} kernels in "
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = dict(zip(jobs, pool.map(build, jobs)))
+    print(f"phase build: {len(jobs)} kernels in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     ems = {}
-    for name, (kernels, secs, em) in built.items():
+    for (name, n), (kernels, secs, em) in built.items():
         ptxas = " | ".join(
             line.split("ptxas info    : ")[-1].strip()
             for line in kernels.log.splitlines()
@@ -691,12 +733,13 @@ def build_all(F, models):
         spaces = "; ".join(f"{sp.n_rows} rows of {sp.row_width} floats, "
                            f"{sp.row_ops} ops a row, tile {sp.tile_rows} "
                            f"rows" for sp in em.spaces) or "no rows"
-        print(f"phase build: {name}: {layout(F, em, MAIN_CHAINS)}; "
+        print(f"phase build: {name} at {n} chains: {layout(F, em, n)}; "
               f"{em.n_vars} dims, {em.ops} ops per "
               f"logp+grad apart from rows, row spaces: {spaces}, "
               f"{whole_bytes(models[name])} bytes of columns read whole, "
               f"{em.n_inv} row-invariant values, "
-              f"workspace {em.workspace} floats a chain; "
+              f"workspace {em.workspace} floats a chain"
+              f"{' in shared memory' if em.shared else ''}; "
               f"{len(em.source.splitlines())} lines emitted; {secs:.2f} s; "
               f"ptxas: {ptxas}", flush=True)
         ems[name] = em
@@ -871,6 +914,84 @@ def funnel_phases(F, cd, model, y, em, device, smi):
              "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
              "replaces": "rainier_tpu/ops/hmc_pallas.py:244",
              "launches": 0, **noise_entry, "library_ms": None}]
+
+
+def funnel_truth(q):
+    """The funnel's lp and gradient at every column of q (dim, m), in f64
+    in closed form: in the sampler's coordinates (y = 3·q_0, x_i =
+    exp(y/2)·q_i) every coordinate is a standard normal, so lp =
+    -|q|²/2 - (dim/2)·log 2π and g = -q."""
+    import torch
+
+    q = q.double()
+    return (-0.5 * (q * q).sum(0) - 0.5 * q.shape[0] * np.log(2 * np.pi),
+            -q)
+
+
+def wide_phases(F, cd, model, y, em, device):
+    """The funnel at WIDE_DIM dims, its state in the workspace, a warp a
+    chain: the density at full width against its f64 closed form, kernel
+    vs plain in both RNG modes, the main path keeping WIDE_COLLECT
+    coordinates held to the funnel's y bars, and the kernel at the main
+    path's shapes.  The density sums 999 terms, whose order the lanes
+    change, so the two versions' lp differ by E|Δlp| (measured by the
+    density check at the parity inputs, once it has held the kernel to
+    the f64 truth) and an accept may flip: the comparisons take the bar
+    of the models with data, at least agree_frac(n, E|Δlp|) of chains
+    within 1e-3 after n iterations.  Returns its JSON entries."""
+    import torch
+
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    q0, _ = parity_inputs(cd, device, MAIN_CHAINS, 1, False)
+    inits = SamplerConfig().init_scale * np.random.default_rng(8).normal(
+        size=(cd.n_vars, LOGIT_CHECK_INIT))
+    q = torch.cat([q0, torch.as_tensor(inits, dtype=torch.float32,
+                                       device=device)], dim=1)
+    dlp_mean, density_entry = density_check(
+        F, cd, em, q, funnel_truth(q), MAIN_CHAINS, "parity inputs", device,
+        "rainier_tpu/ops/hmc_pallas.py:257")
+    min_frac = agree_frac(WIDE_PARITY_ITERS, dlp_mean)
+    for explicit in (True, False):
+        parity_phase(F, cd, device, MAIN_CHAINS, WIDE_PARITY_ITERS, explicit,
+                     min_frac=min_frac, tol=1e-3, max_dacc=0.02)
+
+    slot, factor = linear_slot(cd, y)
+    idx = np.r_[slot, [d for d in range(WIDE_COLLECT) if d != slot]][
+        :WIDE_COLLECT]
+    cfg = SamplerConfig(WIDE_WARMUP, WIDE_DRAWS, sampler=HMC(N_STEPS))
+    F.fused_hmc.launches = 0
+    tr = model.sample(cfg, n_chains=MAIN_CHAINS, seed=0, kernel="fused!",
+                      device=device, collect_idx=idx)
+    launches = F.fused_hmc.launches
+    ys = factor * tr.chains[:, :, 0]
+    mean_y, var_y = float(np.mean(ys)), float(np.var(ys))
+    rhat = rank_rhat(tr.chains, device)
+    print(f"phase main path, funnel {WIDE_DIM}: Model.sample(kernel='fused!',"
+          f" collect_idx={WIDE_COLLECT} coordinates) {MAIN_CHAINS} chains x "
+          f"({WIDE_WARMUP} warmup + {WIDE_DRAWS} draws), HMC({N_STEPS}): "
+          f"fused_hmc launches {launches}, mean(y) {mean_y:.4f}, var(y) "
+          f"{var_y:.4f}, rank-r_hat max {rhat:.5f}, accept "
+          f"{float(np.mean(tr.accept_rate())):.3f}, divergences "
+          f"{tr.divergences()}, step size median "
+          f"{float(np.median(tr.step_size)):.4g}, timings {tr.timings}",
+          flush=True)
+    check(launches >= 1, f"fused_hmc launches {launches}")
+    check(np.all(np.isfinite(tr.chains)) and tr.chains.shape == (
+        MAIN_CHAINS, WIDE_DRAWS, WIDE_COLLECT), tr.chains.shape)
+    check(abs(mean_y) < 0.3 and abs(var_y / 9.0 - 1.0) < 0.15,
+          (mean_y, var_y))
+    check(rhat < 1.01, rhat)
+    entry = time_kernel(F, cd, em, tr, N_STEPS, device, 0,
+                        f"funnel {WIDE_DIM}", min_frac=min_frac, tol=1e-3,
+                        max_dacc=0.02, collect_idx=idx)
+    return [{"name": f"fused_hmc (funnel, {WIDE_DIM} dims, state in the "
+                     f"workspace)", "route": "cuda",
+             "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
+             "replaces": "rainier_tpu/ops/hmc_pallas.py:257",
+             "launches": launches, **entry, "library_ms": None},
+            {**density_entry, "name": f"rt_logp_grad_launch (funnel, "
+                                      f"{WIDE_DIM} dims)", "launches": 0}]
 
 
 def density_phase(F, cd, em, x, ys, w_map, cov, device):
@@ -1704,6 +1825,7 @@ def main() -> int:
 
     # -- build: every model's kernel at once --------------------------------
     fmodel, y = funnel(rt)
+    wmodel, wy = funnel(rt, WIDE_DIM)
     lmodel, x, ys = logistic_regression(rt)
     readme = readme_regression(rt)
     gmodel = glmm_poisson(rt)
@@ -1712,6 +1834,7 @@ def main() -> int:
     mv = mvnormal_logistic(rt, x, ys)
     smodel = split_logistic(rt, x, ys)
     cds = {"funnel": fmodel.density(),
+           f"funnel {WIDE_DIM}": wmodel.density(),
            "README regression": readme[0].density(),
            "logistic regression": lmodel.density(),
            "MVNormal logistic": mv[0].density(),
@@ -1720,12 +1843,17 @@ def main() -> int:
            "glmm_large": large.density(),
            "logistic regression 2M": l2model.density()}
     with phase("build", device):
-        ems = build_all(F, cds)
+        ems = build_all(F, cds, {"funnel": (MAIN_CHAINS, THROUGHPUT_CHAINS),
+                                 "logistic regression 2M": (
+                                     LOGIT2M_CHAINS,)})
 
     # -- the funnel: the column-free phases ----------------------------------
     with phase("funnel", device):
         kernels = funnel_phases(F, cds["funnel"], fmodel, y, ems["funnel"],
                                 device, smi)
+    with phase(f"funnel {WIDE_DIM}", device):
+        kernels += wide_phases(F, cds[f"funnel {WIDE_DIM}"], wmodel, wy,
+                               ems[f"funnel {WIDE_DIM}"], device)
 
     # -- the logistic regression at full width ------------------------------
     lcd, lem = cds["logistic regression"], ems["logistic regression"]

@@ -82,10 +82,11 @@ in ``inv`` (``RT_NINV_DENSE``), each lane sums their adjoints over its
 rows of a tile, and the kernel adds the lanes' in f32 per tile and f64
 across tiles.
 
-A model over ``LOCAL_STATE_MAX`` parameters or row-invariant values, or
-with rows over ``LANE_STATE_MAX``, keeps its chain state in a
-device-memory workspace (``RT_WS_FLOATS`` floats a chain,
-csrc/fused_hmc.cu): its functions then take ``__restrict__`` pointers,
+A model over ``LANE_STATE_MAX`` parameters or row-invariant values keeps
+its chain state in a slot of a workspace (``RT_WS_FLOATS`` floats a
+chain, csrc/fused_hmc.cu; in device memory, or for a model without rows
+up to ``LOCAL_STATE_MAX`` parameters in the block's shared memory): its
+functions then take ``__restrict__`` pointers,
 its loops split their elements over the ``RT_LANES`` lanes of the chain
 (lane l takes l, l + 32, ...) and are unrolled by eight, so that loads of
 several elements are in flight, their sums are lane partials added up by
@@ -93,6 +94,21 @@ several elements are in flight, their sums are lane partials added up by
 (``RT_BCAST``), and a parameter's scalar adjoint is added to ``g`` by lane
 0 alone.  Smaller models emit exactly the text they did before the
 workspace existed.
+
+A model without rows runs each chain on ``RT_LANES`` lanes, an aligned
+group of a warp's (csrc/fused_hmc.cu; ``ops/fused_hmc.py::lanes_per_chain``
+chooses how many).  Up to ``LANE_STATE_MAX`` parameters its text is the
+one-thread text above, every lane holding the whole state and running
+the density, and the build defines ``RT_LANES``: one text serves every
+lane count.  Past it, the workspace code above, the chain's slot in the
+block's shared memory up to ``LOCAL_STATE_MAX`` parameters
+(``RT_WS_SHARED``) and in the device workspace past it, a warp a chain
+(``RT_LANES`` 32 unless the build defines it), with every vector of more
+than one element a loop split over the lanes.  Scalars run in every lane, with the same bits
+in each.  A model that multiplies a matrix read whole by a vector (an
+``MVNormal`` prior without rows) keeps its vectors of up to
+``UNROLL_MAX`` unrolled there, in every lane, since such a ``MatVec``
+needs the whole vector in each lane.
 
 Outside the envelope, :class:`UnsupportedNode` names what is wrong: a
 ``Gather`` whose source varies by row or whose index is neither a
@@ -134,19 +150,22 @@ SMEM_BYTES_MAX = 232448
 # funnel's 9, the README's 3 and the logistic's 10 stay unrolled
 UNROLL_MAX = 16
 
-# Over this many parameters or row-invariant values a chain's state
-# lives in the kernel's device-memory workspace, not in per-thread arrays
+# Over this many parameters a chain without rows keeps its slot in the
+# kernel's device-memory workspace, not in the block's shared memory
 LOCAL_STATE_MAX = 256
-# ... and over this many for a model with rows, whose chain is a warp: in
-# per-thread arrays every lane holds the whole state, and past a few
-# dozen floats an array each spills to local memory that all 32 lanes
-# read and write, where the workspace splits each pass over the lanes
-# (GLMMPoisson2, 146 parameters: 756 ms against 1,239 ms for 1024 chains
-# x 500 iterations on an H100, tools/kernel_ab.py layouts, PERF.md §6)
+# Over this many parameters or row-invariant values a chain's state lives
+# in a slot, not in per-thread arrays: there every lane of a chain holds
+# the whole state, and past a few dozen floats an array each spills to
+# local memory that all the lanes read and write, where the slot splits
+# each pass over the lanes (GLMMPoisson2, 146 parameters: 756 ms against
+# 1,239 ms for 1024 chains x 500 iterations on an H100; the funnel at 100
+# dims, 1.7-1.8 ms against 22.3 at one thread a chain for 1024 x 200 x 5;
+# tools/kernel_ab.py layouts and columnfree, PERF.md §6)
 LANE_STATE_MAX = 32
 
-# Lanes of a chain with rows: the 32 threads of a warp split its rows
-# and, over the workspace, its passes (csrc/fused_hmc.cu, RT_LANES)
+# Lanes of a chain with rows, or with a slot: the 32 threads of a warp
+# split its rows and, over the slot, its passes (csrc/fused_hmc.cu,
+# RT_LANES)
 LANES = 32
 
 # The workspace's arrays do not overlap: said to nvcc, it may issue the
@@ -174,7 +193,9 @@ class EmittedDensity:
                           # order (empty: no row terms)
     n_inv: int = 0        # row-invariant values the row functions read
     workspace: int = 0    # floats of one chain's slot in the kernel's
-                          # device-memory workspace (0: state in registers)
+                          # workspace (0: state in registers)
+    shared: bool = False  # the slot lies in the block's shared memory,
+                          # not in the device-memory workspace
 
     @property
     def n_rows(self) -> int:
@@ -265,9 +286,10 @@ def _children_checked(node):
 
 
 class _Emitter:
-    def __init__(self, cd, ws: bool = False):
+    def __init__(self, cd, ws: bool = False, unroll: int = UNROLL_MAX):
         self.cd = cd
         self.ws = ws                      # state in the workspace
+        self.unroll = unroll              # longest vector kept unrolled
         self.fwd: list[str] = []
         self.rev: list[str] = []
         self.vals: dict[int, list[str]] = {}
@@ -360,7 +382,7 @@ class _Emitter:
             if node not in layout.parameters:
                 raise UnsupportedNode(f"parameter {node!r} outside layout")
             a, b = layout.slices[layout.parameters.index(node)]
-            if b - a > UNROLL_MAX:
+            if b - a > self.unroll:
                 self.loop_len[nid] = b - a
                 self.vals[nid] = [f"q[{a} + i]"]
                 self.adj[nid] = [f"g[{a} + i]"]
@@ -492,7 +514,7 @@ class _Emitter:
                     "CUDA emitter")
             else:
                 n = node.mat.n_rows
-                rows = ["i"] if n > UNROLL_MAX else list(range(n))
+                rows = ["i"] if n > self.unroll else list(range(n))
             self.define(node, ["(" + " + ".join(
                 f"{self.mat_entry(node.mat, r, j)} * {self.el(node.vec, j)}"
                 for j in range(p)) + ")" for r in rows], 2 * p - 1, n)
@@ -532,7 +554,7 @@ class _Emitter:
         self.grad[nid] = False
         if isinstance(node, R.MatColumn):
             self.wmats[nid] = j
-        elif node.n_rows > UNROLL_MAX:
+        elif node.n_rows > self.unroll:
             self.loop_len[nid] = node.n_rows
             self.vals[nid] = [f"cols.c{j}[i]"]
         else:
@@ -1178,13 +1200,11 @@ def emit(cd) -> EmittedDensity:
     """C source of the density for the CompiledDensity `cd`:
     ``rt_logp_grad`` over the column-free terms and, for a model with
     data, the row functions and tile loader of its RowSum likelihoods;
-    with the chain state in the kernel's workspace where the model has
-    over LOCAL_STATE_MAX parameters or row-invariant values, or, with
-    rows, over LANE_STATE_MAX."""
+    with the chain state in a slot of the kernel's workspace where the
+    model has over LANE_STATE_MAX parameters or row-invariant values."""
     if cd not in _EMITTED:
-        em = _emit(cd, cd.n_vars > LOCAL_STATE_MAX)
-        cap = LANE_STATE_MAX if em.spaces else LOCAL_STATE_MAX
-        if not em.workspace and max(em.n_vars, em.n_inv) > cap:
+        em = _emit(cd, cd.n_vars > LANE_STATE_MAX)
+        if not em.workspace and em.n_inv > LANE_STATE_MAX:
             em = _emit(cd, True)
         _EMITTED[cd] = em
     return _EMITTED[cd]
@@ -1208,12 +1228,19 @@ def _emit(cd, ws: bool) -> EmittedDensity:
     except NoRowSplit as e:
         raise UnsupportedNode(
             f"{e} is not supported by the CUDA emitter") from None
+    # a slot of a chain without rows: every vector a loop split over its
+    # lanes, unless a MatVec reads a matrix whole (see the docstring), and
+    # the slot in shared memory up to LOCAL_STATE_MAX
+    lane_slot = ws and not split.spaces
+    unroll = 1 if lane_slot and not any(
+        isinstance(c, R.MatColumn) for c in cd.columns) else UNROLL_MAX
+    shared = lane_slot and cd.n_vars <= LOCAL_STATE_MAX
     # the base terms read their columns whole, and so do the row-invariant
     # values of the rows
     whole = bool(find_columns(split.base)) or any(
         find_columns(list(sp.frontier)) for sp in split.spaces)
     roots = list(split.base)
-    em = _Emitter(cd, ws)
+    em = _Emitter(cd, ws, unroll)
     fwd, rev, total = _program(em, roots, total=True)
     lp_ops = max(len(total) - 1, 0)
     n = cd.n_vars
@@ -1234,8 +1261,11 @@ def _emit(cd, ws: bool) -> EmittedDensity:
         f"#define RT_DIM {n}",
         f"#define RT_ROW_W {top.row_width}",
         f"#define RT_TILE {max(top.tile_rows, 1)}",
-        *([f"#define RT_WS_FLOATS {slot}",
-           f"#define RT_LANES {LANES if spaces else 1}"] if ws else []),
+        *([f"#define RT_WS_FLOATS {slot}"] if ws else []),
+        # a warp a chain, unless the build defines fewer lanes
+        *(["#ifndef RT_LANES", f"#define RT_LANES {LANES}", "#endif"]
+          if ws else []),
+        *(["#define RT_WS_SHARED 1"] if shared else []),
         *(["#define RT_WHOLE_COLS 1"] if whole else []),
         "",
         *_cols_struct(cd.columns),
@@ -1258,4 +1288,5 @@ def _emit(cd, ws: bool) -> EmittedDensity:
     ])
     return EmittedDensity(source=src, n_vars=n,
                           ops=em.fops + lp_ops + em.rops + inv_ops,
-                          spaces=spaces, n_inv=n_inv, workspace=slot)
+                          spaces=spaces, n_inv=n_inv, workspace=slot,
+                          shared=shared)

@@ -8,7 +8,8 @@
 // Chains and lanes.  A model with rows runs each chain on one warp, its
 // RT_LANES = 32 lanes, and a block holds W chains, one warp each (the
 // wrapper's threads_per_block sets W).  A model without rows runs each
-// chain on one thread, with 32 or 128 chains a block.  The model's
+// chain on RT_LANES = L lanes, an aligned group of a warp's lanes, 32 / L
+// chains a warp (below, "Chains without rows").  The model's
 // density and gradient come from the generated rt_model.h
 // (compute/emit_cuda.py), evaluated in natural coordinates; the loop runs
 // in standardized coordinates q' = q / sqrt(S) for the adapted mass
@@ -123,6 +124,36 @@
 // floats per density call, 313 elements a lane for glmm_large) and of the
 // rows' gathers and scatters into the slot, with 8 warps on an SM.
 //
+// Chains without rows (the column-free branch, hmc_pallas.py:257-301 with
+// no columns).  With one thread a chain (L = 1), the chain's state in
+// registers and everything in one thread, the iteration is one dependent
+// path of some 1,700 operations for the 10-dim funnel, more than half of
+// them Philox and Box-Muller, and 1024 chains are 32 warps on 32 of the
+// card's 132 SMs, one each: the card idles, held up by the latency of
+// that path.  Spreading a chain over lanes shortens it and brings in more
+// SMs, so a chain runs on L lanes, 32 / L chains a warp, as many lanes as
+// keep the launch within the threads that fill the card (ops/fused_hmc.py,
+// lanes_per_chain; one thread a chain where the chains alone fill it, as
+// at bench.py's 524,288).  Up to 32 parameters (emit_cuda.LANE_STATE_MAX) every
+// lane holds the whole state in registers, as a register model with rows
+// does: the lanes split the Philox groups (rt_lane_momenta) and run the
+// rest redundantly, since splitting the funnel's passes and density over
+// the lanes (the layout below) costs more in shuffles, __syncwarp and
+// shared-memory latency than it saves (tools/kernel_ab.py columnfree,
+// PERF.md §6).  Past 32 parameters the state is in a slot of the
+// workspace layout above, a warp a chain (L = 32), as for the models with
+// rows: in the block's shared memory (RT_WS_SHARED, RT_SLOT_STRIDE floats
+// a chain) up to 256 parameters, in the device workspace past them, where
+// a warp's access is one 128-byte line; the lanes split the passes over
+// the state, the Philox groups and every emitted vector loop.  Either way the
+// Philox counters are the one-thread kernel's, so the momenta are its
+// bits, and the density's scalars run in every lane with the same bits.
+// The xor offsets of rt_warp_sum<L> and the width of rt_lane_bcast<L>
+// stay inside a chain's group of lanes; every lane of the warp reaches
+// every shuffle and __syncwarp, since the chains of a warp make the same
+// calls in the same order (the accept branch holds neither), so the full
+// mask is right.
+//
 // Summation error.  Each lane sums its rows of a tile in f32 (the error of
 // a sequential sum of R terms is at most about R·u·Σ|terms|, u = 6e-8, and
 // typically √R·u·Σ|terms|), the butterfly adds 32 such sums, and the tile
@@ -154,15 +185,18 @@
 // partial sums (RT_PART).
 // So the host build sums in the card's order, which is how the CPU tests
 // check the lanes, the loop, the ragged edge and the generated adjoints
-// without a card.
+// without a card.  A chain without rows of L lanes sums in the order of
+// its L lanes (rt_lane_tree<L>), and keeps its shared-memory slot in a
+// host buffer, filled with NaN so that a read before a write shows.
 #include "philox.cuh"
 #include "rt_model.h"
 
 #define RT_WORDS (2 * RT_DIM + 1)
 #define RT_GROUPS ((RT_WORDS + 3) / 4)
 
-// the lanes of a chain: a warp for a model with rows, a thread for one
-// without (a workspace model's header defines RT_LANES itself)
+// the lanes of a chain: a warp for a model with rows; for one without,
+// the L lanes the build defines (ops/fused_hmc.py, build), else a warp
+// over a slot (the header defines RT_LANES) and a thread over registers
 #if RT_ROW_W > 0
 #ifndef RT_LANES
 #define RT_LANES 32
@@ -172,12 +206,22 @@ static_assert(RT_LANES == 32, "a chain with rows is one warp");
 #ifndef RT_LANES
 #define RT_LANES 1
 #endif
-static_assert(RT_LANES == 1, "a chain without rows is one thread");
+static_assert(RT_LANES > 0 && RT_LANES <= 32 &&
+                  (RT_LANES & (RT_LANES - 1)) == 0,
+              "a chain without rows is an aligned group of a warp's lanes");
 #endif
 
 // the most threads a block may have: the wrapper's rule gives a model
-// with rows at most 8 chains a block (ops/fused_hmc.py, threads_per_block)
+// with rows at most 8 chains a block, one without at most 128 threads
+// (ops/fused_hmc.py, threads_per_block)
 #define RT_MAX_THREADS (RT_LANES > 1 ? 256 : 128)
+
+// A slot in shared memory: RT_SLOT_STRIDE floats a chain, a multiple of
+// 32 plus RT_LANES, so that the lanes of the 32 / RT_LANES chains of a
+// warp that read element d of their slots hit distinct banks
+#ifdef RT_WS_SHARED
+#define RT_SLOT_STRIDE ((RT_WS_FLOATS + 31) / 32 * 32 + RT_LANES % 32)
+#endif
 
 // the block's threads in device code; one thread in host code (and in
 // nvcc's host pass over the __host__ __device__ functions)
@@ -372,7 +416,15 @@ RT_HD void rt_take(float* __restrict__ q, float* __restrict__ g,
 // state in the workspace, the coordinates collect_pos names (all where it
 // is null); otherwise every coordinate, which the wrapper slices (a load
 // and a branch per coordinate here changed the code of the whole chain
-// loop and slowed the row-tiled kernels on the card)
+// loop and slowed the row-tiled kernels on the card).  A model with rows
+// stores element d from lane d mod 32 (rt_mine), a branch a coordinate.
+// Without rows, where every lane holds the state, lane l stores
+// coordinates l, l + RT_LSTEP, ..., each picked by a select over the
+// unrolled coordinates, so that one store serves all the lanes: the
+// branches parted the lanes of a warp at every store (the funnel's kernel
+// at 16 lanes a chain, 1024 chains x 1000 draws: 1.247 ms against 0.889
+// ms, H100, PERF.md §6), while the select form slowed the streamed
+// 2M-row logistic's kernel by 8% (tools/kernel_ab.py tiles)
 RT_HD void rt_collect(float* __restrict__ out, const float* __restrict__ q,
                       const float* __restrict__ sc,
                       const int* __restrict__ collect_pos, int n, int c) {
@@ -382,11 +434,21 @@ RT_HD void rt_collect(float* __restrict__ out, const float* __restrict__ q,
     const int j = collect_pos == 0 ? d : collect_pos[d];
     if (j >= 0) out[(size_t)j * n + c] = q[d] * sc[d];
   }
-#else
+#elif RT_ROW_W > 0
   (void)collect_pos;
   RT_UNROLL
   for (int d = 0; d < RT_DIM; ++d)
     if (rt_mine(d)) out[(size_t)d * n + c] = q[d] * sc[d];
+#else
+  (void)collect_pos;
+#pragma unroll
+  for (int d0 = 0; d0 < RT_DIM; d0 += RT_LSTEP) {
+    float v = 0.0f;
+#pragma unroll
+    for (int j = 0; j < RT_LSTEP && d0 + j < RT_DIM; ++j)
+      v = j == RT_LANE ? q[d0 + j] * sc[d0 + j] : v;
+    if (d0 + RT_LANE < RT_DIM) out[(size_t)(d0 + RT_LANE) * n + c] = v;
+  }
 #endif
 }
 
@@ -700,6 +762,43 @@ RT_HD float rt_lp_grad(const float* q, const float* sc, float* g,
   return lp;
 }
 
+// A chain without rows of several lanes, each holding its whole state in
+// registers, draws its momenta on the card as the workspace does: lane l
+// runs the Philox groups l, l + RT_LANES, ..., and p[d] and u come from
+// the lane that drew their group, so every lane holds the bits that
+// drawing every group would give, at the cost of one group where there
+// are RT_LANES groups or fewer (the host build draws them all, the same
+// bits).  A register model with rows draws every group in every lane.
+#if defined(__CUDA_ARCH__) && !defined(RT_WS_FLOATS) && RT_ROW_W == 0 && \
+    RT_LANES > 1
+#define RT_LANE_RNG 1
+#define RT_LANE_GROUPS ((RT_GROUPS + RT_LANES - 1) / RT_LANES)
+__device__ __forceinline__ void rt_lane_momenta(float* p, float& u, int it,
+                                                uint32_t seed, uint32_t c) {
+  // v[j][h]: the normal of coordinate 2k + h of group k = lane + j·L, or
+  // the uniform where 2k + h is RT_DIM
+  float v[RT_LANE_GROUPS][2];
+#pragma unroll
+  for (int j = 0; j < RT_LANE_GROUPS; ++j) {
+    const int k = RT_LANE + j * RT_LANES;
+    uint32_t w[4] = {(uint32_t)it, (uint32_t)k, 0u, 0u};
+    rt_philox4x32_10(w, seed, c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      v[j][h] = 2 * k + h < RT_DIM
+                    ? rt_box_muller(rt_uniform_from_bits(w[2 * h]),
+                                    rt_uniform_from_bits(w[2 * h + 1]))
+                    : rt_uniform_from_bits(w[2 * h]);
+  }
+#pragma unroll
+  for (int d = 0; d < RT_DIM; ++d)
+    p[d] = rt_lane_bcast<RT_LANES>(v[d / 2 / RT_LANES][d % 2],
+                                   d / 2 % RT_LANES);
+  u = rt_lane_bcast<RT_LANES>(v[RT_DIM / 2 / RT_LANES][RT_DIM % 2],
+                              RT_DIM / 2 % RT_LANES);
+}
+#endif
+
 // chain c of n; c >= n runs a copy of chain n - 1 and stores nothing.
 // collect_pos (dim) is the slot of coordinate d among the n_collect
 // collected ones, or -1; null collects every coordinate in order.
@@ -740,9 +839,13 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
       RT_FOR(d, RT_DIM) p[d] = p_noise[((size_t)it * RT_DIM + d) * n + c];
       u = u_noise[(size_t)it * n + c];
     } else {
+#ifdef RT_LANE_RNG
+      rt_lane_momenta(p, u, it, seed, (uint32_t)c);
+#else
       // Philox words 4k..4k+3 of (it, k): words 2d and 2d + 1 make p[d],
       // word 2 * RT_DIM the uniform; over the workspace lane l takes the
-      // groups l, l + 32, ..., and the uniform comes from its group's lane
+      // groups l, l + RT_LANES, ..., and the uniform comes from its
+      // group's lane
       RT_UNROLL
       RT_FOR(k, RT_GROUPS) {
         uint32_t w[4] = {(uint32_t)it, (uint32_t)k, 0u, 0u};
@@ -759,6 +862,7 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
       }
 #ifdef RT_WS_FLOATS
       u = rt_lane_bcast<RT_LANES>(u, (RT_DIM / 2) % RT_LANES);
+#endif
 #endif
     }
     RT_WS_SYNC();
@@ -792,14 +896,7 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
                  sc, collect_pos, n, c);
   }
   if (!live) return;
-#ifdef RT_WS_FLOATS
-  RT_UNROLL
-  RT_FOR(d, RT_DIM) qf[(size_t)d * n + c] = q[d] * sc[d];
-#else
-  RT_UNROLL
-  for (int d = 0; d < RT_DIM; ++d)
-    if (rt_mine(d)) qf[(size_t)d * n + c] = q[d] * sc[d];
-#endif
+  rt_collect(qf, q, sc, 0, n, c);
   if (RT_LANE == 0) {
     acc_out[c] = acc / (float)n_iterations;
     div_out[c] = div;
@@ -848,14 +945,32 @@ static inline bool rt_threads_ok(int threads) {
          threads <= RT_MAX_THREADS;
 }
 
+// the dynamic shared memory of a block of `threads`: its chains' slots,
+// or one tile slot, two when streaming
+static inline int rt_smem_bytes(int threads, int stream_cols) {
+#ifdef RT_WS_SHARED
+  (void)stream_cols;
+  return threads / RT_LANES * RT_SLOT_STRIDE * (int)sizeof(float);
+#else
+  (void)threads;
+  return (stream_cols ? 2 : 1) * RT_SMEM_BYTES;
+#endif
+}
+
 #ifdef __CUDACC__
 
-// the chain slot's part of the workspace
-static __device__ __forceinline__ float* rt_slot(float* ws, int s) {
-#ifdef RT_WS_FLOATS
+// the chain slot's part of the workspace: its place in the block's shared
+// memory `smem`, or in the device workspace `ws`
+static __device__ __forceinline__ float* rt_slot(float* ws, float* smem,
+                                                 int s) {
+#if defined(RT_WS_SHARED)
+  (void)ws, (void)s;
+  return smem + (threadIdx.x / RT_LANES) * RT_SLOT_STRIDE;
+#elif defined(RT_WS_FLOATS)
+  (void)smem;
   return ws + (size_t)s * RT_WS_FLOATS;
 #else
-  (void)s;
+  (void)smem, (void)s;
   return ws;
 #endif
 }
@@ -883,7 +998,7 @@ __global__ void __launch_bounds__(RT_MAX_THREADS)
   rt_hmc_chain(s, n, q0, scale, scale_per_chain, eps, p_noise, u_noise, qf,
                samples, acc, div, n_iterations, n_steps, collect_every,
                collect_pos, n_collect, seed, cols, rows, kStream, tile,
-               rt_slot(ws, s));
+               rt_slot(ws, tile, s));
 }
 
 template <int kStream>
@@ -893,7 +1008,7 @@ __global__ void __launch_bounds__(RT_MAX_THREADS)
   extern __shared__ float tile[];
   const int s = rt_chain_slot();
   rt_logp_grad_chain(s, n, q, lp, g, cols, rows, kStream, tile,
-                     rt_slot(ws, s));
+                     rt_slot(ws, tile, s));
 }
 
 // the instantiation for the flag `s` (a column-free model has one)
@@ -903,8 +1018,8 @@ __global__ void __launch_bounds__(RT_MAX_THREADS)
 #define RT_PICK(kernel, s) (kernel<0>)
 #endif
 
-// A block's shared memory: one tile slot, or two when streaming.  Above
-// the 48 KB default it needs the opt-in attribute.
+// A block's shared memory (rt_smem_bytes): above the 48 KB default it
+// needs the opt-in attribute.
 template <typename K>
 static int rt_smem_opt_in(K kernel, int bytes) {
   if (bytes <= 48 * 1024) return 0;
@@ -916,8 +1031,9 @@ static int rt_smem_opt_in(K kernel, int bytes) {
 // launch never runs, so the wrapper raises on any nonzero code.  Blocks
 // of `threads` threads hold threads / RT_LANES chains each; `ws` holds
 // RT_WS_FLOATS floats for each of their chain slots (null for a model
-// without a workspace).  `stream_cols` streams the column tiles through
-// two slots of shared memory.
+// without a workspace, or with its slots in shared memory).
+// `stream_cols` streams the column tiles through two slots of shared
+// memory.
 extern "C" int rt_fused_hmc_launch(int n, const float* q0,
                                    const float* scale, int scale_per_chain,
                                    const float* eps, const float* p_noise,
@@ -932,7 +1048,7 @@ extern "C" int rt_fused_hmc_launch(int n, const float* q0,
                                    void* stream) {
   if (!rt_threads_ok(threads)) return (int)cudaErrorInvalidValue;
   const auto kernel = RT_PICK(fused_hmc_kernel, stream_cols);
-  const int smem = (stream_cols ? 2 : 1) * RT_SMEM_BYTES;
+  const int smem = rt_smem_bytes(threads, stream_cols);
   const int rc = rt_smem_opt_in(kernel, smem);
   if (rc != 0) return rc;
   const int blocks = rt_slots(n, threads / RT_LANES) / (threads / RT_LANES);
@@ -950,7 +1066,7 @@ extern "C" int rt_logp_grad_launch(int n, const float* q, float* lp,
                                    void* stream) {
   if (!rt_threads_ok(threads)) return (int)cudaErrorInvalidValue;
   const auto kernel = RT_PICK(logp_grad_kernel, stream_cols);
-  const int smem = (stream_cols ? 2 : 1) * RT_SMEM_BYTES;
+  const int smem = rt_smem_bytes(threads, stream_cols);
   const int rc = rt_smem_opt_in(kernel, smem);
   if (rc != 0) return rc;
   const int blocks = rt_slots(n, threads / RT_LANES) / (threads / RT_LANES);
@@ -968,12 +1084,24 @@ extern "C" int rt_logp_grad_launch(int n, const float* q, float* lp,
 // its own slot of the workspace (as on the card), with two tile slots for
 // `stream_cols`.  They return 1 for threads that make no whole chains.
 
-// chain slot s's part of the workspace
-static float* rt_slot(float* ws, int s) {
-#ifdef RT_WS_FLOATS
+#ifdef RT_WS_SHARED
+#define RT_OWN_FLOATS RT_WS_FLOATS
+#else
+#define RT_OWN_FLOATS 1
+#endif
+
+// chain slot s's part of the workspace: `own`, a NaN-filled buffer of
+// this call, for a slot in shared memory
+static float* rt_slot(float* ws, float* own, int s) {
+#if defined(RT_WS_SHARED)
+  (void)ws, (void)s;
+  for (int i = 0; i < RT_WS_FLOATS; ++i) own[i] = NAN;
+  return own;
+#elif defined(RT_WS_FLOATS)
+  (void)own;
   return ws + (size_t)s * RT_WS_FLOATS;
 #else
-  (void)s;
+  (void)own, (void)s;
   return ws;
 #endif
 }
@@ -989,14 +1117,14 @@ extern "C" int rt_fused_hmc_host(int n, const float* q0, const float* scale,
                                  const int* n_rows, float* ws, int threads,
                                  int stream_cols) {
   if (!rt_threads_ok(threads)) return 1;
-  std::vector<float> tile(2 * RT_TILE_FLOATS + 1);
+  std::vector<float> tile(2 * RT_TILE_FLOATS + 1), own(RT_OWN_FLOATS);
   const RtCols c_cols = rt_cols(cols);
   const RtRows rows = rt_rows(n_rows);
   for (int s = 0; s < rt_slots(n, threads / RT_LANES); ++s)
     rt_hmc_chain(s, n, q0, scale, scale_per_chain, eps, p_noise, u_noise,
                  qf, samples, acc, div, n_iterations, n_steps, collect_every,
                  collect_pos, n_collect, seed, c_cols, rows, stream_cols,
-                 tile.data(), rt_slot(ws, s));
+                 tile.data(), rt_slot(ws, own.data(), s));
   return 0;
 }
 
@@ -1005,12 +1133,12 @@ extern "C" int rt_logp_grad_host(int n, const float* q, float* lp, float* g,
                                  const int* n_rows, float* ws, int threads,
                                  int stream_cols) {
   if (!rt_threads_ok(threads)) return 1;
-  std::vector<float> tile(2 * RT_TILE_FLOATS + 1);
+  std::vector<float> tile(2 * RT_TILE_FLOATS + 1), own(RT_OWN_FLOATS);
   const RtCols c_cols = rt_cols(cols);
   const RtRows rows = rt_rows(n_rows);
   for (int s = 0; s < rt_slots(n, threads / RT_LANES); ++s)
     rt_logp_grad_chain(s, n, q, lp, g, c_cols, rows, stream_cols,
-                       tile.data(), rt_slot(ws, s));
+                       tile.data(), rt_slot(ws, own.data(), s));
   return 0;
 }
 

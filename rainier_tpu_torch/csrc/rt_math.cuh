@@ -100,10 +100,11 @@ RT_HD void rt_copy_wait_prior1() {
 }
 
 // Lanes.  A chain with rows runs on the RT_LANES = 32 lanes of one warp
-// (the kernel defines RT_LANES, or a workspace model's header does: 1
-// for a model without rows, whose chain is one thread): each lane takes
-// every 32nd row of a tile, and in a workspace model every 32nd element
-// of each pass over the chain's arrays (RT_LANE, RT_LSTEP).  The lanes'
+// (the kernel defines RT_LANES, or a workspace model's header does: 1 to
+// 32 for a model without rows, whose chain is one thread or an aligned
+// group of a warp's lanes): each lane takes every 32nd row of a tile,
+// and in a workspace model every RT_LANES-th element of each pass over
+// the chain's arrays (RT_LANE, RT_LSTEP).  The lanes'
 // partial sums meet in an xor butterfly: each stage adds a pair of
 // values in both of its lanes, and f32 addition commutes, so every lane
 // ends with the same bits.  Host code is one lane that walks every
@@ -151,8 +152,8 @@ RT_HD T rt_lane_tree(T* v) {
   return v[0];
 }
 
-// x summed over the L lanes of a warp, the same bits in every lane (host
-// code: x)
+// x summed over an aligned group of L lanes of a warp (xor offsets below
+// L stay inside it), the same bits in every lane (host code: x)
 template <int L, typename T>
 RT_HD T rt_warp_sum(T x) {
 #ifdef __CUDA_ARCH__
@@ -165,11 +166,12 @@ RT_HD T rt_warp_sum(T x) {
   return x;
 }
 
-// lane src's x in every lane (host code: x)
+// lane src's x in every lane of the aligned group of L lanes, src
+// counted within the group (host code: x)
 template <int L, typename T>
 RT_HD T rt_lane_bcast(T x, int src) {
 #ifdef __CUDA_ARCH__
-  if constexpr (L > 1) return __shfl_sync(0xffffffffu, x, src);
+  if constexpr (L > 1) return __shfl_sync(0xffffffffu, x, src, L);
 #endif
   (void)src;
   return x;

@@ -15,8 +15,16 @@ launch: momentum refresh (Philox4x32-10 + Box-Muller,
 ``csrc/philox.cuh``), ``n_steps`` kick-drift-kick leapfrog steps with the
 model's density and gradient from C generated out of the Real DAG
 (``compute/emit_cuda.py``), the Metropolis accept, and the accept-rate
-and divergence sums.  A model without rows gives each chain one thread,
-its state in registers.  A model with data gives each chain one warp:
+and divergence sums.  A model without rows gives each chain
+``lanes_per_chain`` lanes of a warp: up to ``emit_cuda.LANE_STATE_MAX``
+parameters each lane holds the whole state in registers and the lanes
+split the Philox groups, 16 lanes up to 1024 chains and fewer as the
+chains grow (``LANE_STEPS``, measured), one thread past 16,384 chains
+(bench.py's 524,288 among them); past it, at any count, a chain is a warp
+whose lanes split the passes over the state and the density's vector
+loops, its state in a slot in the block's shared memory (in the
+workspace past ``emit_cuda.LOCAL_STATE_MAX``).  A model with data gives
+each chain one warp:
 its RowSum likelihoods are summed over row tiles that the block's
 threads load into shared memory together, and within a tile the warp's
 32 lanes split the rows (lane l takes rows l, l + 32, ...), their
@@ -44,7 +52,15 @@ coordinates.
 
 What bounds it on the H100: f32 ALU work and SFU work (``expf``,
 ``logf``, ``cosf``, ``sqrtf``) of the density, its adjoints and the RNG,
-and, with data, the row terms: n_rows × (row operations) per density
+where enough chains run to fill the card.  Without rows, one thread a
+chain leaves 1024 chains on 32 SMs, one warp each, each iteration one
+dependent path of ~1,700 operations, more than half of them Philox (the
+funnel, 2.39 ms at 1024 chains × 1000 iterations × 5 steps on an H100,
+1.09 ms with explicit noise); 16 lanes a chain draw one Philox group
+each and spread the chains over 16 times as many warps (0.89 ms), and
+what bounds it then is the density and leapfrog path that every lane
+runs, as the explicit-noise time shows (1.03 ms; PERF.md §6).  With
+data, the row terms: n_rows × (row operations) per density
 call and chain, on columns read from L2 where they fit it (the 100k × 11
 floats of the logistic regression are 4.4 MB, against a 50 MB L2).  With
 one warp a chain, 1024 chains are 1024 warps, 8 on each SM in blocks of
@@ -393,25 +409,30 @@ def _load(so_path: str) -> Kernels:
     return Kernels(hmc, lpg, log.read_text() if log.exists() else "")
 
 
-# density -> (Kernels, emitted) of its last build in this process
+# density -> {lanes a chain: (Kernels, emitted)} of its builds in this
+# process
 _BUILT = weakref.WeakKeyDictionary()
 
 
-def build(density):
-    """Emit the model's rt_model.h and compile the kernel (cached by the
-    content hash on disk, and per density in the process, so a launch
-    neither emits nor hashes again).  Returns (Kernels, build seconds,
-    emitted)."""
-    if density in _BUILT:
-        kernels, em = _BUILT[density]
-        return kernels, 0.0, em
-    t0 = time.perf_counter()
+def build(density, lanes):
+    """Emit the model's rt_model.h and compile the kernel for `lanes`
+    lanes a chain, which a model without rows takes as the build's
+    ``RT_LANES`` (a model with rows is a warp a chain whatever it is
+    given), cached by the content hash on disk, and per density and lanes
+    in the process, so a launch neither emits nor hashes again.  Returns
+    (Kernels, build seconds, emitted)."""
     em = emit_cuda.emit(density)
+    lanes = emit_cuda.LANES if em.spaces else lanes
+    built = _BUILT.setdefault(density, {})
+    if lanes in built:
+        return built[lanes][0], 0.0, em
+    defines = () if em.spaces else (f"-DRT_LANES={lanes}",)
+    t0 = time.perf_counter()
     h = hashlib.sha256()
     for name in SOURCES:
         h.update((CSRC / name).read_bytes())
     h.update(em.source.encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + defines).encode())
     key = h.hexdigest()[:24]
     so = BUILD_DIR / f"fused_hmc_{key}.so"
     if not so.exists():
@@ -419,16 +440,16 @@ def build(density):
         inc.mkdir(parents=True, exist_ok=True)
         (inc / emit_cuda.HEADER_NAME).write_text(em.source)
         tmp = BUILD_DIR / f".fused_hmc_{key}.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(inc), "-I", str(CSRC),
-               "-o", str(tmp), str(CSRC / "fused_hmc.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-I", str(inc), "-I",
+               str(CSRC), "-o", str(tmp), str(CSRC / "fused_hmc.cu")]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                                f"{res.stderr}\n{' '.join(cmd)}")
         so.with_suffix(".log").write_text(res.stdout + res.stderr)
         os.replace(tmp, so)
-    _BUILT[density] = (_load(str(so)), em)
-    return _BUILT[density][0], time.perf_counter() - t0, em
+    built[lanes] = (_load(str(so)), em)
+    return built[lanes][0], time.perf_counter() - t0, em
 
 
 def _ptr(t):
@@ -445,32 +466,61 @@ def _ptr(t):
 # csrc/fused_hmc.cu's launch bounds allow 256 threads.
 WIDE_BLOCK, NARROW_BLOCK, BLOCKS_MIN = 8, 4, 128
 
+# A model without rows: up to emit_cuda.LANE_STATE_MAX parameters every
+# lane of a chain holds its whole state in registers and the lanes split
+# the Philox groups.  A launch over n chains gives each chain the lanes of
+# the first LANE_STEPS entry (most chains, lanes) with n <= most chains,
+# and one thread past the last: more lanes shorten each chain's path, but
+# once the chains' lanes fill the card the lanes' redundant density work
+# costs more than that saves.  On an H100, the 10-dim funnel's kernel
+# over 1000 iterations x 5 steps, every draw collected, in ms at 1, 2, 4,
+# 8 and 16 lanes: 1024 chains 2.367, 1.511, 1.213, 0.915, 0.883 (32:
+# 1.168); 2048 2.367, 1.511, 1.214, 0.919, 1.184; 4096 2.368, 1.512,
+# 1.220, 1.220, 1.982; 8192 2.368, 1.519, 1.569, 2.028, 3.912; 16384
+# 2.390, 1.952, 2.625, 4.021, 7.706; 32768 2.869, 3.233, 5.168, 7.906,
+# 15.206; and 524,288 chains x 500 15.6 ms at 1 lane, 21.9 at 2
+# (tools/kernel_ab.py columnfree, PERF.md §6).  Past LANE_STATE_MAX a
+# chain is a warp (emit_cuda.LANES) whose lanes split the passes over its
+# slot: the funnel at 1000 dims took 495-500 ms at 1 lane and 16.7-17.1
+# at 32 (1024 x 200 x 5).  Blocks hold 128 threads where the launch has
+# WIDE_THREADS threads or more (a block of 128 on every SM), else 32, to
+# spread few threads over more SMs.
+LANE_STEPS = ((1024, 16), (2048, 8), (4096, 4), (16384, 2))
+WIDE_THREADS = 128 * 132
 
-def lanes_per_chain(em) -> int:
-    """Threads that run one chain: a warp for a model with rows, which
-    its lanes split; one thread for a model without."""
-    return emit_cuda.LANES if em.spaces else 1
+
+def lanes_per_chain(em, n: int) -> int:
+    """Threads that run one chain of a launch over n chains: a warp for a
+    model with rows, which its lanes split, or with a slot; otherwise the
+    lanes of the first LANE_STEPS entry whose chains n does not exceed,
+    else one."""
+    if em.spaces or em.workspace:
+        return emit_cuda.LANES
+    return next((lanes for most, lanes in LANE_STEPS if n <= most), 1)
 
 
 def chains_per_block(em, n: int) -> int:
     """Chains of each block for a launch over n chains: for a model with
     rows, warps that share each row tile (WIDE_BLOCK or NARROW_BLOCK);
-    without rows, threads, 32 a block to spread a small chain count over
-    more SMs."""
+    without rows, 128 threads' worth, or 32 to spread a small launch
+    over more SMs."""
     if em.spaces:
         return WIDE_BLOCK if n >= WIDE_BLOCK * BLOCKS_MIN else NARROW_BLOCK
-    return 128 if n >= 128 * 132 else 32
+    lanes = lanes_per_chain(em, n)
+    return (128 if n * lanes >= WIDE_THREADS else 32) // lanes
 
 
 def threads_per_block(em, n: int) -> int:
     """Threads of each block for a launch over n chains."""
-    return chains_per_block(em, n) * lanes_per_chain(em)
+    return chains_per_block(em, n) * lanes_per_chain(em, n)
 
 
 def workspace_bytes(em, n: int) -> int:
-    """Bytes of the workspace a launch over n chains allocates: one slot
-    for every chain of its blocks, the ragged edge's copies included (0
-    for a model without one)."""
+    """Bytes of the device workspace a launch over n chains allocates: one
+    slot for every chain of its blocks, the ragged edge's copies included
+    (0 for a model without one, or with its slots in shared memory)."""
+    if em.shared:
+        return 0
     w = chains_per_block(em, n)
     return 4 * em.workspace * w * -(-n // w)
 
@@ -484,8 +534,8 @@ def free_bytes(device) -> int:
 
 
 def workspace_check(em, n: int, device):
-    """None if a launch over n chains has room for its workspace on
-    `device`, else why not, naming the bytes."""
+    """None if a launch over n chains of the emitted density `em` has
+    room for its workspace on `device`, else why not, naming the bytes."""
     need = workspace_bytes(em, n)
     free = free_bytes(device) if need else 0
     if need > free:
@@ -550,11 +600,11 @@ def _launch_setup(density, columns, n, dev, stream_columns=None):
     if reason is not None:
         raise ValueError(reason)
     stream = streams(density, columns, stream_columns, dev)
-    kernels = build(density)[0]
+    kernels = build(density, lanes_per_chain(em, n))[0]
     ptrs = (ctypes.c_void_p * max(len(columns), 1))(
         *[c.data_ptr() for c in columns])
     ws = torch.empty(workspace_bytes(em, n) // 4, dtype=torch.float32,
-                     device=dev) if em.workspace else None
+                     device=dev) if workspace_bytes(em, n) else None
     return kernels, ptrs, row_counts(em), threads_per_block(em, n), ws, \
         stream
 

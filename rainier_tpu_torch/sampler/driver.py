@@ -368,7 +368,7 @@ def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
     carried (acceptance and divergence counts are).  `cols` are the
     model's columns on the device (``column_values``), which warmup and
     the kernel both read."""
-    from ..ops.fused_hmc import build, fused_hmc
+    from ..ops.fused_hmc import build, fused_hmc, lanes_per_chain
 
     dev = global_config.resolve_device(device)
     dtype = torch.float32  # kernel state is f32
@@ -386,7 +386,8 @@ def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
     # before anything is timed as sampling
     timings["compile_s"] = 0.0
     if dev.type == "cuda":
-        _, timings["compile_s"], _ = build(cd)
+        _, timings["compile_s"], _ = build(
+            cd, lanes_per_chain(emit_cuda.emit(cd), n_chains))
 
     t0 = _time.perf_counter()
     wp = run_warmup(lpg, cd.n_vars, cfg, n_chains, gen, dtype, dev)

@@ -10,6 +10,7 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 rainier_tpu_torch/tools/kernel_ab.py lanes
     python3 rainier_tpu_torch/tools/kernel_ab.py layouts
     python3 rainier_tpu_torch/tools/kernel_ab.py adapt
+    python3 rainier_tpu_torch/tools/kernel_ab.py columnfree LABEL
 
 ``row-sums``: the kernels of the README regression, the 100k-row
 logistic regression and GLMMPoisson2 (``chip_smoke.py``'s models), whose
@@ -62,7 +63,30 @@ and the scan path with per-chain adaptation, the kernel with pooled
 adaptation, and the kernel with HMC(10).  Prints each run's rank-r̂ per
 parameter and the quantiles of its per-chain step sizes and accept
 rates: which chains, and which parameters, keep r̂ over 1.01.
+
+``columnfree``: the kernels of models without rows at each count of
+lanes a chain (the wrapper's rule ``fused_hmc.lanes_per_chain`` replaced
+for the run, as ``lanes`` replaces ``chains_per_block``), one A B B A
+round (1 2 4 ... 32 ... 4 2 1) per shape (``FREE_SHAPES``): the 10-dim
+funnel at 1024 chains × 1000 iterations × 5 steps with on-device Philox
+and with explicit noise, and with its state in a shared-memory slot in
+place of every lane's registers; at 2,048 to 32,768 chains × 1000 × 5
+at 1 to 16 lanes (``SWEEP_CHAINS``: where the rule's crossovers lie); at
+524,288 × 500 × 5 (bench.py's throughput shape, ε 0.18 from q = 0); at
+100 dims, 1024 chains × 200 ×
+5, in a slot and in registers (``emit_cuda.LANE_STATE_MAX`` replaced for
+its emission, as ``layouts`` does); and at 1000 dims (past 256
+parameters, its state in the workspace) at 1 and 32 lanes.  Every
+shape but the throughput one collects every draw, as the main path does
+(of the first 10 coordinates past 10 dims).  Each run
+prints its ms and the fraction of chains whose final q is within 1e-4
+relative of the first run's of that shape.  With another checkout's
+root on PYTHONPATH whose wrapper has no lane rule (the parent's, one
+thread a chain), the emitter's own layouts run as their launch decides,
+tagged "as built": run both checkouts in one call to compare trees.
+Prints one line per shape, lanes and order, tagged LABEL.
 """
+
 
 from __future__ import annotations
 
@@ -89,6 +113,36 @@ TILE_ITERS = {"README regression": 1000, "logistic regression": 100,
               "GLMMPoisson2": 500, "glmm_large": 50}
 # the values of W that ``lanes`` times
 LANE_W = (2, 4, 8, 8, 4, 2)
+# ``columnfree``: (what, dims, chains, iterations, explicit noise, lanes
+# a chain timed in order, the cap on the parameters that every lane holds
+# in registers: 256 to hold them so, 0 to give them a slot, None for the
+# emitter's own choice; a checkout without the lane rule times the shapes
+# of None only, each as built)
+FREE_LANES = (1, 2, 4, 8, 16, 32, 32, 16, 8, 4, 2, 1)
+# the chain counts between the main path's and the throughput shape at
+# which the 10-dim funnel is timed at 1 to 16 lanes: where the rule's
+# crossovers lie
+SWEEP_CHAINS = (2048, 4096, 8192, 16384, 32768)
+SWEEP_LANES = (1, 2, 4, 8, 16, 16, 8, 4, 2, 1)
+FREE_SHAPES = (
+    ("funnel", 10, CHAINS, 1000, False, FREE_LANES, None),
+    *((f"funnel, {n} chains", 10, n, 1000, False, SWEEP_LANES, None)
+      for n in SWEEP_CHAINS),
+    ("funnel, explicit noise", 10, CHAINS, 1000, True, FREE_LANES, None),
+    ("funnel, slot in shared memory", 10, CHAINS, 1000, False,
+     FREE_LANES[1:-1], 0),
+    ("funnel, throughput", 10, 524288, 500, False, FREE_LANES, None),
+    ("funnel 100, registers", 100, CHAINS, 200, False, (1, 8, 32, 32, 8, 1),
+     256),
+    ("funnel 100", 100, CHAINS, 200, False, (1, 8, 32, 32, 8, 1), None),
+    ("funnel 1000", 1000, CHAINS, 200, False, (1, 32, 32, 1), None))
+# coordinates of each draw collected at the 1024-chain shapes
+FREE_COLLECT = 10
+# calls timed a run (the funnel's 2 ms kernel: a host stall in one call
+# must not set the mean)
+FREE_REPS = {"funnel": 20, "funnel, explicit noise": 20,
+             "funnel, slot in shared memory": 20, "funnel, throughput": 3,
+             **{f"funnel, {n} chains": 10 for n in SWEEP_CHAINS}}
 
 # every model's rows summed in f64 and lp rounded once
 F64_ROWS = (
@@ -175,12 +229,18 @@ def _row_runs(device):
     return runs
 
 
-def _build_runs(runs):
-    """Every run's kernel, one nvcc each, all started together."""
+def _build(cd):
+    """The kernel of a model with rows (a warp a chain)."""
+    from rainier_tpu_torch.compute import emit_cuda
     from rainier_tpu_torch.ops import fused_hmc as F
 
+    return F.build(cd, emit_cuda.LANES)
+
+
+def _build_runs(runs):
+    """Every run's kernel, one nvcc each, all started together."""
     with ThreadPoolExecutor(len(runs)) as pool:
-        list(pool.map(F.build, [run[0].density() for run in runs.values()]))
+        list(pool.map(_build, [run[0].density() for run in runs.values()]))
 
 
 def _time_runs(runs, device, label, built=None):
@@ -195,7 +255,7 @@ def _time_runs(runs, device, label, built=None):
                   seed=1, inv_mass_diag=imd, collect_every=0)
         if built is not None:
             kernels, _, em = built[name]
-            F._BUILT[cd] = (kernels, em)
+            F._BUILT[cd] = {F.emit_cuda.LANES: (kernels, em)}
         out, ms = cs.timed(lambda: F.fused_hmc(cd, q0, **kw), device, 1,
                            True)
         print(f"RESULT {label} {name}: {q0.shape[1]} chains x {n_it} it x "
@@ -227,7 +287,7 @@ def row_sums() -> None:
             for cd in cds:
                 F._BUILT.pop(cd, None)
             with ThreadPoolExecutor(len(cds)) as pool:
-                for name, b in zip(runs, pool.map(F.build, cds)):
+                for name, b in zip(runs, pool.map(_build, cds)):
                     built[label, name] = b
                     print(f"built {label}, {name}: {b[1]:.2f} s", flush=True)
         F.CSRC = csrc
@@ -342,7 +402,7 @@ def stream() -> None:
         step_size=eps, n_steps=8, n_iterations=ITERS_2M, seed=1,
         inv_mass_diag=imd, collect_every=1))
     with ThreadPoolExecutor(len(runs)) as pool:
-        list(pool.map(F.build, [cd for cd, _, _ in runs.values()]))
+        list(pool.map(_build, [cd for cd, _, _ in runs.values()]))
     for name, (cd, q0, kw) in runs.items():
         col_bytes = sum(c.numel() * 4 for c in cd.column_values(
             torch.float32, device))
@@ -393,6 +453,88 @@ def adapt() -> None:
               f"timings {tr.timings}", flush=True)
 
 
+def _funnel(rt, dim):
+    """Neal's funnel of chip_smoke.py at `dim` dimensions: y and a
+    (dim - 1)-vector, built here so that another checkout's package
+    builds it too."""
+    y = rt.Normal(0.0, 3.0).latent()
+    xv = rt.Normal(0.0, (y / 2).exp()).latent_vec(dim - 1)
+    return rt.Model.track_({y} | set(xv.to_list()))
+
+
+def columnfree(label: str) -> None:
+    import torch
+
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+    from rainier_tpu_torch.compute import emit_cuda
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    device = torch.device("cuda")
+    lanes_rule = hasattr(F, "LANE_STEPS")
+    gen = torch.Generator(device=device).manual_seed(3)
+    shapes = []
+    for what, dim, n, n_it, explicit, order, cap in FREE_SHAPES:
+        if not lanes_rule and cap is not None:
+            continue
+        cd = _funnel(rt, dim).density()
+        if n == cs.THROUGHPUT_CHAINS:
+            q0 = torch.zeros((dim, n), device=device)
+            kw = dict(step_size=cs.THROUGHPUT_EPS)
+        else:
+            q0 = torch.randn((dim, n), device=device, generator=gen)
+            kw = dict(step_size=0.3 + 0.6 * torch.rand(
+                n, device=device, generator=gen), inv_mass_diag=0.5
+                + 1.5 * torch.rand((n, dim), device=device, generator=gen))
+        # every draw collected, as the main path does (its first
+        # FREE_COLLECT coordinates past them), but at the throughput shape
+        kw.update(n_steps=5, n_iterations=n_it, seed=1,
+                  collect_every=int(n != cs.THROUGHPUT_CHAINS),
+                  collect_idx=None if dim <= FREE_COLLECT
+                  else list(range(FREE_COLLECT)))
+        if explicit:
+            kw["noise"] = (
+                torch.randn((n_it, dim, n), device=device, generator=gen),
+                torch.rand((n_it, n), device=device, generator=gen)
+                .clamp(min=1.1920929e-7))
+        if not lanes_rule:
+            order = (None, None)
+        elif cap is not None:
+            # every lane's registers or a slot, whatever the size: the
+            # model's emission made now, under this cap
+            rule, emit_cuda.LANE_STATE_MAX = emit_cuda.LANE_STATE_MAX, cap
+            try:
+                emit_cuda.emit(cd)
+            finally:
+                emit_cuda.LANE_STATE_MAX = rule
+        shapes.append((what, cd, q0, kw, order))
+    if lanes_rule:
+        jobs = list(dict.fromkeys((cd, lanes) for _, cd, _, _, order
+                                  in shapes for lanes in order))
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            list(pool.map(lambda job: F.build(*job), jobs))
+    rule = getattr(F, "lanes_per_chain", None)
+    try:
+        for what, cd, q0, kw, order in shapes:
+            first = None
+            for lanes in order:
+                if lanes is not None:
+                    F.lanes_per_chain = lambda em, n, lanes=lanes: lanes
+                out, ms = cs.timed(lambda: F.fused_hmc(cd, q0, **kw),
+                                   device, FREE_REPS.get(what, 1), True)
+                first = out if first is None else first
+                agree = cs.agreement(out, first)[0]
+                print(f"RESULT columnfree {label} {what}, "
+                      f"{'as built' if lanes is None else f'L={lanes}'}: "
+                      f"{q0.shape[1]} chains x {kw['n_iterations']} it x 5 "
+                      f"steps {ms:.4f} ms, accept "
+                      f"{float(out[2].mean()):.4f}, {agree:.4f} of chains "
+                      f"within 1e-4 rel of the first run", flush=True)
+    finally:
+        if rule is not None:
+            F.lanes_per_chain = rule
+
+
 def main(argv) -> int:
     import torch
 
@@ -413,6 +555,8 @@ def main(argv) -> int:
         layouts()
     elif argv[:1] == ["adapt"]:
         adapt()
+    elif argv[:1] == ["columnfree"] and len(argv) == 2:
+        columnfree(argv[1])
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -195,19 +195,23 @@ def test_split_identity_holds_over_the_kernel_tiles(name):
 # -- the emitted code and the tile loop, compiled for the host ---------------
 
 
-def _host_library(cd, tmp_path):
-    """g++ build of csrc/fused_hmc.cu with the model's emitted header."""
+def _host_library(cd, tmp_path, lanes=None):
+    """g++ build of csrc/fused_hmc.cu with the model's emitted header (and
+    ``RT_LANES`` defined as `lanes`, as ``fused_hmc.build`` defines it
+    for a model without rows)."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: csrc/fused_hmc.cu cannot be "
                     "compiled for the host")
     em = emit_cuda.emit(cd)
-    d = tmp_path / hashlib.sha256(em.source.encode()).hexdigest()[:16]
+    defines = [] if lanes is None else [f"-DRT_LANES={lanes}"]
+    d = tmp_path / hashlib.sha256(
+        (em.source + " ".join(defines)).encode()).hexdigest()[:16]
     d.mkdir(exist_ok=True)
     (d / emit_cuda.HEADER_NAME).write_text(em.source)
     so = d / "host.so"
     res = subprocess.run(
         ["g++", "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
-         "-I", str(d), "-I", str(F.CSRC), "-o", str(so),
+         *defines, "-I", str(d), "-I", str(F.CSRC), "-o", str(so),
          str(F.CSRC / "fused_hmc.cu")], capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
     lib = ctypes.CDLL(str(so))
@@ -224,9 +228,9 @@ def _col_ptrs(cols):
 def _host_ws(em, n):
     """(the workspace the wrapper would allocate for a launch over n
     chains, NaN-filled, or None for a model whose state lives in the
-    thread; the threads of its blocks)."""
+    thread or in shared memory; the threads of its blocks)."""
     ws = torch.full((F.workspace_bytes(em, n) // 4,), float("nan")) \
-        if em.workspace else None
+        if F.workspace_bytes(em, n) else None
     return ws, F.threads_per_block(em, n)
 
 

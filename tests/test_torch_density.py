@@ -178,7 +178,8 @@ def test_port_matches_numpy_oracle():
 
 def _compile_host(cd, tmp_path):
     """g++ build of the kernel template + the emitted rt_model.h (the
-    host branch of csrc/fused_hmc.cu) → ctypes function q, g -> lp."""
+    host branch of csrc/fused_hmc.cu; a chain over a slot on its 32 lanes,
+    emulated) → ctypes function q, g -> lp."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the emitted C source cannot be "
                     "compiled for the host")
@@ -199,13 +200,14 @@ def _compile_host(cd, tmp_path):
     fn.argtypes = F.LOGP_GRAD_ARGTYPES
     no_cols = (ctypes.c_void_p * 1)()
     ws = np.zeros(max(em.workspace, 1), np.float32)
+    threads = emit_cuda.LANES if em.workspace else 1
 
     def lpg(q):
         q = np.ascontiguousarray(q, dtype=np.float32)
         g = np.zeros_like(q)
         lp = np.zeros(1, np.float32)
         fn(1, q.ctypes.data, lp.ctypes.data, g.ctypes.data, no_cols, 0,
-           ws.ctypes.data, 1, 0)
+           ws.ctypes.data, threads, 0)
         return float(lp[0]), g
 
     return lpg, em

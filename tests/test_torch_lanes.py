@@ -137,7 +137,7 @@ def test_every_case_runs_on_lanes(built):
     warp."""
     for name in MODELS:
         _, cd, _, em = built(name)
-        assert F.lanes_per_chain(em) == emit_cuda.LANES == 32
+        assert F.lanes_per_chain(em, 1024) == emit_cuda.LANES == 32
         # 8 chains a block where 128 blocks remain, else 4
         assert F.chains_per_block(em, 1024) == F.WIDE_BLOCK == 8
         assert F.chains_per_block(em, 1023) == F.NARROW_BLOCK == 4
@@ -155,10 +155,13 @@ def test_every_case_runs_on_lanes(built):
     assert "#define RT_GATHERS 1" in em.source        # handed to the warp
     assert "sidx[0] = 0 + j" in em.source and "ainv[0 + j" not in em.source
     assert f"#define RT_LANES {emit_cuda.LANES}" in em.source
-    # a model without rows keeps one thread a chain
+    # a model without rows runs 16 lanes a chain at 1024 chains, fewer as
+    # the chains grow (LANE_STEPS) and one thread from 16,385 on; the
+    # build defines its lanes, so its header has no RT_LANES
     fem = emit_cuda.emit(funnel(rtt).density())
-    assert F.lanes_per_chain(fem) == 1
+    assert F.lanes_per_chain(fem, 1024) == 16
     assert F.threads_per_block(fem, 1024) == 32
+    assert F.lanes_per_chain(fem, 16_385) == 1
     assert "RT_LANES" not in fem.source
 
 

@@ -349,19 +349,22 @@ def loop_zoo(rt, k):
 
 @pytest.mark.parametrize("k", [40, 300], ids=["registers", "workspace"])
 def test_loop_shapes_match_autograd_and_jax(k, tmp_path):
-    """Every loop shape of `loop_zoo`, compiled for the host, against
-    autograd on the port's evaluator and jax.value_and_grad, with the
-    state in registers (65 parameters) and in the workspace (325): f32
-    sums of at most 300 terms in other orders (the loops sum in f64), so
-    lp within rtol 1e-5 / atol 1e-5·(1 + |lp|) and gradients within 1e-5
-    of max |g|."""
+    """Every loop shape of `loop_zoo`, compiled for the host as the card
+    runs it, a warp a chain with its 32 lanes emulated, against autograd
+    on the port's evaluator and jax.value_and_grad, with the state in a
+    slot in shared memory (65 parameters; the id names the per-thread
+    arrays it had before its chain took lanes) and in the device
+    workspace (325): every loop is split over the lanes, a lane's partial
+    sums added in f64 and met in the butterfly's order, against f32 sums
+    of at most 300 terms in other orders, so lp within rtol 1e-5 /
+    atol 1e-5·(1 + |lp|) and gradients within 1e-5 of max |g|."""
     cd, cdj = loop_zoo(rtt, k).density(), loop_zoo(rtj, k).density()
     lpg, em = _compile_host(cd, tmp_path)
-    assert bool(em.workspace) == (k > emit_cuda.LOCAL_STATE_MAX)
+    assert em.workspace
+    assert em.shared == (k <= emit_cuda.LOCAL_STATE_MAX)
     src = em.source
-    # over the workspace the lanes of a chain split each loop's elements
-    head = ("for (int i = RT_LANE; i < {}; i += RT_LSTEP)" if em.workspace
-            else "for (int i = 0; i < {}; ++i)")
+    # the lanes of a chain split each loop's elements
+    head = "for (int i = RT_LANE; i < {}; i += RT_LSTEP)"
     assert head.format(k) in src
     assert head.format(24) in src
     assert "if (i == 3) k" in src                 # the element read
