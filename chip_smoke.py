@@ -65,7 +65,7 @@ printing one line:
   scan-path run by per-chain moments, and the kernel against its plain
   version at the main path's shapes, compared the same way;
 * the 2M-row logistic regression of ``benchmarks/data_scale.py:35-50``
-  (the 100k model at n = 2,000,000, 512 chains, 100 + 100 iterations of
+  (the 100k model at n = 2,000,000, 512 chains, 60 + 50 iterations of
   HMC(8)), whose 88 MB of columns exceed the card's L2, so its launches
   stream their row tiles: a scan-path run, the streamed density at full
   width at its last draws and at inits against the plain version and
@@ -119,6 +119,12 @@ THROUGHPUT_CHAINS, THROUGHPUT_ITERS, THROUGHPUT_EPS = 524288, 500, 0.18
 PARITY_CHAINS, PARITY_ITERS = 1000, 200
 REL_TOL = 1e-4   # |kernel - plain| <= REL_TOL * max(1, |plain|), per chain
 DEVICE = "cuda"
+# a kernel's time is the median of LAUNCH_REPS launches alone (setup
+# hoisted, columns bound once; ROADMAP C1) where a whole call takes under
+# LAUNCH_SHORT_MS, else one launch; the density check's launches always
+# LAUNCH_REPS, and it makes DENSITY_LAUNCHES in all
+LAUNCH_REPS, LAUNCH_SHORT_MS = 20, 50.0
+DENSITY_LAUNCHES = 4 + 1 + LAUNCH_REPS
 
 # README regression (benchmarks/models.py:30-41)
 README_ROWS, README_SEED = 200, 0
@@ -200,6 +206,66 @@ NUTS_MEAN_SD, NUTS_SD_REL = 0.05, 0.05
 # benchmarks/e2e.py:96-104): EHMC(1024), synchronized; iterations cut from
 # 1000 + 1000 for the script's time (PERF.md §4)
 EHMC_WARMUP, EHMC_DRAWS = 500, 500
+# the goldset zoo (tests/goldset_zoo.py:28-56, the reference's SBCModel
+# goldset: 5 continuous priors under a Normal likelihood and 7 discrete
+# likelihoods), each family's data synthesized on the card by the port's
+# generators at the reference SBCBenchmark's largest size
+# (benchmarks/sbc_sweep.py:3-8) and fitted through
+# Model.sample(kernel="fused!") at 1024 chains x (300 + 500), HMC(4); held
+# to a quadrature of prior x likelihood in numpy f64 over ZOO_GRID points
+# (means within ZOO_MEAN_SD posterior SD, SDs within ZOO_SD_REL, rank-r̂
+# under 1.01).  HMC(4), not HMC(5): on these 1-D, near-Gaussian posteriors
+# warmup adapts the step to 1.06-1.12 of the posterior SD, where five
+# leapfrog steps turn a trajectory about 5.9 rad, near a full period,
+# and rank-r̂ over 1000 draws came out 1.004-1.021 on the card with every
+# mean and SD within its bar; four steps turn it about 4.7 rad; ``kernel_ab.py
+# zoo 5 1000 float64`` reads HMC(5).  500 draws, not 300, for the
+# estimator's bias of about (τ - 1)/n a half chain.  Warmup runs in f64
+# (``Model.sample(dtype=)``): at 100k rows the large Poisson's Σ v·log λ
+# and Σ log v! are ~2e7 each, so f32 rounding moves its lp by about a nat
+# (read by `zoo_parity`), more than the posterior's width does, and with
+# f32 warmup dual averaging drives its step to ~1e-5 and the negative
+# binomial loses chains to its far tail (``kernel_ab.py zoo 4 500
+# float32`` reads it; ROADMAP fault C4)
+ZOO_ROWS, ZOO_SEED = 100_000, 7
+ZOO_WARMUP, ZOO_DRAWS, ZOO_STEPS = 300, 500, 4
+ZOO_GRID, ZOO_MEAN_SD, ZOO_SD_REL = 4001, 0.05, 0.05
+# the kernel held to its plain version at the zoo's shapes, from these
+# families' fits (their final states, ε and Σ̂): the -inf term of a
+# zero-inflated LogSumExp, and the largest data-only lgamma sums (the
+# large Poisson's and the negative binomial's); the density at those
+# states against the plain version and f64, then ZOO_PARITY_ITERS
+# iterations of HMC(ZOO_STEPS) compared by `chaotic` after at most
+# ZOO_AGREE_AT (`zoo_parity` says where)
+ZOO_PARITY = ("zero_inflated_geometric", "large_poisson", "neg_binomial")
+ZOO_PARITY_ITERS, ZOO_AGREE_AT = 100, 20
+# predictive checks: every draw of the trace thinned by PRED_THIN, means
+# (and the README's variances) within PRED_SE standard errors
+PRED_THIN, PRED_SE = 10, 5.0
+# the zoo families whose predictive mean is held to the mean over draws
+# of the family's mean, as a numpy function of the latent
+ZOO_MEANS = {"poisson": lambda x: x, "binomial": lambda x: 10.0 * x,
+             "neg_binomial": lambda x: 10.0 * x / (1.0 - x),
+             "zero_inflated_geometric": lambda x: 0.7 * (1.0 - x) / x}
+# Model.sample_prior on tests/test_distributions.py:179-195's pair
+PRIOR_DRAWS = 1000
+# on-device diagnostics against the host's f64, rank-normalized: r̂
+# within DIAG_RHAT (absolute), ESS within DIAG_ESS_REL; GLMMPoisson2's
+# every DIAG_GLMM_EVERY-th coordinate (the host pipeline took 31 s for all
+# 146 on the card's host)
+DIAG_RHAT, DIAG_ESS_REL, DIAG_GLMM_EVERY = 1e-3, 0.01, 10
+# SBC on the card (tests/test_sbc.py:27-34: n = 30 there): simulate at
+# SBC_ROWS rows, 2**SBC_LOG_BINS bins, SBC_REPS repetitions, each fit
+# SBC_WARMUP warmup iterations (the test's 500) of HMC(SBC_STEPS) (the
+# test's 6: at the step warmup adapts on these 1-D posteriors HMC(6) turns
+# a trajectory nearly a full period, so each repetition refit 2-5 times
+# to thin its draws to 1024 effective, 40-49 s a repetition on the card;
+# HMC(4) turns about 4.4 rad, lag-1 autocorrelation near -0.3); bars: max
+# r̂ < SBC_RHAT, rank-uniformity p-value > SBC_PVALUE
+SBC_ROWS, SBC_LOG_BINS, SBC_REPS, SBC_WARMUP = 100, 2, 12, 150
+SBC_STEPS = 4
+SBC_RHAT, SBC_PVALUE = 1.2, 1e-4
+SBC_FAMILIES = ("zero_inflated_geometric", "binomial")
 
 
 def funnel(rt, dim=10):
@@ -209,6 +275,128 @@ def funnel(rt, dim=10):
     y = rt.Normal(0.0, 3.0).latent()
     xv = rt.Normal(0.0, (y / 2).exp()).latent_vec(dim - 1)
     return rt.Model.track_({y} | set(xv.to_list())), y
+
+
+def zoo(rt):
+    """The goldset zoo of tests/goldset_zoo.py:28-56 as the port builds
+    it: (name, SBC) pairs (that module imports the JAX package, so this
+    script keeps its own copy)."""
+    from rainier_tpu_torch.core import SBC
+
+    return [
+        ("uniform_normal", SBC.of(rt.Uniform(0, 1),
+                                  lambda x: rt.Normal(x, 1.0))),
+        ("lognormal", SBC.of(rt.LogNormal(0, 0.5),
+                             lambda x: rt.Normal(x, 1.0))),
+        ("exponential", SBC.of(rt.Exponential(0.5),
+                               lambda x: rt.Normal(x, 1.0))),
+        ("laplace", SBC.of(rt.Laplace(0, 1), lambda x: rt.Normal(x, 1.0))),
+        ("gamma_normal", SBC.of(rt.Gamma(2.0, 2.0),
+                                lambda x: rt.Normal(x, 2.0))),
+        ("bernoulli", SBC.of(rt.Uniform(0, 1), lambda x: rt.Bernoulli(x))),
+        ("binomial", SBC.of(rt.Beta(1.0, 1.0),
+                            lambda x: rt.Binomial(x, 10.0))),
+        ("geometric", SBC.of(rt.Uniform(0, 1), lambda x: rt.Geometric(x))),
+        ("neg_binomial", SBC.of(rt.Uniform(0, 1),
+                                lambda x: rt.NegativeBinomial(x, 10.0))),
+        ("poisson", SBC.of(rt.Gamma(2.0, 2.0), lambda x: rt.Poisson(x))),
+        ("large_poisson", SBC.of(rt.Gamma(2.0, 50.0),
+                                 lambda x: rt.Poisson(x))),
+        ("zero_inflated_geometric",
+         SBC.of(rt.Uniform(0, 1),
+                lambda x: rt.Geometric(x).zero_inflated(0.3))),
+    ]
+
+
+def zoo_models(rt, device):
+    """Each zoo family's data, ZOO_ROWS rows synthesized on `device` by
+    ``SBC.synthesize`` (seed ZOO_SEED), and its model as ``SBC.fit``
+    builds it, keeping the likelihood: {name: (model, the likelihood's
+    distribution, the latent, data, the true value)}."""
+    out = {}
+    for name, sbc in zoo(rt):
+        data, truth = sbc.synthesize(ZOO_ROWS, ZOO_SEED, device)
+        dist, stat = sbc.fn([p.latent() for p in sbc.priors])
+        out[name] = (rt.Model.observe(data.astype(np.float64), dist), dist,
+                     stat, data.astype(np.float64), truth)
+    return out
+
+
+def _normal_lik(sd):
+    """log N(v; x, sd²) summed over the data, up to a constant, from the
+    data's sums."""
+    def lik(x, v):
+        n, s1, s2 = v.size, v.sum(), (v * v).sum()
+        return -0.5 * (s2 - 2.0 * x * s1 + n * x * x) / sd ** 2
+    return lik
+
+
+def zoo_log_posterior(name, data):
+    """(log prior + log likelihood of x, up to constants, as a numpy f64
+    function of a grid of x; the support (lo, hi)) of a zoo family on
+    `data`, from the families' textbook densities and the data's
+    sufficient statistics: independent of the port."""
+    from scipy.special import gammaln
+
+    n, s = data.size, data.sum()
+    unit = (1e-12, 1.0 - 1e-12)
+    half = (1e-12, 1e6)
+
+    def gamma_prior(shape, scale):
+        return lambda x: ((shape - 1) * np.log(x) - x / scale
+                          - gammaln(shape) - shape * np.log(scale))
+
+    priors = {
+        "uniform_normal": (lambda x: 0.0 * x, unit),
+        "lognormal": (lambda x: -np.log(x) - np.log(x) ** 2 / (2 * 0.25),
+                      half),
+        "exponential": (lambda x: -0.5 * x, half),
+        "laplace": (lambda x: -np.abs(x), (-1e6, 1e6)),
+        "gamma_normal": (gamma_prior(2.0, 2.0), half),
+        "poisson": (gamma_prior(2.0, 2.0), half),
+        "large_poisson": (gamma_prior(2.0, 50.0), half),
+    }
+    prior, support = priors.get(name, (lambda x: 0.0 * x, unit))
+    n0 = float(np.sum(data == 0))
+    liks = {
+        "uniform_normal": _normal_lik(1.0), "lognormal": _normal_lik(1.0),
+        "exponential": _normal_lik(1.0), "laplace": _normal_lik(1.0),
+        "gamma_normal": _normal_lik(2.0),
+        "bernoulli": lambda x, v: s * np.log(x) + (n - s) * np.log1p(-x),
+        "binomial": lambda x, v: (s * np.log(x)
+                                  + (10.0 * n - s) * np.log1p(-x)),
+        "geometric": lambda x, v: n * np.log(x) + s * np.log1p(-x),
+        "neg_binomial": lambda x, v: (10.0 * n * np.log1p(-x)
+                                      + s * np.log(x)),
+        "poisson": lambda x, v: s * np.log(x) - n * x,
+        "large_poisson": lambda x, v: s * np.log(x) - n * x,
+        "zero_inflated_geometric": lambda x, v: (
+            n0 * np.log(0.3 + 0.7 * x) + (n - n0) * (np.log(0.7)
+                                                     + np.log(x))
+            + s * np.log1p(-x)),
+    }
+    lik = liks[name]
+    return lambda x: prior(x) + lik(x, data), support
+
+
+def quadrature(log_post, support):
+    """Posterior (mean, SD) of a 1-D log density on a grid of ZOO_GRID
+    points over the support, refined around the mass: each of six rounds'
+    grids spans the last round's mean ± 12 SD, in numpy f64."""
+    lo, hi = support
+    a, b = lo, hi
+    for _ in range(6):
+        x = np.linspace(a, b, ZOO_GRID)
+        with np.errstate(all="ignore"):
+            lp = log_post(x)
+        lp = np.where(np.isfinite(lp), lp, -np.inf)
+        w = np.exp(lp - lp.max())
+        w /= w.sum()
+        mean = float(np.dot(w, x))
+        sd = max(float(np.sqrt(np.dot(w, (x - mean) ** 2))),
+                 (b - a) / (ZOO_GRID - 1))
+        a, b = max(lo, mean - 12 * sd), min(hi, mean + 12 * sd)
+    return mean, sd
 
 
 def linear_slot(cd, expr):
@@ -479,7 +667,8 @@ def check(ok: bool, what) -> None:
 
 def timed(fn, device, reps: int = 1, warm: bool = True):
     """(result of the last call, mean ms per call): CUDA events on the
-    card, the host clock elsewhere."""
+    card around whole calls, host work included; the host clock
+    elsewhere.  ``kernel_ab.launch_ms`` times a kernel's launches alone."""
     import torch
 
     if device.type == "cuda":
@@ -581,9 +770,11 @@ def parity_inputs(cd, device, n_chains, n_iters, explicit_noise: bool,
         imd = t(var * rng.uniform(0.5, 2.0, (n_chains, dim)))
     else:
         q0, eps, imd = (t(x) for x in start)
+    # the columns bound once, as Model.sample binds them (ROADMAP C1)
     kw = dict(step_size=eps, n_steps=n_steps, n_iterations=n_iters, seed=11,
               inv_mass_diag=imd, collect_every=collect_every,
-              collect_idx=collect_idx)
+              collect_idx=collect_idx,
+              columns=cd.column_values(torch.float32, device))
     if explicit_noise:
         gen = torch.Generator(device=device).manual_seed(1)
         kw["noise"] = (
@@ -760,14 +951,22 @@ def time_kernel(F, cd, em, tr, n_steps, device, col_bytes, what, reps=1,
     `n_iters` cuts the run's depth (default: the main path's)."""
     import torch
 
+    from rainier_tpu_torch.tools.kernel_ab import launch_ms
+
     n_chains, n_iters = tr.chains.shape[0], n_iters or tr.chains.shape[1]
     q0, kw = parity_inputs(
         cd, device, n_chains, n_iters, explicit_noise,
         start=(tr.final_q.T, tr.step_size, tr.mass.diag), n_steps=n_steps,
         collect_idx=collect_idx)
     kw["seed"] = 1
-    ker, ker_ms = timed(lambda: F.fused_hmc(cd, q0, **kw), device, reps,
-                        reps > 1)
+    ker, call_ms = timed(lambda: F.fused_hmc(cd, q0, **kw), device, reps,
+                         reps > 1)
+    # the launch alone: the median of LAUNCH_REPS after a warm one where
+    # the whole call is short, else one
+    short = call_ms < LAUNCH_SHORT_MS
+    _, ker_ms = launch_ms(F.prepare_fused_hmc(cd, q0, **kw), device,
+                          LAUNCH_REPS if short else 1, warm=short)
+    launches = f"median of {LAUNCH_REPS}" if short else "one"
     plain, plain_ms = timed(lambda: F.fused_hmc_reference(cd, q0, **kw),
                             device, 1, False)
     law, z = "", 0.0
@@ -775,6 +974,7 @@ def time_kernel(F, cd, em, tr, n_steps, device, col_bytes, what, reps=1,
         ker, plain, law, z = chaotic(F, cd, q0, kw, ker, plain, agree_at,
                                      tol, device)
     frac, max_err, dacc, div_eq = agreement(ker, plain, tol)
+    acc = f"{float(ker[2].mean()):.4f} and {float(plain[2].mean()):.4f}"
     n_collect = cd.n_vars if collect_idx is None else len(collect_idx)
     bound_ms, bound_by = kernel_bound_ms(em, n_chains, n_iters, n_steps, 1,
                                          F, col_bytes, n_collect,
@@ -784,47 +984,25 @@ def time_kernel(F, cd, em, tr, n_steps, device, col_bytes, what, reps=1,
           f"{'explicit noise' if explicit_noise else 'on-device Philox'}, "
           f"{n_collect} coordinates of each draw collected, workspace "
           f"{F.workspace_bytes(em, n_chains)} bytes): kernel "
-          f"{ker_ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} "
+          f"{ker_ms:.4f} ms a launch ({launches}), {call_ms:.4f} ms a "
+          f"whole call (mean of {reps}), plain {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.4f} "
           f"ms ({bound_by}), {frac:.4f} of chains agree within {tol} rel "
           f"after {agree_at or n_iters} it (need {min_frac:.4f}), "
-          f"max |dq| {max_err:.3g}, mean |d accept| {dacc:.3g}, "
-          f"divergences equal {div_eq}{law}", flush=True)
+          f"max |dq| {max_err:.3g}, mean accept of kernel and plain {acc}, "
+          f"mean |d accept| {dacc:.3g}, divergences equal {div_eq}{law}",
+          flush=True)
     check(frac >= min_frac and dacc < max_dacc and div_eq
           and z <= GLMM_MOMENT_Z, (what, frac, dacc, div_eq, z))
-    return dict(max_abs_err=max_err, ms=ker_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=max_err, ms=ker_ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def rank_rhat(chains, device):
+def rank_rhat(tr):
     """Max over the parameters of the rank-normalized split r̂ (Vehtari et
-    al. 2021) of draws (chains, draws, parameters), the statistic of
-    Trace.diagnostics(rank_normalized=True), computed in f64 on the card:
-    pooled ranks with ties averaged, normal scores, then split-chain r̂.
-    The host pipeline takes minutes for the GLMM's 146 parameters × 1024
-    chains × 1000 draws."""
-    import torch
-
-    x = torch.as_tensor(chains, dtype=torch.float64, device=device)
-    h = x.shape[1] // 2
-    x = torch.cat([x[:, :h], x[:, h:2 * h]], dim=0)        # (2m, h, k)
-    m, k = x.shape[0], x.shape[2]
-    n = m * h
-    v, order = torch.sort(x.reshape(n, k), dim=0)
-    new = torch.ones_like(v, dtype=torch.bool)
-    new[1:] = v[1:] != v[:-1]
-    group = torch.cumsum(new, dim=0) - 1                   # tie groups
-    pos = torch.arange(1, n + 1, dtype=torch.float64,
-                       device=device)[:, None].expand(n, k)
-    total = torch.zeros_like(v).scatter_add_(0, group, pos)
-    count = torch.zeros_like(v).scatter_add_(0, group, torch.ones_like(v))
-    ranks = torch.empty_like(v).scatter_(
-        0, order, (total / count.clamp(min=1.0)).gather(0, group))
-    z = torch.special.ndtri((ranks - 0.375) / (n + 0.25)).reshape(m, h, k)
-    means = z.mean(dim=1)
-    b = h / (m - 1) * ((means - means.mean(dim=0)) ** 2).sum(dim=0)
-    w = (((z - means[:, None]) ** 2).sum(dim=1) / (h - 1)).mean(dim=0)
-    var = (h - 1) / h * w + b / h
-    return float(torch.sqrt(var / w.clamp(min=1e-300)).max())
+    al. 2021) of a Trace: ``Trace.diagnostics(rank_normalized=True)``,
+    computed on the card that holds its draws."""
+    return max(d.r_hat for d in tr.diagnostics(rank_normalized=True))
 
 
 def moment_z(a, b, device):
@@ -849,8 +1027,11 @@ def moment_z(a, b, device):
 
 
 def funnel_phases(F, cd, model, y, em, device, smi):
-    """The column-free funnel's phases; returns its JSON entry."""
+    """The column-free funnel's phases; returns (its JSON entries, its
+    main path's trace)."""
     import torch
+
+    from rainier_tpu_torch.tools.kernel_ab import launch_ms
 
     from rainier_tpu_torch.sampler import HMC, SamplerConfig
 
@@ -864,10 +1045,7 @@ def funnel_phases(F, cd, model, y, em, device, smi):
     launches = F.fused_hmc.launches
     ys = tr.evaluate(y)
     mean_y, var_y = float(np.mean(ys)), float(np.var(ys))
-    rhat = rank_rhat(tr.chains, device)
-    rhat_host = max(d.r_hat for d in tr.diagnostics(rank_normalized=True))
-    check(abs(rhat - rhat_host) < 1e-9, ("rank r_hat card vs host", rhat,
-                                         rhat_host))
+    rhat = rank_rhat(tr)
     print(f"phase main path, funnel: Model.sample(kernel='fused!') "
           f"{MAIN_CHAINS} chains x ({N_WARMUP} warmup + {N_DRAWS} draws), "
           f"HMC({N_STEPS}): fused_hmc launches {launches}, mean(y) "
@@ -893,8 +1071,8 @@ def funnel_phases(F, cd, model, y, em, device, smi):
     qz = torch.zeros((cd.n_vars, THROUGHPUT_CHAINS), device=device)
     tp_kw = dict(step_size=THROUGHPUT_EPS, n_steps=N_STEPS, seed=0,
                  collect_every=0)
-    _, tp_ms = timed(lambda: F.fused_hmc(
-        cd, qz, n_iterations=THROUGHPUT_ITERS, **tp_kw), device, 3)
+    _, tp_ms = launch_ms(F.prepare_fused_hmc(
+        cd, qz, n_iterations=THROUGHPUT_ITERS, **tp_kw), device, LAUNCH_REPS)
     _, tp_plain_ms = timed(lambda: F.fused_hmc_reference(
         cd, qz, n_iterations=50, **tp_kw), device, 1, False)
     evals = THROUGHPUT_CHAINS * THROUGHPUT_ITERS * N_STEPS
@@ -902,7 +1080,8 @@ def funnel_phases(F, cd, model, y, em, device, smi):
         em, THROUGHPUT_CHAINS, THROUGHPUT_ITERS, N_STEPS, 0, F)
     print(f"phase throughput: {THROUGHPUT_CHAINS} chains x "
           f"{THROUGHPUT_ITERS} it x {N_STEPS} steps, eps {THROUGHPUT_EPS}: "
-          f"kernel {tp_ms:.3f} ms = {evals / tp_ms * 1e3:.4g} grad evals/s "
+          f"kernel {tp_ms:.4f} ms a launch (median of {LAUNCH_REPS}) = "
+          f"{evals / tp_ms * 1e3:.4g} grad evals/s "
           f"(bound {tp_bound_ms:.3f} ms, {tp_bound_by}); plain version "
           f"{tp_plain_ms * THROUGHPUT_ITERS / 50:.1f} ms (50 it timed, "
           f"scaled) on {smi}", flush=True)
@@ -913,7 +1092,7 @@ def funnel_phases(F, cd, model, y, em, device, smi):
             {"name": "fused_hmc (funnel, explicit noise)", "route": "cuda",
              "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
              "replaces": "rainier_tpu/ops/hmc_pallas.py:244",
-             "launches": 0, **noise_entry, "library_ms": None}]
+             "launches": 0, **noise_entry, "library_ms": None}], tr
 
 
 def funnel_truth(q):
@@ -966,7 +1145,7 @@ def wide_phases(F, cd, model, y, em, device):
     launches = F.fused_hmc.launches
     ys = factor * tr.chains[:, :, 0]
     mean_y, var_y = float(np.mean(ys)), float(np.var(ys))
-    rhat = rank_rhat(tr.chains, device)
+    rhat = rank_rhat(tr)
     print(f"phase main path, funnel {WIDE_DIM}: Model.sample(kernel='fused!',"
           f" collect_idx={WIDE_COLLECT} coordinates) {MAIN_CHAINS} chains x "
           f"({WIDE_WARMUP} warmup + {WIDE_DRAWS} draws), HMC({N_STEPS}): "
@@ -1035,13 +1214,20 @@ def density_check(F, cd, em, q, truth, n_near, near_name, device,
     plain over the near points, the JSON entry)."""
     import torch
 
+    from rainier_tpu_torch.tools.kernel_ab import launch_ms
+
     before = F.logp_grad.launches, F.logp_grad.streamed
-    # one warm-up launch, then the mean of three
-    (lp_k, g_k), ms = timed(lambda: F.logp_grad(cd, q), device, 3)
-    (lp_p, g_p), plain_ms = timed(lambda: F.logp_grad_reference(cd, q),
-                                  device, 1, False)
+    cols = cd.column_values(torch.float32, device)
+    # whole calls: one warm-up, then the mean of three; then the launch
+    # alone, the median of LAUNCH_REPS after a warm one
+    _, call_ms = timed(lambda: F.logp_grad(cd, q, columns=cols), device, 3)
+    (lp_k, g_k), ms = launch_ms(F.prepare_logp_grad(cd, q, cols), device,
+                                LAUNCH_REPS)
+    (lp_p, g_p), plain_ms = timed(
+        lambda: F.logp_grad_reference(cd, q, cols), device, 1, False)
     lp_t, g_t = truth
-    check(F.logp_grad.launches == before[0] + 4, "logp_grad did not launch")
+    check(F.logp_grad.launches == before[0] + DENSITY_LAUNCHES,
+          "logp_grad did not launch")
     streamed = F.logp_grad.streamed - before[1]
     tol_lp, tol_g, gmax = density_bars(lp_t, g_t)
     if cond is not None:
@@ -1070,21 +1256,24 @@ def density_check(F, cd, em, q, truth, n_near, near_name, device,
         cd.n_vars + 1) + n * workspace_call_bytes(em)
     bound_ms, bound_by = _bound(ops, nbytes)
     print(f"phase density at full width: rt_logp_grad_launch at {n} q, "
-          f"{streamed} of 4 launches streamed "
+          f"{streamed} of {DENSITY_LAUNCHES} launches streamed "
           f"({n_near} {near_name}, {n - n_near} inits; "
           f"max |g| {float(gmax[groups[near_name]].max()):.4g} and "
           f"{float(gmax[groups['inits']].max()):.4g}, |lp| up to "
           f"{float(lp_t.abs().max()):.4g}); " + "; ".join(lines)
-          + f"; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+          + f"; kernel {ms:.4f} ms a launch (median of {LAUNCH_REPS}), "
+          f"{call_ms:.4f} ms a whole call (mean of 3), plain "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
     for k in ("kernel-vs-plain", "kernel-vs-f64"):
         check(worst[k][1] <= 1.0 and worst[k][2] <= 1.0, (k, worst[k]))
     near_dlp = float((lp_k - lp_p).abs()[groups[near_name]].mean())
     return near_dlp, dict(
         name="rt_logp_grad_launch", route="cuda",
         source="rainier_tpu_torch/csrc/fused_hmc.cu", replaces=replaces,
-        max_abs_err=worst["kernel-vs-plain"][0], ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        max_abs_err=worst["kernel-vs-plain"][0], ms=ms, call_ms=call_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None)
 
 
 def density_bars(lp_t, g_t):
@@ -1122,7 +1311,8 @@ def conditioning(lp_grad64, q):
 
 def readme_phases(F, readme, em, device):
     """The README regression through Model.sample(kernel="fused!"),
-    against the numpy least-squares fit; returns its JSON entry."""
+    against the numpy least-squares fit; returns (its JSON entry, its
+    main path's trace)."""
     from rainier_tpu_torch.sampler import HMC, SamplerConfig
 
     model, xs, ys, (sigma, alpha, betas) = readme
@@ -1141,7 +1331,7 @@ def readme_phases(F, readme, em, device):
     sig = tr.evaluate(sigma)
     mean, sd = draws.mean(0), draws.std(0)
     z = np.abs(mean - coef) / sd
-    rhat = rank_rhat(tr.chains, device)
+    rhat = rank_rhat(tr)
     print(f"phase main path, README regression: Model.sample(kernel="
           f"'fused!') {MAIN_CHAINS} chains x ({N_WARMUP} warmup + {N_DRAWS}"
           f" draws), HMC({N_STEPS}): fused_hmc launches {launches}, "
@@ -1164,7 +1354,7 @@ def readme_phases(F, readme, em, device):
     return {"name": "fused_hmc (README regression, one tile)",
             "route": "cuda", "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
             "replaces": "rainier_tpu/ops/hmc_pallas.py:280",
-            "launches": launches, **entry, "library_ms": None}
+            "launches": launches, **entry, "library_ms": None}, tr
 
 
 def logistic_main(F, model, cd, em, w_map, cov, device, min_frac,
@@ -1187,7 +1377,7 @@ def logistic_main(F, model, cd, em, w_map, cov, device, min_frac,
     sd_ref = np.sqrt(np.diag(cov))
     dmean = np.abs(flat.mean(0) - w_map) / sd_ref
     dsd = np.abs(flat.std(0) / sd_ref - 1.0)
-    rhat = rank_rhat(tr.chains, device)
+    rhat = rank_rhat(tr)
     print(f"phase main path, {what}: Model.sample(kernel="
           f"'fused!') {MAIN_CHAINS} chains x ({LOGIT_WARMUP} warmup + "
           f"{LOGIT_DRAWS} draws), HMC({LOGIT_STEPS}), "
@@ -1321,7 +1511,7 @@ def glmm_phases(F, model, cd, em, device):
     """GLMMPoisson2: the scan-path run, the density at full width at its
     last draws and at inits, kernel vs plain from those draws, the main
     path held to the scan-path run, and the kernel at the main path's
-    shapes.  Returns its JSON entries."""
+    shapes.  Returns (its JSON entries, its main path's trace)."""
     import torch
 
     from rainier_tpu_torch.sampler import HMC, SamplerConfig
@@ -1329,7 +1519,7 @@ def glmm_phases(F, model, cd, em, device):
     cfg = SamplerConfig(GLMM_WARMUP, GLMM_DRAWS, sampler=HMC(GLMM_STEPS))
 
     def summary(tr):
-        return (f"rank-r_hat max {rank_rhat(tr.chains, device):.5f}, "
+        return (f"rank-r_hat max {rank_rhat(tr):.5f}, "
                 f"accept {float(np.mean(tr.accept_rate())):.3f}, divergences "
                 f"{tr.divergences()}, step size median "
                 f"{float(np.median(tr.step_size)):.4g}, timings "
@@ -1405,7 +1595,7 @@ def glmm_phases(F, model, cd, em, device):
              "replaces": "rainier_tpu/ops/hmc_pallas.py:157",
              "launches": launches, **entry, "library_ms": None},
             {**density_entry, "name": "rt_logp_grad_launch (GLMMPoisson2)",
-             "launches": 0}]
+             "launches": 0}], tr
 
 
 def large_conditioning(lanes64, q):
@@ -1454,7 +1644,7 @@ def large_phases(F, model, cd, em, device):
     idx = large_collect()
 
     def summary(tr):
-        return (f"rank-r_hat max {rank_rhat(tr.chains, device):.5f}, "
+        return (f"rank-r_hat max {rank_rhat(tr):.5f}, "
                 f"accept {float(np.mean(tr.accept_rate())):.3f}, divergences "
                 f"{tr.divergences()}, step size median "
                 f"{float(np.median(tr.step_size)):.4g}, timings "
@@ -1607,7 +1797,7 @@ def logit2m_phases(F, model, cd, em, x, ys, lcd, w_map, cov, device):
           if device.type == "cuda" else 0)
 
     def summary(tr):
-        return (f"rank-r_hat max {rank_rhat(tr.chains, device):.5f}, "
+        return (f"rank-r_hat max {rank_rhat(tr):.5f}, "
                 f"accept {float(np.mean(tr.accept_rate())):.3f}, divergences "
                 f"{tr.divergences()}, step size median "
                 f"{float(np.median(tr.step_size)):.4g}, timings "
@@ -1637,7 +1827,7 @@ def logit2m_phases(F, model, cd, em, x, ys, lcd, w_map, cov, device):
             F, cd, em, q, logistic_truth(x, ys, q, device),
             LOGIT2M_CHECK_DRAWS, "scan-path draws", device,
             "rainier_tpu/ops/hmc_pallas.py:305")
-        check(F.logp_grad.streamed - before == 4,
+        check(F.logp_grad.streamed - before == DENSITY_LAUNCHES,
               "the 2M-row density launches did not stream")
         del q
 
@@ -1708,6 +1898,9 @@ def nuts_phase(rt, device):
     theta_1 (evaluated: tau, not the Cauchy coordinate, whose posterior is
     symmetric in sign) within NUTS_MEAN_SD posterior SDs, the SDs of mu
     and tau within NUTS_SD_REL, rank-r̂ < 1.01 on the three."""
+    import torch
+
+    from rainier_tpu_torch.core.trace import Trace
     from rainier_tpu_torch.ops import fused_hmc as F
     from rainier_tpu_torch.sampler import (NUTS, DenseMassMatrixTuner,
                                            SamplerConfig)
@@ -1731,7 +1924,9 @@ def nuts_phase(rt, device):
     depths = COUNTS.depths.cpu().numpy()
     got = {name: tr.evaluate(e).reshape(MAIN_CHAINS, NUTS_DRAWS)
            for name, e in (("mu", mu), ("tau", tau), ("theta_1", theta1))}
-    rhat = rank_rhat(np.stack(list(got.values()), axis=-1), device)
+    rhat = rank_rhat(Trace(torch.as_tensor(
+        np.stack(list(got.values()), axis=-1), device=device), model, None,
+        cfg))
     secs = tr.timings["warmup_s"] + tr.timings["sample_s"]
     print(f"phase main path, eight schools (NUTS, dense mass): "
           f"Model.sample {MAIN_CHAINS} chains x ({NUTS_WARMUP} warmup + "
@@ -1781,7 +1976,7 @@ def ehmc_phase(rt, device):
     check(COUNTS.iterations == n_iters, COUNTS.iterations)
     ys = tr.evaluate(y)
     mean_y, var_y = float(np.mean(ys)), float(np.var(ys))
-    rhat = rank_rhat(tr.chains, device)
+    rhat = rank_rhat(tr)
     evals = tr.stats.grad_evals
     secs = tr.timings["warmup_s"] + tr.timings["sample_s"]
     print(f"phase main path, funnel (default config: EHMC): Model.sample "
@@ -1806,6 +2001,245 @@ def ehmc_phase(rt, device):
                                       evals.max()))
 
 
+def zoo_phases(F, models, device):
+    """Each zoo family through Model.sample(kernel="fused!") at 1024
+    chains, held to its quadrature: the mean within ZOO_MEAN_SD posterior
+    SD, the SD within ZOO_SD_REL, rank-r̂ (Trace.diagnostics on the card)
+    under 1.01.  Warmup runs in f64 (the reason is at ZOO_ROWS), the
+    kernel in f32.  Returns ({name: trace}, {name: fused_hmc launches})."""
+    import torch
+
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    cfg = SamplerConfig(ZOO_WARMUP, ZOO_DRAWS, sampler=HMC(ZOO_STEPS))
+    traces, counts = {}, {}
+    for name, (model, _, stat, data, truth) in models.items():
+        t0 = time.perf_counter()
+        mean_q, sd_q = quadrature(*zoo_log_posterior(name, data))
+        quad_s = time.perf_counter() - t0
+        F.fused_hmc.launches = 0
+        tr = model.sample(cfg, n_chains=MAIN_CHAINS, seed=0,
+                          kernel="fused!", device=device,
+                          dtype=torch.float64)
+        launches = F.fused_hmc.launches
+        rhat = rank_rhat(tr)
+        x = tr.evaluate(stat)
+        steps = np.round(np.quantile(tr.step_size, [0.01, 0.5, 0.99]), 4)
+        dmean = abs(float(x.mean()) - mean_q) / sd_q
+        dsd = abs(float(x.std()) / sd_q - 1.0)
+        print(f"phase zoo fit, {name}: {ZOO_ROWS} rows synthesized on the "
+              f"card (true value {truth:.6g}, data mean "
+              f"{float(data.mean()):.6g}); Model.sample(kernel='fused!') "
+              f"{MAIN_CHAINS} chains x ({ZOO_WARMUP} warmup + {ZOO_DRAWS} "
+              f"draws), HMC({ZOO_STEPS}): fused_hmc launches {launches}, "
+              f"posterior mean {float(x.mean()):.7g} SD "
+              f"{float(x.std()):.5g} against the quadrature's {mean_q:.7g} "
+              f"and {sd_q:.5g} ({quad_s:.2f} s): mean {dmean:.4f} SD apart, "
+              f"SD {dsd:.4f} off; rank-r_hat {rhat:.5f}, accept "
+              f"{float(np.mean(tr.accept_rate())):.3f}, divergences "
+              f"{tr.divergences()}, step size quantiles (0.01, 0.5, 0.99) "
+              f"{steps.tolist()}, timings {tr.timings}", flush=True)
+        check(launches == 1, (name, "fused_hmc launches", launches))
+        check(np.all(np.isfinite(x)), (name, "non-finite draws"))
+        check(dmean < ZOO_MEAN_SD and dsd < ZOO_SD_REL and rhat < 1.01,
+              (name, dmean, dsd, rhat))
+        traces[name], counts[name] = tr, launches
+    return traces, counts
+
+
+def zoo_parity(F, cds, ems, fits, counts, device):
+    """The kernels at the zoo's shapes, from each ZOO_PARITY family's fit:
+    lp and g of rt_logp_grad_launch at its final states against the plain
+    version and f64 (read, not barred: at 10⁵ rows an f32 sum of
+    cancelling terms is off by more than two ulps of what remains), then
+    fused_hmc against its plain version from those states with the fit's
+    ε and Σ̂ over ZOO_PARITY_ITERS iterations (`time_kernel`, the mean
+    accept rates of both printed).  With E|Δlp| kernel vs plain read
+    here, an accept flips with probability at most 2·E|Δlp| an iteration
+    (`agree_frac`), so the chains are compared by `chaotic` after n
+    iterations, the most (up to ZOO_AGREE_AT, at least 1) that keep
+    2·n·E|Δlp| within 1/2, where at least `agree_frac(n, E|Δlp|)` must
+    agree within REL_TOL; and an iteration's accept probability moves by
+    at most |Δlp| at each of its two points, so the mean |Δaccept| of a
+    chain is bound by max(0.02, 2·E|Δlp|), 0.02 being the other models'
+    bar.  Returns the JSON entries of fused_hmc."""
+    import torch
+
+    entries = []
+    for name in ZOO_PARITY:
+        cd, em, tr = cds[f"zoo {name}"], ems[f"zoo {name}"], fits[name]
+        q = torch.as_tensor(tr.final_q.T, dtype=torch.float32, device=device)
+        cols = cd.column_values(torch.float32, device)
+        cols64 = tuple(c.double() if c.is_floating_point() else c
+                       for c in cols)
+        lp_k, g_k = F.logp_grad(cd, q, columns=cols)
+        lp_p, g_p = F.logp_grad_reference(cd, q, cols)
+        lp_t, g_t = F._lp_grad_fn(cd, cols64)(q.double())
+        check(bool(torch.isfinite(lp_k).all() and torch.isfinite(g_k).all()),
+              (name, "non-finite lp or g"))
+        # g in units of the posterior's scale: g times the fit's SD of q
+        sd = torch.as_tensor(np.sqrt(tr.mass.diag).T, device=device)
+        reads = []
+        for what, lp, g in (("kernel-vs-plain", lp_k - lp_p, g_k - g_p),
+                            ("kernel-vs-f64", lp_k - lp_t, g_k - g_t),
+                            ("plain-vs-f64", lp_p - lp_t, g_p - g_t)):
+            reads.append(
+                f"{what} |dlp| mean {float(lp.abs().mean()):.3g} max "
+                f"{float(lp.abs().max()):.3g} (SD over the chains "
+                f"{float(lp.double().std()):.3g}), |dg|·sd max "
+                f"{float((g.abs() * sd).max()):.3g}")
+        dlp_mean = float((lp_k - lp_p).abs().mean())
+        agree_at = int(min(ZOO_AGREE_AT, max(1, 0.25 / max(dlp_mean,
+                                                           1e-12))))
+        print(f"phase zoo density, {name}: rt_logp_grad_launch at the fit's "
+              f"{q.shape[1]} final states, |lp| up to "
+              f"{float(lp_t.abs().max()):.6g}, |g|·sd up to "
+              f"{float((g_t.abs() * sd).max()):.3g}; " + "; ".join(reads),
+              flush=True)
+        entry = time_kernel(F, cd, em, tr, ZOO_STEPS, device, em.row_bytes(),
+                            f"zoo {name}",
+                            min_frac=agree_frac(agree_at, dlp_mean),
+                            max_dacc=max(0.02, 2.0 * dlp_mean),
+                            agree_at=agree_at, n_iters=ZOO_PARITY_ITERS)
+        entries.append({"name": f"fused_hmc (zoo {name}, {ZOO_ROWS} rows)",
+                        "route": "cuda",
+                        "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
+                        "replaces": "rainier_tpu/ops/hmc_pallas.py:302",
+                        "launches": counts[name], **entry,
+                        "library_ms": None})
+    return entries
+
+
+def _within(got, want, se, what):
+    """Check |got - want| < PRED_SE·se elementwise; returns the largest
+    ratio."""
+    z = float(np.max(np.abs(np.asarray(got) - np.asarray(want))
+                     / np.asarray(se)))
+    check(z < PRED_SE, (what, z))
+    return z
+
+
+def predictive_phases(rt, readme, readme_tr, zoo_fits, models, device):
+    """Trace.predict on the README regression (a Vec of 200 Normals) and
+    on four zoo families' fits, each every PRED_THIN-th draw, and
+    Model.sample_prior on tests/test_distributions.py:179-195's pair."""
+    from rainier_tpu_torch.core.trace import Trace
+
+    _, xs, _, (sigma, alpha, betas) = readme
+    rows = [tuple(r) for r in xs]
+    lh = rt.Vec.from_(rows).map(lambda t: rt.Normal(
+        alpha + rt.Vec.of(*t).dot(betas), sigma))
+    lin = rt.Vec.from_(rows).map(lambda t: alpha + rt.Vec.of(*t).dot(betas))
+    tr = readme_tr.thin(PRED_THIN)
+    t0 = time.perf_counter()
+    pred = tr.predict(lh, seed=3).astype(np.float64)
+    pred_s = time.perf_counter() - t0
+    mu = tr.evaluate(lin.element)
+    s2 = tr.evaluate(sigma) ** 2
+    n = pred.shape[0]
+    check(pred.shape == mu.shape == (n, len(rows)), (pred.shape, mu.shape))
+    z_mean = _within(pred.mean(0), mu.mean(0),
+                     np.sqrt((pred - mu).var(0) / n), "README mean")
+    var_want = mu.var(0) + s2.mean()
+    z_var = _within(pred.var(0), var_want,
+                    pred.var(0) * np.sqrt(2.0 / n), "README variance")
+    print(f"phase predict, README regression: trace.thin({PRED_THIN})"
+          f".predict of a Vec of {len(rows)} Normals, {n} draws x "
+          f"{len(rows)} rows in {pred_s:.3f} s; per row, the predictive mean "
+          f"against Trace.evaluate of the linear predictor max {z_mean:.3f} "
+          f"SE apart, the predictive variance against Var(mu) + E[sigma^2] "
+          f"max {z_var:.3f} SE apart (bound {PRED_SE})", flush=True)
+
+    for name, mean_of in ZOO_MEANS.items():
+        tr = zoo_fits[name].thin(PRED_THIN)
+        _, dist, stat, _, _ = models[name]
+        t0 = time.perf_counter()
+        pred = tr.predict(dist, seed=4).astype(np.float64)
+        pred_s = time.perf_counter() - t0
+        want = mean_of(tr.evaluate(stat))
+        z = _within(pred.mean(), want.mean(),
+                    np.sqrt((pred - want).var() / pred.size), name)
+        print(f"phase predict, {name}: {pred.size} draws in {pred_s:.3f} s,"
+              f" predictive mean {pred.mean():.6g} against the mean over "
+              f"draws of the family's mean {want.mean():.6g}: {z:.3f} SE "
+              f"apart (bound {PRED_SE})", flush=True)
+
+    a = rt.Uniform(0, 1).latent()
+    c = rt.Normal(a + 1, a).latent()
+    t0 = time.perf_counter()
+    da, dc = rt.Model.sample_prior([a, c], n=PRIOR_DRAWS, seed=0,
+                                   device=device)
+    prior_s = time.perf_counter() - t0
+    # the draws are 4 chains' in turn: c's ESS gives the SE of its mean
+    ess = Trace(dc.reshape(4, -1, 1), None, None, None).diagnostics(
+        device=False)[0].effective_sample_size
+    z = abs(float(dc.mean()) - 1.5) / (float(dc.std()) / np.sqrt(ess))
+    corr = float(np.corrcoef(da, dc)[0, 1])
+    print(f"phase Model.sample_prior: a ~ Uniform(0, 1), c ~ Normal(a + 1, "
+          f"a), {da.size} draws in {prior_s:.2f} s: a in (0, 1) "
+          f"{bool(np.all((da > 0) & (da < 1)))}, mean(c) "
+          f"{float(dc.mean()):.4f} ({z:.3f} SE from 1.5, ESS {ess:.0f}), "
+          f"corr(a, c) {corr:.4f}", flush=True)
+    check(da.shape == dc.shape == (PRIOR_DRAWS,), (da.shape, dc.shape))
+    check(np.all((da > 0) & (da < 1)), "a outside (0, 1)")
+    check(z < PRED_SE and corr > 0.1, (z, corr))
+
+
+def diagnostics_phase(traces):
+    """Trace.diagnostics(rank_normalized=True) on the card (device=True)
+    against the host's f64 pipeline (device=False): r̂ within DIAG_RHAT,
+    ESS within DIAG_ESS_REL relative, and no warning that the two rank
+    formulations disagree."""
+    import warnings
+
+    for name, tr in traces.items():
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            dev = tr.diagnostics(rank_normalized=True)
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = tr.diagnostics(rank_normalized=True, device=False)
+        host_s = time.perf_counter() - t0
+        d_rhat = max(abs(a.r_hat - b.r_hat) for a, b in zip(dev, host))
+        d_ess = max(abs(a.effective_sample_size / b.effective_sample_size
+                        - 1.0) for a, b in zip(dev, host))
+        print(f"phase on-device diagnostics, {name} ({tr.n_chains} chains "
+              f"x {tr.n_iterations} draws x {len(dev)} parameters, "
+              f"rank-normalized): card {dev_s:.3f} s, host f64 "
+              f"{host_s:.3f} s; max |d r_hat| {d_rhat:.3g}, max ESS rel "
+              f"{d_ess:.3g}, max r_hat {max(d.r_hat for d in dev):.5f}, "
+              f"warnings {[str(w.message) for w in caught]}", flush=True)
+        check(d_rhat < DIAG_RHAT and d_ess < DIAG_ESS_REL and not caught,
+              (name, d_rhat, d_ess, len(caught)))
+
+
+def sbc_phase(sbcs, device):
+    """SBC.simulate on the card, fits through kernel="fused!": SBC_REPS
+    repetitions of each of SBC_FAMILIES at SBC_ROWS rows, held to
+    tests/test_sbc.py:27-34's bars."""
+    from rainier_tpu_torch.core import rank_uniformity_pvalue
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    def cfg(n):
+        return SamplerConfig(SBC_WARMUP, max(n, 64),
+                             sampler=HMC(SBC_STEPS))
+
+    for name, sbc in sbcs.items():
+        reps = list(sbc.simulate(SBC_ROWS, cfg, log_bins=SBC_LOG_BINS,
+                                 reps=SBC_REPS, seed=0, device=device,
+                                 kernel="fused!"))
+        p = rank_uniformity_pvalue(reps, 1 << SBC_LOG_BINS)
+        max_rhat = max(r.r_hat for r in reps)
+        print(f"phase SBC, {name}: {SBC_REPS} repetitions at {SBC_ROWS} "
+              f"rows, {1 << SBC_LOG_BINS} bins: ranks "
+              f"{[r.rank for r in reps]}, thin {[r.thin for r in reps]}, "
+              f"max r_hat {max_rhat:.4f}, rank-uniformity p {p:.4g}, "
+              f"seconds a repetition "
+              f"{[round(r.seconds, 2) for r in reps]}", flush=True)
+        check(max_rhat < SBC_RHAT and p > SBC_PVALUE, (name, max_rhat, p))
+
+
 def main() -> int:
     import torch
 
@@ -1814,6 +2248,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import rainier_tpu_torch as rt
+    from rainier_tpu_torch.core.trace import Trace
     from rainier_tpu_torch.ops import fused_hmc as F
 
     t_start = time.perf_counter()
@@ -1842,6 +2277,14 @@ def main() -> int:
            "GLMMPoisson2": gmodel.density(),
            "glmm_large": large.density(),
            "logistic regression 2M": l2model.density()}
+    # the zoo's data synthesized on the card, and the SBC phase's models,
+    # so that their kernels build with the others
+    zoo_fit_models = zoo_models(rt, device)
+    cds.update({f"zoo {name}": m[0].density()
+                for name, m in zoo_fit_models.items()})
+    sbcs = {name: sbc for name, sbc in zoo(rt) if name in SBC_FAMILIES}
+    cds.update({f"SBC {name}": sbc._fit_template(SBC_ROWS)[0].density()
+                for name, sbc in sbcs.items()})
     with phase("build", device):
         ems = build_all(F, cds, {"funnel": (MAIN_CHAINS, THROUGHPUT_CHAINS),
                                  "logistic regression 2M": (
@@ -1849,8 +2292,8 @@ def main() -> int:
 
     # -- the funnel: the column-free phases ----------------------------------
     with phase("funnel", device):
-        kernels = funnel_phases(F, cds["funnel"], fmodel, y, ems["funnel"],
-                                device, smi)
+        kernels, funnel_tr = funnel_phases(F, cds["funnel"], fmodel, y,
+                                           ems["funnel"], device, smi)
     with phase(f"funnel {WIDE_DIM}", device):
         kernels += wide_phases(F, cds[f"funnel {WIDE_DIM}"], wmodel, wy,
                                ems[f"funnel {WIDE_DIM}"], device)
@@ -1876,8 +2319,9 @@ def main() -> int:
 
     # -- main paths with data -----------------------------------------------
     with phase("README regression", device):
-        kernels.append(readme_phases(F, readme, ems["README regression"],
-                                     device))
+        entry, readme_tr = readme_phases(F, readme,
+                                         ems["README regression"], device)
+        kernels.append(entry)
     with phase("logistic regression: main path", device):
         entry, tr = logistic_main(F, lmodel, lcd, lem, w_map, cov, device,
                                   agree_frac(LOGIT_TIME_ITERS, dlp_mean))
@@ -1899,8 +2343,9 @@ def main() -> int:
 
     # -- GLMMPoisson2: integer index columns ---------------------------------
     with phase("GLMMPoisson2", device):
-        kernels += glmm_phases(F, gmodel, cds["GLMMPoisson2"],
-                               ems["GLMMPoisson2"], device)
+        entries, glmm_tr = glmm_phases(F, gmodel, cds["GLMMPoisson2"],
+                                       ems["GLMMPoisson2"], device)
+        kernels += entries
 
     # -- glmm_large: the chain state in the kernel's workspace ---------------
     with phase("glmm_large", device):
@@ -1917,6 +2362,24 @@ def main() -> int:
         nuts_phase(rt, device)
     with phase("funnel (default config: EHMC)", device):
         ehmc_phase(rt, device)
+
+    # -- the generative side and the rest of Trace: the zoo at 100k rows -----
+    t_new = time.perf_counter()
+    with phase("zoo fits", device):
+        zoo_fits, zoo_counts = zoo_phases(F, zoo_fit_models, device)
+    with phase("zoo: kernel vs plain", device):
+        kernels += zoo_parity(F, cds, ems, zoo_fits, zoo_counts, device)
+    with phase("posterior predictive and the prior", device):
+        predictive_phases(rt, readme, readme_tr, zoo_fits, zoo_fit_models,
+                          device)
+    with phase("on-device diagnostics", device):
+        diagnostics_phase({"funnel": funnel_tr, "GLMMPoisson2": Trace(
+            glmm_tr._chains_src[..., ::DIAG_GLMM_EVERY], gmodel, None,
+            None)})
+    with phase("SBC", device):
+        sbc_phase(sbcs, device)
+    print(f"phase time, the generative sections: "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
     print(f"phase total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}))

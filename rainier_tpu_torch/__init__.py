@@ -18,10 +18,12 @@ from .compute import (Real, Vec, const, to_real, parameter,
                       infinity, neg_infinity, Column, IntColumn, MatColumn)
 from . import config
 from . import core
-from .core import (Bernoulli, Beta, Cauchy, Continuous, Distribution,
-                   Exponential, Gamma, Laplace, LogNormal, Mixture, Model,
-                   MVNormal, Normal, Poisson, Uniform, vip_latent,
-                   vip_latent_vec)
+from .core import (Beta, Bernoulli, BetaBinomial, Binomial, Cauchy,
+                   Continuous, Discrete, DiscreteConstant, DiscreteMixture,
+                   Distribution, Exponential, Gamma, Generator, Geometric,
+                   Laplace, LogNormal, Mixture, Model, Multinomial,
+                   MVNormal, NegativeBinomial, Normal, Poisson, Uniform,
+                   vip_latent, vip_latent_vec)
 from . import sampler
 from .sampler import (EHMC, HMC, NUTS, SamplerConfig, StaticMassMatrix,
                       StaticStepSize)

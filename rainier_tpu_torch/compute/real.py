@@ -617,7 +617,7 @@ def unary(x: Real, op: str) -> Real:
         # GLM hot path's numerical safety valve (the reference leans on
         # f64 + Bounds guard elision instead, compute/Bounds.scala)
         if op == "log" and x.op == "logistic":
-            return Unary(Unary(Unary(x.child, "neg"), "softplus"), "neg")
+            return Unary(Unary(unary(x.child, "neg"), "softplus"), "neg")
         if op == "logit" and x.op == "logistic":
             return x.child
     return Unary(x, op)
@@ -637,6 +637,13 @@ def binary(a: Real, b: Real, op: str) -> Real:
     elif op == "sub":
         if isinstance(b, Constant) and b.value == 0.0:
             return a
+        # 1 − logistic(x) → logistic(−x): the same value without the f32
+        # cancellation where logistic(x) nears 1, so that its log is
+        # −softplus(x) (the discrete families' log(1 − p) on a Uniform or
+        # Beta latent, whose p is logistic(q))
+        if isinstance(a, Constant) and a.value == 1.0 and \
+                isinstance(b, Unary) and b.op == "logistic":
+            return Unary(unary(b.child, "neg"), "logistic")
     elif op == "mul":
         if isinstance(a, Constant):
             if a.value == 1.0:

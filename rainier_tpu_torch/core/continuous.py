@@ -1,28 +1,41 @@
 """Continuous distribution families (counterpart of core/Continuous.scala).
 
-Port of ``rainier_tpu/core/continuous.py`` without ``generator()``
-(generators come in a later slice).  Latent creation follows
+Port of ``rainier_tpu/core/continuous.py``.  Latent creation follows
 core/Continuous.scala:27-34 exactly: a latent is an unconstrained
 Parameter leaf whose prior density is
 ``support.log_jacobian(x) + log_density(support.transform(x))``, and the
 returned value is the transformed parameter.  ``latent_vec(k)`` allocates
 one VectorParameter leaf whose prior is a single vectorized expression.
+
+Generators draw a batch at once with torch's samplers (see
+:mod:`.generator`): a standard member draws, and the location-scale
+transforms move it (``Injection.fast_forwards``).
 """
 
 from __future__ import annotations
 
 import math
 
+import torch
+
 from ..compute import bounds
 from ..compute import real as R
 from ..compute.vec import Vec
 from . import combinatorics
 from .distribution import Distribution
+from .generator import Generator
 from .injection import Exp, Scale, Translate
 from .support import (BoundedBelowSupport, BoundedSupport, Support,
                       UnboundedSupport)
 
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
+
+
+def _uniform(gen, env, shape=None):
+    """Uniform draws in (0, 1) of `shape` (default: the env's batch)."""
+    u = torch.rand(shape or env.batch, generator=gen, dtype=env.dtype,
+                   device=env.device)
+    return u.clamp_(min=torch.finfo(env.dtype).tiny)
 
 
 class Continuous(Distribution):
@@ -56,6 +69,10 @@ class _LocationScaleFamily:
     def _std_log_density(self, x: R.Real) -> R.Real:
         raise NotImplementedError
 
+    def _std_generate(self, gen, env):
+        """Standard draws of the env's batch shape."""
+        raise NotImplementedError
+
     @property
     def standard(self) -> Continuous:
         fam = self
@@ -65,6 +82,9 @@ class _LocationScaleFamily:
 
             def log_density_at(self, x):
                 return fam._std_log_density(R.to_real(x))
+
+            def generator(self):
+                return Generator(fam._std_generate)
 
         return Std()
 
@@ -78,15 +98,27 @@ class _Normal(_LocationScaleFamily):
     def _std_log_density(self, x):
         return (x * x) / -2.0 - _HALF_LOG_2PI
 
+    def _std_generate(self, gen, env):
+        return torch.randn(env.batch, generator=gen, dtype=env.dtype,
+                           device=env.device)
+
 
 class _Cauchy(_LocationScaleFamily):
     def _std_log_density(self, x):
         return -((x * x + 1) * math.pi).log()
 
+    def _std_generate(self, gen, env):
+        return torch.tan(math.pi * (_uniform(gen, env) - 0.5))
+
 
 class _Laplace(_LocationScaleFamily):
     def _std_log_density(self, x):
         return math.log(0.5) - x.abs()
+
+    def _std_generate(self, gen, env):
+        # inverse CDF: a random sign times an Exponential(1)
+        u = _uniform(gen, env) - 0.5
+        return -torch.sign(u) * torch.log1p(-2.0 * u.abs())
 
 
 Normal = _Normal()
@@ -107,6 +139,13 @@ class _GammaStandard(Continuous):
         return bounds.guard_positive(
             x, (self.shape - 1) * x.log() - combinatorics.gamma(self.shape)
             - x)
+
+    def generator(self):
+        shape = self.shape
+        return Generator(
+            lambda gen, env: torch._standard_gamma(
+                env.full(shape, env.shape(shape)), generator=gen),
+            frozenset([shape]))
 
 
 class _Gamma:
@@ -156,6 +195,17 @@ class Beta(Continuous):
             x, (self.a - 1) * x.log() + (self.b - 1) * (1 - x).log()
             - combinatorics.beta(self.a, self.b))
 
+    def generator(self):
+        a, b = self.a, self.b
+
+        def fn(gen, env):
+            shape = env.shape(a, b)
+            x = torch._standard_gamma(env.full(a, shape), generator=gen)
+            y = torch._standard_gamma(env.full(b, shape), generator=gen)
+            return x / (x + y)
+
+        return Generator(fn, frozenset([a, b]))
+
     @staticmethod
     def mean_and_precision(mean, precision) -> "Beta":
         mean, precision = R.to_real(mean), R.to_real(precision)
@@ -181,6 +231,9 @@ class _UniformStandard(Continuous):
 
     def log_density_at(self, x):
         return Beta(1, 1).log_density_at(x)
+
+    def generator(self):
+        return Generator(_uniform)
 
 
 class _Uniform:
@@ -212,3 +265,8 @@ class Mixture(Continuous):
             d.log_density_at(x) + w.log()
             for d, w in self.components.items()
         ])
+
+    def generator(self):
+        # categorical over distribution-valued keys draws every component
+        # and selects per draw
+        return Generator.categorical(self.components)

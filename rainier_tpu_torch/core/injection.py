@@ -1,10 +1,9 @@
 """Injective push-forward transforms (counterpart of core/Injection.scala).
 
-Port of ``rainier_tpu/core/injection.py`` without the generator path
-(generators come in a later slice).
+Port of ``rainier_tpu/core/injection.py``.
 
 `Scale`, `Translate`, `Exp` transform a Continuous coherently across its
-density (with log-Jacobian correction), support and latent —
+density (with log-Jacobian correction), support, generator and latent —
 the mechanism by which the location-scale families and LogNormal are built
 (e.g. Normal(μ,σ) = standard.scale(σ).translate(μ),
 core/Continuous.scala:52-57).
@@ -12,14 +11,20 @@ core/Continuous.scala:52-57).
 
 from __future__ import annotations
 
+import torch
+
 from ..compute import bounds
 from ..compute import real as R
 from ..compute.vec import Vec
+from .generator import Generator
 from .support import (BoundedAboveSupport, BoundedBelowSupport,
                       BoundedSupport, Support, UnboundedSupport)
 
 
 class Injection:
+    #: the Reals the transform reads (its draws broadcast over them)
+    parameters: tuple = ()
+
     def forwards(self, x: R.Real) -> R.Real:
         raise NotImplementedError
 
@@ -34,6 +39,11 @@ class Injection:
     def when_defined_at(self, y: R.Real, if_defined: R.Real,
                         not_defined: R.Real) -> R.Real:
         return if_defined
+
+    def fast_forwards(self, x, env):
+        """Numeric forwards for the generator path: x, a batch of draws,
+        moved by the transform's values in `env`."""
+        raise NotImplementedError
 
     def transform_support(self, supp: Support) -> Support:
         raise NotImplementedError
@@ -54,6 +64,17 @@ class Injection:
                     dist.log_density_at(inj.backwards(y)) +
                     inj.log_jacobian(y),
                     R.neg_infinity)
+
+            def generator(self):
+                g = dist.generator()
+
+                def fn(gen, env):
+                    # the inner draws take the shape the transform's
+                    # values give them (one a row, where they vary by row)
+                    inner = env.at(env.shape(*inj.parameters))
+                    return inj.fast_forwards(g.fn(gen, inner), env)
+
+                return Generator(fn, g.requirements)
 
             def latent(self):
                 return inj.forwards(dist.latent())
@@ -81,6 +102,7 @@ class Scale(Injection):
     def __init__(self, a: R.RealLike):
         self.a = R.to_real(a)
         self._lj = -self.a.log()
+        self.parameters = (self.a,)
 
     def forwards(self, x):
         return x * self.a
@@ -90,6 +112,9 @@ class Scale(Injection):
 
     def log_jacobian(self, y):
         return self._lj
+
+    def fast_forwards(self, x, env):
+        return x * env(self.a)
 
     def transform_support(self, supp):
         lo, hi = _monotone_map(supp, self.forwards)
@@ -105,6 +130,7 @@ class Scale(Injection):
 class Translate(Injection):
     def __init__(self, b: R.RealLike):
         self.b = R.to_real(b)
+        self.parameters = (self.b,)
 
     def forwards(self, x):
         return x + self.b
@@ -114,6 +140,9 @@ class Translate(Injection):
 
     def log_jacobian(self, y):
         return R.zero
+
+    def fast_forwards(self, x, env):
+        return x + env(self.b)
 
     def transform_support(self, supp):
         lo, hi = _monotone_map(supp, self.forwards)
@@ -137,6 +166,9 @@ class ExpInjection(Injection):
 
     def log_jacobian(self, y):
         return -y.log()
+
+    def fast_forwards(self, x, env):
+        return torch.exp(x)
 
     def when_defined_at(self, y, if_defined, not_defined):
         lo, _ = bounds.bounds_of(y)

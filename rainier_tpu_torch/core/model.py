@@ -2,8 +2,7 @@
 counterpart of core/Model.scala:7-133).
 
 All chains run simultaneously as a batch dimension of the sampler's
-tensors.  ``smc``, ``optimize`` and ``sample_prior`` come in a later
-slice of the port.
+tensors.  ``smc`` and ``optimize`` are not ported yet (ROADMAP A5-A6).
 """
 
 from __future__ import annotations
@@ -124,3 +123,25 @@ class Model:
         config = config or SamplerConfig()
         return run_sample(self, config, n_chains=n_chains, seed=seed,
                           **kwargs)
+
+    @staticmethod
+    def sample_prior(t, n: int = 1000, seed: int = 0, config=None,
+                     **kwargs):
+        """Exploratory prior sampling: draw from the prior of every latent
+        reachable from `t` and evaluate `t` at each draw (the reference's
+        `Model.sample(t)` convenience, core/Model.scala:52-60 — there, as
+        here, it runs the default sampler on the prior-only model;
+        rainier_tpu/core/model.py:138-155).  `kwargs` go to
+        :meth:`sample` (``device=``, ``kernel=``).
+
+        `t` is a Real or a list/tuple of Reals; returns an (n, ...) array
+        (or a list of them, matching `t`'s structure)."""
+        from ..sampler import SamplerConfig
+
+        single = isinstance(t, R.Real)
+        exprs = [t] if single else list(t)
+        model = Model.track_(exprs)
+        cfg = config or SamplerConfig(500, max(n // 4, 1))
+        trace = model.sample(cfg, n_chains=4, seed=seed, **kwargs)
+        vals = trace.evaluate(exprs)
+        return vals[0] if single else vals

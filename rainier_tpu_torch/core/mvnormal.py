@@ -17,9 +17,11 @@ import math
 from typing import Sequence, Union
 
 import numpy as np
+import torch
 
 from ..compute import real as R
 from ..compute.vec import Vec
+from .generator import Generator
 
 
 def _mean_exprs(mu, k: int) -> list:
@@ -89,7 +91,16 @@ class MVNormal:
         const = -0.5 * self.log_det - 0.5 * self.k * math.log(2 * math.pi)
         return R.sum_(terms) * -0.5 + const
 
-    def generator(self):
-        raise NotImplementedError(
-            "MVNormal.generator waits for the port of core/generator.py "
-            "(posterior-predictive generators come in a later slice)")
+    def generator(self) -> Generator:
+        """Draws μ + L z, z ~ N(0, I): (k, ...) over the env's batch."""
+        chol, mu, k = self.chol, self.mu, self.k
+
+        def fn(gen, env):
+            shape = env.shape(*mu)
+            z = torch.randn((k,) + shape, generator=gen, dtype=env.dtype,
+                            device=env.device)
+            L = torch.as_tensor(chol, dtype=env.dtype, device=env.device)
+            Lz = torch.tensordot(L, z, dims=1)
+            return torch.stack([env(m).expand(shape) for m in mu]) + Lz
+
+        return Generator(fn, frozenset(self.mu))

@@ -637,13 +637,30 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
     samples (n_out, n_collect, n) or None, accept rate (n,), divergences
     (n,)).
     """
+    return prepare_fused_hmc(
+        density, q0, step_size=step_size, n_steps=n_steps,
+        n_iterations=n_iterations, seed=seed, inv_mass_diag=inv_mass_diag,
+        collect_every=collect_every, collect_idx=collect_idx, noise=noise,
+        columns=columns, stream_columns=stream_columns)()
+
+
+def prepare_fused_hmc(density, q0, *, step_size, n_steps: int,
+                      n_iterations: int, seed: int, inv_mass_diag=None,
+                      collect_every: int = 0, collect_idx=None, noise=None,
+                      columns=None, stream_columns=None):
+    """Everything :func:`fused_hmc` does before its launch — checks,
+    columns, build, workspace, outputs — and a function that then
+    launches it: each call of ``launch()`` runs the kernel once into the
+    same outputs, counts the launch, and returns what :func:`fused_hmc`
+    returns.  Timing ``launch()`` alone times the kernel without the
+    host's setup.  On CPU tensors ``launch()`` runs the plain version."""
     kw = dict(step_size=step_size, n_steps=n_steps,
               n_iterations=n_iterations, seed=seed,
               inv_mass_diag=inv_mass_diag, collect_every=collect_every,
               collect_idx=collect_idx, noise=noise, columns=columns)
     if q0.device.type == "cpu":
         streams(density, (), stream_columns, "cpu")
-        return fused_hmc_reference(density, q0, **kw)
+        return lambda: fused_hmc_reference(density, q0, **kw)
     if q0.device.type != "cuda":
         raise ValueError(f"fused_hmc runs on CUDA or CPU tensors, not "
                          f"{q0.device}")
@@ -663,22 +680,30 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
                           dtype=torch.float32, device=dev) \
         if collect_every else None
     p_noise, u_noise = noise if noise is not None else (None, None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = kernels.fused_hmc(
-            n, _ptr(q0), _ptr(scale),
+    args = (n, _ptr(q0), _ptr(scale),
             int(scale is not None and scale.dim() == 2), _ptr(eps),
             _ptr(p_noise), _ptr(u_noise), _ptr(qf), _ptr(samples),
             _ptr(acc), _ptr(div), n_iterations, n_steps, collect_every,
             _ptr(pos), n_collect, seed & _MASK, ptrs, rows, _ptr(ws),
-            threads, int(stream_cols), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_hmc kernel launch failed: cudaError {rc}")
-    fused_hmc.launches += 1
-    fused_hmc.streamed += stream_cols
-    if samples is not None and expand is not None:
-        samples = samples[:, expand]
-    return qf, samples, acc, div
+            threads, int(stream_cols))
+    # the tensors whose pointers `args` holds, alive as long as `launch`
+    held = (q0, scale, eps, noise, columns, qf, samples, acc, div, pos, ws)
+
+    def launch():
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = kernels.fused_hmc(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_hmc kernel launch failed: cudaError "
+                               f"{rc}")
+        fused_hmc.launches += 1
+        fused_hmc.streamed += stream_cols
+        out = samples if samples is None or expand is None \
+            else samples[:, expand]
+        return qf, out, acc, div
+
+    launch.held = held
+    return launch
 
 
 # kernel launches, and those of them that streamed their column tiles
@@ -710,9 +735,17 @@ def logp_grad(density, q, columns=None, stream_columns=None):
     loop, streamed as :func:`fused_hmc` decides — or raises; on CPU
     tensors it checks ``stream_columns`` and runs
     :func:`logp_grad_reference`."""
+    return prepare_logp_grad(density, q, columns, stream_columns)()
+
+
+def prepare_logp_grad(density, q, columns=None, stream_columns=None):
+    """:func:`logp_grad` split as :func:`prepare_fused_hmc` splits
+    :func:`fused_hmc`: the setup now, and ``launch()`` that runs
+    ``rt_logp_grad_launch`` once into the same outputs, counts it, and
+    returns (lp, g); on CPU tensors the plain version."""
     if q.device.type == "cpu":
         streams(density, (), stream_columns, "cpu")
-        return logp_grad_reference(density, q, columns)
+        return lambda: logp_grad_reference(density, q, columns)
     if q.device.type != "cuda" or q.dim() != 2 or \
             q.dtype != torch.float32 or q.shape[0] != density.n_vars:
         raise ValueError(f"q must be a float32 ({density.n_vars}, n) CUDA "
@@ -725,15 +758,22 @@ def logp_grad(density, q, columns=None, stream_columns=None):
         density, columns, n, q.device, stream_columns)
     lp = torch.empty((n,), dtype=torch.float32, device=q.device)
     g = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = kernels.logp_grad(n, _ptr(q), _ptr(lp), _ptr(g), ptrs, rows,
-                               _ptr(ws), threads, int(stream_cols), stream)
-    if rc != 0:
-        raise RuntimeError(f"logp_grad kernel launch failed: cudaError {rc}")
-    logp_grad.launches += 1
-    logp_grad.streamed += stream_cols
-    return lp, g
+    args = (n, _ptr(q), _ptr(lp), _ptr(g), ptrs, rows, _ptr(ws), threads,
+            int(stream_cols))
+
+    def launch():
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            rc = kernels.logp_grad(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"logp_grad kernel launch failed: cudaError "
+                               f"{rc}")
+        logp_grad.launches += 1
+        logp_grad.streamed += stream_cols
+        return lp, g
+
+    launch.held = (q, columns, lp, g, ws)
+    return launch
 
 
 logp_grad.launches = 0

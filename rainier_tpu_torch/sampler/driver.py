@@ -239,6 +239,9 @@ def sample(model, cfg: C.SamplerConfig, n_chains: int = 4, seed: int = 0,
     the kernel or nothing.  `collect_idx` (an index array into the
     parameters) keeps only those coordinates of each draw, on either
     path; a kernel with its state in the workspace stores only them.
+    `dtype` is the sampler's (default ``config.dtype()``); on the fused
+    path it is warmup's (default float32), and the kernel's state is
+    float32 whatever it is.
     `mesh`: multi-device runs come in a later slice of the port.
     """
     if kernel in ("fused", "fused!"):
@@ -257,7 +260,7 @@ def sample(model, cfg: C.SamplerConfig, n_chains: int = 4, seed: int = 0,
                           "density)")
         if reason is None:
             return _fused_sample(model, cfg, n_chains, seed, collect_idx,
-                                 device, cols)
+                                 device, cols, dtype)
         if kernel == "fused!":
             raise ValueError(f"kernel='fused!': {reason}")
         warnings.warn(f"kernel='fused' falling back to the scan path: "
@@ -357,7 +360,7 @@ def _verify_split(cd, cols, tile_rows) -> bool:
 
 
 def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
-                  device, cols):
+                  device, cols, dtype=None):
     """kernel='fused' path: scan-path warmup (full adaptation semantics),
     then the sampling phase as ONE fused kernel (ops/fused_hmc.py) — the
     counterpart of the JAX package's _pallas_sample (driver.py:651-788).
@@ -366,19 +369,24 @@ def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
     cfg.pooled_adaptation the product is pooled (geometric-mean step,
     mean variance) as warmup pooled it.  Energy/E-BFMI telemetry is not
     carried (acceptance and divergence counts are).  `cols` are the
-    model's columns on the device (``column_values``), which warmup and
-    the kernel both read."""
+    model's columns on the device (``column_values``) in float32, which
+    the kernel reads, and warmup too where `dtype` (warmup's) is float32:
+    float64 warmup resolves lp where its f32 rounding moves it more than
+    the posterior does (a sum of 10⁵ rows whose terms reach 10⁷ in all,
+    PERF.md §4), and hands the kernel its state in float32."""
     from ..ops.fused_hmc import build, fused_hmc, lanes_per_chain
 
     dev = global_config.resolve_device(device)
-    dtype = torch.float32  # kernel state is f32
+    dtype = dtype or torch.float32
     timings: dict = {}
     t_build = _time.perf_counter()
     cd = model.density()
     lpg_raw = cd.batched_logp_and_grad_fn()
+    warm_cols = cols if dtype == torch.float32 else cd.column_values(
+        dtype, dev)
 
     def lpg(q):
-        return lpg_raw(q, cols)
+        return lpg_raw(q, warm_cols)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     timings["build_s"] = _time.perf_counter() - t_build
@@ -399,8 +407,11 @@ def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
         imd = None if wp.mass.diag is None else wp.mass.diag.mean(0)
     else:
         eps, imd = wp.step_size, wp.mass.diag
+    # the kernel's state is f32
+    eps = eps.float()
+    imd = None if imd is None else imd.float()
     thin = max(cfg.thin, 1)
-    q0 = wp.chain.q.T.contiguous()       # (n_vars, n_chains)
+    q0 = wp.chain.q.T.float().contiguous()       # (n_vars, n_chains)
 
     t_kernel = _time.perf_counter()
     qf, samples, acc, div = fused_hmc(
@@ -414,7 +425,7 @@ def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
     # (n_out, n_collect, n_chains) -> per-chain (n_chains, n_out, n_collect)
     chains = samples.permute(2, 0, 1)
     n_grads = cfg.iterations * cfg.sampler.n_steps + 1
-    z = torch.zeros(n_chains, dtype=dtype, device=dev)
+    z = torch.zeros(n_chains, dtype=torch.float32, device=dev)
     full = torch.full((n_chains,), cfg.iterations, dtype=torch.int32,
                       device=dev)
     sstats = StatsState(

@@ -1,5 +1,9 @@
 #!/usr/bin/env python3
 """Timing comparisons on a CUDA card for choices of the fused kernel.
+Every kernel time is the median of several launches timed alone by CUDA
+events (``launch_ms``: the wrapper's setup hoisted, the columns bound
+once), after a warm launch: a checkout without ``prepare_fused_hmc``
+(older than the launch-alone timing) cannot be timed so and is refused.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -11,6 +15,7 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 rainier_tpu_torch/tools/kernel_ab.py layouts
     python3 rainier_tpu_torch/tools/kernel_ab.py adapt
     python3 rainier_tpu_torch/tools/kernel_ab.py columnfree LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py zoo STEPS DRAWS DTYPE [FAMILY ...]
 
 ``row-sums``: the kernels of the README regression, the 100k-row
 logistic regression and GLMMPoisson2 (``chip_smoke.py``'s models), whose
@@ -85,6 +90,15 @@ root on PYTHONPATH whose wrapper has no lane rule (the parent's, one
 thread a chain), the emitter's own layouts run as their launch decides,
 tagged "as built": run both checkouts in one call to compare trees.
 Prints one line per shape, lanes and order, tagged LABEL.
+
+``zoo``: the goldset zoo of ``chip_smoke.py`` (each family's 100,000
+rows synthesized on the card, seed ``ZOO_SEED``), every family or those
+named, fitted through ``Model.sample(kernel="fused!")`` at 1024 chains x
+(``ZOO_WARMUP`` warmup in DTYPE, ``float32`` or ``float64``, + DRAWS
+draws) of HMC(STEPS), seed 0.  Prints one line per family: its mean and
+SD against ``chip_smoke.py``'s quadrature, rank-r̂, accept, step sizes
+and timings.  No bar is applied: it reads what ``chip_smoke.py``'s zoo
+phase holds to its bars.
 """
 
 
@@ -94,6 +108,7 @@ import os
 import shutil
 import sys
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -138,8 +153,7 @@ FREE_SHAPES = (
     ("funnel 1000", 1000, CHAINS, 200, False, (1, 32, 32, 1), None))
 # coordinates of each draw collected at the 1024-chain shapes
 FREE_COLLECT = 10
-# calls timed a run (the funnel's 2 ms kernel: a host stall in one call
-# must not set the mean)
+# launches timed a run, their median reported (others: 3)
 FREE_REPS = {"funnel": 20, "funnel, explicit noise": 20,
              "funnel, slot in shared memory": 20, "funnel, throughput": 3,
              **{f"funnel, {n} chains": 10 for n in SWEEP_CHAINS}}
@@ -150,6 +164,58 @@ F64_ROWS = (
     ("#ifdef RT_WS_FLOATS\n  lp = (float)((double)lp + lp_acc);\n#else\n"
      "  lp += (float)lp_acc;\n#endif\n",
      "  lp = (float)((double)lp + lp_acc);\n"))
+
+
+# cycles the card sleeps while the host queues a timed run's launches
+# (about 12 ms on an H100): each launch's events then wait on the card
+# alone, never on the host issuing the next launch
+QUEUE_SLEEP_CYCLES = 20_000_000
+
+
+def launch_ms(launch, device, reps: int = 10, warm: bool = True):
+    """(output of the last launch, median ms of `reps` launches) of
+    ``launch`` (a prepared launch: ``prepare_fused_hmc``'s), each timed
+    alone by CUDA events around it, after one warm launch with `warm`;
+    the card sleeps while the host queues them all.  The setup of the
+    wrapper (columns, build, workspace) is not in the time.  The host
+    clock off the card."""
+    import torch
+
+    out = launch() if warm else None
+    if device.type != "cuda":
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = launch()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, float(np.median(times))
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    for start, end in events:
+        start.record()
+        out = launch()
+        end.record()
+    torch.cuda.synchronize()
+    return out, float(np.median([a.elapsed_time(b) for a, b in events]))
+
+
+def kernel_ms(F, cd, q0, kw, device, reps: int = 3):
+    """``launch_ms`` of ``fused_hmc(cd, q0, **kw)``'s prepared launch, the
+    columns bound once.  A tree the import finds without
+    ``prepare_fused_hmc`` (an older checkout) cannot time its launches
+    alone, and its whole calls are no yardstick against another tree's
+    launches: it is refused."""
+    import torch
+
+    kw = dict(kw, columns=cd.column_values(torch.float32, device))
+    prepare = getattr(F, "prepare_fused_hmc", None)
+    if prepare is None:
+        raise SystemExit(
+            f"kernel_ab: {F.__file__} has no prepare_fused_hmc, so its "
+            f"launches cannot be timed alone, as the other tree's are")
+    return launch_ms(prepare(cd, q0, **kw), device, reps)
 
 
 def _warm(model, n_chains, device):
@@ -256,8 +322,7 @@ def _time_runs(runs, device, label, built=None):
         if built is not None:
             kernels, _, em = built[name]
             F._BUILT[cd] = {F.emit_cuda.LANES: (kernels, em)}
-        out, ms = cs.timed(lambda: F.fused_hmc(cd, q0, **kw), device, 1,
-                           True)
+        out, ms = kernel_ms(F, cd, q0, kw, device)
         print(f"RESULT {label} {name}: {q0.shape[1]} chains x {n_it} it x "
               f"{n_steps} steps {ms:.3f} ms, accept "
               f"{float(out[2].mean()):.4f}", flush=True)
@@ -408,9 +473,8 @@ def stream() -> None:
             torch.float32, device))
         outs = {}
         for flag in (False, True, True, False):
-            outs[flag], ms = cs.timed(
-                lambda: F.fused_hmc(cd, q0, stream_columns=flag, **kw),
-                device, 1, False)
+            outs[flag], ms = kernel_ms(F, cd, q0, dict(
+                kw, stream_columns=flag), device)
             print(f"RESULT stream {name} ({col_bytes} bytes of columns), "
                   f"{'streamed' if flag else 'synchronous'}: {q0.shape[1]} "
                   f"chains x {kw['n_iterations']} it x {kw['n_steps']} "
@@ -441,10 +505,8 @@ def adapt() -> None:
                             pooled_adaptation=pooled)
         tr = model.sample(cfg, n_chains=CHAINS, seed=0, kernel=kernel,
                           device=device)
-        rhat = []
-        for j in range(tr.chains.shape[2]):
-            rhat.append(round(cs.rank_rhat(tr.chains[:, :, j:j + 1],
-                                           device), 5))
+        rhat = [round(d.r_hat, 5)
+                for d in tr.diagnostics(rank_normalized=True)]
         q = [0, 0.01, 0.5, 0.99, 1]
         print(f"RESULT adapt {name}: rank-r_hat by parameter {rhat}; "
               f"step size quantiles {q}: "
@@ -520,8 +582,8 @@ def columnfree(label: str) -> None:
             for lanes in order:
                 if lanes is not None:
                     F.lanes_per_chain = lambda em, n, lanes=lanes: lanes
-                out, ms = cs.timed(lambda: F.fused_hmc(cd, q0, **kw),
-                                   device, FREE_REPS.get(what, 1), True)
+                out, ms = kernel_ms(F, cd, q0, kw, device,
+                                    FREE_REPS.get(what, 3))
                 first = out if first is None else first
                 agree = cs.agreement(out, first)[0]
                 print(f"RESULT columnfree {label} {what}, "
@@ -533,6 +595,35 @@ def columnfree(label: str) -> None:
     finally:
         if rule is not None:
             F.lanes_per_chain = rule
+
+
+def zoo(n_steps: int, n_draws: int, dtype: str, families) -> None:
+    import torch
+
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    device = torch.device("cuda")
+    models = cs.zoo_models(rt, device)
+    names = families or list(models)
+    _build_runs({name: models[name] for name in names})
+    cfg = SamplerConfig(cs.ZOO_WARMUP, n_draws, sampler=HMC(n_steps))
+    for name in names:
+        model, _, stat, data, _ = models[name]
+        mean_q, sd_q = cs.quadrature(*cs.zoo_log_posterior(name, data))
+        tr = model.sample(cfg, n_chains=CHAINS, seed=0, kernel="fused!",
+                          device=device, dtype=getattr(torch, dtype))
+        x = tr.evaluate(stat)
+        steps = np.quantile(tr.step_size, [0.01, 0.5, 0.99])
+        print(f"RESULT zoo {name}, HMC({n_steps}), {dtype} warmup: "
+              f"{CHAINS} chains x ({cs.ZOO_WARMUP} + {n_draws}): mean "
+              f"{abs(float(x.mean()) - mean_q) / sd_q:.4f} posterior SD "
+              f"from the quadrature's, SD {float(x.std()) / sd_q - 1:+.4f} "
+              f"off, rank-r_hat {cs.rank_rhat(tr):.5f}, accept "
+              f"{float(np.mean(tr.accept_rate())):.3f}, step size "
+              f"quantiles (0.01, 0.5, 0.99) {np.round(steps, 7).tolist()}, "
+              f"timings {tr.timings}", flush=True)
 
 
 def main(argv) -> int:
@@ -557,6 +648,8 @@ def main(argv) -> int:
         adapt()
     elif argv[:1] == ["columnfree"] and len(argv) == 2:
         columnfree(argv[1])
+    elif argv[:1] == ["zoo"] and len(argv) >= 4:
+        zoo(int(argv[1]), int(argv[2]), argv[3], argv[4:])
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -360,13 +360,21 @@ def test_emitter_refuses_data_columns():
 def test_port_imports_no_jax_and_no_rainier_tpu():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['rainier_tpu'] = None; "
+            "sys.modules['goldset_zoo'] = None; "
             "import rainier_tpu_torch, rainier_tpu_torch.interop, "
             "rainier_tpu_torch.ops.fused_hmc, "
             "rainier_tpu_torch.core.mvnormal, "
+            "rainier_tpu_torch.core.discrete, "
+            "rainier_tpu_torch.core.multinomial, "
+            "rainier_tpu_torch.core.generator, "
+            "rainier_tpu_torch.core.sbc, rainier_tpu_torch.core.trace, "
+            "rainier_tpu_torch.tools.kernel_ab, "
             "rainier_tpu_torch.sampler.nuts, "
             "rainier_tpu_torch.compute.cholesky, chip_smoke; "
+            "chip_smoke.zoo(rainier_tpu_torch); "
             "bad = [m for m, v in sys.modules.items() if v is not None "
-            "and m.split('.')[0] in ('jax', 'jaxlib', 'rainier_tpu')]; "
+            "and m.split('.')[0] in ('jax', 'jaxlib', 'rainier_tpu', "
+            "'goldset_zoo', 'tests')]; "
             "assert not bad, bad")
     from pathlib import Path
 

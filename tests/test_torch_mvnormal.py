@@ -110,5 +110,14 @@ def test_latent_vec_prior_is_mvn():
 
 
 def test_generator_waits_for_its_port():
-    with pytest.raises(NotImplementedError, match="generator"):
-        rtt.MVNormal([0.0, 0.0], COV).generator()
+    """MVNormal.generator, once a placeholder that raised until the port
+    of core/generator.py, now draws μ + L z: (N, k), the mean within 5
+    standard errors (tests/test_torch_generator.py holds its covariance)."""
+    from rainier_tpu_torch.core.generator import Env
+
+    draws = rtt.MVNormal([1.0, -1.0], COV).generator().get(
+        torch.Generator().manual_seed(0), Env(4000, device="cpu"))
+    assert draws.shape == (4000, 2)
+    se = np.sqrt(np.diag(COV) / 4000)
+    assert np.all(np.abs(draws.double().mean(0).numpy() - [1.0, -1.0])
+                  < 5 * se)

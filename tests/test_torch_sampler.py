@@ -164,7 +164,8 @@ def test_host_diagnostics_match_jax():
     chains = chains.astype(np.float32)
     tr = rtt.core.Trace(chains, None, None, None)
     for split, rank in ((False, False), (True, False), (True, True)):
-        got = tr.diagnostics(split=split, rank_normalized=rank)
+        got = tr.diagnostics(split=split, rank_normalized=rank,
+                             device=False)
         ch = chains
         if split:
             ch = trace_j._split_chains(ch)
