@@ -81,7 +81,25 @@ printing one line:
   of mu and tau within 5%, rank-r̂ < 1.01), and the funnel under the
   default config, EHMC(1024) synchronized, held to the funnel's bars with
   the same gradient evaluations on every chain; each prints what its
-  lockstep loops paid (steps and host syncs an iteration).
+  lockstep loops paid (steps and host syncs an iteration);
+* the generative sections: the goldset zoo fitted at 100,000 rows, the
+  kernel held to its plain version from three fits, ``trace.predict``
+  and ``Model.sample_prior``, the on-device diagnostics and SBC;
+* the rest of inference: the two-component mixture of
+  tests/test_marginal.py at 100,000 rows with its assignment summed out
+  by ``marginalize`` (a LogSumExp a row), through
+  ``Model.sample(kernel="fused!")`` against its Laplace reference in
+  numpy f64, its responsibilities against the MAP's, and its kernel
+  against the plain version; ``Model.optimize`` on the 100k logistic
+  (one start and eight) against the Laplace MAP; ADVI, mean-field and
+  full-rank, on the README regression against its kernel posterior;
+  ``auto_vip`` on the funnel; ``Model.smc`` on eight schools against the
+  quadrature's moments and log evidence; the README regression sampled
+  in segments with a ``ConsoleProgress`` against the same run at once,
+  and through ``fused!`` with a progress.
+
+``python3 chip_smoke.py advi-spread`` runs the README main path and ADVI
+at three seeds, printed and not held to the bars.
 
 Any failed check raises and exits nonzero.  The third line from the end
 is a JSON object with each kernel's launches on its main path, error
@@ -266,6 +284,50 @@ SBC_ROWS, SBC_LOG_BINS, SBC_REPS, SBC_WARMUP = 100, 2, 12, 150
 SBC_STEPS = 4
 SBC_RHAT, SBC_PVALUE = 1.2, 1e-4
 SBC_FAMILIES = ("zero_inflated_geometric", "binomial")
+# the rest of inference.  The two-component mixture of
+# tests/test_marginal.py:114-138 at MIX_ROWS rows, its locations latent:
+# theta ~ Beta(1, 1), a ~ N(4, 1), b ~ N(-4, 1), y_i ~ N(a or b, 0.5²),
+# the Bernoulli(theta) assignment summed out (``marginalize``) under one
+# RowSum; through Model.sample(kernel="fused!") at 1024 chains x (300 +
+# 200) of HMC(4), held to its Laplace reference (Newton in numpy f64 in
+# the constrained coordinates theta, a, b) by the logistic's bars, its
+# responsibilities at the last draw of MIX_RESP_DRAWS chains within
+# MIX_RESP_TOL of the MAP's on average over the rows; the kernel against
+# its plain version from the fit over MIX_PARITY_ITERS iterations.
+# HMC(4), not HMC(5), for the zoo's reason (ZOO_ROWS): three nearly
+# independent, near-Gaussian coordinates, a step adapted to ~1 SD, and
+# 5 steps near a period; at 500 + 200 of HMC(5) every mean came within
+# 0.0064 Laplace SD and every SD within 0.51%, but rank-r̂ was 1.0318.
+# Warmup cut from 500 to 300 (eager, 96 ms an iteration at 100k rows x
+# 1024 chains) for the inference sections' time (PERF.md §4)
+MIX_ROWS, MIX_SEED, MIX_SCALE = 100_000, 8, 0.5
+MIX_WARMUP, MIX_DRAWS, MIX_STEPS = 300, 200, 4
+MIX_RESP_DRAWS, MIX_RESP_TOL, MIX_PARITY_ITERS = 100, 0.01, 100
+# Model.optimize on the 100k logistic at the default dtype: every
+# coordinate within OPT_SD Laplace SD of the Laplace MAP, with one start
+# and with OPT_STARTS
+OPT_ITERS, OPT_STARTS, OPT_SD = 200, 8, 0.05
+# ADVI on the README regression, mean-field and full-rank: means of alpha
+# and the betas within ADVI_MEAN_SD posterior SD of the README main path's
+# kernel posterior, full-rank SDs within ADVI_FR_SD_REL of its SDs,
+# mean-field SDs at most ADVI_MF_SD_OVER above them (mean-field only
+# shrinks); ``python3 chip_smoke.py advi-spread`` runs ADVI_SPREAD_SEEDS
+ADVI_LR, ADVI_STEPS, ADVI_SAMPLES, ADVI_DRAWS = 0.01, 2000, 8, 4000
+ADVI_MEAN_SD, ADVI_FR_SD_REL, ADVI_MF_SD_OVER = 0.5, 0.2, 0.1
+ADVI_SPREAD_SEEDS = (0, 1, 2)
+# auto_vip on tests/test_reparam.py:101-113's funnel build
+VIP_CANDIDATES, VIP_STEPS = (0.0, 1.0), 400
+# Model.smc on eight schools under SMCConfig() (4096 particles): means of
+# mu and tau within SMC_MEAN_SD posterior SD and SDs within SMC_SD_REL of
+# the quadrature's, log_evidence within SMC_LOGZ nats of its log Z
+# (tests/test_smc.py:70-79's bar)
+SMC_MEAN_SD, SMC_SD_REL, SMC_LOGZ = 0.1, 0.1, 0.5
+# the README regression on the scan path in segments of CHUNK_ITERS (no
+# segment count divides either phase) with a ConsoleProgress, against the
+# same run unchunked (means within CHUNK_MEAN_SE Monte-Carlo SE), and
+# through fused! with a progress, each CHUNK_WARMUP + CHUNK_DRAWS
+CHUNK_ITERS, CHUNK_CHAINS, CHUNK_WARMUP, CHUNK_DRAWS = 130, 256, 300, 200
+CHUNK_MEAN_SE = 5.0
 
 
 def funnel(rt, dim=10):
@@ -432,7 +494,10 @@ def eight_schools_quadrature(mu_grid=QUAD_MU, tau_grid=QUAD_TAU):
     (y_i | mu, tau ~ N(mu, sigma_i² + tau²)), then a grid over (mu, tau)
     of N(mu; 0, 5²) · half-Cauchy(tau; 5) · Π_i N(y_i; mu, sigma_i² +
     tau²).  theta_1 | mu, tau, y is normal with the precision-weighted
-    mean and variance tau²·sigma_1² / (tau² + sigma_1²)."""
+    mean and variance tau²·sigma_1² / (tau² + sigma_1²).  "log_z" is the
+    log evidence, the same integrand with every constant (N(mu; 0, 5²),
+    the half-Cauchy 2/(5π(1 + (τ/5)²)) that |Cauchy(0, 5)| is, and the
+    eight normals) by the trapezoid rule on the grid."""
     mu = np.linspace(*mu_grid)[:, None]
     tau = np.linspace(*tau_grid)[None, :]
     y, s2 = np.asarray(EIGHT_Y), np.asarray(EIGHT_SIGMA) ** 2
@@ -441,6 +506,12 @@ def eight_schools_quadrature(mu_grid=QUAD_MU, tau_grid=QUAD_TAU):
         v = si2 + tau ** 2
         logp = logp - 0.5 * np.log(v) - 0.5 * (yi - mu) ** 2 / v
     w = np.exp(logp - logp.max())
+    trap = (np.diff(np.linspace(*mu_grid))[0] * np.diff(np.linspace(
+        *tau_grid))[0] * np.outer(_trapezoid(mu_grid[2]),
+                                  _trapezoid(tau_grid[2])))
+    const = (-0.5 * np.log(2 * np.pi * 25.0) + np.log(2.0 / (5.0 * np.pi))
+             - 0.5 * len(y) * np.log(2 * np.pi))
+    log_z = float(logp.max() + np.log(np.sum(w * trap)) + const)
     w /= w.sum()
 
     def moments(mean, var=0.0):
@@ -452,7 +523,15 @@ def eight_schools_quadrature(mu_grid=QUAD_MU, tau_grid=QUAD_TAU):
     return {"mu": moments(grid(mu, w.shape)),
             "tau": moments(grid(tau, w.shape)),
             "theta_1": moments((y[0] * t2 + mu * s2[0]) / (t2 + s2[0]),
-                               t2 * s2[0] / (t2 + s2[0]))}
+                               t2 * s2[0] / (t2 + s2[0])),
+            "log_z": log_z}
+
+
+def _trapezoid(n):
+    """Trapezoid weights of n grid points, in units of the spacing."""
+    w = np.ones(n)
+    w[[0, -1]] = 0.5
+    return w
 
 
 def readme_regression(rt):
@@ -1897,7 +1976,8 @@ def nuts_phase(rt, device):
     mass at 1024 chains, held to the quadrature: the means of mu, tau and
     theta_1 (evaluated: tau, not the Cauchy coordinate, whose posterior is
     symmetric in sign) within NUTS_MEAN_SD posterior SDs, the SDs of mu
-    and tau within NUTS_SD_REL, rank-r̂ < 1.01 on the three."""
+    and tau within NUTS_SD_REL, rank-r̂ < 1.01 on the three.  Returns the
+    quadrature."""
     import torch
 
     from rainier_tpu_torch.core.trace import Trace
@@ -1956,6 +2036,7 @@ def nuts_phase(rt, device):
             check(abs(np.std(v) / sd - 1.0) < NUTS_SD_REL,
                   (k, "SD", float(np.std(v)), sd))
     check(rhat < 1.01, rhat)
+    return quad
 
 
 def ehmc_phase(rt, device):
@@ -2047,60 +2128,65 @@ def zoo_phases(F, models, device):
     return traces, counts
 
 
-def zoo_parity(F, cds, ems, fits, counts, device):
-    """The kernels at the zoo's shapes, from each ZOO_PARITY family's fit:
-    lp and g of rt_logp_grad_launch at its final states against the plain
+def fit_parity(F, cd, em, tr, n_steps, what, device, n_iters):
+    """The kernel held to its plain version from a fit's final states, ε
+    and Σ̂: lp and g of rt_logp_grad_launch there against the plain
     version and f64 (read, not barred: at 10⁵ rows an f32 sum of
     cancelling terms is off by more than two ulps of what remains), then
-    fused_hmc against its plain version from those states with the fit's
-    ε and Σ̂ over ZOO_PARITY_ITERS iterations (`time_kernel`, the mean
-    accept rates of both printed).  With E|Δlp| kernel vs plain read
-    here, an accept flips with probability at most 2·E|Δlp| an iteration
-    (`agree_frac`), so the chains are compared by `chaotic` after n
-    iterations, the most (up to ZOO_AGREE_AT, at least 1) that keep
-    2·n·E|Δlp| within 1/2, where at least `agree_frac(n, E|Δlp|)` must
-    agree within REL_TOL; and an iteration's accept probability moves by
-    at most |Δlp| at each of its two points, so the mean |Δaccept| of a
-    chain is bound by max(0.02, 2·E|Δlp|), 0.02 being the other models'
-    bar.  Returns the JSON entries of fused_hmc."""
+    fused_hmc against its plain version over `n_iters` iterations of
+    HMC(`n_steps`) (`time_kernel`, the mean accept rates of both
+    printed).  With E|Δlp| kernel vs plain read here, an accept flips
+    with probability at most 2·E|Δlp| an iteration (`agree_frac`), so the
+    chains are compared by `chaotic` after n iterations, the most (up to
+    ZOO_AGREE_AT, at least 1) that keep 2·n·E|Δlp| within 1/2, where at
+    least `agree_frac(n, E|Δlp|)` must agree within REL_TOL; and an
+    iteration's accept probability moves by at most |Δlp| at each of its
+    two points, so the mean |Δaccept| of a chain is bound by max(0.02,
+    2·E|Δlp|), 0.02 being the other models' bar.  Returns time_kernel's
+    numbers."""
     import torch
 
+    q = torch.as_tensor(tr.final_q.T, dtype=torch.float32, device=device)
+    cols = cd.column_values(torch.float32, device)
+    cols64 = tuple(c.double() if c.is_floating_point() else c for c in cols)
+    lp_k, g_k = F.logp_grad(cd, q, columns=cols)
+    lp_p, g_p = F.logp_grad_reference(cd, q, cols)
+    lp_t, g_t = F._lp_grad_fn(cd, cols64)(q.double())
+    check(bool(torch.isfinite(lp_k).all() and torch.isfinite(g_k).all()),
+          (what, "non-finite lp or g"))
+    # g in units of the posterior's scale: g times the fit's SD of q
+    sd = torch.as_tensor(np.sqrt(tr.mass.diag).T, device=device)
+    reads = []
+    for name, lp, g in (("kernel-vs-plain", lp_k - lp_p, g_k - g_p),
+                        ("kernel-vs-f64", lp_k - lp_t, g_k - g_t),
+                        ("plain-vs-f64", lp_p - lp_t, g_p - g_t)):
+        reads.append(
+            f"{name} |dlp| mean {float(lp.abs().mean()):.3g} max "
+            f"{float(lp.abs().max()):.3g} (SD over the chains "
+            f"{float(lp.double().std()):.3g}), |dg|·sd max "
+            f"{float((g.abs() * sd).max()):.3g}")
+    dlp_mean = float((lp_k - lp_p).abs().mean())
+    agree_at = int(min(ZOO_AGREE_AT, max(1, 0.25 / max(dlp_mean, 1e-12))))
+    print(f"phase density at the fit's states, {what}: rt_logp_grad_launch "
+          f"at the fit's {q.shape[1]} final states, |lp| up to "
+          f"{float(lp_t.abs().max()):.6g}, |g|·sd up to "
+          f"{float((g_t.abs() * sd).max()):.3g}; " + "; ".join(reads),
+          flush=True)
+    return time_kernel(F, cd, em, tr, n_steps, device, em.row_bytes(), what,
+                       min_frac=agree_frac(agree_at, dlp_mean),
+                       max_dacc=max(0.02, 2.0 * dlp_mean),
+                       agree_at=agree_at, n_iters=n_iters)
+
+
+def zoo_parity(F, cds, ems, fits, counts, device):
+    """The kernels at the zoo's shapes, from each ZOO_PARITY family's fit
+    (`fit_parity`, ZOO_PARITY_ITERS iterations).  Returns the JSON entries
+    of fused_hmc."""
     entries = []
     for name in ZOO_PARITY:
-        cd, em, tr = cds[f"zoo {name}"], ems[f"zoo {name}"], fits[name]
-        q = torch.as_tensor(tr.final_q.T, dtype=torch.float32, device=device)
-        cols = cd.column_values(torch.float32, device)
-        cols64 = tuple(c.double() if c.is_floating_point() else c
-                       for c in cols)
-        lp_k, g_k = F.logp_grad(cd, q, columns=cols)
-        lp_p, g_p = F.logp_grad_reference(cd, q, cols)
-        lp_t, g_t = F._lp_grad_fn(cd, cols64)(q.double())
-        check(bool(torch.isfinite(lp_k).all() and torch.isfinite(g_k).all()),
-              (name, "non-finite lp or g"))
-        # g in units of the posterior's scale: g times the fit's SD of q
-        sd = torch.as_tensor(np.sqrt(tr.mass.diag).T, device=device)
-        reads = []
-        for what, lp, g in (("kernel-vs-plain", lp_k - lp_p, g_k - g_p),
-                            ("kernel-vs-f64", lp_k - lp_t, g_k - g_t),
-                            ("plain-vs-f64", lp_p - lp_t, g_p - g_t)):
-            reads.append(
-                f"{what} |dlp| mean {float(lp.abs().mean()):.3g} max "
-                f"{float(lp.abs().max()):.3g} (SD over the chains "
-                f"{float(lp.double().std()):.3g}), |dg|·sd max "
-                f"{float((g.abs() * sd).max()):.3g}")
-        dlp_mean = float((lp_k - lp_p).abs().mean())
-        agree_at = int(min(ZOO_AGREE_AT, max(1, 0.25 / max(dlp_mean,
-                                                           1e-12))))
-        print(f"phase zoo density, {name}: rt_logp_grad_launch at the fit's "
-              f"{q.shape[1]} final states, |lp| up to "
-              f"{float(lp_t.abs().max()):.6g}, |g|·sd up to "
-              f"{float((g_t.abs() * sd).max()):.3g}; " + "; ".join(reads),
-              flush=True)
-        entry = time_kernel(F, cd, em, tr, ZOO_STEPS, device, em.row_bytes(),
-                            f"zoo {name}",
-                            min_frac=agree_frac(agree_at, dlp_mean),
-                            max_dacc=max(0.02, 2.0 * dlp_mean),
-                            agree_at=agree_at, n_iters=ZOO_PARITY_ITERS)
+        entry = fit_parity(F, cds[f"zoo {name}"], ems[f"zoo {name}"],
+                           fits[name], ZOO_STEPS, f"zoo {name}", device,
+                           ZOO_PARITY_ITERS)
         entries.append({"name": f"fused_hmc (zoo {name}, {ZOO_ROWS} rows)",
                         "route": "cuda",
                         "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
@@ -2240,13 +2326,353 @@ def sbc_phase(sbcs, device):
         check(max_rhat < SBC_RHAT and p > SBC_PVALUE, (name, max_rhat, p))
 
 
-def main() -> int:
+def marginal_mixture(rt):
+    """tests/test_marginal.py:114-138's mixture at MIX_ROWS rows, data
+    from MIX_SEED: z_i ~ Bernoulli(0.4), y_i ~ N(±4, MIX_SCALE²); theta ~
+    Beta(1, 1), a ~ N(4, 1), b ~ N(−4, 1); z summed out under one RowSum.
+    Returns (model, ys, (theta, a, b), the MarginalizedLatent)."""
+    from rainier_tpu_torch.compute import real as R
+
+    rng = np.random.default_rng(MIX_SEED)
+    z = rng.random(MIX_ROWS) < 0.4
+    ys = np.where(z, rng.normal(4.0, MIX_SCALE, MIX_ROWS),
+                  rng.normal(-4.0, MIX_SCALE, MIX_ROWS))
+    theta = rt.Beta(1.0, 1.0).latent()
+    a, b = rt.Normal(4.0, 1.0).latent(), rt.Normal(-4.0, 1.0).latent()
+    col = R.Column(ys)
+    m = rt.marginalize(rt.Bernoulli(theta), lambda k: rt.Normal(
+        a if k == 1 else b, MIX_SCALE).log_density_at(col))
+    return (rt.Model.likelihood(R.RowSum(m.log_density, MIX_ROWS)), ys,
+            (theta, a, b), m)
+
+
+def mixture_laplace(ys):
+    """MAP, inverse negative Hessian and the responsibilities at the MAP
+    of the mixture's posterior, by Newton's method in numpy f64 in the
+    constrained coordinates (theta, a, b), where the Beta(1, 1) prior is
+    flat: the gradient in closed form, the Hessian by central
+    differences of it."""
+    s2 = MIX_SCALE ** 2
+
+    def grad(w):
+        th, a, b = w
+        l1 = np.log(th) - 0.5 * (ys - a) ** 2 / s2
+        l0 = np.log1p(-th) - 0.5 * (ys - b) ** 2 / s2
+        r = np.exp(l1 - np.logaddexp(l1, l0))
+        return np.array([np.sum(r / th - (1 - r) / (1 - th)),
+                         np.sum(r * (ys - a)) / s2 - (a - 4.0),
+                         np.sum((1 - r) * (ys - b)) / s2 - (b + 4.0)]), r
+
+    def hess(w):
+        h = np.empty((3, 3))
+        for j in range(3):
+            e = np.zeros(3)
+            e[j] = 1e-6 * max(1.0, abs(w[j]))
+            h[:, j] = (grad(w + e)[0] - grad(w - e)[0]) / (2 * e[j])
+        return 0.5 * (h + h.T)
+
+    w = np.array([0.4, 4.0, -4.0])
+    for _ in range(100):
+        step = np.linalg.solve(hess(w), grad(w)[0])
+        w = w - step
+        if np.max(np.abs(step)) < 1e-12:
+            break
+    return w, np.linalg.inv(-hess(w)), grad(w)[1]
+
+
+def mixture_phases(F, model, cd, em, ys, exprs, marg, device):
+    """The marginalized mixture through Model.sample(kernel="fused!")
+    against `mixture_laplace`: means within 0.1 Laplace SD of the MAP, SDs
+    within 10% of the Laplace SDs, rank-r̂ < 1.01 (the logistic's bars);
+    `posterior_prob(1)` by Trace.evaluate at the last draw of
+    MIX_RESP_DRAWS chains, averaged over them, within MIX_RESP_TOL of the
+    MAP's responsibilities on average over the rows; then the kernel
+    against its plain version from the fit (`fit_parity`).  Warmup in
+    f32, the default.  Returns its JSON entry."""
+    from rainier_tpu_torch.core.trace import Trace
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    t0 = time.perf_counter()
+    w_map, cov, resp_map = mixture_laplace(ys)
+    sd_ref = np.sqrt(np.diag(cov))
+    print(f"phase Laplace reference, marginalized mixture: Newton in f64 in "
+          f"(theta, a, b), MAP {w_map.tolist()}, Laplace SDs "
+          f"{sd_ref.tolist()} ({time.perf_counter() - t0:.2f} s)",
+          flush=True)
+    cfg = SamplerConfig(MIX_WARMUP, MIX_DRAWS, sampler=HMC(MIX_STEPS))
+    F.fused_hmc.launches = 0
+    tr = model.sample(cfg, n_chains=MAIN_CHAINS, seed=0, kernel="fused!",
+                      device=device)
+    launches = F.fused_hmc.launches
+    draws = np.stack([tr.evaluate(e) for e in exprs], axis=-1)
+    dmean = np.abs(draws.mean(0) - w_map) / sd_ref
+    dsd = np.abs(draws.std(0) / sd_ref - 1.0)
+    rhat = rank_rhat(tr)
+    last = Trace(tr._chains_src[:MIX_RESP_DRAWS, -1:], model, cd, cfg)
+    resp = last.evaluate(marg.posterior_prob(1))
+    dresp = float(np.mean(np.abs(resp.mean(0) - resp_map)))
+    print(f"phase main path, marginalized mixture: Model.sample(kernel="
+          f"'fused!') {MAIN_CHAINS} chains x ({MIX_WARMUP} warmup + "
+          f"{MIX_DRAWS} draws), HMC({MIX_STEPS}), {MIX_ROWS} rows: fused_hmc "
+          f"launches {launches}, rank-r_hat max {rhat:.5f}, (theta, a, b) "
+          f"means {draws.mean(0).tolist()} SDs {draws.std(0).tolist()}: "
+          f"means max {float(dmean.max()):.4f} Laplace SD from the MAP, SDs "
+          f"max {float(dsd.max()):.4f} off; responsibilities at "
+          f"{resp.shape[0]} draws x {resp.shape[1]} rows, mean |E p(z=1) - "
+          f"the MAP's| {dresp:.3g}; accept "
+          f"{float(np.mean(tr.accept_rate())):.3f}, divergences "
+          f"{tr.divergences()}, step size median "
+          f"{float(np.median(tr.step_size)):.4g}, timings {tr.timings}",
+          flush=True)
+    check(launches >= 1, f"fused_hmc launches {launches}")
+    check(np.all(np.isfinite(draws)), "non-finite draws")
+    check(rhat < 1.01 and float(dmean.max()) < 0.1
+          and float(dsd.max()) < 0.1, (rhat, dmean, dsd))
+    check(resp.shape == (MIX_RESP_DRAWS, MIX_ROWS) and dresp < MIX_RESP_TOL,
+          (resp.shape, dresp))
+    entry = fit_parity(F, cd, em, tr, MIX_STEPS, "marginalized mixture",
+                       device, MIX_PARITY_ITERS)
+    return {"name": f"fused_hmc (marginalized mixture, {MIX_ROWS} rows)",
+            "route": "cuda", "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
+            "replaces": "rainier_tpu/ops/hmc_pallas.py:302",
+            "launches": launches, **entry, "library_ms": None}
+
+
+def optimize_phase(lmodel, w_map, cov, device):
+    """Model.optimize on the 100k logistic at the default dtype, with one
+    start and with OPT_STARTS: every coordinate within OPT_SD Laplace SD
+    of the Laplace MAP; prints what ended each start's run."""
+    from rainier_tpu_torch.optimizer import lbfgs
+
+    sd = np.sqrt(np.diag(cov))
+    for n_starts in (1, OPT_STARTS):
+        lbfgs.COUNTS.reset()
+        t0 = time.perf_counter()
+        x = lmodel.optimize(max_iters=OPT_ITERS, n_starts=n_starts,
+                            device=device)
+        secs = time.perf_counter() - t0
+        st = lbfgs.COUNTS.last
+        d = np.abs(x.double().cpu().numpy() - w_map) / sd
+        k = st.k.cpu().numpy()
+        print(f"phase Model.optimize, logistic regression: {n_starts} "
+              f"start(s), max_iters {OPT_ITERS}, {x.dtype}: {secs:.2f} s, "
+              f"iterations {k.tolist()}, converged "
+              f"{st.converged.cpu().numpy().tolist()}, failed "
+              f"{st.failed.cpu().numpy().tolist()}, -lp "
+              f"{st.f.cpu().numpy().tolist()}, {lbfgs.COUNTS.evaluations} "
+              f"batched density calls, {lbfgs.COUNTS.syncs} host syncs "
+              f"({lbfgs.COUNTS.syncs / max(int(k.max()), 1):.2f} an "
+              f"iteration), {lbfgs.COUNTS.fallbacks} zoom fallbacks; the "
+              f"optimum max {float(d.max()):.4f} Laplace SD from the MAP",
+              flush=True)
+        check(np.all(np.isfinite(d)) and float(d.max()) < OPT_SD,
+              (n_starts, d))
+
+
+def advi_phase(rt, readme, readme_tr, device, seeds=(0,), bars=True):
+    """ADVI on the README regression, mean-field and full-rank (learning
+    rate ADVI_LR, ADVI_STEPS steps of ADVI_SAMPLES draws), against the
+    README main path's kernel posterior `readme_tr`: the ELBO rises, the
+    means of alpha and the betas within ADVI_MEAN_SD posterior SD, the
+    full-rank SDs within ADVI_FR_SD_REL, the mean-field SDs at most
+    ADVI_MF_SD_OVER above the posterior's.  Each seed of `seeds` is
+    printed; `bars` holds them."""
+    model, _, _, (_, alpha, betas) = readme
+    post = np.hstack([readme_tr.evaluate(alpha)[:, None],
+                      readme_tr.evaluate(betas.element)])
+    p_mean, p_sd = post.mean(0), post.std(0)
+    for seed in seeds:
+        for full_rank in (False, True):
+            t0 = time.perf_counter()
+            vp = rt.advi(model, n_steps=ADVI_STEPS, n_samples=ADVI_SAMPLES,
+                         learning_rate=ADVI_LR, full_rank=full_rank,
+                         seed=seed, device=device)
+            secs = time.perf_counter() - t0
+            q = np.hstack([vp.evaluate(alpha, ADVI_DRAWS, seed)[:, None],
+                           vp.evaluate(betas.element, ADVI_DRAWS, seed)])
+            dmean = np.abs(q.mean(0) - p_mean) / p_sd
+            rel = q.std(0) / p_sd - 1.0
+            kind = "full-rank" if full_rank else "mean-field"
+            print(f"phase ADVI, README regression, {kind}, seed {seed}: "
+                  f"{ADVI_STEPS} steps x {ADVI_SAMPLES} draws, lr {ADVI_LR}, "
+                  f"{secs:.2f} s ({secs / ADVI_STEPS * 1e3:.3f} ms a step); "
+                  f"ELBO {vp.elbo_trace[0]:.3f} -> {vp.elbo_trace[-1]:.3f}; "
+                  f"(alpha, betas) means max {float(dmean.max()):.4f} "
+                  f"posterior SD from the kernel's, SDs / the kernel's - 1 "
+                  f"{np.round(rel, 4).tolist()}", flush=True)
+            if bars:
+                sd_ok = (np.all(np.abs(rel) < ADVI_FR_SD_REL) if full_rank
+                         else np.all(rel < ADVI_MF_SD_OVER))
+                check(vp.elbo_trace[-1] > vp.elbo_trace[0]
+                      and float(dmean.max()) < ADVI_MEAN_SD and sd_ok,
+                      (kind, vp.elbo_trace[[0, -1]], dmean, rel))
+
+
+def funnel_vip(rt):
+    """tests/test_reparam.py:101-113's build(lam)."""
+    def build(lam):
+        log_tau = rt.Normal(0.0, 3.0).latent()
+        thetas = rt.vip_latent_vec(0.0, log_tau.exp(), 4, lam=lam)
+        return rt.Model.track_([log_tau] + [thetas[i] for i in range(4)])
+    return build
+
+
+def auto_vip_phase(rt, device):
+    """auto_vip on the funnel: picks lam 0.0, every ELBO finite."""
+    t0 = time.perf_counter()
+    res = rt.auto_vip(funnel_vip(rt), candidates=VIP_CANDIDATES,
+                      n_steps=VIP_STEPS, seed=0, device=device)
+    print(f"phase auto_vip, funnel: candidates {VIP_CANDIDATES}, "
+          f"{VIP_STEPS} steps each: {res} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    check(res.lam == 0.0 and bool(np.all(np.isfinite(res.elbos))), res)
+
+
+def smc_phase(rt, quad, device):
+    """Model.smc on eight schools under SMCConfig() against the quadrature:
+    means of mu and tau within SMC_MEAN_SD posterior SD, their SDs within
+    SMC_SD_REL, log_evidence within SMC_LOGZ nats of its log Z."""
+    from rainier_tpu_torch.sampler import SMCConfig
+
+    model, mu, tau, _ = eight_schools(rt)
+    cfg = SMCConfig()
+    t0 = time.perf_counter()
+    tr, res = model.smc(cfg, seed=0, device=device)
+    secs = time.perf_counter() - t0
+    n = int(res.n_stages)
+    got = {"mu": tr.evaluate(mu), "tau": tr.evaluate(tau)}
+    log_z = float(res.log_evidence)
+    print(f"phase Model.smc, eight schools: {cfg.n_particles} particles, "
+          f"{n} stages in {secs:.2f} s ({secs / max(n, 1):.3f} s a stage), "
+          f"betas {np.round(res.betas[:n].cpu().numpy(), 5).tolist()}, "
+          f"mutation accept {np.round(res.accept_rates[:n].cpu().numpy(), 3).tolist()}; "
+          f"(mean, SD) " + ", ".join(
+              f"{k} ({np.mean(v):.4f}, {np.std(v):.4f}) against "
+              f"({quad[k][0]:.4f}, {quad[k][1]:.4f})"
+              for k, v in got.items())
+          + f"; log evidence {log_z:.4f} against the quadrature's "
+          f"{quad['log_z']:.4f}", flush=True)
+    check(np.all(np.isfinite(tr.flat())), "non-finite particles")
+    for k, v in got.items():
+        m, sd = quad[k]
+        check(abs(np.mean(v) - m) < SMC_MEAN_SD * sd
+              and abs(np.std(v) / sd - 1.0) < SMC_SD_REL,
+              (k, float(np.mean(v)), float(np.std(v)), m, sd))
+    check(abs(log_z - quad["log_z"]) < SMC_LOGZ, (log_z, quad["log_z"]))
+
+
+def chunked_phase(F, readme, device):
+    """The README regression on the scan path in segments of CHUNK_ITERS
+    with a ConsoleProgress against the same run unchunked: the same draw
+    count, means within CHUNK_MEAN_SE Monte-Carlo SE (the chains' ESS),
+    progress lines with accept, E-BFMI and the window, compile_s on
+    both; then through fused! with a ConsoleProgress (its three lines),
+    and chunk_iters with fused! refused."""
+    import io
+
+    from rainier_tpu_torch.core.trace import Trace
+    from rainier_tpu_torch.sampler import ConsoleProgress, HMC, SamplerConfig
+
+    model, _, _, _ = readme
+    cfg = SamplerConfig(CHUNK_WARMUP, CHUNK_DRAWS, sampler=HMC(N_STEPS))
+    buf = io.StringIO()
+    prog = ConsoleProgress(buf)
+    prog.output_every_seconds = 0.0
+    tr = model.sample(cfg, n_chains=CHUNK_CHAINS, seed=0, device=device,
+                      chunk_iters=CHUNK_ITERS, progress=prog)
+    ref = model.sample(cfg, n_chains=CHUNK_CHAINS, seed=0, device=device)
+    out = buf.getvalue()
+    a, b = tr.chains.astype(np.float64), ref.chains.astype(np.float64)
+    ess = np.array([d.effective_sample_size for d in Trace(
+        b, None, None, None).diagnostics(device=False)])
+    z = np.abs(a.mean((0, 1)) - b.mean((0, 1))) / (
+        b.std((0, 1)) / np.sqrt(ess))
+    print(f"phase chunked sampling, README regression: scan path "
+          f"{CHUNK_CHAINS} chains x ({CHUNK_WARMUP} + {CHUNK_DRAWS}), "
+          f"chunk_iters {CHUNK_ITERS}: draws {a.shape} against unchunked "
+          f"{b.shape}, means max {float(z.max()):.4f} MC SE apart (equal bit "
+          f"for bit: {bool(np.array_equal(a, b))}), timings {tr.timings} "
+          f"against {ref.timings}; {len(out.splitlines())} progress lines, "
+          f"the last {out.splitlines()[-1]!r}", flush=True)
+    check(a.shape == b.shape == (CHUNK_CHAINS, CHUNK_DRAWS, a.shape[-1]),
+          (a.shape, b.shape))
+    check(float(z.max()) < CHUNK_MEAN_SE, z)
+    check(all(w in out for w in ("accept", "E-BFMI", "[window:")), out)
+    check("compile_s" in tr.timings and "compile_s" in ref.timings,
+          (tr.timings, ref.timings))
+    buf = io.StringIO()
+    F.fused_hmc.launches = 0
+    tr = model.sample(cfg, n_chains=MAIN_CHAINS, seed=1, device=device,
+                      kernel="fused!", progress=ConsoleProgress(buf))
+    lines = buf.getvalue().splitlines()
+    print(f"phase progress, README regression through fused!: "
+          f"{MAIN_CHAINS} chains, fused_hmc launches "
+          f"{F.fused_hmc.launches}, lines {lines}, timings {tr.timings}",
+          flush=True)
+    check(len(lines) == 3 and lines[1].startswith("warmup complete")
+          and lines[2].startswith("complete") and "compile_s" in tr.timings,
+          lines)
+    try:
+        model.sample(cfg, n_chains=MAIN_CHAINS, device=device,
+                     kernel="fused!", chunk_iters=CHUNK_ITERS)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    print(f"phase chunk_iters with fused!: {refused!r}", flush=True)
+    check("chunk_iters needs the scan path" in refused, refused)
+
+
+def inference_sections(F, rt, cds, ems, mix, readme, readme_tr, lmodel,
+                       w_map, cov, eight_quad, device):
+    """The rest of inference, each section timed; returns the mixture's
+    JSON entry."""
+    t0 = time.perf_counter()
+    with phase("marginalized mixture", device):
+        entry = mixture_phases(F, mix[0], cds["marginalized mixture"],
+                               ems["marginalized mixture"], *mix[1:],
+                               device)
+    with phase("Model.optimize", device):
+        optimize_phase(lmodel, w_map, cov, device)
+    with phase("ADVI", device):
+        advi_phase(rt, readme, readme_tr, device)
+    with phase("auto_vip", device):
+        auto_vip_phase(rt, device)
+    with phase("Model.smc", device):
+        smc_phase(rt, eight_quad, device)
+    with phase("progress and chunked sampling", device):
+        chunked_phase(F, readme, device)
+    print(f"phase time, the inference sections: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return entry
+
+
+def advi_spread() -> int:
+    """``python3 chip_smoke.py advi-spread``: the README main path, then
+    ADVI at each of ADVI_SPREAD_SEEDS, printed and not held to the bars
+    (the spread over seeds, PERF.md §2)."""
+    import torch
+
+    import rainier_tpu_torch as rt
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    device = torch.device(DEVICE)
+    print(f"phase card: {nvidia_smi()}", flush=True)
+    readme = readme_regression(rt)
+    ems = build_all(F, {"README regression": readme[0].density()}, {})
+    _, readme_tr = readme_phases(F, readme, ems["README regression"], device)
+    advi_phase(rt, readme, readme_tr, device, ADVI_SPREAD_SEEDS, bars=False)
+    return 0
+
+
+def main(argv=()) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    if list(argv) == ["advi-spread"]:
+        return advi_spread()
     import rainier_tpu_torch as rt
     from rainier_tpu_torch.core.trace import Trace
     from rainier_tpu_torch.ops import fused_hmc as F
@@ -2268,6 +2694,7 @@ def main() -> int:
     l2model, x2, ys2 = logistic_regression(rt, LOGIT2M_ROWS)
     mv = mvnormal_logistic(rt, x, ys)
     smodel = split_logistic(rt, x, ys)
+    mix = marginal_mixture(rt)
     cds = {"funnel": fmodel.density(),
            f"funnel {WIDE_DIM}": wmodel.density(),
            "README regression": readme[0].density(),
@@ -2276,7 +2703,8 @@ def main() -> int:
            "logistic regression, two row spaces": smodel.density(),
            "GLMMPoisson2": gmodel.density(),
            "glmm_large": large.density(),
-           "logistic regression 2M": l2model.density()}
+           "logistic regression 2M": l2model.density(),
+           "marginalized mixture": mix[0].density()}
     # the zoo's data synthesized on the card, and the SBC phase's models,
     # so that their kernels build with the others
     zoo_fit_models = zoo_models(rt, device)
@@ -2359,7 +2787,7 @@ def main() -> int:
 
     # -- samplers outside the kernel: NUTS with dense mass, and EHMC --------
     with phase("eight schools (NUTS, dense mass)", device):
-        nuts_phase(rt, device)
+        eight_quad = nuts_phase(rt, device)
     with phase("funnel (default config: EHMC)", device):
         ehmc_phase(rt, device)
 
@@ -2380,6 +2808,11 @@ def main() -> int:
         sbc_phase(sbcs, device)
     print(f"phase time, the generative sections: "
           f"{time.perf_counter() - t_new:.1f} s", flush=True)
+
+    # -- the rest of inference: MAP, ADVI, SMC, marginals, progress ---------
+    kernels.append(inference_sections(F, rt, cds, ems, mix, readme,
+                                      readme_tr, lmodel, w_map, cov,
+                                      eight_quad, device))
     print(f"phase total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}))
@@ -2391,4 +2824,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

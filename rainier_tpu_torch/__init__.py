@@ -23,10 +23,14 @@ from .core import (Beta, Bernoulli, BetaBinomial, Binomial, Cauchy,
                    Distribution, Exponential, Gamma, Generator, Geometric,
                    Laplace, LogNormal, Mixture, Model, Multinomial,
                    MVNormal, NegativeBinomial, Normal, Poisson, Uniform,
-                   vip_latent, vip_latent_vec)
+                   MarginalizedLatent, marginalize, auto_vip, vip_latent,
+                   vip_latent_vec)
 from . import sampler
 from .sampler import (EHMC, HMC, NUTS, SamplerConfig, StaticMassMatrix,
                       StaticStepSize)
+from . import optimizer
+from . import variational
+from .variational import advi
 from . import ops
 
 __version__ = "0.1.0"

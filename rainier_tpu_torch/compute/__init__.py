@@ -1,4 +1,6 @@
-from . import bounds, cholesky, compiler, emit_cuda, interp, real, vec
+from . import (bounds, cholesky, compiler, emit_cuda, evaluator, interp,
+               real, vec)
+from .evaluator import Evaluator
 from .real import (Real, Constant, Parameter, VectorParameter, Column,
                    IntColumn, MatColumn, const, to_real, parameter,
                    vector_parameter, sum_, log_sum_exp, eq, lt, gt, lte,
@@ -8,8 +10,8 @@ from .vec import Vec
 from .compiler import CompiledDensity
 
 __all__ = [
-    "bounds", "cholesky", "compiler", "emit_cuda", "interp", "real", "vec",
-    "Real", "Constant", "Parameter", "VectorParameter", "Column", "IntColumn",
+    "bounds", "cholesky", "compiler", "emit_cuda", "evaluator", "interp",
+    "real", "vec", "Evaluator", "Real", "Constant", "Parameter", "VectorParameter", "Column", "IntColumn",
     "MatColumn", "const", "to_real", "parameter", "vector_parameter",
     "sum_", "log_sum_exp", "eq", "lt", "gt", "lte", "gte", "compare",
     "lookup", "zero", "one", "two", "neg_one", "pi", "infinity",

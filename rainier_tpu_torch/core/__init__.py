@@ -9,10 +9,11 @@ from .discrete import (Bernoulli, BetaBinomial, Binomial, Discrete,
 from .distribution import Distribution
 from .generator import Env, Generator, to_generator
 from .injection import Exp, Injection, Scale, Translate
+from .marginal import MarginalizedLatent, enumerated_support, marginalize
 from .model import Model
 from .multinomial import Multinomial
 from .mvnormal import MVNormal
-from .reparam import vip_latent, vip_latent_vec
+from .reparam import AutoVIPResult, auto_vip, vip_latent, vip_latent_vec
 from .sbc import SBC, Rep, rank_uniformity_pvalue
 from .support import (BoundedAboveSupport, BoundedBelowSupport,
                       BoundedSupport, Support, UnboundedSupport)
@@ -28,5 +29,6 @@ __all__ = [
     "Model", "Multinomial", "BoundedAboveSupport", "BoundedBelowSupport",
     "BoundedSupport", "Support", "UnboundedSupport", "SBC", "Rep",
     "rank_uniformity_pvalue", "Diagnostics", "Trace", "vip_latent",
-    "vip_latent_vec", "MVNormal",
+    "vip_latent_vec", "MVNormal", "MarginalizedLatent",
+    "enumerated_support", "marginalize", "AutoVIPResult", "auto_vip",
 ]

@@ -2,7 +2,7 @@
 counterpart of core/Model.scala:7-133).
 
 All chains run simultaneously as a batch dimension of the sampler's
-tensors.  ``smc`` and ``optimize`` are not ported yet (ROADMAP A5-A6).
+tensors.
 """
 
 from __future__ import annotations
@@ -145,3 +145,20 @@ class Model:
         trace = model.sample(cfg, n_chains=4, seed=seed, **kwargs)
         vals = trace.evaluate(exprs)
         return vals[0] if single else vals
+
+    def smc(self, config=None, seed: int = 0, **kwargs):
+        """Tempered SMC with systematic resampling — returns
+        (Trace, SMCResult); SMCResult.log_evidence estimates the model
+        evidence (sampler/smc.py; `kwargs`: ``device=``, ``dtype=``)."""
+        from ..sampler.smc import smc as run
+
+        return run(self, config, seed=seed, **kwargs)
+
+    def optimize(self, t=None, seed: int = 0, **kwargs):
+        """MAP via L-BFGS (core/Model.scala:26-30); returns the optimum of
+        `t` (a Real / structure of Reals / Generator) at the MAP point, or
+        the flat parameter vector when t is None (optimizer/lbfgs.py;
+        `kwargs`: ``n_starts=``, ``max_iters=``, ``device=``)."""
+        from ..optimizer import lbfgs_map
+
+        return lbfgs_map(self, t, seed=seed, **kwargs)

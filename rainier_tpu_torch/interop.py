@@ -7,7 +7,9 @@ with chains first: chain positions, potentials and gradients, the mass
 diagonal or the dense Σ̂ and its Cholesky factor, the step sizes, and
 EHMC's ring of trajectory lengths.  With it a test can feed the JAX
 warmup into the port's sampling phase and compare the two kernels draw by
-draw.
+draw.  A fitted variational posterior crosses the same way: its mu and
+its log_sigma or Cholesky factor.  The L-BFGS and SMC states need
+nothing: their inputs are the model's flat parameter vectors.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from .sampler.leapfrog import ChainState
 from .sampler.mass import MassState
 from .sampler.samplers import RingBuffer
 from .sampler.stats import StatsState
+from .variational import VariationalPosterior
 
 
 def warmup_product_from_numpy(d: dict, device=None) -> WarmupProduct:
@@ -73,3 +76,27 @@ def warmup_product_to_numpy(wp) -> dict:
             "ring_buf": None if ring is None else a(ring.buf),
             "ring_idx": None if ring is None else a(ring.idx),
             "ring_count": None if ring is None else a(ring.count)}
+
+
+def variational_posterior_from_numpy(mu, log_sigma=None, chol=None,
+                                     model=None, compiled=None,
+                                     elbo_trace=None, device=None,
+                                     dtype=None) -> VariationalPosterior:
+    """The port's VariationalPosterior of a fit given as numpy arrays (the
+    JAX one's ``mu`` and ``log_sigma`` or ``chol``), on `device` in
+    `dtype` (default ``config.dtype()``): its ``sample``, ``evaluate``
+    and ``mean`` then read the same q.  `compiled` defaults to the
+    model's density."""
+    dev = config.resolve_device(device)
+    dtype = dtype or config.dtype()
+
+    def t(x):
+        return None if x is None else torch.as_tensor(
+            np.array(x), dtype=dtype, device=dev)
+
+    if compiled is None and model is not None:
+        compiled = model.density()
+    return VariationalPosterior(
+        mu=t(mu), log_sigma=t(log_sigma), chol=t(chol),
+        elbo_trace=np.asarray([] if elbo_trace is None else elbo_trace),
+        model=model, compiled=compiled)

@@ -41,6 +41,7 @@ from .leapfrog import ChainState, try_stepping
 from .mass import (MassState, dense_mass, diag_mass, identity_mass,
                    kinetic, mass_from_welford, welford_init, welford_update,
                    window_masks)
+from .progress import Progress
 from .stats import StatsState, stats_init, stats_update
 
 
@@ -126,79 +127,118 @@ def init_chains(lpg, n_chains: int, n_vars: int, cfg: C.SamplerConfig,
     return ChainState(q=q, potential=-lp, grad=g)
 
 
+class Warmup:
+    """Initialization, step-size search, and the windowed adaptation of
+    step size and mass (the JAX package's build_warmup_pieces), as a loop
+    that can stop and resume: :meth:`advance` runs the next iterations of
+    the schedule, so warmup run in segments is the same computation, draw
+    for draw, as warmup run at once.  The window schedule is the whole
+    run's (``mass.window_masks``), indexed by the iteration, whatever the
+    segments."""
+
+    def __init__(self, lpg, n_vars: int, cfg: C.SamplerConfig,
+                 n_chains: int, gen, dtype, device):
+        self.lpg, self.cfg, self.gen = lpg, cfg, gen
+        self.adaptive_step = isinstance(cfg.step_size, C.DualAvgStepSize)
+        self.delta = cfg.step_size.delta if self.adaptive_step else 0.8
+        self.kind = _mass_kind(cfg.mass_matrix)
+        self.total = W = cfg.warmup_iterations
+        if self.kind in ("diag", "dense"):
+            self.update_mask, self.close_mask = window_masks(
+                W, cfg.mass_matrix.initial_window, cfg.mass_matrix.expansion,
+                cfg.mass_matrix.skip_first, cfg.mass_matrix.skip_last)
+        else:
+            self.update_mask = self.close_mask = np.zeros(W, dtype=bool)
+        self.shape = shape = (n_chains, n_vars)
+        self.dtype, self.device = dtype, device
+        self.done = 0
+
+        self.chain = init_chains(lpg, n_chains, n_vars, cfg, gen, dtype,
+                                 device)
+        self.mass = _initial_mass(cfg.mass_matrix, shape, dtype, device)
+        p_init = torch.randn(shape, generator=gen, dtype=dtype, device=device)
+        if self.adaptive_step:
+            eps0 = find_reasonable_step_size(
+                lambda e: try_stepping(self.chain, p_init, e, identity_mass(),
+                                       lpg),
+                torch.ones(n_chains, dtype=dtype, device=device))
+            self.da = dual_avg_init(eps0)
+            self.static_eps = None
+        else:
+            self.static_eps = torch.full((n_chains,), cfg.step_size.step_size,
+                                         dtype=dtype, device=device)
+            self.da = dual_avg_init(self.static_eps)
+        self.welford = welford_init(shape, dtype, device,
+                                    self.kind == "dense")
+        self.extra = samplers.init_extra(cfg.sampler, n_chains, dtype, device)
+        self.stats = stats_init(self.chain.potential
+                                + kinetic(self.mass, p_init))
+
+    def step_size(self):
+        """The step size the next iteration takes (C,)."""
+        return current_step_size(self.da) if self.adaptive_step \
+            else self.static_eps
+
+    def advance(self, n: int) -> None:
+        """Run the next `n` iterations of the schedule (fewer at its end)."""
+        cfg, lpg = self.cfg, self.lpg
+        n_chains = self.shape[0]
+        for it in range(self.done, min(self.done + n, self.total)):
+            eps = self.step_size()
+            res, self.extra, n_grads = samplers.step(
+                cfg.sampler, self.gen, self.chain, eps, self.mass, self.extra,
+                lpg, warmup=True)
+            if self.adaptive_step:
+                la = res.log_accept
+                if cfg.pooled_adaptation:
+                    la = torch.log(torch.clamp(torch.exp(la).mean(),
+                                               min=1e-30)).expand(n_chains)
+                self.da = dual_avg_update(self.da, la, self.delta)
+            if self.update_mask[it]:
+                self.welford = welford_update(self.welford, res.state.q)
+            if self.close_mask[it]:
+                w = self.welford
+                if cfg.pooled_adaptation:
+                    # the JAX package's pmean of the whole Welford state
+                    w = w._replace(
+                        mean=w.mean.mean(0).expand(self.shape),
+                        raw=w.raw.mean(0).expand(self.shape),
+                        cov_raw=None if w.cov_raw is None
+                        else w.cov_raw.mean(0).expand_as(w.cov_raw))
+                self.mass = mass_from_welford(w, self.kind)
+                if self.adaptive_step:
+                    self.da = dual_avg_reset(self.da)
+                self.welford = welford_init(self.shape, self.dtype,
+                                            self.device, self.kind == "dense")
+            self.stats = stats_update(self.stats, res.log_accept,
+                                      res.divergent, res.energy, n_grads)
+            self.chain = res.state
+            self.done = it + 1
+
+    def product(self) -> WarmupProduct:
+        step = final_step_size(self.da) if self.adaptive_step \
+            else self.static_eps
+        return WarmupProduct(chain=self.chain, extra=self.extra,
+                             mass=self.mass, step_size=step,
+                             warmup_stats=self.stats)
+
+
 def run_warmup(lpg, n_vars: int, cfg: C.SamplerConfig, n_chains: int, gen,
                dtype, device) -> WarmupProduct:
-    """Initialization, step-size search, and the windowed adaptation of
-    step size and mass (the JAX package's build_warmup_pieces)."""
-    adaptive_step = isinstance(cfg.step_size, C.DualAvgStepSize)
-    delta = cfg.step_size.delta if adaptive_step else 0.8
-    kind = _mass_kind(cfg.mass_matrix)
-    tuned_mass = kind in ("diag", "dense")
-    pooled = cfg.pooled_adaptation
-    W = cfg.warmup_iterations
-    if tuned_mass:
-        update_mask, close_mask = window_masks(
-            W, cfg.mass_matrix.initial_window, cfg.mass_matrix.expansion,
-            cfg.mass_matrix.skip_first, cfg.mass_matrix.skip_last)
-    else:
-        update_mask = close_mask = np.zeros(W, dtype=bool)
-    shape = (n_chains, n_vars)
-
-    chain = init_chains(lpg, n_chains, n_vars, cfg, gen, dtype, device)
-    mass = _initial_mass(cfg.mass_matrix, shape, dtype, device)
-    p_init = torch.randn(shape, generator=gen, dtype=dtype, device=device)
-    if adaptive_step:
-        eps0 = find_reasonable_step_size(
-            lambda e: try_stepping(chain, p_init, e, identity_mass(), lpg),
-            torch.ones(n_chains, dtype=dtype, device=device))
-        da = dual_avg_init(eps0)
-        static_eps = None
-    else:
-        static_eps = torch.full((n_chains,), cfg.step_size.step_size,
-                                dtype=dtype, device=device)
-        da = dual_avg_init(static_eps)
-    dense = kind == "dense"
-    welford = welford_init(shape, dtype, device, dense)
-    extra = samplers.init_extra(cfg.sampler, n_chains, dtype, device)
-    stats = stats_init(chain.potential + kinetic(mass, p_init))
-
-    for it in range(W):
-        eps = current_step_size(da) if adaptive_step else static_eps
-        res, extra, n_grads = samplers.step(
-            cfg.sampler, gen, chain, eps, mass, extra, lpg, warmup=True)
-        if adaptive_step:
-            la = res.log_accept
-            if pooled:
-                la = torch.log(torch.clamp(torch.exp(la).mean(),
-                                           min=1e-30)).expand(n_chains)
-            da = dual_avg_update(da, la, delta)
-        if update_mask[it]:
-            welford = welford_update(welford, res.state.q)
-        if close_mask[it]:
-            w = welford
-            if pooled:
-                # the JAX package's pmean of the whole Welford state
-                w = w._replace(
-                    mean=w.mean.mean(0).expand(shape),
-                    raw=w.raw.mean(0).expand(shape),
-                    cov_raw=None if w.cov_raw is None
-                    else w.cov_raw.mean(0).expand_as(w.cov_raw))
-            mass = mass_from_welford(w, kind)
-            if adaptive_step:
-                da = dual_avg_reset(da)
-            welford = welford_init(shape, dtype, device, dense)
-        stats = stats_update(stats, res.log_accept, res.divergent,
-                             res.energy, n_grads)
-        chain = res.state
-    step = final_step_size(da) if adaptive_step else static_eps
-    return WarmupProduct(chain=chain, extra=extra, mass=mass, step_size=step,
-                         warmup_stats=stats)
+    """Warmup at once: :class:`Warmup` run to the end of its schedule."""
+    w = Warmup(lpg, n_vars, cfg, n_chains, gen, dtype, device)
+    w.advance(w.total)
+    return w.product()
 
 
 def run_sampling(lpg, cfg: C.SamplerConfig, wp: WarmupProduct, gen,
-                 collect_idx=None):
+                 collect_idx=None, segment: Optional[int] = None,
+                 refresh=None):
     """Scan-path sampling phase: one collected draw per `cfg.thin`
-    transitions.  Returns (samples (C, n_out, k), stats, final q)."""
+    transitions, exactly ``cfg.iterations // thin`` draws.  With
+    `segment`, ``refresh(draws so far, stats)`` is called after every
+    `segment` draws and at the end.  Returns (samples (C, n_out, k),
+    stats, final q)."""
     thin = max(cfg.thin, 1)
     n_out = cfg.iterations // thin
     q = wp.chain.q
@@ -218,12 +258,66 @@ def run_sampling(lpg, cfg: C.SamplerConfig, wp: WarmupProduct, gen,
                                  res.energy, n_grads)
             chain = res.state
         samples[:, o] = chain.q if cidx is None else chain.q[:, cidx]
+        if refresh is not None and ((o + 1) % segment == 0
+                                    or o + 1 == n_out):
+            refresh(o + 1, stats)
     return samples, stats, chain.q
+
+
+def _scan_sample(lpg, n_vars, cfg, n_chains, gen, dtype, dev, collect_idx,
+                 progress, chunk_iters, timings) -> ChainResult:
+    """The scan path: warmup, then sampling.  With a `progress` or
+    `chunk_iters` both run in segments of `chunk_iters` iterations with
+    a host sync and a refresh after each (the JAX package's
+    _chunked_sample, driver.py:791-887; without `chunk_iters` warmup is
+    one segment and sampling about 20).  Unlike the JAX package, which
+    runs whole chunks and slices off the overshoot (so its sampling stats
+    count transitions it throws away), sampling stops at exactly
+    ``cfg.iterations // thin`` draws (ROADMAP C2.6), so a segmented run
+    is the run at once, draw for draw."""
+    segmented = progress is not None or chunk_iters is not None
+    progress = progress or Progress()
+    progress.start(n_chains)
+    t_warm = _time.perf_counter()
+    w = Warmup(lpg, n_vars, cfg, n_chains, gen, dtype, dev)
+    W = w.total
+    while w.done < W:
+        w.advance(min(chunk_iters or W, W))
+        if segmented:
+            _sync(dev)
+            progress.refresh("warmup", w.done, W, w.stats, w.step_size())
+    wp = w.product()
+    _sync(dev)
+    timings["warmup_s"] = _time.perf_counter() - t_warm
+    progress.refresh("warmup complete", W, W, wp.warmup_stats, wp.step_size)
+
+    thin = max(cfg.thin, 1)
+    n_out = cfg.iterations // thin
+    if chunk_iters:
+        chunk = max(chunk_iters // thin, 1)
+    else:
+        chunk = max(n_out // min(20, max(n_out, 1)), 1)
+
+    def refresh(done, stats):
+        _sync(dev)
+        progress.refresh("sampling", done * thin, cfg.iterations, stats,
+                         wp.step_size)
+
+    t_sample = _time.perf_counter()
+    samples, sstats, final_q = run_sampling(
+        lpg, cfg, wp, gen, collect_idx, chunk, refresh if segmented else None)
+    _sync(dev)
+    timings["sample_s"] = _time.perf_counter() - t_sample
+    progress.finish("complete", sstats, wp.step_size)
+    return ChainResult(samples=samples, mass=wp.mass, step_size=wp.step_size,
+                       warmup_stats=wp.warmup_stats, stats=sstats,
+                       final_q=final_q)
 
 
 def sample(model, cfg: C.SamplerConfig, n_chains: int = 4, seed: int = 0,
            collect_idx=None, dtype=None, device=None, mesh=None,
-           kernel: str = "scan"):
+           progress=None, kernel: str = "scan",
+           chunk_iters: Optional[int] = None, sync_compile: bool = False):
     """Run inference on `model`; returns a Trace.
 
     `device`: where the run happens — the process default
@@ -232,21 +326,34 @@ def sample(model, cfg: C.SamplerConfig, n_chains: int = 4, seed: int = 0,
     ops; 'fused' runs scan-path warmup, then the whole sampling phase as
     one fused CUDA kernel (ops/fused_hmc.py; its plain PyTorch version
     on the CPU).  Outside the kernel's envelope (non-HMC samplers, dense
-    mass, a mesh, nodes the CUDA emitter does not cover such as a Gather
-    whose source varies by row, a density without a clean base/row split,
-    a kernel workspace larger than the device's free memory) 'fused'
-    warns and runs the scan path; 'fused!' raises, for callers who need
-    the kernel or nothing.  `collect_idx` (an index array into the
-    parameters) keeps only those coordinates of each draw, on either
-    path; a kernel with its state in the workspace stores only them.
+    mass, a mesh, `chunk_iters`, nodes the CUDA emitter does not cover
+    such as a Gather whose source varies by row, a density without a
+    clean base/row split, a kernel workspace larger than the device's
+    free memory) 'fused' warns and runs the scan path; 'fused!' raises,
+    for callers who need the kernel or nothing.  `collect_idx` (an index
+    array into the parameters) keeps only those coordinates of each
+    draw, on either path; a kernel with its state in the workspace
+    stores only them.
     `dtype` is the sampler's (default ``config.dtype()``); on the fused
     path it is warmup's (default float32), and the kernel's state is
     float32 whatever it is.
+    `progress`: a sampler.progress.Progress.  On the scan path it runs
+    warmup and sampling in segments with a refresh after each; on the
+    fused path it reports after warmup and after the kernel.
+    `chunk_iters`: iterations a segment on the scan path (a host sync
+    after each).
+    `sync_compile`: build the fused kernel and run a throwaway launch
+    before anything is timed, as `compile_sync_s`; on the scan path,
+    which compiles nothing, `compile_sync_s` is 0.0.
     `mesh`: multi-device runs come in a later slice of the port.
     """
     if kernel in ("fused", "fused!"):
         reason = _fused_unsupported_reason(model, cfg, n_chains, mesh,
                                            device)
+        if reason is None and chunk_iters is not None:
+            reason = ("the fused kernel runs the whole sampling phase as "
+                      "one device program; chunk_iters needs the scan "
+                      "path")
         if reason is None:
             # the split check, warmup and the kernel read one copy of the
             # columns on the device
@@ -260,7 +367,7 @@ def sample(model, cfg: C.SamplerConfig, n_chains: int = 4, seed: int = 0,
                           "density)")
         if reason is None:
             return _fused_sample(model, cfg, n_chains, seed, collect_idx,
-                                 device, cols, dtype)
+                                 device, cols, dtype, progress, sync_compile)
         if kernel == "fused!":
             raise ValueError(f"kernel='fused!': {reason}")
         warnings.warn(f"kernel='fused' falling back to the scan path: "
@@ -287,20 +394,13 @@ def sample(model, cfg: C.SamplerConfig, n_chains: int = 4, seed: int = 0,
     timings["build_s"] = _time.perf_counter() - t_build
     # eager PyTorch: nothing is compiled on this path
     timings["compile_s"] = 0.0
+    if sync_compile:
+        timings["compile_sync_s"] = 0.0
 
     t0 = _time.perf_counter()
-    wp = run_warmup(lpg, cd.n_vars, cfg, n_chains, gen, dtype, dev)
-    _sync(dev)
-    timings["warmup_s"] = _time.perf_counter() - t0
-    t_run = _time.perf_counter()
-    samples, sstats, final_q = run_sampling(lpg, cfg, wp, gen, collect_idx)
-    _sync(dev)
-    timings["sample_s"] = _time.perf_counter() - t_run
+    result = _scan_sample(lpg, cd.n_vars, cfg, n_chains, gen, dtype, dev,
+                          collect_idx, progress, chunk_iters, timings)
     walltime = _time.perf_counter() - t0
-    result = ChainResult(samples=samples, mass=wp.mass,
-                         step_size=wp.step_size,
-                         warmup_stats=wp.warmup_stats, stats=sstats,
-                         final_q=final_q)
     return _finish(model, cd, result, cfg, collect_idx, walltime, timings)
 
 
@@ -360,7 +460,8 @@ def _verify_split(cd, cols, tile_rows) -> bool:
 
 
 def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
-                  device, cols, dtype=None):
+                  device, cols, dtype=None, progress=None,
+                  sync_compile=False):
     """kernel='fused' path: scan-path warmup (full adaptation semantics),
     then the sampling phase as ONE fused kernel (ops/fused_hmc.py) — the
     counterpart of the JAX package's _pallas_sample (driver.py:651-788).
@@ -373,7 +474,13 @@ def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
     the kernel reads, and warmup too where `dtype` (warmup's) is float32:
     float64 warmup resolves lp where its f32 rounding moves it more than
     the posterior does (a sum of 10⁵ rows whose terms reach 10⁷ in all,
-    PERF.md §4), and hands the kernel its state in float32."""
+    PERF.md §4), and hands the kernel its state in float32.
+
+    `progress` starts before warmup, refreshes once after it and
+    finishes after the kernel, as the JAX package's _pallas_sample does
+    (driver.py:684-695, 777-778).  `sync_compile` runs one throwaway
+    launch of the kernel (one iteration from the origin) before warmup,
+    timed as `compile_sync_s`."""
     from ..ops.fused_hmc import build, fused_hmc, lanes_per_chain
 
     dev = global_config.resolve_device(device)
@@ -396,11 +503,25 @@ def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
     if dev.type == "cuda":
         _, timings["compile_s"], _ = build(
             cd, lanes_per_chain(emit_cuda.emit(cd), n_chains))
+    if sync_compile:
+        t_sync = _time.perf_counter()
+        fused_hmc(cd, torch.zeros((cd.n_vars, n_chains), device=dev),
+                  step_size=torch.full((n_chains,), 1e-3, device=dev),
+                  n_steps=1, n_iterations=1, seed=seed, collect_every=0,
+                  columns=cols)
+        _sync(dev)
+        timings["compile_sync_s"] = _time.perf_counter() - t_sync
 
     t0 = _time.perf_counter()
+    if progress is not None:
+        progress.start(n_chains)
     wp = run_warmup(lpg, cd.n_vars, cfg, n_chains, gen, dtype, dev)
     _sync(dev)
     timings["warmup_s"] = _time.perf_counter() - t0
+    if progress is not None:
+        progress.refresh("warmup complete", cfg.warmup_iterations,
+                         cfg.warmup_iterations, wp.warmup_stats,
+                         wp.step_size)
 
     if cfg.pooled_adaptation:
         eps = torch.exp(torch.log(wp.step_size).mean()).expand(n_chains)
@@ -433,6 +554,8 @@ def _fused_sample(model, cfg: C.SamplerConfig, n_chains, seed, collect_idx,
         accept_sum=acc * cfg.iterations,
         grad_evals=torch.full_like(full, n_grads),
         prev_energy=z, energy_trans2=z, e_count=z, e_mean=z, e_raw=z)
+    if progress is not None:
+        progress.finish("complete", sstats, wp.step_size)
     result = ChainResult(samples=chains, mass=wp.mass,
                          step_size=wp.step_size,
                          warmup_stats=wp.warmup_stats, stats=sstats,

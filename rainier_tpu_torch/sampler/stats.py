@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -46,6 +47,28 @@ def stats_update(st: StatsState, log_accept, divergent, energy,
         prev_energy=energy,
         energy_trans2=st.energy_trans2 + (energy - st.prev_energy) ** 2,
         e_count=e_count, e_mean=e_mean, e_raw=e_raw)
+
+
+def _floor(x, v):
+    return x.clamp(min=v) if isinstance(x, torch.Tensor) else np.maximum(x, v)
+
+
+def bfmi(st: StatsState):
+    """Per-chain E-BFMI, of tensors or of host arrays."""
+    return st.energy_trans2 / _floor(st.e_raw, 1e-20)
+
+
+def accept_rate(st: StatsState):
+    """Per-chain mean acceptance rate, of tensors or of host arrays."""
+    return st.accept_sum / _floor(st.iterations, 1)
+
+
+def to_host(st: StatsState) -> StatsState:
+    """The same StatsState with every field a numpy array (one device to
+    host copy a field)."""
+    return StatsState(*[x.detach().cpu().numpy()
+                        if isinstance(x, torch.Tensor) else np.asarray(x)
+                        for x in st])
 
 
 class LoopCounts:

@@ -370,7 +370,13 @@ def test_port_imports_no_jax_and_no_rainier_tpu():
             "rainier_tpu_torch.core.sbc, rainier_tpu_torch.core.trace, "
             "rainier_tpu_torch.tools.kernel_ab, "
             "rainier_tpu_torch.sampler.nuts, "
-            "rainier_tpu_torch.compute.cholesky, chip_smoke; "
+            "rainier_tpu_torch.compute.cholesky, "
+            "rainier_tpu_torch.compute.evaluator, "
+            "rainier_tpu_torch.core.marginal, "
+            "rainier_tpu_torch.optimizer.lbfgs, "
+            "rainier_tpu_torch.variational, "
+            "rainier_tpu_torch.sampler.smc, "
+            "rainier_tpu_torch.sampler.progress, chip_smoke; "
             "chip_smoke.zoo(rainier_tpu_torch); "
             "bad = [m for m, v in sys.modules.items() if v is not None "
             "and m.split('.')[0] in ('jax', 'jaxlib', 'rainier_tpu', "
