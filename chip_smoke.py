@@ -6,7 +6,7 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the fused HMC kernel for eight models from the checkout's
+It builds the fused HMC kernel for every model from the checkout's
 sources (one nvcc each, all started together), and then, each phase
 printing one line:
 
@@ -43,6 +43,18 @@ printing one line:
   and 40,000 rows (two row spaces): its density at full width against
   the plain version, f64 and the one-block model's kernel, and its kernel
   streamed against synchronous bit for bit;
+* the forms the emitter took last: a latent Gaussian process over 64
+  inputs (an ``MVNormal`` of 64 dimensions, L·z in the kernel's scratch)
+  through ``Model.sample(kernel="fused!")`` against its exact Gaussian
+  posterior in numpy f64, then the kernel against its plain version; the
+  100k logistic at 32 features under the ``MVNormal`` prior, as the
+  10-feature one (Laplace reference, density at full width, main path,
+  betas against L·z, kernel against plain); each row form at 100,000
+  rows (an index column read whole, a vector per row, a row-varying
+  gather): a short main path, the density at full width against the
+  plain version in f32 and f64, and the kernel against its plain version;
+  then ``rt.inspection.ptx`` of the GP's kernel and
+  ``rt.inspection.trace`` of a short fused run;
 * GLMMPoisson2 of ``benchmarks/models.py::glmm_poisson`` (100 sites × 40
   years, 146 parameters, two integer index columns; its data regenerated
   here from the same seed): a scan-path run, the kernel's density and
@@ -65,7 +77,7 @@ printing one line:
   scan-path run by per-chain moments, and the kernel against its plain
   version at the main path's shapes, compared the same way;
 * the 2M-row logistic regression of ``benchmarks/data_scale.py:35-50``
-  (the 100k model at n = 2,000,000, 512 chains, 60 + 50 iterations of
+  (the 100k model at n = 2,000,000, 512 chains, 40 + 30 iterations of
   HMC(8)), whose 88 MB of columns exceed the card's L2, so its launches
   stream their row tiles: a scan-path run, the streamed density at full
   width at its last draws and at inits against the plain version and
@@ -113,6 +125,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -124,7 +137,9 @@ import numpy as np
 PEAK_F32_OPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
-N_WARMUP, N_DRAWS, MAIN_CHAINS, N_STEPS = 1000, 1000, 1024, 5
+# (draws of the funnel's and the README regression's main paths cut from
+# 1000 to 500 for the forms sections: PERF.md §4)
+N_WARMUP, N_DRAWS, MAIN_CHAINS, N_STEPS = 1000, 500, 1024, 5
 # the funnel at WIDE_DIM dimensions (past 256 parameters: its state in the
 # kernel's workspace); its main path keeps WIDE_COLLECT coordinates (y's
 # and the first x's) of each draw, and its draws and parity iterations are
@@ -149,8 +164,12 @@ README_ROWS, README_SEED = 200, 0
 # 100k logistic regression (benchmarks/models.py:145-159) and its run on
 # the main path: fixed-step HMC with the sampler's defaults otherwise
 LOGIT_ROWS, LOGIT_FEATURES, LOGIT_SEED, LOGIT_PRIOR_SD = 100_000, 10, 5, 5.0
-# draws cut from 1000 to 200 to make room for the 2M-row path
-LOGIT_WARMUP, LOGIT_DRAWS, LOGIT_STEPS = 1000, 200, 5
+# draws cut from 1000 to 200 to make room for the 2M-row path, warmup
+# from 1000 to 500 for the forms sections (the scan-path run of
+# `scan_timing` too)
+LOGIT_WARMUP, LOGIT_DRAWS, LOGIT_STEPS = 500, 200, 5
+# the scan-path run beside it, for its sample_s only
+SCAN_WARMUP = 100
 LOGIT_PARITY_ITERS = 100
 # its kernel streamed against synchronous: bit for bit
 # (iterations cut from 100 to 50 to make room for the untiled density)
@@ -162,16 +181,18 @@ LOGIT_CHECK_MAP, LOGIT_CHECK_INIT = 1024, 64
 # GLMMPoisson2 (benchmarks/models.py:111-142) and its runs: the main path
 # at 1024 chains, and a scan-path run of the same configuration
 GLMM_SITES, GLMM_YEARS, GLMM_SEED = 100, 40, 4
-# draws cut from 1000 to 500 to make room for the untiled density
-GLMM_WARMUP, GLMM_DRAWS, GLMM_STEPS = 1000, 500, 5
+# draws cut from 1000 to 500 to make room for the untiled density, then
+# to 250, and warmup from 1000 to 300, for the forms sections (both runs)
+GLMM_WARMUP, GLMM_DRAWS, GLMM_STEPS = 300, 250, 5
 GLMM_PARITY_ITERS, GLMM_CHECK_INIT = 100, 64
 GLMM_MOMENT_Z = 5.0   # two-sample bound on each per-chain moment's mean
 # glmm_large (benchmarks/models.py:162-202, BASELINE config 5) and its
 # runs, collecting mu, sd and every 100th group effect (layout slots 0, 1,
 # 2, 102, ..., 9902)
 LARGE_GROUPS, LARGE_OBS, LARGE_SEED, LARGE_LAM = 10_000, 5, 6, 1.0
-# draws cut from 1000 to 200 to make room for the 2M-row path
-LARGE_WARMUP, LARGE_DRAWS, LARGE_STEPS = 1000, 200, 5
+# draws cut from 1000 to 200 to make room for the 2M-row path, then to
+# 100, and warmup from 1000 to 300, for the forms sections (both runs)
+LARGE_WARMUP, LARGE_DRAWS, LARGE_STEPS = 300, 100, 5
 # parity iterations cut from 100 to 50 to make room for the untiled density
 LARGE_PARITY_ITERS, LARGE_CHECK_INIT = 50, 64
 # its kernel runs blocks of 4 chains, a warp each: 1001 chains leave a
@@ -187,7 +208,9 @@ LARGE_COLLECT_EVERY = 100
 # betas = MVNormal(0, Σ).latent_vec() with Σᵢⱼ = 25 · 0.5^|i−j| (an AR(1)
 # correlation at the original prior's scale), built with the Vec API; its
 # run on the main path is the 100k logistic's
-MV_RHO = 0.5
+# (warmup cut from 1000 to 300 for the forms sections' time, as the
+# mixture's and the 32-feature model's: PERF.md §4)
+MV_RHO, MV_WARMUP = 0.5, 300
 # the 100k logistic observed as two merged blocks of these rows: two row
 # spaces, the one-block model's density; its kernel streamed against
 # synchronous over this many iterations
@@ -196,8 +219,9 @@ SPLIT_ROWS, SPLIT_AB_ITERS = 60_000, 20
 # 100k model's graph at n = 2,000,000; docs/performance.md:60-82): 88 MB
 # of columns, past the card's L2, so its launches stream their tiles
 LOGIT2M_ROWS, LOGIT2M_CHAINS = 2_000_000, 512
-# draws cut from 100 to 50 to make room for the untiled density
-LOGIT2M_WARMUP, LOGIT2M_DRAWS, LOGIT2M_STEPS = 100, 50, 8
+# draws cut from 100 to 50 to make room for the untiled density, then to
+# 30, and warmup from 100 to 40, for the forms sections
+LOGIT2M_WARMUP, LOGIT2M_DRAWS, LOGIT2M_STEPS = 40, 30, 8
 # the density check at this many of the scan-path run's last draws and
 # inits (the f64 truth holds several (rows, points) arrays)
 LOGIT2M_CHECK_DRAWS, LOGIT2M_CHECK_INIT = 128, 32
@@ -215,15 +239,17 @@ EIGHT_SIGMA = [15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0]
 # host, some 31 of them a warmup iteration and 21 a draw.  Rank-r̂ sits
 # near √(1 + (τ_int − 1)/n) for n draws a half chain, τ_int ~5, and a
 # shorter warmup raises it too, so neither is cut below what keeps it
-# clear of 1.01 (PERF.md §4)
-NUTS_WARMUP, NUTS_DRAWS, NUTS_DEPTH = 500, 750, 8
+# clear of 1.01 (PERF.md §4): draws 750 (1.00512 there) cut to 600 for the
+# forms sections, where it sits near √(1 + 4/300) ≈ 1.0066
+NUTS_WARMUP, NUTS_DRAWS, NUTS_DEPTH = 500, 600, 8
 QUAD_MU, QUAD_TAU = (-40.0, 50.0, 1801), (0.0, 200.0, 8001)
 # bars: means within this many posterior SDs, SDs within this fraction
 NUTS_MEAN_SD, NUTS_SD_REL = 0.05, 0.05
 # the funnel under the default config (the reference's ehmc_default,
 # benchmarks/e2e.py:96-104): EHMC(1024), synchronized; iterations cut from
-# 1000 + 1000 for the script's time (PERF.md §4)
-EHMC_WARMUP, EHMC_DRAWS = 500, 500
+# 1000 + 1000 for the script's time (PERF.md §4), warmup to 300 for the
+# forms sections
+EHMC_WARMUP, EHMC_DRAWS = 300, 500
 # the goldset zoo (tests/goldset_zoo.py:28-56, the reference's SBCModel
 # goldset: 5 continuous priors under a Normal likelihood and 7 discrete
 # likelihoods), each family's data synthesized on the card by the port's
@@ -280,7 +306,8 @@ DIAG_RHAT, DIAG_ESS_REL, DIAG_GLMM_EVERY = 1e-3, 0.01, 10
 # to thin its draws to 1024 effective, 40-49 s a repetition on the card;
 # HMC(4) turns about 4.4 rad, lag-1 autocorrelation near -0.3); bars: max
 # r̂ < SBC_RHAT, rank-uniformity p-value > SBC_PVALUE
-SBC_ROWS, SBC_LOG_BINS, SBC_REPS, SBC_WARMUP = 100, 2, 12, 150
+# (repetitions cut from 12 to 6 for the forms sections)
+SBC_ROWS, SBC_LOG_BINS, SBC_REPS, SBC_WARMUP = 100, 2, 6, 150
 SBC_STEPS = 4
 SBC_RHAT, SBC_PVALUE = 1.2, 1e-4
 SBC_FAMILIES = ("zero_inflated_geometric", "binomial")
@@ -326,8 +353,59 @@ SMC_MEAN_SD, SMC_SD_REL, SMC_LOGZ = 0.1, 0.1, 0.5
 # segment count divides either phase) with a ConsoleProgress, against the
 # same run unchunked (means within CHUNK_MEAN_SE Monte-Carlo SE), and
 # through fused! with a progress, each CHUNK_WARMUP + CHUNK_DRAWS
-CHUNK_ITERS, CHUNK_CHAINS, CHUNK_WARMUP, CHUNK_DRAWS = 130, 256, 300, 200
+# (warmup cut from 300 to 150 for the forms sections)
+CHUNK_ITERS, CHUNK_CHAINS, CHUNK_WARMUP, CHUNK_DRAWS = 130, 256, 150, 200
 CHUNK_MEAN_SE = 5.0
+# The forms the emitter took last (the kernel runs them in CUDA: a MatVec
+# of a matrix read whole by a vector past 16, an IntColumn read whole, a
+# vector per row, a row-varying Gather).  A latent Gaussian process:
+# GP_INPUTS inputs evenly spaced on [0, 10], a squared-exponential K of
+# amplitude 1 and length scale GP_LENGTH with GP_JITTER on its diagonal,
+# y = sin(x) + N(0, GP_SIGMA²) from GP_SEED, sigma fixed, so the posterior
+# of f is exactly Gaussian (numpy f64).  In whitened coordinates its
+# precision is I + LᵀL/σ², condition number ~1 + λmax(K)/σ² ≈ 180: warmup
+# adapts a step of ~0.075 (stable on the narrowest direction, SD ~0.075),
+# so HMC(GP_STEPS) makes a trajectory of ~0.9 on the widest (SD 1); at
+# HMC(8) and 3000 draws rank-r̂ came out 1.00908, too near its bar (H100,
+# 700 W).  Warmup is eager, ~17 ms a density call at 1024 chains (64
+# scalar likelihood terms, each its own launches): 500 warmup iterations
+# of HMC(16) took 138 s (H100, 700 W), so warmup is cut to GP_WARMUP of
+# HMC(GP_STEPS) (rank-r̂ 1.00553 over 2000 draws); draws cost the kernel
+# ~0.3 ms each.
+# Bars: every f_i's mean within GP_MEAN_SD posterior SD, its SD within
+# GP_SD_REL (f evaluated at every GP_THIN-th draw), rank-r̂ < 1.01; the
+# kernel against its plain version at the main path's shapes over
+# GP_PARITY_ITERS iterations (the plain version is the eager density
+# too), the column-free bar
+GP_INPUTS, GP_SEED, GP_SIGMA, GP_LENGTH, GP_JITTER = 64, 0, 0.3, 1.0, 1e-6
+GP_WARMUP, GP_DRAWS, GP_STEPS, GP_PARITY_ITERS = 150, 2000, 12, 25
+GP_MEAN_SD, GP_SD_REL, GP_THIN = 0.05, 0.05, 4
+# the 100k logistic's data at MV32_FEATURES features
+# (benchmarks/models.py:145-159 at p = 32) under the MVNormal prior:
+# betas = L·z past 16 elements, held once a density call among the
+# row-invariant values; warmup cut from 1000 to 300 (as the mixture's).
+# Draws 800, not 200: at 200 rank-r̂ came out 1.0195 (pooled adaptation;
+# an integrated autocorrelation of ~4.9 draws), and at 800 it sits near
+# √(1 + 3.9/400) ≈ 1.005 (H100, 700 W)
+MV32_FEATURES, MV32_WARMUP, MV32_DRAWS = 32, 300, 800
+# the three row forms no model of the repo reaches, each at FORM_ROWS
+# rows from the smallest construct that builds it, its data from
+# FORM_SEED: a short main path (FORM_WARMUP + FORM_DRAWS of
+# HMC(FORM_STEPS), FORM_COLLECT coordinates kept), the density at full
+# width at FORM_CHECK_NEAR of its last states and FORM_CHECK_INIT inits
+# against the plain version and the plain version in f64, then the
+# kernel against its plain version over FORM_PARITY_ITERS iterations with
+# the bar of the models with data
+FORM_ROWS, FORM_SEED, FORM_GROUPS = 100_000, 9, 3
+FORM_WARMUP, FORM_DRAWS, FORM_STEPS, FORM_COLLECT = 100, 50, 4, 10
+FORM_CHECK_NEAR, FORM_CHECK_INIT, FORM_PARITY_ITERS = 512, 64, 20
+# rt.inspection.trace's run: short, since the profiler records every
+# eager operation of its warmup (50 + 50 of HMC(4) took 36 s there)
+INSPECT_WARMUP, INSPECT_DRAWS, INSPECT_STEPS, INSPECT_CHAINS = 20, 20, 2, 256
+# the density check's bounds widen to each point's f32 conditioning
+# (`conditioning`, one f64 density call a parameter) up to this many
+# parameters
+FORM_COND_MAX = 64
 
 
 def funnel(rt, dim=10):
@@ -548,14 +626,14 @@ def readme_regression(rt):
     return model, np.asarray(xs), np.asarray(ys), (sigma, alpha, betas)
 
 
-def logistic_regression(rt, n=None):
-    """benchmarks/models.py:145-159 at n rows (default LOGIT_ROWS), data
-    regenerated from its seed: (model, x (n, p), ys (n,)); the parameters
-    are alpha, then betas."""
+def logistic_regression(rt, n=None, p=None):
+    """benchmarks/models.py:145-159 at n rows (default LOGIT_ROWS) and p
+    features (default LOGIT_FEATURES), data regenerated from its seed:
+    (model, x (n, p), ys (n,)); the parameters are alpha, then betas."""
     from rainier_tpu_torch.compute import real as R
 
     rng = np.random.default_rng(LOGIT_SEED)
-    n, p = n or LOGIT_ROWS, LOGIT_FEATURES
+    n, p = n or LOGIT_ROWS, p or LOGIT_FEATURES
     x = rng.normal(size=(n, p)).astype(np.float64)
     true_b = rng.normal(size=p)
     logits = x @ true_b - 0.5
@@ -568,19 +646,19 @@ def logistic_regression(rt, n=None):
     return rt.Model.likelihood(lh), x, ys
 
 
-def mv_cov():
+def mv_cov(p=LOGIT_FEATURES):
     """The coefficients' prior covariance: AR(1) at the prior's scale."""
-    i = np.arange(LOGIT_FEATURES)
+    i = np.arange(p)
     return LOGIT_PRIOR_SD ** 2 * MV_RHO ** np.abs(i[:, None] - i[None, :])
 
 
 def mvnormal_logistic(rt, x, ys):
     """The logistic regression of `x`, `ys` with betas ~ MVNormal(0,
     mv_cov()), built with the documented Vec API (docs/model.md:23-30):
-    each element of betas reads the Cholesky factor, a (10, 10) column
+    each element of betas reads the Cholesky factor, a (p, p) column
     that the kernel reads whole.  Returns (model, alpha, betas)."""
     alpha = rt.Normal(0, LOGIT_PRIOR_SD).latent()
-    betas = rt.MVNormal([0.0] * x.shape[1], mv_cov()).latent_vec()
+    betas = rt.MVNormal([0.0] * x.shape[1], mv_cov(x.shape[1])).latent_vec()
     model = rt.Model.observe(list(ys), rt.Vec.from_(
         [tuple(r) for r in x]).map(lambda t: rt.Bernoulli(
             (alpha + rt.Vec.of(*t).dot(betas)).logistic())))
@@ -677,7 +755,7 @@ def mv_design(cd, x, alpha, betas):
     (pa,) = find_parameters([alpha])
     (pz,) = find_parameters(betas.to_list())
     block = {pa.id: np.full((x.shape[0], 1), LOGIT_PRIOR_SD),
-             pz.id: x @ np.linalg.cholesky(mv_cov())}
+             pz.id: x @ np.linalg.cholesky(mv_cov(x.shape[1]))}
     d = np.empty((x.shape[0], cd.n_vars))
     for p, (a, b) in zip(cd.layout.parameters, cd.layout.slices):
         d[:, a:b] = block[p.id]
@@ -1280,7 +1358,7 @@ def check_points(w_map, cov, device):
 
 
 def density_check(F, cd, em, q, truth, n_near, near_name, device,
-                  replaces, cond=None):
+                  replaces, cond=None, plain_off=False):
     """rt_logp_grad_launch against autograd on the plain version and
     against the f64 `truth` (lp, g), at full width, at every column of q:
     the first `n_near` columns are `near_name`, the rest inits.
@@ -1289,7 +1367,9 @@ def density_check(F, cd, em, q, truth, n_near, near_name, device,
     rounding alone up to an ulp); |Δg| within 1e-4 of the point's max
     |g|.  `cond` = (lp (n,), g (dim, n)) from `conditioning` widens each
     bound to what the value moves when the inputs move by two f32
-    rounding units, where that is larger.  Returns (mean |Δlp| kernel vs
+    rounding units, where that is larger.  With `plain_off` the bound of
+    kernel against plain widens, per point and entry, by the plain
+    version's own distance from f64.  Returns (mean |Δlp| kernel vs
     plain over the near points, the JSON entry)."""
     import torch
 
@@ -1312,6 +1392,14 @@ def density_check(F, cd, em, q, truth, n_near, near_name, device,
     if cond is not None:
         tol_lp = torch.maximum(tol_lp, cond[0].float())
         tol_g = torch.maximum(tol_g, cond[1].float())
+    tols = {}
+    if plain_off:
+        # the kernel within the bar of the plain version plus the plain
+        # version's own distance from f64, per point and entry: where the
+        # plain version's f32 sums are the less exact, as an autograd
+        # scatter-add of 33,000 f32 terms an entry is
+        tols["kernel-vs-plain"] = (tol_lp + (lp_p - lp_t.float()).abs(),
+                                   tol_g + (g_p - g_t.float()).abs())
     groups = {near_name: slice(0, n_near), "inits": slice(n_near, None)}
     worst, lines = {}, []
     for name, (lp, g) in (("kernel-vs-plain", (lp_k - lp_p, g_k - g_p)),
@@ -1319,8 +1407,9 @@ def density_check(F, cd, em, q, truth, n_near, near_name, device,
                                              g_k - g_t.float())),
                           ("plain-vs-f64", (lp_p - lp_t.float(),
                                             g_p - g_t.float()))):
+        t_lp, t_g = tols.get(name, (tol_lp, tol_g))
         dlp, dg = lp.abs(), (g.abs().amax(0) / gmax)
-        rel, rel_g = dlp / tol_lp, (g.abs() / tol_g).amax(0)
+        rel, rel_g = dlp / t_lp, (g.abs() / t_g).amax(0)
         worst[name] = (float(dlp.max()), float(rel.max()),
                        float(rel_g.max()))
         lines.append(f"{name}: " + ", ".join(
@@ -1437,16 +1526,17 @@ def readme_phases(F, readme, em, device):
 
 
 def logistic_main(F, model, cd, em, w_map, cov, device, min_frac,
-                  what="logistic regression", pooled=False):
+                  what="logistic regression", pooled=False,
+                  warmup=LOGIT_WARMUP, draws=LOGIT_DRAWS):
     """A logistic regression through Model.sample(kernel="fused!"),
-    against its Laplace reference, then timed against its plain version
-    over LOGIT_TIME_ITERS iterations with the logistic parity phases' bar
-    (`min_frac` within 1e-3 rel); `pooled` adapts ε and Σ̂ pooled over the
-    chains.  Returns (its JSON entry's numbers and launches, the
-    trace)."""
+    `warmup` + `draws` iterations, against its Laplace reference, then
+    timed against its plain version over LOGIT_TIME_ITERS iterations with
+    the logistic parity phases' bar (`min_frac` within 1e-3 rel);
+    `pooled` adapts ε and Σ̂ pooled over the chains.  Returns (its JSON
+    entry's numbers and launches, the trace)."""
     from rainier_tpu_torch.sampler import HMC, SamplerConfig
 
-    cfg = SamplerConfig(LOGIT_WARMUP, LOGIT_DRAWS, sampler=HMC(LOGIT_STEPS),
+    cfg = SamplerConfig(warmup, draws, sampler=HMC(LOGIT_STEPS),
                         pooled_adaptation=pooled)
     F.fused_hmc.launches = 0
     tr = model.sample(cfg, n_chains=MAIN_CHAINS, seed=0, kernel="fused!",
@@ -1458,11 +1548,11 @@ def logistic_main(F, model, cd, em, w_map, cov, device, min_frac,
     dsd = np.abs(flat.std(0) / sd_ref - 1.0)
     rhat = rank_rhat(tr)
     print(f"phase main path, {what}: Model.sample(kernel="
-          f"'fused!') {MAIN_CHAINS} chains x ({LOGIT_WARMUP} warmup + "
-          f"{LOGIT_DRAWS} draws), HMC({LOGIT_STEPS}), "
+          f"'fused!') {MAIN_CHAINS} chains x ({warmup} warmup + "
+          f"{draws} draws), HMC({LOGIT_STEPS}), "
           f"{'pooled' if pooled else 'per-chain'} adaptation, "
           f"{em.n_rows} rows x "
-          f"{LOGIT_FEATURES} features: fused_hmc launches {launches}, "
+          f"{cd.n_vars - 1} features: fused_hmc launches {launches}, "
           f"rank-r_hat max {rhat:.5f}, means max {float(dmean.max()):.4f} "
           f"Laplace SD from the MAP, SDs max {float(dsd.max()):.4f} off the "
           f"Laplace SDs, accept {float(np.mean(tr.accept_rate())):.3f}, "
@@ -1483,11 +1573,12 @@ def logistic_main(F, model, cd, em, w_map, cov, device, min_frac,
 
 def scan_timing(model, tr, device, what):
     """The logistic's main path on the scan path (seed 1, the same
-    configuration): its sample_s beside the kernel's `tr`, the
+    sampling phase after SCAN_WARMUP warmup iterations, which sample_s
+    does not count): its sample_s beside the kernel's `tr`, the
     comparison of ROADMAP C1."""
     from rainier_tpu_torch.sampler import HMC, SamplerConfig
 
-    cfg = SamplerConfig(LOGIT_WARMUP, LOGIT_DRAWS, sampler=HMC(LOGIT_STEPS))
+    cfg = SamplerConfig(SCAN_WARMUP, LOGIT_DRAWS, sampler=HMC(LOGIT_STEPS))
     tr_scan = model.sample(cfg, n_chains=MAIN_CHAINS, seed=1, kernel="scan",
                            device=device)
     print(f"phase scan path, {what}: Model.sample(kernel='scan') "
@@ -1500,20 +1591,21 @@ def scan_timing(model, tr, device, what):
     check(np.all(np.isfinite(tr_scan.chains)), "non-finite scan-path draws")
 
 
-def mvnormal_phases(F, mv, cd, em, x, ys, device):
+def mvnormal_phases(F, mv, cd, em, x, ys, device, what="MVNormal logistic",
+                    warmup=LOGIT_WARMUP, draws=LOGIT_DRAWS):
     """The 100k logistic under the MVNormal prior: its Laplace reference
     (on its design, `mv_design`), the density at full width near the MAP
-    and at inits, the main path held to the Laplace reference as the
-    logistic's is, the betas it draws (Trace.evaluate) against L·z in
-    numpy, and the kernel against its plain version at the main path's
-    shapes.  Returns its JSON entries."""
+    and at inits, the main path (`warmup` + `draws`) held to the Laplace
+    reference as the logistic's is, the betas it draws (Trace.evaluate)
+    against L·z in numpy, and the kernel against its plain version at the
+    main path's shapes.  Returns its JSON entries."""
     from rainier_tpu_torch.compute.compiler import find_parameters
 
     model, alpha, betas = mv
     design = mv_design(cd, x, alpha, betas)
     t0 = time.perf_counter()
     w_map, cov = laplace_design(design, ys)
-    print(f"phase Laplace reference, MVNormal logistic: Newton in f64 on "
+    print(f"phase Laplace reference, {what}: Newton in f64 on "
           f"the design [5, x L] in the sampler's coordinates, MAP "
           f"{np.round(w_map, 5).tolist()}, Laplace SDs "
           f"{np.round(np.sqrt(np.diag(cov)), 6).tolist()} "
@@ -1530,24 +1622,24 @@ def mvnormal_phases(F, mv, cd, em, x, ys, device):
     # scan path) and 1.011 over 600; pooled, 1.002 over 200
     entry, tr = logistic_main(F, model, cd, em, w_map, cov, device,
                               agree_frac(LOGIT_TIME_ITERS, dlp_mean),
-                              "MVNormal logistic", pooled=True)
+                              what, pooled=True, warmup=warmup, draws=draws)
     # betas on the model's scale: L·z from the draws of z, in numpy f64
     (pz,) = find_parameters(betas.to_list())
     a, b = cd.layout.slices[cd.layout.parameters.index(pz)]
     want = tr.flat()[:, a:b].astype(np.float64) @ np.linalg.cholesky(
-        mv_cov()).T
+        mv_cov(x.shape[1])).T
     got = np.stack(tr.evaluate(betas.to_list()), axis=1)
     err = float(np.abs(got - want).max())
-    print(f"phase Trace.evaluate, MVNormal logistic: betas at "
+    print(f"phase Trace.evaluate, {what}: betas at "
           f"{got.shape[0]} draws against L z in numpy: max |d| {err:.3g}, "
           f"posterior means {np.round(got.mean(0), 4).tolist()}",
           flush=True)
     check(got.shape == want.shape and err <= 1e-9 * max(
         1.0, float(np.abs(want).max())), ("betas", got.shape, err))
-    return [{"name": "fused_hmc (MVNormal logistic, columns read whole)",
+    return [{"name": f"fused_hmc ({what}, columns read whole)",
              "replaces": "rainier_tpu/ops/hmc_pallas.py:282", **entry},
-            {**density_entry, "name": "rt_logp_grad_launch (MVNormal "
-                                      "logistic, columns read whole)",
+            {**density_entry, "name": f"rt_logp_grad_launch ({what}, "
+                                      "columns read whole)",
              "launches": 0}]
 
 
@@ -2646,6 +2738,217 @@ def inference_sections(F, rt, cds, ems, mix, readme, readme_tr, lmodel,
     return entry
 
 
+def gp_data():
+    """The latent GP's inputs, K and y (GP_* constants)."""
+    x = np.linspace(0.0, 10.0, GP_INPUTS)
+    K = np.exp(-0.5 * ((x[:, None] - x[None, :]) / GP_LENGTH) ** 2)
+    K += GP_JITTER * np.eye(GP_INPUTS)
+    y = np.sin(x) + GP_SIGMA * np.random.default_rng(GP_SEED).normal(
+        size=GP_INPUTS)
+    return x, K, y
+
+
+def latent_gp(rt):
+    """Latent GP regression: f = MVNormal(0, K).latent_vec(), y_i ~
+    Normal(f_i, GP_SIGMA); no rows, 64 parameters (z, f = L·z).  Returns
+    (model, f)."""
+    _, K, y = gp_data()
+    f = rt.MVNormal([0.0] * GP_INPUTS, K).latent_vec()
+    return rt.Model.observe(list(y), f.map(
+        lambda fi: rt.Normal(fi, GP_SIGMA))), f
+
+
+def gp_phases(F, gp, cd, em, device):
+    """The latent GP through Model.sample(kernel="fused!") against its
+    exact posterior (numpy f64): every f_i's mean within GP_MEAN_SD
+    posterior SD and SD within GP_SD_REL (f by Trace.evaluate), rank-r̂ <
+    1.01; then the kernel against its plain version at the main path's
+    shapes over GP_PARITY_ITERS iterations (the column-free bar).
+    Returns its JSON entry."""
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    model, f = gp
+    _, K, y = gp_data()
+    a = K + GP_SIGMA ** 2 * np.eye(GP_INPUTS)
+    mean = K @ np.linalg.solve(a, y)
+    sd = np.sqrt(np.diag(K - K @ np.linalg.solve(a, K)))
+    cfg = SamplerConfig(GP_WARMUP, GP_DRAWS, sampler=HMC(GP_STEPS))
+    F.fused_hmc.launches = 0
+    tr = model.sample(cfg, n_chains=MAIN_CHAINS, seed=0, kernel="fused!",
+                      device=device)
+    launches = F.fused_hmc.launches
+    fs = np.stack(tr.thin(GP_THIN).evaluate(f.to_list()), axis=1)
+    dmean = np.abs(fs.mean(0) - mean) / sd
+    dsd = np.abs(fs.std(0) / sd - 1.0)
+    rhat = rank_rhat(tr)
+    print(f"phase main path, latent GP: Model.sample(kernel='fused!') "
+          f"{MAIN_CHAINS} chains x ({GP_WARMUP} warmup + {GP_DRAWS} draws), "
+          f"HMC({GP_STEPS}), {GP_INPUTS} inputs, {cd.n_vars} parameters "
+          f"({layout(F, em, MAIN_CHAINS)}): fused_hmc launches {launches}, "
+          f"rank-r_hat max {rhat:.5f}, f means max {float(dmean.max()):.4f} "
+          f"posterior SD from the exact mean, SDs max {float(dsd.max()):.4f} "
+          f"off the exact SDs (exact SDs {float(sd.min()):.4f}-"
+          f"{float(sd.max()):.4f}), accept "
+          f"{float(np.mean(tr.accept_rate())):.3f}, divergences "
+          f"{tr.divergences()}, step size median "
+          f"{float(np.median(tr.step_size)):.4g}, timings {tr.timings}",
+          flush=True)
+    check(launches >= 1, f"fused_hmc launches {launches}")
+    check(np.all(np.isfinite(fs)), "non-finite draws")
+    check(rhat < 1.01 and float(dmean.max()) < GP_MEAN_SD
+          and float(dsd.max()) < GP_SD_REL, (rhat, dmean.max(), dsd.max()))
+    entry = time_kernel(F, cd, em, tr, GP_STEPS, device, 0, "latent GP",
+                        n_iters=GP_PARITY_ITERS, whole=whole_bytes(cd))
+    return {"name": f"fused_hmc (latent GP, {GP_INPUTS} inputs: L·z past "
+                    "16 in the scratch)", "route": "cuda",
+            "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
+            "replaces": "rainier_tpu/ops/hmc_pallas.py:293",
+            "launches": launches, **entry, "library_ms": None}
+
+
+def form_models(rt):
+    """The three row forms at FORM_ROWS rows, each from the smallest
+    construct that builds it, the data from FORM_SEED: {name: (model,
+    the coordinates its main path keeps)}."""
+    from rainier_tpu_torch.compute import real as R
+
+    rng = np.random.default_rng(FORM_SEED)
+    n = FORM_ROWS
+    # an IntColumn read whole: every row's mean is a plus the mean of
+    # b[idx] over all rows (a nested RowSum of a gather by it)
+    b = rt.Normal(0, 1).latent_vec(FORM_GROUPS)
+    a = rt.Normal(0, 1).latent()
+    idx = R.IntColumn(rng.integers(0, FORM_GROUPS, n))
+    whole = rt.Model.observe(list(rng.normal(0.5, 1.0, n)), rt.Normal(
+        a + R.RowSum(R.Gather(b.element, idx), n) / float(n), 1.0))
+    # a vector per row: b_i times w_i at row i, b of the rows' length
+    v = rt.Normal(0, 1).latent_vec(n)
+    per_row = rt.Model.likelihood(R.RowSum(
+        v.element * R.Column(rng.uniform(0.5, 1.5, n)), n))
+    # a Gather whose source varies by row: each row reads y·a at the
+    # row of a permutation
+    ys = rng.normal(0.5, 1.0, n)
+    c = rt.Normal(0, 1).latent()
+    y = R.Column(ys)
+    ya = y * c
+    across = rt.Model.likelihood(R.RowSum(rt.Normal(
+        R.Gather(ya, R.IntColumn(rng.permutation(n))) + ya, 1.0)
+        .log_density_at(y), n))
+    keep = np.arange(FORM_COLLECT)
+    return {"index column read whole": (whole, None),
+            "vector per row": (per_row, keep),
+            "row-varying gather": (across, None)}
+
+
+def form_phase(F, name, model, collect, cd, em, device):
+    """One row form: its main path (FORM_WARMUP + FORM_DRAWS, `collect`
+    coordinates kept), the density at full width at its last states and
+    at inits against the plain version and the plain version in f64
+    (`density_check`), then the kernel against its plain version over
+    FORM_PARITY_ITERS iterations from the main path's states, ε and Σ̂
+    (`time_kernel`, the bar of the models with data).  Returns its JSON
+    entries."""
+    import torch
+
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    cfg = SamplerConfig(FORM_WARMUP, FORM_DRAWS, sampler=HMC(FORM_STEPS))
+    F.fused_hmc.launches = 0
+    tr = model.sample(cfg, n_chains=MAIN_CHAINS, seed=0, kernel="fused!",
+                      device=device, collect_idx=collect)
+    launches = F.fused_hmc.launches
+    print(f"phase main path, form {name}: Model.sample(kernel='fused!') "
+          f"{MAIN_CHAINS} chains x ({FORM_WARMUP} warmup + {FORM_DRAWS} "
+          f"draws), HMC({FORM_STEPS}), {em.n_rows} rows, {cd.n_vars} "
+          f"parameters, {em.n_inv} row-invariant values "
+          f"({layout(F, em, MAIN_CHAINS)}): fused_hmc launches {launches}, "
+          f"accept {float(np.mean(tr.accept_rate())):.3f}, divergences "
+          f"{tr.divergences()}, timings {tr.timings}", flush=True)
+    check(launches >= 1, f"fused_hmc launches {launches}")
+    check(bool(np.all(np.isfinite(tr.final_q))), "non-finite states")
+    rng = np.random.default_rng(3)
+    q = torch.as_tensor(np.hstack([
+        tr.final_q[:FORM_CHECK_NEAR].T, SamplerConfig().init_scale
+        * rng.normal(size=(cd.n_vars, FORM_CHECK_INIT))]),
+        dtype=torch.float32, device=device)
+    cols = cd.column_values(torch.float32, device)
+    cols64 = tuple(c.double() if c.is_floating_point() else c for c in cols)
+    lp_grad64 = F._lp_grad_fn(cd, cols64)
+    truth = lp_grad64(q.double())
+    # a model of few parameters may sum many rows into each gradient
+    # entry, near the mode a difference of large sums (the index column
+    # read whole: Σ (y − mean) over 100,000 rows): its bounds widen to
+    # its f32 conditioning as the GLMMs' do
+    cond = conditioning(lp_grad64, q) if cd.n_vars <= FORM_COND_MAX \
+        else None
+    dlp_mean, dentry = density_check(
+        F, cd, em, q, truth, FORM_CHECK_NEAR, "at the main path's states",
+        device, "rainier_tpu/ops/hmc_pallas.py:302", cond, plain_off=True)
+    del q, truth, cond
+    entry = time_kernel(F, cd, em, tr, FORM_STEPS, device, em.row_bytes(),
+                        f"form {name}", tol=1e-3, max_dacc=0.02,
+                        min_frac=agree_frac(FORM_PARITY_ITERS, dlp_mean),
+                        n_iters=FORM_PARITY_ITERS, collect_idx=collect,
+                        whole=whole_bytes(cd))
+    return [{"name": f"fused_hmc (form: {name}, {FORM_ROWS} rows)",
+             "route": "cuda", "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
+             "replaces": "rainier_tpu/ops/hmc_pallas.py:302",
+             "launches": launches, **entry, "library_ms": None},
+            {**dentry, "name": f"rt_logp_grad_launch (form: {name})",
+             "launches": 0}]
+
+
+def inspection_phase(rt, model, device):
+    """rt.inspection on the card: the PTX of `model`'s kernel, and a
+    profile of a short fused run of it (INSPECT_WARMUP + INSPECT_DRAWS of
+    HMC(INSPECT_STEPS) at INSPECT_CHAINS chains, run twice: once to warm,
+    once captured) written under profiles/ in the checkout."""
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    t0 = time.perf_counter()
+    ptx = rt.inspection.ptx(model)
+    print(f"phase inspection: rt.inspection.ptx of the latent GP's kernel, "
+          f"{len(ptx)} characters, {ptx.count('.entry')} entries "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    check(".entry" in ptx, "no kernel entry in the PTX")
+    t0 = time.perf_counter()
+    cfg = SamplerConfig(INSPECT_WARMUP, INSPECT_DRAWS,
+                        sampler=HMC(INSPECT_STEPS))
+    out = rt.inspection.trace(model, cfg, "profiles/gp_trace",
+                              n_chains=INSPECT_CHAINS, kernel="fused!",
+                              device=device)
+    files = [f for f in os.listdir(out) if f.endswith(".json")]
+    print(f"phase inspection: rt.inspection.trace of a fused run of the "
+          f"latent GP at {INSPECT_CHAINS} chains x ({INSPECT_WARMUP} + "
+          f"{INSPECT_DRAWS}) of HMC({INSPECT_STEPS}) written to {out}: "
+          f"{files} ({time.perf_counter() - t0:.2f} s)", flush=True)
+    check(bool(files), "no trace written")
+
+
+def forms_sections(F, rt, cds, ems, gp, mv32, x32, ys32, forms, device):
+    """The slice of the forms: the latent GP, the 32-feature MVNormal
+    logistic, each row form, then the GP's kernel's PTX and a profile of
+    a short fused run (`rt.inspection`).  Returns the JSON entries."""
+    t0 = time.perf_counter()
+    with phase("latent GP", device):
+        kernels = [gp_phases(F, gp, cds["latent GP"], ems["latent GP"],
+                             device)]
+    what = f"MVNormal logistic {MV32_FEATURES}"
+    with phase(what, device):
+        kernels += mvnormal_phases(F, mv32, cds[what], ems[what], x32, ys32,
+                                   device, what, MV32_WARMUP, MV32_DRAWS)
+    for name, (model, collect) in forms.items():
+        with phase(f"form {name}", device):
+            kernels += form_phase(F, name, model, collect,
+                                  cds[f"form {name}"], ems[f"form {name}"],
+                                  device)
+    with phase("inspection", device):
+        inspection_phase(rt, gp[0], device)
+    print(f"phase time, the forms sections: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return kernels
+
+
 def advi_spread() -> int:
     """``python3 chip_smoke.py advi-spread``: the README main path, then
     ADVI at each of ADVI_SPREAD_SEEDS, printed and not held to the bars
@@ -2695,6 +2998,10 @@ def main(argv=()) -> int:
     mv = mvnormal_logistic(rt, x, ys)
     smodel = split_logistic(rt, x, ys)
     mix = marginal_mixture(rt)
+    gp = latent_gp(rt)
+    _, x32, ys32 = logistic_regression(rt, p=MV32_FEATURES)
+    mv32 = mvnormal_logistic(rt, x32, ys32)
+    forms = form_models(rt)
     cds = {"funnel": fmodel.density(),
            f"funnel {WIDE_DIM}": wmodel.density(),
            "README regression": readme[0].density(),
@@ -2704,7 +3011,11 @@ def main(argv=()) -> int:
            "GLMMPoisson2": gmodel.density(),
            "glmm_large": large.density(),
            "logistic regression 2M": l2model.density(),
-           "marginalized mixture": mix[0].density()}
+           "marginalized mixture": mix[0].density(),
+           "latent GP": gp[0].density(),
+           f"MVNormal logistic {MV32_FEATURES}": mv32[0].density(),
+           **{f"form {name}": m.density()
+              for name, (m, _) in forms.items()}}
     # the zoo's data synthesized on the card, and the SBC phase's models,
     # so that their kernels build with the others
     zoo_fit_models = zoo_models(rt, device)
@@ -2762,12 +3073,17 @@ def main(argv=()) -> int:
     # -- the untiled density: columns read whole, several row spaces ---------
     with phase("MVNormal logistic", device):
         kernels += mvnormal_phases(F, mv, cds["MVNormal logistic"],
-                                   ems["MVNormal logistic"], x, ys, device)
+                                   ems["MVNormal logistic"], x, ys, device,
+                                   warmup=MV_WARMUP)
     with phase("logistic regression, two row spaces", device):
         kernels.append(split_phases(
             F, cds["logistic regression, two row spaces"],
             ems["logistic regression, two row spaces"], lcd, x, ys, w_map,
             cov, device))
+
+    # -- the forms slice: a latent GP, MVNormal past 16, the row forms -------
+    kernels += forms_sections(F, rt, cds, ems, gp, mv32, x32, ys32, forms,
+                              device)
 
     # -- GLMMPoisson2: integer index columns ---------------------------------
     with phase("GLMMPoisson2", device):

@@ -32,5 +32,7 @@ from . import optimizer
 from . import variational
 from .variational import advi
 from . import ops
+from . import viz
+from . import inspect as inspection
 
 __version__ = "0.1.0"

@@ -137,6 +137,12 @@ class RowSpace(NamedTuple):
     dep: dict          # node id -> whether its value differs by row
     frontier: tuple    # the row-invariant values the rows read, each
                        # computed once per density call over whole columns
+    by_element: frozenset = frozenset()  # frontier ids some row reads by
+                       # element: one of the rows' length is read at the row
+    read_whole: frozenset = frozenset()  # frontier ids some row reads
+                       # whole (a per-row Gather's source, a MatVec's vector)
+    rebuilt: tuple = ()  # the per-row Gathers whose source varies by row:
+                       # the source is taken over every row, at the index
 
 
 class RowSplit(NamedTuple):
@@ -184,6 +190,7 @@ def _row_space(roots, col_pos) -> Optional[RowSpace]:
                          f"{lengths} row by row")
     order = R.topological(list(roots))
     dep, frontier, found = {}, [], set()
+    by_element, read_whole, rebuilt = set(), set(), []
     for node in order:
         # only what the rows reach row by row (`seen`) varies by row
         dep[node.id] = node.id in seen and (node.id in per_row or any(
@@ -192,19 +199,28 @@ def _row_space(roots, col_pos) -> Optional[RowSpace]:
         if not dep[node.id]:
             continue
         for k in R.children_of(node):
-            if dep[k.id] and not any(k is c for c in _per_row_children(node)):
-                # a Gather's source or a MatVec's vector, read whole
+            whole = not any(k is c for c in _per_row_children(node))
+            if dep[k.id] and whole:
+                if isinstance(node, R.Gather) and \
+                        isinstance(node.index, R.IntColumn):
+                    # each row reads the source at its index
+                    rebuilt.append(node)
+                    continue
+                # a MatVec's vector, or the source of a Gather by a
+                # float index, read whole
                 raise NoRowSplit(
                     f"a {type(node).__name__} whose "
                     f"{'source' if isinstance(node, R.Gather) else 'vector'}"
                     " varies by row")
-            if not dep[k.id] and not isinstance(k, R.Constant) \
-                    and k.id not in found:
-                found.add(k.id)
-                frontier.append(k)
+            if not dep[k.id] and not isinstance(k, R.Constant):
+                (read_whole if whole else by_element).add(k.id)
+                if k.id not in found:
+                    found.add(k.id)
+                    frontier.append(k)
     return RowSpace(lengths[0], tuple(roots),
                     tuple(sorted(col_pos[i] for i in per_row)), dep,
-                    tuple(frontier))
+                    tuple(frontier), frozenset(by_element),
+                    frozenset(read_whole), tuple(rebuilt))
 
 
 def row_split(likelihoods, prior, columns) -> RowSplit:
@@ -414,14 +430,34 @@ class CompiledDensity:
             total = torch.zeros(qb.shape[1], dtype=torch.float64,
                                 device=qb.device)
             for space, r in zip(split.spaces, tiles):
+                whole = env_of(qb, cols)
                 inv = dict(zip((f.id for f in space.frontier),
                                interp.evaluate_lanes(
-                                   space.frontier, env_of(qb, cols), be,
-                                   qb.dtype)))
+                                   space.frontier, whole, be, qb.dtype)))
+                # a vector of the rows' length read by element: each
+                # slice reads its own rows of it
+                at_rows = {i for i, v in inv.items()
+                           if i in space.by_element and v.dim() == 2
+                           and v.shape[0] == space.n_rows > 1}
+                if at_rows & space.read_whole:
+                    raise NoRowSplit("a row-invariant vector of the rows' "
+                                     "length read both by element and "
+                                     "whole")
+                # a source that varies by row, over every row once
+                sources = dict(zip(
+                    (g.id for g in space.rebuilt), interp.evaluate_lanes(
+                        [g.source for g in space.rebuilt], whole, be,
+                        qb.dtype)))
                 own = [columns[j] for j in space.columns]
+                index = {c.id: j for j, c in enumerate(columns)}
                 for a in range(0, space.n_rows, r):
                     env = layout.env_for_lanes(qb)
-                    env.update(inv)
+                    env.update({i: v[a:a + r] if i in at_rows else v
+                                for i, v in inv.items()})
+                    for g in space.rebuilt:
+                        idx = cols[index[g.index.id]][a:a + r]
+                        env[g.id] = interp._gather(be, g, {
+                            g.source.id: sources[g.id], g.index.id: idx})
                     bind_lane_columns(env, own, [cols[j][a:a + r]
                                                   for j in space.columns])
                     vals = interp.evaluate_lanes(space.roots, env, be,

@@ -53,12 +53,34 @@ way the JAX kernel's untiled branch reads its columns
 or that a row reads through what sums or indexes it (a ``RowSum`` or
 ``VecSum`` of it, a ``Gather`` from it, the ``MatVec`` of a matrix by a
 vector) is a vector of its k rows, ``cols.c<j>[i]``, a loop past
-``UNROLL_MAX`` rows; the ``MatVec`` of a matrix read whole is a vector of
-its rows, and its reverse pass adds the matrix's transpose times the
-adjoint into the vector's.  The values are read at every call, never
-baked into the source, so ``Model.with_data`` swaps them under one build.
-Such a header defines ``RT_WHOLE_COLS``, and its functions outside the
-rows take the columns.
+``UNROLL_MAX`` rows; the ``MatVec`` of a matrix read whole by a vector of
+at most ``UNROLL_MAX`` elements is a vector of its rows, and its reverse
+pass adds the matrix's transpose times the adjoint into the vector's.
+The values are read at every call, never baked into the source, so
+``Model.with_data`` swaps them under one build.  Such a header defines
+``RT_WHOLE_COLS``, and its functions outside the rows take the columns.
+
+A node that reads a vector past the unroll whole, not element by
+element, is a stage of its own, and the vector is held where the node
+can address any element: a parameter in q and g, anything else in the
+density's scratch ``scr`` (``RT_SCRATCH`` floats a call: per thread in a
+register model, in the chain's slot over the workspace), written by the
+loop that computes it, its adjoint taken back by that loop's reverse.
+Two such readers:
+
+* the ``MatVec`` of a matrix read whole by a vector past the unroll (an
+  ``MVNormal`` latent of 17 or more dimensions: L·z) is computed by a
+  pass of its own into scr, the lanes of a slot splitting its rows, and
+  read there like a parameter, a constant-index ``Gather`` of it
+  included; its adjoint is added there, and a second pass, the lanes
+  splitting the columns, adds Lᵀ times it into the vector's.  L is read
+  from its device pointer through L2 (the 64 × 64 factor of a 64-input
+  GP is 16 KB a call; nothing bounds its size but the columns'), and
+  warp barriers order the passes with what the other lanes read;
+* a ``Gather`` by an ``IntColumn`` read whole (a nested ``RowSum`` of a
+  gather) reads the source at each row's clamped index; its adjoints are
+  summed in f64 by source entry in scr (``d<id>``: a slot's lanes add
+  there atomically) and added to the source's adjoint after the last.
 
 An ``IntColumn`` is an int32 field of the tile row, carried bit for bit in
 its float slot, so every int32 index is exact.  A ``Gather`` of a
@@ -80,7 +102,19 @@ The row-invariant values that only a per-row gather reads have their
 adjoints accumulated over all rows; the ones every row reads come first
 in ``inv`` (``RT_NINV_DENSE``), each lane sums their adjoints over its
 rows of a tile, and the kernel adds the lanes' in f32 per tile and f64
-across tiles.
+across tiles.  A row-invariant vector of the rows' length that a row
+reads by element (``b * Column`` with b of n elements over n rows: the
+lanes evaluator's (n, C) against (n, 1)) is element i at row i: the tile
+holds each row's index after its columns (``rix``), the row reads
+``inv[k + rix]``, and its adjoint goes back like a per-row gather's.  A
+``Gather`` by an ``IntColumn`` whose source varies by row rebuilds the
+source's per-row subgraph at row ``clamp(index, 0, n - 1)``, under names
+of its own, its columns read whole at that row from their device
+pointers, and runs its adjoints back in the row; such a row function
+takes the columns (``RT_ROW_COLS``).  Rebuilding costs the source's
+operations a row again and a random read of each of its columns, where
+the alternative, the source over all rows in a workspace filled by a
+first pass, costs a second pass over the rows and n floats a chain.
 
 A model over ``LANE_STATE_MAX`` parameters or row-invariant values keeps
 its chain state in a slot of a workspace (``RT_WS_FLOATS`` floats a
@@ -104,19 +138,20 @@ lane count.  Past it, the workspace code above, the chain's slot in the
 block's shared memory up to ``LOCAL_STATE_MAX`` parameters
 (``RT_WS_SHARED``) and in the device workspace past it, a warp a chain
 (``RT_LANES`` 32 unless the build defines it), with every vector of more
-than one element a loop split over the lanes.  Scalars run in every lane, with the same bits
-in each.  A model that multiplies a matrix read whole by a vector (an
-``MVNormal`` prior without rows) keeps its vectors of up to
-``UNROLL_MAX`` unrolled there, in every lane, since such a ``MatVec``
-needs the whole vector in each lane.
+than one element a loop split over the lanes.  Scalars run in every
+lane, with the same bits in each.  A model that multiplies a matrix read
+whole by a vector (an ``MVNormal`` prior without rows) keeps its vectors
+of up to ``UNROLL_MAX`` unrolled there, in every lane; a longer vector's
+product is held in scr (above).
 
-Outside the envelope, :class:`UnsupportedNode` names what is wrong: a
-``Gather`` whose source varies by row or whose index is neither a
-constant nor an ``IntColumn``, an ``IntColumn`` used as a value or read
-outside the rows, a ``MatColumn`` other than as ``MatVec``'s matrix, a
-per-row value of vector width over 1, a ``MatVec`` of a matrix read
-whole by a vector of more than ``UNROLL_MAX`` elements, and one
-``RowSum`` over columns of two lengths.
+Outside the envelope, :class:`UnsupportedNode` names what is wrong, the
+forms the lanes evaluator cannot broadcast either: a ``Gather`` whose
+index is neither a constant nor an ``IntColumn`` (a float index), a
+``MatColumn`` other than as ``MatVec``'s matrix, a per-row value of a
+vector width other than 1 or the rows', and one ``RowSum`` over columns
+of two lengths; and an ``IntColumn`` used as a value, a row-invariant
+vector of the rows' length read both by element and whole, and a
+``MatVec`` whose vector varies by row.
 """
 
 from __future__ import annotations
@@ -196,6 +231,8 @@ class EmittedDensity:
                           # workspace (0: state in registers)
     shared: bool = False  # the slot lies in the block's shared memory,
                           # not in the device-memory workspace
+    scratch: int = 0      # floats of scr a density call uses (the
+                          # products held there, buffered vectors)
 
     @property
     def n_rows(self) -> int:
@@ -314,6 +351,22 @@ class _Emitter:
         self.mult = 1          # elements one emitted line stands for
         self.loop_acc = None   # in a reverse loop body: scalar node id →
                                # its adjoint's f64 sum over the elements
+        self.tag = ""          # prefix of the names (a rebuilt source's)
+        self.addr = {}         # vector node → (value, adjoint) formats of
+                               # its element {} (a parameter, a product
+                               # held in the scratch, a buffered input)
+        self.mv = {}           # MatVec read whole past the unroll → its
+                               # value's and adjoint's offsets in scr
+        self.buf = set()       # nodes buffered in scr for a whole reader
+        self.sums = {}         # Gather by an index column read whole → the
+                               # offset in scr of its f64 adjoint sums
+        self.scratch = 0       # floats of scr the function uses
+        self.wints = {}        # IntColumn read whole → its column index
+        self.rowctx = None     # in a row function: its _RowCtx
+        self.aligned = []      # (adjoint name, inv base, row index) of
+                               # each row-invariant vector read at a row
+        self.subs = {}         # a row-varying Gather → (emitter, nodes)
+                               # of its rebuilt source
 
     # -- helpers ----------------------------------------------------------
     def size(self, node) -> int:
@@ -330,6 +383,28 @@ class _Emitter:
                 f"cannot broadcast vector lengths {sorted(sizes)}")
         return sizes.pop() if sizes else 1
 
+    def alloc(self, n: int, align: int = 1) -> int:
+        """n floats of scr at an offset that `align` divides; returns the
+        offset."""
+        self.scratch += -self.scratch % align + n
+        return self.scratch - n
+
+    def leaf(self, node) -> bool:
+        """Whether the node's adjoint is an array outside the function's
+        scalars (g, or scr for a product held there), which its own
+        backward does not propagate."""
+        return isinstance(node, (R.Parameter, R.VectorParameter)) \
+            or node.id in self.mv
+
+    def scatter(self, target: str, expr: str, looped: bool) -> str:
+        """target += expr where lanes of a chain may add to one entry: in a
+        slot's loop an atomic add, outside it lane 0 alone."""
+        if self.ws and looped:
+            return f"  rt_atomic_add(&{target}, {expr});"
+        if self.ws:
+            return f"  if (RT_LANE == 0) {target} += {expr};"
+        return f"  {target} += {expr};"
+
     def width(self, nodes) -> tuple[int, int]:
         """(length of the broadcast, expressions to emit): one, the loop
         body's, where a node is a loop."""
@@ -342,7 +417,8 @@ class _Emitter:
         expression is a loop."""
         names = []
         for i, e in enumerate(exprs):
-            name = f"v{node.id}" + (f"_{i}" if len(exprs) > 1 else "")
+            name = f"v{self.tag}{node.id}" + (
+                f"_{i}" if len(exprs) > 1 else "")
             self.fwd.append(f"  const float {name} = {e};")
             names.append(name)
         self.vals[node.id] = names
@@ -374,6 +450,9 @@ class _Emitter:
         if nid in self.vals or nid in self.mats or nid in self.ints \
                 or nid in self.wmats:
             return          # bound by the caller: a row's column or an input
+        if nid in self.mv:
+            self._held_product(node)
+            return
         if isinstance(node, R.Constant):
             self.vals[nid] = [_lit(node.value)]
             self.grad[nid] = False
@@ -382,6 +461,7 @@ class _Emitter:
             if node not in layout.parameters:
                 raise UnsupportedNode(f"parameter {node!r} outside layout")
             a, b = layout.slices[layout.parameters.index(node)]
+            self.addr[nid] = (f"q[{a} + {{}}]", f"g[{a} + {{}}]")
             if b - a > self.unroll:
                 self.loop_len[nid] = b - a
                 self.vals[nid] = [f"q[{a} + i]"]
@@ -402,7 +482,7 @@ class _Emitter:
                 raise UnsupportedNode(
                     "a MatColumn used other than as MatVec's matrix is not "
                     "supported by the CUDA emitter")
-            if k.id in self.ints and not (
+            if (k.id in self.ints or k.id in self.wints) and not (
                     isinstance(node, (R.Gather, R.Lookup))
                     and k is node.index):
                 raise UnsupportedNode(
@@ -442,7 +522,8 @@ class _Emitter:
                 m = xs[0]
                 for x in xs[1:]:
                     m = f"fmaxf({m}, {x})"
-                mname, sname = f"m{nid}_{i}", f"s{nid}_{i}"
+                mname = f"m{self.tag}{nid}_{i}"
+                sname = f"s{self.tag}{nid}_{i}"
                 self.fwd.append(f"  const float {mname} = {m};")
                 self.fwd.append("  const float {} = {};".format(
                     sname, " + ".join(f"expf({x} - {mname})" for x in xs)))
@@ -458,7 +539,7 @@ class _Emitter:
             op = _PRED[node.pred]
             conds = []
             for i in range(w):
-                c = f"c{nid}_{i}"
+                c = f"c{self.tag}{nid}_{i}"
                 self.fwd.append(f"  const bool {c} = {self.el(node.left, i)}"
                                 f" {op} {self.el(node.right, i)};")
                 conds.append(c)
@@ -476,8 +557,10 @@ class _Emitter:
                               [node.index] + list(node.table))
             outs = []
             for i in range(w):
-                ix = f"i{nid}_{i}"
-                src = int_ix or f"rt_f2i({self.el(node.index, i)})"
+                ix = f"i{self.tag}{nid}_{i}"
+                src = int_ix or (self.el(node.index, i)
+                                 if node.index.id in self.wints
+                                 else f"rt_f2i({self.el(node.index, i)})")
                 self.fwd.append(f"  const int {ix} = {src} - {node.low};")
                 outs.append("(" + " + ".join(
                     f"({ix} == {k} ? {self.el(t, i)} : 0.0f)"
@@ -508,10 +591,11 @@ class _Emitter:
             if node.mat.id in self.mats:
                 rows, n = [None], 1
             elif node.vec.id in self.loop_len:
-                raise UnsupportedNode(
-                    f"a MatVec of a data matrix read whole by a vector of "
-                    f"{p} > {UNROLL_MAX} elements is not supported by the "
-                    "CUDA emitter")
+                # computed by a pass of its own into scr (_product_pass)
+                self.mv[nid] = (self.alloc(node.mat.n_rows),
+                                self.alloc(node.mat.n_rows))
+                self._held_product(node)
+                return
             else:
                 n = node.mat.n_rows
                 rows = ["i"] if n > self.unroll else list(range(n))
@@ -521,37 +605,61 @@ class _Emitter:
         elif isinstance(node, R.Gather):
             k = self.size(node.source)
             j = _static_slot(node, k)
-            if j is not None and node.source.id in self.loop_len:
+            if self.rowctx is not None and self.rowctx.dep[node.source.id]:
+                self._row_gather(node)
+            elif j is not None and node.source.id in self.mv:
+                self.define(node, [self.addr[node.source.id][0].format(j)],
+                            0)
+            elif j is not None and node.source.id in self.loop_len:
                 # the source's loop keeps element j in k<id>
                 self.define(node, [f"k{nid}"], 0)
             elif j is not None:
                 self.define(node, [self.el(node.source, j)], 0)
+            elif node.index.id in self.wints:
+                # an index column read whole: each element's clamped index
+                # into the source, read where it is held
+                n, w = self.width([node.index])
+                if node.source.id not in self.addr:
+                    # buffered in scr by what computes it (_program)
+                    vb, va = self.alloc(k), self.alloc(k)
+                    self.buf.add(node.source.id)
+                    self.addr[node.source.id] = (f"scr[{vb} + {{}}]",
+                                                 f"scr[{va} + {{}}]")
+                val = self.addr[node.source.id][0]
+                outs = []
+                for i in range(w):
+                    jn = f"j{self.tag}{nid}_{i}"
+                    self.fwd.append(f"  const int {jn} = rt_clampi("
+                                    f"{self.el(node.index, i)}, 0, "
+                                    f"{k - 1});")
+                    outs.append(val.format(jn))
+                self.define(node, outs, 3, n)
             else:
                 # per-row index into the source's block of inv: clamp and
                 # address, then the load
                 base = self.inv_base[node.source.id]
-                self.fwd.append(f"  const int j{nid} = rt_clampi("
+                jn = f"j{self.tag}{nid}"
+                self.fwd.append(f"  const int {jn} = rt_clampi("
                                 f"{self.ints[node.index.id]}, 0, {k - 1});")
-                self.define(node, [f"inv[{base} + j{nid}]"], 3)
+                self.define(node, [f"inv[{base} + {jn}]"], 3)
         else:
             raise UnsupportedNode(f"{type(node).__name__} is not yet "
                                   "supported by the CUDA emitter")
         if self.grad[nid]:
-            names = [f"a{nid}" + (f"_{i}" if len(self.vals[nid]) > 1
-                                  else "")
+            names = [f"a{self.tag}{nid}" + (
+                f"_{i}" if len(self.vals[nid]) > 1 else "")
                      for i in range(len(self.vals[nid]))]
             self.adj[nid] = names
 
     def _whole_column(self, node) -> None:
         """A column read whole, outside the rows of a top-level RowSum: a
         vector of its rows, each a load from its device pointer (a loop
-        past UNROLL_MAX rows); a MatColumn only as MatVec's matrix."""
-        if isinstance(node, R.IntColumn):
-            raise UnsupportedNode(
-                "an IntColumn read outside the rows of a top-level RowSum "
-                "likelihood is not supported by the CUDA emitter")
+        past UNROLL_MAX rows); a MatColumn only as MatVec's matrix, an
+        IntColumn only as an index (its int32 loads)."""
         j, nid = self.col_index[node.id], node.id
         self.grad[nid] = False
+        if isinstance(node, R.IntColumn):
+            self.wints[nid] = j
         if isinstance(node, R.MatColumn):
             self.wmats[nid] = j
         elif node.n_rows > self.unroll:
@@ -560,11 +668,69 @@ class _Emitter:
         else:
             self.vals[nid] = [f"cols.c{j}[{i}]" for i in range(node.n_rows)]
 
+    def _held_product(self, node) -> None:
+        """A MatVec of a matrix read whole by a vector longer than the
+        unroll, held in scr (its value at mv[0], adjoint at mv[1]) by
+        _product_pass: read there by element like a parameter, with its
+        adjoint added there and taken back by the pass's transpose."""
+        nid, n = node.id, node.mat.n_rows
+        mo, ma = self.mv[nid]
+        self.addr[nid] = (f"scr[{mo} + {{}}]", f"scr[{ma} + {{}}]")
+        self.params.add(nid)
+        self.grad[nid] = self.grad[node.vec.id]
+        if n > self.unroll:
+            self.loop_len[nid] = n
+            self.vals[nid] = [f"scr[{mo} + i]"]
+            self.adj[nid] = [f"scr[{ma} + i]"]
+        else:
+            self.vals[nid] = [f"scr[{mo + r}]" for r in range(n)]
+            self.adj[nid] = [f"scr[{ma + r}]" for r in range(n)]
+
+    def _row_gather(self, node) -> None:
+        """A per-row Gather whose source varies by row: the source's
+        per-row subgraph emitted again, under names of its own, at row
+        clamp(index, 0, n - 1), its columns read whole at that row from
+        their device pointers (the JAX kernel's take over the whole
+        source), and its adjoints run back in the row's reverse pass."""
+        ctx, nid = self.rowctx, node.id
+        jn = f"j{self.tag}{nid}"
+        self.fwd.append(f"  const int {jn} = rt_clampi("
+                        f"{self.ints[node.index.id]}, 0, "
+                        f"{ctx.n_rows - 1});")
+        sub = _Emitter(self.cd, self.ws, self.unroll)
+        sub.tag = f"{self.tag}g{nid}_"
+        _bind_row(sub, ctx, jn)
+        order = [n for n in R.topological([node.source])
+                 if ctx.dep[n.id] or isinstance(n, R.Constant)]
+        for n in order:
+            sub.forward(n)
+        self.fwd += sub.fwd
+        self.fops += sub.fops
+        self.define(node, [sub.el(node.source, 0)], 0)
+        self.subs[nid] = (sub, order)
+
+    def _row_gather_adj(self, node, a) -> None:
+        """The rebuilt source's reverse pass, seeded with the Gather's
+        adjoint, in a block of its own."""
+        sub, order = self.subs[node.id]
+        if not sub.grad[node.source.id]:
+            return
+        sub.rev = []
+        sub.scatters = self.scatters
+        for n in reversed(order):
+            sub.backward(n)
+        self.rev += ["  {", *_indent([
+            *_decls(sub, order), *_aligned_decls(sub),
+            f"  {sub.adj[node.source.id][0]} += {a};", *sub.rev,
+            *_aligned_adds(sub)]), "  }"]
+        self.scatters = sub.scatters
+        self.rops += sub.rops
+
     def mat_entry(self, mat, r, j) -> str:
         """Entry (r, j) of a MatColumn: column j of the tile's row (r is
         None), or of row r read whole (r an int, or "i" in a loop)."""
         if mat.id in self.mats:
-            return f"x[{self.mats[mat.id] + j}]"
+            return self.mats[mat.id](j)
         p, c = mat.n_cols, self.wmats[mat.id]
         return (f"cols.c{c}[i * {p} + {j}]" if r == "i"
                 else f"cols.c{c}[{r * p + j}]")
@@ -572,8 +738,7 @@ class _Emitter:
     # -- reverse ----------------------------------------------------------
     def backward(self, node) -> None:
         nid = node.id
-        if not self.grad.get(nid) or isinstance(
-                node, (R.Parameter, R.VectorParameter)):
+        if not self.grad.get(nid) or self.leaf(node):
             return
         for i in range(len(self.vals[nid])):
             a = self.adj[nid][i]
@@ -593,11 +758,11 @@ class _Emitter:
                     self.acc(c, i, f"{a} * (expf({self.el(c, i)} - {ms[i]})"
                                    f" / {ss[i]})", 4)
             elif isinstance(node, R.Select):
-                c = f"c{nid}_{i}"
+                c = f"c{self.tag}{nid}_{i}"
                 self.acc(node.if_true, i, f"({c} ? {a} : 0.0f)", 1)
                 self.acc(node.if_false, i, f"({c} ? 0.0f : {a})", 1)
             elif isinstance(node, R.Lookup):
-                ix = f"i{nid}_{i}"
+                ix = f"i{self.tag}{nid}_{i}"
                 for k, t in enumerate(node.table):
                     self.acc(t, i, f"({ix} == {k} ? {a} : 0.0f)", 1)
             elif isinstance(node, (R.VecSum, R.RowSum)):
@@ -618,24 +783,44 @@ class _Emitter:
                              f"{a} * {self.mat_entry(node.mat, r, j)}", 1)
             elif isinstance(node, R.Gather):
                 j = _static_slot(node, self.size(node.source))
-                if j is not None and node.source.id in self.loop_len:
+                src = node.source
+                if nid in self.subs:
+                    self._row_gather_adj(node, a)
+                elif j is not None and src.id in self.mv:
+                    if self.grad[src.id]:
+                        self.rev.append(_add_to(
+                            self, src.id, self.addr[src.id][1].format(j),
+                            a))
+                        self.rops += 1
+                elif j is not None and src.id in self.loop_len:
                     pass        # seeded in the source's loop
                 elif j is not None:
                     self.acc(node.source, j, a, 0)
+                elif node.index.id in self.wints:
+                    # summed in f64 by source entry (a slot's lanes may hit
+                    # one together), added to the source's adjoint after
+                    # the last (_gather_sums)
+                    if self.grad[src.id]:
+                        self.rev.append(self.scatter(
+                            f"d{nid}[j{self.tag}{nid}_{i}]", a,
+                            nid in self.loop_len))
+                        self.rops += 2
                 elif self.grad[node.source.id] and self.ws and \
                         self.inv_base[node.source.id] >= self.n_dense:
                     # the scatter into the chain's ainv, left to the warp:
                     # its lanes hit one entry together (csrc/fused_hmc.cu,
                     # rt_scatter)
                     base, g = self.inv_base[node.source.id], self.scatters
-                    self.rev.append(f"  sidx[{g}] = {base} + j{nid};")
+                    self.rev.append(f"  sidx[{g}] = {base} + "
+                                    f"j{self.tag}{nid};")
                     self.rev.append(f"  sval[{g}] = {a};")
                     self.scatters += 1
                     self.rops += 2
                 elif self.grad[node.source.id]:
                     # the scatter into the lane's own copy of ainv
                     base = self.inv_base[node.source.id]
-                    self.rev.append(f"  ainv[{base} + j{nid}] += {a};")
+                    self.rev.append(f"  ainv[{base} + j{self.tag}{nid}] "
+                                    f"+= {a};")
                     self.rops += 2
 
     def _binary_adj(self, node, i, a, v):
@@ -709,7 +894,7 @@ def _decls(em, nodes) -> list[str]:
     """The scalar adjoints (a loop's are declared in its body)."""
     return [f"  float {a} = 0.0f;" for node in nodes
             if em.grad.get(node.id) and node.id not in em.loop_len
-            and not isinstance(node, (R.Parameter, R.VectorParameter))
+            and not em.leaf(node)
             for a in em.adj[node.id]]
 
 
@@ -735,14 +920,19 @@ def _program(em, roots, total=False, store=None, seed=None,
     (forward lines, reverse lines, terms of the roots' sum).
 
     Each node has a stage: a scalar that reads a loop's vector (its sum
-    or one element) is one stage after it, every other node the latest
-    of its children.
-    The forward pass emits, stage by stage, the stage's scalars and then
-    one loop per length over the vectors its readers need, recomputing
-    vectors of earlier stages that the body reads; the reverse pass runs
-    the stages backwards, each loop recomputing its body, seeding the
-    adjoints of what its readers read and running the body's adjoints
-    back.  A looped root adds to the total through an f64 sum (`total`),
+    or one element) is one stage after it, and so is a node that reads a
+    vector whole (a MatVec held in scr, a Gather by an index column read
+    whole); every other node is at the latest of its children's.
+    The forward pass emits, stage by stage, the products held in scr
+    (_product_pass), the stage's scalars and then one loop per length
+    over the vectors its readers need, recomputing vectors of earlier
+    stages that the body reads; the reverse pass runs the stages
+    backwards, each loop recomputing its body, seeding the adjoints of
+    what its readers read and running the body's adjoints back, and a
+    stage's products' transposes last.  A vector read whole that is
+    neither a parameter nor such a product is buffered in scr by the
+    loop or the lines that compute it, and its adjoint taken back from
+    there.  A looped root adds to the total through an f64 sum (`total`),
     or `store(node, "i", value)` writes it out; `seed(node, "i")` is added
     to its adjoint (with `total`, 1).  `reverse=False` emits the forward
     pass only."""
@@ -750,21 +940,44 @@ def _program(em, roots, total=False, store=None, seed=None,
     for node in order:                 # lengths and gradient flags
         em.forward(node)
     looped = dict(em.loop_len)
+    whole = {}                         # reader id → the input it reads whole
+    for node in order:
+        if node.id in em.mv:
+            whole[node.id] = node.vec
+        elif isinstance(node, R.Gather) and node.index.id in em.wints:
+            whole[node.id] = node.source
     stage = {}
     for node in order:
-        stage[node.id] = max([stage[c.id] + (c.id in looped
-                                             and node.id not in looped)
-                              for c in R.children_of(node)], default=0)
+        stage[node.id] = max([stage[c.id] + (
+            (c.id in looped and node.id not in looped)
+            or whole.get(node.id) is c) for c in R.children_of(node)],
+            default=0)
     loops = {}
 
     def out(kind, c, reader=None):
         key = (stage[c.id], looped[c.id])
         loops.setdefault(key, _Loop(key[1])).outs.append((kind, c, reader))
 
+    flat = []                          # buffered inputs that are not loops
+    gathers = [n for n in order if n.id in whole and n.id not in em.mv
+               and em.grad[whole[n.id].id] and reverse]
+    for g in gathers:
+        if g.id not in em.sums:
+            em.sums[g.id] = em.alloc(2 * em.size(whole[g.id]), 2)
+    buffered = set()                   # each buffered input once
+    for rid, c in whole.items():
+        if c.id not in em.buf or c.id in buffered:
+            continue
+        buffered.add(c.id)
+        if c.id in looped:
+            out("buffer", c, next(n for n in order if n.id == rid))
+        else:
+            flat.append(c)
     for node in order:
         if node.id not in looped:
             for c in set(R.children_of(node)):
-                if c.id not in looped:
+                if c.id not in looped or whole.get(node.id) is c or (
+                        isinstance(node, R.Gather) and c.id in em.mv):
                     continue
                 if not isinstance(node, (R.Gather, R.VecSum, R.RowSum)):
                     raise UnsupportedNode(
@@ -781,17 +994,28 @@ def _program(em, roots, total=False, store=None, seed=None,
         for node in reversed(order):
             if node.id in need:
                 need.update(c.id for c in R.children_of(node)
-                            if c.id in looped)
+                            if c.id in looped and whole.get(node.id) is not c)
         loop.body = [n for n in order if n.id in need]
 
     em.vals, em.adj, em.lse, em.fops = {}, {}, {}, 0
     fwd, rev = [], []
     n_stages = max(stage.values()) + 1
+    sync = ["  RT_WARP_SYNC();"] if em.ws else []
     for s in range(n_stages):
         em.fwd = fwd
+        if any(stage[r] == s and whole[r].id in em.buf for r in whole):
+            fwd += sync        # buffers written by other lanes
+        for node in order:
+            if stage[node.id] == s and node.id in em.mv:
+                fwd += _product_pass(em, node)
+        for g in gathers:
+            if stage[g.id] == s:
+                fwd += _gather_sums(em, g)
         for node in order:
             if stage[node.id] == s and node.id not in looped:
                 em.forward(node)
+                if node in flat:
+                    fwd += _flat_buffer(em, node)
         for (ls, _), loop in sorted(loops.items()):
             if ls == s:
                 fwd += _loop_forward(em, loop, total, store)
@@ -799,6 +1023,12 @@ def _program(em, roots, total=False, store=None, seed=None,
         [f"(float)r{r.id}"] if r.id in looped
         else [em.el(r, i) for i in range(em.size(r))])]
     for s in reversed(range(n_stages if reverse else 0)):
+        em.rev = rev
+        for c in flat:
+            if stage[c.id] == s and em.grad[c.id]:
+                rev += sync
+                for i in range(em.size(c)):
+                    em.acc(c, i, em.addr[c.id][1].format(i), 0)
         for (ls, _), loop in sorted(loops.items(), reverse=True):
             if ls == s:
                 rev += _loop_reverse(em, loop, total, seed)
@@ -806,8 +1036,72 @@ def _program(em, roots, total=False, store=None, seed=None,
         for node in reversed(order):
             if stage[node.id] == s and node.id not in looped:
                 em.backward(node)
+        for g in gathers:
+            if stage[g.id] == s:
+                rev += _gather_sums(em, g, flush=True)
+        for node in order:
+            if stage[node.id] == s and node.id in em.mv:
+                rev += _product_pass(em, node, transpose=True)
     em.fwd, em.rev = fwd, rev
     return fwd, rev, terms
+
+
+def _product_pass(em, node, transpose=False):
+    """The MatVec of a matrix read whole by a vector longer than the
+    unroll, computed into scr (its adjoint there set to 0), or, with
+    `transpose`, its adjoint taken back: the matrix's transpose times the
+    adjoint in scr, added into the vector's.  In a slot the lanes split
+    the product's rows (its transpose's columns), each a sum over the
+    other side, and a warp barrier on both sides orders them with what
+    the other lanes read and write."""
+    mo, ma = em.mv[node.id]
+    n, p = node.mat.n_rows, node.mat.n_cols
+    c = em.wmats[node.mat.id]
+    val, adj = em.addr[node.vec.id]
+    sync = ["  RT_WARP_SYNC();"] if em.ws else []
+    head = "  for (int {v} = RT_LANE; {v} < {n}; {v} += RT_LSTEP) {{" \
+        if em.ws else "  for (int {v} = 0; {v} < {n}; ++{v}) {{"
+    if not transpose:
+        em.fops += 2 * n * p
+        return [*sync, head.format(v="r", n=n), "    float acc = 0.0f;",
+                f"    for (int j = 0; j < {p}; ++j)",
+                f"      acc += cols.c{c}[r * {p} + j] * {val.format('j')};",
+                f"    scr[{mo} + r] = acc;", f"    scr[{ma} + r] = 0.0f;",
+                "  }", *sync]
+    if not em.grad[node.vec.id]:
+        return []
+    em.rops += 2 * n * p + p
+    return [*sync, head.format(v="j", n=p), "    float acc = 0.0f;",
+            f"    for (int r = 0; r < {n}; ++r)",
+            f"      acc += cols.c{c}[r * {p} + j] * scr[{ma} + r];",
+            f"    {adj.format('j')} += acc;", "  }", *sync]
+
+
+def _gather_sums(em, node, flush=False):
+    """The f64 sums of a Gather by an index column read whole, one per
+    source entry, in scr (d<id>): set to 0 before the forward pass has
+    read anything, or, with `flush`, added to the source's adjoint once
+    its reverse pass has scattered every element's (in a slot the lanes
+    split the entries, with warp barriers around)."""
+    k, off = em.size(node.source), em.sums[node.id]
+    sync = ["  RT_WARP_SYNC();"] if em.ws else []
+    head = (f"  for (int k = RT_LANE; k < {k}; k += RT_LSTEP)" if em.ws
+            else f"  for (int k = 0; k < {k}; ++k)")
+    if not flush:
+        return [f"  double* d{node.id} = (double*)(scr + {off});",
+                f"{head} d{node.id}[k] = 0.0;", *sync]
+    em.rops += k
+    adj = em.addr[node.source.id][1].format("k")
+    return [*sync, f"{head} {adj} += (float)d{node.id}[k];", *sync]
+
+
+def _flat_buffer(em, node):
+    """An unrolled vector read whole, stored into its buffer in scr, its
+    adjoint there set to 0 (in a slot by lane 0)."""
+    val, adj = em.addr[node.id]
+    lane0 = "if (RT_LANE == 0) " if em.ws else ""
+    return [f"  {lane0}{{ {val.format(i)} = {em.el(node, i)}; "
+            f"{adj.format(i)} = 0.0f; }}" for i in range(em.size(node))]
 
 
 def _loop_body(em, loop):
@@ -873,6 +1167,9 @@ def _loop_forward(em, loop, total, store):
             body.append(f"  if (i == {j}) k{reader.id} = {v};")
             if em.ws:       # from the lane that holds element j
                 post.append(f"  RT_BCAST(k{reader.id}, {j});")
+        elif kind == "buffer":
+            body += [f"  {em.addr[c.id][0].format('i')} = {v};",
+                     f"  {em.addr[c.id][1].format('i')} = 0.0f;"]
         elif store is not None:
             body.append(store(c, "i", v))
     em.mult = 1
@@ -885,7 +1182,7 @@ def _loop_reverse(em, loop, total, seed):
     are summed over the elements in f64 and added after the loop."""
     body = _loop_body(em, loop)
     for n in loop.body:
-        if em.grad[n.id] and not isinstance(n, R.VectorParameter):
+        if em.grad[n.id] and not em.leaf(n):
             em.adj[n.id] = [f"a{n.id}"]
             body.append(f"  float a{n.id} = 0.0f;")
     for kind, c, reader in loop.outs:
@@ -898,6 +1195,8 @@ def _loop_reverse(em, loop, total, seed):
             j = _static_slot(reader, loop.k)
             body.append(f"  {a} += (i == {j} ? {em.adj[reader.id][0]} "
                         ": 0.0f);")
+        elif kind == "buffer" and em.grad[reader.id]:
+            body.append(f"  {a} += {em.addr[c.id][1].format('i')};")
         elif kind == "root" and (total or seed is not None):
             body.append(f"  {a} += {'1.0f' if total else seed(c, 'i')};")
         else:
@@ -916,12 +1215,13 @@ def _loop_reverse(em, loop, total, seed):
         "  }"]
 
 
-def _row_layout(columns):
+def _row_layout(columns, index=False):
     """Where each of a row space's columns sits in its tile row: ({column
     id: offset of its first float}, [floats loaded per column], row
     width).  A Column view of a MatColumn that the tile holds reads the
     matrix's entry and loads nothing of its own; an IntColumn takes one
-    32-bit slot."""
+    32-bit slot; with `index`, the row's own index takes one more after
+    the columns (offs["rix"])."""
     held = {c.id for c in columns if isinstance(c, R.MatColumn)}
     offs, widths, w = {}, [], 0
     for c in columns:
@@ -938,6 +1238,8 @@ def _row_layout(columns):
         if c.id not in offs:
             mat, j = c.matrix_ref
             offs[c.id] = offs[mat.id] + j
+    if index:
+        offs["rix"], w = w, w + 1
     return offs, widths, w
 
 
@@ -953,14 +1255,15 @@ class SpaceTiles(NamedTuple):
 def _fill(cd, space, offs, widths, row_w):
     """The space's tile loader, synchronous and asynchronous: rows [row0,
     row0 + rows) of each of its columns into the tile (`row_w` floats a
-    row), thread tid of nt."""
+    row), thread tid of nt, and the row's index where the tile holds it
+    (a plain store in both: it is not in device memory)."""
     fill, fill_async = [], []
+    loop = "  for (int i = tid; i < rows; i += nt) "
     for j, w in zip(space.columns, widths):
         c = cd.columns[j]
         o = offs[c.id]
         if w == 1:
             v = f"cols.c{j}[row0 + i]"
-            loop = "  for (int i = tid; i < rows; i += nt) "
             dst = f"tile[i * {row_w} + {o}]"
             fill.append(f"{loop}{dst} = " + (
                 f"rt_int_bits({v})" if isinstance(c, R.IntColumn) else v)
@@ -973,36 +1276,104 @@ def _fill(cd, space, offs, widths, row_w):
                     f"    const int r = i / {w};"]
             fill += [*head, f"    {dst} = {v};", "  }"]
             fill_async += [*head, f"    rt_copy_async(&{dst}, &{v});", "  }"]
+    if "rix" in offs:
+        line = (f"{loop}tile[i * {row_w} + {offs['rix']}] = "
+                "rt_int_bits(row0 + i);")
+        fill.append(line)
+        fill_async.append(line)
     return fill, fill_async
 
 
-def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense):
-    """One row space's row function and tile loaders: (body lines,
-    SpaceTiles, fill lines, asynchronous fill lines, per-row gathers).
-    The row-invariant values (`base`: slot in inv, `size`: their
-    elements, `grad`: whether they depend on q) come from inv, their
-    adjoints go to ainv, or, over the workspace, a per-row gather's to
-    sidx/sval, one pair per gather; `row_w` names the tile's row width
-    (None: the number); the first `n_dense` of inv are those some row
-    reads other than by a per-row gather."""
-    row = _Emitter(cd, ws)
-    row.n_dense = n_dense
-    for fid, b in base.items():
-        row.vals[fid] = [f"inv[{b + i}]" for i in range(size[fid])]
-        row.inv_base[fid] = b
-        row.grad[fid] = grad[fid]
-        if grad[fid]:
-            row.adj[fid] = [f"ainv[{b + i}]" for i in range(size[fid])]
-    own = [cd.columns[j] for j in space.columns]
-    offs, widths, width = _row_layout(own)
-    for c in own:
-        row.grad[c.id] = False
-        if isinstance(c, R.MatColumn):
-            row.mats[c.id] = offs[c.id]
-        elif isinstance(c, R.IntColumn):
-            row.ints[c.id] = f"rt_bits_int(x[{offs[c.id]}])"
+class _RowCtx(NamedTuple):
+    """What a row function reads, for the row emitter and the sources it
+    rebuilds at another row."""
+
+    n_rows: int
+    dep: dict           # node id → whether it varies by row
+    base: dict          # row-invariant value → its first slot in inv
+    size: dict          # its elements
+    grad: dict          # whether it depends on q
+    aligned: frozenset  # the vectors of the rows' length read at the row
+    n_dense: int        # the first of inv that some row reads densely
+    own: tuple          # the space's columns
+    offs: dict          # where each sits in the tile row (_row_layout)
+
+
+def _bind_row(em, ctx, rix):
+    """A row emitter's inputs at row `rix`: the row-invariant values from
+    inv, their adjoints into ainv (an aligned vector's element `rix`,
+    its adjoint a local that _aligned_adds hands on), and the space's
+    columns, from the tile (rix "rix") or, for a rebuilt source, read
+    whole at row rix from their device pointers."""
+    em.rowctx, em.n_dense = ctx, ctx.n_dense
+    for fid, b in ctx.base.items():
+        em.inv_base[fid] = b
+        em.grad[fid] = ctx.grad[fid]
+        if fid in ctx.aligned:
+            em.vals[fid] = [f"inv[{b} + {rix}]"]
+            if ctx.grad[fid]:
+                em.adj[fid] = [f"al{em.tag}{fid}"]
+                em.aligned.append((em.adj[fid][0], b, rix))
+            continue
+        em.vals[fid] = [f"inv[{b + i}]" for i in range(ctx.size[fid])]
+        if ctx.grad[fid]:
+            em.adj[fid] = [f"ainv[{b + i}]" for i in range(ctx.size[fid])]
+    for c in ctx.own:
+        em.grad[c.id] = False
+        o, j = ctx.offs[c.id], em.col_index[c.id]
+        if rix == "rix":
+            at = lambda k, o=o: f"x[{o + k}]"  # noqa: E731
+            it, val = f"rt_bits_int(x[{o}])", f"x[{o}]"
         else:
-            row.vals[c.id] = [f"x[{offs[c.id]}]"]
+            at = lambda k, j=j, p=getattr(c, "n_cols", 1): (  # noqa: E731
+                f"cols.c{j}[(size_t){rix} * {p} + {k}]")
+            it = val = f"cols.c{j}[{rix}]"
+        if isinstance(c, R.MatColumn):
+            em.mats[c.id] = at
+        elif isinstance(c, R.IntColumn):
+            em.ints[c.id] = it
+        else:
+            em.vals[c.id] = [val]
+
+
+def _aligned_decls(em) -> list[str]:
+    return [f"  float {name} = 0.0f;" for name, _, _ in em.aligned]
+
+
+def _aligned_adds(em) -> list[str]:
+    """Each aligned vector's adjoint at its row, into the lane's own ainv,
+    or over the workspace handed back in sidx/sval like a per-row
+    gather's."""
+    out = []
+    for name, b, rix in em.aligned:
+        if em.ws:
+            out += [f"  sidx[{em.scatters}] = {b} + {rix};",
+                    f"  sval[{em.scatters}] = {name};"]
+            em.scatters += 1
+        else:
+            out.append(f"  ainv[{b} + {rix}] += {name};")
+        em.rops += 2
+    return out
+
+
+def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned):
+    """One row space's row function and tile loaders: (body lines,
+    SpaceTiles, fill lines, asynchronous fill lines, per-row gathers,
+    whether the row reads columns whole).  The row-invariant values
+    (`base`: slot in inv, `size`: their elements, `grad`: whether they
+    depend on q) come from inv, their adjoints go to ainv, or, over the
+    workspace, a per-row gather's to sidx/sval, one pair per gather; a
+    vector of the rows' length that the rows read by element
+    (`aligned`) is read at the row's index, which the tile then holds,
+    and its adjoint handed on as a gather's; `row_w` names the tile's
+    row width (None: the number); the first `n_dense` of inv are those
+    some row reads other than by a per-row gather or at its index."""
+    own = [cd.columns[j] for j in space.columns]
+    offs, widths, width = _row_layout(own, bool(aligned))
+    ctx = _RowCtx(space.n_rows, space.dep, base, size, grad,
+                  frozenset(aligned), n_dense, tuple(own), offs)
+    row = _Emitter(cd, ws)
+    _bind_row(row, ctx, "rix")
     order = R.topological(list(space.roots))
     dep = space.dep
     for node in order:
@@ -1017,41 +1388,67 @@ def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense):
         if dep[node.id]:
             row.backward(node)
     total = " + ".join(row.el(x, 0) for x in space.roots)
-    body = [*row.fwd, *_decls(row, [n for n in order if dep[n.id]]),
-            *seeds, *row.rev, f"  return {total};"]
+    head = [f"  const int rix = rt_bits_int(x[{offs['rix']}]);"] \
+        if aligned else []
+    body = [*head, *row.fwd, *_decls(row, [n for n in order if dep[n.id]]),
+            *_aligned_decls(row), *seeds, *row.rev, *_aligned_adds(row),
+            f"  return {total};"]
     tile = SpaceTiles(space.n_rows, width, tile_rows(width),
                       row.fops + row.rops + len(space.roots))
     return (body, tile, *_fill(cd, space, offs, widths, row_w or width),
-            row.scatters)
+            row.scatters, bool(row.subs))
 
 
-def _emit_rows(cd, spaces, ws, whole):
+def _emit_rows(cd, spaces, ws, whole, scratch):
     """The per-row part of a data model: (C lines, invariant ops, the
     row-invariant values' count, the count of those some row reads other
     than by a per-row gather, SpaceTiles per row space).  One row space
     keeps the names rt_row, rt_fill_tile and rt_fill_tile_async; several
-    define RT_SPACES and a RtSpace<s> each.  `whole`: the functions take
-    the columns, which they read whole."""
-    # row-invariant inputs of the row functions, computed once per call;
-    # `dense`: the ones some row reads other than by a per-row gather
-    frontier, seen, dense = [], set(), set()
-    for space in spaces:
+    define RT_SPACES and a RtSpace<s> each, and the row functions take
+    the columns where one of them reads them whole.  `whole`: the
+    functions outside the rows take the columns, which they read whole;
+    `scratch`: the floats of scr that rt_logp_grad uses.  Also returns
+    the floats of scr that any of them use, and whether the rows take the
+    columns."""
+    # row-invariant inputs of the row functions, computed once per call,
+    # and how each space's rows read each: by a per-row gather, whole (a
+    # MatVec's vector), or by element
+    frontier, reads = [], {}
+    for s, space in enumerate(spaces):
         for node in R.topological(list(space.roots)):
             if not space.dep[node.id]:
                 continue
             for k in R.children_of(node):
                 if space.dep[k.id] or isinstance(k, R.Constant):
                     continue
-                if k.id not in seen:
-                    seen.add(k.id)
+                if k.id not in reads:
                     frontier.append(k)
-                if not (isinstance(node, R.Gather) and k is node.source
-                        and isinstance(node.index, R.IntColumn)):
-                    dense.add(k.id)
+                reads.setdefault(k.id, set()).add((s, (
+                    "gather" if isinstance(node, R.Gather)
+                    and k is node.source
+                    and isinstance(node.index, R.IntColumn) else
+                    "whole" if isinstance(node, R.MatVec) and k is node.vec
+                    else "elem")))
     sizer = _Emitter(cd, ws)
     for node in R.topological(frontier):
         sizer.forward(node)
     size = {f.id: sizer.size(f) for f in frontier}
+    # `aligned[s]`: the vectors of space s's row count that its rows read
+    # by element, each row its own element (the lanes evaluator's (n, C)
+    # against (n, C)); `dense`: the values some row reads other than by a
+    # per-row gather or so
+    aligned, dense = [set() for _ in spaces], set()
+    for fid, how in reads.items():
+        for s, kind in how:
+            if kind == "elem" and size[fid] == spaces[s].n_rows > 1:
+                aligned[s].add(fid)
+                if {(s, "gather"), (s, "whole")} & how:
+                    raise UnsupportedNode(
+                        "a row-invariant vector of the rows' length read "
+                        "both by element and whole is not supported by "
+                        "the CUDA emitter")
+            elif kind != "gather":
+                dense.add(fid)
     dense |= {f.id for f in frontier if size[f.id] == 1}
     # inv: the dense values first, then the gathered blocks
     frontier = ([f for f in frontier if f.id in dense]
@@ -1083,17 +1480,23 @@ def _emit_rows(cd, spaces, ws, whole):
                            for i in range(size[f.id])]
 
     r = _RESTRICT if ws else ""
-    wc = ", const RtCols& cols" if whole else ""
+    scratch = max(scratch, pre.scratch, post.scratch)
+    wc = (", const RtCols& cols" if whole else "") + (
+        f", float*{r} scr" if scratch else "")
     one = len(spaces) == 1
+    made = [_space_rows(cd, space, ws, pre.grad, base, size,
+                        "RT_ROW_W" if one else None, n_dense, aligned[s])
+            for s, space in enumerate(spaces)]
+    # a row that rebuilds a source at another row reads columns whole:
+    # then every row function takes them
+    row_cols = any(m[-1] for m in made)
     row_sig = (f"float*{r} x, const float*{r} inv, float*{r} ainv"
-               + (f", int*{r} sidx, float*{r} sval)" if ws else ")"))
+               + (f", int*{r} sidx, float*{r} sval" if ws else "")
+               + (", const RtCols& cols)" if row_cols else ")"))
     fill_sig = "(float* tile, const RtCols& cols, int row0, int rows, " \
                "int tid, int nt)"
     tiles, spaces_text = [], []
-    for s, space in enumerate(spaces):
-        body, tile, fill, fill_async, n_gathers = _space_rows(
-            cd, space, ws, pre.grad, base, size, "RT_ROW_W" if one else None,
-            n_dense)
+    for s, (body, tile, fill, fill_async, n_gathers, _) in enumerate(made):
         tiles.append(tile)
         gathers = ([f"// the row's {n_gathers} per-row gathers hand their "
                     "adjoints back in sidx/sval",
@@ -1166,7 +1569,7 @@ def _emit_rows(cd, spaces, ws, whole):
         lines += [*post_fn, "", f"#define RT_SPACES {len(spaces)}",
                   "template <int S> struct RtSpace;", *spaces_text]
     inv_ops = pre.fops + post.fops + post.rops + len(post_seeds)
-    return lines, inv_ops, n_inv, n_dense, tuple(tiles)
+    return lines, inv_ops, n_inv, n_dense, tuple(tiles), scratch, row_cols
 
 
 def _cols_struct(columns):
@@ -1211,14 +1614,16 @@ def emit(cd) -> EmittedDensity:
 
 
 def workspace_floats(n_vars: int, n_inv: int, rows: bool,
-                     n_dense: int = 0) -> int:
+                     n_dense: int = 0, scratch: int = 0) -> int:
     """Floats of one chain's slot of the workspace: the seven state
-    arrays (sc, q, g, qn, gn, p, x) and, with rows, inv, ainv and the
-    LANES lanes' own copies of the `n_dense` adjoints that every row
-    reads, rounded up to an even count (csrc/fused_hmc.cu,
+    arrays (sc, q, g, qn, gn, p, x), with rows inv, ainv and the LANES
+    lanes' own copies of the `n_dense` adjoints that every row reads,
+    and the density's scratch (scr, at an even offset, since it holds f64
+    sums), rounded up to an even count (csrc/fused_hmc.cu,
     RT_WS_FLOATS)."""
     n = 7 * n_vars + (2 * max(n_inv, 1) + LANES * max(n_dense, 1)
                       if rows else 0)
+    n += (n % 2 + scratch) if scratch else 0   # scr at an even offset
     return n + n % 2
 
 
@@ -1244,10 +1649,11 @@ def _emit(cd, ws: bool) -> EmittedDensity:
     fwd, rev, total = _program(em, roots, total=True)
     lp_ops = max(len(total) - 1, 0)
     n = cd.n_vars
-    rows, inv_ops, n_inv, n_dense, spaces = (
-        _emit_rows(cd, split.spaces, ws, whole) if split.spaces
-        else ([], 0, 0, 0, ()))
-    slot = workspace_floats(n, n_inv, bool(spaces), n_dense) if ws else 0
+    rows, inv_ops, n_inv, n_dense, spaces, scratch, row_cols = (
+        _emit_rows(cd, split.spaces, ws, whole, em.scratch) if split.spaces
+        else ([], 0, 0, 0, (), em.scratch, False))
+    slot = workspace_floats(n, n_inv, bool(spaces), n_dense, scratch) \
+        if ws else 0
     r = _RESTRICT if ws else ""
     # the shared memory of a tile slot: the widest space's tile
     top = max(spaces, key=lambda t: t.tile_rows * t.row_width,
@@ -1267,11 +1673,14 @@ def _emit(cd, ws: bool) -> EmittedDensity:
           if ws else []),
         *(["#define RT_WS_SHARED 1"] if shared else []),
         *(["#define RT_WHOLE_COLS 1"] if whole else []),
+        *([f"#define RT_SCRATCH {scratch}"] if scratch else []),
+        *(["#define RT_ROW_COLS 1"] if row_cols else []),
         "",
         *_cols_struct(cd.columns),
         "",
         f"RT_HD float rt_logp_grad(const float*{r} q, float*{r} g"
-        + (", const RtCols& cols" if whole else "") + ") {",
+        + (", const RtCols& cols" if whole else "")
+        + (f", float*{r} scr" if scratch else "") + ") {",
         *([f"  for (int j = RT_LANE; j < {n}; j += RT_LSTEP) g[j] = 0.0f;",
            "  RT_WARP_SYNC();"] if ws
           else [f"  for (int j = 0; j < {n}; ++j) g[j] = 0.0f;"]),
@@ -1289,4 +1698,4 @@ def _emit(cd, ws: bool) -> EmittedDensity:
     return EmittedDensity(source=src, n_vars=n,
                           ops=em.fops + lp_ops + em.rops + inv_ops,
                           spaces=spaces, n_inv=n_inv, workspace=slot,
-                          shared=shared)
+                          shared=shared, scratch=scratch)

@@ -7,13 +7,14 @@ uniform.  Auto-thinning until ESS ≥ `SAMPLES` (at most `TRIALS`
 attempts) is the JAX package's.  Draws come from the port's generators
 on the entry point's device, from one ``torch.Generator`` seeded by
 `seed`; the fits run ``Model.sample`` there, with the `kernel` the
-caller names.  The terminal animation (``animate``) waits for the port
-of ``viz/`` (ROADMAP A10).
+caller names.  ``animate`` draws the rank histogram in the terminal
+after each repetition, as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
@@ -155,16 +156,52 @@ class SBC:
             yield self._repetition(sampler_fn, n_synthetic, bins, gen,
                                    seed + i * TRIALS, kernel)
 
-    def animate(self, *args, **kwargs):
-        raise NotImplementedError(_NO_VIZ)
+    # -- terminal animation (SBC.animate / plot) --------------------------
+    def animate(self, n_synthetic: int, sampler_fn: Callable,
+                log_bins: int = 3, reps: Optional[int] = None,
+                seed: int = 0, out=sys.stdout, device=None,
+                kernel: str = "scan"):
+        """Run `simulate` and, after each repetition, print the rank
+        histogram so far with the 99% band of a uniform one (SBC.animate);
+        returns the Reps."""
+        bins = 1 << log_bins
+        total = reps if reps is not None else bins * REPS_PER_BIN
+        lower = binomial_quantile(0.005, total, 1.0 / bins)
+        upper = binomial_quantile(0.995, total, 1.0 / bins)
+        print(f"\nRunning simulation-based calibration "
+              f"({total} reps, {bins} bins).", file=out)
+        results = []
+        t0 = time.time()
+        for i, rep in enumerate(
+                self.simulate(n_synthetic, sampler_fn, log_bins, total,
+                              seed, device, kernel)):
+            results.append(rep)
+            elapsed = time.time() - t0
+            remaining = elapsed * (total - i - 1) / (i + 1)
+            self._plot(results, bins, i + 1, total, lower, upper,
+                       remaining, out)
+        return results
 
-    def _plot(self, *args, **kwargs):
-        raise NotImplementedError(_NO_VIZ)
-
-
-_NO_VIZ = ("SBC.animate and SBC._plot draw the terminal rank histogram, "
-           "which waits for the port of viz/ (ROADMAP A10); use simulate "
-           "and rank_uniformity_pvalue")
+    def _plot(self, reps, bins, i, total, lower, upper, remaining, out):
+        """One frame: the histogram of the ranks of `reps`, each bin green
+        inside [lower, upper] and red outside, with the progress line."""
+        counts = np.zeros(bins, dtype=int)
+        for r in reps:
+            counts[r.rank] += 1
+        max_rhat = max(r.r_hat for r in reps)
+        ess_per_s = sum(r.effective_sample_size for r in reps) / max(
+            sum(r.seconds for r in reps), 1e-9)
+        lines = [f"Repetition {i}/{total}. ~{remaining:.0f}s remaining. "
+                 f"ESS/s {ess_per_s:.0f}. max rHat {max_rhat:.3f}"]
+        lines.append("99% of bins should land between [ and ]")
+        for c in counts:
+            color = "\033[32m" if lower <= c <= upper else "\033[31m"
+            bar = "#" * min(c, lower) + " " * max(lower - c, 0)
+            mid = "#" * max(min(c - lower, upper - lower), 0)
+            mid += " " * max(upper - lower - len(mid), 0)
+            tail = "#" * max(c - upper, 0)
+            lines.append(f"{color}{bar}[{mid}]{tail}\033[0m")
+        print("\n".join(lines) + "\n", file=out)
 
 
 def binomial_quantile(q: float, n: int, p: float) -> int:

@@ -86,6 +86,24 @@
 // data vector dotted with a latent one) is read whole by the column-free
 // and row-invariant functions, from its pointer in RtCols, at every call.
 //
+// The forms the density takes since the latent GP and the row forms
+// (compute/emit_cuda.py says how each is emitted): a vector that a node
+// reads whole past the unroll (L·z of an MVNormal of 17 or more
+// dimensions; the source of a gather by an index column read whole) is
+// held in the density's scratch, RT_SCRATCH floats a call, per thread in
+// a register model and in the chain's slot at RT_OFF_SCR in a workspace
+// model, where the lanes split the passes over it; the f64 sums of such
+// a gather's adjoints lie there too, so it starts at an even offset.  A
+// row that reads a vector of the rows' length by element reads it at the
+// row's index, which the tile loader writes after the columns; a row that
+// reads a source varying by row at another row's index rebuilds it there
+// from the columns' device pointers, so its function takes the columns
+// (RT_ROW_COLS, RT_ROWC).  What bounds these: the product's 2·n·p
+// multiply-adds a density call, split over the lanes (the 64-input GP:
+// 8,192), the index column read whole in every lane of a register model
+// (a loop of n loads a call; a slot splits it), and the 100,000-element
+// state, inv and ainv of a vector per row, bytes of the workspace.
+//
 // Integer index columns.  The generated RtCols holds each column with its
 // own type (int32 for an IntColumn), and the loader keeps an index's bits
 // in its float slot of the tile.  A gather of a row-invariant vector by
@@ -251,6 +269,13 @@ static_assert(RT_LANES > 0 && RT_LANES <= 32 &&
 // tile loaders rt_row, rt_fill_tile and rt_fill_tile_async; one with
 // several defines RT_SPACES and an RtSpace<s> for each.  The tile loops
 // read a space through RtSpace<s>: kW floats a row, kTile rows a tile.
+// A row that reads a source at another row (a Gather whose source varies
+// by row) reads columns whole, so its function takes them (RT_ROW_COLS).
+#ifdef RT_ROW_COLS
+#define RT_ROWC(cols) , cols
+#else
+#define RT_ROWC(cols)
+#endif
 #if RT_ROW_W > 0 && !defined(RT_SPACES)
 #define RT_SPACES 1
 template <int S>
@@ -260,13 +285,14 @@ struct RtSpace<0> {
 #ifdef RT_WS_FLOATS
   enum { kW = RT_ROW_W, kTile = RT_TILE, kGathers = RT_GATHERS };
   static RT_HD float row(const float* x, const float* inv, float* ainv,
-                         int* sidx, float* sval) {
-    return rt_row(x, inv, ainv, sidx, sval);
+                         int* sidx, float* sval RT_ROWC(const RtCols& cols)) {
+    return rt_row(x, inv, ainv, sidx, sval RT_ROWC(cols));
   }
 #else
   enum { kW = RT_ROW_W, kTile = RT_TILE };
-  static RT_HD float row(const float* x, const float* inv, float* ainv) {
-    return rt_row(x, inv, ainv);
+  static RT_HD float row(const float* x, const float* inv,
+                         float* ainv RT_ROWC(const RtCols& cols)) {
+    return rt_row(x, inv, ainv RT_ROWC(cols));
   }
 #endif
   static RT_HD void fill(float* tile, const RtCols& cols, int row0, int rows,
@@ -302,6 +328,19 @@ static inline RtRows rt_rows(const int* n_rows) {
 #define RT_WHOLE(cols)
 #endif
 
+// A density that holds vectors in a scratch array (a MatVec of a matrix
+// read whole by a vector past the unroll, held for its readers and its
+// transpose; a vector that an index column read whole gathers from)
+// takes it in those functions too: RT_SCRATCH floats, per thread in a
+// register model, in the chain's slot (at RT_OFF_SCR) in a workspace
+// model, where the lanes split its passes.
+#ifdef RT_SCRATCH
+#define RT_SCR(scr) , scr
+#else
+#define RT_SCR(scr)
+#define RT_SCRATCH 0
+#endif
+
 // A chain's arrays: per-thread arrays, fully unrolled loops over every
 // element in every lane; or arrays in the chain's slot of the workspace
 // at offset `off`, each pass over them split over the lanes (RT_FOR),
@@ -309,9 +348,6 @@ static inline RtRows rt_rows(const int* n_rows) {
 // (RT_PASS_*) and a __syncwarp where a lane reads what another wrote
 // (RT_WS_SYNC).  RT_STATE(name, n, off) declares one.
 #ifdef RT_WS_FLOATS
-static_assert(RT_WS_FLOATS >=
-                  7 * RT_DIM + 2 * RT_WS_NINV + RT_LANES * RT_WS_NDENSE,
-              "the workspace slot holds every per-chain array");
 #define RT_UNROLL _Pragma("unroll 4")
 #define RT_STATE(name, n, off) float* name = ws + (off)
 #define RT_FOR(d, n) for (int d = RT_LANE; d < (n); d += RT_LSTEP)
@@ -336,6 +372,12 @@ typedef float rt_row_sum;
 #define RT_OFF_INV (7 * RT_DIM)
 #define RT_OFF_AINV (RT_OFF_INV + RT_WS_NINV)
 #define RT_OFF_LANES (RT_OFF_AINV + RT_WS_NINV)
+// the scratch at an even offset: it holds f64 sums
+#define RT_OFF_SCR ((RT_OFF_LANES + RT_LANES * RT_WS_NDENSE + 1) / 2 * 2)
+#ifdef RT_WS_FLOATS
+static_assert(RT_WS_FLOATS >= RT_OFF_SCR + RT_SCRATCH,
+              "the workspace slot holds every per-chain array");
+#endif
 
 // whether this lane stores element d of a register model's arrays, which
 // every lane holds (every element in host code and without rows)
@@ -486,6 +528,18 @@ RT_HD void rt_stream_tile(float* slot, const RtCols& cols, int row0,
 #define RT_LANE_COPY RT_NINV_ALLOC
 #endif
 
+// A workspace model whose rows read every row-invariant value densely
+// (no per-row gather), and at most RT_INV_REGS_MAX of them, keeps them
+// and each lane's adjoints of them in registers over a tile's rows
+// (rt_tile_rows); its state stays in the slot
+#define RT_INV_REGS_MAX 64
+#if defined(RT_WS_FLOATS) && RT_NINV_DENSE == RT_NINV && \
+    RT_NINV <= RT_INV_REGS_MAX
+#define RT_INV_REGS 1
+#else
+#define RT_INV_REGS 0
+#endif
+
 // the gathered blocks' adjoints [RT_NINV_DENSE, RT_NINV) set to 0: every
 // lane's copy of them, or the chain's ainv over the workspace (lane l
 // clears entries l, l + 32, ...)
@@ -566,8 +620,9 @@ struct RtGathers {
 };
 template <int S>
 RT_HD float rt_row_at(const float* x, const float* inv, float* own,
-                      int* sidx, float* sval) {
-  return RtSpace<S>::row(x, inv, own, sidx, sval);
+                      int* sidx, float* sval, const RtCols& cols) {
+  (void)cols;
+  return RtSpace<S>::row(x, inv, own, sidx, sval RT_ROWC(cols));
 }
 #else
 template <int S>
@@ -576,9 +631,9 @@ struct RtGathers {
 };
 template <int S>
 RT_HD float rt_row_at(const float* x, const float* inv, float* own,
-                      int* sidx, float* sval) {
-  (void)sidx, (void)sval;
-  return RtSpace<S>::row(x, inv, own);
+                      int* sidx, float* sval, const RtCols& cols) {
+  (void)sidx, (void)sval, (void)cols;
+  return RtSpace<S>::row(x, inv, own RT_ROWC(cols));
 }
 #endif
 
@@ -593,11 +648,29 @@ RT_HD float rt_row_at(const float* x, const float* inv, float* own,
 template <int S>
 RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
                         float* lanes, float* ainv, double& lp_acc,
-                        double* ainv_acc) {
+                        double* ainv_acc, const RtCols& cols) {
+  (void)cols;
   typedef RtSpace<S> Sp;
   enum { kG = RtGathers<S>::value > 0 ? RtGathers<S>::value : 1 };
 #ifdef __CUDA_ARCH__
-#ifdef RT_WS_FLOATS
+#if RT_INV_REGS
+  // every row-invariant value read densely, and few of them: the lane
+  // keeps them and its adjoints of them in registers over the tile's
+  // rows, where its slot's copies cost a load and a store for every value
+  // of every row (the 32-feature MVNormal logistic's kernel, 33 values:
+  // 80.7 s for 1024 chains x 200 draws of HMC(5) so, on an H100)
+  (void)ainv, (void)lanes;
+  float inv_r[RT_NINV_ALLOC], own[RT_NINV_ALLOC];
+#pragma unroll
+  for (int k = 0; k < RT_NINV; ++k) inv_r[k] = inv[k], own[k] = 0.0f;
+  rt_row_sum lp_t = 0.0f;
+#pragma unroll 4
+  for (int r = RT_LANE; r < rows; r += RT_LANES) {
+    int sidx[1];
+    float sval[1];
+    lp_t += rt_row_at<S>(slot + r * Sp::kW, inv_r, own, sidx, sval, cols);
+  }
+#elif defined(RT_WS_FLOATS)
   float* own = lanes + (size_t)RT_LANE * RT_LANE_COPY;
   rt_row_sum lp_t = 0.0f;
   for (int k = 0; k < RT_NINV_DENSE; ++k) own[k] = 0.0f;
@@ -608,7 +681,7 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
 #pragma unroll
     for (int g = 0; g < kG; ++g) sidx[g] = -1, sval[g] = 0.0f;
     if (r < rows)
-      lp_t += rt_row_at<S>(slot + r * Sp::kW, inv, own, sidx, sval);
+      lp_t += rt_row_at<S>(slot + r * Sp::kW, inv, own, sidx, sval, cols);
 #pragma unroll
     for (int g = 0; g < RtGathers<S>::value; ++g)
       rt_scatter(ainv, sidx[g], sval[g]);
@@ -622,7 +695,7 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
   for (int k = 0; k < RT_NINV_DENSE; ++k) own[k] = 0.0f;
 #pragma unroll 4
   for (int r = RT_LANE; r < rows; r += RT_LANES)
-    lp_t += Sp::row(slot + r * Sp::kW, inv, own);
+    lp_t += Sp::row(slot + r * Sp::kW, inv, own RT_ROWC(cols));
 #endif
   lp_acc += (double)rt_warp_sum<RT_LANES>(lp_t);
 #pragma unroll
@@ -642,7 +715,8 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
       for (int g = 0; g < kG; ++g) si[g] = -1, sv[g] = 0.0f;
       if (r0 + l < rows)
         lp_t[l] += rt_row_at<S>(slot + (r0 + l) * Sp::kW, inv,
-                                lanes + (size_t)l * RT_LANE_COPY, si, sv);
+                                lanes + (size_t)l * RT_LANE_COPY, si, sv,
+                                cols);
       for (int g = 0; g < kG; ++g) sidx[g][l] = si[g], sval[g][l] = sv[g];
     }
     for (int g = 0; g < RtGathers<S>::value; ++g)
@@ -681,7 +755,7 @@ RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
       RT_TILE_SYNC();
       rt_tile_rows<S>(tile + (t & 1) * RT_TILE_FLOATS,
                       n_rows - row0 < kTile ? n_rows - row0 : kTile, inv,
-                      lanes, ainv, lp_acc, ainv_acc);
+                      lanes, ainv, lp_acc, ainv_acc, cols);
       RT_TILE_SYNC();
     }
   } else {
@@ -689,7 +763,7 @@ RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
       const int n = n_rows - row0 < kTile ? n_rows - row0 : kTile;
       RtSpace<S>::fill(tile, cols, row0, n, RT_TID, RT_NTHREADS);
       RT_TILE_SYNC();
-      rt_tile_rows<S>(tile, n, inv, lanes, ainv, lp_acc, ainv_acc);
+      rt_tile_rows<S>(tile, n, inv, lanes, ainv, lp_acc, ainv_acc, cols);
       RT_TILE_SYNC();
     }
   }
@@ -706,7 +780,12 @@ RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
 RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
                        const RtRows& rows, int stream_cols, float* tile,
                        float* ws) {
-  float lp = rt_logp_grad(x, g RT_WHOLE(cols));
+#if RT_SCRATCH > 0 && defined(RT_WS_FLOATS)
+  float* scr = ws + RT_OFF_SCR;
+#elif RT_SCRATCH > 0
+  alignas(8) float scr[RT_SCRATCH];   // it holds f64 sums
+#endif
+  float lp = rt_logp_grad(x, g RT_WHOLE(cols) RT_SCR(scr));
 #if RT_ROW_W > 0
   RT_STATE(inv, RT_NINV_ALLOC, RT_OFF_INV);
   // ainv: the adjoints summed over the lanes, which rt_rows_post reads;
@@ -723,7 +802,7 @@ RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
 #endif
   double ainv_acc[RT_NINV_DENSE_ALLOC];
   double lp_acc = 0.0;
-  rt_rows_pre(x, inv RT_WHOLE(cols));
+  rt_rows_pre(x, inv RT_WHOLE(cols) RT_SCR(scr));
   // the gathered blocks' adjoints accumulate over every tile
   rt_gathered_zero(lanes, ainv);
   RT_WS_SYNC();
@@ -737,7 +816,7 @@ RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
   for (int k = 0; k < RT_NINV_DENSE; ++k)
     ainv[k] = (float)ainv_acc[k];
   RT_WS_SYNC();
-  rt_rows_post(x, ainv, g RT_WHOLE(cols));
+  rt_rows_post(x, ainv, g RT_WHOLE(cols) RT_SCR(scr));
 #ifdef RT_WS_FLOATS
   lp = (float)((double)lp + lp_acc);
 #else

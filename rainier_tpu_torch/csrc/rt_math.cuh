@@ -177,6 +177,18 @@ RT_HD T rt_lane_bcast(T x, int src) {
   return x;
 }
 
+// *p += v where lanes of a chain may add to one entry together (the f64
+// adjoint sums of a gather by an index column read whole, in a slot): an
+// atomic add on the card, in no fixed order; host code walks the lanes
+// in turn
+RT_HD void rt_atomic_add(double* p, double v) {
+#ifdef __CUDA_ARCH__
+  atomicAdd(p, v);
+#else
+  *p += v;
+#endif
+}
+
 // i clamped to [lo, hi]: the gather's mode="clip"
 RT_HD int rt_clampi(int i, int lo, int hi) {
   return i < lo ? lo : (i > hi ? hi : i);

@@ -45,8 +45,12 @@ kernel's gather, hmc_pallas.py:157 with
 rainier_tpu/compute/interp.py:379-383), in a fixed order without
 atomics: into each lane's own copy, summed over the lanes once a density
 call, or, over the workspace, added by the warp row step by row step.
-The wrapper refuses, naming the bytes, a launch whose workspace does not
-fit the card's free memory.  ``collect_idx`` stores only the chosen
+A density that reads a vector whole (the L·z of an ``MVNormal`` past 16
+dimensions, the source of a gather by an index column read whole) holds
+it in a scratch array of ``EmittedDensity.scratch`` floats, in the
+chain's slot where there is one, which this wrapper's workspace then
+includes.  The wrapper refuses, naming the bytes, a launch whose
+workspace does not fit the card's free memory.  ``collect_idx`` stores only the chosen
 coordinates of each draw, so a large model's draws need not hold all its
 coordinates.
 

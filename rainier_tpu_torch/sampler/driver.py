@@ -327,7 +327,7 @@ def sample(model, cfg: C.SamplerConfig, n_chains: int = 4, seed: int = 0,
     one fused CUDA kernel (ops/fused_hmc.py; its plain PyTorch version
     on the CPU).  Outside the kernel's envelope (non-HMC samplers, dense
     mass, a mesh, `chunk_iters`, nodes the CUDA emitter does not cover
-    such as a Gather whose source varies by row, a density without a
+    such as a Gather by a float index, a density without a
     clean base/row split, a kernel workspace larger than the device's
     free memory) 'fused' warns and runs the scan path; 'fused!' raises,
     for callers who need the kernel or nothing.  `collect_idx` (an index

@@ -449,14 +449,13 @@ def test_op_count_adds_the_row_terms():
 
 
 @pytest.mark.parametrize("build,match", [
-    # a RowSum below the top level reads its columns whole, which an
-    # index column cannot be
-    (lambda rt: rt.Model.likelihood(_R(rt).RowSum(_R(rt).RowSum(
-        _R(rt).Gather(rt.Normal(0, 1).latent_vec(2).element,
-                      _R(rt).IntColumn(np.arange(4) % 2)), 4), 4)),
-     "top-level"),
+    # a RowSum over columns of two lengths row by row has no row space
     (lambda rt: rt.Model.likelihood(_R(rt).RowSum(
-        rt.Normal(0, 1).latent_vec(3).element * _R(rt).Column(np.ones(3)),
+        rt.Normal(0, 1).latent() * _R(rt).Column(np.ones(3))
+        + _R(rt).Column(np.ones(4)), 4)), "different lengths"),
+    # a vector of another length than the rows, per row
+    (lambda rt: rt.Model.likelihood(_R(rt).RowSum(
+        rt.Normal(0, 1).latent_vec(2).element * _R(rt).Column(np.ones(3)),
         3)), "vector width"),
 ])
 def test_emitter_refuses_what_it_does_not_cover(build, match):

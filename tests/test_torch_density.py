@@ -329,11 +329,12 @@ def gather_by_int_column(rt, R, source=None, index_as_value=False,
 
 
 def test_emitter_refuses_data_columns():
-    """What stays outside the emitter raises, naming the node: a Gather
-    whose source varies by row (the rows read the source itself), and an
+    """What stays outside the emitter raises, naming the node: an
     IntColumn used as a value rather than as an index.  The gather of a
-    row-invariant vector by an IntColumn is emitted, and so is a gather
-    from a column that no row reads row by row, which is read whole."""
+    row-invariant vector by an IntColumn is emitted, so is a gather from
+    a column that no row reads row by row, which is read whole, and so is
+    a Gather whose source varies by row, which the row rebuilds at the
+    index (its function then takes the columns)."""
     from rainier_tpu_torch.compute import real as R
 
     def column_source(idx):
@@ -345,9 +346,8 @@ def test_emitter_refuses_data_columns():
     assert "RT_WHOLE_COLS" in emit_cuda.emit(whole.density()).source
     across = gather_by_int_column(rtt, R, source=column_source,
                                   source_in_row=True)
-    with pytest.raises(emit_cuda.UnsupportedNode,
-                       match="Gather whose source varies by row"):
-        emit_cuda.emit(across.density())
+    assert "#define RT_ROW_COLS 1" in emit_cuda.emit(
+        across.density()).source
     as_value = gather_by_int_column(rtt, R, index_as_value=True)
     with pytest.raises(emit_cuda.UnsupportedNode,
                        match="IntColumn used other than as the index"):

@@ -18,6 +18,8 @@ does not share, so the port is held to what SBC itself asks:
   package's.
 """
 
+import io
+
 import numpy as np
 import pytest
 
@@ -128,7 +130,14 @@ def test_helpers_match_jax():
     for q in (0.005, 0.5, 0.995):
         assert sbc_t.binomial_quantile(q, 320, 0.125) == \
             sbc_j.binomial_quantile(q, 320, 0.125)
-    with pytest.raises(NotImplementedError, match="viz"):
-        zoo(rtt)["poisson"].animate(30, _cfg)
+    # SBC.animate's frame (the rank histogram in the terminal), which the
+    # port draws since viz/ was ported: the JAX package's, character for
+    # character
+    frames = []
+    for pkg, reps in ((sbc_t, reps_t), (sbc_j, reps_j)):
+        out = io.StringIO()
+        pkg.SBC._plot(None, reps, 4, len(reps), len(reps), 0, 4, 0.0, out)
+        frames.append(out.getvalue())
+    assert frames[0] == frames[1] and "Repetition 8/8" in frames[0]
     with pytest.raises(ValueError, match="log_bins"):
         next(zoo(rtt)["poisson"].simulate(30, _cfg, log_bins=0))

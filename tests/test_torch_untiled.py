@@ -21,8 +21,8 @@ identity over each space's tiles; the host-built kernel against its
 plain version, and streamed against synchronous bit for bit; the plain
 version against the JAX kernel's untiled branch in interpret mode;
 ``Model.sample(kernel="fused!")`` on the CPU against the JAX package's
-``kernel="pallas!"``; and each form the emitter still refuses, by its
-message.
+``kernel="pallas!"``; and each form the emitter still refuses (the
+three the lanes evaluator cannot broadcast either), by its message.
 """
 
 import numpy as np
@@ -360,7 +360,9 @@ def test_fused_sample_matches_pallas_sample(name):
 
 def _refused_models(rt):
     """Each form the emitter refuses, in the smallest JAX-package
-    construct that builds it, with the refusal's words."""
+    construct that builds it, with the refusal's words.  The forms it
+    takes since (a MatVec past UNROLL_MAX, an IntColumn read whole, a
+    vector per row, a row-varying Gather) are in test_torch_forms.py."""
     R = _R(rt)
     ys = np.random.default_rng(6).normal(size=8)
     b = rt.Normal(0, 1).latent_vec(3)
@@ -371,67 +373,44 @@ def _refused_models(rt):
 
     x = R.MatColumn(np.random.default_rng(7).normal(size=(8, 3)))
     y = R.Column(ys)
-    idx = R.IntColumn(np.arange(8) % 3)
-    ya = y * a
     return {
         # Vec.__getitem__ with a Real (rainier_tpu/compute/vec.py:229-235)
         "float_index": (observe(b[a.abs()]),
                         "Gather by an index that is neither"),
-        "vector_per_row": (rt.Model.likelihood(R.RowSum(
-            b.element * R.Column(np.ones(3)), 3)), "vector width"),
         "matcolumn_as_value": (rt.Model.likelihood(R.RowSum(
             rt.Normal(R.MatVec(x, b.element) * x, 1.0).log_density_at(y),
             8)), "MatColumn used other than as MatVec's matrix"),
-        "index_read_whole": (observe(a + R.RowSum(
-            R.Gather(b.element, idx), 8)), "IntColumn read outside the rows"),
-        "mvnormal_past_16": (observe(rt.MVNormal(
-            [0.0] * 17, np.eye(17)).latent_vec()[0]),
-            "by a vector of 17 > 16 elements"),
         "two_lengths_in_one_rowsum": (rt.Model.likelihood(R.RowSum(
             rt.Normal(a + R.Column(np.ones(5)), 1.0).log_density_at(y), 8)),
             r"RowSum over columns of different lengths \[5, 8\]"),
-        "gather_source_per_row": (rt.Model.likelihood(R.RowSum(
-            rt.Normal(R.Gather(ya, idx) + ya, 1.0).log_density_at(y), 8)),
-            "Gather whose source varies by row"),
     }
 
 
+# the forms the emitter refuses are the ones the lanes evaluator cannot
+# broadcast, in either package (a float index gives a (1, C, C) take, a
+# matrix times its own product an (n, p)-against-(n, C) product, two
+# lengths do not broadcast): neither the JAX package's kernel nor either
+# scan path runs them
 REFUSED = sorted(_refused_models(rtt))
-# the forms the lanes evaluator cannot broadcast, in either package (a
-# float index gives a (1, C, C) take, a matrix times its own product an
-# (n, p)-against-(n, C) product, two lengths do not broadcast): neither
-# the JAX package's kernel nor either scan path runs them
-NO_LANES = {"float_index", "matcolumn_as_value", "two_lengths_in_one_rowsum"}
 
 
 @pytest.mark.parametrize("form", REFUSED)
 def test_emitter_refuses_and_names_the_form(form):
-    """The refusal names the form, and kernel="fused!" raises with it;
-    kernel="fused" warns with it and runs the scan path, where the lanes
-    evaluator takes the form."""
+    """The refusal names the form, and kernel="fused!" raises with it."""
     model, words = _refused_models(rtt)[form]
     with pytest.raises(emit_cuda.UnsupportedNode, match=words):
         emit_cuda.emit(model.density())
     cfg = SamplerConfig(5, 3, sampler=HMC(2))
     with pytest.raises(ValueError, match=words):
         model.sample(cfg, n_chains=2, kernel="fused!")
-    if form not in NO_LANES:
-        with pytest.warns(UserWarning, match=words):
-            tr = model.sample(cfg, n_chains=2, kernel="fused")
-        assert tr.chains.shape == (2, 3, model.n_vars)
 
 
 def test_refused_forms_on_the_jax_lanes_evaluator():
-    """The JAX package's lanes evaluator, which its kernel runs, takes
-    each refused form but those of NO_LANES, where it raises too."""
+    """The JAX package's lanes evaluator, which its kernel runs, raises on
+    each form the emitter refuses."""
     for form in REFUSED:
         model, _ = _refused_models(rtj)[form]
         cd = model.density()
         q = jnp.asarray(_points(cd.n_vars, 1, 2), jnp.float32)
-        try:
-            lp = cd.logp_lanes_fn()(q, cd.column_values(jnp.float32))
-        except (TypeError, ValueError):
-            assert form in NO_LANES, form
-        else:
-            assert form not in NO_LANES, form
-            assert lp.shape == (2,) and bool(jnp.all(jnp.isfinite(lp)))
+        with pytest.raises((TypeError, ValueError)):
+            cd.logp_lanes_fn()(q, cd.column_values(jnp.float32))
