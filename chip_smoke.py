@@ -395,8 +395,10 @@ MV32_FEATURES, MV32_WARMUP, MV32_DRAWS = 32, 300, 800
 # width at FORM_CHECK_NEAR of its last states and FORM_CHECK_INIT inits
 # against the plain version and the plain version in f64, then the
 # kernel against its plain version over FORM_PARITY_ITERS iterations with
-# the bar of the models with data
+# the bar of the models with data; the forms of FORM_SAME_BITS also run
+# twice from the same states and noise, held to the same bits
 FORM_ROWS, FORM_SEED, FORM_GROUPS = 100_000, 9, 3
+FORM_SAME_BITS = ("index column read whole",)
 FORM_WARMUP, FORM_DRAWS, FORM_STEPS, FORM_COLLECT = 100, 50, 4, 10
 FORM_CHECK_NEAR, FORM_CHECK_INIT, FORM_PARITY_ITERS = 512, 64, 20
 # rt.inspection.trace's run: short, since the profiler records every
@@ -2890,12 +2892,36 @@ def form_phase(F, name, model, collect, cd, em, device):
                         min_frac=agree_frac(FORM_PARITY_ITERS, dlp_mean),
                         n_iters=FORM_PARITY_ITERS, collect_idx=collect,
                         whole=whole_bytes(cd))
+    if name in FORM_SAME_BITS:
+        same_bits(F, cd, tr, collect, device, f"form {name}")
     return [{"name": f"fused_hmc (form: {name}, {FORM_ROWS} rows)",
              "route": "cuda", "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
              "replaces": "rainier_tpu/ops/hmc_pallas.py:302",
              "launches": launches, **entry, "library_ms": None},
             {**dentry, "name": f"rt_logp_grad_launch (form: {name})",
              "launches": 0}]
+
+
+def same_bits(F, cd, tr, collect, device, what):
+    """Two launches of the kernel from the main path's last states, ε and
+    Σ̂ with the same explicit noise (FORM_PARITY_ITERS iterations of
+    HMC(FORM_STEPS), every draw collected): every output the same bits,
+    since no sum of the kernel depends on the order in which lanes or
+    blocks run."""
+    import torch
+
+    q0, kw = parity_inputs(
+        cd, device, tr.final_q.shape[0], FORM_PARITY_ITERS, True,
+        start=(tr.final_q.T, tr.step_size, tr.mass.diag), n_steps=FORM_STEPS,
+        collect_idx=collect)
+    a = [x.clone() for x in F.fused_hmc(cd, q0, **kw)]
+    b = F.fused_hmc(cd, q0, **kw)
+    same = [bool(torch.equal(x, y)) for x, y in zip(a, b)]
+    print(f"phase same bits, {what}: two launches from the same states and "
+          f"noise ({q0.shape[1]} chains x {FORM_PARITY_ITERS} it x "
+          f"{FORM_STEPS} steps): final q, draws, accept, divergences "
+          f"equal {same}", flush=True)
+    check(all(same), (what, same))
 
 
 def inspection_phase(rt, model, device):

@@ -79,8 +79,14 @@ Two such readers:
   warp barriers order the passes with what the other lanes read;
 * a ``Gather`` by an ``IntColumn`` read whole (a nested ``RowSum`` of a
   gather) reads the source at each row's clamped index; its adjoints are
-  summed in f64 by source entry in scr (``d<id>``: a slot's lanes add
-  there atomically) and added to the source's adjoint after the last.
+  summed in f64 by source entry and added to the source's adjoint after
+  the last.  Its loops split their elements over the chain's lanes even
+  in a register model (lane l takes l, l + 32, ...), where each lane
+  keeps partial sums, the adjoints' by entry in a per-thread array up to
+  ``ENTRY_LOCAL_MAX`` entries and in the slot, a copy a lane, past them;
+  the lanes' sums meet in the butterfly in a fixed order, with no
+  atomics, so every lane holds the same bits and the kernel is
+  bit-reproducible.
 
 An ``IntColumn`` is an int32 field of the tile row, carried bit for bit in
 its float slot, so every int32 index is exact.  A ``Gather`` of a
@@ -106,7 +112,14 @@ across tiles.  A row-invariant vector of the rows' length that a row
 reads by element (``b * Column`` with b of n elements over n rows: the
 lanes evaluator's (n, C) against (n, 1)) is element i at row i: the tile
 holds each row's index after its columns (``rix``), the row reads
-``inv[k + rix]``, and its adjoint goes back like a per-row gather's.  A
+``inv[k + rix]`` and adds its adjoint at that entry, which no other row
+of the space has, so it needs no hand-back and no scatter.  Over the
+workspace, where the vector is a parameter vector or an elementwise
+function of one, the row reads the parameter from the chain's state at
+``rix`` (``q[a + rix]``), computes the function there, and adds the
+adjoint to ``g[a + rix]``: the vector has no copy in inv or ainv, and
+rt_rows_pre and rt_rows_post no pass over it (``RT_ROW_STATE``: such a
+row function takes the chain's state, gradient and own ainv).  A
 ``Gather`` by an ``IntColumn`` whose source varies by row rebuilds the
 source's per-row subgraph at row ``clamp(index, 0, n - 1)``, under names
 of its own, its columns read whole at that row from their device
@@ -202,6 +215,13 @@ LANE_STATE_MAX = 32
 # split its rows and, over the slot, its passes (csrc/fused_hmc.cu,
 # RT_LANES)
 LANES = 32
+
+# A loop that reads an index column whole splits its elements over the
+# chain's lanes, and each lane sums its elements' adjoints of the gather's
+# source by entry in f64: in a per-thread array up to ENTRY_LOCAL_MAX
+# entries (a register model's every parameter vector), past it in the
+# chain's slot, a copy a lane (RT_EADD, RT_EADD_SLOT in csrc/rt_math.cuh)
+ENTRY_LOCAL_MAX = 32
 
 # The workspace's arrays do not overlap: said to nvcc, it may issue the
 # loads of later elements before the stores of earlier ones
@@ -363,10 +383,17 @@ class _Emitter:
         self.scratch = 0       # floats of scr the function uses
         self.wints = {}        # IntColumn read whole → its column index
         self.rowctx = None     # in a row function: its _RowCtx
-        self.aligned = []      # (adjoint name, inv base, row index) of
-                               # each row-invariant vector read at a row
+        self.aligned = []      # (adjoint name, array, index, whether at
+                               # the row's own index) of each vector read
+                               # at a row
         self.subs = {}         # a row-varying Gather → (emitter, nodes)
                                # of its rebuilt source
+        self.split = ws        # the loop being emitted splits its
+                               # elements over the lanes
+        self.lanes = False     # some loop of a register model splits
+        self.sum_mode = {}     # Gather by an index column read whole →
+                               # where its adjoint sums lie ("local",
+                               # "slot" or "plain": _gather_sums)
 
     # -- helpers ----------------------------------------------------------
     def size(self, node) -> int:
@@ -396,14 +423,21 @@ class _Emitter:
         return isinstance(node, (R.Parameter, R.VectorParameter)) \
             or node.id in self.mv
 
-    def scatter(self, target: str, expr: str, looped: bool) -> str:
-        """target += expr where lanes of a chain may add to one entry: in a
-        slot's loop an atomic add, outside it lane 0 alone."""
-        if self.ws and looped:
-            return f"  rt_atomic_add(&{target}, {expr});"
+    def entry_add(self, node, i: int, expr: str) -> str:
+        """The adjoint `expr` of element i of a Gather by an index column
+        read whole, added to its f64 sum by source entry: in a loop split
+        over the lanes to the lane's own sums (_gather_sums), in a slot
+        outside a loop by lane 0 alone."""
+        nid, k = node.id, self.size(node.source)
+        j = f"j{self.tag}{nid}_{i}"
+        mode = self.sum_mode[nid]
+        if mode == "local":
+            return f"  RT_EADD(d{nid}, {k}, i, {j}, {expr});"
+        if mode == "slot":
+            return f"  RT_EADD_SLOT(d{nid}, i, {j}, {expr});"
         if self.ws:
-            return f"  if (RT_LANE == 0) {target} += {expr};"
-        return f"  {target} += {expr};"
+            return f"  if (RT_LANE == 0) d{nid}[{j}] += {expr};"
+        return f"  d{nid}[{j}] += {expr};"
 
     def width(self, nodes) -> tuple[int, int]:
         """(length of the broadcast, expressions to emit): one, the loop
@@ -436,7 +470,7 @@ class _Emitter:
             target = self.loop_acc.setdefault(
                 (node.id, j), f"t{node.id}" + (
                     f"_{j}" if len(self.adj[node.id]) > 1 else ""))
-            self.rev.append(_part_add(self.ws, target, expr))
+            self.rev.append(_part_add(self.split, target, expr))
         else:
             a = self.adj[node.id]
             self.rev.append(_add_to(self, node.id,
@@ -797,13 +831,11 @@ class _Emitter:
                 elif j is not None:
                     self.acc(node.source, j, a, 0)
                 elif node.index.id in self.wints:
-                    # summed in f64 by source entry (a slot's lanes may hit
-                    # one together), added to the source's adjoint after
-                    # the last (_gather_sums)
+                    # summed in f64 by source entry, each lane its own
+                    # sums, added to the source's adjoint after the last
+                    # (_gather_sums)
                     if self.grad[src.id]:
-                        self.rev.append(self.scatter(
-                            f"d{nid}[j{self.tag}{nid}_{i}]", a,
-                            nid in self.loop_len))
+                        self.rev.append(self.entry_add(node, i, a))
                         self.rops += 2
                 elif self.grad[node.source.id] and self.ws and \
                         self.inv_base[node.source.id] >= self.n_dense:
@@ -961,9 +993,6 @@ def _program(em, roots, total=False, store=None, seed=None,
     flat = []                          # buffered inputs that are not loops
     gathers = [n for n in order if n.id in whole and n.id not in em.mv
                and em.grad[whole[n.id].id] and reverse]
-    for g in gathers:
-        if g.id not in em.sums:
-            em.sums[g.id] = em.alloc(2 * em.size(whole[g.id]), 2)
     buffered = set()                   # each buffered input once
     for rid, c in whole.items():
         if c.id not in em.buf or c.id in buffered:
@@ -996,10 +1025,16 @@ def _program(em, roots, total=False, store=None, seed=None,
                 need.update(c.id for c in R.children_of(node)
                             if c.id in looped and whole.get(node.id) is not c)
         loop.body = [n for n in order if n.id in need]
+    _split_loops(em, loops, gathers, whole, store)
+    for g in gathers:
+        if g.id not in em.sums and em.sum_mode[g.id] != "local":
+            k = em.size(whole[g.id])
+            em.sums[g.id] = em.alloc(
+                2 * k * (LANES if em.sum_mode[g.id] == "slot" else 1), 2)
 
     em.vals, em.adj, em.lse, em.fops = {}, {}, {}, 0
     fwd, rev = [], []
-    n_stages = max(stage.values()) + 1
+    n_stages = max(stage.values(), default=0) + 1
     sync = ["  RT_WARP_SYNC();"] if em.ws else []
     for s in range(n_stages):
         em.fwd = fwd
@@ -1022,6 +1057,10 @@ def _program(em, roots, total=False, store=None, seed=None,
     terms = [t for r in roots for t in (
         [f"(float)r{r.id}"] if r.id in looped
         else [em.el(r, i) for i in range(em.size(r))])]
+    # the lanes' own adjoint sums of the gathers that keep them in a
+    # per-thread array, live from here to each one's flush
+    rev += [f"  RT_EPART(d{g.id}, {em.size(whole[g.id])});" for g in gathers
+            if em.sum_mode[g.id] == "local"]
     for s in reversed(range(n_stages if reverse else 0)):
         em.rev = rev
         for c in flat:
@@ -1044,6 +1083,51 @@ def _program(em, roots, total=False, store=None, seed=None,
                 rev += _product_pass(em, node, transpose=True)
     em.fwd, em.rev = fwd, rev
     return fwd, rev, terms
+
+
+def _split_loops(em, loops, gathers, whole, store) -> None:
+    """Which loops split their elements over the chain's lanes
+    (`loop.split`), and where each gather by an index column read whole
+    sums its adjoints (`em.sum_mode`).  A workspace model splits every
+    loop.  A register model, whose every lane holds the whole state,
+    splits a loop that reads an index column whole where no lane needs
+    what another computes for an element: its outputs are sums,
+    captures and the function's total, it adds to no looped leaf's
+    adjoint, and every gather in it from a source of at most
+    ENTRY_LOCAL_MAX entries; its lanes' sums then meet in the butterfly,
+    the same bits in every lane.  A gather in a loop that splits sums
+    its adjoints by entry in each lane's own array ("local"), or past
+    ENTRY_LOCAL_MAX in the lanes' copies in the slot ("slot"); otherwise
+    whole ("plain")."""
+    body = {id(loop): {n.id for n in loop.body} for loop in loops.values()}
+    for loop in loops.values():
+        loop.split = em.ws or (
+            any(n.id in em.wints for n in loop.body)
+            and all(kind in ("sum", "capture")
+                    or (kind == "root" and store is None)
+                    for kind, _, _ in loop.outs)
+            and not any(em.leaf(n) and em.grad.get(n.id)
+                        and n.id in em.loop_len for n in loop.body)
+            and all(em.size(whole[g.id]) <= ENTRY_LOCAL_MAX
+                    for g in gathers if g.id in body[id(loop)]))
+    # a gather recomputed in several loops sums its adjoints one way
+    changed = True
+    while changed and not em.ws:
+        changed = False
+        for g in gathers:
+            ls = [lp for lp in loops.values() if g.id in body[id(lp)]]
+            if any(lp.split for lp in ls) and not all(lp.split for lp in ls):
+                for lp in ls:
+                    lp.split = False
+                changed = True
+    em.lanes = em.lanes or (not em.ws and any(
+        lp.split for lp in loops.values()))
+    for g in gathers:
+        split = any(lp.split for lp in loops.values()
+                    if g.id in body[id(lp)])
+        em.sum_mode[g.id] = (
+            "plain" if not split else
+            "local" if em.size(whole[g.id]) <= ENTRY_LOCAL_MAX else "slot")
 
 
 def _product_pass(em, node, transpose=False):
@@ -1079,20 +1163,41 @@ def _product_pass(em, node, transpose=False):
 
 def _gather_sums(em, node, flush=False):
     """The f64 sums of a Gather by an index column read whole, one per
-    source entry, in scr (d<id>): set to 0 before the forward pass has
-    read anything, or, with `flush`, added to the source's adjoint once
-    its reverse pass has scattered every element's (in a slot the lanes
-    split the entries, with warp barriers around)."""
-    k, off = em.size(node.source), em.sums[node.id]
+    source entry (d<id>): set to 0 before the forward pass has read
+    anything, or, with `flush`, added to the source's adjoint once its
+    reverse pass has added every element's.  By `em.sum_mode`: "local",
+    each lane's sums in an array of its own (declared with the reverse
+    pass), added up over the lanes in the butterfly's order and then to
+    the adjoint, in a slot each entry by its lane; "slot", the lanes' copies
+    in scr, entry e of lane l at e·RT_LANES + l, each entry's summed in
+    the butterfly's order by the lane that adds it; "plain", one sum an
+    entry in scr (in a slot the lanes split the entries).  A slot's
+    passes have warp barriers around.  No atomics: the sums' order is
+    fixed, so the kernel is bit-reproducible."""
+    k, off, nid = em.size(node.source), em.sums.get(node.id), node.id
+    mode = em.sum_mode[nid]
     sync = ["  RT_WARP_SYNC();"] if em.ws else []
     head = (f"  for (int k = RT_LANE; k < {k}; k += RT_LSTEP)" if em.ws
             else f"  for (int k = 0; k < {k}; ++k)")
     if not flush:
-        return [f"  double* d{node.id} = (double*)(scr + {off});",
-                f"{head} d{node.id}[k] = 0.0;", *sync]
+        if mode == "local":
+            return []
+        if mode == "slot":
+            head = (f"  for (int k = RT_LANE; k < {k} * RT_LANES; "
+                    "k += RT_LSTEP)")
+        return [f"  double* d{nid} = (double*)(scr + {off});",
+                f"{head} d{nid}[k] = 0.0;", *sync]
     em.rops += k
     adj = em.addr[node.source.id][1].format("k")
-    return [*sync, f"{head} {adj} += (float)d{node.id}[k];", *sync]
+    if mode == "local":
+        mine = "if (k % RT_LSTEP == RT_LANE) " if em.ws else ""
+        return [f"  RT_ESUM(d{nid}, {k});", *sync, "#pragma unroll",
+                f"  for (int k = 0; k < {k}; ++k) {mine}{adj} += "
+                f"(float)d{nid}[k];", *sync]
+    if mode == "slot":
+        return [*sync, f"{head} {adj} += (float)rt_lane_tree<RT_LANES>("
+                       f"d{nid} + (size_t)k * RT_LANES);", *sync]
+    return [*sync, f"{head} {adj} += (float)d{nid}[k];", *sync]
 
 
 def _flat_buffer(em, node):
@@ -1116,32 +1221,34 @@ def _loop_body(em, loop):
 
 def _loop(em, k, pre, body, post):
     """A loop over the k elements.  In registers nvcc would unroll it to
-    keep the arrays there; over the workspace the lanes of a chain split
-    the elements (lane l takes l, l + 32, ...: RT_LANE, RT_LSTEP in
-    csrc/rt_math.cuh), and unrolling by eight keeps loads of several
-    elements in flight."""
-    head = ("  for (int i = RT_LANE; i < {k}; i += RT_LSTEP) {{" if em.ws
+    keep the arrays there; split over the lanes of a chain (over the
+    workspace, or reading an index column whole) lane l takes l, l + 32,
+    ... (RT_LANE, RT_LSTEP in csrc/rt_math.cuh), and unrolling by eight
+    keeps loads of several elements in flight."""
+    head = ("  for (int i = RT_LANE; i < {k}; i += RT_LSTEP) {{" if em.split
             else "  for (int i = 0; i < {k}; ++i) {{").format(k=k)
-    return [*pre, f"#pragma unroll {8 if em.ws else 1}", head,
+    return [*pre, f"#pragma unroll {8 if em.split else 1}", head,
             *_indent(body), "  }", *post]
 
 
-def _part(ws: bool, name: str) -> str:
-    """The declaration of an f64 sum over a loop's elements: over the
-    workspace, a lane's partial sum, which _part_sum adds up over the
-    lanes (RT_PART in csrc/rt_math.cuh)."""
-    return f"  RT_PART(double, {name});" if ws else f"  double {name} = 0.0;"
+def _part(split: bool, name: str) -> str:
+    """The declaration of an f64 sum over a loop's elements: in a loop
+    split over the lanes, a lane's partial sum, which _part_sum adds up
+    over the lanes (RT_PART in csrc/rt_math.cuh)."""
+    return f"  RT_PART(double, {name});" if split \
+        else f"  double {name} = 0.0;"
 
 
-def _part_add(ws: bool, name: str, value: str) -> str:
+def _part_add(split: bool, name: str, value: str) -> str:
     """Element i's value added to the sum `name`."""
-    return f"  RT_ADD({name}, i, {value});" if ws else f"  {name} += {value};"
+    return f"  RT_ADD({name}, i, {value});" if split \
+        else f"  {name} += {value};"
 
 
-def _part_sum(ws: bool, names) -> list[str]:
+def _part_sum(split: bool, names) -> list[str]:
     """After the loop: the lanes' partial sums added up, the same bits in
     every lane."""
-    return [f"  RT_SUM({n});" for n in names] if ws else []
+    return [f"  RT_SUM({n});" for n in names] if split else []
 
 
 def _loop_forward(em, loop, total, store):
@@ -1151,21 +1258,22 @@ def _loop_forward(em, loop, total, store):
     if not any(kind != "root" or total or store is not None
                for kind, _, _ in loop.outs):
         return []
+    em.split = loop.split
     body = _loop_body(em, loop)
     pre, post = [], []
     for kind, c, reader in loop.outs:
         v = em.el(c, 0)
         if kind == "sum" or (kind == "root" and total):
             r = f"r{reader.id if kind == 'sum' else c.id}"
-            pre.append(_part(em.ws, r))
-            body.append(_part_add(em.ws, r, v))
-            post += _part_sum(em.ws, [r])
+            pre.append(_part(em.split, r))
+            body.append(_part_add(em.split, r, v))
+            post += _part_sum(em.split, [r])
             em.fops += loop.k
         elif kind == "capture":
             j = _static_slot(reader, loop.k)
             pre.append(f"  float k{reader.id} = 0.0f;")
             body.append(f"  if (i == {j}) k{reader.id} = {v};")
-            if em.ws:       # from the lane that holds element j
+            if em.split:    # from the lane that holds element j
                 post.append(f"  RT_BCAST(k{reader.id}, {j});")
         elif kind == "buffer":
             body += [f"  {em.addr[c.id][0].format('i')} = {v};",
@@ -1173,13 +1281,16 @@ def _loop_forward(em, loop, total, store):
         elif store is not None:
             body.append(store(c, "i", v))
     em.mult = 1
-    return _loop(em, loop.k, pre, body, post)
+    out = _loop(em, loop.k, pre, body, post)
+    em.split = em.ws
+    return out
 
 
 def _loop_reverse(em, loop, total, seed):
     """The reverse loop: the body recomputed, its adjoints declared and
     seeded from its readers (and roots), then run back; scalars' adjoints
     are summed over the elements in f64 and added after the loop."""
+    em.split = loop.split
     body = _loop_body(em, loop)
     for n in loop.body:
         if em.grad[n.id] and not em.leaf(n):
@@ -1207,12 +1318,14 @@ def _loop_reverse(em, loop, total, seed):
         em.backward(n)
     accs, em.loop_acc, em.mult = em.loop_acc, None, 1
     # a block of its own: another loop may sum into the same scalars
-    return ["  {", *_indent(_loop(
-        em, loop.k, [_part(em.ws, t) for t in accs.values()], body,
-        [*_part_sum(em.ws, accs.values()),
+    out = ["  {", *_indent(_loop(
+        em, loop.k, [_part(em.split, t) for t in accs.values()], body,
+        [*_part_sum(em.split, accs.values()),
          *[_add_to(em, nid, em.adj[nid][j], f"(float){t}")
            for (nid, j), t in accs.items()]])),
         "  }"]
+    em.split = em.ws
+    return out
 
 
 def _row_layout(columns, index=False):
@@ -1297,14 +1410,25 @@ class _RowCtx(NamedTuple):
     n_dense: int        # the first of inv that some row reads densely
     own: tuple          # the space's columns
     offs: dict          # where each sits in the tile row (_row_layout)
+    at_row: frozenset = frozenset()  # over the workspace, the aligned
+                                     # vectors no rebuilt source reads: the
+                                     # row adds its adjoint to their entry
+    params: tuple = ()  # (parameter vector, its first slot in q) that an
+                        # aligned vector is, or is an elementwise function
+                        # of: read from the chain's state at the row
+    inline: frozenset = frozenset()  # the nodes between such a parameter
+                                     # and its aligned vector, computed in
+                                     # the row
 
 
 def _bind_row(em, ctx, rix):
     """A row emitter's inputs at row `rix`: the row-invariant values from
     inv, their adjoints into ainv (an aligned vector's element `rix`,
-    its adjoint a local that _aligned_adds hands on), and the space's
-    columns, from the tile (rix "rix") or, for a rebuilt source, read
-    whole at row rix from their device pointers."""
+    its adjoint a local that _aligned_adds hands on), the parameter
+    vectors read at the row's own index from the chain's state q, their
+    adjoints handed on to g, and the space's columns, from the tile (rix
+    "rix") or, for a rebuilt source, read whole at row rix from their
+    device pointers."""
     em.rowctx, em.n_dense = ctx, ctx.n_dense
     for fid, b in ctx.base.items():
         em.inv_base[fid] = b
@@ -1313,11 +1437,19 @@ def _bind_row(em, ctx, rix):
             em.vals[fid] = [f"inv[{b} + {rix}]"]
             if ctx.grad[fid]:
                 em.adj[fid] = [f"al{em.tag}{fid}"]
-                em.aligned.append((em.adj[fid][0], b, rix))
+                own = rix == "rix" and fid in ctx.at_row
+                em.aligned.append((em.adj[fid][0],
+                                   "cainv" if own else "ainv",
+                                   f"{b} + {rix}", own))
             continue
         em.vals[fid] = [f"inv[{b + i}]" for i in range(ctx.size[fid])]
         if ctx.grad[fid]:
             em.adj[fid] = [f"ainv[{b + i}]" for i in range(ctx.size[fid])]
+    for p, a in ctx.params if rix == "rix" else ():
+        em.vals[p.id] = [f"q[{a} + {rix}]"]
+        em.adj[p.id] = [f"al{em.tag}{p.id}"]
+        em.grad[p.id] = True
+        em.aligned.append((em.adj[p.id][0], "g", f"{a} + {rix}", True))
     for c in ctx.own:
         em.grad[c.id] = False
         o, j = ctx.offs[c.id], em.col_index[c.id]
@@ -1336,27 +1468,60 @@ def _bind_row(em, ctx, rix):
             em.vals[c.id] = [val]
 
 
+def _elementwise_of(node, layout, n):
+    """(the parameter vector of n elements, its first slot in q) that
+    `node` is, or is an elementwise function of with constants alone
+    beside it; else None."""
+    found = []
+    for m in R.topological([node]):
+        if isinstance(m, R.VectorParameter):
+            found.append(m)
+        elif not isinstance(m, (R.Constant, R.Unary, R.Binary, R.NArySum)):
+            return None
+    if len(found) != 1 or found[0] not in layout.parameters:
+        return None
+    a, b = layout.slices[layout.parameters.index(found[0])]
+    return (found[0], a) if b - a == n else None
+
+
+def _rebuilt(space) -> set:
+    """The nodes of the sources that a row of `space` rebuilds at another
+    row (a Gather by an IntColumn whose source varies by row)."""
+    return {m.id for node in R.topological(list(space.roots))
+            if isinstance(node, R.Gather)
+            and isinstance(node.index, R.IntColumn)
+            and space.dep[node.source.id]
+            for m in R.topological([node.source])}
+
+
 def _aligned_decls(em) -> list[str]:
-    return [f"  float {name} = 0.0f;" for name, _, _ in em.aligned]
+    return [f"  float {name} = 0.0f;" for name, _, _, _ in em.aligned]
 
 
 def _aligned_adds(em) -> list[str]:
-    """Each aligned vector's adjoint at its row, into the lane's own ainv,
-    or over the workspace handed back in sidx/sval like a per-row
-    gather's."""
+    """Each aligned vector's adjoint at its row, added to its entry: of
+    ainv, the lane's own copy, in a register model; over the workspace of
+    the chain's own ainv (cainv), or of g for a parameter read from the
+    chain's state.  At the row's own index no other row of the space has
+    that entry, so over the workspace each entry has one writer and
+    neighbouring lanes write neighbouring entries.  A vector that a source
+    rebuilt at another row reads may share an entry with other lanes:
+    over the workspace its adjoint is handed back in sidx/sval like a
+    per-row gather's."""
     out = []
-    for name, b, rix in em.aligned:
-        if em.ws:
-            out += [f"  sidx[{em.scatters}] = {b} + {rix};",
+    for name, array, index, own in em.aligned:
+        if em.ws and not own:
+            out += [f"  sidx[{em.scatters}] = {index};",
                     f"  sval[{em.scatters}] = {name};"]
             em.scatters += 1
         else:
-            out.append(f"  ainv[{b} + {rix}] += {name};")
+            out.append(f"  {array}[{index}] += {name};")
         em.rops += 2
     return out
 
 
-def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned):
+def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
+                at_row=frozenset(), params=(), inline=frozenset()):
     """One row space's row function and tile loaders: (body lines,
     SpaceTiles, fill lines, asynchronous fill lines, per-row gathers,
     whether the row reads columns whole).  The row-invariant values
@@ -1371,11 +1536,12 @@ def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned):
     own = [cd.columns[j] for j in space.columns]
     offs, widths, width = _row_layout(own, bool(aligned))
     ctx = _RowCtx(space.n_rows, space.dep, base, size, grad,
-                  frozenset(aligned), n_dense, tuple(own), offs)
+                  frozenset(aligned), n_dense, tuple(own), offs,
+                  at_row, tuple(params), inline)
     row = _Emitter(cd, ws)
     _bind_row(row, ctx, "rix")
     order = R.topological(list(space.roots))
-    dep = space.dep
+    dep = {k: v or k in inline for k, v in space.dep.items()}
     for node in order:
         if dep[node.id] or isinstance(node, R.Constant):
             row.forward(node)
@@ -1449,6 +1615,27 @@ def _emit_rows(cd, spaces, ws, whole, scratch):
                         "the CUDA emitter")
             elif kind != "gather":
                 dense.add(fid)
+    # over the workspace, an aligned vector that a parameter vector of the
+    # rows' length is, or is an elementwise function of: the row reads the
+    # parameter from the chain's state at its index, computes the
+    # function there and adds the adjoint to g, so the vector needs
+    # neither inv nor ainv, nor the passes that fill and read them
+    params, inline = [[] for _ in spaces], [set() for _ in spaces]
+    held = set()
+    byid = {f.id: f for f in frontier}
+    at_row = [frozenset(aligned[s] - _rebuilt(space)) if ws else frozenset()
+              for s, space in enumerate(spaces)]
+    for s, space in enumerate(spaces):
+        for fid in sorted(at_row[s]):
+            pa = _elementwise_of(byid[fid], cd.layout, space.n_rows)
+            if pa is None or reads[fid] != {(s, "elem")}:
+                continue
+            held.add(fid)
+            if pa not in params[s]:
+                params[s].append(pa)
+            inline[s] |= {m.id for m in R.topological([byid[fid]])
+                          if m is not pa[0] and not isinstance(m, R.Constant)}
+    frontier = [f for f in frontier if f.id not in held]
     dense |= {f.id for f in frontier if size[f.id] == 1}
     # inv: the dense values first, then the gathered blocks
     frontier = ([f for f in frontier if f.id in dense]
@@ -1485,14 +1672,21 @@ def _emit_rows(cd, spaces, ws, whole, scratch):
         f", float*{r} scr" if scratch else "")
     one = len(spaces) == 1
     made = [_space_rows(cd, space, ws, pre.grad, base, size,
-                        "RT_ROW_W" if one else None, n_dense, aligned[s])
+                        "RT_ROW_W" if one else None, n_dense, aligned[s],
+                        at_row[s], params[s], frozenset(inline[s]))
             for s, space in enumerate(spaces)]
     # a row that rebuilds a source at another row reads columns whole:
-    # then every row function takes them
+    # then every row function takes them; over the workspace, one that
+    # reads a vector at its own index takes the chain's state, gradient
+    # and ainv, where it adds that element's adjoint
     row_cols = any(m[-1] for m in made)
+    row_state = any(at_row)
     row_sig = (f"float*{r} x, const float*{r} inv, float*{r} ainv"
                + (f", int*{r} sidx, float*{r} sval" if ws else "")
-               + (", const RtCols& cols)" if row_cols else ")"))
+               + (", const RtCols& cols" if row_cols else "")
+               + (f", const float*{r} q, float*{r} g, float*{r} cainv"
+                  if row_state else "")
+               + ")")
     fill_sig = "(float* tile, const RtCols& cols, int row0, int rows, " \
                "int tid, int nt)"
     tiles, spaces_text = [], []
@@ -1569,7 +1763,8 @@ def _emit_rows(cd, spaces, ws, whole, scratch):
         lines += [*post_fn, "", f"#define RT_SPACES {len(spaces)}",
                   "template <int S> struct RtSpace;", *spaces_text]
     inv_ops = pre.fops + post.fops + post.rops + len(post_seeds)
-    return lines, inv_ops, n_inv, n_dense, tuple(tiles), scratch, row_cols
+    return (lines, inv_ops, n_inv, n_dense, tuple(tiles), scratch, row_cols,
+            pre.lanes or post.lanes, row_state)
 
 
 def _cols_struct(columns):
@@ -1649,9 +1844,10 @@ def _emit(cd, ws: bool) -> EmittedDensity:
     fwd, rev, total = _program(em, roots, total=True)
     lp_ops = max(len(total) - 1, 0)
     n = cd.n_vars
-    rows, inv_ops, n_inv, n_dense, spaces, scratch, row_cols = (
+    (rows, inv_ops, n_inv, n_dense, spaces, scratch, row_cols, lanes,
+     row_state) = (
         _emit_rows(cd, split.spaces, ws, whole, em.scratch) if split.spaces
-        else ([], 0, 0, 0, (), em.scratch, False))
+        else ([], 0, 0, 0, (), em.scratch, False, False, False))
     slot = workspace_floats(n, n_inv, bool(spaces), n_dense, scratch) \
         if ws else 0
     r = _RESTRICT if ws else ""
@@ -1668,13 +1864,16 @@ def _emit(cd, ws: bool) -> EmittedDensity:
         f"#define RT_ROW_W {top.row_width}",
         f"#define RT_TILE {max(top.tile_rows, 1)}",
         *([f"#define RT_WS_FLOATS {slot}"] if ws else []),
-        # a warp a chain, unless the build defines fewer lanes
+        # a warp a chain, unless the build defines fewer lanes (a
+        # register model's loops split over them where they read an
+        # index column whole)
         *(["#ifndef RT_LANES", f"#define RT_LANES {LANES}", "#endif"]
-          if ws else []),
+          if ws or lanes or em.lanes else []),
         *(["#define RT_WS_SHARED 1"] if shared else []),
         *(["#define RT_WHOLE_COLS 1"] if whole else []),
         *([f"#define RT_SCRATCH {scratch}"] if scratch else []),
         *(["#define RT_ROW_COLS 1"] if row_cols else []),
+        *(["#define RT_ROW_STATE 1"] if row_state else []),
         "",
         *_cols_struct(cd.columns),
         "",

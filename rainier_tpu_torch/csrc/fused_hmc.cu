@@ -88,21 +88,29 @@
 //
 // The forms the density takes since the latent GP and the row forms
 // (compute/emit_cuda.py says how each is emitted): a vector that a node
-// reads whole past the unroll (L·z of an MVNormal of 17 or more
-// dimensions; the source of a gather by an index column read whole) is
-// held in the density's scratch, RT_SCRATCH floats a call, per thread in
-// a register model and in the chain's slot at RT_OFF_SCR in a workspace
-// model, where the lanes split the passes over it; the f64 sums of such
-// a gather's adjoints lie there too, so it starts at an even offset.  A
-// row that reads a vector of the rows' length by element reads it at the
-// row's index, which the tile loader writes after the columns; a row that
-// reads a source varying by row at another row's index rebuilds it there
-// from the columns' device pointers, so its function takes the columns
-// (RT_ROW_COLS, RT_ROWC).  What bounds these: the product's 2·n·p
+// reads whole past the unroll (L·z of an MVNormal of 17 or more dimensions;
+// the source of a gather by an index column read whole) is held in the
+// density's scratch, RT_SCRATCH floats a call, per thread in a register
+// model and in the chain's slot at RT_OFF_SCR in a workspace model, where
+// the lanes split the passes over it; the f64 sums of such a gather's
+// adjoints lie there too past a source of emit_cuda.ENTRY_LOCAL_MAX
+// entries, so it starts at an even offset.  The loops over an index column
+// read whole split over the chain's lanes even in a register model, each
+// lane summing its elements' adjoints by entry in an array of its own, and
+// the lanes' sums meet in the butterfly: no atomics, so such a kernel gives
+// the same bits in every launch.  A row that reads a vector of the rows'
+// length by element reads it at the row's index, which the tile loader
+// writes after the columns, and adds its adjoint at that entry, which no
+// other row has; over the workspace a parameter vector, or an elementwise
+// function of one, is read from the chain's state x and its adjoint added
+// to g there (RT_ROW_STATE, RT_ROWQ), with no copy in inv or ainv.  A row
+// that reads a source varying by row at another row's index rebuilds it
+// there from the columns' device pointers, so its function takes the
+// columns (RT_ROW_COLS, RT_ROWC).  What bounds these: the product's 2·n·p
 // multiply-adds a density call, split over the lanes (the 64-input GP:
-// 8,192), the index column read whole in every lane of a register model
-// (a loop of n loads a call; a slot splits it), and the 100,000-element
-// state, inv and ainv of a vector per row, bytes of the workspace.
+// 8,192), the index column's loops (n / 32 int loads and f64 adds a lane,
+// three passes a call), and the 100,000-element state of a vector per row,
+// bytes of the workspace.
 //
 // Integer index columns.  The generated RtCols holds each column with its
 // own type (int32 for an IntColumn), and the loader keeps an index's bits
@@ -127,7 +135,7 @@
 // slot of RT_WS_FLOATS floats per chain, the ragged edge's copies
 // included, holding the seven state arrays, inv, ainv, and the 32 lanes'
 // copies of the adjoints that every row reads (RT_OFF_LANES).  Every pass
-// over the state (rt_mul, the kicks and drifts, rt_take, rt_collect) and
+// over the state (the kicks and drifts, rt_take, rt_collect) and
 // every emitted loop over a vector splits its elements over the lanes,
 // lane l taking l, l + 32, ... (RT_FOR), so a warp's access is one
 // 128-byte line; p·p and every emitted sum are lane partials and a
@@ -137,10 +145,12 @@
 // A __syncwarp (RT_WS_SYNC) separates two passes where a lane reads what
 // another wrote: the natural coordinates x before the density, inv
 // before the rows, ainv after each step's scatter and before
-// rt_rows_post, the gradient before it is scaled.  What bounds such a
-// model is the latency of those passes (about 25 over arrays of RT_DIM
-// floats per density call, 313 elements a lane for glmm_large) and of the
-// rows' gathers and scatters into the slot, with 8 warps on an SM.
+// rt_rows_post, the gradient before the next kick.  The drift writes x
+// beside qn, and the kicks scale the gradient as they read it
+// (rt_gs), so no pass of its own does either.  What bounds such a model
+// is the latency of those passes (about 23 over arrays of RT_DIM floats
+// per density call, 313 elements a lane for glmm_large) and of the rows'
+// gathers and scatters into the slot, with 8 warps on an SM.
 //
 // Chains without rows (the column-free branch, hmc_pallas.py:257-301 with
 // no columns).  With one thread a chain (L = 1), the chain's state in
@@ -276,6 +286,18 @@ static_assert(RT_LANES > 0 && RT_LANES <= 32 &&
 #else
 #define RT_ROWC(cols)
 #endif
+// A row that reads a vector of the rows' length at its own index adds its
+// adjoint at that entry, which no other row of the space has: a parameter
+// vector (or an elementwise function of one) it reads from the chain's
+// natural coordinates q and adds to g, any other vector it reads from inv
+// and adds to the chain's own ainv, not to the lane's copy of the dense
+// adjoints that its `ainv` is over the workspace; so its function takes
+// them (RT_ROW_STATE, RT_ROWQ).
+#ifdef RT_ROW_STATE
+#define RT_ROWQ(q, g, a) , q, g, a
+#else
+#define RT_ROWQ(q, g, a)
+#endif
 #if RT_ROW_W > 0 && !defined(RT_SPACES)
 #define RT_SPACES 1
 template <int S>
@@ -285,14 +307,16 @@ struct RtSpace<0> {
 #ifdef RT_WS_FLOATS
   enum { kW = RT_ROW_W, kTile = RT_TILE, kGathers = RT_GATHERS };
   static RT_HD float row(const float* x, const float* inv, float* ainv,
-                         int* sidx, float* sval RT_ROWC(const RtCols& cols)) {
-    return rt_row(x, inv, ainv, sidx, sval RT_ROWC(cols));
+                         int* sidx, float* sval RT_ROWC(const RtCols& cols)
+                             RT_ROWQ(const float* q, float* g, float* cainv)) {
+    return rt_row(x, inv, ainv, sidx, sval RT_ROWC(cols) RT_ROWQ(q, g, cainv));
   }
 #else
   enum { kW = RT_ROW_W, kTile = RT_TILE };
   static RT_HD float row(const float* x, const float* inv,
-                         float* ainv RT_ROWC(const RtCols& cols)) {
-    return rt_row(x, inv, ainv RT_ROWC(cols));
+                         float* ainv RT_ROWC(const RtCols& cols)
+                             RT_ROWQ(const float* q, float* g, float* cainv)) {
+    return rt_row(x, inv, ainv RT_ROWC(cols) RT_ROWQ(q, g, cainv));
   }
 #endif
   static RT_HD void fill(float* tile, const RtCols& cols, int row0, int rows,
@@ -400,24 +424,61 @@ RT_HD void rt_mul_in(float* __restrict__ g, const float* __restrict__ b) {
   RT_FOR(d, RT_DIM) g[d] = b[d] * g[d];
 }
 
+// Over the workspace the gradient in the state arrays stays as the
+// density leaves it, dlogp/dx, and a kick scales it by sc as it reads it;
+// a drift writes the natural coordinates x = qn·sc beside qn, where the
+// density reads them.  That saves two passes over RT_DIM floats a
+// leapfrog step (x = q·sc before the density, g = sc·g after it), with
+// the same bits: a product rounds the same wherever it is taken.  A
+// chain with its state in registers scales and multiplies in rt_lp_grad.
+#ifdef RT_WS_FLOATS
+#define RT_LAZY_SCALE 1
+#endif
+
+// element d of the gradient in standardized coordinates
+RT_HD float rt_gs(const float* __restrict__ g, const float* __restrict__ sc,
+                  int d) {
+#ifdef RT_LAZY_SCALE
+  return sc[d] * g[d];
+#else
+  (void)sc;
+  return g[d];
+#endif
+}
+
+// x[d] = qn[d]·sc[d] where the drift writes x (over the workspace)
+RT_HD void rt_put_x(float* __restrict__ x, const float* __restrict__ qn,
+                    const float* __restrict__ sc, int d) {
+#ifdef RT_LAZY_SCALE
+  x[d] = qn[d] * sc[d];
+#else
+  (void)x, (void)qn, (void)sc, (void)d;
+#endif
+}
+
 // the first leapfrog step's kick and drift: p += h * g, qn = q + eps * p
 RT_HD void rt_kick_drift(float* __restrict__ p, float* __restrict__ qn,
-                         const float* __restrict__ q,
-                         const float* __restrict__ g, float h, float eps) {
+                         float* __restrict__ x, const float* __restrict__ q,
+                         const float* __restrict__ g,
+                         const float* __restrict__ sc, float h, float eps) {
   RT_UNROLL
   RT_FOR(d, RT_DIM) {
-    p[d] = p[d] + h * g[d];
+    p[d] = p[d] + h * rt_gs(g, sc, d);
     qn[d] = q[d] + eps * p[d];
+    rt_put_x(x, qn, sc, d);
   }
 }
 
 // a later step's: p += eps * gn, qn += eps * p
 RT_HD void rt_kick_drift_in(float* __restrict__ p, float* __restrict__ qn,
-                            const float* __restrict__ gn, float eps) {
+                            float* __restrict__ x,
+                            const float* __restrict__ gn,
+                            const float* __restrict__ sc, float eps) {
   RT_UNROLL
   RT_FOR(d, RT_DIM) {
-    p[d] = p[d] + eps * gn[d];
+    p[d] = p[d] + eps * rt_gs(gn, sc, d);
     qn[d] = qn[d] + eps * p[d];
+    rt_put_x(x, qn, sc, d);
   }
 }
 
@@ -432,11 +493,12 @@ RT_HD float rt_energy(const float* __restrict__ p) {
 
 // the last half kick, p += h * gn; returns p·p
 RT_HD float rt_kick_energy(float* __restrict__ p,
-                           const float* __restrict__ gn, float h) {
+                           const float* __restrict__ gn,
+                           const float* __restrict__ sc, float h) {
   RT_PASS_PART(float, k);
   RT_UNROLL
   RT_FOR(d, RT_DIM) {
-    p[d] = p[d] + h * gn[d];
+    p[d] = p[d] + h * rt_gs(gn, sc, d);
     RT_PASS_ADD(k, d, p[d] * p[d]);
   }
   RT_PASS_SUM(k);
@@ -620,9 +682,11 @@ struct RtGathers {
 };
 template <int S>
 RT_HD float rt_row_at(const float* x, const float* inv, float* own,
-                      int* sidx, float* sval, const RtCols& cols) {
-  (void)cols;
-  return RtSpace<S>::row(x, inv, own, sidx, sval RT_ROWC(cols));
+                      int* sidx, float* sval, const RtCols& cols,
+                      const float* q, float* g, float* ainv) {
+  (void)cols, (void)q, (void)g, (void)ainv;
+  return RtSpace<S>::row(x, inv, own, sidx, sval RT_ROWC(cols)
+                             RT_ROWQ(q, g, ainv));
 }
 #else
 template <int S>
@@ -631,9 +695,10 @@ struct RtGathers {
 };
 template <int S>
 RT_HD float rt_row_at(const float* x, const float* inv, float* own,
-                      int* sidx, float* sval, const RtCols& cols) {
-  (void)sidx, (void)sval, (void)cols;
-  return RtSpace<S>::row(x, inv, own RT_ROWC(cols));
+                      int* sidx, float* sval, const RtCols& cols,
+                      const float* q, float* g, float* ainv) {
+  (void)sidx, (void)sval, (void)cols, (void)q, (void)g, (void)ainv;
+  return RtSpace<S>::row(x, inv, own RT_ROWC(cols) RT_ROWQ(q, g, ainv));
 }
 #endif
 
@@ -648,8 +713,9 @@ RT_HD float rt_row_at(const float* x, const float* inv, float* own,
 template <int S>
 RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
                         float* lanes, float* ainv, double& lp_acc,
-                        double* ainv_acc, const RtCols& cols) {
-  (void)cols;
+                        double* ainv_acc, const RtCols& cols,
+                        const float* q, float* g) {
+  (void)cols, (void)q, (void)g;
   typedef RtSpace<S> Sp;
   enum { kG = RtGathers<S>::value > 0 ? RtGathers<S>::value : 1 };
 #ifdef __CUDA_ARCH__
@@ -659,7 +725,7 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
   // rows, where its slot's copies cost a load and a store for every value
   // of every row (the 32-feature MVNormal logistic's kernel, 33 values:
   // 80.7 s for 1024 chains x 200 draws of HMC(5) so, on an H100)
-  (void)ainv, (void)lanes;
+  (void)lanes;
   float inv_r[RT_NINV_ALLOC], own[RT_NINV_ALLOC];
 #pragma unroll
   for (int k = 0; k < RT_NINV; ++k) inv_r[k] = inv[k], own[k] = 0.0f;
@@ -668,7 +734,8 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
   for (int r = RT_LANE; r < rows; r += RT_LANES) {
     int sidx[1];
     float sval[1];
-    lp_t += rt_row_at<S>(slot + r * Sp::kW, inv_r, own, sidx, sval, cols);
+    lp_t += rt_row_at<S>(slot + r * Sp::kW, inv_r, own, sidx, sval, cols, q,
+                         g, ainv);
   }
 #elif defined(RT_WS_FLOATS)
   float* own = lanes + (size_t)RT_LANE * RT_LANE_COPY;
@@ -681,7 +748,8 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
 #pragma unroll
     for (int g = 0; g < kG; ++g) sidx[g] = -1, sval[g] = 0.0f;
     if (r < rows)
-      lp_t += rt_row_at<S>(slot + r * Sp::kW, inv, own, sidx, sval, cols);
+      lp_t += rt_row_at<S>(slot + r * Sp::kW, inv, own, sidx, sval, cols, q,
+                           g, ainv);
 #pragma unroll
     for (int g = 0; g < RtGathers<S>::value; ++g)
       rt_scatter(ainv, sidx[g], sval[g]);
@@ -695,7 +763,8 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
   for (int k = 0; k < RT_NINV_DENSE; ++k) own[k] = 0.0f;
 #pragma unroll 4
   for (int r = RT_LANE; r < rows; r += RT_LANES)
-    lp_t += Sp::row(slot + r * Sp::kW, inv, own RT_ROWC(cols));
+    lp_t += Sp::row(slot + r * Sp::kW, inv, own RT_ROWC(cols)
+                        RT_ROWQ(q, g, ainv));
 #endif
   lp_acc += (double)rt_warp_sum<RT_LANES>(lp_t);
 #pragma unroll
@@ -716,7 +785,7 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
       if (r0 + l < rows)
         lp_t[l] += rt_row_at<S>(slot + (r0 + l) * Sp::kW, inv,
                                 lanes + (size_t)l * RT_LANE_COPY, si, sv,
-                                cols);
+                                cols, q, g, ainv);
       for (int g = 0; g < kG; ++g) sidx[g][l] = si[g], sval[g][l] = sv[g];
     }
     for (int g = 0; g < RtGathers<S>::value; ++g)
@@ -741,7 +810,7 @@ template <int S>
 RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
                          int stream_cols, float* tile, const float* inv,
                          float* lanes, float* ainv, double& lp_acc,
-                         double* ainv_acc) {
+                         double* ainv_acc, const float* q, float* g) {
   const int n_rows = rows.n[S], kTile = RtSpace<S>::kTile;
   if (stream_cols) {
     // tile t is in slot t & 1: tile 0 before the loop, then tile t + 1
@@ -755,7 +824,7 @@ RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
       RT_TILE_SYNC();
       rt_tile_rows<S>(tile + (t & 1) * RT_TILE_FLOATS,
                       n_rows - row0 < kTile ? n_rows - row0 : kTile, inv,
-                      lanes, ainv, lp_acc, ainv_acc, cols);
+                      lanes, ainv, lp_acc, ainv_acc, cols, q, g);
       RT_TILE_SYNC();
     }
   } else {
@@ -763,13 +832,14 @@ RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
       const int n = n_rows - row0 < kTile ? n_rows - row0 : kTile;
       RtSpace<S>::fill(tile, cols, row0, n, RT_TID, RT_NTHREADS);
       RT_TILE_SYNC();
-      rt_tile_rows<S>(tile, n, inv, lanes, ainv, lp_acc, ainv_acc, cols);
+      rt_tile_rows<S>(tile, n, inv, lanes, ainv, lp_acc, ainv_acc, cols, q,
+                      g);
       RT_TILE_SYNC();
     }
   }
   if constexpr (S + 1 < RT_SPACES)
     rt_space_rows<S + 1>(cols, rows, stream_cols, tile, inv, lanes, ainv,
-                         lp_acc, ainv_acc);
+                         lp_acc, ainv_acc, q, g);
 }
 #endif
 
@@ -809,7 +879,7 @@ RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
 #pragma unroll
   for (int k = 0; k < RT_NINV_DENSE; ++k) ainv_acc[k] = 0.0;
   rt_space_rows<0>(cols, rows, stream_cols, tile, inv, lanes, ainv, lp_acc,
-                   ainv_acc);
+                   ainv_acc, x, g);
   RT_WS_SYNC();
   rt_gathered_sum(lanes, ainv);
 #pragma unroll
@@ -829,15 +899,23 @@ RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
 }
 
 // density + gradient at standardized q: x = q * sc, grad = sc * dlogp/dx
+// (over the workspace x is the drift's, and g stays dlogp/dx: the note
+// at rt_gs)
 RT_HD float rt_lp_grad(const float* q, const float* sc, float* g,
                        const RtCols& cols, const RtRows& rows,
                        int stream_cols, float* tile, float* ws) {
   RT_STATE(x, RT_DIM, RT_OFF_X);
+#ifdef RT_LAZY_SCALE
+  (void)q, (void)sc;
+#else
   rt_mul(x, q, sc);
+#endif
   RT_WS_SYNC();
   const float lp = rt_density(x, g, cols, rows, stream_cols, tile, ws);
   RT_WS_SYNC();
+#ifndef RT_LAZY_SCALE
   rt_mul_in(g, sc);
+#endif
   return lp;
 }
 
@@ -898,12 +976,18 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
   RT_STATE(qn, RT_DIM, 3 * RT_DIM);
   RT_STATE(gn, RT_DIM, 4 * RT_DIM);
   RT_STATE(p, RT_DIM, 5 * RT_DIM);
+#ifdef RT_LAZY_SCALE
+  float* x = ws + RT_OFF_X;
+#else
+  float* x = 0;
+#endif
   RT_UNROLL
   RT_FOR(d, RT_DIM) {
     sc[d] = scale == 0
                       ? 1.0f
                       : scale[scale_per_chain ? (size_t)d * n + c : d];
     q[d] = q0[(size_t)d * n + c] / sc[d];
+    rt_put_x(x, q, sc, d);
   }
   const float eps = eps_in[c];
   float lp = rt_lp_grad(q, sc, g, cols, rows, stream_cols, tile, ws);
@@ -949,13 +1033,13 @@ RT_HD void rt_hmc_chain(int c, int n, const float* q0, const float* scale,
     const float h0 = -lp + 0.5f * k0;
 
     // kick-drift-kick leapfrog, the order of hmc_pallas.py:395-408
-    rt_kick_drift(p, qn, q, g, 0.5f * eps, eps);
+    rt_kick_drift(p, qn, x, q, g, sc, 0.5f * eps, eps);
     float lpn = rt_lp_grad(qn, sc, gn, cols, rows, stream_cols, tile, ws);
     for (int s = 1; s < n_steps; ++s) {
-      rt_kick_drift_in(p, qn, gn, eps);
+      rt_kick_drift_in(p, qn, x, gn, sc, eps);
       lpn = rt_lp_grad(qn, sc, gn, cols, rows, stream_cols, tile, ws);
     }
-    const float k1 = rt_kick_energy(p, gn, 0.5f * eps);
+    const float k1 = rt_kick_energy(p, gn, sc, 0.5f * eps);
     const float h1 = -lpn + 0.5f * k1;
 
     // any non-finite energy rejects (sampler/leapfrog.py:63-76), not

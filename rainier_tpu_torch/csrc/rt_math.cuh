@@ -177,17 +177,44 @@ RT_HD T rt_lane_bcast(T x, int src) {
   return x;
 }
 
-// *p += v where lanes of a chain may add to one entry together (the f64
-// adjoint sums of a gather by an index column read whole, in a slot): an
-// atomic add on the card, in no fixed order; host code walks the lanes
-// in turn
-RT_HD void rt_atomic_add(double* p, double v) {
+// The f64 adjoint sums, by source entry, of a gather by an index column
+// read whole, in a loop split over the lanes (compute/emit_cuda.py,
+// _gather_sums): each lane adds its elements' adjoints into sums of its
+// own, and the lanes' sums of an entry meet in the butterfly's order, so
+// the result has fixed bits without atomics.  RT_EPART(name, k) declares
+// a lane's k sums, a per-thread array (in local memory, L1-cached: a
+// select over the k entries that would keep them in registers gave its
+// last entry every element's adjoint on an H100, PERF.md §6);
+// RT_EADD(name, k, i, j, v) adds element i's v at entry j; RT_ESUM(name,
+// k) leaves every entry's sum over the lanes in name[e] of every lane.
+// Host code keeps each lane's sums apart (lane i mod RT_LANES) and adds
+// them in the butterfly's order.  RT_EADD_SLOT(name, i, j, v) adds to the
+// lanes' copies in the chain's slot, entry e of lane l at e·RT_LANES + l,
+// which the flush sums by rt_lane_tree.
 #ifdef __CUDA_ARCH__
-  atomicAdd(p, v);
+#define RT_EPART(name, k) \
+  double name[k];         \
+  _Pragma("unroll") for (int e_ = 0; e_ < (k); ++e_) name[e_] = 0.0
+#define RT_EADD(name, k, i, j, v) name[j] += (v)
+#define RT_ESUM(name, k)                              \
+  _Pragma("unroll") for (int e_ = 0; e_ < (k); ++e_) \
+    name[e_] = rt_warp_sum<RT_LANES>(name[e_])
+#define RT_EADD_SLOT(name, i, j, v) name[(j) * RT_LANES + RT_LANE] += (v)
 #else
-  *p += v;
+#define RT_EPART(name, k) \
+  double name[k] = {};    \
+  double name##_l[RT_LANES][k] = {}
+#define RT_EADD(name, k, i, j, v) name##_l[(i) % RT_LANES][j] += (v)
+#define RT_ESUM(name, k)                        \
+  for (int e_ = 0; e_ < (k); ++e_) {            \
+    double v_[RT_LANES];                        \
+    for (int l_ = 0; l_ < RT_LANES; ++l_)       \
+      v_[l_] = name##_l[l_][e_];                \
+    name[e_] = rt_lane_tree<RT_LANES>(v_);      \
+  }
+#define RT_EADD_SLOT(name, i, j, v) \
+  name[(j) * RT_LANES + (i) % RT_LANES] += (v)
 #endif
-}
 
 // i clamped to [lo, hi]: the gather's mode="clip"
 RT_HD int rt_clampi(int i, int lo, int hi) {

@@ -79,7 +79,7 @@ hmc_pallas.py:186-191, 305-351): each thread issues its share of tile
 t + 1 as ``cp.async`` copies into one of two shared-memory slots, then
 computes tile t's rows from the other; its 512 chains run 4 to a block,
 so that 128 blocks keep the SMs busy.  A workspace model is bound by the
-latency of its passes over the slot (about 25 a density call) and of its
+latency of its passes over the slot (about 23 a density call) and of its
 rows' gathers and scatters there.  PERF.md holds every kernel's time
 beside its bound.
 

@@ -15,6 +15,7 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 rainier_tpu_torch/tools/kernel_ab.py layouts
     python3 rainier_tpu_torch/tools/kernel_ab.py adapt
     python3 rainier_tpu_torch/tools/kernel_ab.py columnfree LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py forms LABEL
     python3 rainier_tpu_torch/tools/kernel_ab.py zoo STEPS DRAWS DTYPE [FAMILY ...]
 
 ``row-sums``: the kernels of the README regression, the 100k-row
@@ -91,6 +92,17 @@ thread a chain), the emitter's own layouts run as their launch decides,
 tagged "as built": run both checkouts in one call to compare trees.
 Prints one line per shape, lanes and order, tagged LABEL.
 
+``forms``: the kernels of the five density forms the emitter took last
+(``chip_smoke.py``'s latent GP at 64 inputs, 1024 chains × 25 iterations
+of HMC(12); its MVNormal logistic at 32 features, × 100 of HMC(5), from
+points around its Laplace mode; and each row form of ``form_models`` at
+100,000 rows, × 20 of HMC(4)), from a short scan-path warmup's states
+where not named, each the median of 20 launches alone, built from the
+``rainier_tpu_torch`` that the import finds, as ``tiles`` does: run it
+with another checkout's root on PYTHONPATH and with this one's, in the
+order A B B A, to compare two trees.  Prints one line per form tagged
+LABEL, with the time a density call.
+
 ``zoo``: the goldset zoo of ``chip_smoke.py`` (each family's 100,000
 rows synthesized on the card, seed ``ZOO_SEED``), every family or those
 named, fitted through ``Model.sample(kernel="fused!")`` at 1024 chains x
@@ -126,6 +138,14 @@ TILE_ITERS = {"README regression": 1000, "logistic regression": 100,
               "MVNormal logistic": 100,
               "logistic regression, two row spaces": 100,
               "GLMMPoisson2": 500, "glmm_large": 50}
+# the five forms that ``forms`` times: (iterations, leapfrog steps) at
+# PERF.md §6's shapes, the launches each timed over, and the scan-path
+# warmup iterations of HMC(5) their states come from
+FORM_RUNS = {"latent GP": (25, 12), "MVNormal logistic 32": (100, 5),
+             "form index column read whole": (20, 4),
+             "form vector per row": (20, 4),
+             "form row-varying gather": (20, 4)}
+FORM_REPS, FORM_WARMUP = 20, 100
 # the values of W that ``lanes`` times
 LANE_W = (2, 4, 8, 8, 4, 2)
 # ``columnfree``: (what, dims, chains, iterations, explicit noise, lanes
@@ -218,14 +238,14 @@ def kernel_ms(F, cd, q0, kw, device, reps: int = 3):
     return launch_ms(prepare(cd, q0, **kw), device, reps)
 
 
-def _warm(model, n_chains, device):
-    """(q0 (dim, n), ε (n,), Σ̂ (n, dim)) after 300 scan-path warmup
-    iterations."""
+def _warm(model, n_chains, device, warmup=300):
+    """(q0 (dim, n), ε (n,), Σ̂ (n, dim)) after `warmup` scan-path
+    warmup iterations of HMC(5)."""
     import torch
 
     from rainier_tpu_torch.sampler import HMC, SamplerConfig
 
-    tr = model.sample(SamplerConfig(300, 1, sampler=HMC(5)),
+    tr = model.sample(SamplerConfig(warmup, 1, sampler=HMC(5)),
                       n_chains=n_chains, seed=0, kernel="scan",
                       device=device)
     return (torch.as_tensor(tr.chains[:, -1, :].T.copy(), device=device),
@@ -309,9 +329,10 @@ def _build_runs(runs):
         list(pool.map(_build, [run[0].density() for run in runs.values()]))
 
 
-def _time_runs(runs, device, label, built=None):
-    """Each run's kernel (warm, then timed) as its launch decides, from
-    the libraries `built` ({name: build}) or the model's own build."""
+def _time_runs(runs, device, label, built=None, reps=3):
+    """Each run's kernel (warm, then the median of `reps` launches) as
+    its launch decides, from the libraries `built` ({name: build}) or the
+    model's own build."""
     import chip_smoke as cs
     from rainier_tpu_torch.ops import fused_hmc as F
 
@@ -322,10 +343,11 @@ def _time_runs(runs, device, label, built=None):
         if built is not None:
             kernels, _, em = built[name]
             F._BUILT[cd] = {F.emit_cuda.LANES: (kernels, em)}
-        out, ms = kernel_ms(F, cd, q0, kw, device)
+        out, ms = kernel_ms(F, cd, q0, kw, device, reps)
         print(f"RESULT {label} {name}: {q0.shape[1]} chains x {n_it} it x "
-              f"{n_steps} steps {ms:.3f} ms, accept "
-              f"{float(out[2].mean()):.4f}", flush=True)
+              f"{n_steps} steps {ms:.3f} ms ({ms / (n_it * n_steps + 1):.4f}"
+              f" ms a density call), accept {float(out[2].mean()):.4f}",
+              flush=True)
 
 
 def row_sums() -> None:
@@ -369,6 +391,35 @@ def tiles(label: str) -> None:
     runs = _row_runs(device)
     _build_runs(runs)
     _time_runs(runs, device, f"tiles {label}")
+
+
+def _form_runs(device):
+    """{name: (model, (q0, ε, Σ̂), iterations, leapfrog steps)} for the
+    five forms of FORM_RUNS at CHAINS chains."""
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+
+    gp = cs.latent_gp(rt)[0]
+    _, x, ys = cs.logistic_regression(rt, p=cs.MV32_FEATURES)
+    mv, alpha, betas = cs.mvnormal_logistic(rt, x, ys)
+    starts = {"latent GP": (gp, _warm(gp, CHAINS, device, FORM_WARMUP)),
+              "MVNormal logistic 32": (mv, _laplace_start(
+                  cs.mv_design(mv.density(), x, alpha, betas), ys, CHAINS,
+                  device))}
+    for name, (model, _) in cs.form_models(rt).items():
+        starts[f"form {name}"] = (model, _warm(model, CHAINS, device,
+                                               FORM_WARMUP))
+    return {name: (model, start, *FORM_RUNS[name])
+            for name, (model, start) in starts.items()}
+
+
+def forms(label: str) -> None:
+    import torch
+
+    device = torch.device("cuda")
+    runs = _form_runs(device)
+    _build_runs(runs)
+    _time_runs(runs, device, f"forms {label}", reps=FORM_REPS)
 
 
 def lanes() -> None:
@@ -648,6 +699,8 @@ def main(argv) -> int:
         adapt()
     elif argv[:1] == ["columnfree"] and len(argv) == 2:
         columnfree(argv[1])
+    elif argv[:1] == ["forms"] and len(argv) == 2:
+        forms(argv[1])
     elif argv[:1] == ["zoo"] and len(argv) >= 4:
         zoo(int(argv[1]), int(argv[2]), argv[3], argv[4:])
     else:
