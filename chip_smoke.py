@@ -380,6 +380,15 @@ CHUNK_MEAN_SE = 5.0
 GP_INPUTS, GP_SEED, GP_SIGMA, GP_LENGTH, GP_JITTER = 64, 0, 0.3, 1.0, 1e-6
 GP_WARMUP, GP_DRAWS, GP_STEPS, GP_PARITY_ITERS = 150, 2000, 12, 25
 GP_MEAN_SD, GP_SD_REL, GP_THIN = 0.05, 0.05, 4
+# The same GP at GP_WIDE_INPUTS inputs on [0, 10], whose L (256 x 257
+# floats, 263 KB) does not fit a block's shared memory beside its slots:
+# its product passes read a transposed copy of L from device memory.  A
+# short main path (its warmup is eager, GP_WIDE_INPUTS scalar terms a
+# density call), then the density alone and the kernel against its
+# plain version over GP_WIDE_PARITY_ITERS iterations from its states;
+# the exact-posterior bars stay with the 64-input GP
+GP_WIDE_INPUTS, GP_WIDE_WARMUP, GP_WIDE_DRAWS = 256, 30, 200
+GP_WIDE_PARITY_ITERS = 5
 # the 100k logistic's data at MV32_FEATURES features
 # (benchmarks/models.py:145-159 at p = 32) under the MVNormal prior:
 # betas = L·z past 16 elements, held once a density call among the
@@ -398,7 +407,7 @@ MV32_FEATURES, MV32_WARMUP, MV32_DRAWS = 32, 300, 800
 # the bar of the models with data; the forms of FORM_SAME_BITS also run
 # twice from the same states and noise, held to the same bits
 FORM_ROWS, FORM_SEED, FORM_GROUPS = 100_000, 9, 3
-FORM_SAME_BITS = ("index column read whole",)
+FORM_SAME_BITS = ("index column read whole", "row-varying gather")
 FORM_WARMUP, FORM_DRAWS, FORM_STEPS, FORM_COLLECT = 100, 50, 4, 10
 FORM_CHECK_NEAR, FORM_CHECK_INIT, FORM_PARITY_ITERS = 512, 64, 20
 # rt.inspection.trace's run: short, since the profiler records every
@@ -976,10 +985,12 @@ def parity_phase(F, cd, device, n_chains, n_iters, explicit_noise: bool,
 
 def workspace_call_bytes(em):
     """Bytes one density call must move through a chain's workspace slot
-    (0 for a model whose state stays in the thread): x read, g written,
-    and the row-invariant values and their adjoints each written and
-    read."""
-    return 4 * (2 * em.n_vars + 4 * em.n_inv) if em.workspace else 0
+    in device memory (0 for a model whose state stays in the thread or
+    whose slot lies in the block's shared memory, which that traffic
+    never leaves): x read, g written, and the row-invariant values and
+    their adjoints each written and read."""
+    return 4 * (2 * em.n_vars + 4 * em.n_inv) \
+        if em.workspace and not em.shared else 0
 
 
 def kernel_bound_ms(em, n_chains, n_iters, n_steps, collect_every, F,
@@ -2740,33 +2751,42 @@ def inference_sections(F, rt, cds, ems, mix, readme, readme_tr, lmodel,
     return entry
 
 
-def gp_data():
-    """The latent GP's inputs, K and y (GP_* constants)."""
-    x = np.linspace(0.0, 10.0, GP_INPUTS)
+def gp_data(inputs=GP_INPUTS):
+    """The latent GP's inputs, K and y (GP_* constants) at `inputs`
+    inputs."""
+    x = np.linspace(0.0, 10.0, inputs)
     K = np.exp(-0.5 * ((x[:, None] - x[None, :]) / GP_LENGTH) ** 2)
-    K += GP_JITTER * np.eye(GP_INPUTS)
+    K += GP_JITTER * np.eye(inputs)
     y = np.sin(x) + GP_SIGMA * np.random.default_rng(GP_SEED).normal(
-        size=GP_INPUTS)
+        size=inputs)
     return x, K, y
 
 
-def latent_gp(rt):
+def latent_gp(rt, inputs=GP_INPUTS):
     """Latent GP regression: f = MVNormal(0, K).latent_vec(), y_i ~
-    Normal(f_i, GP_SIGMA); no rows, 64 parameters (z, f = L·z).  Returns
-    (model, f)."""
-    _, K, y = gp_data()
-    f = rt.MVNormal([0.0] * GP_INPUTS, K).latent_vec()
+    Normal(f_i, GP_SIGMA); no rows, `inputs` parameters (z, f = L·z).
+    Returns (model, f)."""
+    _, K, y = gp_data(inputs)
+    f = rt.MVNormal([0.0] * inputs, K).latent_vec()
     return rt.Model.observe(list(y), f.map(
         lambda fi: rt.Normal(fi, GP_SIGMA))), f
+
+
+def mat_layout(em):
+    """Where a workspace model's product passes read L."""
+    return (f"L staged in shared memory ({em.staged} floats)" if em.staged
+            else "L from a transposed copy in device memory"
+            if em.transposed else "L from its device pointer")
 
 
 def gp_phases(F, gp, cd, em, device):
     """The latent GP through Model.sample(kernel="fused!") against its
     exact posterior (numpy f64): every f_i's mean within GP_MEAN_SD
     posterior SD and SD within GP_SD_REL (f by Trace.evaluate), rank-r̂ <
-    1.01; then the kernel against its plain version at the main path's
-    shapes over GP_PARITY_ITERS iterations (the column-free bar).
-    Returns its JSON entry."""
+    1.01; then the density alone (`states_density`), where the time a
+    call of its product passes shows, and the kernel against its plain
+    version at the main path's shapes over GP_PARITY_ITERS iterations
+    (the column-free bar).  Returns its JSON entries."""
     from rainier_tpu_torch.sampler import HMC, SamplerConfig
 
     model, f = gp
@@ -2786,7 +2806,8 @@ def gp_phases(F, gp, cd, em, device):
     print(f"phase main path, latent GP: Model.sample(kernel='fused!') "
           f"{MAIN_CHAINS} chains x ({GP_WARMUP} warmup + {GP_DRAWS} draws), "
           f"HMC({GP_STEPS}), {GP_INPUTS} inputs, {cd.n_vars} parameters "
-          f"({layout(F, em, MAIN_CHAINS)}): fused_hmc launches {launches}, "
+          f"({layout(F, em, MAIN_CHAINS)}, {mat_layout(em)}): fused_hmc "
+          f"launches {launches}, "
           f"rank-r_hat max {rhat:.5f}, f means max {float(dmean.max()):.4f} "
           f"posterior SD from the exact mean, SDs max {float(dsd.max()):.4f} "
           f"off the exact SDs (exact SDs {float(sd.min()):.4f}-"
@@ -2799,13 +2820,61 @@ def gp_phases(F, gp, cd, em, device):
     check(np.all(np.isfinite(fs)), "non-finite draws")
     check(rhat < 1.01 and float(dmean.max()) < GP_MEAN_SD
           and float(dsd.max()) < GP_SD_REL, (rhat, dmean.max(), dsd.max()))
+    # the density alone, so that a product pass's time a call shows
+    _, dentry = states_density(F, cd, em, tr, device,
+                               "rainier_tpu/ops/hmc_pallas.py:293")
     entry = time_kernel(F, cd, em, tr, GP_STEPS, device, 0, "latent GP",
                         n_iters=GP_PARITY_ITERS, whole=whole_bytes(cd))
-    return {"name": f"fused_hmc (latent GP, {GP_INPUTS} inputs: L·z past "
-                    "16 in the scratch)", "route": "cuda",
-            "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
-            "replaces": "rainier_tpu/ops/hmc_pallas.py:293",
-            "launches": launches, **entry, "library_ms": None}
+    return [{"name": f"fused_hmc (latent GP, {GP_INPUTS} inputs: L·z past "
+                     "16 in the scratch)", "route": "cuda",
+             "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
+             "replaces": "rainier_tpu/ops/hmc_pallas.py:293",
+             "launches": launches, **entry, "library_ms": None},
+            {**dentry, "name": f"rt_logp_grad_launch (latent GP, "
+                               f"{GP_INPUTS} inputs: the product passes)",
+             "launches": 0}]
+
+
+def gp_wide_phases(F, gp, cd, em, device):
+    """The latent GP at GP_WIDE_INPUTS inputs, its L read from a
+    transposed copy: a short main path through
+    Model.sample(kernel="fused!"), every state finite; then the density
+    alone (`states_density`) and the kernel against its plain version at
+    the main path's shapes over GP_WIDE_PARITY_ITERS iterations (the
+    column-free bar).  Returns its JSON entries."""
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    check(bool(em.transposed), f"{mat_layout(em)}, not a transposed copy")
+    cfg = SamplerConfig(GP_WIDE_WARMUP, GP_WIDE_DRAWS, sampler=HMC(GP_STEPS))
+    F.fused_hmc.launches = 0
+    tr = gp[0].sample(cfg, n_chains=MAIN_CHAINS, seed=0, kernel="fused!",
+                      device=device)
+    launches = F.fused_hmc.launches
+    print(f"phase main path, latent GP {GP_WIDE_INPUTS}: "
+          f"Model.sample(kernel='fused!') {MAIN_CHAINS} chains x "
+          f"({GP_WIDE_WARMUP} warmup + {GP_WIDE_DRAWS} draws), "
+          f"HMC({GP_STEPS}), {GP_WIDE_INPUTS} inputs, {cd.n_vars} parameters "
+          f"({layout(F, em, MAIN_CHAINS)}, {mat_layout(em)}): fused_hmc "
+          f"launches {launches}, accept "
+          f"{float(np.mean(tr.accept_rate())):.3f}, divergences "
+          f"{tr.divergences()}, step size median "
+          f"{float(np.median(tr.step_size)):.4g}, timings {tr.timings}",
+          flush=True)
+    check(launches >= 1, f"fused_hmc launches {launches}")
+    check(bool(np.all(np.isfinite(tr.final_q))), "non-finite states")
+    _, dentry = states_density(F, cd, em, tr, device,
+                               "rainier_tpu/ops/hmc_pallas.py:293")
+    entry = time_kernel(F, cd, em, tr, GP_STEPS, device, 0,
+                        f"latent GP {GP_WIDE_INPUTS}",
+                        n_iters=GP_WIDE_PARITY_ITERS, whole=whole_bytes(cd))
+    what = f"latent GP, {GP_WIDE_INPUTS} inputs: L·z past 16 in the " \
+        "scratch, L from a transposed copy"
+    return [{"name": f"fused_hmc ({what})", "route": "cuda",
+             "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
+             "replaces": "rainier_tpu/ops/hmc_pallas.py:293",
+             "launches": launches, **entry, "library_ms": None},
+            {**dentry, "name": f"rt_logp_grad_launch ({what})",
+             "launches": 0}]
 
 
 def form_models(rt):
@@ -2850,8 +2919,6 @@ def form_phase(F, name, model, collect, cd, em, device):
     FORM_PARITY_ITERS iterations from the main path's states, ε and Σ̂
     (`time_kernel`, the bar of the models with data).  Returns its JSON
     entries."""
-    import torch
-
     from rainier_tpu_torch.sampler import HMC, SamplerConfig
 
     cfg = SamplerConfig(FORM_WARMUP, FORM_DRAWS, sampler=HMC(FORM_STEPS))
@@ -2868,6 +2935,32 @@ def form_phase(F, name, model, collect, cd, em, device):
           f"{tr.divergences()}, timings {tr.timings}", flush=True)
     check(launches >= 1, f"fused_hmc launches {launches}")
     check(bool(np.all(np.isfinite(tr.final_q))), "non-finite states")
+    dlp_mean, dentry = states_density(F, cd, em, tr, device,
+                                      "rainier_tpu/ops/hmc_pallas.py:302")
+    entry = time_kernel(F, cd, em, tr, FORM_STEPS, device, em.row_bytes(),
+                        f"form {name}", tol=1e-3, max_dacc=0.02,
+                        min_frac=agree_frac(FORM_PARITY_ITERS, dlp_mean),
+                        n_iters=FORM_PARITY_ITERS, collect_idx=collect,
+                        whole=whole_bytes(cd))
+    if name in FORM_SAME_BITS:
+        same_bits(F, cd, tr, collect, device, f"form {name}")
+    return [{"name": f"fused_hmc (form: {name}, {FORM_ROWS} rows)",
+             "route": "cuda", "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
+             "replaces": "rainier_tpu/ops/hmc_pallas.py:302",
+             "launches": launches, **entry, "library_ms": None},
+            {**dentry, "name": f"rt_logp_grad_launch (form: {name})",
+             "launches": 0}]
+
+
+def states_density(F, cd, em, tr, device, replaces):
+    """`density_check` at FORM_CHECK_NEAR of the main path's last states
+    and FORM_CHECK_INIT inits, against the plain version and the plain
+    version in f64, the kernel's bound widened by the plain version's own
+    distance from f64.  Returns what `density_check` returns."""
+    import torch
+
+    from rainier_tpu_torch.sampler import SamplerConfig
+
     rng = np.random.default_rng(3)
     q = torch.as_tensor(np.hstack([
         tr.final_q[:FORM_CHECK_NEAR].T, SamplerConfig().init_scale
@@ -2883,23 +2976,9 @@ def form_phase(F, name, model, collect, cd, em, device):
     # its f32 conditioning as the GLMMs' do
     cond = conditioning(lp_grad64, q) if cd.n_vars <= FORM_COND_MAX \
         else None
-    dlp_mean, dentry = density_check(
-        F, cd, em, q, truth, FORM_CHECK_NEAR, "at the main path's states",
-        device, "rainier_tpu/ops/hmc_pallas.py:302", cond, plain_off=True)
-    del q, truth, cond
-    entry = time_kernel(F, cd, em, tr, FORM_STEPS, device, em.row_bytes(),
-                        f"form {name}", tol=1e-3, max_dacc=0.02,
-                        min_frac=agree_frac(FORM_PARITY_ITERS, dlp_mean),
-                        n_iters=FORM_PARITY_ITERS, collect_idx=collect,
-                        whole=whole_bytes(cd))
-    if name in FORM_SAME_BITS:
-        same_bits(F, cd, tr, collect, device, f"form {name}")
-    return [{"name": f"fused_hmc (form: {name}, {FORM_ROWS} rows)",
-             "route": "cuda", "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
-             "replaces": "rainier_tpu/ops/hmc_pallas.py:302",
-             "launches": launches, **entry, "library_ms": None},
-            {**dentry, "name": f"rt_logp_grad_launch (form: {name})",
-             "launches": 0}]
+    return density_check(F, cd, em, q, truth, FORM_CHECK_NEAR,
+                         "at the main path's states", device, replaces,
+                         cond, plain_off=True)
 
 
 def same_bits(F, cd, tr, collect, device, what):
@@ -2951,14 +3030,19 @@ def inspection_phase(rt, model, device):
     check(bool(files), "no trace written")
 
 
-def forms_sections(F, rt, cds, ems, gp, mv32, x32, ys32, forms, device):
-    """The slice of the forms: the latent GP, the 32-feature MVNormal
-    logistic, each row form, then the GP's kernel's PTX and a profile of
-    a short fused run (`rt.inspection`).  Returns the JSON entries."""
+def forms_sections(F, rt, cds, ems, gp, gpw, mv32, x32, ys32, forms,
+                   device):
+    """The slice of the forms: the latent GP at 64 and at GP_WIDE_INPUTS
+    inputs, the 32-feature MVNormal logistic, each row form, then the
+    GP's kernel's PTX and a profile of a short fused run
+    (`rt.inspection`).  Returns the JSON entries."""
     t0 = time.perf_counter()
     with phase("latent GP", device):
-        kernels = [gp_phases(F, gp, cds["latent GP"], ems["latent GP"],
-                             device)]
+        kernels = gp_phases(F, gp, cds["latent GP"], ems["latent GP"],
+                            device)
+    wide = f"latent GP {GP_WIDE_INPUTS}"
+    with phase(wide, device):
+        kernels += gp_wide_phases(F, gpw, cds[wide], ems[wide], device)
     what = f"MVNormal logistic {MV32_FEATURES}"
     with phase(what, device):
         kernels += mvnormal_phases(F, mv32, cds[what], ems[what], x32, ys32,
@@ -3025,6 +3109,7 @@ def main(argv=()) -> int:
     smodel = split_logistic(rt, x, ys)
     mix = marginal_mixture(rt)
     gp = latent_gp(rt)
+    gpw = latent_gp(rt, GP_WIDE_INPUTS)
     _, x32, ys32 = logistic_regression(rt, p=MV32_FEATURES)
     mv32 = mvnormal_logistic(rt, x32, ys32)
     forms = form_models(rt)
@@ -3039,6 +3124,7 @@ def main(argv=()) -> int:
            "logistic regression 2M": l2model.density(),
            "marginalized mixture": mix[0].density(),
            "latent GP": gp[0].density(),
+           f"latent GP {GP_WIDE_INPUTS}": gpw[0].density(),
            f"MVNormal logistic {MV32_FEATURES}": mv32[0].density(),
            **{f"form {name}": m.density()
               for name, (m, _) in forms.items()}}
@@ -3108,8 +3194,8 @@ def main(argv=()) -> int:
             cov, device))
 
     # -- the forms slice: a latent GP, MVNormal past 16, the row forms -------
-    kernels += forms_sections(F, rt, cds, ems, gp, mv32, x32, ys32, forms,
-                              device)
+    kernels += forms_sections(F, rt, cds, ems, gp, gpw, mv32, x32, ys32,
+                              forms, device)
 
     # -- GLMMPoisson2: integer index columns ---------------------------------
     with phase("GLMMPoisson2", device):

@@ -73,10 +73,15 @@ Two such readers:
   pass of its own into scr, the lanes of a slot splitting its rows, and
   read there like a parameter, a constant-index ``Gather`` of it
   included; its adjoint is added there, and a second pass, the lanes
-  splitting the columns, adds Lᵀ times it into the vector's.  L is read
-  from its device pointer through L2 (the 64 × 64 factor of a 64-input
-  GP is 16 KB a call; nothing bounds its size but the columns'), and
-  warp barriers order the passes with what the other lanes read;
+  splitting the columns, adds Lᵀ times it into the vector's.  Over the
+  workspace the passes read L where _mat_layout puts it: in the block's
+  shared memory, staged once a launch at a row stride of p + 1 floats
+  (the 64 × 64 factor of a 64-input GP takes 16.6 KB), or, where it does
+  not fit beside the slots or tiles (a 256-input GP's, 263 KB), a
+  transposed copy for the forward pass, bound after the columns; a
+  register model reads it from its device pointer, every lane the same
+  address.  Warp barriers order the passes with what the other lanes
+  read;
 * a ``Gather`` by an ``IntColumn`` read whole (a nested ``RowSum`` of a
   gather) reads the source at each row's clamped index; its adjoints are
   summed in f64 by source entry and added to the source's adjoint after
@@ -122,12 +127,17 @@ rt_rows_pre and rt_rows_post no pass over it (``RT_ROW_STATE``: such a
 row function takes the chain's state, gradient and own ainv).  A
 ``Gather`` by an ``IntColumn`` whose source varies by row rebuilds the
 source's per-row subgraph at row ``clamp(index, 0, n - 1)``, under names
-of its own, its columns read whole at that row from their device
-pointers, and runs its adjoints back in the row; such a row function
-takes the columns (``RT_ROW_COLS``).  Rebuilding costs the source's
-operations a row again and a random read of each of its columns, where
-the alternative, the source over all rows in a workspace filled by a
-first pass, costs a second pass over the rows and n floats a chain.
+of its own, and runs its adjoints back in the row.  The tile loader
+reads each row's index, clamps it, and loads the source's columns at
+that row into fields of the tile after the row's own (and ``rix``), so
+the block's threads make one random read a row for all its chains and
+the row reads only the tile; such a space's tiles are up to
+``GATHER_TILE_ROWS_MAX`` rows.  A gather inside a rebuilt source reads
+its source's columns from their device pointers, and then the row
+functions take the columns (``RT_ROW_COLS``).  Rebuilding costs the
+source's operations a row again, where the alternative, the source over
+all rows in a workspace filled by a first pass, costs a second pass over
+the rows and n floats a chain.
 
 A model over ``LANE_STATE_MAX`` parameters or row-invariant values keeps
 its chain state in a slot of a workspace (``RT_WS_FLOATS`` floats a
@@ -193,6 +203,14 @@ class UnsupportedNode(NotImplementedError):
 TILE_ROWS_MAX = 256
 TILE_ROWS_MIN = 32
 SMEM_BYTES_MAX = 232448
+# A row space whose rows rebuild a source at another row (a Gather whose
+# source varies by row) takes tiles of up to GATHER_TILE_ROWS_MAX rows,
+# halved as above: its rows are narrow and cheap, so the barriers, the
+# fill and the butterfly of each tile are most of a tile's time
+GATHER_TILE_ROWS_MAX = 4096
+# Each thread of such a space's tile loader takes FILL_BATCH rows at a
+# time (_fill_gathered)
+FILL_BATCH = 8
 
 # Vectors longer than this are emitted as loops over their elements; the
 # funnel's 9, the README's 3 and the logistic's 10 stay unrolled
@@ -215,6 +233,8 @@ LANE_STATE_MAX = 32
 # split its rows and, over the slot, its passes (csrc/fused_hmc.cu,
 # RT_LANES)
 LANES = 32
+# The most threads of a block (csrc/fused_hmc.cu, RT_MAX_THREADS)
+BLOCK_THREADS_MAX = 256
 
 # A loop that reads an index column whole splits its elements over the
 # chain's lanes, and each lane sums its elements' adjoints of the gather's
@@ -228,10 +248,10 @@ ENTRY_LOCAL_MAX = 32
 _RESTRICT = " __restrict__"
 
 
-def tile_rows(row_width: int) -> int:
-    """Rows per tile for rows of `row_width` floats (0 when even two
-    TILE_ROWS_MIN-row tiles do not fit shared memory)."""
-    r = TILE_ROWS_MAX
+def tile_rows(row_width: int, most: int = TILE_ROWS_MAX) -> int:
+    """Rows per tile for rows of `row_width` floats, at most `most` (0
+    when even two TILE_ROWS_MIN-row tiles do not fit shared memory)."""
+    r = most
     while 2 * r * row_width * 4 > SMEM_BYTES_MAX and r >= TILE_ROWS_MIN:
         r //= 2
     return r if r >= TILE_ROWS_MIN else 0
@@ -253,6 +273,10 @@ class EmittedDensity:
                           # not in the device-memory workspace
     scratch: int = 0      # floats of scr a density call uses (the
                           # products held there, buffered vectors)
+    staged: int = 0       # floats of the block's shared memory that the
+                          # product passes' matrices take (_mat_layout)
+    transposed: tuple = ()  # the columns whose transposed copies the
+                            # wrapper binds after the columns
 
     @property
     def n_rows(self) -> int:
@@ -388,12 +412,18 @@ class _Emitter:
                                # at a row
         self.subs = {}         # a row-varying Gather → (emitter, nodes)
                                # of its rebuilt source
+        self.row_cols = False  # a row reads columns from their device
+                               # pointers (a gather nested in a rebuilt
+                               # source: _bind_row)
         self.split = ws        # the loop being emitted splits its
                                # elements over the lanes
         self.lanes = False     # some loop of a register model splits
         self.sum_mode = {}     # Gather by an index column read whole →
                                # where its adjoint sums lie ("local",
                                # "slot" or "plain": _gather_sums)
+        self.products = {}     # over the workspace, the column index of
+                               # each matrix a product pass reads → its
+                               # (rows, columns) (_mat_layout)
 
     # -- helpers ----------------------------------------------------------
     def size(self, node) -> int:
@@ -723,9 +753,10 @@ class _Emitter:
     def _row_gather(self, node) -> None:
         """A per-row Gather whose source varies by row: the source's
         per-row subgraph emitted again, under names of its own, at row
-        clamp(index, 0, n - 1), its columns read whole at that row from
-        their device pointers (the JAX kernel's take over the whole
-        source), and its adjoints run back in the row's reverse pass."""
+        clamp(index, 0, n - 1) (the JAX kernel's take over the whole
+        source), and its adjoints run back in the row's reverse pass.
+        The source's columns at that row are fields of the tile, which
+        the loader fills from the gathered row (_gathered_fields)."""
         ctx, nid = self.rowctx, node.id
         jn = f"j{self.tag}{nid}"
         self.fwd.append(f"  const int {jn} = rt_clampi("
@@ -733,11 +764,16 @@ class _Emitter:
                         f"{ctx.n_rows - 1});")
         sub = _Emitter(self.cd, self.ws, self.unroll)
         sub.tag = f"{self.tag}g{nid}_"
-        _bind_row(sub, ctx, jn)
+        # the row's own gathers read the source's columns from the tile,
+        # where the loader put them at the gathered row; a gather inside
+        # a rebuilt source reads them from their device pointers
+        _bind_row(sub, ctx, jn, ctx.gathered.get(nid, {}) if not self.tag
+                  else None)
         order = [n for n in R.topological([node.source])
                  if ctx.dep[n.id] or isinstance(n, R.Constant)]
         for n in order:
             sub.forward(n)
+        self.row_cols = self.row_cols or sub.row_cols
         self.fwd += sub.fwd
         self.fops += sub.fops
         self.define(node, [sub.el(node.source, 0)], 0)
@@ -1137,7 +1173,12 @@ def _product_pass(em, node, transpose=False):
     adjoint in scr, added into the vector's.  In a slot the lanes split
     the product's rows (its transpose's columns), each a sum over the
     other side, and a warp barrier on both sides orders them with what
-    the other lanes read and write."""
+    the other lanes read and write; there the passes read the matrix
+    through RT_MAT<c> and RT_MAT<c>_T, where _mat_layout puts it (lane r
+    reading row r of L from its device pointer would touch 32 cache
+    lines a load), and the inner loops are unrolled by eight, so that
+    several loads are in flight; each sum keeps its order, so the bits
+    are those of the loop without the unroll."""
     mo, ma = em.mv[node.id]
     n, p = node.mat.n_rows, node.mat.n_cols
     c = em.wmats[node.mat.id]
@@ -1145,20 +1186,65 @@ def _product_pass(em, node, transpose=False):
     sync = ["  RT_WARP_SYNC();"] if em.ws else []
     head = "  for (int {v} = RT_LANE; {v} < {n}; {v} += RT_LSTEP) {{" \
         if em.ws else "  for (int {v} = 0; {v} < {n}; ++{v}) {{"
+    if em.ws:
+        em.products[c] = (n, p)
+        at, at_t, unroll = (f"RT_MAT{c}(r, j)", f"RT_MAT{c}_T(r, j)",
+                            ["#pragma unroll 8"])
+    else:
+        at = at_t = f"cols.c{c}[r * {p} + j]"
+        unroll = []
     if not transpose:
         em.fops += 2 * n * p
         return [*sync, head.format(v="r", n=n), "    float acc = 0.0f;",
-                f"    for (int j = 0; j < {p}; ++j)",
-                f"      acc += cols.c{c}[r * {p} + j] * {val.format('j')};",
+                *unroll, f"    for (int j = 0; j < {p}; ++j)",
+                f"      acc += {at} * {val.format('j')};",
                 f"    scr[{mo} + r] = acc;", f"    scr[{ma} + r] = 0.0f;",
                 "  }", *sync]
     if not em.grad[node.vec.id]:
         return []
     em.rops += 2 * n * p + p
     return [*sync, head.format(v="j", n=p), "    float acc = 0.0f;",
-            f"    for (int r = 0; r < {n}; ++r)",
-            f"      acc += cols.c{c}[r * {p} + j] * scr[{ma} + r];",
+            *unroll, f"    for (int r = 0; r < {n}; ++r)",
+            f"      acc += {at_t} * scr[{ma} + r];",
             f"    {adj.format('j')} += acc;", "  }", *sync]
+
+
+def _mat_layout(products, block, budget=SMEM_BYTES_MAX):
+    """Where the product passes of a workspace model read each matrix
+    (`products`: column index → (rows n, columns p)): where the `block`
+    bytes of the block's slots or tiles and the matrices at a row stride
+    of p + 1 floats fit `budget` bytes of shared memory, staged there
+    once a launch, where lane r of the forward pass, reading row r, and
+    lane j of the transpose, reading column j, hit distinct banks; else
+    the forward pass reads a transposed copy that the wrapper binds after
+    the columns (cols.t<c>), and the transpose the matrix, both with
+    neighbouring lanes on neighbouring addresses.  Returns (the header's
+    lines: RT_MAT<c>, RT_MAT<c>_T, and where staged RT_SMEM_MATS and
+    rt_stage_mats; the staged floats; the columns whose transposed
+    copies are bound)."""
+    if not products:
+        return [], 0, ()
+    if block + 4 * sum(n * (p + 1) for n, p in products.values()) > budget:
+        return [line for c, (n, p) in sorted(products.items()) for line in (
+            f"#define RT_MAT{c}(r, j) cols.t{c}[(j) * {n} + (r)]",
+            f"#define RT_MAT{c}_T(r, j) cols.c{c}[(r) * {p} + (j)]")], 0, \
+            tuple(sorted(products))
+    defs, copies, off = [], [], 0
+    for c, (n, p) in sorted(products.items()):
+        defs += [f"#define RT_MAT{c}(r, j) cols.s{c}[(r) * {p + 1} + (j)]",
+                 f"#define RT_MAT{c}_T(r, j) RT_MAT{c}(r, j)"]
+        copies += [f"  for (int i = tid; i < {n * p}; i += nt)",
+                   f"    smem[{off} + i / {p} * {p + 1} + i % {p}] = "
+                   f"cols.c{c}[i];",
+                   f"  cols.s{c} = smem + {off};"]
+        off += n * (p + 1)
+    return [
+        *defs, f"#define RT_SMEM_MATS {off}", "",
+        "// the matrices of the product passes, copied into the block's",
+        "// shared memory by its threads tid of nt (csrc/fused_hmc.cu calls",
+        "// it once a launch, then a barrier)",
+        "RT_HD void rt_stage_mats(RtCols& cols, float* smem, int tid, "
+        "int nt) {", *copies, "}"], off, ()
 
 
 def _gather_sums(em, node, flush=False):
@@ -1365,11 +1451,42 @@ class SpaceTiles(NamedTuple):
     row_ops: int        # f32 operations of one row's forward + adjoints
 
 
-def _fill(cd, space, offs, widths, row_w):
+def _gathered_fields(cd, space, width):
+    """The tile fields of the sources that a row of `space` rebuilds at
+    another row: for each Gather by an IntColumn whose source varies by
+    row, each column that its source reads, at the gathered row, in
+    fields after the row's `width` floats: ({gather id: {column id:
+    offset}}, [(index column, [(column, offset, floats)])], the row's
+    width with them)."""
+    own = {cd.columns[j].id for j in space.columns}
+    gathered, loads = {}, []
+    for node in R.topological(list(space.roots)):
+        if not (isinstance(node, R.Gather)
+                and isinstance(node.index, R.IntColumn)
+                and space.dep[node.id] and space.dep[node.source.id]):
+            continue
+        fields, specs = {}, []
+        for c in R.topological([node.source]):
+            if isinstance(c, (R.Column, R.IntColumn, R.MatColumn)) \
+                    and c.id in own:
+                w = c.n_cols if isinstance(c, R.MatColumn) else 1
+                fields[c.id] = width
+                specs.append((c, width, w))
+                width += w
+        gathered[node.id] = fields
+        loads.append((node.index, specs))
+    return gathered, loads, width
+
+
+def _fill(cd, space, offs, widths, row_w, loads=()):
     """The space's tile loader, synchronous and asynchronous: rows [row0,
     row0 + rows) of each of its columns into the tile (`row_w` floats a
     row), thread tid of nt, and the row's index where the tile holds it
-    (a plain store in both: it is not in device memory)."""
+    (a plain store in both: it is not in device memory).  A space whose
+    rows rebuild sources at other rows (`loads`, _gathered_fields) has
+    the loader of _fill_gathered."""
+    if loads:
+        return _fill_gathered(cd, space, offs, widths, row_w, loads)
     fill, fill_async = [], []
     loop = "  for (int i = tid; i < rows; i += nt) "
     for j, w in zip(space.columns, widths):
@@ -1397,6 +1514,75 @@ def _fill(cd, space, offs, widths, row_w):
     return fill, fill_async
 
 
+def _fill_gathered(cd, space, offs, widths, row_w, loads):
+    """The loader of a space whose rows rebuild sources at other rows:
+    each thread takes FILL_BATCH of its rows at a time (i0 + u·nt), loads
+    each one's index and clamps it, and loads the row's own columns and
+    each rebuilt source's columns at the clamped index into the tile, so
+    that the block's threads make one random read a row for all its
+    chains; every load of a batch is issued before any store (or, in the
+    asynchronous loader, every index before any copy), so that a
+    thread's loads of FILL_BATCH rows are in flight at once, where a loop
+    that stores each row before the next row's loads waits out the
+    latency of two dependent loads a row."""
+    col = {c.id: j for j, c in enumerate(cd.columns)}
+    n, b = space.n_rows, FILL_BATCH
+    vals, stores, copies = [], [], []   # batched loads; stores; copies
+    at = f"tile[i * {row_w} + {{}}]"
+
+    def field(o, src, is_int):
+        vals.append((f"rt_int_bits({src})" if is_int else src))
+        stores.append(f"{at.format(o)} = v[u][{len(vals) - 1}];")
+
+    def wide(o, w, src):
+        loop = f"for (int k = 0; k < {w}; ++k) "
+        stores.append(f"{loop}{at.format(f'{o} + k')} = {src};")
+        copies.append(f"{loop}rt_copy_async(&{at.format(f'{o} + k')}, "
+                      f"&{src});")
+
+    for j, w in zip(space.columns, widths):
+        c = cd.columns[j]
+        if w == 1:
+            field(offs[c.id], f"cols.c{j}[r]", isinstance(c, R.IntColumn))
+            copies.append(f"rt_copy_async(&{at.format(offs[c.id])}, "
+                          f"&cols.c{j}[row0 + i]);")
+        elif w > 1:
+            wide(offs[c.id], w, f"cols.c{j}[(size_t)(row0 + i) * {w} + k]")
+    if "rix" in offs:
+        line = f"{at.format(offs['rix'])} = rt_int_bits(row0 + i);"
+        stores.append(line)
+        copies.append(line)
+    index = []
+    for g, (ix, specs) in enumerate(loads):
+        index.append(f"j{g}[u] = rt_clampi(cols.c{col[ix.id]}[r], 0, "
+                     f"{n - 1});")
+        for c, o, w in specs:
+            k = col[c.id]
+            if w == 1:
+                field(o, f"cols.c{k}[j{g}[u]]", isinstance(c, R.IntColumn))
+                copies.append(f"rt_copy_async(&{at.format(o)}, "
+                              f"&cols.c{k}[j{g}[u]]);")
+            else:
+                wide(o, w, f"cols.c{k}[(size_t)j{g}[u] * {w} + k]")
+    head = [f"  for (int i0 = tid; i0 < rows; i0 += {b} * nt) {{",
+            *[f"    int j{g}[{b}];" for g in range(len(loads))]]
+    row = [f"    for (int u = 0; u < {b}; ++u) {{",
+           "      const int r = row0 + (i0 + u * nt < rows ? i0 + u * nt "
+           ": 0);"]
+    put = ["#pragma unroll", f"    for (int u = 0; u < {b}; ++u) {{",
+           "      const int i = i0 + u * nt;", "      if (i < rows) {"]
+    fill = [*head, f"    float v[{b}][{len(vals)}];", "#pragma unroll", *row,
+            *[f"      {line}" for line in index],
+            *[f"      v[u][{m}] = {e};" for m, e in enumerate(vals)],
+            "    }", *put, *[f"        {line}" for line in stores],
+            "      }", "    }", "  }"]
+    fill_async = [*head, "#pragma unroll", *row,
+                  *[f"      {line}" for line in index], "    }", *put,
+                  *[f"        {line}" for line in copies],
+                  "      }", "    }", "  }"]
+    return fill, fill_async
+
+
 class _RowCtx(NamedTuple):
     """What a row function reads, for the row emitter and the sources it
     rebuilds at another row."""
@@ -1419,17 +1605,22 @@ class _RowCtx(NamedTuple):
     inline: frozenset = frozenset()  # the nodes between such a parameter
                                      # and its aligned vector, computed in
                                      # the row
+    gathered: dict = {}  # a row-varying Gather → {column id: offset of
+                         # its value at the gathered row in the tile row}
 
 
-def _bind_row(em, ctx, rix):
+def _bind_row(em, ctx, rix, fields=None):
     """A row emitter's inputs at row `rix`: the row-invariant values from
     inv, their adjoints into ainv (an aligned vector's element `rix`,
     its adjoint a local that _aligned_adds hands on), the parameter
     vectors read at the row's own index from the chain's state q, their
     adjoints handed on to g, and the space's columns, from the tile (rix
-    "rix") or, for a rebuilt source, read whole at row rix from their
-    device pointers."""
+    "rix"); for a rebuilt source, at row rix, from the tile's gathered
+    fields (`fields`: column id → offset), or, with none (a gather
+    nested in a rebuilt source), from their device pointers."""
     em.rowctx, em.n_dense = ctx, ctx.n_dense
+    em.row_cols = rix != "rix" and fields is None
+    fields = fields or {}
     for fid, b in ctx.base.items():
         em.inv_base[fid] = b
         em.grad[fid] = ctx.grad[fid]
@@ -1452,8 +1643,8 @@ def _bind_row(em, ctx, rix):
         em.aligned.append((em.adj[p.id][0], "g", f"{a} + {rix}", True))
     for c in ctx.own:
         em.grad[c.id] = False
-        o, j = ctx.offs[c.id], em.col_index[c.id]
-        if rix == "rix":
+        o, j = fields.get(c.id, ctx.offs[c.id]), em.col_index[c.id]
+        if rix == "rix" or c.id in fields:
             at = lambda k, o=o: f"x[{o + k}]"  # noqa: E731
             it, val = f"rt_bits_int(x[{o}])", f"x[{o}]"
         else:
@@ -1524,7 +1715,8 @@ def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
                 at_row=frozenset(), params=(), inline=frozenset()):
     """One row space's row function and tile loaders: (body lines,
     SpaceTiles, fill lines, asynchronous fill lines, per-row gathers,
-    whether the row reads columns whole).  The row-invariant values
+    whether the row reads columns from their device pointers: a gather
+    nested in a rebuilt source).  The row-invariant values
     (`base`: slot in inv, `size`: their elements, `grad`: whether they
     depend on q) come from inv, their adjoints go to ainv, or, over the
     workspace, a per-row gather's to sidx/sval, one pair per gather; a
@@ -1535,9 +1727,10 @@ def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
     some row reads other than by a per-row gather or at its index."""
     own = [cd.columns[j] for j in space.columns]
     offs, widths, width = _row_layout(own, bool(aligned))
+    gathered, loads, width = _gathered_fields(cd, space, width)
     ctx = _RowCtx(space.n_rows, space.dep, base, size, grad,
                   frozenset(aligned), n_dense, tuple(own), offs,
-                  at_row, tuple(params), inline)
+                  at_row, tuple(params), inline, gathered)
     row = _Emitter(cd, ws)
     _bind_row(row, ctx, "rix")
     order = R.topological(list(space.roots))
@@ -1559,10 +1752,15 @@ def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
     body = [*head, *row.fwd, *_decls(row, [n for n in order if dep[n.id]]),
             *_aligned_decls(row), *seeds, *row.rev, *_aligned_adds(row),
             f"  return {total};"]
-    tile = SpaceTiles(space.n_rows, width, tile_rows(width),
+    # a space with rebuilt sources: tiles up to GATHER_TILE_ROWS_MAX rows,
+    # or the power of two that holds all its rows, if fewer
+    most = max(TILE_ROWS_MAX, min(GATHER_TILE_ROWS_MAX, 1 << (
+        space.n_rows - 1).bit_length())) if gathered else TILE_ROWS_MAX
+    tile = SpaceTiles(space.n_rows, width, tile_rows(width, most),
                       row.fops + row.rops + len(space.roots))
-    return (body, tile, *_fill(cd, space, offs, widths, row_w or width),
-            row.scatters, bool(row.subs))
+    return (body, tile, *_fill(cd, space, offs, widths, row_w or width,
+                               loads),
+            row.scatters, row.row_cols)
 
 
 def _emit_rows(cd, spaces, ws, whole, scratch):
@@ -1675,8 +1873,10 @@ def _emit_rows(cd, spaces, ws, whole, scratch):
                         "RT_ROW_W" if one else None, n_dense, aligned[s],
                         at_row[s], params[s], frozenset(inline[s]))
             for s, space in enumerate(spaces)]
-    # a row that rebuilds a source at another row reads columns whole:
-    # then every row function takes them; over the workspace, one that
+    # a row that rebuilds a source inside a rebuilt source reads columns
+    # from their device pointers: then every row function takes them
+    # (the tile holds the columns of the row's own rebuilt sources at
+    # their gathered rows); over the workspace, one that
     # reads a vector at its own index takes the chain's state, gradient
     # and ainv, where it adds that element's adjoint
     row_cols = any(m[-1] for m in made)
@@ -1764,13 +1964,17 @@ def _emit_rows(cd, spaces, ws, whole, scratch):
                   "template <int S> struct RtSpace;", *spaces_text]
     inv_ops = pre.fops + post.fops + post.rops + len(post_seeds)
     return (lines, inv_ops, n_inv, n_dense, tuple(tiles), scratch, row_cols,
-            pre.lanes or post.lanes, row_state)
+            pre.lanes or post.lanes, row_state,
+            {**pre.products, **post.products})
 
 
-def _cols_struct(columns):
+def _cols_struct(columns, staged=(), transposed=()):
     """RtCols, one pointer of its own type per column (int32 for an
     IntColumn), and rt_cols, which fills it from the launch's pointer
-    array on the host."""
+    array on the host; a pointer to the copy in shared memory of each
+    `staged` column (s<c>, set by rt_stage_mats), and one to each
+    `transposed` column's transposed copy, which the pointer array holds
+    after the columns (t<c>)."""
     types = ["const int*" if isinstance(c, R.IntColumn) else "const float*"
              for c in columns]
     return [
@@ -1778,11 +1982,15 @@ def _cols_struct(columns):
         "struct RtCols {",
         *[f"  {t} c{j};" for j, t in enumerate(types)],
         *(["  const float* unused;"] if not columns else []),
+        *[f"  const float* s{c};" for c in staged],
+        *[f"  const float* t{c};" for c in transposed],
         "};",
         "",
         "static inline RtCols rt_cols(const void* const* cols) {",
         "  RtCols out = {};",
         *[f"  out.c{j} = ({t})cols[{j}];" for j, t in enumerate(types)],
+        *[f"  out.t{c} = (const float*)cols[{len(columns) + k}];"
+          for k, c in enumerate(transposed)],
         "  (void)cols;",
         "  return out;",
         "}",
@@ -1794,16 +2002,21 @@ def _cols_struct(columns):
 _EMITTED = weakref.WeakKeyDictionary()
 
 
-def emit(cd) -> EmittedDensity:
+def emit(cd, stage_budget=None) -> EmittedDensity:
     """C source of the density for the CompiledDensity `cd`:
     ``rt_logp_grad`` over the column-free terms and, for a model with
     data, the row functions and tile loader of its RowSum likelihoods;
     with the chain state in a slot of the kernel's workspace where the
-    model has over LANE_STATE_MAX parameters or row-invariant values."""
-    if cd not in _EMITTED:
-        em = _emit(cd, cd.n_vars > LANE_STATE_MAX)
+    model has over LANE_STATE_MAX parameters or row-invariant values.
+    With `stage_budget`, the density is emitted anew with its product
+    passes' matrices staged in shared memory only where the block's
+    slots or tiles and they fit that many bytes (0: never, the
+    transposed copy's layout at any size), and kept as cd's emission."""
+    if cd not in _EMITTED or stage_budget is not None:
+        budget = SMEM_BYTES_MAX if stage_budget is None else stage_budget
+        em = _emit(cd, cd.n_vars > LANE_STATE_MAX, budget)
         if not em.workspace and em.n_inv > LANE_STATE_MAX:
-            em = _emit(cd, True)
+            em = _emit(cd, True, budget)
         _EMITTED[cd] = em
     return _EMITTED[cd]
 
@@ -1822,7 +2035,7 @@ def workspace_floats(n_vars: int, n_inv: int, rows: bool,
     return n + n % 2
 
 
-def _emit(cd, ws: bool) -> EmittedDensity:
+def _emit(cd, ws: bool, stage_budget: int) -> EmittedDensity:
     try:
         split = cd.row_split()
     except NoRowSplit as e:
@@ -1845,15 +2058,23 @@ def _emit(cd, ws: bool) -> EmittedDensity:
     lp_ops = max(len(total) - 1, 0)
     n = cd.n_vars
     (rows, inv_ops, n_inv, n_dense, spaces, scratch, row_cols, lanes,
-     row_state) = (
+     row_state, products) = (
         _emit_rows(cd, split.spaces, ws, whole, em.scratch) if split.spaces
-        else ([], 0, 0, 0, (), em.scratch, False, False, False))
+        else ([], 0, 0, 0, (), em.scratch, False, False, False, {}))
+    products = {**em.products, **products}
     slot = workspace_floats(n, n_inv, bool(spaces), n_dense, scratch) \
         if ws else 0
     r = _RESTRICT if ws else ""
     # the shared memory of a tile slot: the widest space's tile
     top = max(spaces, key=lambda t: t.tile_rows * t.row_width,
               default=SpaceTiles(0, 0, 0, 0))
+    # the matrices of the product passes staged beside the block's slots
+    # (at most a block's BLOCK_THREADS_MAX / LANES chains) or its two
+    # tile slots, where they fit
+    block = 4 * (2 * top.tile_rows * top.row_width + (
+        BLOCK_THREADS_MAX // LANES * -(-slot // LANES) * LANES if shared
+        else 0))
+    mats, staged, transposed = _mat_layout(products, block, stage_budget)
     src = "\n".join([
         "// Generated by rainier_tpu_torch.compute.emit_cuda: the model's",
         "// log-density and its reverse-mode gradient for one chain.",
@@ -1875,8 +2096,10 @@ def _emit(cd, ws: bool) -> EmittedDensity:
         *(["#define RT_ROW_COLS 1"] if row_cols else []),
         *(["#define RT_ROW_STATE 1"] if row_state else []),
         "",
-        *_cols_struct(cd.columns),
+        *_cols_struct(cd.columns, tuple(sorted(products)) if staged
+                      else (), transposed),
         "",
+        *([*mats, ""] if mats else []),
         f"RT_HD float rt_logp_grad(const float*{r} q, float*{r} g"
         + (", const RtCols& cols" if whole else "")
         + (f", float*{r} scr" if scratch else "") + ") {",
@@ -1897,4 +2120,5 @@ def _emit(cd, ws: bool) -> EmittedDensity:
     return EmittedDensity(source=src, n_vars=n,
                           ops=em.fops + lp_ops + em.rops + inv_ops,
                           spaces=spaces, n_inv=n_inv, workspace=slot,
-                          shared=shared, scratch=scratch)
+                          shared=shared, scratch=scratch, staged=staged,
+                          transposed=transposed)

@@ -105,12 +105,15 @@
 // function of one, is read from the chain's state x and its adjoint added
 // to g there (RT_ROW_STATE, RT_ROWQ), with no copy in inv or ainv.  A row
 // that reads a source varying by row at another row's index rebuilds it
-// there from the columns' device pointers, so its function takes the
-// columns (RT_ROW_COLS, RT_ROWC).  What bounds these: the product's 2·n·p
-// multiply-adds a density call, split over the lanes (the 64-input GP:
-// 8,192), the index column's loops (n / 32 int loads and f64 adds a lane,
-// three passes a call), and the 100,000-element state of a vector per row,
-// bytes of the workspace.
+// there from fields of the tile, which the loader fills at the clamped
+// index, one random read a row for the block's chains; such a space's
+// tiles hold up to emit_cuda.GATHER_TILE_ROWS_MAX rows, since its barriers,
+// fills and butterflies, once a tile, cost more than its rows (PERF.md
+// §6).  What bounds these: the product's 2·n·p multiply-adds a density
+// call, split over the lanes (the 64-input GP: 8,192), read from L staged
+// in shared memory (below, RT_SMEM_MATS), the index column's loops (n / 32
+// int loads and f64 adds a lane, three passes a call), and the
+// 100,000-element state of a vector per row, bytes of the workspace.
 //
 // Integer index columns.  The generated RtCols holds each column with its
 // own type (int32 for an IntColumn), and the loader keeps an index's bits
@@ -279,8 +282,9 @@ static_assert(RT_LANES > 0 && RT_LANES <= 32 &&
 // tile loaders rt_row, rt_fill_tile and rt_fill_tile_async; one with
 // several defines RT_SPACES and an RtSpace<s> for each.  The tile loops
 // read a space through RtSpace<s>: kW floats a row, kTile rows a tile.
-// A row that reads a source at another row (a Gather whose source varies
-// by row) reads columns whole, so its function takes them (RT_ROW_COLS).
+// A row that rebuilds a source at another row inside a rebuilt source (a
+// Gather whose source varies by row, nested) reads columns from their
+// device pointers, so its function takes them (RT_ROW_COLS).
 #ifdef RT_ROW_COLS
 #define RT_ROWC(cols) , cols
 #else
@@ -363,6 +367,24 @@ static inline RtRows rt_rows(const int* n_rows) {
 #else
 #define RT_SCR(scr)
 #define RT_SCRATCH 0
+#endif
+
+// A workspace model's product passes (a MatVec past the unroll: L·z of an
+// MVNormal of 17 or more dimensions) read L, n x p, through RT_MAT<c>:
+// lane r of the forward pass reads row r, lane j of the transpose column
+// j.  Read so from device memory, a load of the forward pass touched 32
+// cache lines, one a lane (the 64-input GP's kernel: 8.18 ms for 1024
+// chains x 25 iterations of HMC(12), ~27 us a density call, against 2.13
+// ms staged as below; NVIDIA H100 80GB HBM3 at 700 W, tools/kernel_ab.py
+// forms, PERF.md §6).  Where it fits beside the block's slots or tiles, L is
+// copied into the block's shared memory once a launch (rt_stage_mats,
+// RT_SMEM_MATS floats after them) at a row stride of p + 1 floats, so
+// that both passes' lanes hit distinct banks; else the forward pass reads
+// a transposed copy that the wrapper binds after the columns, and both
+// passes read neighbouring addresses in neighbouring lanes
+// (compute/emit_cuda.py, _mat_layout).
+#ifndef RT_SMEM_MATS
+#define RT_SMEM_MATS 0
 #endif
 
 // A chain's arrays: per-thread arrays, fully unrolled loops over every
@@ -1093,9 +1115,6 @@ RT_HD void rt_logp_grad_chain(int c, int n, const float* q, float* lp,
 #endif
 }
 
-// bytes of one tile slot of shared memory; a streamed launch takes two
-#define RT_SMEM_BYTES (RT_TILE_FLOATS * (int)sizeof(float))
-
 // chain slots of a launch over n chains in blocks of `chains`: the
 // chains, then the copies that fill the last block
 static inline int rt_slots(int n, int chains) {
@@ -1108,16 +1127,23 @@ static inline bool rt_threads_ok(int threads) {
          threads <= RT_MAX_THREADS;
 }
 
-// the dynamic shared memory of a block of `threads`: its chains' slots,
-// or one tile slot, two when streaming
-static inline int rt_smem_bytes(int threads, int stream_cols) {
+// the floats of a block's shared memory before its staged matrices: its
+// chains' slots, or one tile slot, two when streaming
+RT_HD int rt_smem_floats(int threads, int stream_cols) {
 #ifdef RT_WS_SHARED
   (void)stream_cols;
-  return threads / RT_LANES * RT_SLOT_STRIDE * (int)sizeof(float);
+  return threads / RT_LANES * RT_SLOT_STRIDE;
 #else
   (void)threads;
-  return (stream_cols ? 2 : 1) * RT_SMEM_BYTES;
+  return (stream_cols ? 2 : 1) * RT_TILE_FLOATS;
 #endif
+}
+
+// the dynamic shared memory of a block of `threads`: those floats, then
+// the staged matrices
+static inline int rt_smem_bytes(int threads, int stream_cols) {
+  return (rt_smem_floats(threads, stream_cols) + RT_SMEM_MATS) *
+         (int)sizeof(float);
 }
 
 #ifdef __CUDACC__
@@ -1135,6 +1161,20 @@ static __device__ __forceinline__ float* rt_slot(float* ws, float* smem,
 #else
   (void)smem, (void)s;
   return ws;
+#endif
+}
+
+// the product passes' matrices copied into the block's shared memory,
+// every thread its share, then a barrier (nothing without them); `cols`
+// then points at the copies
+static __device__ __forceinline__ void rt_stage(RtCols& cols, float* smem,
+                                                int stream_cols) {
+#if RT_SMEM_MATS > 0
+  rt_stage_mats(cols, smem + rt_smem_floats(blockDim.x, stream_cols),
+                (int)threadIdx.x, (int)blockDim.x);
+  __syncthreads();
+#else
+  (void)cols, (void)smem, (void)stream_cols;
 #endif
 }
 
@@ -1157,6 +1197,7 @@ __global__ void __launch_bounds__(RT_MAX_THREADS)
                      const int* collect_pos, int n_collect, uint32_t seed,
                      RtCols cols, RtRows rows, float* ws) {
   extern __shared__ float tile[];
+  rt_stage(cols, tile, kStream);
   const int s = rt_chain_slot();
   rt_hmc_chain(s, n, q0, scale, scale_per_chain, eps, p_noise, u_noise, qf,
                samples, acc, div, n_iterations, n_steps, collect_every,
@@ -1169,6 +1210,7 @@ __global__ void __launch_bounds__(RT_MAX_THREADS)
     logp_grad_kernel(int n, const float* q, float* lp, float* g,
                      RtCols cols, RtRows rows, float* ws) {
   extern __shared__ float tile[];
+  rt_stage(cols, tile, kStream);
   const int s = rt_chain_slot();
   rt_logp_grad_chain(s, n, q, lp, g, cols, rows, kStream, tile,
                      rt_slot(ws, tile, s));
@@ -1269,6 +1311,17 @@ static float* rt_slot(float* ws, float* own, int s) {
 #endif
 }
 
+// the launch's columns, the staged matrices copied into `mats`
+static RtCols rt_host_cols(const void* const* cols, float* mats) {
+  RtCols out = rt_cols(cols);
+#if RT_SMEM_MATS > 0
+  rt_stage_mats(out, mats, 0, 1);
+#else
+  (void)mats;
+#endif
+  return out;
+}
+
 extern "C" int rt_fused_hmc_host(int n, const float* q0, const float* scale,
                                  int scale_per_chain, const float* eps,
                                  const float* p_noise, const float* u_noise,
@@ -1281,7 +1334,8 @@ extern "C" int rt_fused_hmc_host(int n, const float* q0, const float* scale,
                                  int stream_cols) {
   if (!rt_threads_ok(threads)) return 1;
   std::vector<float> tile(2 * RT_TILE_FLOATS + 1), own(RT_OWN_FLOATS);
-  const RtCols c_cols = rt_cols(cols);
+  std::vector<float> mats(RT_SMEM_MATS + 1);
+  const RtCols c_cols = rt_host_cols(cols, mats.data());
   const RtRows rows = rt_rows(n_rows);
   for (int s = 0; s < rt_slots(n, threads / RT_LANES); ++s)
     rt_hmc_chain(s, n, q0, scale, scale_per_chain, eps, p_noise, u_noise,
@@ -1297,7 +1351,8 @@ extern "C" int rt_logp_grad_host(int n, const float* q, float* lp, float* g,
                                  int stream_cols) {
   if (!rt_threads_ok(threads)) return 1;
   std::vector<float> tile(2 * RT_TILE_FLOATS + 1), own(RT_OWN_FLOATS);
-  const RtCols c_cols = rt_cols(cols);
+  std::vector<float> mats(RT_SMEM_MATS + 1);
+  const RtCols c_cols = rt_host_cols(cols, mats.data());
   const RtRows rows = rt_rows(n_rows);
   for (int s = 0; s < rt_slots(n, threads / RT_LANES); ++s)
     rt_logp_grad_chain(s, n, q, lp, g, c_cols, rows, stream_cols,

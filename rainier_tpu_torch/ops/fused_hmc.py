@@ -49,10 +49,13 @@ A density that reads a vector whole (the L·z of an ``MVNormal`` past 16
 dimensions, the source of a gather by an index column read whole) holds
 it in a scratch array of ``EmittedDensity.scratch`` floats, in the
 chain's slot where there is one, which this wrapper's workspace then
-includes.  The wrapper refuses, naming the bytes, a launch whose
-workspace does not fit the card's free memory.  ``collect_idx`` stores only the chosen
-coordinates of each draw, so a large model's draws need not hold all its
-coordinates.
+includes; over the workspace the product passes read L from the block's
+shared memory, staged there once a launch, or, where it does not fit, a
+transposed copy that this wrapper binds after the columns
+(:func:`column_pointers`).  The wrapper refuses, naming the bytes, a
+launch whose workspace does not fit the card's free memory.
+``collect_idx`` stores only the chosen coordinates of each draw, so a
+large model's draws need not hold all its coordinates.
 
 What bounds it on the H100: f32 ALU work and SFU work (``expf``,
 ``logf``, ``cosf``, ``sqrtf``) of the density, its adjoints and the RNG,
@@ -580,6 +583,17 @@ def streams(density, columns, stream_columns, device) -> bool:
     return bool(stream_columns)
 
 
+def column_pointers(em, columns):
+    """The pointer array the kernel's entry points take for `columns`
+    (the tensors of the emitted density `em`'s columns), with the
+    transposed copy of each matrix that its product passes read so
+    after them (``em.transposed``), and the tensors that the pointers
+    point into, to be kept alive while the kernel runs."""
+    held = (*columns, *[columns[c].T.contiguous() for c in em.transposed])
+    return (ctypes.c_void_p * max(len(held), 1))(
+        *[c.data_ptr() for c in held]), held
+
+
 def row_counts(em):
     """The rows of each row space of the emitted density `em`, as the
     kernel's entry points take them (an int array; null without rows)."""
@@ -588,8 +602,9 @@ def row_counts(em):
 
 
 def _launch_setup(density, columns, n, dev, stream_columns=None):
-    """(Kernels, column pointer array, rows of each row space, threads,
-    workspace, whether the tiles stream) for a launch over n chains;
+    """(Kernels, (column pointer array, the tensors it points into), rows
+    of each row space, threads, workspace, whether the tiles stream) for
+    a launch over n chains;
     raises, before building, on a row the kernel's tile cannot hold, on a
     workspace the card has no room for, and on ``stream_columns`` without
     tiles."""
@@ -605,12 +620,11 @@ def _launch_setup(density, columns, n, dev, stream_columns=None):
         raise ValueError(reason)
     stream = streams(density, columns, stream_columns, dev)
     kernels = build(density, lanes_per_chain(em, n))[0]
-    ptrs = (ctypes.c_void_p * max(len(columns), 1))(
-        *[c.data_ptr() for c in columns])
+    ptrs, held = column_pointers(em, columns)
     ws = torch.empty(workspace_bytes(em, n) // 4, dtype=torch.float32,
                      device=dev) if workspace_bytes(em, n) else None
-    return kernels, ptrs, row_counts(em), threads_per_block(em, n), ws, \
-        stream
+    return kernels, (ptrs, held), row_counts(em), threads_per_block(em, n), \
+        ws, stream
 
 
 def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
@@ -675,7 +689,7 @@ def prepare_fused_hmc(density, q0, *, step_size, n_steps: int,
     dev = q0.device
     pos, n_collect, expand = _collect_pos(collect_idx, emit_cuda.emit(density),
                                           dev)
-    kernels, ptrs, rows, threads, ws, stream_cols = _launch_setup(
+    kernels, (ptrs, columns), rows, threads, ws, stream_cols = _launch_setup(
         density, columns, n, dev, stream_columns)
     qf = torch.empty((dim, n), dtype=torch.float32, device=dev)
     acc = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -758,7 +772,7 @@ def prepare_logp_grad(density, q, columns=None, stream_columns=None):
     q = q.contiguous()
     columns = _columns(density, columns, q.device)
     n = q.shape[1]
-    kernels, ptrs, rows, threads, ws, stream_cols = _launch_setup(
+    kernels, (ptrs, columns), rows, threads, ws, stream_cols = _launch_setup(
         density, columns, n, q.device, stream_columns)
     lp = torch.empty((n,), dtype=torch.float32, device=q.device)
     g = torch.empty_like(q)

@@ -16,6 +16,8 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 rainier_tpu_torch/tools/kernel_ab.py adapt
     python3 rainier_tpu_torch/tools/kernel_ab.py columnfree LABEL
     python3 rainier_tpu_torch/tools/kernel_ab.py forms LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py gather-tiles LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py gp-layouts LABEL
     python3 rainier_tpu_torch/tools/kernel_ab.py zoo STEPS DRAWS DTYPE [FAMILY ...]
 
 ``row-sums``: the kernels of the README regression, the 100k-row
@@ -103,6 +105,24 @@ with another checkout's root on PYTHONPATH and with this one's, in the
 order A B B A, to compare two trees.  Prints one line per form tagged
 LABEL, with the time a density call.
 
+``gather-tiles``: the row-varying gather of ``form_models`` (100,000
+rows, 1024 chains × 20 iterations of HMC(4), from a short scan-path
+warmup's states) with its space's tiles of each of ``GATHER_TILES`` rows
+(``emit_cuda.GATHER_TILE_ROWS_MAX`` replaced for its emission, as
+``columnfree`` replaces ``LANE_STATE_MAX``), in the order A B B A, each
+with the synchronous tile loop and with the streamed one, and the
+density alone (``rt_logp_grad_launch``) at 576 of those states.  Prints
+one line per tile size and loop, tagged LABEL, with whether the two
+loops gave the same bits.
+
+``gp-layouts``: ``chip_smoke.py``'s latent GP (64 inputs, 1024 chains ×
+25 iterations of HMC(12), as ``forms`` times it) with the product
+passes' L staged in the block's shared memory and read from a
+transposed copy in device memory (emitted with a ``stage_budget`` of 0
+bytes), in the order A B B A, and the density alone at 576
+states.  Prints one line per layout, tagged LABEL, with whether its
+draws are the first layout's bit for bit (both sum in one order).
+
 ``zoo``: the goldset zoo of ``chip_smoke.py`` (each family's 100,000
 rows synthesized on the card, seed ``ZOO_SEED``), every family or those
 named, fitted through ``Model.sample(kernel="fused!")`` at 1024 chains x
@@ -146,6 +166,15 @@ FORM_RUNS = {"latent GP": (25, 12), "MVNormal logistic 32": (100, 5),
              "form vector per row": (20, 4),
              "form row-varying gather": (20, 4)}
 FORM_REPS, FORM_WARMUP = 20, 100
+# ``gather-tiles``: the rows of the row-varying gather's tiles, in order;
+# ``gp-layouts``: the GP's layouts by the staging budget each is emitted
+# with (None: the emitter's own), in order; both also time the density
+# alone at DENSITY_POINTS states
+GATHER_TILES = (256, 1024, 2048, 4096, 4096, 2048, 1024, 256)
+GP_LAYOUTS = {"shared memory": None, "transposed copy": 0}
+GP_ORDER = ("shared memory", "transposed copy", "transposed copy",
+            "shared memory")
+DENSITY_POINTS = 576
 # the values of W that ``lanes`` times
 LANE_W = (2, 4, 8, 8, 4, 2)
 # ``columnfree``: (what, dims, chains, iterations, explicit noise, lanes
@@ -329,10 +358,11 @@ def _build_runs(runs):
         list(pool.map(_build, [run[0].density() for run in runs.values()]))
 
 
-def _time_runs(runs, device, label, built=None, reps=3):
+def _time_runs(runs, device, label, built=None, reps=3, stream=None):
     """Each run's kernel (warm, then the median of `reps` launches) as
-    its launch decides, from the libraries `built` ({name: build}) or the
-    model's own build."""
+    its launch decides (`stream`: its ``stream_columns``), from the
+    libraries `built` ({name: build}) or the model's own build.  Returns
+    the last run's outputs."""
     import chip_smoke as cs
     from rainier_tpu_torch.ops import fused_hmc as F
 
@@ -340,6 +370,8 @@ def _time_runs(runs, device, label, built=None, reps=3):
         cd = model.density()
         kw = dict(step_size=eps, n_steps=n_steps, n_iterations=n_it,
                   seed=1, inv_mass_diag=imd, collect_every=0)
+        if stream is not None:
+            kw["stream_columns"] = stream
         if built is not None:
             kernels, _, em = built[name]
             F._BUILT[cd] = {F.emit_cuda.LANES: (kernels, em)}
@@ -348,6 +380,7 @@ def _time_runs(runs, device, label, built=None, reps=3):
               f"{n_steps} steps {ms:.3f} ms ({ms / (n_it * n_steps + 1):.4f}"
               f" ms a density call), accept {float(out[2].mean()):.4f}",
               flush=True)
+    return out
 
 
 def row_sums() -> None:
@@ -420,6 +453,102 @@ def forms(label: str) -> None:
     runs = _form_runs(device)
     _build_runs(runs)
     _time_runs(runs, device, f"forms {label}", reps=FORM_REPS)
+
+
+def _emit_as(cd, consts):
+    """The density `cd` emitted, once a process, with the constants
+    `consts` of ``emit_cuda`` in place (restored after)."""
+    from rainier_tpu_torch.compute import emit_cuda
+
+    old = {k: getattr(emit_cuda, k) for k in consts}
+    try:
+        for k, v in consts.items():
+            setattr(emit_cuda, k, v)
+        emit_cuda.emit(cd)
+    finally:
+        for k, v in old.items():
+            setattr(emit_cuda, k, v)
+
+
+def _same_bits(a, b):
+    """Whether two launches' outputs are equal bit for bit (None for the
+    draws of both where none were collected)."""
+    import torch
+
+    return all(x is y or torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _density_alone(model, q, device, label):
+    """``rt_logp_grad_launch`` of `model` at the columns of q, the median
+    of FORM_REPS launches alone, printed tagged `label`."""
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    _, ms = launch_ms(F.prepare_logp_grad(model.density(), q), device,
+                      FORM_REPS)
+    print(f"RESULT {label}: density alone at {q.shape[1]} q {ms:.4f} ms",
+          flush=True)
+
+
+def gather_tiles(label: str) -> None:
+    import torch
+
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+
+    device = torch.device("cuda")
+    name = "form row-varying gather"
+
+    def build():
+        return cs.form_models(rt)["row-varying gather"][0]
+
+    start = _warm(build(), CHAINS, device, FORM_WARMUP)
+    runs = {rows: (build(), start, *FORM_RUNS[name])
+            for rows in dict.fromkeys(GATHER_TILES)}
+    for rows, run in runs.items():
+        _emit_as(run[0].density(), {"GATHER_TILE_ROWS_MAX": rows})
+    _build_runs(runs)
+    q = start[0][:, :DENSITY_POINTS].contiguous()
+    for rows in GATHER_TILES:
+        tag = f"gather-tiles {label} tile {rows}"
+        outs = [_time_runs({name: runs[rows]}, device, f"{tag}, {loop}",
+                           reps=FORM_REPS, stream=stream)
+                for loop, stream in (("synchronous", False),
+                                     ("streamed", True))]
+        same = _same_bits(*outs)
+        print(f"RESULT {tag} the two loops the same bits: {same}",
+              flush=True)
+        _density_alone(runs[rows][0], q, device, tag)
+
+
+def gp_layouts(label: str) -> None:
+    import torch
+
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+    from rainier_tpu_torch.compute import emit_cuda
+
+    device = torch.device("cuda")
+    name = "latent GP"
+
+    def build():
+        return cs.latent_gp(rt)[0]
+
+    start = _warm(build(), CHAINS, device, FORM_WARMUP)
+    runs = {what: (build(), start, *FORM_RUNS[name]) for what in GP_LAYOUTS}
+    for what, budget in GP_LAYOUTS.items():
+        emit_cuda.emit(runs[what][0].density(), stage_budget=budget)
+    _build_runs(runs)
+    q = start[0][:, :DENSITY_POINTS].contiguous()
+    first = None
+    for what in GP_ORDER:
+        out = _time_runs({name: runs[what]}, device,
+                         f"gp-layouts {label} {what},", reps=FORM_REPS)
+        first = out if first is None else first
+        same = _same_bits(out, first)
+        print(f"RESULT gp-layouts {label} {what}: the first layout's bits "
+              f"{same}", flush=True)
+        _density_alone(runs[what][0], q, device,
+                       f"gp-layouts {label} {what}")
 
 
 def lanes() -> None:
@@ -580,7 +709,6 @@ def columnfree(label: str) -> None:
 
     import chip_smoke as cs
     import rainier_tpu_torch as rt
-    from rainier_tpu_torch.compute import emit_cuda
     from rainier_tpu_torch.ops import fused_hmc as F
 
     device = torch.device("cuda")
@@ -615,11 +743,7 @@ def columnfree(label: str) -> None:
         elif cap is not None:
             # every lane's registers or a slot, whatever the size: the
             # model's emission made now, under this cap
-            rule, emit_cuda.LANE_STATE_MAX = emit_cuda.LANE_STATE_MAX, cap
-            try:
-                emit_cuda.emit(cd)
-            finally:
-                emit_cuda.LANE_STATE_MAX = rule
+            _emit_as(cd, {"LANE_STATE_MAX": cap})
         shapes.append((what, cd, q0, kw, order))
     if lanes_rule:
         jobs = list(dict.fromkeys((cd, lanes) for _, cd, _, _, order
@@ -701,6 +825,10 @@ def main(argv) -> int:
         columnfree(argv[1])
     elif argv[:1] == ["forms"] and len(argv) == 2:
         forms(argv[1])
+    elif argv[:1] == ["gather-tiles"] and len(argv) == 2:
+        gather_tiles(argv[1])
+    elif argv[:1] == ["gp-layouts"] and len(argv) == 2:
+        gp_layouts(argv[1])
     elif argv[:1] == ["zoo"] and len(argv) >= 4:
         zoo(int(argv[1]), int(argv[2]), argv[3], argv[4:])
     else:

@@ -220,11 +220,6 @@ def _host_library(cd, tmp_path, lanes=None):
     return lib, em
 
 
-def _col_ptrs(cols):
-    return (ctypes.c_void_p * max(len(cols), 1))(
-        *[c.data_ptr() for c in cols])
-
-
 def _host_ws(em, n):
     """(the workspace the wrapper would allocate for a launch over n
     chains, NaN-filled, or None for a model whose state lives in the
@@ -240,8 +235,9 @@ def _host_logp_grad(lib, em, q, cols, stream=False):
     n = q.shape[1]
     lp, g = torch.empty(n), torch.empty_like(q)
     ws, threads = _host_ws(em, n)
+    ptrs, _held = F.column_pointers(em, cols)
     lib.rt_logp_grad_host(n, q.data_ptr(), lp.data_ptr(), g.data_ptr(),
-                          _col_ptrs(cols), F.row_counts(em),
+                          ptrs, F.row_counts(em),
                           None if ws is None else ws.data_ptr(), threads,
                           int(stream))
     return lp, g
@@ -357,11 +353,12 @@ def _run_host(lib, cd, q0, kw, noise, cols, collect_idx=None, ws_out=None,
         ws_out.append(ws)
     ptr = (lambda t: None if t is None else t.data_ptr())
     p, u = noise if noise is not None else (None, None)
+    ptrs, _held = F.column_pointers(em, cols)
     lib.rt_fused_hmc_host(
         n, ptr(q0), ptr(scale), int(scale is not None and scale.dim() == 2),
         ptr(eps), ptr(p), ptr(u), ptr(qf), ptr(samples), ptr(acc), ptr(div),
         n_it, kw["n_steps"], collect, ptr(pos), n_collect, kw["seed"],
-        _col_ptrs(cols), F.row_counts(em), ptr(ws), threads, int(stream))
+        ptrs, F.row_counts(em), ptr(ws), threads, int(stream))
     if expand is not None:
         samples = samples[:, expand]
     return qf, samples, acc, div

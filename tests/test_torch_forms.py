@@ -191,7 +191,7 @@ def test_gp_layouts():
 # what marks each form in the emitted header
 MARKS = {"vector_per_row": "rt_int_bits(row0 + i)",
          "index_read_whole": "rt_clampi(cols.c",
-         "gather_source_per_row": "#define RT_ROW_COLS 1",
+         "gather_source_per_row": "j0[u] = rt_clampi(cols.c1[r], 0, 7);",
          "mvnormal_past_16": "#define RT_SCRATCH 34"}
 
 
@@ -229,11 +229,13 @@ def test_emitted_density_matches_jax_lanes(name, tmp_path):
                                   "index_read_whole"])
 def test_split_identity_at_any_tile(name):
     """base + Σ over tiles == the whole density at tiles of 256, 3 and 1
-    rows: a vector of the rows' length and a source rebuilt at the index
-    are sliced by the tiles in the plain version as in the kernel."""
+    rows, and of the rows of a rebuilt source's space
+    (GATHER_TILE_ROWS_MAX): a vector of the rows' length and a source
+    rebuilt at the index are sliced by the tiles in the plain version as
+    in the kernel."""
     cd = MODELS[name](rtt).density()
     cols = cd.column_values(torch.float32, "cpu")
-    for tile in (256, 3, 1):
+    for tile in (256, 3, 1, emit_cuda.GATHER_TILE_ROWS_MAX):
         assert _verify_split(cd, cols, tile), tile
 
 
