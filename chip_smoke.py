@@ -77,7 +77,7 @@ printing one line:
   scan-path run by per-chain moments, and the kernel against its plain
   version at the main path's shapes, compared the same way;
 * the 2M-row logistic regression of ``benchmarks/data_scale.py:35-50``
-  (the 100k model at n = 2,000,000, 512 chains, 40 + 30 iterations of
+  (the 100k model at n = 2,000,000, 512 chains, 20 + 30 iterations of
   HMC(8)), whose 88 MB of columns exceed the card's L2, so its launches
   stream their row tiles: a scan-path run, the streamed density at full
   width at its last draws and at inits against the plain version and
@@ -93,7 +93,11 @@ printing one line:
   of mu and tau within 5%, rank-r̂ < 1.01), and the funnel under the
   default config, EHMC(1024) synchronized, held to the funnel's bars with
   the same gradient evaluations on every chain; each prints what its
-  lockstep loops paid (steps and host syncs an iteration);
+  lockstep loops paid (steps and host syncs an iteration).  They and
+  ``Model.smc`` time no launch and are bound by the host, so they run in
+  a process of their own (``python3 chip_smoke.py samplers``) beside the
+  sections below that time no launch either; the zoo's kernel against
+  its plain version and the mixture, which time launches, run after it;
 * the generative sections: the goldset zoo fitted at 100,000 rows, the
   kernel held to its plain version from three fits, ``trace.predict``
   and ``Model.sample_prior``, the on-device diagnostics and SBC;
@@ -108,8 +112,20 @@ printing one line:
   ``auto_vip`` on the funnel; ``Model.smc`` on eight schools against the
   quadrature's moments and log evidence; the README regression sampled
   in segments with a ``ConsoleProgress`` against the same run at once,
-  and through ``fused!`` with a progress.
+  and through ``fused!`` with a progress;
+* parallel (``rt.parallel`` on ``torch.distributed``, the scan path): the
+  100k logistic at 1024 chains on ``make_mesh()``, a world of one over
+  NCCL, with the bits of the run without a mesh; its pooled run by the
+  two-sample moment test against that run; a checkpoint of its trace in
+  CUDA tensors round-tripped and ``resume_config`` continuing it; then
+  two ranks over gloo on the one card, spawned by the script
+  (``python3 chip_smoke.py parallel-rank PORT RANK DIR``): the (1, 2)
+  data-sharded density at the density check's points within its bars of
+  the world of one's, and runs at (1, 2) and (2, 1) by the moment test,
+  each rank holding the same bits.
 
+``python3 chip_smoke.py parallel`` runs the parallel section alone, and
+``python3 chip_smoke.py samplers`` the samplers outside the kernel.
 ``python3 chip_smoke.py advi-spread`` runs the README main path and ADVI
 at three seeds, printed and not held to the bars.
 
@@ -159,15 +175,16 @@ DEVICE = "cuda"
 LAUNCH_REPS, LAUNCH_SHORT_MS = 20, 50.0
 DENSITY_LAUNCHES = 4 + 1 + LAUNCH_REPS
 
-# README regression (benchmarks/models.py:30-41)
-README_ROWS, README_SEED = 200, 0
+# README regression (benchmarks/models.py:30-41); its main path's warmup
+# cut from the funnel's 1000 to 500 for the script's time (PERF.md §4)
+README_ROWS, README_SEED, README_WARMUP = 200, 0, 500
 # 100k logistic regression (benchmarks/models.py:145-159) and its run on
 # the main path: fixed-step HMC with the sampler's defaults otherwise
 LOGIT_ROWS, LOGIT_FEATURES, LOGIT_SEED, LOGIT_PRIOR_SD = 100_000, 10, 5, 5.0
 # draws cut from 1000 to 200 to make room for the 2M-row path, warmup
-# from 1000 to 500 for the forms sections (the scan-path run of
-# `scan_timing` too)
-LOGIT_WARMUP, LOGIT_DRAWS, LOGIT_STEPS = 500, 200, 5
+# from 1000 to 500 for the forms sections, then to 250 for the script's
+# time (PERF.md §4)
+LOGIT_WARMUP, LOGIT_DRAWS, LOGIT_STEPS = 250, 200, 5
 # the scan-path run beside it, for its sample_s only
 SCAN_WARMUP = 100
 LOGIT_PARITY_ITERS = 100
@@ -182,8 +199,9 @@ LOGIT_CHECK_MAP, LOGIT_CHECK_INIT = 1024, 64
 # at 1024 chains, and a scan-path run of the same configuration
 GLMM_SITES, GLMM_YEARS, GLMM_SEED = 100, 40, 4
 # draws cut from 1000 to 500 to make room for the untiled density, then
-# to 250, and warmup from 1000 to 300, for the forms sections (both runs)
-GLMM_WARMUP, GLMM_DRAWS, GLMM_STEPS = 300, 250, 5
+# to 250, and warmup from 1000 to 300, for the forms sections, then to 150
+# for the script's time (both runs; PERF.md §4)
+GLMM_WARMUP, GLMM_DRAWS, GLMM_STEPS = 150, 250, 5
 GLMM_PARITY_ITERS, GLMM_CHECK_INIT = 100, 64
 GLMM_MOMENT_Z = 5.0   # two-sample bound on each per-chain moment's mean
 # glmm_large (benchmarks/models.py:162-202, BASELINE config 5) and its
@@ -191,8 +209,9 @@ GLMM_MOMENT_Z = 5.0   # two-sample bound on each per-chain moment's mean
 # 2, 102, ..., 9902)
 LARGE_GROUPS, LARGE_OBS, LARGE_SEED, LARGE_LAM = 10_000, 5, 6, 1.0
 # draws cut from 1000 to 200 to make room for the 2M-row path, then to
-# 100, and warmup from 1000 to 300, for the forms sections (both runs)
-LARGE_WARMUP, LARGE_DRAWS, LARGE_STEPS = 300, 100, 5
+# 100, and warmup from 1000 to 300, for the forms sections, then to 150
+# for the script's time (both runs; PERF.md §4)
+LARGE_WARMUP, LARGE_DRAWS, LARGE_STEPS = 150, 100, 5
 # parity iterations cut from 100 to 50 to make room for the untiled density
 LARGE_PARITY_ITERS, LARGE_CHECK_INIT = 50, 64
 # its kernel runs blocks of 4 chains, a warp each: 1001 chains leave a
@@ -209,8 +228,8 @@ LARGE_COLLECT_EVERY = 100
 # correlation at the original prior's scale), built with the Vec API; its
 # run on the main path is the 100k logistic's
 # (warmup cut from 1000 to 300 for the forms sections' time, as the
-# mixture's and the 32-feature model's: PERF.md §4)
-MV_RHO, MV_WARMUP = 0.5, 300
+# mixture's and the 32-feature model's, then to 150: PERF.md §4)
+MV_RHO, MV_WARMUP = 0.5, 150
 # the 100k logistic observed as two merged blocks of these rows: two row
 # spaces, the one-block model's density; its kernel streamed against
 # synchronous over this many iterations
@@ -220,8 +239,9 @@ SPLIT_ROWS, SPLIT_AB_ITERS = 60_000, 20
 # of columns, past the card's L2, so its launches stream their tiles
 LOGIT2M_ROWS, LOGIT2M_CHAINS = 2_000_000, 512
 # draws cut from 100 to 50 to make room for the untiled density, then to
-# 30, and warmup from 100 to 40, for the forms sections
-LOGIT2M_WARMUP, LOGIT2M_DRAWS, LOGIT2M_STEPS = 40, 30, 8
+# 30, and warmup from 100 to 40, for the forms sections, then to 20 for
+# the script's time (PERF.md §4)
+LOGIT2M_WARMUP, LOGIT2M_DRAWS, LOGIT2M_STEPS = 20, 30, 8
 # the density check at this many of the scan-path run's last draws and
 # inits (the f64 truth holds several (rows, points) arrays)
 LOGIT2M_CHECK_DRAWS, LOGIT2M_CHECK_INIT = 128, 32
@@ -240,8 +260,10 @@ EIGHT_SIGMA = [15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0]
 # near √(1 + (τ_int − 1)/n) for n draws a half chain, τ_int ~5, and a
 # shorter warmup raises it too, so neither is cut below what keeps it
 # clear of 1.01 (PERF.md §4): draws 750 (1.00512 there) cut to 600 for the
-# forms sections, where it sits near √(1 + 4/300) ≈ 1.0066
-NUTS_WARMUP, NUTS_DRAWS, NUTS_DEPTH = 500, 600, 8
+# forms sections, where it sits near √(1 + 4/300) ≈ 1.0066 (1.00647 at
+# 500 warmup, 1.00657 at 400); warmup cut to 300 for the script's time
+# (PERF.md §4)
+NUTS_WARMUP, NUTS_DRAWS, NUTS_DEPTH = 300, 600, 8
 QUAD_MU, QUAD_TAU = (-40.0, 50.0, 1801), (0.0, 200.0, 8001)
 # bars: means within this many posterior SDs, SDs within this fraction
 NUTS_MEAN_SD, NUTS_SD_REL = 0.05, 0.05
@@ -255,7 +277,7 @@ EHMC_WARMUP, EHMC_DRAWS = 300, 500
 # likelihoods), each family's data synthesized on the card by the port's
 # generators at the reference SBCBenchmark's largest size
 # (benchmarks/sbc_sweep.py:3-8) and fitted through
-# Model.sample(kernel="fused!") at 1024 chains x (300 + 500), HMC(4); held
+# Model.sample(kernel="fused!") at 1024 chains x (200 + 500), HMC(4); held
 # to a quadrature of prior x likelihood in numpy f64 over ZOO_GRID points
 # (means within ZOO_MEAN_SD posterior SD, SDs within ZOO_SD_REL, rank-r̂
 # under 1.01).  HMC(4), not HMC(5): on these 1-D, near-Gaussian posteriors
@@ -272,7 +294,10 @@ EHMC_WARMUP, EHMC_DRAWS = 300, 500
 # binomial loses chains to its far tail (``kernel_ab.py zoo 4 500
 # float32`` reads it; ROADMAP fault C4)
 ZOO_ROWS, ZOO_SEED = 100_000, 7
-ZOO_WARMUP, ZOO_DRAWS, ZOO_STEPS = 300, 500, 4
+# warmup cut from 300 to 200 for the script's time (PERF.md §4): at 150
+# some of gamma_normal's chains kept steps of ~0.001 and the fit missed
+# its bars (its SD 7.3 times off)
+ZOO_WARMUP, ZOO_DRAWS, ZOO_STEPS = 200, 500, 4
 ZOO_GRID, ZOO_MEAN_SD, ZOO_SD_REL = 4001, 0.05, 0.05
 # the kernel held to its plain version at the zoo's shapes, from these
 # families' fits (their final states, ε and Σ̂): the -inf term of a
@@ -315,7 +340,7 @@ SBC_FAMILIES = ("zero_inflated_geometric", "binomial")
 # tests/test_marginal.py:114-138 at MIX_ROWS rows, its locations latent:
 # theta ~ Beta(1, 1), a ~ N(4, 1), b ~ N(-4, 1), y_i ~ N(a or b, 0.5²),
 # the Bernoulli(theta) assignment summed out (``marginalize``) under one
-# RowSum; through Model.sample(kernel="fused!") at 1024 chains x (300 +
+# RowSum; through Model.sample(kernel="fused!") at 1024 chains x (150 +
 # 200) of HMC(4), held to its Laplace reference (Newton in numpy f64 in
 # the constrained coordinates theta, a, b) by the logistic's bars, its
 # responsibilities at the last draw of MIX_RESP_DRAWS chains within
@@ -326,9 +351,10 @@ SBC_FAMILIES = ("zero_inflated_geometric", "binomial")
 # 5 steps near a period; at 500 + 200 of HMC(5) every mean came within
 # 0.0064 Laplace SD and every SD within 0.51%, but rank-r̂ was 1.0318.
 # Warmup cut from 500 to 300 (eager, 96 ms an iteration at 100k rows x
-# 1024 chains) for the inference sections' time (PERF.md §4)
+# 1024 chains) for the inference sections' time, then to 150 for the
+# script's (PERF.md §4)
 MIX_ROWS, MIX_SEED, MIX_SCALE = 100_000, 8, 0.5
-MIX_WARMUP, MIX_DRAWS, MIX_STEPS = 300, 200, 4
+MIX_WARMUP, MIX_DRAWS, MIX_STEPS = 150, 200, 4
 MIX_RESP_DRAWS, MIX_RESP_TOL, MIX_PARITY_ITERS = 100, 0.01, 100
 # Model.optimize on the 100k logistic at the default dtype: every
 # coordinate within OPT_SD Laplace SD of the Laplace MAP, with one start
@@ -370,15 +396,15 @@ CHUNK_MEAN_SE = 5.0
 # 700 W).  Warmup is eager, ~17 ms a density call at 1024 chains (64
 # scalar likelihood terms, each its own launches): 500 warmup iterations
 # of HMC(16) took 138 s (H100, 700 W), so warmup is cut to GP_WARMUP of
-# HMC(GP_STEPS) (rank-r̂ 1.00553 over 2000 draws); draws cost the kernel
-# ~0.3 ms each.
+# HMC(GP_STEPS) (rank-r̂ 1.00553 over 2000 draws at 150), then to 100
+# for the script's time (PERF.md §4); draws cost the kernel ~0.3 ms each.
 # Bars: every f_i's mean within GP_MEAN_SD posterior SD, its SD within
 # GP_SD_REL (f evaluated at every GP_THIN-th draw), rank-r̂ < 1.01; the
 # kernel against its plain version at the main path's shapes over
 # GP_PARITY_ITERS iterations (the plain version is the eager density
 # too), the column-free bar
 GP_INPUTS, GP_SEED, GP_SIGMA, GP_LENGTH, GP_JITTER = 64, 0, 0.3, 1.0, 1e-6
-GP_WARMUP, GP_DRAWS, GP_STEPS, GP_PARITY_ITERS = 150, 2000, 12, 25
+GP_WARMUP, GP_DRAWS, GP_STEPS, GP_PARITY_ITERS = 100, 2000, 12, 25
 GP_MEAN_SD, GP_SD_REL, GP_THIN = 0.05, 0.05, 4
 # The same GP at GP_WIDE_INPUTS inputs on [0, 10], whose L (256 x 257
 # floats, 263 KB) does not fit a block's shared memory beside its slots:
@@ -386,8 +412,9 @@ GP_MEAN_SD, GP_SD_REL, GP_THIN = 0.05, 0.05, 4
 # short main path (its warmup is eager, GP_WIDE_INPUTS scalar terms a
 # density call), then the density alone and the kernel against its
 # plain version over GP_WIDE_PARITY_ITERS iterations from its states;
-# the exact-posterior bars stay with the 64-input GP
-GP_WIDE_INPUTS, GP_WIDE_WARMUP, GP_WIDE_DRAWS = 256, 30, 200
+# the exact-posterior bars stay with the 64-input GP (warmup cut from 30
+# to 20 for the script's time: ~0.9 s an iteration)
+GP_WIDE_INPUTS, GP_WIDE_WARMUP, GP_WIDE_DRAWS = 256, 20, 200
 GP_WIDE_PARITY_ITERS = 5
 # the 100k logistic's data at MV32_FEATURES features
 # (benchmarks/models.py:145-159 at p = 32) under the MVNormal prior:
@@ -395,8 +422,9 @@ GP_WIDE_PARITY_ITERS = 5
 # row-invariant values; warmup cut from 1000 to 300 (as the mixture's).
 # Draws 800, not 200: at 200 rank-r̂ came out 1.0195 (pooled adaptation;
 # an integrated autocorrelation of ~4.9 draws), and at 800 it sits near
-# √(1 + 3.9/400) ≈ 1.005 (H100, 700 W)
-MV32_FEATURES, MV32_WARMUP, MV32_DRAWS = 32, 300, 800
+# √(1 + 3.9/400) ≈ 1.005 (H100, 700 W; 1.00451 at 300 warmup, 1.00448 at
+# 200); warmup then cut to 150 for the script's time (PERF.md §4)
+MV32_FEATURES, MV32_WARMUP, MV32_DRAWS = 32, 150, 800
 # the three row forms no model of the repo reaches, each at FORM_ROWS
 # rows from the smallest construct that builds it, its data from
 # FORM_SEED: a short main path (FORM_WARMUP + FORM_DRAWS of
@@ -408,7 +436,8 @@ MV32_FEATURES, MV32_WARMUP, MV32_DRAWS = 32, 300, 800
 # twice from the same states and noise, held to the same bits
 FORM_ROWS, FORM_SEED, FORM_GROUPS = 100_000, 9, 3
 FORM_SAME_BITS = ("index column read whole", "row-varying gather")
-FORM_WARMUP, FORM_DRAWS, FORM_STEPS, FORM_COLLECT = 100, 50, 4, 10
+# (warmup cut from 100 to 50 for the script's time: PERF.md §4)
+FORM_WARMUP, FORM_DRAWS, FORM_STEPS, FORM_COLLECT = 50, 50, 4, 10
 FORM_CHECK_NEAR, FORM_CHECK_INIT, FORM_PARITY_ITERS = 512, 64, 20
 # rt.inspection.trace's run: short, since the profiler records every
 # eager operation of its warmup (50 + 50 of HMC(4) took 36 s there)
@@ -417,6 +446,14 @@ INSPECT_WARMUP, INSPECT_DRAWS, INSPECT_STEPS, INSPECT_CHAINS = 20, 20, 2, 256
 # (`conditioning`, one f64 density call a parameter) up to this many
 # parameters
 FORM_COND_MAX = 64
+# the parallel section (rainier_tpu_torch/parallel): the 100k logistic on
+# the scan path through a mesh at MAIN_CHAINS chains, PAR_WARMUP +
+# PAR_DRAWS of HMC(PAR_STEPS), a depth cut to keep the section under 45 s;
+# its two gloo ranks on the one card get PAR_RANKS_S seconds
+PAR_WARMUP, PAR_DRAWS, PAR_STEPS, PAR_RANKS_S = 50, 50, 5, 600
+# the samplers outside the kernel (NUTS, EHMC, SMC: `samplers_alone`) run
+# in a process of their own, given this many seconds
+SAMPLERS_S = 600
 
 
 def funnel(rt, dim=10):
@@ -1049,6 +1086,38 @@ def phase(name, device):
           flush=True)
 
 
+@contextlib.contextmanager
+def beside(mode, timeout):
+    """Runs ``python3 chip_smoke.py MODE`` in a process of its own while
+    the block runs, then waits for it (at most `timeout` seconds from its
+    start), prints its phase lines and fails if it failed.  The process is
+    killed if the block raises."""
+    import tempfile
+
+    with tempfile.TemporaryFile() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 mode], stdout=out, stderr=subprocess.STDOUT)
+        try:
+            yield
+            t_join = time.perf_counter()
+            proc.wait(timeout=max(timeout - (t_join - t0), 1))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out.seek(0)
+        text = out.read().decode(errors="replace")
+    for line in text.splitlines():
+        if line.startswith("phase "):
+            print(line, flush=True)
+    print(f"phase time, {mode} in its own process: "
+          f"{time.perf_counter() - t0:.1f} s, of them "
+          f"{time.perf_counter() - t_join:.1f} s after the block beside it",
+          flush=True)
+    check(proc.returncode == 0, f"{mode}: {text[-3000:]}")
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1502,7 +1571,7 @@ def readme_phases(F, readme, em, device):
     coef = np.linalg.lstsq(xa, ys, rcond=None)[0]
     resid_sd = float(np.sqrt(np.sum((ys - xa @ coef) ** 2)
                              / (xs.shape[0] - xa.shape[1])))
-    cfg = SamplerConfig(N_WARMUP, N_DRAWS, sampler=HMC(N_STEPS))
+    cfg = SamplerConfig(README_WARMUP, N_DRAWS, sampler=HMC(N_STEPS))
     F.fused_hmc.launches = 0
     tr = model.sample(cfg, n_chains=MAIN_CHAINS, seed=0, kernel="fused!",
                       device=device)
@@ -1514,7 +1583,8 @@ def readme_phases(F, readme, em, device):
     z = np.abs(mean - coef) / sd
     rhat = rank_rhat(tr)
     print(f"phase main path, README regression: Model.sample(kernel="
-          f"'fused!') {MAIN_CHAINS} chains x ({N_WARMUP} warmup + {N_DRAWS}"
+          f"'fused!') {MAIN_CHAINS} chains x ({README_WARMUP} warmup + "
+          f"{N_DRAWS}"
           f" draws), HMC({N_STEPS}): fused_hmc launches {launches}, "
           f"rank-r_hat max {rhat:.5f}, (alpha, betas) means "
           f"{np.round(mean, 5).tolist()} vs least squares "
@@ -1595,7 +1665,7 @@ def scan_timing(model, tr, device, what):
     tr_scan = model.sample(cfg, n_chains=MAIN_CHAINS, seed=1, kernel="scan",
                            device=device)
     print(f"phase scan path, {what}: Model.sample(kernel='scan') "
-          f"{MAIN_CHAINS} chains x ({LOGIT_WARMUP} warmup + {LOGIT_DRAWS} "
+          f"{MAIN_CHAINS} chains x ({SCAN_WARMUP} warmup + {LOGIT_DRAWS} "
           f"draws), HMC({LOGIT_STEPS}): accept "
           f"{float(np.mean(tr_scan.accept_rate())):.3f}, timings "
           f"{tr_scan.timings}; the kernel's sample_s "
@@ -2727,28 +2797,22 @@ def chunked_phase(F, readme, device):
     check("chunk_iters needs the scan path" in refused, refused)
 
 
-def inference_sections(F, rt, cds, ems, mix, readme, readme_tr, lmodel,
-                       w_map, cov, eight_quad, device):
-    """The rest of inference, each section timed; returns the mixture's
-    JSON entry."""
+def inference_sections(F, rt, readme, readme_tr, lmodel, w_map, cov,
+                       device):
+    """The rest of inference that times no launch, each section timed (the
+    mixture's section times its kernel and runs apart; Model.smc runs in
+    the samplers' process, `samplers_alone`)."""
     t0 = time.perf_counter()
-    with phase("marginalized mixture", device):
-        entry = mixture_phases(F, mix[0], cds["marginalized mixture"],
-                               ems["marginalized mixture"], *mix[1:],
-                               device)
     with phase("Model.optimize", device):
         optimize_phase(lmodel, w_map, cov, device)
     with phase("ADVI", device):
         advi_phase(rt, readme, readme_tr, device)
     with phase("auto_vip", device):
         auto_vip_phase(rt, device)
-    with phase("Model.smc", device):
-        smc_phase(rt, eight_quad, device)
     with phase("progress and chunked sampling", device):
         chunked_phase(F, readme, device)
     print(f"phase time, the inference sections: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return entry
 
 
 def gp_data(inputs=GP_INPUTS):
@@ -3059,6 +3123,210 @@ def forms_sections(F, rt, cds, ems, gp, gpw, mv32, x32, ys32, forms,
     return kernels
 
 
+def parallel_section(rt, lmodel, x, ys, w_map, cov, device):
+    """The 100k logistic through ``rt.parallel`` on the scan path: a world
+    of one over NCCL (``make_mesh()``), whose run gives the bits of the
+    run without a mesh, whose pooled run passes `moment_z` against the
+    pooled run without a mesh, and
+    whose trace round-trips a checkpoint of CUDA tensors and resumes by
+    ``resume_config``; and two ranks over gloo on the one card, spawned
+    here (`parallel_rank`), whose (1, 2) data-sharded density at the
+    density check's points is within its bars of the world of one's, and
+    whose (1, 2) and (2, 1) runs pass `moment_z` against it, each rank
+    holding the same bits.  Both densities are plain f32 sums of 100,000
+    rows in another order, so the bars widen, per point and entry, by the
+    world of one's own distance from f64 (`logistic_truth`), as the row
+    forms' bars against their plain version do (PERF.md §2)."""
+    import dataclasses
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from rainier_tpu_torch.parallel import (load_checkpoint, make_mesh,
+                                            resume_config, save_checkpoint)
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+    from rainier_tpu_torch.sampler.mass import MassState
+
+    torch.cuda.empty_cache()
+    cd = lmodel.density()
+    q = check_points(w_map, cov, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "points.npy"), q.cpu().numpy())
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        # the ranks start first: they take seconds to reach the card
+        t_ranks = time.perf_counter()
+        ranks = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "parallel-rank",
+             str(port), str(r), tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT) for r in (0, 1)]
+        try:
+            mesh = make_mesh()
+            one = torch.ones(1, device=device)
+            dist.all_reduce(one)
+            print(f"phase world of one: backend {dist.get_backend()}, "
+                  f"{dist.get_world_size()} rank, mesh "
+                  f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}", flush=True)
+            check(dist.get_backend() == "nccl" and float(one) == 1.0,
+                  "NCCL world of one")
+            cfg = SamplerConfig(PAR_WARMUP, PAR_DRAWS, sampler=HMC(PAR_STEPS))
+            pooled = dataclasses.replace(cfg, pooled_adaptation=True)
+            runs = {(c.pooled_adaptation, m is not None): lmodel.sample(
+                c, n_chains=MAIN_CHAINS, seed=0, device=device, mesh=m)
+                for c in (cfg, pooled) for m in (None, mesh)}
+
+            def same_bits(a, b):
+                return (np.array_equal(a.chains, b.chains)
+                        and np.array_equal(a.step_size, b.step_size)
+                        and np.array_equal(a.mass.diag, b.mass.diag))
+
+            u, m = runs[False, False], runs[False, True]
+            same = same_bits(u, m)
+            z = moment_z(runs[True, True].chains, runs[True, False].chains,
+                         device)
+            # not a bar: pooling changes the adaptation, so at this depth
+            # the pooled and per-chain runs draw from two laws
+            z_laws = moment_z(runs[True, True].chains, u.chains, device)
+            print(f"phase main path through a mesh of one, logistic "
+                  f"regression: {MAIN_CHAINS} chains x ({PAR_WARMUP} "
+                  f"warmup + {PAR_DRAWS} draws), HMC({PAR_STEPS}), scan "
+                  f"path: the same bits as no mesh {same} (timings "
+                  f"{m.timings}, no mesh {u.timings}); pooled: max z "
+                  f"{z[0]:.3f} ({z[1]} of parameter {z[2]}) against the "
+                  f"pooled run without a mesh, bar {GLMM_MOMENT_Z} (the "
+                  f"same bits {same_bits(runs[True, True], runs[True, False])}"
+                  f"; against the per-chain run, not gated, max z "
+                  f"{z_laws[0]:.3f}, {z_laws[1]} of parameter {z_laws[2]})",
+                  flush=True)
+            check(same, "the mesh of one changed the bits")
+            check(z[0] < GLMM_MOMENT_Z, z)
+
+            state = {"chains": m._chains_src,
+                     "mass": MassState(diag=torch.as_tensor(
+                         m.mass.diag, device=device)),
+                     "step_size": torch.as_tensor(m.step_size, device=device),
+                     "final": torch.as_tensor(m.final_q, device=device)}
+            path = os.path.join(tmp, "checkpoint.npz")
+            save_checkpoint(path, state)
+            back = load_checkpoint(path, state)
+            kept = all(a.device == b.device and torch.equal(a, b)
+                       for a, b in ((back["chains"], state["chains"]),
+                                    (back["mass"].diag, state["mass"].diag),
+                                    (back["step_size"], state["step_size"]),
+                                    (back["final"], state["final"])))
+            resumed = lmodel.sample(resume_config(m, cfg),
+                                    n_chains=MAIN_CHAINS, seed=1,
+                                    device=device, mesh=mesh)
+            print(f"phase checkpoint: {os.path.getsize(path)} bytes of CUDA "
+                  f"tensors, round trip the same bits {kept}; resume_config "
+                  f"run: draws {resumed.chains.shape}, accept "
+                  f"{float(np.mean(resumed.accept_rate())):.3f}, step size "
+                  f"{float(resumed.step_size[0]):.4g}", flush=True)
+            check(kept, "checkpoint round trip")
+            check(resumed.chains.shape == (MAIN_CHAINS, PAR_DRAWS, cd.n_vars)
+                  and np.all(np.isfinite(resumed.chains)), "resumed run")
+            lp1, g1 = cd.batched_logp_and_grad_fn()(
+                q.T.contiguous(), cd.column_values(torch.float32, device))
+            dist.destroy_process_group()
+
+            outs = []
+            for p in ranks:
+                out, _ = p.communicate(
+                    timeout=max(PAR_RANKS_S - (time.perf_counter()
+                                               - t_ranks), 1))
+                outs.append(out.decode(errors="replace"))
+        finally:
+            for p in ranks:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(ranks, outs)):
+            print("\n".join(f"phase rank {r}: {line}"
+                            for line in out.strip().splitlines()
+                            if line.startswith("rank ")), flush=True)
+            check(p.returncode == 0, f"rank {r}: {out[-3000:]}")
+        res = [dict(np.load(os.path.join(tmp, f"rank_{r}.npz")))
+               for r in (0, 1)]
+    for k in res[0]:
+        check(np.array_equal(res[0][k], res[1][k]),
+              f"the two ranks' {k} differ")
+    lp_t, g_t = logistic_truth(x, ys, q, device)
+    tol_lp, tol_g, _ = density_bars(lp_t, g_t)
+    lp2 = torch.as_tensor(res[0]["lp"], device=device)
+    g2 = torch.as_tensor(res[0]["g"], device=device).T
+    g1 = g1.T
+    rel = {}
+    for name, (a, b, off_lp, off_g) in {
+            "sharded-vs-world-of-one": (lp2, g2, (lp1 - lp_t).abs(),
+                                        (g1 - g_t).abs()),
+            "the same, not widened": (lp2, g2, 0.0, 0.0),
+            "sharded-vs-f64": (lp2, g2, 0.0, 0.0),
+            "world-of-one-vs-f64": (lp1, g1, 0.0, 0.0)}.items():
+        ref_lp, ref_g = ((lp_t, g_t) if name.endswith("f64")
+                         else (lp1, g1))
+        rel[name] = (float(((a - ref_lp).abs() / (tol_lp + off_lp)).max()),
+                     float(((b - ref_g).abs() / (tol_g + off_g)).max()))
+    dlp = float((lp2 - lp1).abs().max())
+    z12 = moment_z(res[0]["c12"], u.chains, device)
+    z21 = moment_z(res[0]["c21"], u.chains, device)
+    print(f"phase two ranks over gloo on one card: the (1, 2) data-sharded "
+          f"density at {q.shape[1]} q: max |dlp| {dlp:.3g} from the world "
+          f"of one's; of the tolerance (lp, g): " + ", ".join(
+              f"{k} {v[0]:.3f}, {v[1]:.3f}" for k, v in rel.items())
+          + f"; (1, 2) run "
+          f"max z {z12[0]:.3f} ({z12[1]} of parameter {z12[2]}), (2, 1) run "
+          f"max z {z21[0]:.3f} ({z21[1]} of parameter {z21[2]}) against the "
+          f"world of one's, bar {GLMM_MOMENT_Z}; the ranks hold the same "
+          f"bits", flush=True)
+    check(max(rel["sharded-vs-world-of-one"]) <= 1.0, rel)
+    check(z12[0] < GLMM_MOMENT_Z, z12)
+    check(z21[0] < GLMM_MOMENT_Z, z21)
+
+
+def parallel_rank(port, rank, tmp) -> int:
+    """``python3 chip_smoke.py parallel-rank PORT RANK DIR``: one of
+    `parallel_section`'s two ranks, both on the card, joined over gloo
+    (NCCL takes one rank a card): the (1, 2) data-sharded density at
+    DIR/points.npy, then the logistic's run at (1, 2) and at (2, 1),
+    written to DIR/rank_RANK.npz."""
+    import torch
+    import torch.distributed as dist
+
+    import rainier_tpu_torch as rt
+    from rainier_tpu_torch.parallel import make_mesh, sharded_logp_fn
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    rank = int(rank)
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    lmodel, _, _ = logistic_regression(rt)
+    cd = lmodel.density()
+    m12, m21 = make_mesh(1, 2), make_mesh(2, 1)
+    q = torch.as_tensor(np.load(os.path.join(tmp, "points.npy")),
+                        device=device)
+    fn, _ = sharded_logp_fn(cd, m12)
+    lp, g = fn(q.T.contiguous())
+    out = {"lp": lp.cpu().numpy(), "g": g.cpu().numpy()}
+    print(f"rank {rank}: joined and density in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = SamplerConfig(PAR_WARMUP, PAR_DRAWS, sampler=HMC(PAR_STEPS))
+    for tag, mesh in (("c12", m12), ("c21", m21)):
+        tr = lmodel.sample(cfg, n_chains=MAIN_CHAINS, seed=0, device=device,
+                           mesh=mesh)
+        out[tag] = tr.chains
+        print(f"rank {rank}: {tag[1]} x {tag[2]} mesh, timings "
+              f"{tr.timings}", flush=True)
+    np.savez(os.path.join(tmp, f"rank_{rank}.npz"), **out)
+    dist.destroy_process_group()
+    return 0
+
+
 def advi_spread() -> int:
     """``python3 chip_smoke.py advi-spread``: the README main path, then
     ADVI at each of ADVI_SPREAD_SEEDS, printed and not held to the bars
@@ -3077,6 +3345,41 @@ def advi_spread() -> int:
     return 0
 
 
+def samplers_alone() -> int:
+    """``python3 chip_smoke.py samplers``: the samplers that run outside the
+    kernel, on the scan path: eight schools under NUTS with dense mass,
+    the funnel under EHMC, then Model.smc on eight schools.  `main` runs it
+    beside the sections that time no launch (`beside`)."""
+    import torch
+
+    import rainier_tpu_torch as rt
+
+    device = torch.device(DEVICE)
+    with phase("eight schools (NUTS, dense mass)", device):
+        quad = nuts_phase(rt, device)
+    with phase("funnel (default config: EHMC)", device):
+        ehmc_phase(rt, device)
+    with phase("Model.smc", device):
+        smc_phase(rt, quad, device)
+    return 0
+
+
+def parallel_alone() -> int:
+    """``python3 chip_smoke.py parallel``: the parallel section alone."""
+    import torch
+
+    import rainier_tpu_torch as rt
+
+    device = torch.device(DEVICE)
+    print(f"phase card: {nvidia_smi()}, torch {torch.__version__}",
+          flush=True)
+    lmodel, x, ys = logistic_regression(rt)
+    w_map, cov = laplace_reference(x, ys)
+    with phase("parallel", device):
+        parallel_section(rt, lmodel, x, ys, w_map, cov, device)
+    return 0
+
+
 def main(argv=()) -> int:
     import torch
 
@@ -3086,6 +3389,12 @@ def main(argv=()) -> int:
         return 2
     if list(argv) == ["advi-spread"]:
         return advi_spread()
+    if list(argv[:1]) == ["parallel-rank"]:
+        return parallel_rank(*argv[1:])
+    if list(argv) == ["parallel"]:
+        return parallel_alone()
+    if list(argv) == ["samplers"]:
+        return samplers_alone()
     import rainier_tpu_torch as rt
     from rainier_tpu_torch.core.trace import Trace
     from rainier_tpu_torch.ops import fused_hmc as F
@@ -3213,34 +3522,45 @@ def main(argv=()) -> int:
                               ems["logistic regression 2M"], x2, ys2, lcd,
                               w_map, cov, device)
 
-    # -- samplers outside the kernel: NUTS with dense mass, and EHMC --------
-    with phase("eight schools (NUTS, dense mass)", device):
-        eight_quad = nuts_phase(rt, device)
-    with phase("funnel (default config: EHMC)", device):
-        ehmc_phase(rt, device)
+    # -- the sections that time no launch, beside the samplers outside the
+    # kernel (NUTS with dense mass, EHMC, SMC) in a process of their own:
+    # both are eager loops bound by the host, one core each
+    t_beside = time.perf_counter()
+    with beside("samplers", SAMPLERS_S):
+        # -- the generative side and the rest of Trace: the zoo at 100k rows
+        t_new = time.perf_counter()
+        with phase("zoo fits", device):
+            zoo_fits, zoo_counts = zoo_phases(F, zoo_fit_models, device)
+        with phase("posterior predictive and the prior", device):
+            predictive_phases(rt, readme, readme_tr, zoo_fits,
+                              zoo_fit_models, device)
+        with phase("on-device diagnostics", device):
+            diagnostics_phase({"funnel": funnel_tr, "GLMMPoisson2": Trace(
+                glmm_tr._chains_src[..., ::DIAG_GLMM_EVERY], gmodel, None,
+                None)})
+        with phase("SBC", device):
+            sbc_phase(sbcs, device)
+        print(f"phase time, the generative sections: "
+              f"{time.perf_counter() - t_new:.1f} s", flush=True)
 
-    # -- the generative side and the rest of Trace: the zoo at 100k rows -----
-    t_new = time.perf_counter()
-    with phase("zoo fits", device):
-        zoo_fits, zoo_counts = zoo_phases(F, zoo_fit_models, device)
+        # -- the rest of inference: MAP, ADVI, auto_vip, progress ----------
+        inference_sections(F, rt, readme, readme_tr, lmodel, w_map, cov,
+                           device)
+
+        # -- parallel: the mesh, data-sharded densities, checkpoints -------
+        with phase("parallel", device):
+            parallel_section(rt, lmodel, x, ys, w_map, cov, device)
+        print(f"phase time, the sections beside the samplers: "
+              f"{time.perf_counter() - t_beside:.1f} s", flush=True)
+
+    # -- the timed sections after them: the zoo's kernel against its plain
+    # version, and the marginalized mixture
     with phase("zoo: kernel vs plain", device):
         kernels += zoo_parity(F, cds, ems, zoo_fits, zoo_counts, device)
-    with phase("posterior predictive and the prior", device):
-        predictive_phases(rt, readme, readme_tr, zoo_fits, zoo_fit_models,
-                          device)
-    with phase("on-device diagnostics", device):
-        diagnostics_phase({"funnel": funnel_tr, "GLMMPoisson2": Trace(
-            glmm_tr._chains_src[..., ::DIAG_GLMM_EVERY], gmodel, None,
-            None)})
-    with phase("SBC", device):
-        sbc_phase(sbcs, device)
-    print(f"phase time, the generative sections: "
-          f"{time.perf_counter() - t_new:.1f} s", flush=True)
-
-    # -- the rest of inference: MAP, ADVI, SMC, marginals, progress ---------
-    kernels.append(inference_sections(F, rt, cds, ems, mix, readme,
-                                      readme_tr, lmodel, w_map, cov,
-                                      eight_quad, device))
+    with phase("marginalized mixture", device):
+        kernels.append(mixture_phases(F, mix[0], cds["marginalized mixture"],
+                                      ems["marginalized mixture"], *mix[1:],
+                                      device))
     print(f"phase total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}))

@@ -34,5 +34,6 @@ from .variational import advi
 from . import ops
 from . import viz
 from . import inspect as inspection
+from . import parallel
 
 __version__ = "0.1.0"

@@ -409,7 +409,13 @@ class CompiledDensity:
 
         so ``logp_lanes_fn(qb, cols) == base_fn + rows_fn`` for any
         tiling.  The plain version of what the kernel computes; raises
-        NoRowSplit where :meth:`row_split` does."""
+        NoRowSplit where :meth:`row_split` does.
+
+        ``rows_fn(..., rows=, starts=)`` sums only a block of each space's
+        rows, as a rank of a data-sharded density does: `rows` holds one
+        (lo, hi) a space, and `starts` one row a column, the row its
+        tensor begins at (0 for a column held whole, lo for one that holds
+        only its block)."""
         split = self.row_split()
         layout, columns = self.layout, self.columns
 
@@ -423,13 +429,15 @@ class CompiledDensity:
                                          self._backend(qb.device), qb.dtype)
             return _lane_total(vals, qb)
 
-        def rows_fn(qb, cols, tile_rows):
+        def rows_fn(qb, cols, tile_rows, rows=None, starts=None):
             be = self._backend(qb.device)
             tiles = ([tile_rows] * len(split.spaces)
                      if isinstance(tile_rows, int) else list(tile_rows))
+            rows = rows or [(0, s.n_rows) for s in split.spaces]
+            starts = starts or [0] * len(columns)
             total = torch.zeros(qb.shape[1], dtype=torch.float64,
                                 device=qb.device)
-            for space, r in zip(split.spaces, tiles):
+            for space, r, (lo, hi) in zip(split.spaces, tiles, rows):
                 whole = env_of(qb, cols)
                 inv = dict(zip((f.id for f in space.frontier),
                                interp.evaluate_lanes(
@@ -450,16 +458,19 @@ class CompiledDensity:
                         qb.dtype)))
                 own = [columns[j] for j in space.columns]
                 index = {c.id: j for j, c in enumerate(columns)}
-                for a in range(0, space.n_rows, r):
+                for a in range(lo, hi, r):
+                    b = min(a + r, hi)
                     env = layout.env_for_lanes(qb)
-                    env.update({i: v[a:a + r] if i in at_rows else v
+                    env.update({i: v[a:b] if i in at_rows else v
                                 for i, v in inv.items()})
                     for g in space.rebuilt:
-                        idx = cols[index[g.index.id]][a:a + r]
+                        j = index[g.index.id]
+                        idx = cols[j][a - starts[j]:b - starts[j]]
                         env[g.id] = interp._gather(be, g, {
                             g.source.id: sources[g.id], g.index.id: idx})
-                    bind_lane_columns(env, own, [cols[j][a:a + r]
-                                                  for j in space.columns])
+                    bind_lane_columns(env, own, [
+                        cols[j][a - starts[j]:b - starts[j]]
+                        for j in space.columns])
                     vals = interp.evaluate_lanes(space.roots, env, be,
                                                  qb.dtype)
                     total = total + _lane_total(vals, qb).double()

@@ -46,11 +46,15 @@ def device() -> str:
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the argument, else the
-    process default.  Raises when that is CUDA and no card is present."""
+    process default; "cuda" is the process's current card (the rank's,
+    once parallel.initialize has pinned it).  Raises when that is CUDA
+    and no card is present."""
     dev = torch.device(device if device is not None else _DEVICE)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "rainier_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' or call "
             "rainier_tpu_torch.config.set_device('cpu')")
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -14,7 +14,15 @@ counterpart of sampler/Driver.scala:6-120).
 
 Cross-chain pooled adaptation (config.pooled_adaptation) averages the
 acceptance statistics and the Welford state (the variances, and the
-covariance of dense mass) over the chain dimension.
+covariance of dense mass) over the chain dimension, and over every rank
+of a mesh's ``chains`` axis.
+
+With a ``mesh`` (rainier_tpu_torch.parallel.make_mesh) each rank of the
+``chains`` axis runs its block of the chains, with a generator seeded
+from (seed, its block), and each rank of the ``data`` axis sums its
+block of the rows (parallel/data.py); the ranks of one data group draw
+the same numbers and hold the same bits.  The Trace gathers every chain
+on every rank.
 
 EHMC, NUTS and dense mass run on the scan path only, as in the JAX
 package (its driver.py:532-536): the fused kernel samples with
@@ -32,6 +40,8 @@ import torch
 
 from .. import config as global_config
 from ..compute import emit_cuda
+from ..parallel import mesh as M
+from ..parallel.data import ShardedDensity
 from . import config as C
 from . import samplers
 from .dualavg import (current_step_size, dual_avg_init, dual_avg_reset,
@@ -137,8 +147,8 @@ class Warmup:
     segments."""
 
     def __init__(self, lpg, n_vars: int, cfg: C.SamplerConfig,
-                 n_chains: int, gen, dtype, device):
-        self.lpg, self.cfg, self.gen = lpg, cfg, gen
+                 n_chains: int, gen, dtype, device, mesh=None):
+        self.lpg, self.cfg, self.gen, self.mesh = lpg, cfg, gen, mesh
         self.adaptive_step = isinstance(cfg.step_size, C.DualAvgStepSize)
         self.delta = cfg.step_size.delta if self.adaptive_step else 0.8
         self.kind = _mass_kind(cfg.mass_matrix)
@@ -187,12 +197,13 @@ class Warmup:
             eps = self.step_size()
             res, self.extra, n_grads = samplers.step(
                 cfg.sampler, self.gen, self.chain, eps, self.mass, self.extra,
-                lpg, warmup=True)
+                lpg, warmup=True, mesh=self.mesh)
             if self.adaptive_step:
                 la = res.log_accept
                 if cfg.pooled_adaptation:
-                    la = torch.log(torch.clamp(torch.exp(la).mean(),
-                                               min=1e-30)).expand(n_chains)
+                    mean = M.chain_mean(torch.exp(la), self.mesh)
+                    la = torch.log(torch.clamp(mean, min=1e-30)).expand(
+                        n_chains)
                 self.da = dual_avg_update(self.da, la, self.delta)
             if self.update_mask[it]:
                 self.welford = welford_update(self.welford, res.state.q)
@@ -200,11 +211,13 @@ class Warmup:
                 w = self.welford
                 if cfg.pooled_adaptation:
                     # the JAX package's pmean of the whole Welford state
+                    def pool(x):
+                        return M.chain_mean(x, self.mesh).expand_as(x)
+
                     w = w._replace(
-                        mean=w.mean.mean(0).expand(self.shape),
-                        raw=w.raw.mean(0).expand(self.shape),
+                        mean=pool(w.mean), raw=pool(w.raw),
                         cov_raw=None if w.cov_raw is None
-                        else w.cov_raw.mean(0).expand_as(w.cov_raw))
+                        else pool(w.cov_raw))
                 self.mass = mass_from_welford(w, self.kind)
                 if self.adaptive_step:
                     self.da = dual_avg_reset(self.da)
@@ -224,16 +237,16 @@ class Warmup:
 
 
 def run_warmup(lpg, n_vars: int, cfg: C.SamplerConfig, n_chains: int, gen,
-               dtype, device) -> WarmupProduct:
+               dtype, device, mesh=None) -> WarmupProduct:
     """Warmup at once: :class:`Warmup` run to the end of its schedule."""
-    w = Warmup(lpg, n_vars, cfg, n_chains, gen, dtype, device)
+    w = Warmup(lpg, n_vars, cfg, n_chains, gen, dtype, device, mesh)
     w.advance(w.total)
     return w.product()
 
 
 def run_sampling(lpg, cfg: C.SamplerConfig, wp: WarmupProduct, gen,
                  collect_idx=None, segment: Optional[int] = None,
-                 refresh=None):
+                 refresh=None, mesh=None):
     """Scan-path sampling phase: one collected draw per `cfg.thin`
     transitions, exactly ``cfg.iterations // thin`` draws.  With
     `segment`, ``refresh(draws so far, stats)`` is called after every
@@ -253,7 +266,7 @@ def run_sampling(lpg, cfg: C.SamplerConfig, wp: WarmupProduct, gen,
         for _ in range(thin):
             res, extra, n_grads = samplers.step(
                 cfg.sampler, gen, chain, wp.step_size, wp.mass, extra, lpg,
-                warmup=False)
+                warmup=False, mesh=mesh)
             stats = stats_update(stats, res.log_accept, res.divergent,
                                  res.energy, n_grads)
             chain = res.state
@@ -265,7 +278,7 @@ def run_sampling(lpg, cfg: C.SamplerConfig, wp: WarmupProduct, gen,
 
 
 def _scan_sample(lpg, n_vars, cfg, n_chains, gen, dtype, dev, collect_idx,
-                 progress, chunk_iters, timings) -> ChainResult:
+                 progress, chunk_iters, timings, mesh=None) -> ChainResult:
     """The scan path: warmup, then sampling.  With a `progress` or
     `chunk_iters` both run in segments of `chunk_iters` iterations with
     a host sync and a refresh after each (the JAX package's
@@ -274,22 +287,29 @@ def _scan_sample(lpg, n_vars, cfg, n_chains, gen, dtype, dev, collect_idx,
     runs whole chunks and slices off the overshoot (so its sampling stats
     count transitions it throws away), sampling stops at exactly
     ``cfg.iterations // thin`` draws (ROADMAP C2.6), so a segmented run
-    is the run at once, draw for draw."""
+    is the run at once, draw for draw.  On a mesh, progress reads every
+    chain (gathered over ``chains`` at each refresh)."""
     segmented = progress is not None or chunk_iters is not None
     progress = progress or Progress()
-    progress.start(n_chains)
+    progress.start(n_chains * M.axis_size(mesh, M.CHAINS))
+
+    def every(x):
+        return x if not segmented else _gather_chains(x, mesh)
+
     t_warm = _time.perf_counter()
-    w = Warmup(lpg, n_vars, cfg, n_chains, gen, dtype, dev)
+    w = Warmup(lpg, n_vars, cfg, n_chains, gen, dtype, dev, mesh)
     W = w.total
     while w.done < W:
         w.advance(min(chunk_iters or W, W))
         if segmented:
             _sync(dev)
-            progress.refresh("warmup", w.done, W, w.stats, w.step_size())
+            progress.refresh("warmup", w.done, W, every(w.stats),
+                             every(w.step_size()))
     wp = w.product()
     _sync(dev)
     timings["warmup_s"] = _time.perf_counter() - t_warm
-    progress.refresh("warmup complete", W, W, wp.warmup_stats, wp.step_size)
+    progress.refresh("warmup complete", W, W, every(wp.warmup_stats),
+                     every(wp.step_size))
 
     thin = max(cfg.thin, 1)
     n_out = cfg.iterations // thin
@@ -300,15 +320,16 @@ def _scan_sample(lpg, n_vars, cfg, n_chains, gen, dtype, dev, collect_idx,
 
     def refresh(done, stats):
         _sync(dev)
-        progress.refresh("sampling", done * thin, cfg.iterations, stats,
-                         wp.step_size)
+        progress.refresh("sampling", done * thin, cfg.iterations,
+                         every(stats), every(wp.step_size))
 
     t_sample = _time.perf_counter()
     samples, sstats, final_q = run_sampling(
-        lpg, cfg, wp, gen, collect_idx, chunk, refresh if segmented else None)
+        lpg, cfg, wp, gen, collect_idx, chunk, refresh if segmented else None,
+        mesh)
     _sync(dev)
     timings["sample_s"] = _time.perf_counter() - t_sample
-    progress.finish("complete", sstats, wp.step_size)
+    progress.finish("complete", every(sstats), every(wp.step_size))
     return ChainResult(samples=samples, mass=wp.mass, step_size=wp.step_size,
                        warmup_stats=wp.warmup_stats, stats=sstats,
                        final_q=final_q)
@@ -345,7 +366,10 @@ def sample(model, cfg: C.SamplerConfig, n_chains: int = 4, seed: int = 0,
     `sync_compile`: build the fused kernel and run a throwaway launch
     before anything is timed, as `compile_sync_s`; on the scan path,
     which compiles nothing, `compile_sync_s` is 0.0.
-    `mesh`: multi-device runs come in a later slice of the port.
+    `mesh`: a (chains, data) DeviceMesh (parallel.make_mesh) that every
+    rank passes: rank group g of C/c chain groups runs chains
+    [g·C/c, (g+1)·C/c), each data rank sums its block of the rows, and the
+    returned Trace holds every chain on every rank.  Scan path only.
     """
     if kernel in ("fused", "fused!"):
         reason = _fused_unsupported_reason(model, cfg, n_chains, mesh,
@@ -377,20 +401,20 @@ def sample(model, cfg: C.SamplerConfig, n_chains: int = 4, seed: int = 0,
         raise ValueError(f"unknown kernel {kernel!r} "
                          "(expected 'scan', 'fused' or 'fused!')")
     if mesh is not None:
-        raise NotImplementedError("multi-device runs come in a later slice "
-                                  "of the port")
+        M.check_mesh(mesh)
+        groups = M.axis_size(mesh, M.CHAINS)
+        if n_chains % groups:
+            raise ValueError(f"{n_chains} chains do not split over "
+                             f"{groups} chain shards")
+    lo, hi = M.chain_sharding(mesh).block(n_chains)
     dev = global_config.resolve_device(device)
     dtype = dtype or global_config.dtype()
     timings: dict = {}
     t_build = _time.perf_counter()
     cd = model.density()
-    cols = cd.column_values(dtype, dev)
-    lpg_raw = cd.batched_logp_and_grad_fn()
-
-    def lpg(q):
-        return lpg_raw(q, cols)
-
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    lpg = ShardedDensity(cd, mesh, M.DATA, dtype, dev).lpg
+    gen = torch.Generator(device=dev).manual_seed(
+        M.group_seed(seed, M.axis_rank(mesh, M.CHAINS)))
     timings["build_s"] = _time.perf_counter() - t_build
     # eager PyTorch: nothing is compiled on this path
     timings["compile_s"] = 0.0
@@ -398,10 +422,21 @@ def sample(model, cfg: C.SamplerConfig, n_chains: int = 4, seed: int = 0,
         timings["compile_sync_s"] = 0.0
 
     t0 = _time.perf_counter()
-    result = _scan_sample(lpg, cd.n_vars, cfg, n_chains, gen, dtype, dev,
-                          collect_idx, progress, chunk_iters, timings)
+    result = _scan_sample(lpg, cd.n_vars, cfg, hi - lo, gen, dtype, dev,
+                          collect_idx, progress, chunk_iters, timings, mesh)
+    result = _gather_chains(result, mesh)
     walltime = _time.perf_counter() - t0
     return _finish(model, cd, result, cfg, collect_idx, walltime, timings)
+
+
+def _gather_chains(x, mesh):
+    """A tensor of this rank's chains (or a NamedTuple of them) as every
+    chain of the mesh, in order."""
+    if x is None or M.axis_size(mesh, M.CHAINS) == 1:
+        return x
+    if isinstance(x, tuple):
+        return type(x)(*[_gather_chains(v, mesh) for v in x])
+    return M.all_gather(x, mesh, M.CHAINS)
 
 
 def _finish(model, cd, result, cfg, collect_idx, walltime, timings):

@@ -13,7 +13,8 @@ Chains are the leading batch dimension.  Where the JAX package vmaps a
 per-chain ``while_loop``, the loops here run while any chain still needs
 a step, each chain's carry held by a mask once it is done; the cross-chain
 exchanges of synchronized EHMC, an ``all_gather`` over the ``chains`` axis
-there, are plain reads of the batch.
+there, are plain reads of the batch, and collectives over a mesh's
+``chains`` axis where the batch is split over ranks.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel import mesh as M
 from . import config as C
 from .leapfrog import (ChainState, TransitionResult, _select,
                        hmc_transition, is_uturn, kdk_step, log_accept_prob)
@@ -148,7 +150,7 @@ def _ehmc_trajectory(chain: ChainState, p0, eps, mass, lpg, counting,
 
 
 def _ehmc_step(cfg: C.EHMC, gen, chain, eps, mass, rb: RingBuffer, lpg,
-               warmup: bool):
+               warmup: bool, mesh=None):
     q = chain.q
     n_chains = q.shape[0]
     COUNTS.iterations += 1
@@ -164,7 +166,8 @@ def _ehmc_step(cfg: C.EHMC, gen, chain, eps, mass, rb: RingBuffer, lpg,
             # the batch contributes p_count·buf_size lengths an iteration,
             # floored at the per-lane rate for small batches; an empty
             # ring replays its fill instead of forcing every lane to count
-            pooled_p = min(cfg.p_count, cfg.p_count * cfg.buf_size / n_chains)
+            n_all = n_chains * M.axis_size(mesh, M.CHAINS)
+            pooled_p = min(cfg.p_count, cfg.p_count * cfg.buf_size / n_all)
             counting = u < pooled_p
         else:
             counting = (rb.count < rb.buf.shape[1]) | (u < cfg.p_count)
@@ -173,8 +176,10 @@ def _ehmc_step(cfg: C.EHMC, gen, chain, eps, mass, rb: RingBuffer, lpg,
     if cfg.synchronized:
         # one empirical draw, lane 0's, for the whole batch: the loop's
         # trip count is that draw and not the batch's maximum, and L stays
-        # independent of every chain's state (samplers.py:200-213)
-        n_target = n_target[:1].expand(n_chains)
+        # independent of every chain's state (samplers.py:200-213); on a
+        # mesh, the first chain group's first chain's
+        n_target = M.broadcast(n_target[:1], mesh, M.CHAINS).expand(
+            n_chains)
     prop, p1, l_counted, n_grads = _ehmc_trajectory(
         chain, p0, eps, mass, lpg, counting, n_target, cfg)
     h1 = prop.potential + kinetic(mass, p1)
@@ -188,7 +193,8 @@ def _ehmc_step(cfg: C.EHMC, gen, chain, eps, mass, rb: RingBuffer, lpg,
         if cfg.synchronized:
             # every counting lane's length lands in every lane's ring
             # (samplers.py:224-242), so the rings stay identical
-            rb = ring_add_many(rb, l_counted, counting)
+            rb = ring_add_many(rb, M.all_gather(l_counted, mesh, M.CHAINS),
+                               M.all_gather(counting, mesh, M.CHAINS))
         else:
             rb = _select(counting, ring_add(rb, l_counted), rb)
     return TransitionResult(out, la, accept, divergent, energy), rb, n_grads
@@ -211,12 +217,15 @@ def init_extra(cfg, n_chains: int, dtype, device):
     raise TypeError(cfg)
 
 
-def step(cfg, gen, chain, eps, mass, extra, lpg, warmup: bool):
+def step(cfg, gen, chain, eps, mass, extra, lpg, warmup: bool, mesh=None):
+    """One transition of every chain; `mesh` is read by synchronized EHMC,
+    whose chains meet across the ranks of its ``chains`` axis."""
     if isinstance(cfg, C.HMC):
         res = hmc_transition(gen, chain, eps, cfg.n_steps, mass, lpg)
         return res, extra, cfg.n_steps
     if isinstance(cfg, C.EHMC):
-        return _ehmc_step(cfg, gen, chain, eps, mass, extra, lpg, warmup)
+        return _ehmc_step(cfg, gen, chain, eps, mass, extra, lpg, warmup,
+                          mesh)
     if isinstance(cfg, C.NUTS):
         return nuts_step(cfg, gen, chain, eps, mass, extra, lpg)
     raise TypeError(cfg)

@@ -21,6 +21,14 @@ The particles are the leading batch axis of every tensor.  The stage loop
 is a host loop that reads β once a stage (one host sync); the bisection
 and everything else stay on the device.  The mutation is the scan path's
 ``hmc_transition``: no kernel runs here.
+
+On a mesh the particles are split over the ``chains`` axis and the
+density over ``data`` (parallel/data.py).  A stage's global steps run on
+every rank alike: the log ratios are all-gathered (N floats), so Δβ's
+bisection, the ESS and the evidence see every particle; the comb's
+uniform is the first chain group's; the resampled cloud is gathered and
+each rank keeps its block; the acceptance rate is a mean over every
+particle.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import config as global_config
+from ..parallel import mesh as M
 from .leapfrog import ChainState, hmc_transition
 from .mass import MassState
 
@@ -103,26 +112,39 @@ def _choose_delta(log_ratio, beta, ess_target, n, iters):
 
 
 def run_smc(logp_fn, n_vars: int, cfg: SMCConfig = SMCConfig(),
-            seed: int = 0, dtype=None, device=None) -> SMCResult:
+            seed: int = 0, dtype=None, device=None, lpg_fn=None,
+            mesh=None) -> SMCResult:
     """Run adaptive tempered SMC against ``logp_fn: (N, d) -> (N,)``, the
     full unconstrained posterior log-density of every particle at once,
-    differentiable by autograd.  Draws come from a ``torch.Generator``
-    seeded by `seed`."""
+    differentiable by autograd unless `lpg_fn` (q -> (logp, gradient))
+    gives the gradient.  Draws come from a ``torch.Generator`` seeded by
+    `seed` (and the chain group, on a `mesh`, whose ``chains`` axis
+    splits the particles; `particles` holds all of them on every rank)."""
     dtype = dtype or global_config.dtype()
     dev = global_config.resolve_device(device)
     n, d = cfg.n_particles, n_vars
+    groups = M.axis_size(mesh, M.CHAINS)
+    if n % groups:
+        raise ValueError(f"{n} particles do not split over {groups} chain "
+                         "shards")
+    lo, hi = M.chain_sharding(mesh).block(n)
     s2 = cfg.init_scale ** 2
     log_norm_r = 0.5 * d * math.log(2 * math.pi * s2)
 
     def logr_fn(q):
         return -0.5 * torch.sum(q * q, dim=-1) / s2 - log_norm_r
 
-    def lpg(q):
+    def lpg_autograd(q):
         with torch.enable_grad():
             x = q.detach().requires_grad_(True)
             lp = logp_fn(x)
             (g,) = torch.autograd.grad(lp.sum(), x)
         return lp.detach(), g
+
+    lpg = lpg_fn or lpg_autograd
+
+    def every(x):
+        return M.all_gather(x, mesh, M.CHAINS)
 
     def tempered(beta):
         def lpg_t(q):
@@ -135,9 +157,10 @@ def run_smc(logp_fn, n_vars: int, cfg: SMCConfig = SMCConfig(),
         with torch.no_grad():
             return logp_fn(q)
 
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    q = cfg.init_scale * torch.randn((n, d), generator=gen, dtype=dtype,
-                                     device=dev)
+    gen = torch.Generator(device=dev).manual_seed(
+        M.group_seed(seed, M.axis_rank(mesh, M.CHAINS)))
+    q = cfg.init_scale * torch.randn((hi - lo, d), generator=gen,
+                                     dtype=dtype, device=dev)
     lp_q, lr_q = logp(q), logr_fn(q)
     zero = torch.zeros((), dtype=dtype, device=dev)
     beta, log_z = zero, zero
@@ -148,7 +171,7 @@ def run_smc(logp_fn, n_vars: int, cfg: SMCConfig = SMCConfig(),
     stage = 0
     while stage < cfg.max_stages and float(beta) < 1.0:
         # -- reweight: pick Δβ adaptively, accumulate evidence ----------
-        log_ratio = lp_q - lr_q
+        log_ratio = every(lp_q - lr_q)
         delta = _choose_delta(log_ratio, beta, cfg.ess_target, n,
                               cfg.bisect_iters)
         log_w = delta * log_ratio
@@ -156,12 +179,15 @@ def run_smc(logp_fn, n_vars: int, cfg: SMCConfig = SMCConfig(),
         beta = beta + delta
         ess[stage] = torch.exp(_log_ess(log_w))
 
-        # -- resample ----------------------------------------------------
-        q = q[systematic_resample(gen, log_w, n)]
+        # -- resample: the comb over every particle ---------------------
+        u0 = M.broadcast(torch.rand((), generator=gen, dtype=log_w.dtype,
+                                    device=log_w.device), mesh, M.CHAINS)
+        q = every(q)[systematic_comb(log_w, u0, n)]
 
         # -- mutate: HMC targeting π_β with the cloud's diagonal mass ----
         var = torch.clamp(torch.var(q, dim=0, unbiased=False), min=1e-10)
-        mass = MassState(diag=var.expand(n, d))
+        q = q[lo:hi]
+        mass = MassState(diag=var.expand(hi - lo, d))
         lpg_t = tempered(beta)
         lp_t, g_t = lpg_t(q)
         state = ChainState(q=q, potential=-lp_t, grad=g_t)
@@ -170,7 +196,8 @@ def run_smc(logp_fn, n_vars: int, cfg: SMCConfig = SMCConfig(),
             res = hmc_transition(gen, state, step_size, cfg.leapfrog_steps,
                                  mass, lpg_t)
             state = res.state
-            acc_sum = acc_sum + torch.mean(torch.exp(res.log_accept))
+            acc_sum = acc_sum + M.chain_mean(torch.exp(res.log_accept),
+                                             mesh)
         accept = acc_sum / cfg.mutation_steps
 
         # -- Robbins–Monro step-size update toward target accept ---------
@@ -182,7 +209,7 @@ def run_smc(logp_fn, n_vars: int, cfg: SMCConfig = SMCConfig(),
         betas[stage] = beta
         accepts[stage] = accept
         stage += 1
-    return SMCResult(particles=q, log_evidence=log_z,
+    return SMCResult(particles=every(q), log_evidence=log_z,
                      n_stages=torch.tensor(stage, device=dev), betas=betas,
                      ess=ess, accept_rates=accepts, step_sizes=steps)
 
@@ -194,20 +221,21 @@ def smc(model, cfg: Optional[SMCConfig] = None, seed: int = 0,
     The Trace holds the N equally-weighted particles as 4 pseudo-chains
     (particles are exchangeable, so r̂/ESS diagnostics and `predict` work
     unchanged), on the run's device; ``SMCResult.log_evidence`` is the
-    model evidence estimate."""
+    model evidence estimate.  `mesh` (parallel.make_mesh, passed by every
+    rank) splits the particles over ``chains`` and the rows over
+    ``data``; every rank returns every particle."""
     from ..core.trace import Trace
+    from ..parallel.data import ShardedDensity
 
     if mesh is not None:
-        raise NotImplementedError("multi-device runs come in a later slice "
-                                  "of the port")
+        M.check_mesh(mesh)
     cfg = cfg or SMCConfig()
     dtype = dtype or global_config.dtype()
     dev = global_config.resolve_device(device)
     cd = model.density()
-    cols = cd.column_values(dtype, dev)
-    lanes = cd.logp_lanes_fn()
-    result = run_smc(lambda q: lanes(q.T, cols), cd.n_vars, cfg, seed=seed,
-                     dtype=dtype, device=dev)
+    density = ShardedDensity(cd, mesh, M.DATA, dtype, dev)
+    result = run_smc(density.logp, cd.n_vars, cfg, seed=seed, dtype=dtype,
+                     device=dev, lpg_fn=density.lpg, mesh=mesh)
     n_pseudo = 4 if cfg.n_particles % 4 == 0 else 1
     chains = result.particles.reshape(n_pseudo, cfg.n_particles // n_pseudo,
                                       cd.n_vars)

@@ -376,7 +376,10 @@ def test_port_imports_no_jax_and_no_rainier_tpu():
             "rainier_tpu_torch.optimizer.lbfgs, "
             "rainier_tpu_torch.variational, "
             "rainier_tpu_torch.sampler.smc, "
-            "rainier_tpu_torch.sampler.progress, chip_smoke; "
+            "rainier_tpu_torch.sampler.progress, "
+            "rainier_tpu_torch.parallel, "
+            "rainier_tpu_torch.parallel.checkpoint, "
+            "rainier_tpu_torch.parallel.distributed, chip_smoke; "
             "chip_smoke.zoo(rainier_tpu_torch); "
             "bad = [m for m, v in sys.modules.items() if v is not None "
             "and m.split('.')[0] in ('jax', 'jaxlib', 'rainier_tpu', "

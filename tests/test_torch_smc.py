@@ -11,7 +11,8 @@ Checked here:
   periodic and random weights in f32;
 * tests/test_smc.py's bars through the port: the conjugate posterior and
   its analytic evidence, the pseudo-chain Trace's r̂, and the standalone
-  3-d density with its evidence; and ``Model.smc`` with a mesh raises.
+  3-d density with its evidence; and ``Model.smc`` refuses a mesh that
+  is not a ``DeviceMesh`` (tests/test_torch_parallel.py runs it on one).
 """
 
 import importlib
@@ -130,7 +131,7 @@ def test_smc_trace_integration(conjugate):
     assert trace.n_chains == 4 and trace.n_iterations == 256
     assert trace.diagnostics()[0].r_hat < 1.05
     assert int(res.n_stages) <= 100
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         model.smc(SMCConfig(n_particles=64), mesh=object())
 
 
