@@ -141,6 +141,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import os
 import subprocess
 import sys
@@ -1173,7 +1174,38 @@ def build_all(F, models, launches):
               f"{len(em.source.splitlines())} lines emitted; {secs:.2f} s; "
               f"ptxas: {ptxas}", flush=True)
         ems[name] = em
+    # the registers and spills of each row kernel's sampling loop, both
+    # tile loops (the streamed one is the card's default)
+    for (name, n), (kernels, _, em) in built.items():
+        if em.spaces:
+            regs = ptxas_kernels(kernels.log)
+            print(f"phase registers, {name}: " + "; ".join(
+                f"fused_hmc {'streamed' if k else 'synchronous'} "
+                f"{r} registers, spill stores {st} bytes, spill loads "
+                f"{ld} bytes" for k, (r, st, ld) in sorted(
+                    regs.get("fused_hmc_kernel", {}).items())), flush=True)
     return ems
+
+
+def ptxas_kernels(log):
+    """{kernel: {streaming flag: (registers, spill stores, spill loads)}}
+    from a build's `-Xptxas=-v` output, for the kernels fused_hmc_kernel
+    and logp_grad_kernel of fused_hmc.cu, by their mangled names."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for _Z\d+(\w+?)ILi(\d)E", line)
+        if m:
+            cur = (m.group(1), int(m.group(2)))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out.setdefault(cur[0], {})[cur[1]] = (int(m.group(1)), *spills)
+            cur = None
+    return out
 
 
 def time_kernel(F, cd, em, tr, n_steps, device, col_bytes, what, reps=1,

@@ -33,8 +33,8 @@ that is not a top-level ``RowSum`` reading columns row by row) as
 functions that read one row of their columns from a tile and accumulate
 their adjoints.  The ``RowSum``s whose columns have one length form a
 row space: one row function, one tile layout and one tile loader each.
-A header of one space names them ``rt_row``, ``rt_fill_tile`` and
-``rt_fill_tile_async``; one of several defines ``RT_SPACES`` and an
+A header of one space names them ``rt_row`` and ``rt_fill_tile``; one of
+several defines ``RT_SPACES`` and an
 ``RtSpace<s>`` each.  The nodes under a row function that do not vary by
 row are *row-invariant*: ``rt_rows_pre`` computes the ones the rows read
 once per density call, the row functions accumulate their adjoints over
@@ -42,10 +42,21 @@ the rows, and ``rt_rows_post`` runs their reverse pass once after the
 last row — reverse mode through a broadcast, as the lanes evaluator's
 (1, C)-against-(n, C) broadcasting is.  ``MatVec`` is p multiply-adds per
 row, and a ``Column`` view of a ``MatColumn`` that the tile holds reads
-the matrix's entry.  The tile loader comes twice: ``rt_fill_tile`` stores
-every element, and ``rt_fill_tile_async`` issues the same copies
-asynchronously, for a launch that streams its columns through two tile
-slots.
+the matrix's entry.  A space's tiles hold as many rows as two of them
+fit a block's shared memory, at most ``TILE_ROWS_MAX`` (``tile_rows``).
+The tile loader (``_fill``, ``rt_fill_tile``) issues a thread's share of
+a tile as asynchronous copies, a batch of rows at a time, which the tile
+loop waits for at once or, in a launch that streams its columns through
+two tile slots (every launch with rows, unless told not to), a tile
+later; a space whose rows fit one tile is loaded once a launch
+(``RT_RESIDENT``).  A
+row of at least ``ROW_STEP_OPS`` operations and at most
+``ROW_STEP_FLOATS`` floats also comes as ``rt_row_step``, which sums
+``ROW_STEP`` of a lane's rows: their forward passes first, in one block
+of straight-line code, then their reverse passes in row order
+(``_row_step``).  A ``LogSumExp``'s adjoint in a row reads the
+shifted exponentials of its forward pass and divides them by their sum
+without a branch (``rt_lse_share``).
 
 Outside the rows a column is read whole, from its device pointer, the
 way the JAX kernel's untiled branch reads its columns
@@ -131,8 +142,7 @@ of its own, and runs its adjoints back in the row.  The tile loader
 reads each row's index, clamps it, and loads the source's columns at
 that row into fields of the tile after the row's own (and ``rix``), so
 the block's threads make one random read a row for all its chains and
-the row reads only the tile; such a space's tiles are up to
-``GATHER_TILE_ROWS_MAX`` rows.  A gather inside a rebuilt source reads
+the row reads only the tile.  A gather inside a rebuilt source reads
 its source's columns from their device pointers, and then the row
 functions take the columns (``RT_ROW_COLS``).  Rebuilding costs the
 source's operations a row again, where the alternative, the source over
@@ -180,6 +190,7 @@ vector of the rows' length read both by element and whole, and a
 from __future__ import annotations
 
 import math
+import re
 import weakref
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -196,21 +207,27 @@ class UnsupportedNode(NotImplementedError):
     """The graph holds a node the CUDA emitter does not cover yet."""
 
 
-# Row tiles: at most TILE_ROWS_MAX rows, halved until two tiles fit the
-# shared memory one block can use on an H100 (a launch that streams its
-# columns fills one slot while the block reads the other); below
-# TILE_ROWS_MIN rows the kernel does not take the model
-TILE_ROWS_MAX = 256
+# Row tiles: the power of two that holds all of a space's rows, at most
+# TILE_ROWS_MAX, halved until two tiles fit the shared memory one block
+# can use on an H100 (the tile loop fills one slot while the block reads
+# the other); below TILE_ROWS_MIN rows the kernel does not take the
+# model.  A tile's fill, its barriers and its wait cost the same however
+# few rows it holds, so the tiles are as large as the shared memory lets
+# them be (tile_rows)
+TILE_ROWS_MAX = 4096
 TILE_ROWS_MIN = 32
 SMEM_BYTES_MAX = 232448
-# A row space whose rows rebuild a source at another row (a Gather whose
-# source varies by row) takes tiles of up to GATHER_TILE_ROWS_MAX rows,
-# halved as above: its rows are narrow and cheap, so the barriers, the
-# fill and the butterfly of each tile are most of a tile's time
-GATHER_TILE_ROWS_MAX = 4096
-# Each thread of such a space's tile loader takes FILL_BATCH rows at a
-# time (_fill_gathered)
-FILL_BATCH = 8
+# Each thread of a tile loader takes FILL_BATCH rows at a time, fewer
+# where it would hold more than FILL_VALUES values (_fill)
+FILL_BATCH, FILL_VALUES = 8, 32
+# A row of at least ROW_STEP_OPS operations and at most ROW_STEP_FLOATS
+# floats in its tile is summed ROW_STEP rows a step by each lane
+# (_row_step, row_step), where the kernel keeps the row-invariant values
+# in registers: a register model, or a workspace model whose rows read
+# every row-invariant value densely and at most INV_REGS_MAX of them
+# (csrc/fused_hmc.cu, RT_INV_REGS)
+ROW_STEP, ROW_STEP_OPS, ROW_STEP_FLOATS = 4, 48, 16
+INV_REGS_MAX = 64
 
 # Vectors longer than this are emitted as loops over their elements; the
 # funnel's 9, the README's 3 and the logistic's 10 stay unrolled
@@ -248,13 +265,31 @@ ENTRY_LOCAL_MAX = 32
 _RESTRICT = " __restrict__"
 
 
-def tile_rows(row_width: int, most: int = TILE_ROWS_MAX) -> int:
-    """Rows per tile for rows of `row_width` floats, at most `most` (0
-    when even two TILE_ROWS_MIN-row tiles do not fit shared memory)."""
-    r = most
+def tile_rows(row_width: int, n_rows: int = TILE_ROWS_MAX) -> int:
+    """Rows per tile of a space of `n_rows` rows of `row_width` floats:
+    the power of two that holds them all, at least TILE_ROWS_MIN and at
+    most TILE_ROWS_MAX, halved until two tiles fit shared memory (0 when
+    even two TILE_ROWS_MIN-row tiles do not)."""
+    r = min(TILE_ROWS_MAX, max(TILE_ROWS_MIN, 1 << (n_rows - 1).bit_length()))
     while 2 * r * row_width * 4 > SMEM_BYTES_MAX and r >= TILE_ROWS_MIN:
         r //= 2
     return r if r >= TILE_ROWS_MIN else 0
+
+
+def row_step(row_width: int, row_ops: int) -> int:
+    """Rows a lane sums in one step of straight-line code (_row_step):
+    ROW_STEP for a row of at least ROW_STEP_OPS operations, whose
+    dependent chain is long enough that several rows' chains overlapping
+    pays for the step's registers, and of at most ROW_STEP_FLOATS floats,
+    whose rows' values fit the registers beside the rest; else one.  On an
+    H100, four rows a step took the marginalized mixture's kernel (59
+    operations a row, one float) and the 100k logistic's (76, 11) to 0.70
+    and 0.90 of their time, and made the zero-inflated geometric's (25,
+    1) 7%, the README regression's (39, 4) 1%, the negative binomial's
+    (17, 1) 3% and the 32-feature MVNormal logistic's (196, 33) 10%
+    slower (tools/kernel_ab.py steps, PERF.md §6)."""
+    return ROW_STEP if (row_ops >= ROW_STEP_OPS
+                        and row_width <= ROW_STEP_FLOATS) else 1
 
 
 @dataclass(frozen=True)
@@ -382,7 +417,8 @@ class _Emitter:
                                # than by a per-row gather (first in inv)
         self.fops = 0
         self.rops = 0
-        self.lse: dict[int, tuple] = {}   # LogSumExp node → (maxes, sums)
+        self.lse: dict[int, tuple] = {}   # LogSumExp node → (its
+                                          # exponentials, sums)
         self.mats: dict[int, int] = {}    # MatColumn → offset in the row
         self.ints: dict[int, str] = {}    # IntColumn → its int32 in the row
         self.inv_base: dict[int, int] = {}  # row-invariant node → its
@@ -578,9 +614,13 @@ class _Emitter:
                 self.el(c, i) for c in node.children) + ")"
                 for i in range(m)], len(node.children) - 1, n)
         elif isinstance(node, R.LogSumExp):
-            # pairwise max, shifted exp sum: the lanes evaluator's formula
+            # pairwise max, shifted exp sum: the lanes evaluator's formula;
+            # in a row each shifted exponential is named, and the adjoint
+            # reads it there rather than calling expf again (elsewhere the
+            # adjoint calls it again, the text of the functions outside the
+            # rows as it was)
             n, w = self.width(node.children)
-            ms, ss, outs = [], [], []
+            es, ss, outs = [], [], []
             for i in range(w):
                 xs = [self.el(c, i) for c in node.children]
                 m = xs[0]
@@ -589,14 +629,21 @@ class _Emitter:
                 mname = f"m{self.tag}{nid}_{i}"
                 sname = f"s{self.tag}{nid}_{i}"
                 self.fwd.append(f"  const float {mname} = {m};")
-                self.fwd.append("  const float {} = {};".format(
-                    sname, " + ".join(f"expf({x} - {mname})" for x in xs)))
-                ms.append(mname)
+                exps = [f"expf({x} - {mname})" for x in xs]
+                if self.rowctx is not None:
+                    names = [f"e{self.tag}{nid}_{i}_{k}"
+                             for k in range(len(xs))]
+                    self.fwd += [f"  const float {e} = {x};"
+                                 for e, x in zip(names, exps)]
+                    exps = names
+                self.fwd.append(f"  const float {sname} = "
+                                f"{' + '.join(exps)};")
+                es.append(exps)
                 ss.append(sname)
                 outs.append(f"{mname} + logf({sname})")
             self.fops += n * 4 * len(node.children)
             self.define(node, outs, 2, n)
-            self.lse[nid] = (ms, ss)
+            self.lse[nid] = (es, ss)
         elif isinstance(node, R.Select):
             n, w = self.width([node.left, node.right, node.if_true,
                                node.if_false])
@@ -823,10 +870,15 @@ class _Emitter:
                 for c in node.children:
                     self.acc(c, i, a, 0)
             elif isinstance(node, R.LogSumExp):
-                ms, ss = self.lse[nid]
-                for c in node.children:
-                    self.acc(c, i, f"{a} * (expf({self.el(c, i)} - {ms[i]})"
-                                   f" / {ss[i]})", 4)
+                es, ss = self.lse[nid]
+                # in a row the division without a branch (rt_lse_share:
+                # the bits of e / s)
+                share = "rt_lse_share({}, {})" if self.rowctx is not None \
+                    else "({} / {})"
+                ops = 2 if self.rowctx is not None else 4
+                for k, c in enumerate(node.children):
+                    self.acc(c, i, f"{a} * {share.format(es[i][k], ss[i])}",
+                             ops)
             elif isinstance(node, R.Select):
                 c = f"c{self.tag}{nid}_{i}"
                 self.acc(node.if_true, i, f"({c} ? {a} : 0.0f)", 1)
@@ -1479,108 +1531,79 @@ def _gathered_fields(cd, space, width):
 
 
 def _fill(cd, space, offs, widths, row_w, loads=()):
-    """The space's tile loader, synchronous and asynchronous: rows [row0,
-    row0 + rows) of each of its columns into the tile (`row_w` floats a
-    row), thread tid of nt, and the row's index where the tile holds it
-    (a plain store in both: it is not in device memory).  A space whose
-    rows rebuild sources at other rows (`loads`, _gathered_fields) has
-    the loader of _fill_gathered."""
-    if loads:
-        return _fill_gathered(cd, space, offs, widths, row_w, loads)
-    fill, fill_async = [], []
-    loop = "  for (int i = tid; i < rows; i += nt) "
-    for j, w in zip(space.columns, widths):
-        c = cd.columns[j]
-        o = offs[c.id]
-        if w == 1:
-            v = f"cols.c{j}[row0 + i]"
-            dst = f"tile[i * {row_w} + {o}]"
-            fill.append(f"{loop}{dst} = " + (
-                f"rt_int_bits({v})" if isinstance(c, R.IntColumn) else v)
-                + ";")
-            fill_async.append(f"{loop}rt_copy_async(&{dst}, &{v});")
-        elif w > 1:
-            dst = f"tile[r * {row_w} + {o} + i - r * {w}]"
-            v = f"cols.c{j}[(size_t)row0 * {w} + i]"
-            head = [f"  for (int i = tid; i < rows * {w}; i += nt) {{",
-                    f"    const int r = i / {w};"]
-            fill += [*head, f"    {dst} = {v};", "  }"]
-            fill_async += [*head, f"    rt_copy_async(&{dst}, &{v});", "  }"]
-    if "rix" in offs:
-        line = (f"{loop}tile[i * {row_w} + {offs['rix']}] = "
-                "rt_int_bits(row0 + i);")
-        fill.append(line)
-        fill_async.append(line)
-    return fill, fill_async
-
-
-def _fill_gathered(cd, space, offs, widths, row_w, loads):
-    """The loader of a space whose rows rebuild sources at other rows:
-    each thread takes FILL_BATCH of its rows at a time (i0 + u·nt), loads
-    each one's index and clamps it, and loads the row's own columns and
-    each rebuilt source's columns at the clamped index into the tile, so
-    that the block's threads make one random read a row for all its
-    chains; every load of a batch is issued before any store (or, in the
-    asynchronous loader, every index before any copy), so that a
-    thread's loads of FILL_BATCH rows are in flight at once, where a loop
-    that stores each row before the next row's loads waits out the
-    latency of two dependent loads a row."""
+    """The space's tile loader: rows [row0, row0 + rows) of each of its
+    columns into the tile (`row_w` floats a row), thread tid of nt, as
+    asynchronous copies (cp.async on the card, a plain copy in host code),
+    and the row's index where the tile holds it (a plain store: it is not
+    in device memory).  Every copy of a thread is in flight at once: the
+    streamed tile loop commits them and waits a tile later, the
+    synchronous one waits for them at once, which on an H100 loaded a tile
+    as fast as a thread's loads of a batch of rows before any of its
+    stores, and faster for a wide column (the 100k logistic's synchronous
+    kernel 65.1 ms against 88.3 for 20 iterations, PERF.md §6), where a
+    loop a column that stores each value before the next column's load
+    waits out the latency of every load (the 32-feature MVNormal
+    logistic's, 348.2 ms against 127.7).  Each thread takes a batch of b
+    of its rows at a time (i0 + u·nt), and of each wide column (a
+    MatColumn of w floats a row) the b·w floats of the batch's b·nt rows
+    that fall to it in turn, neighbouring threads on neighbouring floats;
+    b is FILL_BATCH rows, fewer where a row holds many values
+    (FILL_VALUES).  A space whose rows rebuild sources at other rows
+    (`loads`, _gathered_fields) loads each batch's indices and clamps
+    them before any copy, and copies the rebuilt sources' columns at the
+    clamped index into the tile, so that the block's threads make one
+    random read a row for all its chains."""
     col = {c.id: j for j, c in enumerate(cd.columns)}
-    n, b = space.n_rows, FILL_BATCH
-    vals, stores, copies = [], [], []   # batched loads; stores; copies
+    n = space.n_rows
+    copies, flats = [], []   # each row's copies; (column, offset, floats)
     at = f"tile[i * {row_w} + {{}}]"
-
-    def field(o, src, is_int):
-        vals.append((f"rt_int_bits({src})" if is_int else src))
-        stores.append(f"{at.format(o)} = v[u][{len(vals) - 1}];")
-
-    def wide(o, w, src):
-        loop = f"for (int k = 0; k < {w}; ++k) "
-        stores.append(f"{loop}{at.format(f'{o} + k')} = {src};")
-        copies.append(f"{loop}rt_copy_async(&{at.format(f'{o} + k')}, "
-                      f"&{src});")
-
+    per_row = 0
     for j, w in zip(space.columns, widths):
         c = cd.columns[j]
         if w == 1:
-            field(offs[c.id], f"cols.c{j}[r]", isinstance(c, R.IntColumn))
             copies.append(f"rt_copy_async(&{at.format(offs[c.id])}, "
                           f"&cols.c{j}[row0 + i]);")
+            per_row += 1
         elif w > 1:
-            wide(offs[c.id], w, f"cols.c{j}[(size_t)(row0 + i) * {w} + k]")
+            flats.append((j, offs[c.id], w))
+            per_row += w
     if "rix" in offs:
-        line = f"{at.format(offs['rix'])} = rt_int_bits(row0 + i);"
-        stores.append(line)
-        copies.append(line)
+        copies.append(f"{at.format(offs['rix'])} = rt_int_bits(row0 + i);")
     index = []
     for g, (ix, specs) in enumerate(loads):
         index.append(f"j{g}[u] = rt_clampi(cols.c{col[ix.id]}[r], 0, "
                      f"{n - 1});")
         for c, o, w in specs:
             k = col[c.id]
-            if w == 1:
-                field(o, f"cols.c{k}[j{g}[u]]", isinstance(c, R.IntColumn))
-                copies.append(f"rt_copy_async(&{at.format(o)}, "
-                              f"&cols.c{k}[j{g}[u]]);")
-            else:
-                wide(o, w, f"cols.c{k}[(size_t)j{g}[u] * {w} + k]")
-    head = [f"  for (int i0 = tid; i0 < rows; i0 += {b} * nt) {{",
-            *[f"    int j{g}[{b}];" for g in range(len(loads))]]
-    row = [f"    for (int u = 0; u < {b}; ++u) {{",
-           "      const int r = row0 + (i0 + u * nt < rows ? i0 + u * nt "
-           ": 0);"]
-    put = ["#pragma unroll", f"    for (int u = 0; u < {b}; ++u) {{",
-           "      const int i = i0 + u * nt;", "      if (i < rows) {"]
-    fill = [*head, f"    float v[{b}][{len(vals)}];", "#pragma unroll", *row,
-            *[f"      {line}" for line in index],
-            *[f"      v[u][{m}] = {e};" for m, e in enumerate(vals)],
-            "    }", *put, *[f"        {line}" for line in stores],
-            "      }", "    }", "  }"]
-    fill_async = [*head, "#pragma unroll", *row,
-                  *[f"      {line}" for line in index], "    }", *put,
-                  *[f"        {line}" for line in copies],
-                  "      }", "    }", "  }"]
-    return fill, fill_async
+            src = (f"cols.c{k}[j{g}[u]]" if w == 1 else
+                   f"cols.c{k}[(size_t)j{g}[u] * {w} + k]")
+            dst = at.format(o if w == 1 else f"{o} + k")
+            loop = f"for (int k = 0; k < {w}; ++k) " if w > 1 else ""
+            copies.append(f"{loop}rt_copy_async(&{dst}, &{src});")
+            per_row += w
+    b = max(1, min(FILL_BATCH, FILL_VALUES // max(per_row, 1)))
+    # every thread walks every batch of b·nt rows, rows w0 + tid + u·nt
+    # its own, so that a thread whose rows end before the batch's still
+    # copies its share of the batch's wide columns
+    fill = [f"  for (int w0 = 0; w0 < rows; w0 += {b} * nt) {{",
+            "    const int i0 = w0 + tid;"]
+    if index:
+        fill += [*[f"    int j{g}[{b}];" for g in range(len(loads))],
+                 "#pragma unroll", f"    for (int u = 0; u < {b}; ++u) {{",
+                 "      const int r = row0 + (i0 + u * nt < rows ? i0 + u * "
+                 "nt : 0);", *[f"      {line}" for line in index], "    }"]
+    fill += ["#pragma unroll", f"    for (int u = 0; u < {b}; ++u) {{",
+             "      const int i = i0 + u * nt;", "      if (i < rows) {",
+             *[f"        {line}" for line in copies], "      }", "    }"]
+    # a wide column's floats of the batch's rows: element e of the rows'
+    # row0 * w + [0, rows * w), e = w0 * w + tid + u * nt
+    for j, o, w in flats:
+        fill += ["#pragma unroll", f"    for (int u = 0; u < {b * w}; ++u) {{",
+                 f"      const int e = w0 * {w} + tid + u * nt;",
+                 f"      if (e < rows * {w}) rt_copy_async(&tile[e / {w} * "
+                 f"{row_w} + {o} + e % {w}], &cols.c{j}[(size_t)row0 * {w} "
+                 "+ e]);", "    }"]
+    return fill + ["  }"]
 
 
 class _RowCtx(NamedTuple):
@@ -1712,9 +1735,11 @@ def _aligned_adds(em) -> list[str]:
 
 
 def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
-                at_row=frozenset(), params=(), inline=frozenset()):
-    """One row space's row function and tile loaders: (body lines,
-    SpaceTiles, fill lines, asynchronous fill lines, per-row gathers,
+                at_row=frozenset(), params=(), inline=frozenset(),
+                steps=False):
+    """One row space's row function and tile loader: (body lines,
+    SpaceTiles, the loader's lines, per-row gathers, the row-step
+    function's body (None: one row at a time) and its rows,
     whether the row reads columns from their device pointers: a gather
     nested in a rebuilt source).  The row-invariant values
     (`base`: slot in inv, `size`: their elements, `grad`: whether they
@@ -1749,25 +1774,62 @@ def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
     total = " + ".join(row.el(x, 0) for x in space.roots)
     head = [f"  const int rix = rt_bits_int(x[{offs['rix']}]);"] \
         if aligned else []
-    body = [*head, *row.fwd, *_decls(row, [n for n in order if dep[n.id]]),
-            *_aligned_decls(row), *seeds, *row.rev, *_aligned_adds(row),
-            f"  return {total};"]
-    # a space with rebuilt sources: tiles up to GATHER_TILE_ROWS_MAX rows,
-    # or the power of two that holds all its rows, if fewer
-    most = max(TILE_ROWS_MAX, min(GATHER_TILE_ROWS_MAX, 1 << (
-        space.n_rows - 1).bit_length())) if gathered else TILE_ROWS_MAX
-    tile = SpaceTiles(space.n_rows, width, tile_rows(width, most),
+    rev = [*_decls(row, [n for n in order if dep[n.id]]),
+           *_aligned_decls(row), *seeds, *row.rev, *_aligned_adds(row)]
+    body = [*head, *row.fwd, *rev, f"  return {total};"]
+    tile = SpaceTiles(space.n_rows, width, tile_rows(width, space.n_rows),
                       row.fops + row.rops + len(space.roots))
-    return (body, tile, *_fill(cd, space, offs, widths, row_w or width,
-                               loads),
-            row.scatters, row.row_cols)
+    # where the kernel keeps the row-invariant values in registers
+    # (`steps`) and a row hands no gather back, its lanes may sum several
+    # rows a step (_row_step)
+    step = row_step(width, tile.row_ops) if steps and not row.scatters \
+        else 1
+    return (body, tile, _fill(cd, space, offs, widths, row_w or width,
+                              loads),
+            row.scatters,
+            _row_step([*head, *row.fwd], rev, total, step) if step > 1
+            else None, step, row.row_cols)
+
+
+# a declaration of a local in an emitted function
+_DECL = re.compile(r"^\s*(?:const\s+)?(?:float|double|int|bool)\s+(\w+)\s*=")
+
+
+def _row_step(fwd, rev, total, step):
+    """The body of a function that sums `step` of a lane's rows at once:
+    rows x, x + stride, ... of the tile (a lane's consecutive rows), each
+    row's locals renamed with a suffix of its own (_R<k>).  The forward
+    passes of every row come first, then the reverse passes in row order,
+    and each row's value goes to out[k]: every adjoint is added in the
+    order and with the bits of the rows one after another, while the
+    forward passes, the long dependent part of a row, are one block of
+    straight-line code in which the rows' latencies overlap (a row's
+    reverse pass may branch, for an IEEE division's slow path, so rows
+    emitted one after another do not interleave)."""
+    names = {m.group(1) for line in (*fwd, *rev)
+             for m in [_DECL.match(line)] if m}
+    word = re.compile(r"\b(" + "|".join(
+        sorted(map(re.escape, names | {"x"}), key=len, reverse=True))
+        + r")\b")
+
+    def renamed(lines, k):
+        return [word.sub(lambda m: f"{m.group(1)}_R{k}", line)
+                for line in lines]
+
+    out = [f"  const float* x_R{k} = x + {k} * stride;" for k in range(step)]
+    for k in range(step):
+        out += renamed(fwd, k)
+    for k in range(step):
+        out += renamed(rev, k)
+    return out + [f"  out[{k}] = {renamed([total], k)[0]};"
+                  for k in range(step)]
 
 
 def _emit_rows(cd, spaces, ws, whole, scratch):
     """The per-row part of a data model: (C lines, invariant ops, the
     row-invariant values' count, the count of those some row reads other
     than by a per-row gather, SpaceTiles per row space).  One row space
-    keeps the names rt_row, rt_fill_tile and rt_fill_tile_async; several
+    keeps the names rt_row and rt_fill_tile; several
     define RT_SPACES and a RtSpace<s> each, and the row functions take
     the columns where one of them reads them whole.  `whole`: the
     functions outside the rows take the columns, which they read whole;
@@ -1869,9 +1931,13 @@ def _emit_rows(cd, spaces, ws, whole, scratch):
     wc = (", const RtCols& cols" if whole else "") + (
         f", float*{r} scr" if scratch else "")
     one = len(spaces) == 1
+    # a workspace model whose rows read every row-invariant value densely,
+    # and few of them, keeps them in registers over a tile's rows
+    inv_regs = ws and n_dense == n_inv <= INV_REGS_MAX
     made = [_space_rows(cd, space, ws, pre.grad, base, size,
                         "RT_ROW_W" if one else None, n_dense, aligned[s],
-                        at_row[s], params[s], frozenset(inline[s]))
+                        at_row[s], params[s], frozenset(inline[s]),
+                        not ws or inv_regs)
             for s, space in enumerate(spaces)]
     # a row that rebuilds a source inside a rebuilt source reads columns
     # from their device pointers: then every row function takes them
@@ -1889,31 +1955,40 @@ def _emit_rows(cd, spaces, ws, whole, scratch):
                + ")")
     fill_sig = "(float* tile, const RtCols& cols, int row0, int rows, " \
                "int tid, int nt)"
+    step_sig = (f"const float*{r} x, int stride, const float*{r} inv, "
+                f"float*{r} ainv"
+                + (", const RtCols& cols" if row_cols else "")
+                + (f", const float*{r} q, float*{r} g, float*{r} cainv"
+                   if row_state else "")
+                + f", float*{r} out)")
     tiles, spaces_text = [], []
-    for s, (body, tile, fill, fill_async, n_gathers, _) in enumerate(made):
+    for s, (body, tile, fill, n_gathers, step_body, step,
+            _) in enumerate(made):
         tiles.append(tile)
         gathers = ([f"// the row's {n_gathers} per-row gathers hand their "
                     "adjoints back in sidx/sval",
                     f"#define RT_GATHERS {n_gathers}"] if ws else [])
+        step_doc = [
+            f"// {step} of a lane's rows, x + k·stride, their values in "
+            "out[k]; adds",
+            "// their adjoints into ainv in row order, as rt_row would"]
         if one:
             row_fn = [
                 *gathers,
                 "// one row's log-density; adds its adjoints of the "
                 "row-invariant",
                 "// values into ainv",
-                f"RT_HD float rt_row(const {row_sig} {{", *body, "}"]
+                f"RT_HD float rt_row(const {row_sig} {{", *body, "}",
+                *(["", f"#define RT_ROW_STEP {step}", *step_doc,
+                   f"RT_HD void rt_row_step({step_sig} {{", *step_body, "}"]
+                  if step_body else [])]
             fills = [
                 "// rows [row0, row0 + rows) of every column into the tile, "
                 "thread",
-                "// tid of nt",
-                f"RT_HD void rt_fill_tile{fill_sig} {{", *fill, "}",
-                "",
-                "// the same copies as rt_fill_tile, issued asynchronously "
-                "(cp.async",
-                "// on the card, a plain copy in host code); an index keeps "
-                "its bits",
-                f"RT_HD void rt_fill_tile_async{fill_sig} {{", *fill_async,
-                "}"]
+                "// tid of nt: copies issued asynchronously (cp.async on the "
+                "card, a",
+                "// plain copy in host code); an index keeps its bits",
+                f"RT_HD void rt_fill_tile{fill_sig} {{", *fill, "}"]
             continue
         spaces_text += [
             "",
@@ -1923,18 +1998,19 @@ def _emit_rows(cd, spaces, ws, whole, scratch):
             f"struct RtSpace<{s}> {{",
             f"  enum {{ kW = {tile.row_width}, kTile = "
             f"{max(tile.tile_rows, 1)}"
-            + (f", kGathers = {n_gathers}" if ws else "") + " };",
+            + (f", kGathers = {n_gathers}" if ws else "")
+            + f", kStep = {step if step_body else 1} }};",
             "  // one row's log-density; adds its adjoints of the",
             "  // row-invariant values into ainv",
             f"  static RT_HD float row(const {row_sig} {{",
             *_indent(body), "  }",
+            *([*["  " + line for line in step_doc],
+               f"  static RT_HD void step({step_sig} {{",
+               *_indent(step_body), "  }"] if step_body else []),
             "  // rows [row0, row0 + rows) of the space's columns into the "
             "tile,",
-            "  // thread tid of nt; then the same copies issued",
-            "  // asynchronously",
+            "  // thread tid of nt, as asynchronous copies",
             f"  static RT_HD void fill{fill_sig} {{", *_indent(fill), "  }",
-            f"  static RT_HD void fill_async{fill_sig} {{",
-            *_indent(fill_async), "  }",
             "};"]
     post_fn = [
         "// the reverse pass of the row-invariant values, from the adjoints",
@@ -1947,6 +2023,7 @@ def _emit_rows(cd, spaces, ws, whole, scratch):
     lines = [
         f"#define RT_NINV {n_inv}",
         f"#define RT_NINV_ALLOC {max(n_inv, 1)}",
+        *(["#define RT_INV_REGS 1"] if inv_regs else []),
         *([f"#define RT_NINV_DENSE {n_dense}",
            f"#define RT_NINV_DENSE_ALLOC {max(n_dense, 1)}"]
           if n_dense != n_inv else []),
@@ -2084,6 +2161,10 @@ def _emit(cd, ws: bool, stage_budget: int) -> EmittedDensity:
         f"#define RT_DIM {n}",
         f"#define RT_ROW_W {top.row_width}",
         f"#define RT_TILE {max(top.tile_rows, 1)}",
+        # one row space whose rows fit one tile: the kernel loads it once
+        # a launch, and the density calls read it there
+        *(["#define RT_RESIDENT 1"] if len(spaces) == 1
+          and spaces[0].n_rows <= spaces[0].tile_rows else []),
         *([f"#define RT_WS_FLOATS {slot}"] if ws else []),
         # a warp a chain, unless the build defines fewer lanes (a
         # register model's loops split over them where they read an

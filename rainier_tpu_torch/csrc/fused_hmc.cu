@@ -34,15 +34,25 @@
 //
 // Data columns.  A model with RowSum likelihoods adds, in every density
 // call, the sum over all rows of the generated per-row function rt_row.
-// The rows are walked in tiles of RT_TILE rows: the W x 32 threads of a
-// block copy a tile of every column into shared memory together
-// (coalesced), pass a barrier, and every chain of the block reads that
-// one tile: lane l takes the tile's rows l, l + 32, l + 64, ..., keeps its
-// own partial sums of lp and of the dense row-invariant adjoints, and at
-// the end of the tile an xor butterfly (five __shfl_xor_sync stages) sums
-// the lanes' partials.  Each stage adds a pair of values in both of its
-// lanes, and f32 addition commutes, so every lane ends with the same bits,
-// which go to the f64 totals.  A second barrier ends the tile.  Fixed-step
+// The rows are walked in tiles of RT_TILE rows, as many as two tiles of
+// the row's floats fit in a block's shared memory, up to 4096
+// (emit_cuda.tile_rows): a tile's copies, barriers and waits cost the same
+// however few rows it holds.  The W x 32 threads of a block copy a tile of
+// every column into shared memory together (coalesced; the tile loader,
+// emitted, takes a batch of rows a thread and issues every load before any
+// store), pass a barrier, and every chain of the block reads that one
+// tile: lane l takes the tile's rows l, l + 32, l + 64, ..., summing its
+// rows' lp and dense row-invariant adjoints in f32 and adding those sums
+// to f64 sums of its own once a tile.  A row of many operations and few
+// floats is summed several rows a step (RtSpace<s>::kStep, the emitted
+// rt_row_step): the steps' rows' forward passes are one block of
+// straight-line code, so that their dependent chains overlap, and their
+// reverse passes add the adjoints in row order, so the bits are those of
+// one row at a time.  At the end of the density call an xor butterfly
+// (five __shfl_xor_sync stages, rt_acc_sum) adds the lanes' f64 sums.  Each
+// stage adds a pair of values in both of its lanes, and addition commutes,
+// so every lane ends with the same bits.  A second barrier ends the tile.
+// Fixed-step
 // HMC gives every chain the same number of density calls (n_steps per
 // iteration, plus one), so all warps of a block reach every barrier
 // together; the accept branch holds no barrier.  Warps past the last
@@ -56,12 +66,14 @@
 // not padded: what padding would save is not measured).
 //
 // Streamed columns (stream_cols, the counterpart of hmc_pallas.py:186-191,
-// 305-351, 484-486, 492-497).  Columns larger than the card's L2 are read
-// from device memory again in every density call, so a launch may stream
-// them: the shared memory holds two tile slots, each thread issues its
-// share of tile t + 1's copies as cp.async into the other slot before it
-// waits for tile t's, and the rows of tile t are computed while tile
-// t + 1 is in flight.  Every thread commits one group per tile (an empty
+// 305-351, 484-486, 492-497).  A launch may stream its tiles: the shared
+// memory holds two tile slots, each thread issues its share of tile
+// t + 1's copies as cp.async into the other slot before it waits for tile
+// t's, and the rows of tile t are computed while tile t + 1 is in flight.
+// The wrapper streams every launch of a model with rows unless told not
+// to: on the H100 the streamed loop beat the synchronous one on every such
+// model, its columns inside L2 or past it (ops/fused_hmc.py, streams).
+// Every thread commits one group per tile (an empty
 // one after the last), the ragged edge's copies included, so that each
 // thread's wait counts the same groups.  Both tile loops sum a tile's
 // rows with one function, rt_tile_rows, through the same lanes, so a
@@ -106,10 +118,8 @@
 // to g there (RT_ROW_STATE, RT_ROWQ), with no copy in inv or ainv.  A row
 // that reads a source varying by row at another row's index rebuilds it
 // there from fields of the tile, which the loader fills at the clamped
-// index, one random read a row for the block's chains; such a space's
-// tiles hold up to emit_cuda.GATHER_TILE_ROWS_MAX rows, since its barriers,
-// fills and butterflies, once a tile, cost more than its rows (PERF.md
-// §6).  What bounds these: the product's 2·n·p multiply-adds a density
+// index, one random read a row for the block's chains.  What bounds
+// these: the product's 2·n·p multiply-adds a density
 // call, split over the lanes (the 64-input GP: 8,192), read from L staged
 // in shared memory (below, RT_SMEM_MATS), the index column's loops (n / 32
 // int loads and f64 adds a lane, three passes a call), and the
@@ -187,14 +197,15 @@
 //
 // Summation error.  Each lane sums its rows of a tile in f32 (the error of
 // a sequential sum of R terms is at most about R·u·Σ|terms|, u = 6e-8, and
-// typically √R·u·Σ|terms|), the butterfly adds 32 such sums, and the tile
-// totals of lp and of every row-invariant adjoint that all rows read (the
-// first RT_NINV_DENSE of inv) are accumulated in f64, so the error does
-// not grow with the number of tiles beyond a random walk of the per-tile
-// errors.  For the 100k-row logistic regression (R = 256 rows a tile, 8 a
-// lane, ~0.3 nats a row) that is below 1e-4 per tile and ~2e-3 nats in
-// all, plus half an ulp (~2e-3) when the f64 total is rounded to f32,
-// against a per-chain f32 running sum's O(0.1).  A model with its state in
+// typically √R·u·Σ|terms|), adds that to its own f64 sums, and the
+// butterfly adds the lanes' f64 sums, of lp and of every row-invariant
+// adjoint that all rows read (the first RT_NINV_DENSE of inv), once a
+// call, so the error does not grow with the number of tiles beyond a
+// random walk of the per-tile errors.  For the 100k-row logistic
+// regression (R = 2048 rows a tile, 64 a lane, ~0.3 nats a row) that is
+// about 1e-5 nats a lane's tile and ~4e-4 nats in all, plus half an ulp
+// (~2e-3) when the f64 total is rounded to f32, against a per-chain f32
+// running sum's O(0.1).  A model with its state in
 // the workspace sums its rows in f64 (rt_row_sum) and rounds lp once: at
 // glmm_large's 50,000 rows and |lp| ~ 1e5, f32 tile sums and two roundings
 // drift by a few ulps of lp.  The register models keep f32 tile sums: f64
@@ -208,10 +219,12 @@
 // The same file compiles as host C++ (no __CUDACC__): rt_fused_hmc_host
 // then runs every chain slot of the launch's blocks one after another,
 // the ragged edge's copies included, with the tile's "block" one thread.
-// It emulates the lanes: the rows of a tile are walked in steps of 32,
-// lane by lane within a step, each lane's partial sums and adjoint copy
-// kept apart, each step's gather adjoints added as rt_scatter adds them,
-// and the lanes' sums added in the butterfly's order (rt_lane_tree); a
+// It emulates the lanes: each lane's rows of a tile are walked in turn
+// with the card's steps, or, where rows hand gathers back, the rows in
+// steps of 32, lane by lane within a step, each step's gather adjoints
+// added as rt_scatter adds them; each lane's partial sums and adjoint copy
+// are kept apart, and the lanes' sums added in the butterfly's order
+// (rt_lane_tree); a
 // workspace model's passes walk every element and keep each lane's
 // partial sums (RT_PART).
 // So the host build sums in the card's order, which is how the CPU tests
@@ -254,16 +267,15 @@ static_assert(RT_LANES > 0 && RT_LANES <= 32 &&
 #define RT_SLOT_STRIDE ((RT_WS_FLOATS + 31) / 32 * 32 + RT_LANES % 32)
 #endif
 
-// the block's threads in device code; one thread in host code (and in
-// nvcc's host pass over the __host__ __device__ functions)
+// the block's barrier in device code; nothing in host code (and in nvcc's
+// host pass over the __host__ __device__ functions), where the block is
+// one thread that runs each thread's share of a tile's copies in turn
+// (rt_block_fill), the launch's threads a block many
 #ifdef __CUDA_ARCH__
 #define RT_TILE_SYNC() __syncthreads()
-#define RT_TID ((int)threadIdx.x)
-#define RT_NTHREADS ((int)blockDim.x)
 #else
 #define RT_TILE_SYNC()
-#define RT_TID 0
-#define RT_NTHREADS 1
+static int rt_host_threads = 1;
 #endif
 
 #if RT_ROW_W > 0
@@ -279,7 +291,7 @@ static_assert(RT_LANES > 0 && RT_LANES <= 32 &&
 #endif
 
 // Row spaces.  A header with one row space names its row function and
-// tile loaders rt_row, rt_fill_tile and rt_fill_tile_async; one with
+// tile loader rt_row and rt_fill_tile; one with
 // several defines RT_SPACES and an RtSpace<s> for each.  The tile loops
 // read a space through RtSpace<s>: kW floats a row, kTile rows a tile.
 // A row that rebuilds a source at another row inside a rebuilt source (a
@@ -302,34 +314,47 @@ static_assert(RT_LANES > 0 && RT_LANES <= 32 &&
 #else
 #define RT_ROWQ(q, g, a)
 #endif
+// A row space whose rows hand no gather back sums RtSpace<s>::kStep rows
+// of a lane at a time where kStep > 1, through `step` (a header of one
+// space: rt_row_step, RT_ROW_STEP rows)
 #if RT_ROW_W > 0 && !defined(RT_SPACES)
 #define RT_SPACES 1
+#ifndef RT_ROW_STEP
+#define RT_ROW_STEP 1
+#endif
 template <int S>
 struct RtSpace;
 template <>
 struct RtSpace<0> {
 #ifdef RT_WS_FLOATS
-  enum { kW = RT_ROW_W, kTile = RT_TILE, kGathers = RT_GATHERS };
+  enum { kW = RT_ROW_W, kTile = RT_TILE, kGathers = RT_GATHERS,
+         kStep = RT_ROW_STEP };
   static RT_HD float row(const float* x, const float* inv, float* ainv,
                          int* sidx, float* sval RT_ROWC(const RtCols& cols)
                              RT_ROWQ(const float* q, float* g, float* cainv)) {
     return rt_row(x, inv, ainv, sidx, sval RT_ROWC(cols) RT_ROWQ(q, g, cainv));
   }
 #else
-  enum { kW = RT_ROW_W, kTile = RT_TILE };
+  enum { kW = RT_ROW_W, kTile = RT_TILE, kStep = RT_ROW_STEP };
   static RT_HD float row(const float* x, const float* inv,
                          float* ainv RT_ROWC(const RtCols& cols)
                              RT_ROWQ(const float* q, float* g, float* cainv)) {
     return rt_row(x, inv, ainv RT_ROWC(cols) RT_ROWQ(q, g, cainv));
   }
 #endif
+  static RT_HD void step(const float* x, int stride, const float* inv,
+                         float* ainv RT_ROWC(const RtCols& cols)
+                             RT_ROWQ(const float* q, float* g, float* cainv),
+                         float* out) {
+#if RT_ROW_STEP > 1
+    rt_row_step(x, stride, inv, ainv RT_ROWC(cols) RT_ROWQ(q, g, cainv), out);
+#else
+    (void)x, (void)stride, (void)inv, (void)ainv, (void)out;
+#endif
+  }
   static RT_HD void fill(float* tile, const RtCols& cols, int row0, int rows,
                          int tid, int nt) {
     rt_fill_tile(tile, cols, row0, rows, tid, nt);
-  }
-  static RT_HD void fill_async(float* tile, const RtCols& cols, int row0,
-                               int rows, int tid, int nt) {
-    rt_fill_tile_async(tile, cols, row0, rows, tid, nt);
   }
 };
 #endif
@@ -581,6 +606,21 @@ RT_HD void rt_collect(float* __restrict__ out, const float* __restrict__ q,
 #define RT_TILE_FLOATS (RT_TILE * RT_ROW_W)
 
 #if RT_ROW_W > 0
+// rows [row0, row0 + rows) of space S's columns into `slot`, this
+// thread's share of the copies; in host code every thread's share in
+// turn, so that the host build runs the loader's partition of a tile over
+// the threads of the launch's blocks
+template <int S>
+RT_HD void rt_block_fill(float* slot, const RtCols& cols, int row0,
+                         int rows) {
+#ifdef __CUDA_ARCH__
+  RtSpace<S>::fill(slot, cols, row0, rows, threadIdx.x, blockDim.x);
+#else
+  for (int tid = 0; tid < rt_host_threads; ++tid)
+    RtSpace<S>::fill(slot, cols, row0, rows, tid, rt_host_threads);
+#endif
+}
+
 // rows [row0, row0 + kTile) of space S's columns, cut at n_rows, as this
 // thread's asynchronous copies into `slot`, committed as one group (an
 // empty group past the last row)
@@ -589,9 +629,8 @@ RT_HD void rt_stream_tile(float* slot, const RtCols& cols, int row0,
                           int n_rows) {
   typedef RtSpace<S> Sp;
   if (row0 < n_rows)
-    Sp::fill_async(slot, cols, row0,
-                   n_rows - row0 < Sp::kTile ? n_rows - row0 : Sp::kTile,
-                   RT_TID, RT_NTHREADS);
+    rt_block_fill<S>(slot, cols, row0,
+                     n_rows - row0 < Sp::kTile ? n_rows - row0 : Sp::kTile);
   rt_copy_commit();
 }
 
@@ -613,14 +652,11 @@ RT_HD void rt_stream_tile(float* slot, const RtCols& cols, int row0,
 #endif
 
 // A workspace model whose rows read every row-invariant value densely
-// (no per-row gather), and at most RT_INV_REGS_MAX of them, keeps them
-// and each lane's adjoints of them in registers over a tile's rows
-// (rt_tile_rows); its state stays in the slot
-#define RT_INV_REGS_MAX 64
-#if defined(RT_WS_FLOATS) && RT_NINV_DENSE == RT_NINV && \
-    RT_NINV <= RT_INV_REGS_MAX
-#define RT_INV_REGS 1
-#else
+// (no per-row gather), and at most emit_cuda.INV_REGS_MAX of them, keeps
+// them and each lane's adjoints of them in registers over a tile's rows
+// (rt_tile_rows); its state stays in the slot.  The header defines
+// RT_INV_REGS for such a model.
+#ifndef RT_INV_REGS
 #define RT_INV_REGS 0
 #endif
 
@@ -724,17 +760,84 @@ RT_HD float rt_row_at(const float* x, const float* inv, float* own,
 }
 #endif
 
+// Whether the lanes sum their rows of a tile with the row-step function
+// (RtSpace<s>::kStep rows a step, rt_lane_rows): a register model, and a
+// workspace model that keeps its row-invariant values in registers
+#if !defined(RT_WS_FLOATS) || RT_INV_REGS
+#define RT_ROW_STEPS 1
+#else
+#define RT_ROW_STEPS 0
+#endif
+
+// the rows lane, lane + 32, ... of a tile of space S, read from `slot`,
+// their values added to lp and their adjoints to the lane's `own`: kStep
+// rows at a time while a step's rows are all in the tile, then one at a
+// time, so that every sum takes the rows in the same order either way
+template <int S, typename T>
+RT_HD void rt_lane_rows(const float* slot, int rows, int lane,
+                        const float* inv, float* own, T& lp,
+                        const RtCols& cols, const float* q, float* g,
+                        float* ainv) {
+  typedef RtSpace<S> Sp;
+  int r = lane;
+  if constexpr (Sp::kStep > 1) {
+    for (; r + (Sp::kStep - 1) * RT_LANES < rows;
+         r += Sp::kStep * RT_LANES) {
+      float out[Sp::kStep];
+      Sp::step(slot + r * Sp::kW, RT_LANES * Sp::kW, inv, own RT_ROWC(cols)
+                   RT_ROWQ(q, g, ainv), out);
+#pragma unroll
+      for (int k = 0; k < Sp::kStep; ++k) lp += out[k];
+    }
+  }
+#pragma unroll 4
+  for (; r < rows; r += RT_LANES) {
+    int sidx[1];
+    float sval[1];
+    lp += rt_row_at<S>(slot + r * Sp::kW, inv, own, sidx, sval, cols, q, g,
+                       ainv);
+  }
+}
+
+// The lanes' f64 sums of their rows' lp and dense adjoints over every
+// tile of a density call, which the butterfly adds once a call
+// (rt_acc_sum): one lane's on the card, lane l's at l (lp) and at
+// l·RT_NINV_DENSE_ALLOC + k (adjoint k) in host code.  Summing the lanes
+// once a call, not once a tile, saves a tile's butterfly over every
+// dense adjoint (the 32-feature MVNormal logistic's kernel: 34 values,
+// 170 shuffles a lane a tile, 6% of its time at 256-row tiles on an
+// H100, PERF.md §6) and adds the lanes' sums in f64.
+#ifdef __CUDA_ARCH__
+#define RT_ACC_LANES 1
+#else
+#define RT_ACC_LANES RT_LANES
+#endif
+
+// entry k of the lanes' sums `acc` (n entries a lane) summed over the
+// lanes in the butterfly's order, the same bits in every lane
+RT_HD double rt_acc_sum(const double* acc, int n, int k) {
+#ifdef __CUDA_ARCH__
+  (void)n;
+  return rt_warp_sum<RT_LANES>(acc[k]);
+#else
+  double v[RT_LANES];
+  for (int l = 0; l < RT_LANES; ++l) v[l] = acc[(size_t)l * n + k];
+  return rt_lane_tree<RT_LANES>(v);
+#endif
+}
+
 // the rows of one tile of space S, read from `slot`, for this chain: lane
 // l sums rows l, l + 32, ... into its own lp and dense adjoints
-// (rt_row_sum), the butterfly sums the lanes', and the sums are added to
-// the f64 totals; over the workspace the lanes walk the rows in steps of
-// 32, each step's gather adjoints added into `ainv` by rt_scatter.  Both
-// tile loops, synchronous and streamed, sum their rows here, so the two
-// give the same results bit for bit.  Host code walks the steps, and in
-// each the lanes one after another.
+// (rt_row_sum) and adds those to its f64 sums (lp_acc, ainv_acc); over
+// the workspace, where rows hand gathers back, the lanes walk the rows in
+// steps of 32, each step's gather adjoints added into `ainv` by
+// rt_scatter.  Both tile loops, synchronous and streamed, sum their rows
+// here, so the two give the same results bit for bit.  Host code walks
+// each lane's rows in turn, or, where rows hand gathers back, the steps,
+// and in each the lanes one after another.
 template <int S>
 RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
-                        float* lanes, float* ainv, double& lp_acc,
+                        float* lanes, float* ainv, double* lp_acc,
                         double* ainv_acc, const RtCols& cols,
                         const float* q, float* g) {
   (void)cols, (void)q, (void)g;
@@ -752,13 +855,7 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
 #pragma unroll
   for (int k = 0; k < RT_NINV; ++k) inv_r[k] = inv[k], own[k] = 0.0f;
   rt_row_sum lp_t = 0.0f;
-#pragma unroll 4
-  for (int r = RT_LANE; r < rows; r += RT_LANES) {
-    int sidx[1];
-    float sval[1];
-    lp_t += rt_row_at<S>(slot + r * Sp::kW, inv_r, own, sidx, sval, cols, q,
-                         g, ainv);
-  }
+  rt_lane_rows<S>(slot, rows, RT_LANE, inv_r, own, lp_t, cols, q, g, ainv);
 #elif defined(RT_WS_FLOATS)
   float* own = lanes + (size_t)RT_LANE * RT_LANE_COPY;
   rt_row_sum lp_t = 0.0f;
@@ -778,47 +875,47 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
     RT_WARP_SYNC();
   }
 #else
-  (void)ainv;
   float* own = lanes;
   rt_row_sum lp_t = 0.0f;
 #pragma unroll
   for (int k = 0; k < RT_NINV_DENSE; ++k) own[k] = 0.0f;
-#pragma unroll 4
-  for (int r = RT_LANE; r < rows; r += RT_LANES)
-    lp_t += Sp::row(slot + r * Sp::kW, inv, own RT_ROWC(cols)
-                        RT_ROWQ(q, g, ainv));
+  rt_lane_rows<S>(slot, rows, RT_LANE, inv, own, lp_t, cols, q, g, ainv);
 #endif
-  lp_acc += (double)rt_warp_sum<RT_LANES>(lp_t);
+  lp_acc[0] += (double)lp_t;
 #pragma unroll
-  for (int k = 0; k < RT_NINV_DENSE; ++k)
-    ainv_acc[k] += (double)rt_warp_sum<RT_LANES>(own[k]);
+  for (int k = 0; k < RT_NINV_DENSE; ++k) ainv_acc[k] += (double)own[k];
 #else
   rt_row_sum lp_t[RT_LANES] = {};
   for (int l = 0; l < RT_LANES; ++l)
     for (int k = 0; k < RT_NINV_DENSE; ++k)
       lanes[(size_t)l * RT_LANE_COPY + k] = 0.0f;
-  for (int r0 = 0; r0 < rows; r0 += RT_LANES) {
-    int sidx[kG][RT_LANES];
-    float sval[kG][RT_LANES];
-    for (int l = 0; l < RT_LANES; ++l) {
-      int si[kG];
-      float sv[kG];
-      for (int g = 0; g < kG; ++g) si[g] = -1, sv[g] = 0.0f;
-      if (r0 + l < rows)
-        lp_t[l] += rt_row_at<S>(slot + (r0 + l) * Sp::kW, inv,
-                                lanes + (size_t)l * RT_LANE_COPY, si, sv,
-                                cols, q, g, ainv);
-      for (int g = 0; g < kG; ++g) sidx[g][l] = si[g], sval[g][l] = sv[g];
-    }
-    for (int g = 0; g < RtGathers<S>::value; ++g)
-      rt_scatter(ainv, sidx[g], sval[g]);
-  }
-  lp_acc += (double)rt_lane_tree<RT_LANES>(lp_t);
-  for (int k = 0; k < RT_NINV_DENSE; ++k) {
-    float v[RT_LANES];
+  if (RT_ROW_STEPS && RtGathers<S>::value == 0) {
     for (int l = 0; l < RT_LANES; ++l)
-      v[l] = lanes[(size_t)l * RT_LANE_COPY + k];
-    ainv_acc[k] += (double)rt_lane_tree<RT_LANES>(v);
+      rt_lane_rows<S>(slot, rows, l, inv, lanes + (size_t)l * RT_LANE_COPY,
+                      lp_t[l], cols, q, g, ainv);
+  } else {
+    for (int r0 = 0; r0 < rows; r0 += RT_LANES) {
+      int sidx[kG][RT_LANES];
+      float sval[kG][RT_LANES];
+      for (int l = 0; l < RT_LANES; ++l) {
+        int si[kG];
+        float sv[kG];
+        for (int g = 0; g < kG; ++g) si[g] = -1, sv[g] = 0.0f;
+        if (r0 + l < rows)
+          lp_t[l] += rt_row_at<S>(slot + (r0 + l) * Sp::kW, inv,
+                                  lanes + (size_t)l * RT_LANE_COPY, si, sv,
+                                  cols, q, g, ainv);
+        for (int g = 0; g < kG; ++g) sidx[g][l] = si[g], sval[g][l] = sv[g];
+      }
+      for (int g = 0; g < RtGathers<S>::value; ++g)
+        rt_scatter(ainv, sidx[g], sval[g]);
+    }
+  }
+  for (int l = 0; l < RT_LANES; ++l) {
+    lp_acc[l] += (double)lp_t[l];
+    for (int k = 0; k < RT_NINV_DENSE; ++k)
+      ainv_acc[(size_t)l * RT_NINV_DENSE_ALLOC + k] +=
+          (double)lanes[(size_t)l * RT_LANE_COPY + k];
   }
 #endif
 }
@@ -831,9 +928,16 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
 template <int S>
 RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
                          int stream_cols, float* tile, const float* inv,
-                         float* lanes, float* ainv, double& lp_acc,
+                         float* lanes, float* ainv, double* lp_acc,
                          double* ainv_acc, const float* q, float* g) {
   const int n_rows = rows.n[S], kTile = RtSpace<S>::kTile;
+#ifdef RT_RESIDENT
+  // the one tile, loaded once a launch (rt_resident)
+  (void)stream_cols, (void)kTile;
+  rt_tile_rows<S>(tile, n_rows, inv, lanes, ainv, lp_acc, ainv_acc, cols, q,
+                  g);
+  return;
+#endif
   if (stream_cols) {
     // tile t is in slot t & 1: tile 0 before the loop, then tile t + 1
     // into the other slot, whose last reader passed the barrier that
@@ -852,7 +956,9 @@ RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
   } else {
     for (int row0 = 0; row0 < n_rows; row0 += kTile) {
       const int n = n_rows - row0 < kTile ? n_rows - row0 : kTile;
-      RtSpace<S>::fill(tile, cols, row0, n, RT_TID, RT_NTHREADS);
+      rt_block_fill<S>(tile, cols, row0, n);
+      rt_copy_commit();
+      rt_copy_wait_all();
       RT_TILE_SYNC();
       rt_tile_rows<S>(tile, n, inv, lanes, ainv, lp_acc, ainv_acc, cols, q,
                       g);
@@ -864,6 +970,22 @@ RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
                          lp_acc, ainv_acc, q, g);
 }
 #endif
+
+// A row space whose rows fit one tile (RT_RESIDENT): its tile loaded once
+// a launch, every thread's share, then a barrier, and every density call
+// reads it there, with no copy or barrier of its own (the README
+// regression's and GLMMPoisson2's rows; the resident columns of
+// hmc_pallas.py:186-222)
+RT_HD void rt_resident(const RtCols& cols, const RtRows& rows, float* tile) {
+#ifdef RT_RESIDENT
+  rt_block_fill<0>(tile, cols, 0, rows.n[0]);
+  rt_copy_commit();
+  rt_copy_wait_all();
+  RT_TILE_SYNC();
+#else
+  (void)cols, (void)rows, (void)tile;
+#endif
+}
 
 // log-density and gradient at natural coordinates x for one chain: the
 // column-free terms, then the row terms over every tile of each row
@@ -892,21 +1014,27 @@ RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
   float ainv[RT_NINV_ALLOC];
   float lanes[RT_LANES * RT_LANE_COPY];
 #endif
-  double ainv_acc[RT_NINV_DENSE_ALLOC];
-  double lp_acc = 0.0;
+  // the lanes' f64 sums over every tile (RT_ACC_LANES)
+  double ainv_acc[RT_ACC_LANES * RT_NINV_DENSE_ALLOC];
+  double lp_lanes[RT_ACC_LANES];
   rt_rows_pre(x, inv RT_WHOLE(cols) RT_SCR(scr));
   // the gathered blocks' adjoints accumulate over every tile
   rt_gathered_zero(lanes, ainv);
   RT_WS_SYNC();
 #pragma unroll
-  for (int k = 0; k < RT_NINV_DENSE; ++k) ainv_acc[k] = 0.0;
-  rt_space_rows<0>(cols, rows, stream_cols, tile, inv, lanes, ainv, lp_acc,
+  for (int k = 0; k < RT_ACC_LANES * RT_NINV_DENSE_ALLOC; ++k)
+    ainv_acc[k] = 0.0;
+#pragma unroll
+  for (int l = 0; l < RT_ACC_LANES; ++l) lp_lanes[l] = 0.0;
+  rt_space_rows<0>(cols, rows, stream_cols, tile, inv, lanes, ainv, lp_lanes,
                    ainv_acc, x, g);
   RT_WS_SYNC();
   rt_gathered_sum(lanes, ainv);
+  // the butterfly, once a call: the lanes' sums in every lane
+  const double lp_acc = rt_acc_sum(lp_lanes, 1, 0);
 #pragma unroll
   for (int k = 0; k < RT_NINV_DENSE; ++k)
-    ainv[k] = (float)ainv_acc[k];
+    ainv[k] = (float)rt_acc_sum(ainv_acc, RT_NINV_DENSE_ALLOC, k);
   RT_WS_SYNC();
   rt_rows_post(x, ainv, g RT_WHOLE(cols) RT_SCR(scr));
 #ifdef RT_WS_FLOATS
@@ -1128,11 +1256,17 @@ static inline bool rt_threads_ok(int threads) {
 }
 
 // the floats of a block's shared memory before its staged matrices: its
-// chains' slots, or one tile slot, two when streaming
+// chains' slots, or one tile slot, two when streaming; one for a space
+// loaded once a launch (RT_RESIDENT, which leaves room for two of
+// GLMMPoisson2's blocks on an SM, where its 136 blocks of a density check
+// would otherwise run in two waves)
 RT_HD int rt_smem_floats(int threads, int stream_cols) {
 #ifdef RT_WS_SHARED
   (void)stream_cols;
   return threads / RT_LANES * RT_SLOT_STRIDE;
+#elif defined(RT_RESIDENT)
+  (void)threads, (void)stream_cols;
+  return RT_TILE_FLOATS;
 #else
   (void)threads;
   return (stream_cols ? 2 : 1) * RT_TILE_FLOATS;
@@ -1198,6 +1332,7 @@ __global__ void __launch_bounds__(RT_MAX_THREADS)
                      RtCols cols, RtRows rows, float* ws) {
   extern __shared__ float tile[];
   rt_stage(cols, tile, kStream);
+  rt_resident(cols, rows, tile);
   const int s = rt_chain_slot();
   rt_hmc_chain(s, n, q0, scale, scale_per_chain, eps, p_noise, u_noise, qf,
                samples, acc, div, n_iterations, n_steps, collect_every,
@@ -1211,6 +1346,7 @@ __global__ void __launch_bounds__(RT_MAX_THREADS)
                      RtCols cols, RtRows rows, float* ws) {
   extern __shared__ float tile[];
   rt_stage(cols, tile, kStream);
+  rt_resident(cols, rows, tile);
   const int s = rt_chain_slot();
   rt_logp_grad_chain(s, n, q, lp, g, cols, rows, kStream, tile,
                      rt_slot(ws, tile, s));
@@ -1333,10 +1469,12 @@ extern "C" int rt_fused_hmc_host(int n, const float* q0, const float* scale,
                                  const int* n_rows, float* ws, int threads,
                                  int stream_cols) {
   if (!rt_threads_ok(threads)) return 1;
+  rt_host_threads = threads;
   std::vector<float> tile(2 * RT_TILE_FLOATS + 1), own(RT_OWN_FLOATS);
   std::vector<float> mats(RT_SMEM_MATS + 1);
   const RtCols c_cols = rt_host_cols(cols, mats.data());
   const RtRows rows = rt_rows(n_rows);
+  rt_resident(c_cols, rows, tile.data());
   for (int s = 0; s < rt_slots(n, threads / RT_LANES); ++s)
     rt_hmc_chain(s, n, q0, scale, scale_per_chain, eps, p_noise, u_noise,
                  qf, samples, acc, div, n_iterations, n_steps, collect_every,
@@ -1350,10 +1488,12 @@ extern "C" int rt_logp_grad_host(int n, const float* q, float* lp, float* g,
                                  const int* n_rows, float* ws, int threads,
                                  int stream_cols) {
   if (!rt_threads_ok(threads)) return 1;
+  rt_host_threads = threads;
   std::vector<float> tile(2 * RT_TILE_FLOATS + 1), own(RT_OWN_FLOATS);
   std::vector<float> mats(RT_SMEM_MATS + 1);
   const RtCols c_cols = rt_host_cols(cols, mats.data());
   const RtRows rows = rt_rows(n_rows);
+  rt_resident(c_cols, rows, tile.data());
   for (int s = 0; s < rt_slots(n, threads / RT_LANES); ++s)
     rt_logp_grad_chain(s, n, q, lp, g, c_cols, rows, stream_cols,
                        tile.data(), rt_slot(ws, own.data(), s));

@@ -36,6 +36,33 @@ RT_HD float rt_softplus(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
 }
 
+// e / s for a LogSumExp's shifted exponential e = exp(x - max), in [0, 1]
+// or NaN, and the sum s of its terms' (at least 1 where the max is
+// finite, else NaN), with the bits of the IEEE f32 division.  On the card
+// the f32 division takes its slow path, a call that the whole warp waits
+// for, whenever a lane's e is tiny (a term far below the max, as in most
+// rows of a mixture whose components lie apart): the marginalized
+// mixture's kernel took 767.5 ms so and 159.1 ms with this form (H100,
+// PERF.md §6).  This form has no branch: a reciprocal from rcp.approx,
+// two Newton steps, the quotient and one correction, all in f64, rounded
+// to f32 once.  The exact quotient of two floats lies at least 2^-50 of
+// itself from any f32 rounding boundary, and the f64 one within 2^-60 of
+// it, so the rounding gives the correctly rounded f32 quotient; a NaN e
+// or s gives NaN.  Host code divides.
+RT_HD float rt_lse_share(float e, float s) {
+#ifdef __CUDA_ARCH__
+  const double sd = s, ed = e;
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(sd));
+  r = fma(r, fma(-sd, r, 1.0), r);
+  r = fma(r, fma(-sd, r, 1.0), r);
+  const double q = ed * r;
+  return (float)fma(r, fma(-sd, q, ed), q);
+#else
+  return e / s;
+#endif
+}
+
 // float index -> int32 by truncation toward zero (jnp astype(int32));
 // NaN maps to 0 and out-of-range values saturate, as the device
 // conversion does
@@ -96,6 +123,13 @@ RT_HD void rt_copy_commit() {
 RT_HD void rt_copy_wait_prior1() {
 #ifdef __CUDA_ARCH__
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+#endif
+}
+
+// wait until every group of this thread's copies has landed
+RT_HD void rt_copy_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 #endif
 }
 

@@ -28,8 +28,8 @@ each chain one warp:
 its RowSum likelihoods are summed over row tiles that the block's
 threads load into shared memory together, and within a tile the warp's
 32 lanes split the rows (lane l takes rows l, l + 32, ...), their
-partial sums met by an xor butterfly that leaves the same bits in every
-lane; a block holds ``chains_per_block`` such warps, which all read each
+sums met once a density call by an xor butterfly that leaves the same
+bits in every lane; a block holds ``chains_per_block`` such warps, which all read each
 tile.  Up to ``emit_cuda.LANE_STATE_MAX`` parameters and row-invariant
 values every lane holds the whole chain state and runs the rest of the
 iteration redundantly; past it (GLMMPoisson2, 146 parameters;
@@ -74,13 +74,17 @@ one warp a chain, 1024 chains are 1024 warps, 8 on each SM in blocks of
 8 chains, and a block's 256 threads load each tile once for its 8
 chains, so the L2 traffic of the tiles falls with W, and the time with
 it (PERF.md §6: the 100k logistic's kernel 793 ms at W = 8, 1,166 ms at
-W = 4); the ~2 barriers and one tile load per 8 rows a lane then stay
-in the way of the row arithmetic.  Larger columns (the 2M-row logistic's
-88 MB) come from device memory in every density call, so such a launch
-streams them (``stream_columns``, the Pallas kernel's streamed branch,
-hmc_pallas.py:186-191, 305-351): each thread issues its share of tile
-t + 1 as ``cp.async`` copies into one of two shared-memory slots, then
-computes tile t's rows from the other; its 512 chains run 4 to a block,
+W = 4).  With 8 warps an SM the latency of each tile's copies and of
+each row's dependent chain is what holds the kernel back, so every
+launch with rows streams its tiles (``stream_columns``, the Pallas
+kernel's streamed branch, hmc_pallas.py:186-191, 305-351): each thread
+issues its share of tile t + 1 as ``cp.async`` copies into one of two
+shared-memory slots, then computes tile t's rows from the other; tiles
+are as large as two fit a block's shared memory (up to 4096 rows); a row
+of many operations and few floats is summed four rows a lane's step,
+their dependent chains overlapping; and the lanes' sums meet once a
+density call.  Larger columns (the 2M-row logistic's 88 MB) come from
+device memory in every density call; its 512 chains run 4 to a block,
 so that 128 blocks keep the SMs busy.  A workspace model is bound by the
 latency of its passes over the slot (about 23 a density call) and of its
 rows' gathers and scatters there.  PERF.md holds every kernel's time
@@ -560,23 +564,23 @@ def l2_bytes(device):
     return torch.cuda.get_device_properties(device).L2_cache_size
 
 
-def streams(density, columns, stream_columns, device) -> bool:
-    """Whether a launch over `columns` (the tensors of ``density.columns``)
-    streams its row tiles, as ``stream_columns`` of
-    ``rainier_tpu.ops.fused_hmc`` decides: True and False force it, None
-    streams where the bytes of all the columns exceed the L2 of the CUDA
-    `device` (:func:`l2_bytes`; nothing streams on another device), as the
-    Pallas kernel streams past its VMEM budget.  True on a model whose
-    columns are all read whole, or that has none, raises: it has no
-    tiles."""
+def streams(density, stream_columns, device) -> bool:
+    """Whether a launch streams its row tiles: True and False force it;
+    None streams on a CUDA `device` wherever the model has row tiles, and
+    nothing streams on another device.  The JAX package's rule
+    (``rainier_tpu/ops/hmc_pallas.py:187-188``) streams only past the
+    TPU's VMEM budget, where its resident columns no longer fit; on the
+    H100 the streamed loop, which has tile t + 1's copies in flight while
+    tile t's rows run, beat the synchronous loop on every model with rows,
+    the columns inside L2 or not (the 32-feature MVNormal logistic's
+    kernel 0.49 of its time, the 100k logistic's 0.62, the marginalized
+    mixture's 0.97; tools/kernel_ab.py stream, PERF.md §6).  True on a
+    model whose columns are all read whole, or that has none, raises: it
+    has no tiles."""
+    tiles = bool(density.columns) and bool(density.row_split().spaces)
     if stream_columns is None:
-        limit = l2_bytes(device)
-        return (limit is not None and bool(density.columns)
-                and bool(density.row_split().spaces)
-                and sum(c.numel() * c.element_size() for c in columns)
-                > limit)
-    if stream_columns and not (density.columns
-                               and density.row_split().spaces):
+        return tiles and torch.device(device).type == "cuda"
+    if stream_columns and not tiles:
         raise ValueError("stream_columns=True needs data columns read row "
                          "by row: the model has none, so there are no "
                          "tiles to stream")
@@ -618,7 +622,7 @@ def _launch_setup(density, columns, n, dev, stream_columns=None):
     reason = workspace_check(em, n, dev)
     if reason is not None:
         raise ValueError(reason)
-    stream = streams(density, columns, stream_columns, dev)
+    stream = streams(density, stream_columns, dev)
     kernels = build(density, lanes_per_chain(em, n))[0]
     ptrs, held = column_pointers(em, columns)
     ws = torch.empty(workspace_bytes(em, n) // 4, dtype=torch.float32,
@@ -645,9 +649,8 @@ def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
     ``density.columns`` on q0's device (int32 for an ``IntColumn``,
     float32 otherwise), or None for the model's own data.
     ``stream_columns``: None streams the row tiles through two slots of
-    shared memory where the columns are larger than the card's L2, True
-    and False force it (:func:`streams`); the results are the same bit
-    for bit.
+    shared memory wherever the model has rows, True and False force it
+    (:func:`streams`); the results are the same bit for bit.
 
     On CUDA tensors this launches the kernel or raises; on CPU tensors it
     checks ``stream_columns`` and runs :func:`fused_hmc_reference`, which
@@ -677,7 +680,7 @@ def prepare_fused_hmc(density, q0, *, step_size, n_steps: int,
               inv_mass_diag=inv_mass_diag, collect_every=collect_every,
               collect_idx=collect_idx, noise=noise, columns=columns)
     if q0.device.type == "cpu":
-        streams(density, (), stream_columns, "cpu")
+        streams(density, stream_columns, "cpu")
         return lambda: fused_hmc_reference(density, q0, **kw)
     if q0.device.type != "cuda":
         raise ValueError(f"fused_hmc runs on CUDA or CPU tensors, not "
@@ -762,7 +765,7 @@ def prepare_logp_grad(density, q, columns=None, stream_columns=None):
     ``rt_logp_grad_launch`` once into the same outputs, counts it, and
     returns (lp, g); on CPU tensors the plain version."""
     if q.device.type == "cpu":
-        streams(density, (), stream_columns, "cpu")
+        streams(density, stream_columns, "cpu")
         return lambda: logp_grad_reference(density, q, columns)
     if q.device.type != "cuda" or q.dim() != 2 or \
             q.dtype != torch.float32 or q.shape[0] != density.n_vars:

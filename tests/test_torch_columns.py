@@ -23,6 +23,7 @@ tolerance and its reason at each assertion:
 
 import ctypes
 import hashlib
+import re
 import shutil
 import subprocess
 
@@ -271,9 +272,12 @@ def test_host_compiled_density_matches_autograd_and_jax(name, tmp_path):
 
 def test_matrix_views_read_the_matrix_from_the_tile():
     em = emit_cuda.emit(matrix_views(rtt).density())
-    # the 2-column matrix and the observed y: the views load nothing
-    assert em.row_width == 3 and em.tile_rows == emit_cuda.TILE_ROWS_MAX
-    assert em.source.count("= cols.c") == 2
+    # the 2-column matrix and the observed y: the views load nothing; the
+    # tile is the power of two that holds the 90 rows
+    assert em.row_width == 3 and em.tile_rows == 128
+    src = em.source
+    fill = src[src.index("RT_HD void rt_fill_tile("):]
+    assert len(set(re.findall(r"cols\.c(\d+)\[", fill))) == 2
 
 
 def _laplace_start(n, seed):
@@ -429,14 +433,23 @@ def test_wrapper_validates_columns():
 
 
 def test_tile_rows_fit_shared_memory():
-    # two tiles (a streamed launch's slots) fit the 227 KB of a block
-    assert emit_cuda.tile_rows(11) == 256     # 2 x 11 KB
+    # two tiles (a streamed launch's slots) fit the 227 KB of a block:
+    # the most rows, a power of two up to TILE_ROWS_MAX, that do
+    assert emit_cuda.TILE_ROWS_MAX == 4096
+    assert emit_cuda.tile_rows(1) == 4096     # 2 x 16 KB
+    assert emit_cuda.tile_rows(11) == 2048    # 2 x 88 KB
+    assert emit_cuda.tile_rows(33) == 512     # 2 x 66 KB
     assert emit_cuda.tile_rows(113) == 256    # 2 x 113 KB
     assert emit_cuda.tile_rows(114) == 128    # 2 x 114 KB at 256 rows
     assert emit_cuda.tile_rows(300) == 64     # 2 x 150 KB at 128 rows
     assert emit_cuda.tile_rows(2000) == 0     # 32 rows are 2 x 250 KB
+    # no more than the power of two that holds every row, at least
+    # TILE_ROWS_MIN
+    assert emit_cuda.tile_rows(4, 1500) == 2048
+    assert emit_cuda.tile_rows(4, 1024) == 1024
+    assert emit_cuda.tile_rows(4, 20) == emit_cuda.TILE_ROWS_MIN == 32
     em = emit_cuda.emit(logistic(rtt).density())
-    assert (em.row_width, em.tile_rows, em.n_rows) == (4, 256, 1500)
+    assert (em.row_width, em.tile_rows, em.n_rows) == (4, 2048, 1500)
     assert em.density_ops() == em.ops + 1500 * em.row_ops
 
 

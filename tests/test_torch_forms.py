@@ -230,12 +230,12 @@ def test_emitted_density_matches_jax_lanes(name, tmp_path):
 def test_split_identity_at_any_tile(name):
     """base + Σ over tiles == the whole density at tiles of 256, 3 and 1
     rows, and of the rows of a rebuilt source's space
-    (GATHER_TILE_ROWS_MAX): a vector of the rows' length and a source
+    (TILE_ROWS_MAX): a vector of the rows' length and a source
     rebuilt at the index are sliced by the tiles in the plain version as
     in the kernel."""
     cd = MODELS[name](rtt).density()
     cols = cd.column_values(torch.float32, "cpu")
-    for tile in (256, 3, 1, emit_cuda.GATHER_TILE_ROWS_MAX):
+    for tile in (256, 3, 1, emit_cuda.TILE_ROWS_MAX):
         assert _verify_split(cd, cols, tile), tile
 
 

@@ -7,7 +7,7 @@ build runs them, held against the JAX package's lanes evaluator
   row's index, clamps it (``mode="clip"``) and loads the source's columns
   at that row into fields of the tile after the row's own, so the row
   reads only the tile; the space's tiles are up to
-  ``emit_cuda.GATHER_TILE_ROWS_MAX`` rows;
+  ``emit_cuda.TILE_ROWS_MAX`` rows;
 * the product pass of a workspace model (L·z of an ``MVNormal`` past 16
   dimensions held in the scratch): L staged in the block's shared memory
   at a row stride of p + 1 floats (``rt_stage_mats``), or, where it does
@@ -41,7 +41,7 @@ torch.set_num_threads(2)
 rtt.config.set_device("cpu")
 
 # rows past one tile of the gather's space and not a multiple of it
-PAST_TILE = emit_cuda.GATHER_TILE_ROWS_MAX + 1037
+PAST_TILE = emit_cuda.TILE_ROWS_MAX + 1037
 
 
 def gather_clamped(rt, n=301, seed=6):
@@ -150,10 +150,10 @@ def test_gather_reads_its_source_from_the_tile(name):
     """The row reads the rebuilt source's columns from the tile, not from
     their device pointers (no RT_ROW_COLS), but where a gather inside a
     rebuilt source reads them at the row that its index there names;
-    both loaders load them at the clamped index, every copy of each row
-    once (the asynchronous loader's copies fill every float of the
-    row); the space's tile is
-    GATHER_TILE_ROWS_MAX rows, or the power of two that holds every row,
+    the loader loads them at the clamped index, every copy of each row
+    once (its copies fill every float of the row), the batch's indices
+    loaded before any copy; the space's tile is
+    TILE_ROWS_MAX rows, or the power of two that holds every row,
     and two of them fit the shared memory."""
     _, cd, em = _case(name)
     _, ws, nested = GATHER[name]
@@ -165,8 +165,8 @@ def test_gather_reads_its_source_from_the_tile(name):
     assert ("cols." in row) == nested
     assert src.count("rt_copy_async(&tile[i * RT_ROW_W + ") == tile.row_width
     loads = src[src.index("rt_fill_tile("):]
-    assert loads.count("[u] = rt_clampi(cols.c") == 2 * (1 + nested)
-    assert tile.tile_rows == min(emit_cuda.GATHER_TILE_ROWS_MAX,
+    assert loads.count("[u] = rt_clampi(cols.c") == 1 + nested
+    assert tile.tile_rows == min(emit_cuda.TILE_ROWS_MAX,
                                  1 << (n - 1).bit_length())
     assert 2 * 4 * tile.tile_rows * tile.row_width <= \
         emit_cuda.SMEM_BYTES_MAX
@@ -308,10 +308,10 @@ def test_host_kernel_repeats_its_bits(name, host):
 @pytest.mark.parametrize("name", sorted(GATHER))
 def test_split_identity_at_the_gather_tile(name):
     """base + Σ over tiles == the whole density at the gather space's own
-    tile and at GATHER_TILE_ROWS_MAX rows: the rebuilt source sliced by
+    tile and at TILE_ROWS_MAX rows: the rebuilt source sliced by
     the tiles in the plain version as in the kernel."""
     _, cd, em = _case(name)
     cols = cd.column_values(torch.float32, "cpu")
-    for tile in (em.tile_rows, emit_cuda.GATHER_TILE_ROWS_MAX):
+    for tile in (em.tile_rows, emit_cuda.TILE_ROWS_MAX):
         assert _verify_split(cd, cols, tile), tile
 

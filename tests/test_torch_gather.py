@@ -228,11 +228,16 @@ def test_emitted_gather_reads_and_scatters_the_invariant_block():
     int32 fields of RtCols, carried bit for bit in the tile."""
     em = emit_cuda.emit(glmm_poisson(rtt)[0].density())
     assert (em.n_vars, em.n_rows, em.row_width, em.tile_rows) == (
-        146, 4000, 4, 256)
+        146, 4000, 4, 4096)
     src = em.source
     assert "#define RT_NINV 143" in src     # 3 betas, 40 eps, 100 alphas
     assert src.count("const int* c") == 2
-    assert src.count("rt_int_bits(cols.c") == 2
+    # the two index columns copied into the tile as they are, bits and all
+    loader = src[src.index("RT_HD void rt_fill_tile("):]
+    ints = [j for j, c in enumerate(glmm_poisson(rtt)[0].density().columns)
+            if type(c).__name__ == "IntColumn"]
+    assert len(ints) == 2 and all(
+        f"&cols.c{j}[row0 + i]);" in loader for j in ints)
     assert "rt_clampi(rt_bits_int(x[1]), 0, 39)" in src
     assert "rt_clampi(rt_bits_int(x[2]), 0, 99)" in src
     assert em.workspace and "#define RT_GATHERS 2" in src

@@ -327,34 +327,34 @@ KEPT_HEADERS = {
     "columnfree funnel 300": "69a6c58c863453c2c45e",
     "columnfree matvec": "5cf954660acfd2a2d2e8",
     "columns base with columns": "f68d4fdb880a430b58e1",
-    "columns logistic": "c6cee1295e0ce0de707e",
-    "columns matrix views": "e73f804b2a00149d5c51",
-    "columns readme": "b928bd915362982b2fa6",
-    "dense_mass normal": "e479c58600e33bbed6af",
+    "columns logistic": "9d31c3d09507d73c925b",
+    "columns matrix views": "0d834d93515150391895",
+    "columns readme": "985026ac5a7dc60d6de1",
+    "dense_mass normal": "ce52c192e67c874d6eb5",
     "density lse select lookup": "d517c83c12811a7a87c1",
-    "ehmc eight schools": "eb7dcbeb1a076945a236",
-    "forms gather source per row": "abfc11e0d4a1ee029fc5",
-    "forms gather source per row ws": "27762825a01dcd01bbd3",
+    "ehmc eight schools": "a72f808d17008132a2eb",
+    "forms gather source per row": "cd3e447e78c7e5d12f93",
+    "forms gather source per row ws": "3cb12cb8ba70d28635b8",
     "forms gp 40": "04edbb9497e5bcc8ee44",
-    "forms mvnormal logistic 32": "54d8ff46ad4356cd4b28",
-    "forms mvnormal past 16": "ffd475d55ebc482c8c4a",
-    "forms vector per row 3": "899dab23e004027e99ed",
-    "gather clamped": "8e65a520b63c08f16262",
-    "gather glmm 10x6": "3f96b438e37cff4ac078",
-    "gather glmm 30x11": "787c6a8cc3e7435c52c6",
-    "gather lookup": "69991abc2cfa5ce860ce",
-    "lanes small logistic": "c6cee1295e0ce0de707e",
-    "large glmm 300": "ce3e0c120ba0ff2895cd",
-    "marginal mixture": "e449046d3531fdb27730",
-    "progress regression": "c398b33ec645347f8762",
-    "sampler gather": "09da64d38daa700dd86d",
-    "trace column": "3663faa5e873426ae5b9",
+    "forms mvnormal logistic 32": "654f7f88fa2c73237e59",
+    "forms mvnormal past 16": "39dd171e46eabd68b1fb",
+    "forms vector per row 3": "11f883fe2a847eaf70a1",
+    "gather clamped": "f049dc054160a7130fcc",
+    "gather glmm 10x6": "db25dd0b3cec65c52b3e",
+    "gather glmm 30x11": "e1757fbea241ca51a6ad",
+    "gather lookup": "eab98bba675f1a74f432",
+    "lanes small logistic": "49074704951da9801b7a",
+    "large glmm 300": "ce512ce5ecab793359e0",
+    "marginal mixture": "88b2c406b95d507430b6",
+    "progress regression": "86772ac83c95f6967495",
+    "sampler gather": "2c92d089255cc36da2fe",
+    "trace column": "a7c4f1b812ab1aaa8b20",
     "trace mvnormal": "afe5804f1ec2616449ca",
-    "untiled data vec dot": "62d57717a863ad031fa6",
-    "untiled logistic blocks": "300df276db1f25556512",
-    "untiled mvnormal logistic": "88b2e814839b45b1633e",
-    "untiled two blocks": "192fe5a83463fa39b20b",
-    "variational normal": "4fa2a49ed1b47287f6d4",
+    "untiled data vec dot": "5b0a8ee42351a61dd212",
+    "untiled logistic blocks": "920cc3fa4030533a2bd3",
+    "untiled mvnormal logistic": "083d67d65a94e4c5765b",
+    "untiled two blocks": "2b1e60e20eec0fa59bec",
+    "variational normal": "b92c3476001ed3bcb723",
 }
 
 

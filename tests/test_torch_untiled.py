@@ -205,7 +205,7 @@ def test_two_spaces_give_the_one_block_density(tmp_path):
                                    cd.column_values(torch.float32, "cpu")))
     em = emit_cuda.emit(split)
     assert [(s.n_rows, s.row_width, s.tile_rows) for s in em.spaces] == [
-        (600, 4, 256), (400, 4, 256)]
+        (600, 4, 1024), (400, 4, 512)]
     assert em.n_rows == 1000 and em.row_bytes() == 4 * 1000 * 4
     (lp, g), (lp1, g1) = out
     _density_bars(lp.numpy(), g.numpy(), lp1.numpy(), g1.numpy())
