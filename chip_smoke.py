@@ -302,12 +302,15 @@ ZOO_WARMUP, ZOO_DRAWS, ZOO_STEPS = 200, 500, 4
 ZOO_GRID, ZOO_MEAN_SD, ZOO_SD_REL = 4001, 0.05, 0.05
 # the kernel held to its plain version at the zoo's shapes, from these
 # families' fits (their final states, ε and Σ̂): the -inf term of a
-# zero-inflated LogSumExp, and the largest data-only lgamma sums (the
-# large Poisson's and the negative binomial's); the density at those
+# zero-inflated LogSumExp, and the largest data-only lgamma sums, which
+# the rows leave to the kernel's pass once a launch (the large
+# Poisson's, the negative binomial's, and the binomial's, beside a
+# data-only factor, 10 - x, that stays in the row); the density at those
 # states against the plain version and f64, then ZOO_PARITY_ITERS
 # iterations of HMC(ZOO_STEPS) compared by `chaotic` after at most
 # ZOO_AGREE_AT (`zoo_parity` says where)
-ZOO_PARITY = ("zero_inflated_geometric", "large_poisson", "neg_binomial")
+ZOO_PARITY = ("zero_inflated_geometric", "large_poisson", "neg_binomial",
+              "binomial")
 ZOO_PARITY_ITERS, ZOO_AGREE_AT = 100, 20
 # predictive checks: every draw of the trace thinned by PRED_THIN, means
 # (and the README's variances) within PRED_SE standard errors
@@ -1045,8 +1048,10 @@ def kernel_bound_ms(em, n_chains, n_iters, n_steps, collect_every, F,
     device memory in every density call, so their bytes count once a
     call.  With explicit `noise` the kernel reads every iteration's
     momenta and uniform and runs no RNG.  The `whole` bytes of columns
-    read whole, outside the rows, count once a density call."""
-    ops = n_chains * n_iters * F.op_count(em, n_steps, rng=not noise)
+    read whole, outside the rows, count once a density call.  The pass
+    over the rows' data-only terms counts once (`const_ops`)."""
+    ops = n_chains * n_iters * F.op_count(em, n_steps, rng=not noise) \
+        + em.const_ops()
     n_out = n_iters // collect_every if collect_every else 0
     dim = em.n_vars
     n_collect = dim if n_collect is None else n_collect
@@ -1533,7 +1538,7 @@ def density_check(F, cd, em, q, truth, n_near, near_name, device,
             f"({float(rel_g[sl].max()):.3f} of the tolerance)"
             for k, sl in groups.items()))
     n = q.shape[1]
-    ops = n * em.density_ops()
+    ops = n * em.density_ops() + em.const_ops()
     nbytes = em.row_bytes() + whole_bytes(cd) + 4 * 2 * n * (
         cd.n_vars + 1) + n * workspace_call_bytes(em)
     bound_ms, bound_by = _bound(ops, nbytes)

@@ -143,6 +143,10 @@ class RowSpace(NamedTuple):
                        # whole (a per-row Gather's source, a MatVec's vector)
     rebuilt: tuple = ()  # the per-row Gathers whose source varies by row:
                        # the source is taken over every row, at the index
+    consts: tuple = ()   # for each root, its additive data-only summands,
+                         # ((sign, node), ...) (_data_summands)
+    kept: tuple = ()     # the roots without those summands, where any
+                         # has some (empty: the roots as they are)
 
 
 class RowSplit(NamedTuple):
@@ -170,9 +174,68 @@ def _per_row_children(node) -> tuple:
     return R.children_of(node)
 
 
-def _row_space(roots, col_pos) -> Optional[RowSpace]:
+# the nodes a data-only summand may hold: columns and literals, and the
+# elementwise operations on them
+_DATA_ONLY = (R.Constant, R.Column, R.IntColumn, R.Unary, R.Binary,
+              R.NArySum, R.LogSumExp, R.Select, R.Compare, R.Lookup)
+
+
+def _data_only(order, dep) -> set:
+    """The ids of the nodes of `order` (a topological order) that read
+    columns and literals only: a literal, or a node that varies by row
+    and depends on no parameter and no row-invariant value, through
+    elementwise operations alone."""
+    only = set()
+    for node in order:
+        if isinstance(node, R.Constant) or (
+                dep[node.id] and isinstance(node, _DATA_ONLY)
+                and all(k.id in only for k in R.children_of(node))):
+            only.add(node.id)
+    return only
+
+
+def _data_summands(root, only):
+    """(the root without its additive data-only summands, or None where
+    nothing else is left; ((sign, node), ...) of the summands): the
+    maximal data-only subtrees that `root` reaches through add, sub and
+    neg alone.  A data-only subtree under any other operation stays."""
+    found = []
+
+    def strip(node, sign):
+        if node.id in only:
+            found.append((sign, node))
+            return None
+        if isinstance(node, R.Unary) and node.op == "neg":
+            c = strip(node.child, -sign)
+            return node if c is node.child else (
+                None if c is None else R.Unary(c, "neg"))
+        if isinstance(node, R.Binary) and node.op in ("add", "sub"):
+            a = strip(node.left, sign)
+            b = strip(node.right, -sign if node.op == "sub" else sign)
+            if a is node.left and b is node.right:
+                return node
+            if b is None:
+                return a
+            if a is None:
+                return b if node.op == "add" else R.Unary(b, "neg")
+            return R.Binary(a, b, node.op)
+        if isinstance(node, R.NArySum):
+            kids = [strip(k, sign) for k in node.children]
+            if all(k is c for k, c in zip(kids, node.children)):
+                return node
+            kids = [k for k in kids if k is not None]
+            return (None if not kids else kids[0] if len(kids) == 1
+                    else R.NArySum(kids))
+        return node
+
+    return strip(root, 1), tuple(found)
+
+
+def _row_space(roots, col_pos, hoist=True) -> Optional[RowSpace]:
     """The row space of RowSum children `roots`, or None where they read
-    no column row by row."""
+    no column row by row.  With `hoist`, each root's additive data-only
+    summands are listed (`consts`) beside the roots without them
+    (`kept`), where what is kept still reads a column row by row."""
     per_row, seen, stack = {}, set(), list(roots)
     while stack:
         node = stack.pop()
@@ -217,10 +280,35 @@ def _row_space(roots, col_pos) -> Optional[RowSpace]:
                 if k.id not in found:
                     found.add(k.id)
                     frontier.append(k)
-    return RowSpace(lengths[0], tuple(roots),
-                    tuple(sorted(col_pos[i] for i in per_row)), dep,
-                    tuple(frontier), frozenset(by_element),
-                    frozenset(read_whole), tuple(rebuilt))
+    space = RowSpace(lengths[0], tuple(roots),
+                     tuple(sorted(col_pos[i] for i in per_row)), dep,
+                     tuple(frontier), frozenset(by_element),
+                     frozenset(read_whole), tuple(rebuilt))
+    if not hoist:
+        return space
+    only = _data_only(order, dep)
+    split = [_data_summands(r, only) for r in roots]
+    # a root that is data-only as a whole keeps its summands, and so does
+    # one whose summands are literals alone: a literal costs the row one
+    # add, about what the pass once a launch and the f64 sums cost
+    split = [(r, ()) if k is None or all(
+        isinstance(n, R.Constant) for _, n in c) else (k, c)
+        for r, (k, c) in zip(roots, split)]
+    kept = tuple(k for k, _ in split)
+    if not any(c for _, c in split) or \
+            _row_space(kept, col_pos, hoist=False) is None:
+        return space
+    return space._replace(consts=tuple(c for _, c in split), kept=kept)
+
+
+def kernel_rows(space, columns) -> RowSpace:
+    """The rows of `space` as the fused kernel sums them in every density
+    call: its roots without their additive data-only summands
+    (`space.consts`), which the kernel sums once a launch."""
+    if not space.kept:
+        return space
+    return _row_space(space.kept, {c.id: j for j, c in enumerate(columns)},
+                      hoist=False)
 
 
 def row_split(likelihoods, prior, columns) -> RowSplit:

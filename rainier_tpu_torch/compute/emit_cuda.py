@@ -56,7 +56,15 @@ row of at least ``ROW_STEP_OPS`` operations and at most
 of straight-line code, then their reverse passes in row order
 (``_row_step``).  A ``LogSumExp``'s adjoint in a row reads the
 shifted exponentials of its forward pass and divides them by their sum
-without a branch (``rt_lse_share``).
+without a branch (``rt_lse_share``).  A root's additive summands that
+read the columns and literals alone (``RowSpace.consts``: a count
+likelihood's ``lgamma(y + 1)`` and the literals beside it; a literal
+alone stays) are the same in every density call of a launch: the row
+functions are emitted from the roots without them
+(``compiler.kernel_rows``), and ``rt_row_const(cols, i)``
+(``RtSpace<s>::row_const``) is their sum at row i, read from the
+columns' device pointers, which the kernel sums over every row once a
+launch (``RT_ROW_CONSTS``, ``_row_const``).
 
 Outside the rows a column is read whole, from its device pointer, the
 way the JAX kernel's untiled branch reads its columns
@@ -198,7 +206,7 @@ from typing import NamedTuple
 import numpy as np
 
 from . import real as R
-from .compiler import NoRowSplit, find_columns
+from .compiler import NoRowSplit, find_columns, kernel_rows
 
 HEADER_NAME = "rt_model.h"
 
@@ -341,6 +349,11 @@ class EmittedDensity:
     def density_ops(self) -> int:
         """f32 operations of one density + gradient over all rows."""
         return self.ops + sum(s.n_rows * s.row_ops for s in self.spaces)
+
+    def const_ops(self) -> int:
+        """f32 operations of the once-a-launch pass over every space's
+        rows that sums their data-only summands (0: none)."""
+        return sum(s.n_rows * s.const_ops for s in self.spaces)
 
 
 def _lit(v: float) -> str:
@@ -1501,6 +1514,9 @@ class SpaceTiles(NamedTuple):
     row_width: int      # floats of one row in a tile
     tile_rows: int      # rows per tile (0: even the least tile is too wide)
     row_ops: int        # f32 operations of one row's forward + adjoints
+    const_ops: int = 0  # f32 operations of one row's data-only summands,
+                        # their f64 sum over the rows included, summed once
+                        # a launch (0: none)
 
 
 def _gathered_fields(cd, space, width):
@@ -1734,6 +1750,29 @@ def _aligned_adds(em) -> list[str]:
     return out
 
 
+def _row_const(cd, consts):
+    """The body of a space's rt_row_const(cols, i), the sum of its
+    roots' additive data-only summands (`consts`: ((sign, node), ...) a
+    root, RowSpace.consts) at row i, read from the columns' device
+    pointers, and its f32 operations with the f64 sum over the rows."""
+    em = _Emitter(cd)
+    terms = [t for root in consts for t in root]
+    for node in R.topological([n for _, n in terms]):
+        if isinstance(node, (R.Column, R.IntColumn)):
+            j = em.col_index[node.id]
+            em.grad[node.id] = False
+            if isinstance(node, R.IntColumn):
+                em.ints[node.id] = f"cols.c{j}[i]"
+            else:
+                em.vals[node.id] = [f"cols.c{j}[i]"]
+        em.forward(node)
+    total = "".join((" - " if sign < 0 else " + ") + em.el(node, 0)
+                    for sign, node in terms)
+    total = total[3:] if terms[0][0] > 0 else f"-{total[3:]}"
+    return ([*em.fwd, f"  return {total};"],
+            em.fops + len(terms) + (terms[0][0] < 0))
+
+
 def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
                 at_row=frozenset(), params=(), inline=frozenset(),
                 steps=False):
@@ -1825,7 +1864,7 @@ def _row_step(fwd, rev, total, step):
                   for k in range(step)]
 
 
-def _emit_rows(cd, spaces, ws, whole, scratch):
+def _emit_rows(cd, spaces, ws, whole, scratch, consts):
     """The per-row part of a data model: (C lines, invariant ops, the
     row-invariant values' count, the count of those some row reads other
     than by a per-row gather, SpaceTiles per row space).  One row space
@@ -1833,7 +1872,10 @@ def _emit_rows(cd, spaces, ws, whole, scratch):
     define RT_SPACES and a RtSpace<s> each, and the row functions take
     the columns where one of them reads them whole.  `whole`: the
     functions outside the rows take the columns, which they read whole;
-    `scratch`: the floats of scr that rt_logp_grad uses.  Also returns
+    `scratch`: the floats of scr that rt_logp_grad uses; `consts`: each
+    space's RowSpace.consts, the data-only summands its rows (`spaces`,
+    kernel_rows) leave out, emitted as rt_row_const (RtSpace<s>::
+    row_const) where any space has some.  Also returns
     the floats of scr that any of them use, and whether the rows take the
     columns."""
     # row-invariant inputs of the row functions, computed once per call,
@@ -1961,9 +2003,19 @@ def _emit_rows(cd, spaces, ws, whole, scratch):
                 + (f", const float*{r} q, float*{r} g, float*{r} cainv"
                    if row_state else "")
                 + f", float*{r} out)")
+    # the data-only summands, summed once a launch (rt_row_const)
+    has_consts = any(any(c) for c in consts)
+    const_sig = "(const RtCols& cols, int i)"
+    const_doc = [
+        "// the data-only terms of the row's log-density at row i, which the",
+        "// row function leaves out, read from the columns: the kernel sums",
+        "// them over the rows once a launch"]
     tiles, spaces_text = [], []
     for s, (body, tile, fill, n_gathers, step_body, step,
             _) in enumerate(made):
+        const_body, const_ops = _row_const(cd, consts[s]) if any(
+            consts[s]) else (["  (void)cols, (void)i;", "  return 0.0f;"], 0)
+        tile = tile._replace(const_ops=const_ops)
         tiles.append(tile)
         gathers = ([f"// the row's {n_gathers} per-row gathers hand their "
                     "adjoints back in sidx/sval",
@@ -1981,7 +2033,9 @@ def _emit_rows(cd, spaces, ws, whole, scratch):
                 f"RT_HD float rt_row(const {row_sig} {{", *body, "}",
                 *(["", f"#define RT_ROW_STEP {step}", *step_doc,
                    f"RT_HD void rt_row_step({step_sig} {{", *step_body, "}"]
-                  if step_body else [])]
+                  if step_body else []),
+                *(["", *const_doc, f"RT_HD float rt_row_const{const_sig} {{",
+                   *const_body, "}"] if has_consts else [])]
             fills = [
                 "// rows [row0, row0 + rows) of every column into the tile, "
                 "thread",
@@ -2007,6 +2061,9 @@ def _emit_rows(cd, spaces, ws, whole, scratch):
             *([*["  " + line for line in step_doc],
                f"  static RT_HD void step({step_sig} {{",
                *_indent(step_body), "  }"] if step_body else []),
+            *([*["  " + line for line in const_doc],
+               f"  static RT_HD float row_const{const_sig} {{",
+               *_indent(const_body), "  }"] if has_consts else []),
             "  // rows [row0, row0 + rows) of the space's columns into the "
             "tile,",
             "  // thread tid of nt, as asynchronous copies",
@@ -2021,6 +2078,7 @@ def _emit_rows(cd, spaces, ws, whole, scratch):
         *post_rev,
         "}"]
     lines = [
+        *(["#define RT_ROW_CONSTS 1"] if has_consts else []),
         f"#define RT_NINV {n_inv}",
         f"#define RT_NINV_ALLOC {max(n_inv, 1)}",
         *(["#define RT_INV_REGS 1"] if inv_regs else []),
@@ -2125,10 +2183,13 @@ def _emit(cd, ws: bool, stage_budget: int) -> EmittedDensity:
     unroll = 1 if lane_slot and not any(
         isinstance(c, R.MatColumn) for c in cd.columns) else UNROLL_MAX
     shared = lane_slot and cd.n_vars <= LOCAL_STATE_MAX
+    # the rows each density call sums: without their data-only summands,
+    # which rt_row_const gives the kernel's pass once a launch
+    rows_of = [kernel_rows(sp, cd.columns) for sp in split.spaces]
     # the base terms read their columns whole, and so do the row-invariant
     # values of the rows
     whole = bool(find_columns(split.base)) or any(
-        find_columns(list(sp.frontier)) for sp in split.spaces)
+        find_columns(list(sp.frontier)) for sp in rows_of)
     roots = list(split.base)
     em = _Emitter(cd, ws, unroll)
     fwd, rev, total = _program(em, roots, total=True)
@@ -2136,7 +2197,8 @@ def _emit(cd, ws: bool, stage_budget: int) -> EmittedDensity:
     n = cd.n_vars
     (rows, inv_ops, n_inv, n_dense, spaces, scratch, row_cols, lanes,
      row_state, products) = (
-        _emit_rows(cd, split.spaces, ws, whole, em.scratch) if split.spaces
+        _emit_rows(cd, rows_of, ws, whole, em.scratch,
+                   [sp.consts for sp in split.spaces]) if split.spaces
         else ([], 0, 0, 0, (), em.scratch, False, False, False, {}))
     products = {**em.products, **products}
     slot = workspace_floats(n, n_inv, bool(spaces), n_dense, scratch) \

@@ -211,7 +211,9 @@
 // drift by a few ulps of lp.  The register models keep f32 tile sums: f64
 // row sums made GLMMPoisson2's kernel 7% slower and the README
 // regression's 2% on an H100 with one thread a chain
-// (rainier_tpu_torch/tools/kernel_ab.py row-sums).  The adjoint of a block
+// (rainier_tpu_torch/tools/kernel_ab.py row-sums); but one whose rows
+// leave data-only terms to the pass once a launch adds f32 sums of
+// RT_ROW_GROUP rows in f64 and rounds lp once (below).  The adjoint of a block
 // that only a per-row gather reads accumulates in f32, in each lane's copy
 // or through rt_scatter: each entry receives its own rows only (5 a group
 // effect in glmm_large, 40 or 100 in GLMMPoisson2).
@@ -356,15 +358,22 @@ struct RtSpace<0> {
                          int tid, int nt) {
     rt_fill_tile(tile, cols, row0, rows, tid, nt);
   }
+#ifdef RT_ROW_CONSTS
+  static RT_HD float row_const(const RtCols& cols, int i) {
+    return rt_row_const(cols, i);
+  }
+#endif
 };
 #endif
 #ifndef RT_SPACES
 #define RT_SPACES 1
 #endif
 
-// the rows of each row space, as the launch gives them (null: none)
+// the rows of each row space, as the launch gives them (null: none), and
+// the sums of their data-only terms, one double a space (below)
 struct RtRows {
   int n[RT_SPACES];
+  const double* c;
 };
 
 static inline RtRows rt_rows(const int* n_rows) {
@@ -372,6 +381,40 @@ static inline RtRows rt_rows(const int* n_rows) {
   for (int s = 0; s < RT_SPACES && n_rows != 0; ++s) out.n[s] = n_rows[s];
   return out;
 }
+
+// The rows' data-only terms (RT_ROW_CONSTS).  Where a row's log-density
+// has additive terms that read the columns and literals alone (a count
+// likelihood's lgamma(x + 1), with the literals beside it), the emitter
+// leaves them out of the row functions and writes them as
+// RtSpace<s>::row_const(cols, i), and each launch sums them over every
+// space's rows once, before the sampling kernel, on the launch's stream,
+// into a double a space that rt_density adds to its rows' f64 sum in
+// every call: lp stays the whole log-density, from the launch's own
+// columns, and a zoo launch's 4·10^10 rows call no lgammaf (the negative
+// binomial's kernel 336.4 → 17.1 ms on an H100, kernel_ab.py tiles,
+// PERF.md §6).  The pass is one block of RT_CONST_THREADS
+// threads: thread t sums rows t, t + RT_CONST_THREADS, ... of a space in
+// f64, and a tree adds the threads' sums in a fixed order, so every
+// launch gives the same bits; the host build sums in that order.
+#ifdef RT_ROW_CONSTS
+#define RT_CONST_THREADS 512
+
+// thread t's f64 sum of space S's rows t, t + RT_CONST_THREADS, ...
+template <int S>
+RT_HD double rt_const_part(const RtCols& cols, int n_rows, int t) {
+  double s = 0.0;
+  for (int i = t; i < n_rows; i += RT_CONST_THREADS)
+    s += (double)RtSpace<S>::row_const(cols, i);
+  return s;
+}
+
+// the sum over the spaces of their data-only terms
+RT_HD double rt_consts_sum(const RtRows& rows) {
+  double s = 0.0;
+  for (int k = 0; k < RT_SPACES; ++k) s += rows.c[k];
+  return s;
+}
+#endif
 
 // A density that reads columns whole, outside the rows (RT_WHOLE_COLS),
 // takes them in its column-free and row-invariant functions too.
@@ -437,7 +480,25 @@ typedef double rt_row_sum;
 #define RT_WS_SYNC() \
   do {               \
   } while (0)
+#ifdef RT_ROW_CONSTS
+typedef double rt_row_sum;
+#else
 typedef float rt_row_sum;
+#endif
+#endif
+// A register model whose rows leave data-only terms out (RT_ROW_CONSTS)
+// sums what remains in f64: those terms cancelled much of each row's
+// value (the large Poisson's x·log λ − λ against lgamma(x + 1), ~360 nats
+// each at λ ~ 100), and a lane's f32 sum of 128 such rows of a tile
+// rounds at ~0.004 nats where the whole row's would round at 4e-5.  Its
+// lanes add RT_ROW_GROUP rows in f32, then that partial sum to their f64
+// sum, which costs a conversion and an f64 add every RT_ROW_GROUP rows
+// (rt_lane_rows): the large Poisson's kernel took 20.1 ms so, 31.7 with
+// every row added in f64 and 16.2 in f32 (kernel_ab.py counts, PERF.md §6)
+#ifdef RT_ROW_CONSTS
+#define RT_ROW_GROUP 8
+#else
+#define RT_ROW_GROUP 1
 #endif
 #define RT_OFF_X (6 * RT_DIM)
 #define RT_OFF_INV (7 * RT_DIM)
@@ -772,7 +833,9 @@ RT_HD float rt_row_at(const float* x, const float* inv, float* own,
 // the rows lane, lane + 32, ... of a tile of space S, read from `slot`,
 // their values added to lp and their adjoints to the lane's `own`: kStep
 // rows at a time while a step's rows are all in the tile, then one at a
-// time, so that every sum takes the rows in the same order either way
+// time, so that every sum takes the rows in the same order either way;
+// one row a step, RT_ROW_GROUP rows' f32 sum at a time where there are
+// that many
 template <int S, typename T>
 RT_HD void rt_lane_rows(const float* slot, int rows, int lane,
                         const float* inv, float* own, T& lp,
@@ -788,6 +851,20 @@ RT_HD void rt_lane_rows(const float* slot, int rows, int lane,
                    RT_ROWQ(q, g, ainv), out);
 #pragma unroll
       for (int k = 0; k < Sp::kStep; ++k) lp += out[k];
+    }
+  }
+  if constexpr (Sp::kStep == 1 && RT_ROW_GROUP > 1) {
+    for (; r + (RT_ROW_GROUP - 1) * RT_LANES < rows;
+         r += RT_ROW_GROUP * RT_LANES) {
+      float part = 0.0f;
+#pragma unroll
+      for (int k = 0; k < RT_ROW_GROUP; ++k) {
+        int sidx[1];
+        float sval[1];
+        part += rt_row_at<S>(slot + (r + k * RT_LANES) * Sp::kW, inv, own,
+                             sidx, sval, cols, q, g, ainv);
+      }
+      lp += part;
     }
   }
 #pragma unroll 4
@@ -1030,14 +1107,19 @@ RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
                    ainv_acc, x, g);
   RT_WS_SYNC();
   rt_gathered_sum(lanes, ainv);
-  // the butterfly, once a call: the lanes' sums in every lane
+  // the butterfly, once a call: the lanes' sums in every lane; and the
+  // rows' data-only terms, summed once a launch
+#ifdef RT_ROW_CONSTS
+  const double lp_acc = rt_acc_sum(lp_lanes, 1, 0) + rt_consts_sum(rows);
+#else
   const double lp_acc = rt_acc_sum(lp_lanes, 1, 0);
+#endif
 #pragma unroll
   for (int k = 0; k < RT_NINV_DENSE; ++k)
     ainv[k] = (float)rt_acc_sum(ainv_acc, RT_NINV_DENSE_ALLOC, k);
   RT_WS_SYNC();
   rt_rows_post(x, ainv, g RT_WHOLE(cols) RT_SCR(scr));
-#ifdef RT_WS_FLOATS
+#if defined(RT_WS_FLOATS) || defined(RT_ROW_CONSTS)
   lp = (float)((double)lp + lp_acc);
 #else
   lp += (float)lp_acc;
@@ -1352,6 +1434,48 @@ __global__ void __launch_bounds__(RT_MAX_THREADS)
                      rt_slot(ws, tile, s));
 }
 
+#ifdef RT_ROW_CONSTS
+// the pass over space S's rows and those after it: each thread's sum,
+// then the tree, into out[S]
+template <int S>
+__device__ void rt_const_space(const RtCols& cols, const RtRows& rows,
+                               double* out, double* part) {
+  const int t = (int)threadIdx.x;
+  part[t] = rt_const_part<S>(cols, rows.n[S], t);
+  __syncthreads();
+  for (int w = RT_CONST_THREADS / 2; w > 0; w /= 2) {
+    if (t < w) part[t] += part[t + w];
+    __syncthreads();
+  }
+  if (t == 0) out[S] = part[0];
+  if constexpr (S + 1 < RT_SPACES) rt_const_space<S + 1>(cols, rows, out, part);
+}
+
+__global__ void __launch_bounds__(RT_CONST_THREADS)
+    rt_row_consts_kernel(RtCols cols, RtRows rows, double* out) {
+  __shared__ double part[RT_CONST_THREADS];
+  rt_const_space<0>(cols, rows, out, part);
+}
+#endif
+
+// The launch's pass over the rows' data-only terms into `consts` (one
+// double a space, which the wrapper allocates for each prepared launch),
+// on `stream` before the kernel that reads them; `rows` then points at
+// them.  Nothing where the rows have none.
+static int rt_row_consts(const RtCols& cols, RtRows& rows, double* consts,
+                         cudaStream_t stream) {
+#ifdef RT_ROW_CONSTS
+  if (consts == 0) return (int)cudaErrorInvalidValue;
+  rt_row_consts_kernel<<<1, RT_CONST_THREADS, 0, stream>>>(cols, rows,
+                                                           consts);
+  rows.c = consts;
+  return (int)cudaGetLastError();
+#else
+  (void)cols, (void)rows, (void)consts, (void)stream;
+  return 0;
+#endif
+}
+
 // the instantiation for the flag `s` (a column-free model has one)
 #if RT_ROW_W > 0
 #define RT_PICK(kernel, s) ((s) ? kernel<1> : kernel<0>)
@@ -1374,7 +1498,8 @@ static int rt_smem_opt_in(K kernel, int bytes) {
 // RT_WS_FLOATS floats for each of their chain slots (null for a model
 // without a workspace, or with its slots in shared memory).
 // `stream_cols` streams the column tiles through two slots of shared
-// memory.
+// memory.  `consts` holds a double for each row space, which the pass
+// over the rows' data-only terms fills first (rt_row_consts).
 extern "C" int rt_fused_hmc_launch(int n, const float* q0,
                                    const float* scale, int scale_per_chain,
                                    const float* eps, const float* p_noise,
@@ -1386,17 +1511,21 @@ extern "C" int rt_fused_hmc_launch(int n, const float* q0,
                                    const void* const* cols,
                                    const int* n_rows, float* ws,
                                    int threads, int stream_cols,
-                                   void* stream) {
+                                   double* consts, void* stream) {
   if (!rt_threads_ok(threads)) return (int)cudaErrorInvalidValue;
   const auto kernel = RT_PICK(fused_hmc_kernel, stream_cols);
   const int smem = rt_smem_bytes(threads, stream_cols);
-  const int rc = rt_smem_opt_in(kernel, smem);
+  int rc = rt_smem_opt_in(kernel, smem);
+  if (rc != 0) return rc;
+  const RtCols c_cols = rt_cols(cols);
+  RtRows rows = rt_rows(n_rows);
+  rc = rt_row_consts(c_cols, rows, consts, (cudaStream_t)stream);
   if (rc != 0) return rc;
   const int blocks = rt_slots(n, threads / RT_LANES) / (threads / RT_LANES);
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       n, q0, scale, scale_per_chain, eps, p_noise, u_noise, qf, samples, acc,
       div, n_iterations, n_steps, collect_every, collect_pos, n_collect, seed,
-      rt_cols(cols), rt_rows(n_rows), ws);
+      c_cols, rows, ws);
   return (int)cudaGetLastError();
 }
 
@@ -1404,15 +1533,19 @@ extern "C" int rt_logp_grad_launch(int n, const float* q, float* lp,
                                    float* g, const void* const* cols,
                                    const int* n_rows, float* ws,
                                    int threads, int stream_cols,
-                                   void* stream) {
+                                   double* consts, void* stream) {
   if (!rt_threads_ok(threads)) return (int)cudaErrorInvalidValue;
   const auto kernel = RT_PICK(logp_grad_kernel, stream_cols);
   const int smem = rt_smem_bytes(threads, stream_cols);
-  const int rc = rt_smem_opt_in(kernel, smem);
+  int rc = rt_smem_opt_in(kernel, smem);
+  if (rc != 0) return rc;
+  const RtCols c_cols = rt_cols(cols);
+  RtRows rows = rt_rows(n_rows);
+  rc = rt_row_consts(c_cols, rows, consts, (cudaStream_t)stream);
   if (rc != 0) return rc;
   const int blocks = rt_slots(n, threads / RT_LANES) / (threads / RT_LANES);
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      n, q, lp, g, rt_cols(cols), rt_rows(n_rows), ws);
+      n, q, lp, g, c_cols, rows, ws);
   return (int)cudaGetLastError();
 }
 
@@ -1447,6 +1580,36 @@ static float* rt_slot(float* ws, float* own, int s) {
 #endif
 }
 
+// the pass over the rows' data-only terms, in the card's order: each of
+// the RT_CONST_THREADS threads' sums, then the tree, into `consts` (one
+// double a space), at which `rows` then points
+#ifdef RT_ROW_CONSTS
+template <int S>
+static void rt_host_const_space(const RtCols& cols, const RtRows& rows,
+                                double* consts) {
+  double part[RT_CONST_THREADS];
+  for (int t = 0; t < RT_CONST_THREADS; ++t)
+    part[t] = rt_const_part<S>(cols, rows.n[S], t);
+  for (int w = RT_CONST_THREADS / 2; w > 0; w /= 2)
+    for (int t = 0; t < w; ++t) part[t] += part[t + w];
+  consts[S] = part[0];
+  if constexpr (S + 1 < RT_SPACES)
+    rt_host_const_space<S + 1>(cols, rows, consts);
+}
+#endif
+
+static RtRows rt_host_rows(const RtCols& cols, const int* n_rows,
+                           double* consts) {
+  RtRows rows = rt_rows(n_rows);
+#ifdef RT_ROW_CONSTS
+  rt_host_const_space<0>(cols, rows, consts);
+  rows.c = consts;
+#else
+  (void)cols, (void)consts;
+#endif
+  return rows;
+}
+
 // the launch's columns, the staged matrices copied into `mats`
 static RtCols rt_host_cols(const void* const* cols, float* mats) {
   RtCols out = rt_cols(cols);
@@ -1473,7 +1636,8 @@ extern "C" int rt_fused_hmc_host(int n, const float* q0, const float* scale,
   std::vector<float> tile(2 * RT_TILE_FLOATS + 1), own(RT_OWN_FLOATS);
   std::vector<float> mats(RT_SMEM_MATS + 1);
   const RtCols c_cols = rt_host_cols(cols, mats.data());
-  const RtRows rows = rt_rows(n_rows);
+  double consts[RT_SPACES];
+  const RtRows rows = rt_host_rows(c_cols, n_rows, consts);
   rt_resident(c_cols, rows, tile.data());
   for (int s = 0; s < rt_slots(n, threads / RT_LANES); ++s)
     rt_hmc_chain(s, n, q0, scale, scale_per_chain, eps, p_noise, u_noise,
@@ -1492,7 +1656,8 @@ extern "C" int rt_logp_grad_host(int n, const float* q, float* lp, float* g,
   std::vector<float> tile(2 * RT_TILE_FLOATS + 1), own(RT_OWN_FLOATS);
   std::vector<float> mats(RT_SMEM_MATS + 1);
   const RtCols c_cols = rt_host_cols(cols, mats.data());
-  const RtRows rows = rt_rows(n_rows);
+  double consts[RT_SPACES];
+  const RtRows rows = rt_host_rows(c_cols, n_rows, consts);
   rt_resident(c_cols, rows, tile.data());
   for (int s = 0; s < rt_slots(n, threads / RT_LANES); ++s)
     rt_logp_grad_chain(s, n, q, lp, g, c_cols, rows, stream_cols,

@@ -90,22 +90,28 @@ _TRANSCENDENTAL = re.compile(
 
 def cost(model) -> dict:
     """One density+gradient evaluation as the emitter counts it: "flops",
-    the f32 operations over every row (``EmittedDensity.density_ops``);
+    the f32 operations over every row (``EmittedDensity.density_ops``)
+    and of the pass over the rows' data-only terms (``const_ops``);
     "bytes accessed", every data column read once, q read and g written;
     "transcendentals", the calls in the emitted text, a row function's
-    counted once a row (a loop's body once)."""
+    (and a row's data-only terms') counted once a row (a loop's body
+    once)."""
     cd = model.density()
     em = emit_cuda.emit(cd)
     src = em.source
     rows = 0
     for s, tile in enumerate(em.spaces):
-        name = "rt_row(" if len(em.spaces) == 1 else f"struct RtSpace<{s}>"
-        start = src.index(name)
-        body = src[start:src.index("\n}", start)]
-        rows += tile.n_rows * len(_TRANSCENDENTAL.findall(body))
-        src = src[:start] + src[src.index("\n}", start):]
+        names = ("rt_row(", "rt_row_const(") if len(em.spaces) == 1 \
+            else (f"struct RtSpace<{s}>",)
+        for name in names:
+            if name not in src:
+                continue
+            start = src.index(name)
+            body = src[start:src.index("\n}", start)]
+            rows += tile.n_rows * len(_TRANSCENDENTAL.findall(body))
+            src = src[:start] + src[src.index("\n}", start):]
     col_bytes = sum(4 * c.values.size for c in cd.columns)
-    return {"flops": float(em.density_ops()),
+    return {"flops": float(em.density_ops() + em.const_ops()),
             "bytes accessed": float(col_bytes + 4 * (2 * cd.n_vars + 1)),
             "transcendentals": float(rows
                                      + len(_TRANSCENDENTAL.findall(src)))}

@@ -90,6 +90,13 @@ latency of its passes over the slot (about 23 a density call) and of its
 rows' gathers and scatters there.  PERF.md holds every kernel's time
 beside its bound.
 
+A row's additive terms that read only the data (a count likelihood's
+``lgamma(y + 1)``) are the same in every density call, so the rows leave
+them out, and each launch first sums them over the rows, once, into a
+double a row space that this wrapper allocates (``_launch_setup``); the
+density adds it to its rows' sum in f64 (csrc/fused_hmc.cu,
+``RT_ROW_CONSTS``).
+
 Build: nvcc compiles the template plus the model's generated
 ``rt_model.h`` for ``sm_90a``, with a plain C interface, into
 ``_build/fused_hmc_<sha256>.so`` at first use (the hash covers the
@@ -389,7 +396,9 @@ def _nvcc() -> str:
 # the arguments shared by rt_fused_hmc_launch and rt_fused_hmc_host, and by
 # rt_logp_grad_launch and rt_logp_grad_host: the column pointers, then the
 # rows of each row space (row_counts), and the threads of a block and the
-# streaming flag last (the launches add the CUDA stream)
+# streaming flag last (the launches add the doubles that their pass over
+# the rows' data-only terms fills, and the CUDA stream; the host entries
+# keep theirs on the stack)
 HMC_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
@@ -411,10 +420,10 @@ class Kernels(NamedTuple):
 def _load(so_path: str) -> Kernels:
     lib = ctypes.CDLL(so_path)
     hmc = lib.rt_fused_hmc_launch
-    hmc.argtypes = HMC_ARGTYPES + [ctypes.c_void_p]
+    hmc.argtypes = HMC_ARGTYPES + [ctypes.c_void_p] * 2
     hmc.restype = ctypes.c_int
     lpg = lib.rt_logp_grad_launch
-    lpg.argtypes = LOGP_GRAD_ARGTYPES + [ctypes.c_void_p]
+    lpg.argtypes = LOGP_GRAD_ARGTYPES + [ctypes.c_void_p] * 2
     lpg.restype = ctypes.c_int
     log = Path(so_path).with_suffix(".log")
     return Kernels(hmc, lpg, log.read_text() if log.exists() else "")
@@ -607,8 +616,9 @@ def row_counts(em):
 
 def _launch_setup(density, columns, n, dev, stream_columns=None):
     """(Kernels, (column pointer array, the tensors it points into), rows
-    of each row space, threads, workspace, whether the tiles stream) for
-    a launch over n chains;
+    of each row space, threads, workspace, whether the tiles stream, the
+    f64 sums of each row space's data-only terms that the launch's first
+    pass fills) for a launch over n chains;
     raises, before building, on a row the kernel's tile cannot hold, on a
     workspace the card has no room for, and on ``stream_columns`` without
     tiles."""
@@ -627,8 +637,10 @@ def _launch_setup(density, columns, n, dev, stream_columns=None):
     ptrs, held = column_pointers(em, columns)
     ws = torch.empty(workspace_bytes(em, n) // 4, dtype=torch.float32,
                      device=dev) if workspace_bytes(em, n) else None
+    consts = torch.empty(max(len(em.spaces), 1), dtype=torch.float64,
+                         device=dev)
     return kernels, (ptrs, held), row_counts(em), threads_per_block(em, n), \
-        ws, stream
+        ws, stream, consts
 
 
 def fused_hmc(density, q0, *, step_size, n_steps: int, n_iterations: int,
@@ -692,8 +704,8 @@ def prepare_fused_hmc(density, q0, *, step_size, n_steps: int,
     dev = q0.device
     pos, n_collect, expand = _collect_pos(collect_idx, emit_cuda.emit(density),
                                           dev)
-    kernels, (ptrs, columns), rows, threads, ws, stream_cols = _launch_setup(
-        density, columns, n, dev, stream_columns)
+    kernels, (ptrs, columns), rows, threads, ws, stream_cols, consts = \
+        _launch_setup(density, columns, n, dev, stream_columns)
     qf = torch.empty((dim, n), dtype=torch.float32, device=dev)
     acc = torch.empty((n,), dtype=torch.float32, device=dev)
     div = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -706,9 +718,10 @@ def prepare_fused_hmc(density, q0, *, step_size, n_steps: int,
             _ptr(p_noise), _ptr(u_noise), _ptr(qf), _ptr(samples),
             _ptr(acc), _ptr(div), n_iterations, n_steps, collect_every,
             _ptr(pos), n_collect, seed & _MASK, ptrs, rows, _ptr(ws),
-            threads, int(stream_cols))
+            threads, int(stream_cols), _ptr(consts))
     # the tensors whose pointers `args` holds, alive as long as `launch`
-    held = (q0, scale, eps, noise, columns, qf, samples, acc, div, pos, ws)
+    held = (q0, scale, eps, noise, columns, qf, samples, acc, div, pos, ws,
+            consts)
 
     def launch():
         with torch.cuda.device(dev):
@@ -775,12 +788,12 @@ def prepare_logp_grad(density, q, columns=None, stream_columns=None):
     q = q.contiguous()
     columns = _columns(density, columns, q.device)
     n = q.shape[1]
-    kernels, (ptrs, columns), rows, threads, ws, stream_cols = _launch_setup(
-        density, columns, n, q.device, stream_columns)
+    kernels, (ptrs, columns), rows, threads, ws, stream_cols, consts = \
+        _launch_setup(density, columns, n, q.device, stream_columns)
     lp = torch.empty((n,), dtype=torch.float32, device=q.device)
     g = torch.empty_like(q)
     args = (n, _ptr(q), _ptr(lp), _ptr(g), ptrs, rows, _ptr(ws), threads,
-            int(stream_cols))
+            int(stream_cols), _ptr(consts))
 
     def launch():
         with torch.cuda.device(q.device):
@@ -793,7 +806,7 @@ def prepare_logp_grad(density, q, columns=None, stream_columns=None):
         logp_grad.streamed += stream_cols
         return lp, g
 
-    launch.held = (q, columns, lp, g, ws)
+    launch.held = (q, columns, lp, g, ws, consts)
     return launch
 
 
@@ -808,7 +821,8 @@ def op_count(em, n_steps: int, rng: bool = True) -> int:
     with each row's gathers and adjoint scatters), the leapfrog
     arithmetic, kinetic energies, the accept, and with `rng` the
     on-device Philox (explicit noise is bytes instead).  The draws'
-    stores are bytes, not operations."""
+    stores are bytes, not operations; the launch's one pass over the
+    rows' data-only terms is ``em.const_ops()``, beside this."""
     dim = em.n_vars
     per_grad = em.density_ops() + 2 * dim      # x = q·sc, g = sc·∇
     leap = n_steps * 4 * dim + 2 * dim         # kicks + drifts, half kicks

@@ -19,11 +19,13 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 rainier_tpu_torch/tools/kernel_ab.py gather-tiles LABEL
     python3 rainier_tpu_torch/tools/kernel_ab.py gp-layouts LABEL
     python3 rainier_tpu_torch/tools/kernel_ab.py zoo STEPS DRAWS DTYPE [FAMILY ...]
-    python3 rainier_tpu_torch/tools/kernel_ab.py split LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py split LABEL [MODEL ...]
     python3 rainier_tpu_torch/tools/kernel_ab.py tile-sizes LABEL
-    python3 rainier_tpu_torch/tools/kernel_ab.py steps LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py steps LABEL [MODEL ...]
     python3 rainier_tpu_torch/tools/kernel_ab.py loaders LABEL
     python3 rainier_tpu_torch/tools/kernel_ab.py lse LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py counts LABEL [MODEL ...]
+    python3 rainier_tpu_torch/tools/kernel_ab.py row-sass LABEL [FAMILY ...]
 
 ``row-sums``: the kernels of the README regression, the 100k-row
 logistic regression and GLMMPoisson2 (``chip_smoke.py``'s models), whose
@@ -142,7 +144,9 @@ past the first two tiles, the rows, the butterflies, the tile loop's
 barriers), each loop as its launch decides, in the order base, parts,
 parts reversed, base.  The copies patch whichever tree the import finds
 (the one before the row loop's redesign or a later one), as ``row-sums``
-does.  Prints one line per
+does.  Models named after LABEL (the three, or any of the zoo's of
+``tiles``, such as ``zoo neg_binomial``, at HMC(4)) are split in place
+of the three.  Prints one line per
 model and build, tagged LABEL.
 
 ``tile-sizes``: the three models of ``split``, GLMMPoisson2 and
@@ -158,7 +162,7 @@ large Poisson and zero-inflated geometric, the README regression, the
 TILE_ITERS iterations) with each lane summing 1, 2 and 4 rows a step
 (``emit_cuda.ROW_STEP`` replaced for their emission, whatever the row's
 width and operations), in the order 1 2 4 4 2 1, each held to the first
-run's bits.
+run's bits; or only the models named after LABEL.
 
 ``loaders``: the synchronous tile loop (``stream_columns=False``) of
 ``LOADER_MODELS``, SPLIT_ITERS iterations each, with each of ``LOADERS``
@@ -176,6 +180,33 @@ division in f64 without a branch), as the f32 division ``e / s``, and as
 that division guarded so that a zero e is not divided (``LSE_FORMS``,
 the emitted text so replaced), TILE_ITERS iterations, in the order A B C
 C B A, each held to the first run's bits.
+
+``counts``: the count likelihoods of the zoo (``COUNT_FAMILIES``: the
+negative binomial, the large Poisson, the binomial, and the
+zero-inflated geometric as the control), or the models named after
+LABEL (zoo families by name, ``GLMMPoisson2``, ``glmm_large``): a zoo
+family from its fit's final states, ε and Σ̂ (``Model.sample(kernel=
+"fused!")`` as ``chip_smoke.py``'s zoo phase fits it, f64 warmup), 1024
+chains × ``ZOO_PARITY_ITERS`` of HMC(4) as its ``zoo_parity`` runs them;
+a GLMM as ``tiles`` runs it.  Each is built as the tree emits it; where
+its rows call ``lgammaf``, with every ``lgammaf`` of its row functions
+replaced by zero (the text so replaced: ``rt_row`` and ``rt_row_step``
+only); where its rows leave their data-only terms to the pass once a
+launch, with the rows keeping them (``_terms_in_rows``) and, for a
+register model, from copies of ``csrc/`` that sum what the rows keep in
+f64 every row, every 16 or 32 rows, or in f32 (``COUNT_SUMS``); timed in
+the order A B ... B A, with ptxas's registers, and each build's density
+alone at CHECK_POINTS of those states.  Prints one line per model,
+build and order, tagged LABEL.
+
+``row-sass``: the SASS of each zoo family's row function (default the
+four of ``counts``), compiled on its own: a probe kernel that sums
+``RtSpace<0>::row`` over a lane's rows of a tile, and, where the header
+has them, ``RtSpace<0>::row_const`` over the rows' columns, each built
+with nvcc for sm_90a and read by ``cuobjdump -sass``.  Prints, for each
+probe, its instructions, MUFU operations by kind and branches (BRA and
+CALL), static counts of the function, whose loop body is one row plus
+the loop's own few instructions, tagged LABEL.
 
 ``zoo``: the goldset zoo of ``chip_smoke.py`` (each family's 100,000
 rows synthesized on the card, seed ``ZOO_SEED``), every family or those
@@ -261,6 +292,13 @@ SPLIT_PARTS = {
         [("  typedef RtSpace<S> Sp;\n  enum { kG",
           "  typedef RtSpace<S> Sp;\n  rows >>= 30;\n  enum { kG")]],
     "no butterfly": [
+        [("  const double lp_acc = rt_acc_sum(lp_lanes, 1, 0) + "
+          "rt_consts_sum(rows);\n",
+          "  const double lp_acc = lp_lanes[0] + rt_consts_sum(rows);\n"),
+         ("  const double lp_acc = rt_acc_sum(lp_lanes, 1, 0);\n",
+          "  const double lp_acc = lp_lanes[0];\n"),
+         ("    ainv[k] = (float)rt_acc_sum(ainv_acc, RT_NINV_DENSE_ALLOC, k);\n",
+          "    ainv[k] = (float)ainv_acc[k];\n")],
         [("  const double lp_acc = rt_acc_sum(lp_lanes, 1, 0);\n",
           "  const double lp_acc = lp_lanes[0];\n"),
          ("    ainv[k] = (float)rt_acc_sum(ainv_acc, RT_NINV_DENSE_ALLOC, k);\n",
@@ -328,7 +366,8 @@ FREE_REPS = {"funnel": 20, "funnel, explicit noise": 20,
 # every model's rows summed in f64 and lp rounded once
 F64_ROWS = (
     ("typedef float rt_row_sum;\n", "typedef double rt_row_sum;\n"),
-    ("#ifdef RT_WS_FLOATS\n  lp = (float)((double)lp + lp_acc);\n#else\n"
+    ("#if defined(RT_WS_FLOATS) || defined(RT_ROW_CONSTS)\n"
+     "  lp = (float)((double)lp + lp_acc);\n#else\n"
      "  lp += (float)lp_acc;\n#endif\n",
      "  lp = (float)((double)lp + lp_acc);\n"))
 
@@ -626,7 +665,7 @@ def _run_kernel(F, cd, start, n_it, n_steps, device, reps=3, stream=None):
     return out, ms, F.fused_hmc.streamed > streamed
 
 
-def split(label: str) -> None:
+def split(label: str, names=()) -> None:
     import torch
 
     import chip_smoke as cs
@@ -635,12 +674,17 @@ def split(label: str) -> None:
     from rainier_tpu_torch.ops import fused_hmc as F
 
     device = torch.device(DEVICE)
-    models = _more_row_models(rt, cs, device, SPLIT_MODELS[:2])
-    logit, x, ys = cs.logistic_regression(rt)
+    names = tuple(names) or SPLIT_MODELS
+    models = _more_row_models(rt, cs, device, names)
     starts = {name: _start(m, name, device) for name, m in models.items()}
-    models["logistic regression"] = logit
-    starts["logistic regression"] = _laplace_start(
-        cs.logistic_design(x), ys, CHAINS, device)
+    if "logistic regression" in names:
+        logit, x, ys = cs.logistic_regression(rt)
+        models["logistic regression"] = logit
+        starts["logistic regression"] = _laplace_start(
+            cs.logistic_design(x), ys, CHAINS, device)
+    unknown = set(names) - set(models)
+    if unknown:
+        raise SystemExit(f"kernel_ab split: no model {sorted(unknown)}")
     builds = ("base", *SPLIT_PARTS)
     csrc = F.CSRC
     built = {}
@@ -648,14 +692,14 @@ def split(label: str) -> None:
         for what in builds:
             F.CSRC = csrc if what == "base" else _variant_csrc(
                 csrc, Path(tmp) / what.replace(" ", "_"), SPLIT_PARTS[what])
-            cds = [models[name].density() for name in SPLIT_MODELS]
+            cds = [models[name].density() for name in names]
             for cd in cds:
                 F._BUILT.pop(cd, None)
             with ThreadPoolExecutor(len(cds)) as pool:
-                for name, b in zip(SPLIT_MODELS, pool.map(_build, cds)):
+                for name, b in zip(names, pool.map(_build, cds)):
                     built[what, name] = b
         F.CSRC = csrc
-    for name in SPLIT_MODELS:
+    for name in names:
         cd = models[name].density()
         log = built["base", name][0].log
         print(f"RESULT split {label} {name}: ptxas " + " | ".join(
@@ -735,7 +779,7 @@ STEP_MODELS = ("marginalized mixture", "zoo neg_binomial",
 STEP_ORDER = (1, 2, 4, 4, 2, 1)
 
 
-def steps(label: str) -> None:
+def steps(label: str, names=()) -> None:
     import torch
 
     import chip_smoke as cs
@@ -751,8 +795,9 @@ def steps(label: str) -> None:
             return cs.logistic_regression(rt)[0]
         return _more_row_models(rt, cs, device, [name])[name]
 
+    names = tuple(names) or STEP_MODELS
     runs = {}
-    for name in STEP_MODELS:
+    for name in names:
         first = build(name)
         start = _start(first, name, device) if name != \
             "logistic regression" else _laplace_start(
@@ -764,7 +809,7 @@ def steps(label: str) -> None:
                                        "ROW_STEP_FLOATS": 1 << 30})
             runs[name, r] = (model, start)
     _build_runs({key: run for key, run in runs.items()})
-    for name in STEP_MODELS:
+    for name in names:
         first = None
         for r in STEP_ORDER:
             model, start = runs[name, r]
@@ -845,6 +890,265 @@ def lse(label: str) -> None:
             print(f"RESULT lse {label} {name}, {form}: {CHAINS} chains x "
                   f"{n_it} it {ms:.3f} ms, the first run's bits: "
                   f"{_same_bits(out, first)}", flush=True)
+
+
+# ``counts``: the zoo's count likelihoods, in order, and the builds each
+# is timed as: the tree's emission, and the same text with every lgammaf
+# of its row functions replaced by zero (where they call any); and, on a
+# tree that sums the rows left by their data-only terms in f64 every
+# RT_ROW_GROUP rows, copies of csrc/ that sum them in f64 every row and
+# in f32 (COUNT_SUMS: the text of fused_hmc.cu replaced)
+COUNT_FAMILIES = ("neg_binomial", "large_poisson", "binomial",
+                  "zero_inflated_geometric")
+COUNT_BUILDS = ("as emitted", "row lgammaf zeroed", "terms in the rows")
+COUNT_SUMS = {
+    "rows in f64 every row": [[("#define RT_ROW_GROUP 8\n",
+                                "#define RT_ROW_GROUP 1\n")]],
+    "rows in f64 every 16 rows": [[("#define RT_ROW_GROUP 8\n",
+                                    "#define RT_ROW_GROUP 16\n")]],
+    "rows in f64 every 32 rows": [[("#define RT_ROW_GROUP 8\n",
+                                    "#define RT_ROW_GROUP 32\n")]],
+    "rows in f32": [[("#ifdef RT_ROW_CONSTS\ntypedef double rt_row_sum;\n",
+                      "#ifdef RT_ROW_CONSTS\ntypedef float rt_row_sum;\n")]]}
+_ROW_FUNCTIONS = ("RT_HD float rt_row(", "RT_HD void rt_row_step(")
+
+
+def _rows_without_lgamma(src):
+    """The header `src` with every ``lgammaf(`` of its row functions (a
+    header of one row space: rt_row and rt_row_step) replaced by
+    ``0.0f * (``: the row's value without the terms, at the cost of a
+    multiply."""
+    out, inside = [], False
+    for line in src.split("\n"):
+        inside = inside or line.startswith(_ROW_FUNCTIONS)
+        out.append(line.replace("lgammaf(", "0.0f * (") if inside else line)
+        inside = inside and line != "}"
+    return "\n".join(out)
+
+
+def _zoo_fit_start(model, device):
+    """(final q (dim, n), ε (n,), Σ̂ (n, dim)) of `model` (a zoo family's)
+    fitted as chip_smoke.py's zoo phase fits it: Model.sample(kernel=
+    "fused!") at CHAINS chains, ZOO_WARMUP f64 warmup + ZOO_DRAWS draws of
+    HMC(ZOO_STEPS), seed 0."""
+    import torch
+
+    import chip_smoke as cs
+    from rainier_tpu_torch.sampler import HMC, SamplerConfig
+
+    cfg = SamplerConfig(cs.ZOO_WARMUP, cs.ZOO_DRAWS,
+                        sampler=HMC(cs.ZOO_STEPS))
+    tr = model.sample(cfg, n_chains=CHAINS, seed=0, kernel="fused!",
+                      device=device, dtype=torch.float64)
+    return (torch.as_tensor(tr.final_q.T.copy(), dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(tr.step_size, dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(tr.mass.diag, dtype=torch.float32,
+                            device=device))
+
+
+def _terms_in_rows(cd):
+    """Emit `cd` with its rows keeping their data-only terms, as before
+    the pass once a launch took them (the plain version keeps its own
+    roots); False on a tree whose row spaces list no such terms."""
+    from rainier_tpu_torch.compute import emit_cuda
+
+    split = cd.row_split()
+    if not any(getattr(sp, "consts", ()) for sp in split.spaces):
+        return False
+    cd._row_split = split._replace(spaces=tuple(
+        sp._replace(consts=(), kept=()) for sp in split.spaces))
+    emit_cuda.emit(cd, emit_cuda.SMEM_BYTES_MAX)
+    return True
+
+
+def _count_run(rt, cs, name, device):
+    """(model, build(), iterations, leapfrog steps) of a model ``counts``
+    times: a zoo family from its fit's final states, GLMMPoisson2 and
+    glmm_large from TILE_ITERS' warmup, as ``tiles`` times them."""
+    if name == "GLMMPoisson2":
+        return (cs.glmm_poisson(rt), lambda m: _warm(m, CHAINS, device),
+                TILE_ITERS[name], 5)
+    if name == "glmm_large":
+        return (cs.glmm_large(rt), lambda m: _warm(m, CHAINS, device),
+                TILE_ITERS[name], 5)
+    key = f"zoo {name}"
+    return (_more_row_models(rt, cs, device, [key])[key],
+            lambda m: _zoo_fit_start(m, device), cs.ZOO_PARITY_ITERS,
+            cs.ZOO_STEPS)
+
+
+def counts(label: str, names=()) -> None:
+    import dataclasses
+
+    import torch
+
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+    from rainier_tpu_torch.compute import emit_cuda
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    device = torch.device(DEVICE)
+    names = tuple(names) or COUNT_FAMILIES
+    src = (F.CSRC / "fused_hmc.cu").read_text()
+    sums = [what for what, alts in COUNT_SUMS.items()
+            if all(src.count(old) == 1 for old, _ in alts[0])]
+    runs, shapes = {}, {}
+    for name in names:
+        for what in (*COUNT_BUILDS, *sums):
+            model, start, n_it, n_steps = _count_run(rt, cs, name, device)
+            shapes[name] = (start, n_it, n_steps)
+            cd = model.density()
+            if what == COUNT_BUILDS[2]:
+                if not _terms_in_rows(cd):
+                    continue
+            em = emit_cuda.emit(cd)
+            if what == COUNT_BUILDS[1]:
+                if not _rows_lgamma(em.source):
+                    continue
+                emit_cuda._EMITTED[cd] = dataclasses.replace(
+                    em, source=_rows_without_lgamma(em.source))
+            if what in sums and (em.workspace or "RT_ROW_CONSTS" not in
+                                 em.source):
+                continue
+            runs[name, what] = (model, None)
+    csrc = F.CSRC
+    with tempfile.TemporaryDirectory() as tmp:
+        for what in (None, *sums):
+            F.CSRC = csrc if what is None else _variant_csrc(
+                csrc, Path(tmp) / what.replace(" ", "_"), COUNT_SUMS[what])
+            group = {key: run for key, run in runs.items()
+                     if key[1] == what or what is None
+                     and key[1] not in sums}
+            if group:
+                _build_runs(group)
+        F.CSRC = csrc
+    for name in names:
+        first, n_it, n_steps = shapes[name]
+        start = first(runs[name, COUNT_BUILDS[0]][0])
+        builds = [what for what in (*COUNT_BUILDS, *sums)
+                  if (name, what) in runs]
+        for what in builds:
+            model = runs[name, what][0]
+            em = emit_cuda.emit(model.density())
+            log = F.build(model.density(), emit_cuda.LANES)[0].log
+            print(f"RESULT counts {label} {name}, {what}: row "
+                  f"{em.row_ops} operations, lgammaf in the row functions "
+                  f"{_rows_lgamma(em.source)}; ptxas " + " | ".join(
+                      line.split("ptxas info    : ")[-1].strip()
+                      for line in log.splitlines()
+                      if "registers" in line or "spill" in line),
+                  flush=True)
+        for what in (*builds, *builds[::-1]):
+            model = runs[name, what][0]
+            out, ms, streamed = _run_kernel(F, model.density(), start, n_it,
+                                            n_steps, device)
+            print(f"RESULT counts {label} {name}, {what}: {CHAINS} chains "
+                  f"x {n_it} it x {n_steps} steps {ms:.3f} ms, "
+                  f"{'streamed' if streamed else 'synchronous'}, accept "
+                  f"{float(out[2].mean()):.4f}", flush=True)
+        for what in builds:
+            _density_alone(runs[name, what][0], _check_points(start[0]),
+                           device, f"counts {label} {name}, {what}")
+
+
+def _rows_lgamma(src):
+    """The calls of lgammaf in the row functions of the header `src`."""
+    return _rows_without_lgamma(src).count("0.0f * (") - src.count(
+        "0.0f * (")
+
+
+# ``row-sass``: the probe kernels, compiled with the tree's fused_hmc.cu
+# and the model's header (a register model of one row space whose row
+# takes no columns, no chain state: the zoo's)
+_PROBE = """#include "fused_hmc.cu"
+
+extern "C" __global__ void rt_row_probe(const float* x, const float* inv,
+                                        float* ainv, float* out, int n) {
+  float s = 0.0f;
+  for (int i = (int)threadIdx.x; i < n; i += 32)
+    s += RtSpace<0>::row(x + (size_t)i * RtSpace<0>::kW, inv, ainv);
+  out[threadIdx.x] = s;
+}
+#ifdef RT_ROW_CONSTS
+extern "C" __global__ void rt_row_const_probe(RtCols cols, int n,
+                                              float* out) {
+  float s = 0.0f;
+  for (int i = (int)threadIdx.x; i < n; i += 32)
+    s += RtSpace<0>::row_const(cols, i);
+  out[threadIdx.x] = s;
+}
+#endif
+"""
+
+
+def _sass_counts(sass):
+    """{function: (instructions, {MUFU kind: count}, BRA, CALL)} of
+    ``cuobjdump -sass`` output, NOPs not counted."""
+    import re
+
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = [0, {}, 0, 0]
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                      line)
+        if name is None or m is None or m.group(1).startswith("NOP"):
+            continue
+        op = m.group(1)
+        rec = out[name]
+        rec[0] += 1
+        if op.startswith("MUFU"):
+            rec[1][op] = rec[1].get(op, 0) + 1
+        rec[2] += op.startswith("BRA")
+        rec[3] += op.startswith("CALL")
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def row_sass(label: str, families=()) -> None:
+    import subprocess
+
+    import torch
+
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+    from rainier_tpu_torch.compute import emit_cuda
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    device = torch.device(DEVICE)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in families or COUNT_FAMILIES:
+        key = f"zoo {name}"
+        em = emit_cuda.emit(
+            _more_row_models(rt, cs, device, [key])[key].density())
+        if em.workspace or len(em.spaces) != 1 or any(
+                d in em.source for d in ("RT_ROW_COLS", "RT_ROW_STATE")):
+            print(f"RESULT row-sass {label} {name}: not a register model of "
+                  "one row space, no probe", flush=True)
+            continue
+        with tempfile.TemporaryDirectory() as tmp:
+            d = Path(tmp)
+            (d / emit_cuda.HEADER_NAME).write_text(em.source)
+            (d / "probe.cu").write_text(_PROBE)
+            subprocess.run(
+                [F._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-cubin", "-I", str(d), "-I",
+                 str(F.CSRC), "-o", str(d / "probe.cubin"),
+                 str(d / "probe.cu")], check=True, capture_output=True)
+            sass = subprocess.run([cuobjdump, "-sass",
+                                   str(d / "probe.cubin")], check=True,
+                                  capture_output=True, text=True).stdout
+        for fn, (n, mufu, bra, call) in sorted(_sass_counts(sass).items()):
+            if "probe" not in fn:
+                continue
+            print(f"RESULT row-sass {label} {name}, {fn}: {n} instructions, "
+                  f"MUFU {sum(mufu.values())} {mufu}, BRA {bra}, CALL "
+                  f"{call} (row {em.row_ops} operations as emitted)",
+                  flush=True)
 
 
 # ``loaders``: the models (and the synchronous loop's loaders: LOADERS)
@@ -1386,16 +1690,20 @@ def main(argv) -> int:
         gather_tiles(argv[1])
     elif argv[:1] == ["gp-layouts"] and len(argv) == 2:
         gp_layouts(argv[1])
-    elif argv[:1] == ["split"] and len(argv) == 2:
-        split(argv[1])
+    elif argv[:1] == ["split"] and len(argv) >= 2:
+        split(argv[1], argv[2:])
     elif argv[:1] == ["tile-sizes"] and len(argv) == 2:
         tile_sizes(argv[1])
-    elif argv[:1] == ["steps"] and len(argv) == 2:
-        steps(argv[1])
+    elif argv[:1] == ["steps"] and len(argv) >= 2:
+        steps(argv[1], argv[2:])
     elif argv[:1] == ["loaders"] and len(argv) == 2:
         loaders(argv[1])
     elif argv[:1] == ["lse"] and len(argv) == 2:
         lse(argv[1])
+    elif argv[:1] == ["counts"] and len(argv) >= 2:
+        counts(argv[1], argv[2:])
+    elif argv[:1] == ["row-sass"] and len(argv) >= 2:
+        row_sass(argv[1], argv[2:])
     elif argv[:1] == ["zoo"] and len(argv) >= 4:
         zoo(int(argv[1]), int(argv[2]), argv[3], argv[4:])
     else:
