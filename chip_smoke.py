@@ -1134,10 +1134,12 @@ def nvidia_smi() -> str:
 def layout(F, em, n_chains):
     """How a launch over n_chains lays out the chains: lanes a chain and
     chains a block, and where a chain's state lives."""
+    where = ("in registers" if not em.workspace else
+             "in a slot in shared memory" if em.shared else
+             "in a workspace slot")
     return (f"{F.lanes_per_chain(em, n_chains)} lanes a chain, "
             f"{F.chains_per_block(em, n_chains)} chains a block of "
-            f"{F.threads_per_block(em, n_chains)} threads, state "
-            f"{'in a workspace slot' if em.workspace else 'in registers'}")
+            f"{F.threads_per_block(em, n_chains)} threads, state {where}")
 
 
 def build_all(F, models, launches):
@@ -1798,16 +1800,64 @@ def split_phases(F, cd, em, lcd, x, ys, w_map, cov, device):
                              "in two row spaces)", "launches": 0}
 
 
+def slot_layout(F, em, what):
+    """Print where a slot model's chain state lies (the block's shared
+    memory where its slots fit beside its tiles, else the device
+    workspace) and how many steps of rows that hand gathers back a warp
+    runs at once there."""
+    from rainier_tpu_torch.compute import emit_cuda
+
+    steps = emit_cuda.gather_step(em.shared)
+    print(f"phase layout, {what}: a slot of {em.workspace} floats a chain "
+          f"in {'shared' if em.shared else 'device'} memory, device "
+          f"workspace {F.workspace_bytes(em, MAIN_CHAINS)} bytes at "
+          f"{MAIN_CHAINS} chains; rows that hand gathers back run {steps} "
+          f"step{'s' if steps > 1 else ''} of {emit_cuda.LANES} at once",
+          flush=True)
+
+
+def unsorted_rows(F, cd, q, device, what):
+    """The density at every column of q with the model's rows in a random
+    order (every column permuted alike; the sum over rows is the same)
+    against the rows in order, at the density check's bars: |Δlp| within
+    0.01 nats or two f32 ulps of lp, |Δg| within 1e-4 of the point's max
+    |g|.  In order a step's indices run in lane order (both GLMMs), and the
+    scatter takes its runs' path; permuted they do not, and it takes the
+    general path of __match_any_sync and, over several steps, the loop
+    over the leaders."""
+    import torch
+
+    cols = cd.column_values(torch.float32, device)
+    perm = torch.as_tensor(np.random.default_rng(9).permutation(
+        cols[0].shape[0]), device=device)
+    lp, g = F.logp_grad(cd, q)
+    lp_p, g_p = F.logp_grad(cd, q, columns=[c[perm] for c in cols])
+    bar_lp = torch.clamp(2 * torch.finfo(torch.float32).eps * lp.abs(),
+                         min=0.01)
+    dlp = (lp_p - lp).abs()
+    dg = ((g_p - g).abs().amax(0) / g.abs().amax(0).clamp(min=1e-30))
+    ok = bool((dlp <= bar_lp).all() and (dg <= 1e-4).all()
+              and torch.isfinite(lp_p).all())
+    print(f"phase unsorted rows, {what}: the density at {q.shape[1]} points "
+          f"with the rows permuted against in order: max |dlp| "
+          f"{float(dlp.max()):.4g} (bar at least 0.01), max |dg| / max |g| "
+          f"{float(dg.max()):.3g} (bar 1e-4)", flush=True)
+    check(ok, (what, float(dlp.max()), float(dg.max())))
+
+
 def glmm_phases(F, model, cd, em, device):
-    """GLMMPoisson2: the scan-path run, the density at full width at its
-    last draws and at inits, kernel vs plain from those draws, the main
-    path held to the scan-path run, and the kernel at the main path's
-    shapes.  Returns (its JSON entries, its main path's trace)."""
+    """GLMMPoisson2: its slot's layout, the scan-path run, the density at
+    full width at its last draws and at inits (and with its rows
+    permuted), kernel vs plain from those
+    draws, the main path held to the scan-path run, the kernel at the
+    main path's shapes, and two launches of it with the same bits.
+    Returns (its JSON entries, its main path's trace)."""
     import torch
 
     from rainier_tpu_torch.sampler import HMC, SamplerConfig
 
     cfg = SamplerConfig(GLMM_WARMUP, GLMM_DRAWS, sampler=HMC(GLMM_STEPS))
+    slot_layout(F, em, "GLMMPoisson2")
 
     def summary(tr):
         return (f"rank-r_hat max {rank_rhat(tr):.5f}, "
@@ -1846,6 +1896,7 @@ def glmm_phases(F, model, cd, em, device):
         F, cd, em, q, lp_grad64(q.double()), MAIN_CHAINS, "scan-path draws",
         device, "rainier_tpu/ops/hmc_pallas.py:157",
         cond=conditioning(lp_grad64, q))
+    unsorted_rows(F, cd, q, device, "GLMMPoisson2")
 
     # kernel vs plain from the scan-path run's last draws, with its
     # per-chain ε and Σ̂; the bar of the logistic's parity phases
@@ -1880,6 +1931,7 @@ def glmm_phases(F, model, cd, em, device):
                         em.row_bytes(), "GLMMPoisson2",
                         min_frac=agree_frac(GLMM_PARITY_ITERS, dlp_mean),
                         tol=1e-3, max_dacc=0.02, agree_at=GLMM_PARITY_ITERS)
+    same_bits(F, cd, tr, None, device, "GLMMPoisson2")
     return [{"name": "fused_hmc (GLMMPoisson2, integer index columns)",
              "route": "cuda",
              "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
@@ -1921,10 +1973,11 @@ def large_conditioning(lanes64, q):
 
 
 def large_phases(F, model, cd, em, device):
-    """glmm_large: the scan-path run, the density at full width at its
-    last states and at inits, kernel vs plain from those states, the main
-    path held to the scan-path run, and the kernel at the main path's
-    shapes.  Every run keeps only the collected coordinates of each draw;
+    """glmm_large: its slot's layout, the scan-path run, the density at
+    full width at its last states and at inits (and with its rows
+    permuted), kernel vs plain from
+    those states, the main path held to the scan-path run, the kernel at
+    the main path's shapes, and two launches of it with the same bits.  Every run keeps only the collected coordinates of each draw;
     the full-width states come from the scan-path run's `final_q`.
     Returns its JSON entries."""
     import torch
@@ -1933,6 +1986,7 @@ def large_phases(F, model, cd, em, device):
 
     cfg = SamplerConfig(LARGE_WARMUP, LARGE_DRAWS, sampler=HMC(LARGE_STEPS))
     idx = large_collect()
+    slot_layout(F, em, "glmm_large")
 
     def summary(tr):
         return (f"rank-r_hat max {rank_rhat(tr):.5f}, "
@@ -1968,6 +2022,7 @@ def large_phases(F, model, cd, em, device):
         F, cd, em, q, truth, MAIN_CHAINS, "scan-path states", device,
         "rainier_tpu/ops/hmc_pallas.py:282", cond=cond)
     del cond, truth, x, lp64
+    unsorted_rows(F, cd, q, device, "glmm_large")
 
     # kernel vs plain from those states, with the run's per-chain ε and
     # Σ̂: the bar of the other models' parity phases
@@ -2005,6 +2060,7 @@ def large_phases(F, model, cd, em, device):
                         min_frac=agree_frac(LARGE_AGREE_AT, dlp_mean),
                         tol=1e-3, max_dacc=0.02, agree_at=LARGE_AGREE_AT,
                         collect_idx=idx)
+    same_bits(F, cd, tr, idx, device, "glmm_large")
     return [{"name": "fused_hmc (glmm_large, state in the workspace)",
              "route": "cuda",
              "source": "rainier_tpu_torch/csrc/fused_hmc.cu",

@@ -124,7 +124,12 @@ arrays the row adds into its lane's own ``ainv``, which the kernel sums
 over the lanes after the last row; over the workspace the row hands the
 entry and the adjoint back (``sidx[g]``, ``sval[g]``, one pair per
 per-row gather, ``RT_GATHERS`` or ``RtSpace<s>::kGathers``), and the warp
-adds each step's into the chain's ``ainv`` (``rt_scatter``).  A
+adds each step's into the chain's ``ainv``, a fixed tree summing the lanes
+of one entry (``rt_scatter``); over a slot in device memory it runs
+``gather_step`` steps at once, the steps' rows in one ``rt_row_step``
+that hands row k's pairs back at k·kGathers + g, their gathers issued
+together and their sums of an entry merged before one read-modify-write
+(``rt_scatter_steps``).  A
 ``Lookup`` by an ``IntColumn`` compares the int index with each table
 entry, as for a float index.
 
@@ -158,10 +163,12 @@ all rows in a workspace filled by a first pass, costs a second pass over
 the rows and n floats a chain.
 
 A model over ``LANE_STATE_MAX`` parameters or row-invariant values keeps
-its chain state in a slot of a workspace (``RT_WS_FLOATS`` floats a
-chain, csrc/fused_hmc.cu; in device memory, or for a model without rows
-up to ``LOCAL_STATE_MAX`` parameters in the block's shared memory): its
-functions then take ``__restrict__`` pointers,
+its chain state in a slot (``RT_WS_FLOATS`` floats a chain,
+csrc/fused_hmc.cu): in the block's shared memory up to
+``LOCAL_STATE_MAX`` parameters where the block's slots fit beside its
+tiles (``shared_slot``, ``RT_WS_SHARED``: GLMMPoisson2, the 32-feature
+MVNormal logistic, the funnel at 40 dims), else in a workspace in device
+memory (glmm_large): its functions then take ``__restrict__`` pointers,
 its loops split their elements over the ``RT_LANES`` lanes of the chain
 (lane l takes l, l + 32, ...) and are unrolled by eight, so that loads of
 several elements are in flight, their sums are lane partials added up by
@@ -236,21 +243,25 @@ FILL_BATCH, FILL_VALUES = 8, 32
 # (csrc/fused_hmc.cu, RT_INV_REGS)
 ROW_STEP, ROW_STEP_OPS, ROW_STEP_FLOATS = 4, 48, 16
 INV_REGS_MAX = 64
+# Steps of rows that hand gathers back a warp runs at once over a slot in
+# device memory (gather_step)
+GATHER_STEP = 8
 
 # Vectors longer than this are emitted as loops over their elements; the
 # funnel's 9, the README's 3 and the logistic's 10 stay unrolled
 UNROLL_MAX = 16
 
-# Over this many parameters a chain without rows keeps its slot in the
-# kernel's device-memory workspace, not in the block's shared memory
+# Over this many parameters a chain keeps its slot in the kernel's
+# device-memory workspace, not in the block's shared memory (shared_slot)
 LOCAL_STATE_MAX = 256
 # Over this many parameters or row-invariant values a chain's state lives
 # in a slot, not in per-thread arrays: there every lane of a chain holds
 # the whole state, and past a few dozen floats an array each spills to
 # local memory that all the lanes read and write, where the slot splits
-# each pass over the lanes (GLMMPoisson2, 146 parameters: 756 ms against
-# 1,239 ms for 1024 chains x 500 iterations on an H100; the funnel at 100
-# dims, 1.7-1.8 ms against 22.3 at one thread a chain for 1024 x 200 x 5;
+# each pass over the lanes (GLMMPoisson2, 146 parameters: 756 ms with its
+# slot in device memory against 1,239 ms in per-thread arrays for 1024
+# chains x 500 iterations on an H100; the funnel at 100 dims, 1.7-1.8 ms
+# against 22.3 at one thread a chain for 1024 x 200 x 5;
 # tools/kernel_ab.py layouts and columnfree, PERF.md §6)
 LANE_STATE_MAX = 32
 
@@ -282,6 +293,23 @@ def tile_rows(row_width: int, n_rows: int = TILE_ROWS_MAX) -> int:
     while 2 * r * row_width * 4 > SMEM_BYTES_MAX and r >= TILE_ROWS_MIN:
         r //= 2
     return r if r >= TILE_ROWS_MIN else 0
+
+
+def gather_step(shared: bool) -> int:
+    """Steps of 32 rows that a warp runs at once where its rows hand
+    gathers back over a chain's slot (_row_step, csrc/fused_hmc.cu
+    rt_scatter_steps): every lane's rows of the steps read the tile and
+    issue their gathers before any row's arithmetic, and the steps'
+    scatters are merged into one read-modify-write an entry.  GATHER_STEP
+    where the slot lies in device memory, whose latency a step at a time
+    waited on twice (its gathers, then its scatter's load): glmm_large's
+    kernel 574.3 / 505.1 / 446.1 / 442.9 ms at 1 / 2 / 4 / 8 steps.  One
+    step where it lies in the block's shared memory (shared_slot):
+    GLMMPoisson2's 177.3 ms at one step, 707.0 at 4 merged (its site
+    index wraps within a batch, so the merge takes its slow path; 1024
+    chains on an H100 at 700 W, tools/kernel_ab.py gather-steps, PERF.md
+    §6)."""
+    return 1 if shared else GATHER_STEP
 
 
 def row_step(row_width: int, row_ops: int) -> int:
@@ -1775,7 +1803,7 @@ def _row_const(cd, consts):
 
 def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
                 at_row=frozenset(), params=(), inline=frozenset(),
-                steps=False):
+                steps=False, gather_step=1):
     """One row space's row function and tile loader: (body lines,
     SpaceTiles, the loader's lines, per-row gathers, the row-step
     function's body (None: one row at a time) and its rows,
@@ -1820,24 +1848,27 @@ def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
                       row.fops + row.rops + len(space.roots))
     # where the kernel keeps the row-invariant values in registers
     # (`steps`) and a row hands no gather back, its lanes may sum several
-    # rows a step (_row_step)
-    step = row_step(width, tile.row_ops) if steps and not row.scatters \
-        else 1
+    # rows a step (_row_step); a row that hands gathers back over the
+    # workspace runs `gather_step` steps with their gathers in flight
+    step = gather_step if row.scatters else \
+        row_step(width, tile.row_ops) if steps else 1
     return (body, tile, _fill(cd, space, offs, widths, row_w or width,
                               loads),
             row.scatters,
-            _row_step([*head, *row.fwd], rev, total, step) if step > 1
-            else None, step, row.row_cols)
+            _row_step([*head, *row.fwd], rev, total, step, row.scatters)
+            if step > 1 else None, step, row.row_cols)
 
 
 # a declaration of a local in an emitted function
 _DECL = re.compile(r"^\s*(?:const\s+)?(?:float|double|int|bool)\s+(\w+)\s*=")
 
 
-def _row_step(fwd, rev, total, step):
+def _row_step(fwd, rev, total, step, gathers=0):
     """The body of a function that sums `step` of a lane's rows at once:
     rows x, x + stride, ... of the tile (a lane's consecutive rows), each
-    row's locals renamed with a suffix of its own (_R<k>).  The forward
+    row's locals renamed with a suffix of its own (_R<k>), and, where the
+    row hands `gathers` gathers back, row k's pair of gather g at
+    k·gathers + g of sidx and sval.  The forward
     passes of every row come first, then the reverse passes in row order,
     and each row's value goes to out[k]: every adjoint is added in the
     order and with the bits of the rows one after another, while the
@@ -1851,9 +1882,13 @@ def _row_step(fwd, rev, total, step):
         sorted(map(re.escape, names | {"x"}), key=len, reverse=True))
         + r")\b")
 
+    pair = re.compile(r"\b(sidx|sval)\[(\d+)\]")
+
     def renamed(lines, k):
-        return [word.sub(lambda m: f"{m.group(1)}_R{k}", line)
-                for line in lines]
+        return [pair.sub(
+            lambda m: f"{m.group(1)}[{k * gathers + int(m.group(2))}]",
+            word.sub(lambda m: f"{m.group(1)}_R{k}", line))
+            for line in lines]
 
     out = [f"  const float* x_R{k} = x + {k} * stride;" for k in range(step)]
     for k in range(step):
@@ -1864,7 +1899,7 @@ def _row_step(fwd, rev, total, step):
                   for k in range(step)]
 
 
-def _emit_rows(cd, spaces, ws, whole, scratch, consts):
+def _emit_rows(cd, spaces, ws, whole, scratch, consts, gather_step=1):
     """The per-row part of a data model: (C lines, invariant ops, the
     row-invariant values' count, the count of those some row reads other
     than by a per-row gather, SpaceTiles per row space).  One row space
@@ -1979,7 +2014,7 @@ def _emit_rows(cd, spaces, ws, whole, scratch, consts):
     made = [_space_rows(cd, space, ws, pre.grad, base, size,
                         "RT_ROW_W" if one else None, n_dense, aligned[s],
                         at_row[s], params[s], frozenset(inline[s]),
-                        not ws or inv_regs)
+                        not ws or inv_regs, gather_step)
             for s, space in enumerate(spaces)]
     # a row that rebuilds a source inside a rebuilt source reads columns
     # from their device pointers: then every row function takes them
@@ -1999,6 +2034,8 @@ def _emit_rows(cd, spaces, ws, whole, scratch, consts):
                "int tid, int nt)"
     step_sig = (f"const float*{r} x, int stride, const float*{r} inv, "
                 f"float*{r} ainv"
+                + (f", int*{r} sidx, float*{r} sval"
+                   if ws and not inv_regs else "")
                 + (", const RtCols& cols" if row_cols else "")
                 + (f", const float*{r} q, float*{r} g, float*{r} cainv"
                    if row_state else "")
@@ -2023,7 +2060,9 @@ def _emit_rows(cd, spaces, ws, whole, scratch, consts):
         step_doc = [
             f"// {step} of a lane's rows, x + k·stride, their values in "
             "out[k]; adds",
-            "// their adjoints into ainv in row order, as rt_row would"]
+            "// their adjoints into ainv in row order, as rt_row would",
+            *(["// and hands row k's gather g back at k·"
+               f"{n_gathers} + g of sidx/sval"] if n_gathers else [])]
         if one:
             row_fn = [
                 *gathers,
@@ -2156,6 +2195,27 @@ def emit(cd, stage_budget=None) -> EmittedDensity:
     return _EMITTED[cd]
 
 
+def slots_bytes(slot: int) -> int:
+    """Bytes of a block's chain slots of `slot` floats in its shared
+    memory: BLOCK_THREADS_MAX / LANES chains at most, each slot a whole
+    number of 32-float rows (csrc/fused_hmc.cu, RT_SLOT_STRIDE)."""
+    return 4 * BLOCK_THREADS_MAX // LANES * -(-slot // LANES) * LANES
+
+
+def shared_slot(n_vars: int, slot: int, top) -> bool:
+    """Whether a chain's slot of `slot` floats (0: state in registers)
+    lies in the block's shared memory, not in the device workspace: up to
+    LOCAL_STATE_MAX parameters, where a block's slots fit beside its two
+    tiles of the widest space `top` (a SpaceTiles; none without rows) in
+    SMEM_BYTES_MAX.  There every pass over the state, every gather of a
+    row-invariant value and every add of its adjoint reads and writes the
+    block's shared memory, not L2 and device memory (GLMMPoisson2, 146
+    parameters: its 8 slots of 5.6 KB beside a 64 KB tile)."""
+    return 0 < slot and n_vars <= LOCAL_STATE_MAX and (
+        slots_bytes(slot) + 4 * 2 * top.tile_rows * top.row_width
+        <= SMEM_BYTES_MAX)
+
+
 def workspace_floats(n_vars: int, n_inv: int, rows: bool,
                      n_dense: int = 0, scratch: int = 0) -> int:
     """Floats of one chain's slot of the workspace: the seven state
@@ -2177,12 +2237,10 @@ def _emit(cd, ws: bool, stage_budget: int) -> EmittedDensity:
         raise UnsupportedNode(
             f"{e} is not supported by the CUDA emitter") from None
     # a slot of a chain without rows: every vector a loop split over its
-    # lanes, unless a MatVec reads a matrix whole (see the docstring), and
-    # the slot in shared memory up to LOCAL_STATE_MAX
+    # lanes, unless a MatVec reads a matrix whole (see the docstring)
     lane_slot = ws and not split.spaces
     unroll = 1 if lane_slot and not any(
         isinstance(c, R.MatColumn) for c in cd.columns) else UNROLL_MAX
-    shared = lane_slot and cd.n_vars <= LOCAL_STATE_MAX
     # the rows each density call sums: without their data-only summands,
     # which rt_row_const gives the kernel's pass once a launch
     rows_of = [kernel_rows(sp, cd.columns) for sp in split.spaces]
@@ -2195,24 +2253,32 @@ def _emit(cd, ws: bool, stage_budget: int) -> EmittedDensity:
     fwd, rev, total = _program(em, roots, total=True)
     lp_ops = max(len(total) - 1, 0)
     n = cd.n_vars
+    def rows_at(step):
+        return _emit_rows(cd, rows_of, ws, whole, em.scratch,
+                          [sp.consts for sp in split.spaces], step) \
+            if split.spaces else \
+            ([], 0, 0, 0, (), em.scratch, False, False, False, {})
+
+    # the rows as a slot in device memory runs them, then, where the slot
+    # lies in shared memory, as it runs them there (gather_step)
     (rows, inv_ops, n_inv, n_dense, spaces, scratch, row_cols, lanes,
-     row_state, products) = (
-        _emit_rows(cd, rows_of, ws, whole, em.scratch,
-                   [sp.consts for sp in split.spaces]) if split.spaces
-        else ([], 0, 0, 0, (), em.scratch, False, False, False, {}))
-    products = {**em.products, **products}
+     row_state, products) = rows_at(gather_step(False) if ws else 1)
     slot = workspace_floats(n, n_inv, bool(spaces), n_dense, scratch) \
         if ws else 0
-    r = _RESTRICT if ws else ""
     # the shared memory of a tile slot: the widest space's tile
     top = max(spaces, key=lambda t: t.tile_rows * t.row_width,
               default=SpaceTiles(0, 0, 0, 0))
+    shared = shared_slot(n, slot, top)
+    if shared:
+        (rows, inv_ops, n_inv, n_dense, spaces, scratch, row_cols, lanes,
+         row_state, products) = rows_at(gather_step(True))
+    products = {**em.products, **products}
+    r = _RESTRICT if ws else ""
     # the matrices of the product passes staged beside the block's slots
-    # (at most a block's BLOCK_THREADS_MAX / LANES chains) or its two
+    # (at most a block's BLOCK_THREADS_MAX / LANES chains) and its two
     # tile slots, where they fit
-    block = 4 * (2 * top.tile_rows * top.row_width + (
-        BLOCK_THREADS_MAX // LANES * -(-slot // LANES) * LANES if shared
-        else 0))
+    block = 4 * (2 * top.tile_rows * top.row_width) + (
+        slots_bytes(slot) if shared else 0)
     mats, staged, transposed = _mat_layout(products, block, stage_budget)
     src = "\n".join([
         "// Generated by rainier_tpu_torch.compute.emit_cuda: the model's",

@@ -15,11 +15,11 @@
 // in standardized coordinates q' = q / sqrt(S) for the adapted mass
 // diagonal S, exactly as hmc_pallas.py:224-240 does.
 //
-// A model of up to 256 parameters and row-invariant values (emit_cuda.
-// LOCAL_STATE_MAX), or with rows of up to 32 (LANE_STATE_MAX: the README
-// regression and the logistics), keeps its chain's position, momentum,
-// gradient and proposal in per-thread arrays float[RT_DIM] in registers
-// and local memory, and every lane holds all of them: whatever lies
+// A model of up to 32 parameters and row-invariant values (emit_cuda.
+// LANE_STATE_MAX: the README regression and the logistics) keeps its
+// chain's position, momentum, gradient and proposal in per-thread arrays
+// float[RT_DIM] in registers and local memory, and every lane holds all
+// of them (past it, a slot: below): whatever lies
 // outside the rows (the column-free terms, the row-invariant passes
 // rt_rows_pre and rt_rows_post, Philox, the leapfrog and the accept) runs
 // redundantly in every lane, with no broadcast.  The lanes split the
@@ -135,19 +135,27 @@
 // in a fixed order, so that every launch and both tile loops give the
 // same bits: in a register model each lane adds into its own per-thread
 // copy of ainv, and at the end of the density call each gathered entry is
-// summed over the lanes by the butterfly (rt_gathered_sum); in a
-// workspace model, where 32 copies of glmm_large's 10,000 entries would
-// be 1.3 MB a chain to clear and sum in every call, a row hands its
-// gathers' adjoints back and the warp adds each step of 32 rows into the
-// chain's one ainv: the lanes with one entry form a group
-// (__match_any_sync) whose lowest lane adds their values in lane order
-// (rt_scatter).
+// summed over the lanes by the butterfly (rt_gathered_sum); in a slot
+// model (GLMMPoisson2, glmm_large), where 32 copies of glmm_large's 10,000
+// entries would be 1.3 MB a chain to clear and sum in every call, a row
+// hands its gathers' adjoints back and the warp adds each step of 32 rows
+// into the chain's one ainv: the lanes with one entry form a group
+// (__match_any_sync), a fixed tree over the group's lanes in order sums
+// their values, and its lowest lane adds the sum (rt_scatter).  Over a
+// slot in device memory the warp runs several steps at once
+// (RtSpace<s>::kStep, emit_cuda.gather_step): each lane's rows of the
+// steps issue their gathers together, and the steps' sums of an entry
+// are merged before one read-modify-write of it (rt_scatter_steps).
 //
 // Larger models (the header defines RT_WS_FLOATS) keep every per-chain
-// array in a workspace in device memory that the wrapper allocates: one
-// slot of RT_WS_FLOATS floats per chain, the ragged edge's copies
-// included, holding the seven state arrays, inv, ainv, and the 32 lanes'
-// copies of the adjoints that every row reads (RT_OFF_LANES).  Every pass
+// array in a slot of RT_WS_FLOATS floats a chain, holding the seven state
+// arrays, inv, ainv, and the 32 lanes' copies of the adjoints that every
+// row reads (RT_OFF_LANES): in the block's shared memory where its slots
+// fit beside its tiles, up to 256 parameters (RT_WS_SHARED,
+// emit_cuda.shared_slot: GLMMPoisson2's 8 slots of 5.6 KB beside its
+// 64 KB tile), else in a workspace in device memory that the wrapper
+// allocates, one slot a chain, the ragged edge's copies included
+// (glmm_large's 360 KB a chain).  Every pass
 // over the state (the kicks and drifts, rt_take, rt_collect) and
 // every emitted loop over a vector splits its elements over the lanes,
 // lane l taking l, l + 32, ... (RT_FOR), so a warp's access is one
@@ -161,9 +169,12 @@
 // rt_rows_post, the gradient before the next kick.  The drift writes x
 // beside qn, and the kicks scale the gradient as they read it
 // (rt_gs), so no pass of its own does either.  What bounds such a model
-// is the latency of those passes (about 23 over arrays of RT_DIM floats
-// per density call, 313 elements a lane for glmm_large) and of the rows'
-// gathers and scatters into the slot, with 8 warps on an SM.
+// is latency, with 8 warps on an SM: of the rows' scatters and gathers
+// (GLMMPoisson2's scatters were 91% of its time with its slot in device
+// memory and the leader's loop of shuffles, glmm_large's 47%, its rows'
+// gathers 15%) and of the passes (about 23 over arrays of RT_DIM floats
+// per density call, 313 elements a lane for glmm_large: 21% of its time;
+// tools/kernel_ab.py split, H100, PERF.md §6).
 //
 // Chains without rows (the column-free branch, hmc_pallas.py:257-301 with
 // no columns).  With one thread a chain (L = 1), the chain's state in
@@ -223,8 +234,9 @@
 // the ragged edge's copies included, with the tile's "block" one thread.
 // It emulates the lanes: each lane's rows of a tile are walked in turn
 // with the card's steps, or, where rows hand gathers back, the rows in
-// steps of 32, lane by lane within a step, each step's gather adjoints
-// added as rt_scatter adds them; each lane's partial sums and adjoint copy
+// steps of 32 (kStep of them at once where the card runs so), lane by
+// lane within a step, the gather adjoints added as rt_scatter and
+// rt_scatter_steps add them; each lane's partial sums and adjoint copy
 // are kept apart, and the lanes' sums added in the butterfly's order
 // (rt_lane_tree); a
 // workspace model's passes walk every element and keep each lane's
@@ -232,8 +244,8 @@
 // So the host build sums in the card's order, which is how the CPU tests
 // check the lanes, the loop, the ragged edge and the generated adjoints
 // without a card.  A chain without rows of L lanes sums in the order of
-// its L lanes (rt_lane_tree<L>), and keeps its shared-memory slot in a
-// host buffer, filled with NaN so that a read before a write shows.
+// its L lanes (rt_lane_tree<L>).  A slot in shared memory is a host
+// buffer, filled with NaN so that a read before a write shows.
 #include "philox.cuh"
 #include "rt_model.h"
 
@@ -316,9 +328,16 @@ static int rt_host_threads = 1;
 #else
 #define RT_ROWQ(q, g, a)
 #endif
-// A row space whose rows hand no gather back sums RtSpace<s>::kStep rows
-// of a lane at a time where kStep > 1, through `step` (a header of one
-// space: rt_row_step, RT_ROW_STEP rows)
+// A row space sums RtSpace<s>::kStep rows of a lane at a time where
+// kStep > 1, through `step` (a header of one space: rt_row_step,
+// RT_ROW_STEP rows); over the workspace, where its rows hand gathers back,
+// `step` hands back each row's pairs, row k's gather g at k·kGathers + g
+// of sidx and sval (RT_STEPG)
+#if defined(RT_WS_FLOATS) && RT_GATHERS > 0
+#define RT_STEPG(sidx, sval) , sidx, sval
+#else
+#define RT_STEPG(sidx, sval)
+#endif
 #if RT_ROW_W > 0 && !defined(RT_SPACES)
 #define RT_SPACES 1
 #ifndef RT_ROW_STEP
@@ -345,11 +364,13 @@ struct RtSpace<0> {
   }
 #endif
   static RT_HD void step(const float* x, int stride, const float* inv,
-                         float* ainv RT_ROWC(const RtCols& cols)
+                         float* ainv RT_STEPG(int* sidx, float* sval)
+                             RT_ROWC(const RtCols& cols)
                              RT_ROWQ(const float* q, float* g, float* cainv),
                          float* out) {
 #if RT_ROW_STEP > 1
-    rt_row_step(x, stride, inv, ainv RT_ROWC(cols) RT_ROWQ(q, g, cainv), out);
+    rt_row_step(x, stride, inv, ainv RT_STEPG(sidx, sval) RT_ROWC(cols)
+                    RT_ROWQ(q, g, cainv), out);
 #else
     (void)x, (void)stride, (void)inv, (void)ainv, (void)out;
 #endif
@@ -700,12 +721,12 @@ RT_HD void rt_stream_tile(float* slot, const RtCols& cols, int row0,
 // `ainv` on the card (`lanes` is that array), and the gathered blocks'
 // entries are summed over the lanes once a density call
 // (rt_gathered_sum); host code keeps all RT_LANES copies, lane l's at
-// lanes + l * RT_NINV_ALLOC.  A workspace model's lanes keep copies of
-// the dense adjoints only (RT_NINV_DENSE_ALLOC floats each, at
-// RT_OFF_LANES of the slot): a row hands its per-row gathers' adjoints
-// back, and the warp adds each step's into the chain's one ainv
-// (rt_scatter), so 32 copies of glmm_large's 10,000 gathered entries are
-// neither written nor summed.
+// lanes + l * RT_NINV_ALLOC.  A slot model's lanes keep copies of the
+// dense adjoints only (RT_NINV_DENSE_ALLOC floats each, at RT_OFF_LANES
+// of the slot): a row hands its per-row gathers' adjoints back, and the
+// warp adds them into the chain's one ainv (rt_scatter, rt_scatter_steps),
+// so 32 copies of glmm_large's 10,000 gathered entries are neither
+// written nor summed.
 #ifdef RT_WS_FLOATS
 #define RT_LANE_COPY RT_NINV_DENSE_ALLOC
 #else
@@ -764,30 +785,200 @@ RT_HD void rt_gathered_sum(float* lanes, float* ainv) {
 
 // One step's per-row gather adjoints, value v at entry k of this lane's
 // row (k < 0: a lane past the tile's rows), added into the chain's ainv:
-// the lanes with one k form a group (__match_any_sync), and its lowest
-// lane adds their values in lane order and stores the sum.  Groups hold
-// distinct entries, so no two lanes store to one, and the order is fixed:
-// deterministic, without atomics.  Host code takes the lanes' k and v as
+// the lanes with one k form a group (__match_any_sync), ranked in lane
+// order, and a fixed tree over the ranks sums each group's values
+// (rt_group_sum: ranks r and r + 1 first, then r and r + 2, ..., the
+// stages as many as the largest group needs, at most five), which the
+// group's lowest lane adds to ainv[k].  Groups hold distinct entries, so
+// no two lanes store to one, and the order is fixed: deterministic,
+// without atomics.  The tree takes ceil(log2 n) dependent shuffle pairs
+// for a group of n where the leader's loop took n - 1 dependent shuffles
+// (GLMMPoisson2's year index is the same in the 32 rows of a step: 5
+// stages against 31 shuffles).  Host code takes the lanes' k and v as
 // arrays and adds in the same order.
 #ifdef __CUDA_ARCH__
-__device__ __forceinline__ void rt_scatter(float* ainv, int k, float v) {
-  const unsigned m = __match_any_sync(0xffffffffu, k);
+// this lane's group of one k: returns the tree's sum over the group in
+// its lowest lane (others: a partial sum), whether this lane leads, and
+// whether the lanes' k are non-decreasing.  Where the k run in lane order,
+// each group a run of lanes (k non-decreasing over the lanes, or two such
+// runs, the second wholly below the first: an index that wraps), a
+// group's ranks are its lanes from the run's first and the tree's partner
+// is the lane `off` higher, one __shfl_down_sync a stage: the same adds as
+// the general path's, without __match_any_sync and the partner's lane
+// (both GLMMs' indices run so: glmm_large's kernel 551.6 → 443.0 ms and
+// GLMMPoisson2's 197.4 → 177.3 on an H100 with the merge's run path
+// below, the same bits; tools/kernel_ab.py gather-paths, PERF.md §6)
+__device__ __forceinline__ float rt_group_sum(int k, float v, bool& lead,
+                                              bool& sorted) {
+  const unsigned full = 0xffffffffu;
+  const int lane = RT_LANE;
+  const int prev = __shfl_up_sync(full, k, 1);
+  const unsigned down = __ballot_sync(full, lane > 0 && k < prev);
+  const int k0 = __shfl_sync(full, k, 0), k31 = __shfl_sync(full, k, 31);
+  sorted = down == 0u;
   float s = v;
-  for (unsigned rest = m & (m - 1); rest != 0; rest &= rest - 1)
-    s = s + __shfl_sync(m, v, __ffs(rest) - 1);
-  if (RT_LANE == __ffs(m) - 1 && k >= 0) ainv[k] += s;
+  if (sorted || (__popc(down) == 1 && k31 < k0)) {
+    const bool head = lane == 0 || k != prev;
+    const unsigned heads = __ballot_sync(full, head);
+    const unsigned after = lane == 31 ? 0u : heads & (0xfffffffeu << lane);
+    const int first = 31 - __clz(heads & (0xffffffffu >> (31 - lane)));
+    const int r = lane - first,
+              n = (after != 0u ? __ffs(after) - 1 : 32) - first;
+    const int stages = (int)__reduce_max_sync(full, (unsigned)n);
+    for (int off = 1; off < stages; off <<= 1) {
+      const float o = __shfl_down_sync(full, s, off);
+      if ((r & (2 * off - 1)) == 0 && r + off < n) s = s + o;
+    }
+    lead = head;
+    return s;
+  }
+  const unsigned m = __match_any_sync(full, k);
+  const int r = __popc(m & ((1u << lane) - 1u)), n = __popc(m);
+  // the lane of rank r + off (off = 1, 2, 4, ...) where there is one:
+  // the next member's lane, then doubled by a shuffle each stage
+  const unsigned above = lane == 31 ? 0u : m & (0xfffffffeu << lane);
+  int next = above != 0u ? __ffs(above) - 1 : lane;
+  const int stages = (int)__reduce_max_sync(full, (unsigned)n);
+  for (int off = 1; off < stages; off <<= 1) {
+    const float o = __shfl_sync(full, s, next);
+    if ((r & (2 * off - 1)) == 0 && r + off < n) s = s + o;
+    next = __shfl_sync(full, next, next);
+  }
+  lead = r == 0;
+  return s;
+}
+
+__device__ __forceinline__ void rt_scatter(float* ainv, int k, float v) {
+  bool lead, sorted;
+  const float s = rt_group_sum(k, v, lead, sorted);
+  if (lead && k >= 0) ainv[k] += s;
 }
 #else
+// lane l's group of entry k[l] summed by the card's tree over the ranks
+// (lanes in order), where l is the group's lowest lane; false otherwise
+inline bool rt_group_sum(const int* k, const float* v, int l, float& s) {
+  for (int m = 0; m < l; ++m)
+    if (k[m] == k[l]) return false;
+  float g[RT_LANES];
+  int n = 0;
+  for (int m = l; m < RT_LANES; ++m)
+    if (k[m] == k[l]) g[n++] = v[m];
+  for (int off = 1; off < n; off <<= 1)
+    for (int r = 0; r + off < n; r += 2 * off) g[r] = g[r] + g[r + off];
+  s = g[0];
+  return true;
+}
+
 inline void rt_scatter(float* ainv, const int* k, const float* v) {
   for (int l = 0; l < RT_LANES; ++l) {
-    bool lead = k[l] >= 0;
-    for (int m = 0; m < l && lead; ++m) lead = k[m] != k[l];
-    if (!lead) continue;
-    float s = v[l];
-    for (int m = l + 1; m < RT_LANES; ++m)
-      if (k[m] == k[l]) s = s + v[m];
-    ainv[k[l]] += s;
+    float s;
+    if (rt_group_sum(k, v, l, s) && k[l] >= 0) ainv[k[l]] += s;
   }
+}
+#endif
+
+// Several steps' gather adjoints (RtSpace<s>::kStep steps of a row space
+// whose rows hand gathers back over the workspace): each step's groups
+// are summed by the tree, as rt_scatter sums them, and the step sums of
+// one entry merged in step order into the sum of the entry's first step,
+// whose group's lowest lane (the entry's owner) adds it to ainv[k] with
+// one load and one store.  The owners hold distinct entries, so all their
+// loads are issued before any store: the steps' read-modify-writes of the
+// workspace overlap, where a step at a time each waited on the last
+// one's.  Where the steps' entries run in row order (glmm_large's groups
+// of 5 rows), only a step's first group can continue the entry of the
+// last group before it, and the merge is a shuffle a step; otherwise it
+// is a loop over each later step's group leaders in lane order (a
+// ballot, then two shuffles a leader), uniform over the warp, which made
+// the merge half of glmm_large's scatters on an H100 (PERF.md §6).  Host
+// code adds in the same order.  One gather g of kG, the pairs of step j
+// at j·kG + g.
+#ifdef __CUDA_ARCH__
+template <int kK, int kG>
+__device__ __forceinline__ void rt_scatter_steps(float* ainv, const int* k,
+                                                 const float* v, int g) {
+  const unsigned full = 0xffffffffu;
+  const int lane = RT_LANE;
+  int e[kK];
+  float s[kK];
+  // whether the steps' k run in row order (each step's non-decreasing,
+  // none below the last step's last): then an entry's rows are one run,
+  // and only a step's first group can share its entry with the last group
+  // before it
+  bool runs = __shfl_sync(full, k[g], 0) >= 0;
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {
+    bool lead, sorted;
+    s[j] = rt_group_sum(k[j * kG + g], v[j * kG + g], lead, sorted);
+    e[j] = lead && k[j * kG + g] >= 0 ? k[j * kG + g] : -1;
+    runs = runs && sorted &&
+           (j == 0 || __shfl_sync(full, k[j * kG + g], 0) >=
+                          __shfl_sync(full, k[(j - 1) * kG + g], 31));
+  }
+  if (runs) {
+    // the entry of the last group so far, and its owner: step ci's lane co
+    int ci = 0, ce = __shfl_sync(full, k[g], 31),
+        co = 31 - __clz(__ballot_sync(full, e[0] >= 0));
+#pragma unroll
+    for (int j = 1; j < kK; ++j) {
+      const unsigned heads = __ballot_sync(full, e[j] >= 0);
+      if (__shfl_sync(full, k[j * kG + g], 0) == ce) {
+        const float first = __shfl_sync(full, s[j], 0);
+#pragma unroll
+        for (int i = 0; i < j; ++i)
+          if (i == ci && lane == co) s[i] = s[i] + first;
+        if (lane == 0) e[j] = -1;
+        if (heads == 1u) continue;     // one group: the owner stays
+      }
+      ci = j;
+      ce = __shfl_sync(full, k[j * kG + g], 31);
+      co = 31 - __clz(heads);
+    }
+  } else {
+#pragma unroll
+    for (int j = 1; j < kK; ++j)
+      for (unsigned lead = __ballot_sync(full, e[j] >= 0); lead != 0u;
+           lead &= lead - 1u) {
+        const int src = __ffs(lead) - 1;
+        const int ej = __shfl_sync(full, e[j], src);
+        const float sj = __shfl_sync(full, s[j], src);
+        bool hit = false;
+#pragma unroll
+        for (int i = 0; i < j; ++i)
+          if (e[i] == ej) s[i] = s[i] + sj, hit = true;
+        if (__any_sync(full, hit) && RT_LANE == src) e[j] = -1;
+      }
+  }
+  float a[kK];
+#pragma unroll
+  for (int j = 0; j < kK; ++j)
+    if (e[j] >= 0) a[j] = ainv[e[j]];
+#pragma unroll
+  for (int j = 0; j < kK; ++j)
+    if (e[j] >= 0) ainv[e[j]] = a[j] + s[j];
+}
+#else
+// k[j][l], v[j][l]: step j's pair of lane l
+template <int kK>
+inline void rt_scatter_steps(float* ainv, const int (*k)[RT_LANES],
+                             const float (*v)[RT_LANES]) {
+  int e[kK * RT_LANES];
+  float s[kK * RT_LANES];
+  int n = 0;
+  for (int j = 0; j < kK; ++j)
+    for (int l = 0; l < RT_LANES; ++l) {
+      float sum;
+      if (!rt_group_sum(k[j], v[j], l, sum) || k[j][l] < 0) continue;
+      int o = 0;
+      while (o < n && e[o] != k[j][l]) ++o;
+      if (o < n) {
+        s[o] = s[o] + sum;
+      } else {
+        e[n] = k[j][l], s[n] = sum;
+        ++n;
+      }
+    }
+  for (int o = 0; o < n; ++o) ainv[e[o]] += s[o];
 }
 #endif
 
@@ -843,7 +1034,7 @@ RT_HD void rt_lane_rows(const float* slot, int rows, int lane,
                         float* ainv) {
   typedef RtSpace<S> Sp;
   int r = lane;
-  if constexpr (Sp::kStep > 1) {
+  if constexpr (Sp::kStep > 1 && RtGathers<S>::value == 0) {
     for (; r + (Sp::kStep - 1) * RT_LANES < rows;
          r += Sp::kStep * RT_LANES) {
       float out[Sp::kStep];
@@ -937,7 +1128,28 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
   float* own = lanes + (size_t)RT_LANE * RT_LANE_COPY;
   rt_row_sum lp_t = 0.0f;
   for (int k = 0; k < RT_NINV_DENSE; ++k) own[k] = 0.0f;
-  for (int r0 = 0; r0 < rows; r0 += RT_LANES) {
+  int r0 = 0;
+  if constexpr (Sp::kStep > 1 && RtGathers<S>::value > 0) {
+    // kK steps' rows with their gathers in flight, then their scatters
+    enum { kK = Sp::kStep };
+    for (; r0 + kK * RT_LANES <= rows; r0 += kK * RT_LANES) {
+      int sidx[kK * kG];
+      float sval[kK * kG];
+      float out[kK];
+      Sp::step(slot + (r0 + RT_LANE) * Sp::kW, RT_LANES * Sp::kW, inv,
+               own RT_STEPG(sidx, sval) RT_ROWC(cols) RT_ROWQ(q, g, ainv),
+               out);
+#pragma unroll
+      for (int j = 0; j < kK; ++j) lp_t += out[j];
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        if (g > 0) RT_WARP_SYNC();
+        rt_scatter_steps<kK, kG>(ainv, sidx, sval, g);
+      }
+      RT_WARP_SYNC();
+    }
+  }
+  for (; r0 < rows; r0 += RT_LANES) {
     const int r = r0 + RT_LANE;
     int sidx[kG];
     float sval[kG];
@@ -947,8 +1159,10 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
       lp_t += rt_row_at<S>(slot + r * Sp::kW, inv, own, sidx, sval, cols, q,
                            g, ainv);
 #pragma unroll
-    for (int g = 0; g < RtGathers<S>::value; ++g)
+    for (int g = 0; g < RtGathers<S>::value; ++g) {
+      if (g > 0) RT_WARP_SYNC();
       rt_scatter(ainv, sidx[g], sval[g]);
+    }
     RT_WARP_SYNC();
   }
 #else
@@ -966,12 +1180,35 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
   for (int l = 0; l < RT_LANES; ++l)
     for (int k = 0; k < RT_NINV_DENSE; ++k)
       lanes[(size_t)l * RT_LANE_COPY + k] = 0.0f;
-  if (RT_ROW_STEPS && RtGathers<S>::value == 0) {
+  if constexpr (RT_ROW_STEPS && RtGathers<S>::value == 0) {
     for (int l = 0; l < RT_LANES; ++l)
       rt_lane_rows<S>(slot, rows, l, inv, lanes + (size_t)l * RT_LANE_COPY,
                       lp_t[l], cols, q, g, ainv);
   } else {
-    for (int r0 = 0; r0 < rows; r0 += RT_LANES) {
+    int r0 = 0;
+    if constexpr (Sp::kStep > 1 && RtGathers<S>::value > 0) {
+      enum { kK = Sp::kStep };
+      for (; r0 + kK * RT_LANES <= rows; r0 += kK * RT_LANES) {
+        int sidx[kG][kK][RT_LANES];
+        float sval[kG][kK][RT_LANES];
+        for (int l = 0; l < RT_LANES; ++l) {
+          int si[kK * kG];
+          float sv[kK * kG], out[kK];
+          Sp::step(slot + (r0 + l) * Sp::kW, RT_LANES * Sp::kW, inv,
+                   lanes + (size_t)l * RT_LANE_COPY RT_STEPG(si, sv)
+                       RT_ROWC(cols) RT_ROWQ(q, g, ainv),
+                   out);
+          for (int j = 0; j < kK; ++j) {
+            lp_t[l] += out[j];
+            for (int g = 0; g < kG; ++g)
+              sidx[g][j][l] = si[j * kG + g], sval[g][j][l] = sv[j * kG + g];
+          }
+        }
+        for (int g = 0; g < kG; ++g)
+          rt_scatter_steps<kK>(ainv, sidx[g], sval[g]);
+      }
+    }
+    for (; r0 < rows; r0 += RT_LANES) {
       int sidx[kG][RT_LANES];
       float sval[kG][RT_LANES];
       for (int l = 0; l < RT_LANES; ++l) {
@@ -1337,21 +1574,32 @@ static inline bool rt_threads_ok(int threads) {
          threads <= RT_MAX_THREADS;
 }
 
-// the floats of a block's shared memory before its staged matrices: its
-// chains' slots, or one tile slot, two when streaming; one for a space
-// loaded once a launch (RT_RESIDENT, which leaves room for two of
-// GLMMPoisson2's blocks on an SM, where its 136 blocks of a density check
-// would otherwise run in two waves)
-RT_HD int rt_smem_floats(int threads, int stream_cols) {
+// the floats of a block's chain slots in its shared memory (RT_WS_SHARED;
+// none otherwise), which come first
+RT_HD int rt_slot_floats(int threads) {
 #ifdef RT_WS_SHARED
-  (void)stream_cols;
   return threads / RT_LANES * RT_SLOT_STRIDE;
-#elif defined(RT_RESIDENT)
-  (void)threads, (void)stream_cols;
-  return RT_TILE_FLOATS;
 #else
   (void)threads;
-  return (stream_cols ? 2 : 1) * RT_TILE_FLOATS;
+  return 0;
+#endif
+}
+
+// the floats of a block's shared memory before its staged matrices: its
+// chains' slots where they lie there, then, for a model with rows, one
+// tile slot, two when streaming; one for a space loaded once a launch
+// (RT_RESIDENT, which leaves room for two of GLMMPoisson2's blocks on an
+// SM, its slots beside the tile, where its 136 blocks of a density check
+// would otherwise run in two waves)
+RT_HD int rt_smem_floats(int threads, int stream_cols) {
+#if RT_ROW_W == 0
+  (void)stream_cols;
+  return rt_slot_floats(threads);
+#elif defined(RT_RESIDENT)
+  (void)stream_cols;
+  return rt_slot_floats(threads) + RT_TILE_FLOATS;
+#else
+  return rt_slot_floats(threads) + (stream_cols ? 2 : 1) * RT_TILE_FLOATS;
 #endif
 }
 
@@ -1412,26 +1660,28 @@ __global__ void __launch_bounds__(RT_MAX_THREADS)
                      int n_iterations, int n_steps, int collect_every,
                      const int* collect_pos, int n_collect, uint32_t seed,
                      RtCols cols, RtRows rows, float* ws) {
-  extern __shared__ float tile[];
-  rt_stage(cols, tile, kStream);
+  extern __shared__ float smem[];
+  float* tile = smem + rt_slot_floats(blockDim.x);
+  rt_stage(cols, smem, kStream);
   rt_resident(cols, rows, tile);
   const int s = rt_chain_slot();
   rt_hmc_chain(s, n, q0, scale, scale_per_chain, eps, p_noise, u_noise, qf,
                samples, acc, div, n_iterations, n_steps, collect_every,
                collect_pos, n_collect, seed, cols, rows, kStream, tile,
-               rt_slot(ws, tile, s));
+               rt_slot(ws, smem, s));
 }
 
 template <int kStream>
 __global__ void __launch_bounds__(RT_MAX_THREADS)
     logp_grad_kernel(int n, const float* q, float* lp, float* g,
                      RtCols cols, RtRows rows, float* ws) {
-  extern __shared__ float tile[];
-  rt_stage(cols, tile, kStream);
+  extern __shared__ float smem[];
+  float* tile = smem + rt_slot_floats(blockDim.x);
+  rt_stage(cols, smem, kStream);
   rt_resident(cols, rows, tile);
   const int s = rt_chain_slot();
   rt_logp_grad_chain(s, n, q, lp, g, cols, rows, kStream, tile,
-                     rt_slot(ws, tile, s));
+                     rt_slot(ws, smem, s));
 }
 
 #ifdef RT_ROW_CONSTS

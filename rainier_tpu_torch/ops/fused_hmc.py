@@ -32,11 +32,12 @@ sums met once a density call by an xor butterfly that leaves the same
 bits in every lane; a block holds ``chains_per_block`` such warps, which all read each
 tile.  Up to ``emit_cuda.LANE_STATE_MAX`` parameters and row-invariant
 values every lane holds the whole chain state and runs the rest of the
-iteration redundantly; past it (GLMMPoisson2, 146 parameters;
-``benchmarks/models.py::glmm_large``, 10,002) each chain's arrays live in
-a workspace that this wrapper allocates with ``torch.empty``, one slot a
-chain, the ragged edge's copies included, and every pass over them is
-split over the lanes.  X·β and its adjoint are f32 multiply-adds in the
+iteration redundantly; past it each chain's arrays live in a slot, and
+every pass over them is split over the lanes: in the block's shared
+memory where a block's slots fit beside its tiles (GLMMPoisson2, 146
+parameters: ``emit_cuda.shared_slot``), else in a workspace that this
+wrapper allocates with ``torch.empty``, one slot a chain, the ragged
+edge's copies included (``benchmarks/models.py::glmm_large``, 10,002).  X·β and its adjoint are f32 multiply-adds in the
 kernel's body, on the CUDA cores.  An integer index column
 (``IntColumn``, the GLMMs' site and year) is an int32 field of the tile;
 a ``Gather`` by it reads the chain's row-invariant vector at a clamped
@@ -44,7 +45,9 @@ per-row index, and its adjoint adds there (``mode="clip"`` of the JAX
 kernel's gather, hmc_pallas.py:157 with
 rainier_tpu/compute/interp.py:379-383), in a fixed order without
 atomics: into each lane's own copy, summed over the lanes once a density
-call, or, over the workspace, added by the warp row step by row step.
+call, or, over a slot, added by the warp step by step, a fixed tree over
+the lanes of one entry, several steps at once over a slot in device
+memory.
 A density that reads a vector whole (the L·z of an ``MVNormal`` past 16
 dimensions, the source of a gather by an index column read whole) holds
 it in a scratch array of ``EmittedDensity.scratch`` floats, in the
@@ -85,9 +88,9 @@ of many operations and few floats is summed four rows a lane's step,
 their dependent chains overlapping; and the lanes' sums meet once a
 density call.  Larger columns (the 2M-row logistic's 88 MB) come from
 device memory in every density call; its 512 chains run 4 to a block,
-so that 128 blocks keep the SMs busy.  A workspace model is bound by the
-latency of its passes over the slot (about 23 a density call) and of its
-rows' gathers and scatters there.  PERF.md holds every kernel's time
+so that 128 blocks keep the SMs busy.  A slot model is bound by the
+latency of its rows' scatters and gathers and of its passes over the
+slot (about 23 a density call).  PERF.md holds every kernel's time
 beside its bound.
 
 A row's additive terms that read only the data (a count likelihood's

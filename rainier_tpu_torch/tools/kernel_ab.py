@@ -10,7 +10,7 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 rainier_tpu_torch/tools/kernel_ab.py row-sums
     python3 rainier_tpu_torch/tools/kernel_ab.py plain LABEL
     python3 rainier_tpu_torch/tools/kernel_ab.py stream
-    python3 rainier_tpu_torch/tools/kernel_ab.py tiles LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py tiles LABEL [MODEL ...]
     python3 rainier_tpu_torch/tools/kernel_ab.py lanes
     python3 rainier_tpu_torch/tools/kernel_ab.py layouts
     python3 rainier_tpu_torch/tools/kernel_ab.py adapt
@@ -20,7 +20,10 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 rainier_tpu_torch/tools/kernel_ab.py gp-layouts LABEL
     python3 rainier_tpu_torch/tools/kernel_ab.py zoo STEPS DRAWS DTYPE [FAMILY ...]
     python3 rainier_tpu_torch/tools/kernel_ab.py split LABEL [MODEL ...]
-    python3 rainier_tpu_torch/tools/kernel_ab.py tile-sizes LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py tile-sizes LABEL [MODEL ...]
+    python3 rainier_tpu_torch/tools/kernel_ab.py gather-steps LABEL [MODEL ...]
+    python3 rainier_tpu_torch/tools/kernel_ab.py gather-paths LABEL [MODEL ...]
+    python3 rainier_tpu_torch/tools/kernel_ab.py eadd-select LABEL [DIR]
     python3 rainier_tpu_torch/tools/kernel_ab.py steps LABEL [MODEL ...]
     python3 rainier_tpu_torch/tools/kernel_ab.py loaders LABEL
     python3 rainier_tpu_torch/tools/kernel_ab.py lse LABEL
@@ -60,7 +63,7 @@ the import finds, as ``plain`` does: run it with another checkout's root
 on PYTHONPATH and with this one's, in turns, to compare two trees; then
 each model's density alone (``rt_logp_grad_launch``) at CHECK_POINTS
 states (its CHAINS states, then the first of them again: the shape of
-chip_smoke.py's density checks).
+chip_smoke.py's density checks); or only the models named after LABEL.
 Prints one line per model tagged LABEL, with its tile's rows and
 whether the launch streamed.
 
@@ -142,7 +145,12 @@ the 100k logistic, 1024 chains × SPLIT_ITERS iterations), each built from
 a copy of ``csrc/`` with one part removed (``SPLIT_PARTS``: the tile fill
 past the first two tiles, the rows, the butterflies, the tile loop's
 barriers), each loop as its launch decides, in the order base, parts,
-parts reversed, base.  The copies patch whichever tree the import finds
+parts reversed, base.  The slot models (``SLOT_MODELS``: GLMMPoisson2 and
+glmm_large, named after LABEL, apart from the others) are split into
+``SLOT_SPLIT``'s parts instead: the passes over the chain's state, its
+rows' row-invariant passes, the clears of its gathered adjoints, the
+rows, their scatters and the warp barrier after each step, and, in a
+tree whose scatters merge several steps, that merge (``SLOT_SPLIT_STEPS``).  The copies patch whichever tree the import finds
 (the one before the row loop's redesign or a later one), as ``row-sums``
 does.  Models named after LABEL (the three, or any of the zoo's of
 ``tiles``, such as ``zoo neg_binomial``, at HMC(4)) are split in place
@@ -155,6 +163,33 @@ at most 256, 1024 and 4096 rows (``emit_cuda.TILE_ROWS_MAX`` replaced for
 their emission; each takes the size rule's tile under it), in the order
 256 1024 4096 4096 1024 256, each loop as its launch decides, each with
 its density alone at CHECK_POINTS states.
+
+``gather-steps``: the slot models (``SLOT_MODELS``: GLMMPoisson2 and
+glmm_large, or those named after LABEL) with their rows over a slot in
+device memory run 1, 2, 4 and 8 steps of 32 at once
+(``emit_cuda.GATHER_STEP`` replaced for their emission), GLMMPoisson2 as
+emitted (its slot in shared memory, one step) and with its slot in
+device memory (``LOCAL_STATE_MAX`` 0 for its emission) at 1 and 4 steps,
+each at TILE_ITERS iterations, in the order of ``GATHER_LAYOUTS`` and
+back, with its density alone at CHECK_POINTS states.  Merged steps add
+an entry's step sums before it, so the bits may differ from one step's:
+each run prints its accept rate and whether it has the bits of the
+first run in its memory.
+
+``gather-paths``: the slot models (or those named after LABEL) built
+from ``csrc/`` as it stands and from a copy without the scatter's paths
+for indices that run in lane and row order (``GENERAL_PATHS``: every
+step through ``__match_any_sync``, every merge through the loop over the
+leaders), TILE_ITERS iterations, in the order A B B A, each held to the
+first run's bits, with its density alone at CHECK_POINTS states.
+
+``eadd-select``: the index column read whole (``chip_smoke.py``'s form,
+3 entries, at 301 and 100,000 rows) with its adjoint sums as emitted
+(``RT_EADD`` adding at the entry of a per-thread array) and as a select
+over the entries (``EADD_SELECT``, a copy of ``csrc/rt_math.cuh``), the
+density at 64 points against the plain version, and each build's PTX
+(``rt.inspection.ptx``) and SASS (``cuobjdump -sass``) of the 301-row
+model written to DIR (default ``profiles/eadd``, which git ignores).
 
 ``steps``: the kernels of the mixture, the zoo's negative binomial,
 large Poisson and zero-inflated geometric, the README regression, the
@@ -282,6 +317,26 @@ def _unsynced(text):
     return text.replace("      RT_TILE_SYNC();\n", "")
 
 
+# the passes over a slot's state: (loop variable, count, what follows)
+_STATE_PASSES = (
+    ("k", "RT_GROUPS", " {\n        uint32_t w[4]"),
+    ("d", "RT_DIM", " {\n    p[d] = p[d] + h * rt_gs(g, sc, d);"),
+    ("d", "RT_DIM", " {\n    p[d] = p[d] + eps * rt_gs(gn, sc, d);"),
+    ("d", "RT_DIM", " RT_PASS_ADD(k, d, p[d] * p[d]);"),
+    ("d", "RT_DIM", " {\n    p[d] = p[d] + h * rt_gs(gn, sc, d);"),
+    ("d", "RT_DIM", " {\n    q[d] = qn[d];"))
+# a step's scatters over the workspace, and the warp barrier after them:
+# before the slot's redesign (_SCATTER, _ROW_SYNC), and after it, one step
+# and several at a time (_SCATTER_1, _SCATTER_K, each with its barrier)
+_SCATTER = ("    for (int g = 0; g < RtGathers<S>::value; ++g)\n"
+            "      rt_scatter(ainv, sidx[g], sval[g]);\n")
+_ROW_SYNC = "    RT_WARP_SYNC();\n"
+_SCATTER_1 = ("      rt_scatter(ainv, sidx[g], sval[g]);\n    }\n"
+              "    RT_WARP_SYNC();\n")
+_SCATTER_K = ("        rt_scatter_steps<kK, kG>(ainv, sidx, sval, g);\n"
+              "      }\n      RT_WARP_SYNC();\n")
+
+
 SPLIT_PARTS = {
     "no fill": [
         [(fill, "      if (row0 == 0)\n  " + fill),
@@ -310,7 +365,45 @@ SPLIT_PARTS = {
     "no barriers": [
         [(_SYNC_ROWS, _unsynced(_SYNC_ROWS)),
          (_STREAM_ROWS, _unsynced(_STREAM_ROWS))]],
+    # the parts of a slot model's density call and iteration (SLOT_SPLIT)
+    "no state passes": [[(f"  RT_FOR({d}, {n}){rest}",
+                          f"  RT_FOR({d}, 0){rest}")
+                         for d, n, rest in _STATE_PASSES]],
+    "no pre/post": [
+        [("  rt_rows_pre(x, inv RT_WHOLE(cols) RT_SCR(scr));\n", ""),
+         ("  rt_rows_post(x, ainv, g RT_WHOLE(cols) RT_SCR(scr));\n", "")]],
+    "no clears": [[("  rt_gathered_zero(lanes, ainv);\n", "")]],
+    "no scatters": [[(_SCATTER, _SCATTER.replace(
+        "rt_scatter(ainv, sidx[g], sval[g])", "lp_t += 0.0f * sval[g]"))],
+                    [(_SCATTER_1, _SCATTER_1.replace(
+                        "rt_scatter(ainv, sidx[g], sval[g])",
+                        "lp_t += 0.0f * sval[g]")),
+                     (_SCATTER_K, _SCATTER_K.replace(
+                         "rt_scatter_steps<kK, kG>(ainv, sidx, sval, g)",
+                         "for (int j = 0; j < kK; ++j) "
+                         "lp_t += 0.0f * sval[j * kG + g]"))]],
+    "no merge": [[("  if (runs) {\n", "  if (false) {\n"),
+                  ("  } else {\n#pragma unroll\n    for (int j = 1; j < kK;",
+                   "  } else if (false) {\n#pragma unroll\n"
+                   "    for (int j = 1; j < kK;")]],
+    "no row syncs": [[(_SCATTER + _ROW_SYNC, _SCATTER)],
+                     [(_SCATTER_1, _SCATTER_1.replace(_ROW_SYNC, "")),
+                      (_SCATTER_K, _SCATTER_K.replace(
+                          "      RT_WARP_SYNC();\n", ""))]],
 }
+# ``split`` of a model whose chain state lies in a slot (SLOT_MODELS):
+# the passes over the state (the momenta, kicks, drifts, p·p and the
+# accept's copy), rt_rows_pre and rt_rows_post, the clears of the
+# gathered adjoints, the rows, their scatters and the warp barrier after
+# each step, each removed in a build of its own; the other models'
+# parts are ROW_SPLIT
+ROW_SPLIT = ("no fill", "no rows", "no butterfly", "no barriers")
+SLOT_SPLIT = ("no state passes", "no pre/post", "no clears", "no rows",
+              "no scatters", "no row syncs")
+# after the slot's redesign, also the merge of several steps' scatters
+# (rt_scatter_steps), removed where the tree has it
+SLOT_SPLIT_STEPS = (*SLOT_SPLIT, "no merge")
+SLOT_MODELS = ("GLMMPoisson2", "glmm_large")
 # the five forms that ``forms`` times: (iterations, leapfrog steps) at
 # PERF.md §6's shapes, the launches each timed over, and the scan-path
 # warmup iterations of HMC(5) their states come from
@@ -456,52 +549,71 @@ def _laplace_start(design, ys, n, device):
                             device=device))
 
 
-def _register_runs(device):
+def _register_runs(device, want=("README regression", "logistic regression",
+                                 "GLMMPoisson2")):
     """{name: (model, (q0, ε, Σ̂), iterations, leapfrog steps)} for the
     README regression, the 100k-row logistic regression and GLMMPoisson2
-    at CHAINS chains."""
+    at CHAINS chains, those of them in `want`."""
     import chip_smoke as cs
     import rainier_tpu_torch as rt
 
-    readme = cs.readme_regression(rt)[0]
-    logit, x, ys = cs.logistic_regression(rt)
-    glmm = cs.glmm_poisson(rt)
-    return {
-        "README regression": (readme, _warm(readme, CHAINS, device), 1000,
-                              5),
-        "logistic regression": (logit, _laplace_start(
-            cs.logistic_design(x), ys, CHAINS, device), 100, 5),
-        "GLMMPoisson2": (glmm, _warm(glmm, CHAINS, device), 1000, 5)}
+    runs = {}
+    if "README regression" in want:
+        readme = cs.readme_regression(rt)[0]
+        runs["README regression"] = (readme, _warm(readme, CHAINS, device),
+                                     1000, 5)
+    if "logistic regression" in want:
+        logit, x, ys = cs.logistic_regression(rt)
+        runs["logistic regression"] = (logit, _laplace_start(
+            cs.logistic_design(x), ys, CHAINS, device), 100, 5)
+    if "GLMMPoisson2" in want:
+        glmm = cs.glmm_poisson(rt)
+        runs["GLMMPoisson2"] = (glmm, _warm(glmm, CHAINS, device), 1000, 5)
+    return runs
 
 
-def _row_runs(device):
+def _row_runs(device, names=()):
     """{name: (model, (q0, ε, Σ̂), iterations, leapfrog steps)} for every
-    model with rows that chip_smoke.py drives: CHAINS chains and
-    TILE_ITERS iterations of HMC(5), the 2M-row logistic CHAINS_2M chains
-    and ITERS_2M of HMC(8)."""
+    model with rows that chip_smoke.py drives, or those of them `names`
+    names: CHAINS chains and TILE_ITERS iterations of HMC(5), the 2M-row
+    logistic CHAINS_2M chains and ITERS_2M of HMC(8)."""
     import chip_smoke as cs
     import rainier_tpu_torch as rt
 
+    every = (*TILE_ITERS, "logistic regression 2M")
+    want = set(names or every)
+    unknown = want - set(every)
+    if unknown:
+        raise SystemExit(f"kernel_ab: no model {sorted(unknown)}")
     runs = {name: (model, start, TILE_ITERS[name], 5) for name, (
-        model, start, _, _) in _register_runs(device).items()}
-    logit, x, ys = cs.logistic_regression(rt)
-    mv, alpha, betas = cs.mvnormal_logistic(rt, x, ys)
-    runs["MVNormal logistic"] = (mv, _laplace_start(
-        cs.mv_design(mv.density(), x, alpha, betas), ys, CHAINS, device),
-        TILE_ITERS["MVNormal logistic"], 5)
-    runs["logistic regression, two row spaces"] = (
-        cs.split_logistic(rt, x, ys), runs["logistic regression"][1],
-        TILE_ITERS["logistic regression, two row spaces"], 5)
-    large = cs.glmm_large(rt)
-    runs["glmm_large"] = (large, _warm(large, CHAINS, device),
-                          TILE_ITERS["glmm_large"], 5)
-    for name, model in _more_row_models(rt, cs, device).items():
+        model, start, _, _) in _register_runs(device, want).items()}
+    if want & {"MVNormal logistic", "logistic regression, two row spaces"}:
+        logit, x, ys = cs.logistic_regression(rt)
+        start = _laplace_start(cs.logistic_design(x), ys, CHAINS, device)
+    if "MVNormal logistic" in want:
+        mv, alpha, betas = cs.mvnormal_logistic(rt, x, ys)
+        runs["MVNormal logistic"] = (mv, _laplace_start(
+            cs.mv_design(mv.density(), x, alpha, betas), ys, CHAINS,
+            device), TILE_ITERS["MVNormal logistic"], 5)
+    if "logistic regression, two row spaces" in want:
+        runs["logistic regression, two row spaces"] = (
+            cs.split_logistic(rt, x, ys), start,
+            TILE_ITERS["logistic regression, two row spaces"], 5)
+    if "glmm_large" in want:
+        large = cs.glmm_large(rt)
+        runs["glmm_large"] = (large, _warm(large, CHAINS, device),
+                              TILE_ITERS["glmm_large"], 5)
+    more = [n for n in want if n.startswith(
+        ("MVNormal logistic 32", "marginalized", "zoo "))]
+    for name, model in (_more_row_models(rt, cs, device, more).items()
+                        if more else ()):
         runs[name] = (model, _start(model, name, device), TILE_ITERS[name],
                       TILE_STEPS.get(name, 5))
-    logit2m, x2, ys2 = cs.logistic_regression(rt, ROWS_2M)
-    runs["logistic regression 2M"] = (logit2m, _laplace_start(
-        cs.logistic_design(x2), ys2, CHAINS_2M, device), ITERS_2M, 8)
-    return runs
+    if "logistic regression 2M" in want:
+        logit2m, x2, ys2 = cs.logistic_regression(rt, ROWS_2M)
+        runs["logistic regression 2M"] = (logit2m, _laplace_start(
+            cs.logistic_design(x2), ys2, CHAINS_2M, device), ITERS_2M, 8)
+    return {name: runs[name] for name in every if name in runs}
 
 
 def _more_row_models(rt, cs, device, names=None):
@@ -614,11 +726,11 @@ def row_sums() -> None:
                        {name: built[label, name]})
 
 
-def tiles(label: str) -> None:
+def tiles(label: str, names=()) -> None:
     import torch
 
     device = torch.device(DEVICE)
-    runs = _row_runs(device)
+    runs = _row_runs(device, names)
     _build_runs(runs)
     _time_runs(runs, device, f"tiles {label}")
     for name, (model, (q0, _, _), _, _) in runs.items():
@@ -636,20 +748,20 @@ def _check_points(q0):
                      1).contiguous() if q0.shape[1] < CHECK_POINTS else q0
 
 
-def _variant_csrc(csrc, tmp, changes):
+def _variant_csrc(csrc, tmp, changes, name="fused_hmc.cu"):
     """A copy of the sources `csrc` in `tmp` with `changes` (SPLIT_PARTS'
-    alternatives) applied to fused_hmc.cu: the first alternative whose
-    texts the tree holds."""
+    alternatives) applied to the source `name`: the first alternative
+    whose texts the tree holds."""
     d = Path(tmp)
     shutil.copytree(csrc, d)
-    src = (d / "fused_hmc.cu").read_text()
+    src = (d / name).read_text()
     for alt in changes:
         if all(src.count(old) == 1 for old, _ in alt):
             for old, new in alt:
                 src = src.replace(old, new)
-            (d / "fused_hmc.cu").write_text(src)
+            (d / name).write_text(src)
             return d
-    raise RuntimeError(f"fused_hmc.cu holds none of {changes!r}")
+    raise RuntimeError(f"{name} holds none of {changes!r}")
 
 
 def _run_kernel(F, cd, start, n_it, n_steps, device, reps=3, stream=None):
@@ -682,10 +794,21 @@ def split(label: str, names=()) -> None:
         models["logistic regression"] = logit
         starts["logistic regression"] = _laplace_start(
             cs.logistic_design(x), ys, CHAINS, device)
+    for name, make in (("GLMMPoisson2", cs.glmm_poisson),
+                       ("glmm_large", cs.glmm_large)):
+        if name in names:
+            models[name] = make(rt)
+            starts[name] = _warm(models[name], CHAINS, device)
     unknown = set(names) - set(models)
     if unknown:
         raise SystemExit(f"kernel_ab split: no model {sorted(unknown)}")
-    builds = ("base", *SPLIT_PARTS)
+    slot = set(names) <= set(SLOT_MODELS)
+    if not slot and set(names) & set(SLOT_MODELS):
+        raise SystemExit("kernel_ab split: the slot models "
+                         f"{SLOT_MODELS} are split apart from the others")
+    steps = "rt_scatter_steps" in (F.CSRC / "fused_hmc.cu").read_text()
+    builds = ("base", *((SLOT_SPLIT_STEPS if steps else SLOT_SPLIT)
+                        if slot else ROW_SPLIT))
     csrc = F.CSRC
     built = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -725,7 +848,7 @@ TILE_SIZE_MODELS = (*SPLIT_MODELS, "GLMMPoisson2", "glmm_large")
 TILE_SIZES = (256, 1024, 4096, 4096, 1024, 256)
 
 
-def tile_sizes(label: str) -> None:
+def tile_sizes(label: str, names=()) -> None:
     import torch
 
     import chip_smoke as cs
@@ -744,8 +867,9 @@ def tile_sizes(label: str) -> None:
             return cs.glmm_large(rt)
         return _more_row_models(rt, cs, device, [name])[name]
 
+    names = tuple(names) or TILE_SIZE_MODELS
     runs, starts = {}, {}
-    for name in TILE_SIZE_MODELS:
+    for name in names:
         for most in dict.fromkeys(TILE_SIZES):
             model = build(name)
             if name not in starts:
@@ -756,7 +880,7 @@ def tile_sizes(label: str) -> None:
             _emit_as(model.density(), {"TILE_ROWS_MAX": most})
             runs[name, most] = (model, starts[name])
     _build_runs(runs)
-    for name in TILE_SIZE_MODELS:
+    for name in names:
         for most in TILE_SIZES:
             model, start = runs[name, most]
             out, ms, streamed = _run_kernel(F, model.density(), start,
@@ -769,6 +893,164 @@ def tile_sizes(label: str) -> None:
                   f"{ms:.3f} ms, {'streamed' if streamed else 'synchronous'}",
                   flush=True)
             _density_alone(model, _check_points(start[0]), device, tag)
+
+
+# ``gather-steps``: each slot model's layouts, (steps at once, the slot
+# in shared memory where it fits), in order
+GATHER_LAYOUTS = {"GLMMPoisson2": ((1, True), (1, False), (4, False)),
+                  "glmm_large": ((1, False), (2, False), (4, False),
+                                 (8, False))}
+
+
+def gather_steps(label: str, names=()) -> None:
+    import torch
+
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    device = torch.device(DEVICE)
+    make = {"GLMMPoisson2": cs.glmm_poisson, "glmm_large": cs.glmm_large}
+    names = tuple(names) or SLOT_MODELS
+    runs, starts = {}, {}
+    for name in names:
+        for k, shared in GATHER_LAYOUTS[name]:
+            model = make[name](rt)
+            if name not in starts:
+                starts[name] = _warm(model, CHAINS, device)
+            _emit_as(model.density(), {
+                "GATHER_STEP": k,
+                **({} if shared else {"LOCAL_STATE_MAX": 0})})
+            runs[name, k, shared] = (model, starts[name])
+    _build_runs(runs)
+    for name in names:
+        order = GATHER_LAYOUTS[name]
+        first = {}
+        for k, shared in (*order, *order[::-1]):
+            model, start = runs[name, k, shared]
+            em = F.emit_cuda.emit(model.density())
+            out, ms, streamed = _run_kernel(F, model.density(), start,
+                                            TILE_ITERS[name], 5, device)
+            out = [x if x is None else x.clone() for x in out]
+            first.setdefault(em.shared, out)
+            tag = (f"gather-steps {label} {name}, {k} steps at once, slot "
+                   f"in {'shared' if em.shared else 'device'} memory")
+            print(f"RESULT {tag}: {CHAINS} chains x {TILE_ITERS[name]} it "
+                  f"{ms:.3f} ms, "
+                  f"{'streamed' if streamed else 'synchronous'}, accept "
+                  f"{float(out[2].mean()):.4f}, the bits of the first run "
+                  f"in that memory {_same_bits(out, first[em.shared])}",
+                  flush=True)
+            _density_alone(model, _check_points(start[0]), device, tag)
+
+
+# ``gather-paths``: the scatter without its paths for indices that run in
+# lane order (rt_group_sum) and in row order (rt_scatter_steps)
+GENERAL_PATHS = [[("  if (sorted || (__popc(down) == 1 && k31 < k0)) {\n",
+                   "  if (false) {\n"),
+                  ("  if (runs) {\n", "  if (false) {\n")]]
+
+
+def gather_paths(label: str, names=()) -> None:
+    import torch
+
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+    from rainier_tpu_torch.compute import emit_cuda
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    device = torch.device(DEVICE)
+    make = {"GLMMPoisson2": cs.glmm_poisson, "glmm_large": cs.glmm_large}
+    names = tuple(names) or SLOT_MODELS
+    models = {name: make[name](rt) for name in names}
+    starts = {name: _warm(m, CHAINS, device) for name, m in models.items()}
+    builds, csrc, built = ("as built", "general paths"), F.CSRC, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for what in builds:
+            F.CSRC = csrc if what == builds[0] else _variant_csrc(
+                csrc, Path(tmp) / "general", GENERAL_PATHS)
+            cds = [models[name].density() for name in names]
+            for cd in cds:
+                F._BUILT.pop(cd, None)
+            with ThreadPoolExecutor(len(cds)) as pool:
+                for name, b in zip(names, pool.map(_build, cds)):
+                    built[what, name] = b
+        F.CSRC = csrc
+    for name in names:
+        cd, first = models[name].density(), None
+        for what in (*builds, *builds[::-1]):
+            kernels, _, em = built[what, name]
+            F._BUILT[cd] = {emit_cuda.LANES: (kernels, em)}
+            out, ms, streamed = _run_kernel(F, cd, starts[name],
+                                            TILE_ITERS[name], 5, device)
+            out = [x if x is None else x.clone() for x in out]
+            first = out if first is None else first
+            tag = f"gather-paths {label} {name}, {what}"
+            print(f"RESULT {tag}: {CHAINS} chains x {TILE_ITERS[name]} it "
+                  f"{ms:.3f} ms, accept {float(out[2].mean()):.4f}, the "
+                  f"bits of the first run {_same_bits(out, first)}",
+                  flush=True)
+            _density_alone(models[name], _check_points(starts[name][0]),
+                           device, tag)
+
+
+# ``eadd-select``: the index column's adjoint sums by entry as a select
+# over the entries, on the card and in host code (csrc/rt_math.cuh)
+EADD_SELECT = [[
+    ("#define RT_EADD(name, k, i, j, v) name[j] += (v)\n",
+     "#define RT_EADD(name, k, i, j, v) \\\n"
+     "  _Pragma(\"unroll\") for (int e_ = 0; e_ < (k); ++e_) \\\n"
+     "    name[e_] += e_ == (j) ? (double)(v) : 0.0\n"),
+    ("#define RT_EADD(name, k, i, j, v) name##_l[(i) % RT_LANES][j] += (v)\n",
+     "#define RT_EADD(name, k, i, j, v) \\\n"
+     "  for (int e_ = 0; e_ < (k); ++e_) \\\n"
+     "    name##_l[(i) % RT_LANES][e_] += e_ == (j) ? (double)(v) : 0.0\n")]]
+EADD_ROWS, EADD_POINTS = (301, 100_000), 64
+
+
+def eadd_select(label: str, out_dir: str = "profiles/eadd") -> None:
+    import subprocess
+
+    import torch
+
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    device = torch.device(DEVICE)
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    csrc = F.CSRC
+    with tempfile.TemporaryDirectory() as tmp:
+        for what in ("as emitted", "select"):
+            F.CSRC = csrc if what == "as emitted" else _variant_csrc(
+                csrc, Path(tmp) / "select", EADD_SELECT, "rt_math.cuh")
+            for rows in EADD_ROWS:
+                cs.FORM_ROWS, cs.FORM_GROUPS = rows, 3
+                model = cs.form_models(rt)["index column read whole"][0]
+                cd = model.density()
+                _build(cd)
+                q = torch.as_tensor(np.random.default_rng(0).normal(
+                    size=(cd.n_vars, EADD_POINTS)), dtype=torch.float32,
+                    device=device)
+                lp, g = F.logp_grad(cd, q)
+                lpp, gp = F.logp_grad_reference(cd, q)
+                print(f"RESULT eadd-select {label} {what}, {rows} rows: max "
+                      f"|dlp| {float((lp - lpp).abs().max()):.3e}, max |dg| "
+                      f"/ max |g| "
+                      f"{float((g - gp).abs().max() / gp.abs().max()):.3e}; "
+                      f"g of point 0 {g[:, 0].tolist()}, plain "
+                      f"{gp[:, 0].tolist()}", flush=True)
+                if rows != EADD_ROWS[0]:
+                    continue
+                stem = Path(out_dir) / f"eadd_{what.replace(' ', '_')}"
+                stem.with_suffix(".ptx").write_text(rt.inspection.ptx(model))
+                # the library just built: the newest in the build directory
+                so = max(F.BUILD_DIR.glob("*.so"),
+                         key=lambda f: f.stat().st_mtime)
+                stem.with_suffix(".sass").write_text(subprocess.run(
+                    [str(Path(F._nvcc()).parent / "cuobjdump"), "-sass",
+                     str(so)], capture_output=True, text=True).stdout)
+        F.CSRC = csrc
 
 
 # ``steps``: the models and the rows a step each is timed at, in order
@@ -1674,8 +1956,8 @@ def main(argv) -> int:
         plain(argv[1])
     elif argv[:1] == ["stream"]:
         stream()
-    elif argv[:1] == ["tiles"] and len(argv) == 2:
-        tiles(argv[1])
+    elif argv[:1] == ["tiles"] and len(argv) >= 2:
+        tiles(argv[1], argv[2:])
     elif argv[:1] == ["lanes"]:
         lanes()
     elif argv[:1] == ["layouts"]:
@@ -1692,8 +1974,14 @@ def main(argv) -> int:
         gp_layouts(argv[1])
     elif argv[:1] == ["split"] and len(argv) >= 2:
         split(argv[1], argv[2:])
-    elif argv[:1] == ["tile-sizes"] and len(argv) == 2:
-        tile_sizes(argv[1])
+    elif argv[:1] == ["tile-sizes"] and len(argv) >= 2:
+        tile_sizes(argv[1], argv[2:])
+    elif argv[:1] == ["gather-steps"] and len(argv) >= 2:
+        gather_steps(argv[1], argv[2:])
+    elif argv[:1] == ["gather-paths"] and len(argv) >= 2:
+        gather_paths(argv[1], argv[2:])
+    elif argv[:1] == ["eadd-select"] and len(argv) in (2, 3):
+        eadd_select(*argv[1:])
     elif argv[:1] == ["steps"] and len(argv) >= 2:
         steps(argv[1], argv[2:])
     elif argv[:1] == ["loaders"] and len(argv) == 2:

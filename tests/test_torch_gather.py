@@ -21,6 +21,8 @@ its reason at each assertion:
   emitter's caps.
 """
 
+import re
+
 import numpy as np
 import pytest
 from scipy.stats import poisson
@@ -441,7 +443,12 @@ def test_caps_refuse_larger_models_naming_the_size(monkeypatch):
     glmm_large = glmm_poisson(rtt, 10_000, 1)[0]
     em = emit_cuda.emit(glmm_large.density())
     assert em.n_vars == 10_007 and em.n_inv == 10_004 and em.workspace
-    assert len(em.source.splitlines()) < 400       # loops, not unrolled
+    # loops, not unrolled; the rows' step function holds the row's body
+    # once for each of its GATHER_STEP rows
+    step_fn = re.search(r"RT_HD void rt_row_step\(.*?\n}\n", em.source,
+                        re.S).group(0)
+    assert len(em.source.replace(step_fn, "").splitlines()) < 400
+    assert len(step_fn.splitlines()) < 60 * emit_cuda.GATHER_STEP
     cfg = SamplerConfig(10, 10, sampler=HMC(5))
     assert _fused_unsupported_reason(glmm_large, cfg, 1024, None) is None
     need = F.workspace_bytes(em, 1024)

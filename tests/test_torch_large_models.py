@@ -123,12 +123,22 @@ def test_full_size_glmm_large_emits_loops_over_a_workspace():
         10_002, 10_000, 50_000, 2)
     assert em.workspace == emit_cuda.workspace_floats(10_002, 10_000, True)
     src = em.source
-    assert len(src.splitlines()) < 300
+    # loops, not one line an element; the rows' step function holds the
+    # row's body once for each of its GATHER_STEP rows
+    step_fn = re.search(r"RT_HD void rt_row_step\(.*?\n}\n", src,
+                        re.S).group(0)
+    assert len(src.replace(step_fn, "").splitlines()) < 300
+    assert len(step_fn.splitlines()) < 20 * emit_cuda.GATHER_STEP
     assert src.count(
         "for (int i = RT_LANE; i < 10000; i += RT_LSTEP)") == 4
     assert "#define RT_NINV_DENSE 0" in src
     assert "inv[0 + j" in src and "sidx[0] = 0 + j" in src
-    assert src.count("__restrict__") == 12          # every chain array
+    # every chain array; the rows' steps of GATHER_STEP rows (x, inv,
+    # ainv, sidx, sval, out)
+    step = emit_cuda.GATHER_STEP
+    assert f"#define RT_ROW_STEP {step}" in src
+    assert f"sidx[{step - 1}] = 0 + j" in src
+    assert src.count("__restrict__") == 12 + 6
     # each group's prior (forward and adjoint, the forward recomputed in
     # the adjoint loop) and its invariant value, 30 to 60 operations
     assert 30 * 10_000 < em.ops < 60 * 10_000

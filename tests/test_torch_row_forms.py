@@ -336,17 +336,17 @@ KEPT_HEADERS = {
     "density lse select lookup": "d517c83c12811a7a87c1",
     "ehmc eight schools": "a72f808d17008132a2eb",
     "forms gather source per row": "cd3e447e78c7e5d12f93",
-    "forms gather source per row ws": "3cb12cb8ba70d28635b8",
+    "forms gather source per row ws": "66ee8e0ef0a1ad405a0f",
     "forms gp 40": "04edbb9497e5bcc8ee44",
-    "forms mvnormal logistic 32": "654f7f88fa2c73237e59",
+    "forms mvnormal logistic 32": "81526a33ebc24d0d356e",
     "forms mvnormal past 16": "39dd171e46eabd68b1fb",
     "forms vector per row 3": "11f883fe2a847eaf70a1",
     "gather clamped": "f049dc054160a7130fcc",
     "gather glmm 10x6": "2b8f6fd2e3e9fa216410",
-    "gather glmm 30x11": "38b90c66c1f6d4e4dde1",
+    "gather glmm 30x11": "45924c86dee64950fd42",
     "gather lookup": "eab98bba675f1a74f432",
     "lanes small logistic": "49074704951da9801b7a",
-    "large glmm 300": "b5d7a0edab4bc966727c",
+    "large glmm 300": "f27d54b368c26e19d203",
     "marginal mixture": "88b2c406b95d507430b6",
     "progress regression": "86772ac83c95f6967495",
     "sampler gather": "2c92d089255cc36da2fe",
