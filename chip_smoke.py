@@ -233,8 +233,9 @@ LARGE_COLLECT_EVERY = 100
 MV_RHO, MV_WARMUP = 0.5, 150
 # the 100k logistic observed as two merged blocks of these rows: two row
 # spaces, the one-block model's density; its kernel streamed against
-# synchronous over this many iterations
-SPLIT_ROWS, SPLIT_AB_ITERS = 60_000, 20
+# synchronous over this many iterations; its main path's warmup (the
+# 100k logistic's draws; warmup cut as the MVNormal logistic's)
+SPLIT_ROWS, SPLIT_AB_ITERS, SPLIT_WARMUP = 60_000, 20, 150
 # the 2M-row logistic regression of benchmarks/data_scale.py:35-50 (the
 # 100k model's graph at n = 2,000,000; docs/performance.md:60-82): 88 MB
 # of columns, past the card's L2, so its launches stream their tiles
@@ -1189,25 +1190,27 @@ def build_all(F, models, launches):
             print(f"phase registers, {name}: " + "; ".join(
                 f"fused_hmc {'streamed' if k else 'synchronous'} "
                 f"{r} registers, spill stores {st} bytes, spill loads "
-                f"{ld} bytes" for k, (r, st, ld) in sorted(
+                f"{ld} bytes, stack frame {sf} bytes" for k, (
+                    r, st, ld, sf) in sorted(
                     regs.get("fused_hmc_kernel", {}).items())), flush=True)
     return ems
 
 
 def ptxas_kernels(log):
-    """{kernel: {streaming flag: (registers, spill stores, spill loads)}}
-    from a build's `-Xptxas=-v` output, for the kernels fused_hmc_kernel
-    and logp_grad_kernel of fused_hmc.cu, by their mangled names."""
+    """{kernel: {streaming flag: (registers, spill stores, spill loads,
+    stack frame)}} from a build's `-Xptxas=-v` output, for the kernels
+    fused_hmc_kernel and logp_grad_kernel of fused_hmc.cu, by their
+    mangled names."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for _Z\d+(\w+?)ILi(\d)E", line)
         if m:
             cur = (m.group(1), int(m.group(2)))
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and cur:
-            spills = (int(m.group(1)), int(m.group(2)))
+            spills = (int(m.group(2)), int(m.group(3)), int(m.group(1)))
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
             out.setdefault(cur[0], {})[cur[1]] = (int(m.group(1)), *spills)
@@ -1218,7 +1221,7 @@ def ptxas_kernels(log):
 def time_kernel(F, cd, em, tr, n_steps, device, col_bytes, what, reps=1,
                 min_frac=0.99, tol=REL_TOL, max_dacc=0.01, agree_at=None,
                 n_iters=None, collect_idx=None, explicit_noise=False,
-                whole=0):
+                whole=0, start=None):
     """The kernel at a main path's shapes, on its warmup product's inputs:
     per-chain ε and Σ̂, every draw collected (of `collect_idx`'s
     coordinates), q0 the main path's last full-width states, with
@@ -1226,16 +1229,20 @@ def time_kernel(F, cd, em, tr, n_steps, device, col_bytes, what, reps=1,
     plain version as the parity phases are (at least `min_frac` of
     chains within `tol`, mean |Δaccept| < `max_dacc`, divergences
     equal), with `agree_at` by `chaotic`.
-    `n_iters` cuts the run's depth (default: the main path's)."""
+    `n_iters` cuts the run's depth (default: the main path's); `start`
+    (q0 (dim, n), ε (n,), Σ̂ (n, dim) or (dim,)) replaces the trace
+    `tr`."""
     import torch
 
     from rainier_tpu_torch.tools.kernel_ab import launch_ms
 
-    n_chains, n_iters = tr.chains.shape[0], n_iters or tr.chains.shape[1]
+    if start is None:
+        start = (tr.final_q.T, tr.step_size, tr.mass.diag)
+        n_iters = n_iters or tr.chains.shape[1]
+    n_chains = start[0].shape[1]
     q0, kw = parity_inputs(
-        cd, device, n_chains, n_iters, explicit_noise,
-        start=(tr.final_q.T, tr.step_size, tr.mass.diag), n_steps=n_steps,
-        collect_idx=collect_idx)
+        cd, device, n_chains, n_iters, explicit_noise, start=start,
+        n_steps=n_steps, collect_idx=collect_idx)
     kw["seed"] = 1
     ker, call_ms = timed(lambda: F.fused_hmc(cd, q0, **kw), device, reps,
                          reps > 1)
@@ -1649,13 +1656,14 @@ def readme_phases(F, readme, em, device):
 
 def logistic_main(F, model, cd, em, w_map, cov, device, min_frac,
                   what="logistic regression", pooled=False,
-                  warmup=LOGIT_WARMUP, draws=LOGIT_DRAWS):
+                  warmup=LOGIT_WARMUP, draws=LOGIT_DRAWS, start=None):
     """A logistic regression through Model.sample(kernel="fused!"),
     `warmup` + `draws` iterations, against its Laplace reference, then
     timed against its plain version over LOGIT_TIME_ITERS iterations with
-    the logistic parity phases' bar (`min_frac` within 1e-3 rel);
-    `pooled` adapts ε and Σ̂ pooled over the chains.  Returns (its JSON
-    entry's numbers and launches, the trace)."""
+    the logistic parity phases' bar (`min_frac` within 1e-3 rel), from
+    the main path's last states and adaptation or from `start`
+    (time_kernel's); `pooled` adapts ε and Σ̂ pooled over the chains.
+    Returns (its JSON entry's numbers and launches, the trace)."""
     from rainier_tpu_torch.sampler import HMC, SamplerConfig
 
     cfg = SamplerConfig(warmup, draws, sampler=HMC(LOGIT_STEPS),
@@ -1688,7 +1696,8 @@ def logistic_main(F, model, cd, em, w_map, cov, device, min_frac,
     check(float(dsd.max()) < 0.1, dsd)
     entry = time_kernel(F, cd, em, tr, LOGIT_STEPS, device, em.row_bytes(),
                         what, min_frac=min_frac, tol=1e-3, max_dacc=0.02,
-                        n_iters=LOGIT_TIME_ITERS, whole=whole_bytes(cd))
+                        n_iters=LOGIT_TIME_ITERS, whole=whole_bytes(cd),
+                        start=start)
     return {"route": "cuda", "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
             "launches": launches, **entry, "library_ms": None}, tr
 
@@ -1765,20 +1774,23 @@ def mvnormal_phases(F, mv, cd, em, x, ys, device, what="MVNormal logistic",
              "launches": 0}]
 
 
-def split_phases(F, cd, em, lcd, x, ys, w_map, cov, device):
+def split_phases(F, model, cd, em, lcd, x, ys, w_map, cov, device):
     """The 100k logistic as two row spaces (`split_logistic`):
     rt_logp_grad_launch at the one-block density phase's points held to
     the plain version, to the f64 truth and to the one-block model's
-    kernel (`lcd`) with the same bars, and its kernel streamed against
-    synchronous bit for bit in both RNG modes.  Returns its density's
-    JSON entry."""
+    kernel (`lcd`) with the same bars, its kernel streamed against
+    synchronous bit for bit in both RNG modes, and its main path, held to
+    the Laplace reference as the one-block model's is, with its kernel at
+    the main path's shapes from the Laplace start (kernel_ab's), held to
+    its plain version by the logistic's bar.  Returns the JSON entries
+    of its kernel and its density."""
     import torch
 
     q = check_points(w_map, cov, device)
     truth = logistic_truth(x, ys, q, device)
-    _, entry = density_check(F, cd, em, q, truth, LOGIT_CHECK_MAP,
-                             "near the MAP", device,
-                             "rainier_tpu/ops/hmc_pallas.py:300")
+    dlp_mean, entry = density_check(F, cd, em, q, truth, LOGIT_CHECK_MAP,
+                                    "near the MAP", device,
+                                    "rainier_tpu/ops/hmc_pallas.py:300")
     (lp2, g2), (lp1, g1) = F.logp_grad(cd, q), F.logp_grad(lcd, q)
     tol_lp, tol_g, _ = density_bars(*truth)
     rel_lp = float(((lp2 - lp1).abs() / tol_lp).max())
@@ -1796,8 +1808,27 @@ def split_phases(F, cd, em, lcd, x, ys, w_map, cov, device):
                  LOGIT_STEPS, f"logistic {SPLIT_ROWS} + "
                  f"{em.n_rows - SPLIT_ROWS}", center=w_map,
                  var=np.diag(cov))
-    return {**entry, "name": "rt_logp_grad_launch (logistic regression "
-                             "in two row spaces)", "launches": 0}
+    # the main path, and the kernel at its shapes from the Laplace start
+    # that kernel_ab.py tiles times the logistic regressions from
+    from rainier_tpu_torch.compute import emit_cuda
+    from rainier_tpu_torch.tools.kernel_ab import _laplace_start
+
+    regs = ptxas_kernels(F.build(cd, emit_cuda.LANES)[0].log)
+    print("phase registers, two row spaces: " + "; ".join(
+        f"fused_hmc {'streamed' if k else 'synchronous'} {r} registers, "
+        f"spill stores {st} bytes, stack frame {sf} bytes" for k, (
+            r, st, _, sf) in sorted(regs.get("fused_hmc_kernel",
+                                             {}).items())), flush=True)
+    kernel, _ = logistic_main(F, model, cd, em, w_map, cov, device,
+                              agree_frac(LOGIT_TIME_ITERS, dlp_mean),
+                              "logistic regression, two row spaces",
+                              warmup=SPLIT_WARMUP,
+                              start=_laplace_start(logistic_design(x), ys,
+                                                   MAIN_CHAINS, device))
+    return [{"name": "fused_hmc (logistic regression in two row spaces)",
+             "replaces": "rainier_tpu/ops/hmc_pallas.py:282", **kernel},
+            {**entry, "name": "rt_logp_grad_launch (logistic regression "
+                               "in two row spaces)", "launches": 0}]
 
 
 def slot_layout(F, em, what):
@@ -3590,10 +3621,10 @@ def main(argv=()) -> int:
                                    ems["MVNormal logistic"], x, ys, device,
                                    warmup=MV_WARMUP)
     with phase("logistic regression, two row spaces", device):
-        kernels.append(split_phases(
-            F, cds["logistic regression, two row spaces"],
+        kernels += split_phases(
+            F, smodel, cds["logistic regression, two row spaces"],
             ems["logistic regression, two row spaces"], lcd, x, ys, w_map,
-            cov, device))
+            cov, device)
 
     # -- the forms slice: a latent GP, MVNormal past 16, the row forms -------
     kernels += forms_sections(F, rt, cds, ems, gp, gpw, mv32, x32, ys32,

@@ -56,7 +56,11 @@ row of at least ``ROW_STEP_OPS`` operations and at most
 of straight-line code, then their reverse passes in row order
 (``_row_step``).  A ``LogSumExp``'s adjoint in a row reads the
 shifted exponentials of its forward pass and divides them by their sum
-without a branch (``rt_lse_share``).  A root's additive summands that
+without a branch (``rt_lse_share``).  A row's softplus(x) and
+softplus(-x) of one value (a Bernoulli-logit row's two branches) share
+exp(-|x|) and its log1p, with the bits of two ``rt_softplus`` calls,
+and their adjoints σ(±x) come from those and one reciprocal
+(``_softplus_groups``, ``rt_recip``).  A root's additive summands that
 read the columns and literals alone (``RowSpace.consts``: a count
 likelihood's ``lgamma(y + 1)`` and the literals beside it; a literal
 alone stays) are the same in every density call of a launch: the row
@@ -484,6 +488,11 @@ class _Emitter:
         self.scratch = 0       # floats of scr the function uses
         self.wints = {}        # IntColumn read whole → its column index
         self.rowctx = None     # in a row function: its _RowCtx
+        self.sp = {}           # in a row function, a softplus node that
+                               # shares its exp(-|x|) and log1p of it with
+                               # another → their key (_softplus_groups)
+        self.sp_made = set()   # keys whose shared values are emitted: the
+                               # forward's e and l, the reverse's r
         self.aligned = []      # (adjoint name, array, index, whether at
                                # the row's own index) of each vector read
                                # at a row
@@ -639,7 +648,9 @@ class _Emitter:
         else:
             self.grad[nid] = any(self.grad[k.id] for k in kids)
 
-        if isinstance(node, R.Unary):
+        if isinstance(node, R.Unary) and nid in self.sp:
+            self._shared_softplus(node)
+        elif isinstance(node, R.Unary):
             fmt, ops = _UNARY[node.op]
             n, m = self.width([node.child])
             self.define(node, [fmt.format(x=self.el(node.child, i))
@@ -803,6 +814,32 @@ class _Emitter:
                      for i in range(len(self.vals[nid]))]
             self.adj[nid] = names
 
+    def _shared_softplus(self, node) -> None:
+        """softplus(x) of a row's scalar x that shares e = exp(-|x|) and
+        l = log1p(e) with the other softplus nodes of its key (x or -x):
+        max(x, 0) + l, the bits of rt_softplus (csrc/rt_math.cuh); the
+        first of them emits e and l."""
+        key, x = self.sp[node.id], self.el(node.child, 0)
+        e, l = f"p{self.tag}{key}_e", f"p{self.tag}{key}_l"
+        if (key, "fwd") not in self.sp_made:
+            self.sp_made.add((key, "fwd"))
+            self.fwd += [f"  const float {e} = expf(-fabsf({x}));",
+                         f"  const float {l} = log1pf({e});"]
+            self.fops += 4
+        self.define(node, [f"(fmaxf({x}, 0.0f) + {l})"], 2)
+
+    def _shared_softplus_adj(self, node, a) -> None:
+        """The adjoint of a shared softplus(x): a·σ(x), σ(x) = r for
+        x ≥ 0 and e·r below, r = 1 / (1 + e) emitted by the first."""
+        key, x = self.sp[node.id], self.el(node.child, 0)
+        e, r = f"p{self.tag}{key}_e", f"p{self.tag}{key}_r"
+        if (key, "rev") not in self.sp_made:
+            self.sp_made.add((key, "rev"))
+            self.rev.append(f"  const float {r} = rt_recip(1.0f + {e});")
+            self.rops += 2
+        self.acc(node.child, 0, f"{a} * ({x} >= 0.0f ? {r} : {e} * {r})",
+                 3)
+
     def _whole_column(self, node) -> None:
         """A column read whole, outside the rows of a top-level RowSum: a
         vector of its rows, each a load from its device pointer (a loop
@@ -901,7 +938,9 @@ class _Emitter:
         for i in range(len(self.vals[nid])):
             a = self.adj[nid][i]
             v = self.vals[nid][i]
-            if isinstance(node, R.Unary):
+            if isinstance(node, R.Unary) and nid in self.sp:
+                self._shared_softplus_adj(node, a)
+            elif isinstance(node, R.Unary):
                 fmt, ops = _UNARY_ADJ[node.op]
                 self.acc(node.child, i, fmt.format(
                     a=a, v=v, x=self.el(node.child, i)), ops)
@@ -1827,6 +1866,7 @@ def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
     _bind_row(row, ctx, "rix")
     order = R.topological(list(space.roots))
     dep = {k: v or k in inline for k, v in space.dep.items()}
+    row.sp = _softplus_groups(order, dep)
     for node in order:
         if dep[node.id] or isinstance(node, R.Constant):
             row.forward(node)
@@ -1857,6 +1897,33 @@ def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
             row.scatters,
             _row_step([*head, *row.fwd], rev, total, step, row.scatters)
             if step > 1 else None, step, row.row_cols)
+
+
+def _unsigned(x):
+    """The value that x is, or is the negation of (a neg, or a product
+    with the literal -1)."""
+    if isinstance(x, R.Unary) and x.op == "neg":
+        return x.child
+    if isinstance(x, R.Binary) and x.op == "mul":
+        for v, c in ((x.left, x.right), (x.right, x.left)):
+            if isinstance(c, R.Constant) and float(c.value) == -1.0:
+                return v
+    return x
+
+
+def _softplus_groups(order, dep):
+    """{softplus node id: key} of a row's per-row softplus nodes that
+    read one value up to its sign, two or more to a key (a Bernoulli-logit
+    row's softplus(x) and softplus(-x)): they share exp(-|x|), its log1p
+    and, in the reverse pass, one reciprocal (_shared_softplus), where
+    each would call expf and log1pf, and its adjoint expf again."""
+    by = {}
+    for node in order:
+        if isinstance(node, R.Unary) and node.op == "softplus" \
+                and dep[node.id]:
+            by.setdefault(_unsigned(node.child).id, []).append(node.id)
+    return {nid: key for key, ids in by.items() if len(ids) > 1
+            for nid in ids}
 
 
 # a declaration of a local in an emitted function

@@ -246,6 +246,8 @@
 // without a card.  A chain without rows of L lanes sums in the order of
 // its L lanes (rt_lane_tree<L>).  A slot in shared memory is a host
 // buffer, filled with NaN so that a read before a write shows.
+#include <utility>
+
 #include "philox.cuh"
 #include "rt_model.h"
 
@@ -1234,11 +1236,11 @@ RT_HD void rt_tile_rows(const float* slot, int rows, const float* inv,
 #endif
 }
 
-// every tile of space S's n_rows rows, then of the spaces after it.
-// `tile`: the block's shared memory, two slots of RT_TILE_FLOATS floats
-// where `stream_cols` is set.  Each space's loops pass the same barriers
-// in every thread, and a streamed loop commits one group a tile in every
-// thread, so the waits of the next space count the same groups.
+// every tile of space S's n_rows rows.  `tile`: the block's shared
+// memory, two slots of RT_TILE_FLOATS floats where `stream_cols` is set.
+// Each space's loops pass the same barriers in every thread, and a
+// streamed loop commits one group a tile in every thread, so the waits of
+// the next space count the same groups.
 template <int S>
 RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
                          int stream_cols, float* tile, const float* inv,
@@ -1279,9 +1281,19 @@ RT_HD void rt_space_rows(const RtCols& cols, const RtRows& rows,
       RT_TILE_SYNC();
     }
   }
-  if constexpr (S + 1 < RT_SPACES)
-    rt_space_rows<S + 1>(cols, rows, stream_cols, tile, inv, lanes, ainv,
-                         lp_acc, ainv_acc, q, g);
+}
+
+// every row space's tiles, space 0 first: a fold over the spaces, so
+// that each space's loop is inlined in turn, with no call between spaces
+template <int... S>
+RT_HD void rt_spaces_rows(std::integer_sequence<int, S...>,
+                          const RtCols& cols, const RtRows& rows,
+                          int stream_cols, float* tile, const float* inv,
+                          float* lanes, float* ainv, double* lp_acc,
+                          double* ainv_acc, const float* q, float* g) {
+  (rt_space_rows<S>(cols, rows, stream_cols, tile, inv, lanes, ainv, lp_acc,
+                    ainv_acc, q, g),
+   ...);
 }
 #endif
 
@@ -1340,8 +1352,9 @@ RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
     ainv_acc[k] = 0.0;
 #pragma unroll
   for (int l = 0; l < RT_ACC_LANES; ++l) lp_lanes[l] = 0.0;
-  rt_space_rows<0>(cols, rows, stream_cols, tile, inv, lanes, ainv, lp_lanes,
-                   ainv_acc, x, g);
+  rt_spaces_rows(std::make_integer_sequence<int, RT_SPACES>(), cols, rows,
+                 stream_cols, tile, inv, lanes, ainv, lp_lanes, ainv_acc, x,
+                 g);
   RT_WS_SYNC();
   rt_gathered_sum(lanes, ainv);
   // the butterfly, once a call: the lanes' sums in every lane; and the

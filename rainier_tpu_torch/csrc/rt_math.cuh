@@ -63,6 +63,28 @@ RT_HD float rt_lse_share(float e, float s) {
 #endif
 }
 
+// A row that reads softplus(x) and softplus(-x) of one value (a
+// Bernoulli-logit row's two branches) shares e = exp(-|x|) and
+// l = log1p(e) between them: softplus(±x) = max(±x, 0) + l, the bits of
+// two rt_softplus calls, since |-x| = |x|.  Their derivatives σ(±x) come
+// from e and r = rt_recip(1 + e): σ(|x|) = r, σ(-|x|) = e·r, where the
+// two adjoints expf(±x - softplus(±x)) took two more exponentials (the
+// emitter's _softplus_groups).
+//
+// rt_recip(d) = 1 / d for d in [1, 2]: on the card rcp.approx and one
+// Newton step, three instructions without a branch (the IEEE division
+// checks for its slow path and branches), within an ulp of the quotient,
+// which host code computes.
+RT_HD float rt_recip(float d) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  return fmaf(r, fmaf(-d, r, 1.0f), r);
+#else
+  return 1.0f / d;
+#endif
+}
+
 // float index -> int32 by truncation toward zero (jnp astype(int32));
 // NaN maps to 0 and out-of-range values saturate, as the device
 // conversion does

@@ -28,7 +28,8 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 rainier_tpu_torch/tools/kernel_ab.py loaders LABEL
     python3 rainier_tpu_torch/tools/kernel_ab.py lse LABEL
     python3 rainier_tpu_torch/tools/kernel_ab.py counts LABEL [MODEL ...]
-    python3 rainier_tpu_torch/tools/kernel_ab.py row-sass LABEL [FAMILY ...]
+    python3 rainier_tpu_torch/tools/kernel_ab.py row-sass LABEL [MODEL ...]
+    python3 rainier_tpu_torch/tools/kernel_ab.py row-loads LABEL [MODEL ...]
 
 ``row-sums``: the kernels of the README regression, the 100k-row
 logistic regression and GLMMPoisson2 (``chip_smoke.py``'s models), whose
@@ -65,7 +66,9 @@ each model's density alone (``rt_logp_grad_launch``) at CHECK_POINTS
 states (its CHAINS states, then the first of them again: the shape of
 chip_smoke.py's density checks); or only the models named after LABEL.
 Prints one line per model tagged LABEL, with its tile's rows and
-whether the launch streamed.
+whether the launch streamed, after ptxas's report of each function of
+its build (stack frame, spills, a kernel's registers: a device function
+reported apart is called, not inlined).
 
 ``lanes``: the same kernels of this checkout at W = 2, 4 and 8 chains a
 block (the wrapper's rule ``fused_hmc.chains_per_block`` replaced for
@@ -152,9 +155,10 @@ rows' row-invariant passes, the clears of its gathered adjoints, the
 rows, their scatters and the warp barrier after each step, and, in a
 tree whose scatters merge several steps, that merge (``SLOT_SPLIT_STEPS``).  The copies patch whichever tree the import finds
 (the one before the row loop's redesign or a later one), as ``row-sums``
-does.  Models named after LABEL (the three, or any of the zoo's of
-``tiles``, such as ``zoo neg_binomial``, at HMC(4)) are split in place
-of the three.  Prints one line per
+does.  Models named after LABEL (any model of ``tiles``, such as ``zoo
+neg_binomial`` at HMC(4), the MVNormal logistic or the logistic in two
+row spaces, each from the start ``tiles`` times it from) are split in
+place of the three.  Prints one line per
 model and build, tagged LABEL.
 
 ``tile-sizes``: the three models of ``split``, GLMMPoisson2 and
@@ -234,14 +238,29 @@ the order A B ... B A, with ptxas's registers, and each build's density
 alone at CHECK_POINTS of those states.  Prints one line per model,
 build and order, tagged LABEL.
 
-``row-sass``: the SASS of each zoo family's row function (default the
-four of ``counts``), compiled on its own: a probe kernel that sums
-``RtSpace<0>::row`` over a lane's rows of a tile, and, where the header
-has them, ``RtSpace<0>::row_const`` over the rows' columns, each built
-with nvcc for sm_90a and read by ``cuobjdump -sass``.  Prints, for each
-probe, its instructions, MUFU operations by kind and branches (BRA and
-CALL), static counts of the function, whose loop body is one row plus
+``row-sass``: the SASS of the row functions of each model named (zoo
+families by name, default the four of ``counts``, and ``SASS_MODELS``:
+the 100k logistic, the MVNormal logistic and the logistic in two row
+spaces, whose rows are Bernoulli-logit rows), compiled on their own:
+for each row space S a probe kernel that sums ``RtSpace<S>::row`` over a
+lane's rows of a tile, one that sums ``RtSpace<S>::step`` over its steps
+where the space sums several rows a step, and, where the header has
+them, one that sums ``RtSpace<S>::row_const`` over the rows' columns,
+each built with nvcc for sm_90a and read by ``cuobjdump -sass``.
+Prints, for each probe, its instructions (and a step's a row), MUFU
+operations by kind (EX2, LG2, RCP, ...) and branches (BRA and CALL),
+static counts of the function, whose loop body is one row or step plus
 the loop's own few instructions, tagged LABEL.
+
+``row-loads``: the logistic regressions of ``SASS_MODELS`` (or the
+models of ``tiles`` named after LABEL) with each row of w floats, w one
+short of a multiple of 4, as emitted (w scalar shared-memory loads a
+row) and padded to w + 1 floats and read as (w + 1) / 4 16-byte loads
+(``_vector_loads``: the emitted text so replaced; lane l's row at a
+stride of w + 1 floats, 8 lanes a phase without a bank conflict), at
+TILE_ITERS iterations, in the order A B B A, each held to the first
+run's bits, with ptxas's registers, and each build's density alone at
+CHECK_POINTS states.
 
 ``zoo``: the goldset zoo of ``chip_smoke.py`` (each family's 100,000
 rows synthesized on the card, seed ``ZOO_SEED``), every family or those
@@ -726,12 +745,46 @@ def row_sums() -> None:
                        {name: built[label, name]})
 
 
+def _ptxas(log):
+    """ptxas's report of each function of a build's `-Xptxas=-v` output
+    that has one: its stack frame, spills and, for a kernel, registers
+    (a device function with a report of its own is called, not
+    inlined)."""
+    import re
+
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            out.append(f"{cur}: stack frame {m.group(1)} bytes, spill "
+                       f"stores {m.group(2)}, loads {m.group(3)}")
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur and out and out[-1].startswith(cur):
+            out[-1] += f", {m.group(1)} registers"
+            cur = None
+    return out
+
+
 def tiles(label: str, names=()) -> None:
     import torch
+
+    from rainier_tpu_torch.ops import fused_hmc as F
 
     device = torch.device(DEVICE)
     runs = _row_runs(device, names)
     _build_runs(runs)
+    if device.type == "cuda":
+        for name, run in runs.items():
+            kernels = F.build(run[0].density(), F.emit_cuda.LANES)[0]
+            for line in _ptxas(kernels.log):
+                print(f"RESULT tiles {label} {name}: ptxas {line}",
+                      flush=True)
     _time_runs(runs, device, f"tiles {label}")
     for name, (model, (q0, _, _), _, _) in runs.items():
         _density_alone(model, _check_points(q0), device,
@@ -780,28 +833,14 @@ def _run_kernel(F, cd, start, n_it, n_steps, device, reps=3, stream=None):
 def split(label: str, names=()) -> None:
     import torch
 
-    import chip_smoke as cs
-    import rainier_tpu_torch as rt
     from rainier_tpu_torch.compute import emit_cuda
     from rainier_tpu_torch.ops import fused_hmc as F
 
     device = torch.device(DEVICE)
     names = tuple(names) or SPLIT_MODELS
-    models = _more_row_models(rt, cs, device, names)
-    starts = {name: _start(m, name, device) for name, m in models.items()}
-    if "logistic regression" in names:
-        logit, x, ys = cs.logistic_regression(rt)
-        models["logistic regression"] = logit
-        starts["logistic regression"] = _laplace_start(
-            cs.logistic_design(x), ys, CHAINS, device)
-    for name, make in (("GLMMPoisson2", cs.glmm_poisson),
-                       ("glmm_large", cs.glmm_large)):
-        if name in names:
-            models[name] = make(rt)
-            starts[name] = _warm(models[name], CHAINS, device)
-    unknown = set(names) - set(models)
-    if unknown:
-        raise SystemExit(f"kernel_ab split: no model {sorted(unknown)}")
+    runs = _row_runs(device, names)
+    models = {name: run[0] for name, run in runs.items()}
+    starts = {name: run[1] for name, run in runs.items()}
     slot = set(names) <= set(SLOT_MODELS)
     if not slot and set(names) & set(SLOT_MODELS):
         raise SystemExit("kernel_ab split: the slot models "
@@ -1342,27 +1381,76 @@ def _rows_lgamma(src):
 
 
 # ``row-sass``: the probe kernels, compiled with the tree's fused_hmc.cu
-# and the model's header (a register model of one row space whose row
-# takes no columns, no chain state: the zoo's)
-_PROBE = """#include "fused_hmc.cu"
-
-extern "C" __global__ void rt_row_probe(const float* x, const float* inv,
-                                        float* ainv, float* out, int n) {
+# and the model's header (a register model whose rows take no columns and
+# no chain state: the zoo's, the logistic regressions'): for each row
+# space S, one that sums RtSpace<S>::row over a lane's rows, one that sums
+# RtSpace<S>::step over its steps where the space has them, and, where
+# the header has them, one that sums the rows' data-only terms
+_PROBE_HEAD = '#include "fused_hmc.cu"\n'
+_PROBE_ROW = """
+extern "C" __global__ void rt_row_probe_s{s}(const float* x,
+                                            const float* inv, float* ainv,
+                                            float* out, int n) {{
+  typedef RtSpace<{s}> Sp;
   float s = 0.0f;
   for (int i = (int)threadIdx.x; i < n; i += 32)
-    s += RtSpace<0>::row(x + (size_t)i * RtSpace<0>::kW, inv, ainv);
+    s += Sp::row(x + (size_t)i * Sp::kW, inv, ainv);
   out[threadIdx.x] = s;
-}
+}}
+"""
+_PROBE_STEP = """
+extern "C" __global__ void rt_step_probe_s{s}(const float* x,
+                                             const float* inv, float* ainv,
+                                             float* out, int n) {{
+  typedef RtSpace<{s}> Sp;
+  float s = 0.0f;
+  for (int i = (int)threadIdx.x; i < n; i += 32 * Sp::kStep) {{
+    float o[Sp::kStep];
+    Sp::step(x + (size_t)i * Sp::kW, 32 * Sp::kW, inv, ainv, o);
+#pragma unroll
+    for (int k = 0; k < Sp::kStep; ++k) s += o[k];
+  }}
+  out[threadIdx.x] = s;
+}}
+"""
+_PROBE_CONST = """
 #ifdef RT_ROW_CONSTS
-extern "C" __global__ void rt_row_const_probe(RtCols cols, int n,
-                                              float* out) {
+extern "C" __global__ void rt_row_const_probe_s{s}(RtCols cols, int n,
+                                                  float* out) {{
   float s = 0.0f;
   for (int i = (int)threadIdx.x; i < n; i += 32)
-    s += RtSpace<0>::row_const(cols, i);
+    s += RtSpace<{s}>::row_const(cols, i);
   out[threadIdx.x] = s;
-}
+}}
 #endif
 """
+# the models ``row-sass`` probes beside the zoo's families: the
+# Bernoulli-logit rows of chip_smoke.py's logistic regressions
+SASS_MODELS = ("logistic regression", "MVNormal logistic",
+               "logistic regression, two row spaces")
+
+
+def _space_steps(em):
+    """The rows a lane's step sums in each row space of `em` (its
+    header's RT_ROW_STEP, or each RtSpace<s>'s kStep)."""
+    import re
+
+    if len(em.spaces) == 1:
+        m = re.search(r"#define RT_ROW_STEP (\d+)", em.source)
+        return [int(m.group(1)) if m else 1]
+    return [int(k) for k in re.findall(
+        r"struct RtSpace<\d+> \{\n  enum \{[^}]*kStep = (\d+)", em.source)]
+
+
+def _probe_source(em):
+    """The probe kernels' source for the header of `em`."""
+    out = [_PROBE_HEAD]
+    for s, step in enumerate(_space_steps(em)):
+        out.append(_PROBE_ROW.format(s=s))
+        if step > 1:
+            out.append(_PROBE_STEP.format(s=s))
+        out.append(_PROBE_CONST.format(s=s))
+    return "".join(out)
 
 
 def _sass_counts(sass):
@@ -1391,7 +1479,22 @@ def _sass_counts(sass):
     return {k: tuple(v) for k, v in out.items()}
 
 
-def row_sass(label: str, families=()) -> None:
+def _sass_models(rt, cs, device, names):
+    """{name: model} of ``row-sass``'s names: zoo families by name, the
+    models of SASS_MODELS by theirs."""
+    zoo = [n for n in names if n not in SASS_MODELS]
+    out = {n: m for n, m in ((n, _more_row_models(
+        rt, cs, device, [f"zoo {n}"])[f"zoo {n}"]) for n in zoo)}
+    if set(names) & set(SASS_MODELS):
+        logit, x, ys = cs.logistic_regression(rt)
+        out.update({"logistic regression": logit,
+                    "MVNormal logistic": cs.mvnormal_logistic(rt, x, ys)[0],
+                    "logistic regression, two row spaces":
+                        cs.split_logistic(rt, x, ys)})
+    return {n: out[n] for n in names}
+
+
+def row_sass(label: str, names=()) -> None:
     import subprocess
 
     import torch
@@ -1403,19 +1506,18 @@ def row_sass(label: str, families=()) -> None:
 
     device = torch.device(DEVICE)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in families or COUNT_FAMILIES:
-        key = f"zoo {name}"
-        em = emit_cuda.emit(
-            _more_row_models(rt, cs, device, [key])[key].density())
-        if em.workspace or len(em.spaces) != 1 or any(
+    models = _sass_models(rt, cs, device, tuple(names) or COUNT_FAMILIES)
+    for name, model in models.items():
+        em = emit_cuda.emit(model.density())
+        if em.workspace or not em.spaces or any(
                 d in em.source for d in ("RT_ROW_COLS", "RT_ROW_STATE")):
-            print(f"RESULT row-sass {label} {name}: not a register model of "
-                  "one row space, no probe", flush=True)
+            print(f"RESULT row-sass {label} {name}: not a register model "
+                  "whose rows read only their tile, no probe", flush=True)
             continue
         with tempfile.TemporaryDirectory() as tmp:
             d = Path(tmp)
             (d / emit_cuda.HEADER_NAME).write_text(em.source)
-            (d / "probe.cu").write_text(_PROBE)
+            (d / "probe.cu").write_text(_probe_source(em))
             subprocess.run(
                 [F._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                  "-std=c++17", "-O3", "-cubin", "-I", str(d), "-I",
@@ -1424,13 +1526,18 @@ def row_sass(label: str, families=()) -> None:
             sass = subprocess.run([cuobjdump, "-sass",
                                    str(d / "probe.cubin")], check=True,
                                   capture_output=True, text=True).stdout
+        steps = _space_steps(em)
         for fn, (n, mufu, bra, call) in sorted(_sass_counts(sass).items()):
             if "probe" not in fn:
                 continue
-            print(f"RESULT row-sass {label} {name}, {fn}: {n} instructions, "
-                  f"MUFU {sum(mufu.values())} {mufu}, BRA {bra}, CALL "
-                  f"{call} (row {em.row_ops} operations as emitted)",
-                  flush=True)
+            s = int(fn.rsplit("_s", 1)[1])
+            sp = em.spaces[s]
+            rows = steps[s] if fn.startswith("rt_step_probe") else 1
+            print(f"RESULT row-sass {label} {name}, {fn}: {n} instructions"
+                  f" ({n / rows:.1f} a row over {rows} row"
+                  f"{'s' if rows > 1 else ''}), MUFU {sum(mufu.values())} "
+                  f"{mufu}, BRA {bra}, CALL {call} (row {sp.row_ops} "
+                  f"operations as emitted)", flush=True)
 
 
 # ``loaders``: the models (and the synchronous loop's loaders: LOADERS)
@@ -1619,6 +1726,103 @@ def _emit_as(cd, consts):
     finally:
         for k, v in old.items():
             setattr(emit_cuda, k, v)
+
+
+def _vector_loads(src):
+    """The header `src` with each space's rows of w floats, w one short
+    of a multiple of 4, padded to w + 1 floats, and its row and step
+    functions reading each row as (w + 1) / 4 float4 loads in place of w
+    scalar ones (the tile loader, its copies unchanged, puts each row at
+    the wider stride).  Spaces of other widths are left as they are."""
+    import re
+
+    def loads(name, ptr, w):
+        return "".join(
+            f"  const float4 {name}_{j} = reinterpret_cast<const float4*>"
+            f"({ptr})[{j}];\n" for j in range((w + 1) // 4))
+
+    def rows_of(text, w):
+        text = re.sub(r"\bx\[(\d+)\]", lambda m: "x4_{}.{}".format(
+            int(m.group(1)) // 4, "xyzw"[int(m.group(1)) % 4]), text)
+        text = re.sub(r"\bx_R(\d+)\[(\d+)\]", lambda m: "x4R{}_{}.{}".format(
+            m.group(1), int(m.group(2)) // 4, "xyzw"[int(m.group(2)) % 4]),
+            text)
+        text = re.sub(r"(float rt_row\(|float row\()([^{]*\{\n)",
+                      lambda m: m.group(0) + loads("x4", "x", w), text)
+        return re.sub(r"(  const float\* x_R(\d+) = x \+ \2 \* stride;\n)",
+                      lambda m: m.group(1) + loads(f"x4R{m.group(2)}",
+                                                   f"x_R{m.group(2)}", w),
+                      text)
+
+    one = re.search(r"#define RT_ROW_W (\d+)\n", src)
+    if "#define RT_SPACES" not in src:
+        w = int(one.group(1))
+        if w % 4 != 3:
+            return src
+        src = src.replace(one.group(0), f"#define RT_ROW_W {w + 1}\n")
+        head = src.index("RT_HD float rt_row(")
+        end = src.index("RT_HD void rt_fill_tile(")
+        return src[:head] + rows_of(src[head:end], w) + src[end:]
+    out, widest = [], 0
+    parts = re.split(r"(?=\n// row space \d+: )", src)
+    for part in parts:
+        m = re.search(r"enum \{ kW = (\d+),", part)
+        w = int(m.group(1)) if m else 0
+        if m and w % 4 == 3:
+            part = part.replace(m.group(0), f"enum {{ kW = {w + 1},")
+            fill = part.index("static RT_HD void fill(")
+            part = rows_of(part[:fill], w) + re.sub(
+                rf"\* {w} \+", f"* {w + 1} +", part[fill:])
+            w += 1
+        widest = max(widest, w)
+        out.append(part)
+    src = "".join(out)
+    return re.sub(r"#define RT_ROW_W \d+\n", f"#define RT_ROW_W {widest}\n",
+                  src)
+
+
+def row_loads(label: str, names=()) -> None:
+    import dataclasses
+
+    import torch
+
+    from rainier_tpu_torch.compute import emit_cuda
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    device = torch.device(DEVICE)
+    builds = ("as emitted", "16-byte loads")
+    runs = {}
+    for what in builds:
+        for name, (model, start, n_it, n_steps) in _row_runs(
+                device, tuple(names) or SASS_MODELS).items():
+            cd = model.density()
+            em = emit_cuda.emit(cd)
+            if what != builds[0]:
+                emit_cuda._EMITTED[cd] = dataclasses.replace(
+                    em, source=_vector_loads(em.source))
+            runs[name, what] = (model, start, n_it, n_steps)
+    _build_runs(runs)
+    for (name, what), (model, *_rest) in runs.items():
+        regs = [line for line in _ptxas(F.build(
+            model.density(), emit_cuda.LANES)[0].log) if "fused_hmc" in line]
+        print(f"RESULT row-loads {label} {name}, {what}: ptxas "
+              + " | ".join(r.split(": ", 1)[1] for r in regs), flush=True)
+    for name in dict.fromkeys(n for n, _ in runs):
+        first = None
+        for what in (*builds, *builds[::-1]):
+            model, start, n_it, n_steps = runs[name, what]
+            out, ms, streamed = _run_kernel(F, model.density(), start, n_it,
+                                            n_steps, device)
+            first = out if first is None else first
+            print(f"RESULT row-loads {label} {name}, {what}: "
+                  f"{start[0].shape[1]} chains x {n_it} it x {n_steps} "
+                  f"steps {ms:.3f} ms, "
+                  f"{'streamed' if streamed else 'synchronous'}, the first "
+                  f"run's bits: {_same_bits(out, first)}", flush=True)
+        for what in builds:
+            model, start, _, _ = runs[name, what]
+            _density_alone(model, _check_points(start[0]), device,
+                           f"row-loads {label} {name}, {what}")
 
 
 def _same_bits(a, b):
@@ -1992,6 +2196,8 @@ def main(argv) -> int:
         counts(argv[1], argv[2:])
     elif argv[:1] == ["row-sass"] and len(argv) >= 2:
         row_sass(argv[1], argv[2:])
+    elif argv[:1] == ["row-loads"] and len(argv) >= 2:
+        row_loads(argv[1], argv[2:])
     elif argv[:1] == ["zoo"] and len(argv) >= 4:
         zoo(int(argv[1]), int(argv[2]), argv[3], argv[4:])
     else:

@@ -407,10 +407,11 @@ def _canonical(src):
 # sha256 of _canonical(header): the funnel's as the parent commit of the
 # workspace emitted it; the two with rows as the row loop's redesign for
 # the H100 emits them (its loader, its tile sizes, its rows a step and
-# its tile loaded once a launch)
+# its tile loaded once a launch), the logistic's row with its softplus
+# pair sharing exp(-|v|), log1p and one reciprocal
 SMALL_HEADERS = {"funnel": "a5ff30fef7ba2450c660",
                  "readme_regression": "e90a229c23b8f6f1785b",
-                 "logistic": "d531367e87e37adbf661"}
+                 "logistic": "947c5613c41ed0539705"}
 
 
 @pytest.mark.parametrize("name", sorted(SMALL_HEADERS))

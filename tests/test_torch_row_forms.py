@@ -329,7 +329,7 @@ KEPT_HEADERS = {
     "columnfree funnel 300": "69a6c58c863453c2c45e",
     "columnfree matvec": "5cf954660acfd2a2d2e8",
     "columns base with columns": "f68d4fdb880a430b58e1",
-    "columns logistic": "9d31c3d09507d73c925b",
+    "columns logistic": "fc6bc198d2ee55a255bd",
     "columns matrix views": "0d834d93515150391895",
     "columns readme": "985026ac5a7dc60d6de1",
     "dense_mass normal": "ce52c192e67c874d6eb5",
@@ -338,14 +338,14 @@ KEPT_HEADERS = {
     "forms gather source per row": "cd3e447e78c7e5d12f93",
     "forms gather source per row ws": "66ee8e0ef0a1ad405a0f",
     "forms gp 40": "04edbb9497e5bcc8ee44",
-    "forms mvnormal logistic 32": "81526a33ebc24d0d356e",
+    "forms mvnormal logistic 32": "9007c4faaf68ae66f740",
     "forms mvnormal past 16": "39dd171e46eabd68b1fb",
     "forms vector per row 3": "11f883fe2a847eaf70a1",
     "gather clamped": "f049dc054160a7130fcc",
     "gather glmm 10x6": "2b8f6fd2e3e9fa216410",
     "gather glmm 30x11": "45924c86dee64950fd42",
     "gather lookup": "eab98bba675f1a74f432",
-    "lanes small logistic": "49074704951da9801b7a",
+    "lanes small logistic": "75221c05354cab9deeb0",
     "large glmm 300": "f27d54b368c26e19d203",
     "marginal mixture": "88b2c406b95d507430b6",
     "progress regression": "86772ac83c95f6967495",
@@ -353,8 +353,8 @@ KEPT_HEADERS = {
     "trace column": "a7c4f1b812ab1aaa8b20",
     "trace mvnormal": "afe5804f1ec2616449ca",
     "untiled data vec dot": "5b0a8ee42351a61dd212",
-    "untiled logistic blocks": "920cc3fa4030533a2bd3",
-    "untiled mvnormal logistic": "083d67d65a94e4c5765b",
+    "untiled logistic blocks": "b8aa68a88e381e462e1e",
+    "untiled mvnormal logistic": "6b311af7dd3a1eb0c8da",
     "untiled two blocks": "2b1e60e20eec0fa59bec",
     "variational normal": "b92c3476001ed3bcb723",
 }
