@@ -413,7 +413,9 @@ GP_WARMUP, GP_DRAWS, GP_STEPS, GP_PARITY_ITERS = 100, 2000, 12, 25
 GP_MEAN_SD, GP_SD_REL, GP_THIN = 0.05, 0.05, 4
 # The same GP at GP_WIDE_INPUTS inputs on [0, 10], whose L (256 x 257
 # floats, 263 KB) does not fit a block's shared memory beside its slots:
-# its product passes read a transposed copy of L from device memory.  A
+# its product passes read L in tiles of 32 rows that the block's threads
+# copy into its shared memory as the passes run, and its 256 scalar
+# terms are a loop that the chain's lanes split.  A
 # short main path (its warmup is eager, GP_WIDE_INPUTS scalar terms a
 # density call), then the density alone and the kernel against its
 # plain version over GP_WIDE_PARITY_ITERS iterations from its states;
@@ -1183,16 +1185,19 @@ def build_all(F, models, launches):
               f"ptxas: {ptxas}", flush=True)
         ems[name] = em
     # the registers and spills of each row kernel's sampling loop, both
-    # tile loops (the streamed one is the card's default)
+    # tile loops (the streamed one is the card's default), and of both
+    # kernels of a model whose product passes read L in shared memory
     for (name, n), (kernels, _, em) in built.items():
-        if em.spaces:
+        if em.spaces or em.staged:
             regs = ptxas_kernels(kernels.log)
             print(f"phase registers, {name}: " + "; ".join(
-                f"fused_hmc {'streamed' if k else 'synchronous'} "
+                f"{kernel[:-7]} {'streamed' if k else 'synchronous'} "
                 f"{r} registers, spill stores {st} bytes, spill loads "
-                f"{ld} bytes, stack frame {sf} bytes" for k, (
-                    r, st, ld, sf) in sorted(
-                    regs.get("fused_hmc_kernel", {}).items())), flush=True)
+                f"{ld} bytes, stack frame {sf} bytes"
+                for kernel in ("fused_hmc_kernel", "logp_grad_kernel")
+                if kernel == "fused_hmc_kernel" or not em.spaces
+                for k, (r, st, ld, sf) in sorted(
+                    regs.get(kernel, {}).items())), flush=True)
     return ems
 
 
@@ -2477,15 +2482,21 @@ def fit_parity(F, cd, em, tr, n_steps, what, device, n_iters):
                        agree_at=agree_at, n_iters=n_iters)
 
 
-def zoo_parity(F, cds, ems, fits, counts, device):
+def zoo_parity(F, cds, ems, fits, counts, device, exact=False):
     """The kernels at the zoo's shapes, from each ZOO_PARITY family's fit
-    (`fit_parity`, ZOO_PARITY_ITERS iterations).  Returns the JSON entries
-    of fused_hmc."""
+    (`fit_parity`, ZOO_PARITY_ITERS iterations), and, with `exact` (the
+    LogSumExp pair's shares found exact), a family with a twin in `cds`
+    held to it bit for bit (`pair_bits`).  Returns the JSON entries of
+    fused_hmc."""
     entries = []
     for name in ZOO_PARITY:
         entry = fit_parity(F, cds[f"zoo {name}"], ems[f"zoo {name}"],
                            fits[name], ZOO_STEPS, f"zoo {name}", device,
                            ZOO_PARITY_ITERS)
+        twin = cds.get(f"zoo {name}, f64 shares")
+        if exact and twin is not None:
+            pair_bits(F, cds[f"zoo {name}"], twin, fits[name], ZOO_STEPS,
+                      f"zoo {name}", device, ZOO_PARITY_ITERS)
         entries.append({"name": f"fused_hmc (zoo {name}, {ZOO_ROWS} rows)",
                         "route": "cuda",
                         "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
@@ -2493,6 +2504,66 @@ def zoo_parity(F, cds, ems, fits, counts, device):
                         "launches": counts[name], **entry,
                         "library_ms": None})
     return entries
+
+
+def lse_pair_phase():
+    """The shares of a LogSumExp of two terms as the rows compute them on
+    the card (one reciprocal and a correction each in f32,
+    rt_lse_pair_share) against the IEEE f32 quotient for every f32 e in
+    [0, 1] (csrc/lse_probe.cu; the f64 form rt_lse_share beside them):
+    fails if any e's bits differ, since no range is kept in f64.  Returns
+    whether none did."""
+    from rainier_tpu_torch.tools.kernel_ab import lse_pair_probe
+
+    counts, ms = lse_pair_probe()
+    print("phase LogSumExp pair shares: every f32 e in [0, 1] "
+          "(1,065,353,217 values), s = 1 + e: " + "; ".join(
+              f"{what} {n} differ from the IEEE quotient"
+              + (f" (e from {lo!r} to {hi!r})" if n else "")
+              for what, (n, lo, hi) in counts.items())
+          + f"; no range kept in f64; the probe {ms:.3f} ms", flush=True)
+    exact = all(n == 0 for n, _, _ in counts.values())
+    check(exact, counts)
+    return exact
+
+
+def f64_shares(model):
+    """`model`'s density with the LogSumExp pairs of its rows taking their
+    shares in f64 (rt_lse_share, the form before the pair's), emitted
+    into its own header: the twin that `pair_bits` holds the model's
+    kernel to."""
+    import dataclasses
+
+    from rainier_tpu_torch.compute import emit_cuda
+
+    cd = model.density()
+    em = emit_cuda.emit(cd)
+    src = re.sub(r"rt_lse_pair_share\(([^,]+), (s\w+), r\w+\)",
+                 r"rt_lse_share(\1, \2)", em.source)
+    check(src != em.source, "no LogSumExp pair in the rows")
+    emit_cuda._EMITTED[cd] = dataclasses.replace(em, source=src)
+    return cd
+
+
+def pair_bits(F, cd, twin, tr, n_steps, what, device, n_iters):
+    """The kernel against its f64-share twin (`f64_shares`) from a fit's
+    final states, ε and Σ̂ with the same explicit noise (n_iters
+    iterations of HMC(n_steps), every draw collected): every output the
+    same bits, as the shares are."""
+    import torch
+
+    q0, kw = parity_inputs(
+        cd, device, tr.final_q.shape[0], n_iters, True,
+        start=(tr.final_q.T, tr.step_size, tr.mass.diag), n_steps=n_steps)
+    a = [x.clone() for x in F.fused_hmc(cd, q0, **kw)]
+    b = F.fused_hmc(twin, q0, **kw)
+    same = [bool(torch.equal(x, y)) for x, y in zip(a, b)]
+    print(f"phase same bits as the f64 shares, {what}: the kernel and its "
+          f"twin whose LogSumExp pairs take f64 shares, from the fit's "
+          f"states and the same noise ({q0.shape[1]} chains x {n_iters} it "
+          f"x {n_steps} steps): final q, draws, accept, divergences equal "
+          f"{same}", flush=True)
+    check(all(same), (what, same))
 
 
 def _within(got, want, se, what):
@@ -2679,14 +2750,15 @@ def mixture_laplace(ys):
     return w, np.linalg.inv(-hess(w)), grad(w)[1]
 
 
-def mixture_phases(F, model, cd, em, ys, exprs, marg, device):
+def mixture_phases(F, model, cd, em, ys, exprs, marg, device, twin=None):
     """The marginalized mixture through Model.sample(kernel="fused!")
     against `mixture_laplace`: means within 0.1 Laplace SD of the MAP, SDs
     within 10% of the Laplace SDs, rank-r̂ < 1.01 (the logistic's bars);
     `posterior_prob(1)` by Trace.evaluate at the last draw of
     MIX_RESP_DRAWS chains, averaged over them, within MIX_RESP_TOL of the
     MAP's responsibilities on average over the rows; then the kernel
-    against its plain version from the fit (`fit_parity`).  Warmup in
+    against its plain version from the fit (`fit_parity`) and, given its
+    f64-share `twin`, against that bit for bit (`pair_bits`).  Warmup in
     f32, the default.  Returns its JSON entry."""
     from rainier_tpu_torch.core.trace import Trace
     from rainier_tpu_torch.sampler import HMC, SamplerConfig
@@ -2731,6 +2803,9 @@ def mixture_phases(F, model, cd, em, ys, exprs, marg, device):
           (resp.shape, dresp))
     entry = fit_parity(F, cd, em, tr, MIX_STEPS, "marginalized mixture",
                        device, MIX_PARITY_ITERS)
+    if twin is not None:
+        pair_bits(F, cd, twin, tr, MIX_STEPS, "marginalized mixture",
+                  device, MIX_PARITY_ITERS)
     return {"name": f"fused_hmc (marginalized mixture, {MIX_ROWS} rows)",
             "route": "cuda", "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
             "replaces": "rainier_tpu/ops/hmc_pallas.py:302",
@@ -2962,9 +3037,10 @@ def latent_gp(rt, inputs=GP_INPUTS):
 
 def mat_layout(em):
     """Where a workspace model's product passes read L."""
-    return (f"L staged in shared memory ({em.staged} floats)" if em.staged
-            else "L from a transposed copy in device memory"
-            if em.transposed else "L from its device pointer")
+    return (f"L in tiles of {em.mat_tiles} rows through shared memory "
+            f"({em.staged} floats)" if em.mat_tiles
+            else f"L staged in shared memory ({em.staged} floats)"
+            if em.staged else "L from its device pointer")
 
 
 def gp_phases(F, gp, cd, em, device):
@@ -3024,15 +3100,17 @@ def gp_phases(F, gp, cd, em, device):
 
 
 def gp_wide_phases(F, gp, cd, em, device):
-    """The latent GP at GP_WIDE_INPUTS inputs, its L read from a
-    transposed copy: a short main path through
-    Model.sample(kernel="fused!"), every state finite; then the density
-    alone (`states_density`) and the kernel against its plain version at
-    the main path's shapes over GP_WIDE_PARITY_ITERS iterations (the
-    column-free bar).  Returns its JSON entries."""
+    """The latent GP at GP_WIDE_INPUTS inputs, its L read in tiles: a
+    short main path through Model.sample(kernel="fused!"), every state
+    finite; then the density alone (`states_density`), the time of its
+    product passes as two matrix products (`product_passes_ms`: a
+    yardstick of those passes alone, not of the density) and the kernel
+    against its plain version at the main path's shapes over
+    GP_WIDE_PARITY_ITERS iterations (the column-free bar).  Returns its
+    JSON entries."""
     from rainier_tpu_torch.sampler import HMC, SamplerConfig
 
-    check(bool(em.transposed), f"{mat_layout(em)}, not a transposed copy")
+    check(bool(em.mat_tiles), f"{mat_layout(em)}, not in tiles")
     cfg = SamplerConfig(GP_WIDE_WARMUP, GP_WIDE_DRAWS, sampler=HMC(GP_STEPS))
     F.fused_hmc.launches = 0
     tr = gp[0].sample(cfg, n_chains=MAIN_CHAINS, seed=0, kernel="fused!",
@@ -3052,17 +3130,45 @@ def gp_wide_phases(F, gp, cd, em, device):
     check(bool(np.all(np.isfinite(tr.final_q))), "non-finite states")
     _, dentry = states_density(F, cd, em, tr, device,
                                "rainier_tpu/ops/hmc_pallas.py:293")
+    product_passes_ms(cd, MAIN_CHAINS, device)
     entry = time_kernel(F, cd, em, tr, GP_STEPS, device, 0,
                         f"latent GP {GP_WIDE_INPUTS}",
                         n_iters=GP_WIDE_PARITY_ITERS, whole=whole_bytes(cd))
     what = f"latent GP, {GP_WIDE_INPUTS} inputs: L·z past 16 in the " \
-        "scratch, L from a transposed copy"
+        "scratch, L in tiles"
     return [{"name": f"fused_hmc ({what})", "route": "cuda",
              "source": "rainier_tpu_torch/csrc/fused_hmc.cu",
              "replaces": "rainier_tpu/ops/hmc_pallas.py:293",
              "launches": launches, **entry, "library_ms": None},
             {**dentry, "name": f"rt_logp_grad_launch ({what})",
              "launches": 0}]
+
+
+def product_passes_ms(cd, n_points, device):
+    """The GP's product passes at `n_points` states as two f32 matrix
+    products on the card, TF32 off: L·Z and Lᵀ·A with Z and A (p, n),
+    the median of LAUNCH_REPS after a warm one, printed.  One PyTorch
+    call computes the passes alone, not the density (its scalar terms,
+    prior and the chain's lanes), so this is a yardstick of the passes,
+    not the density's library time."""
+    import torch
+
+    from rainier_tpu_torch.tools.kernel_ab import launch_ms
+
+    (mat,) = [c for c in cd.column_values(torch.float32, device)
+              if c.dim() == 2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(0)
+    z = torch.randn(mat.shape[1], n_points, device=device, generator=gen)
+    a = torch.randn(mat.shape[0], n_points, device=device, generator=gen)
+    _, ms = launch_ms(lambda: (torch.matmul(mat, z), mat.T @ a), device,
+                      LAUNCH_REPS)
+    print(f"phase library, product passes of the latent GP "
+          f"{mat.shape[0]}: torch.matmul(L, Z) and L.T @ A at "
+          f"({mat.shape[0]} x {mat.shape[1]}) · ({mat.shape[1]} x "
+          f"{n_points}) f32, TF32 off: {ms:.4f} ms (the passes alone, not "
+          f"the density)", flush=True)
+    return ms
 
 
 def form_models(rt):
@@ -3566,6 +3672,12 @@ def main(argv=()) -> int:
     zoo_fit_models = zoo_models(rt, device)
     cds.update({f"zoo {name}": m[0].density()
                 for name, m in zoo_fit_models.items()})
+    # the rows' LogSumExp pairs with f64 shares, the twins they are held to
+    zig = zoo_fit_models["zero_inflated_geometric"]
+    cds["zoo zero_inflated_geometric, f64 shares"] = f64_shares(
+        rt.Model.observe(zig[3], zig[1]))
+    cds["marginalized mixture, f64 shares"] = f64_shares(
+        marginal_mixture(rt)[0])
     sbcs = {name: sbc for name, sbc in zoo(rt) if name in SBC_FAMILIES}
     cds.update({f"SBC {name}": sbc._fit_template(SBC_ROWS)[0].density()
                 for name, sbc in sbcs.items()})
@@ -3573,6 +3685,8 @@ def main(argv=()) -> int:
         ems = build_all(F, cds, {"funnel": (MAIN_CHAINS, THROUGHPUT_CHAINS),
                                  "logistic regression 2M": (
                                      LOGIT2M_CHAINS,)})
+    with phase("LogSumExp pair shares", device):
+        exact = lse_pair_phase()
 
     # -- the funnel: the column-free phases ----------------------------------
     with phase("funnel", device):
@@ -3680,11 +3794,13 @@ def main(argv=()) -> int:
     # -- the timed sections after them: the zoo's kernel against its plain
     # version, and the marginalized mixture
     with phase("zoo: kernel vs plain", device):
-        kernels += zoo_parity(F, cds, ems, zoo_fits, zoo_counts, device)
+        kernels += zoo_parity(F, cds, ems, zoo_fits, zoo_counts, device,
+                              exact)
     with phase("marginalized mixture", device):
-        kernels.append(mixture_phases(F, mix[0], cds["marginalized mixture"],
-                                      ems["marginalized mixture"], *mix[1:],
-                                      device))
+        kernels.append(mixture_phases(
+            F, mix[0], cds["marginalized mixture"],
+            ems["marginalized mixture"], *mix[1:], device,
+            cds["marginalized mixture, f64 shares"] if exact else None))
     print(f"phase total: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}))

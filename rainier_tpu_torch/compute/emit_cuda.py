@@ -56,7 +56,11 @@ row of at least ``ROW_STEP_OPS`` operations and at most
 of straight-line code, then their reverse passes in row order
 (``_row_step``).  A ``LogSumExp``'s adjoint in a row reads the
 shifted exponentials of its forward pass and divides them by their sum
-without a branch (``rt_lse_share``).  A row's softplus(x) and
+without a branch (``rt_lse_share``); one of two terms takes a single
+exponential, of the lesser term less the greater, and its shares 1 / s
+and e / s come from one reciprocal and a correction each in f32, the
+bits of the pairwise form's (``_lse_pair``, ``rt_lse_pair_share``).  A
+row's softplus(x) and
 softplus(-x) of one value (a Bernoulli-logit row's two branches) share
 exp(-|x|) and its log1p, with the bits of two ``rt_softplus`` calls,
 and their adjoints σ(±x) come from those and one reciprocal
@@ -100,11 +104,12 @@ Two such readers:
   workspace the passes read L where _mat_layout puts it: in the block's
   shared memory, staged once a launch at a row stride of p + 1 floats
   (the 64 × 64 factor of a 64-input GP takes 16.6 KB), or, where it does
-  not fit beside the slots or tiles (a 256-input GP's, 263 KB), a
-  transposed copy for the forward pass, bound after the columns; a
-  register model reads it from its device pointer, every lane the same
-  address.  Warp barriers order the passes with what the other lanes
-  read;
+  not fit beside the slots or tiles (a 256-input GP's, 263 KB), in tiles
+  of its rows at that stride, two slots that the block's threads fill
+  as each pass runs, tile t + 1 in flight while its chains read tile t
+  (_tiled_pass); a register model reads it from its device pointer,
+  every lane the same address.  Warp barriers order the passes with what
+  the other lanes read;
 * a ``Gather`` by an ``IntColumn`` read whole (a nested ``RowSum`` of a
   gather) reads the source at each row's clamped index; its adjoints are
   summed in f64 by source entry and added to the source's adjoint after
@@ -165,6 +170,16 @@ functions take the columns (``RT_ROW_COLS``).  Rebuilding costs the
 source's operations a row again, where the alternative, the source over
 all rows in a workspace filled by a first pass, costs a second pass over
 the rows and n floats a chain.
+
+Over a slot, the terms of an NArySum that have one shape and differ only
+in their literals and in the entry of one held vector they read (the
+latent GP's Normal(f_i, σ) of y_i), ``GROUP_MIN`` of them at least, are
+one loop over them that the chain's lanes split, where every lane ran
+every term as straight-line code; their literals that differ are a
+table that the wrapper binds after the columns (``cols.l<k>``,
+``EmittedDensity.tables``), each term keeps its arithmetic and its
+gradient entry's bits, and their sum is each lane's f64 sum met in the
+butterfly (``_term_groups``).
 
 A model over ``LANE_STATE_MAX`` parameters or row-invariant values keeps
 its chain state in a slot (``RT_WS_FLOATS`` floats a chain,
@@ -283,6 +298,24 @@ BLOCK_THREADS_MAX = 256
 # chain's slot, a copy a lane (RT_EADD, RT_EADD_SLOT in csrc/rt_math.cuh)
 ENTRY_LOCAL_MAX = 32
 
+# Rows of a tile where the product passes read a matrix in tiles
+# (_mat_tiles), two rows a lane of the forward pass, in blocks of 8
+# chains (ops/fused_hmc.py, chains_per_block, measured there); with
+# MAT_VEC4, a matrix of a multiple of 4 columns is copied and read 16
+# bytes at a time, at a row stride of 4 mod 8 floats (_tile_stride): the
+# 256-input GP's kernel took 2.017 ms so, 2.822 four bytes at a time at
+# a stride of p + 1 (1024 chains, H100 at 700 W, tools/kernel_ab.py
+# gp-blocks, PERF.md §6)
+MAT_TILE_ROWS = 2 * LANES
+MAT_VEC4 = True
+
+# Over a slot, at least GROUP_MIN terms of an NArySum that have one shape
+# and read distinct entries of one held vector are a loop that the
+# chain's lanes split, not straight-line code in every lane
+# (_term_groups): fewer would leave most lanes of the loop idle, and a
+# small model keeps its text
+GROUP_MIN = LANES
+
 # The workspace's arrays do not overlap: said to nvcc, it may issue the
 # loads of later elements before the stores of earlier ones
 _RESTRICT = " __restrict__"
@@ -350,8 +383,11 @@ class EmittedDensity:
                           # products held there, buffered vectors)
     staged: int = 0       # floats of the block's shared memory that the
                           # product passes' matrices take (_mat_layout)
-    transposed: tuple = ()  # the columns whose transposed copies the
-                            # wrapper binds after the columns
+    mat_tiles: int = 0    # rows of a tile where the product passes read
+                          # their matrices in tiles (0: staged whole)
+    tables: tuple = ()    # the literals of each group of scalar terms
+                          # (_term_groups), which the wrapper binds after
+                          # the columns
 
     @property
     def n_rows(self) -> int:
@@ -447,10 +483,13 @@ def _children_checked(node):
 
 
 class _Emitter:
-    def __init__(self, cd, ws: bool = False, unroll: int = UNROLL_MAX):
+    def __init__(self, cd, ws: bool = False, unroll: int = UNROLL_MAX,
+                 tiled=None):
         self.cd = cd
         self.ws = ws                      # state in the workspace
         self.unroll = unroll              # longest vector kept unrolled
+        self.tiled = tiled or {}          # a product pass's matrix read in
+                                          # tiles → rows a tile (_mat_layout)
         self.fwd: list[str] = []
         self.rev: list[str] = []
         self.vals: dict[int, list[str]] = {}
@@ -510,6 +549,14 @@ class _Emitter:
         self.products = {}     # over the workspace, the column index of
                                # each matrix a product pass reads → its
                                # (rows, columns) (_mat_layout)
+        self.groups = {}       # NArySum → the _TermGroups of its terms
+                               # emitted as lane loops (_term_groups)
+        self.grouped = set()   # the nodes of those terms, emitted only in
+                               # their loops
+        self.group_at = {}     # in a group's loop: its Gather → the entry
+                               # it reads
+        self.tables = []       # each group's literals, by term and kind
+                               # (cols.l<k>)
 
     # -- helpers ----------------------------------------------------------
     def size(self, node) -> int:
@@ -598,8 +645,9 @@ class _Emitter:
         nid = node.id
         layout = self.cd.layout
         if nid in self.vals or nid in self.mats or nid in self.ints \
-                or nid in self.wmats:
+                or nid in self.wmats or nid in self.grouped:
             return          # bound by the caller: a row's column or an input
+                            # (or a grouped term's, emitted in its loop)
         if nid in self.mv:
             self._held_product(node)
             return
@@ -660,11 +708,16 @@ class _Emitter:
             self.define(node, [_BINARY[node.op].format(
                 x=self.el(node.left, i), y=self.el(node.right, i))
                 for i in range(m)], 1, n)
+        elif isinstance(node, R.NArySum) and nid in self.groups:
+            self._group_forward(node)
         elif isinstance(node, R.NArySum):
             n, m = self.width(node.children)
             self.define(node, ["(" + " + ".join(
                 self.el(c, i) for c in node.children) + ")"
                 for i in range(m)], len(node.children) - 1, n)
+        elif isinstance(node, R.LogSumExp) and self.rowctx is not None \
+                and len(node.children) == 2:
+            self._lse_pair(node)
         elif isinstance(node, R.LogSumExp):
             # pairwise max, shifted exp sum: the lanes evaluator's formula;
             # in a row each shifted exponential is named, and the adjoint
@@ -771,8 +824,8 @@ class _Emitter:
             if self.rowctx is not None and self.rowctx.dep[node.source.id]:
                 self._row_gather(node)
             elif j is not None and node.source.id in self.mv:
-                self.define(node, [self.addr[node.source.id][0].format(j)],
-                            0)
+                self.define(node, [self.addr[node.source.id][0].format(
+                    self.group_at.get(nid, j))], 0)
             elif j is not None and node.source.id in self.loop_len:
                 # the source's loop keeps element j in k<id>
                 self.define(node, [f"k{nid}"], 0)
@@ -839,6 +892,125 @@ class _Emitter:
             self.rops += 2
         self.acc(node.child, 0, f"{a} * ({x} >= 0.0f ? {r} : {e} * {r})",
                  3)
+
+    def _group_body(self, g):
+        """The forward lines of a group's first term at element i of its
+        loop: its Gather reads entry base + i of the held vector, each
+        literal that differs between the terms row k of the group's
+        table (cols.l<t>[k·K + i]), every other line as the term's own;
+        the operations counted K times."""
+        grouped, fwd, self.grouped, self.fwd = self.grouped, self.fwd, set(), []
+        for n in g.nodes:
+            self.vals.pop(n.id, None)
+        for k, c in enumerate(g.varying):
+            self.vals[c.id] = [f"cols.l{g.table}[{k * g.k} + i]"]
+        self.group_at[g.gather.id] = f"{g.base} + i" if g.base else "i"
+        self.mult = g.k
+        for n in g.nodes:
+            self.forward(n)
+        body, self.fwd, self.grouped, self.mult = self.fwd, fwd, grouped, 1
+        for c in g.varying:
+            self.vals[c.id] = [_lit(c.value)]
+        return body
+
+    def _group_loop(self, g, pre, body, post):
+        """A group's loop over its K terms, split over the chain's lanes,
+        after a line that names it (tools/kernel_ab.py finds it there)."""
+        split, self.split = self.split, True
+        out = [f"  // the scalar terms of {g.name}: {g.k} of one shape, a "
+               "loop over the lanes",
+               *_loop(self, g.k, pre, body, post)]
+        self.split = split
+        return out
+
+    def _group_forward(self, node) -> None:
+        """An NArySum whose terms hold groups (_term_groups): each group a
+        loop over its terms whose lanes sum their values in f64
+        (RT_PART, RT_SUM), the other terms added after the groups' sums;
+        the terms' own arithmetic is theirs, only the sum's order is
+        new."""
+        outs = []
+        for gi, g in enumerate(self.groups[node.id]):
+            name = f"sum{node.id}_{gi}"
+            body = self._group_body(g)
+            self.fwd += self._group_loop(
+                g, [_part(True, name)],
+                [*body, _part_add(True, name, self.el(g.rep, 0))],
+                _part_sum(True, [name]))
+            outs.append(f"(float){name}")
+        roots = {r for g in self.groups[node.id] for r in g.roots}
+        rest = [self.el(c, 0) for c in node.children if c.id not in roots]
+        self.define(node, ["(" + " + ".join(outs + rest) + ")"],
+                    len(node.children) - 1)
+
+    def _group_backward(self, node) -> None:
+        """The adjoints of a grouped NArySum: each term's, in its group's
+        loop, the term recomputed at element i, its adjoints declared,
+        seeded with the sum's and run back; its Gather adds to entry
+        base + i of the held vector's adjoint, which no other term of the
+        group reads, so each entry keeps the bits of the terms one after
+        another."""
+        a = self.adj[node.id][0]
+        roots = {r for g in self.groups[node.id] for r in g.roots}
+        for c in node.children:
+            if c.id not in roots:
+                self.acc(c, 0, a, 0)
+        for g in self.groups[node.id]:
+            fops = self.fops    # the recomputed values counted once
+            body = self._group_body(g)
+            self.fops = fops
+            grouped, rev, self.grouped, self.rev = (self.grouped, self.rev,
+                                                    set(), [])
+            self.mult = g.k
+            self.rev += [*_decls(self, g.nodes),
+                         f"  {self.adj[g.rep.id][0]} += {a};"]
+            self.rops += g.k
+            for n in reversed(g.nodes):
+                self.backward(n)
+            body += self.rev
+            self.grouped, self.rev, self.mult = grouped, rev, 1
+            self.rev += ["  {", *_indent(self._group_loop(g, [], body, [])),
+                         "  }"]
+
+    def _lse_pair(self, node) -> None:
+        """A row's LogSumExp of two terms x, y: m = max(x, y), one
+        exponential e = exp(min - m) and s = 1 + e, m + log(s).  The
+        pairwise form exp(x - m) + exp(y - m) had exp(0) = 1 for the
+        larger term, and f32 addition commutes, so s and the value keep
+        their bits wherever m is finite; (x - m) + (y - m), min - m there,
+        is NaN where m is infinite or a term NaN, as that form's value
+        then is.  The operations counted are the pairwise form's: the
+        bound prices the function, not what is emitted."""
+        nid = node.id
+        n, w = self.width(node.children)
+        outs = []
+        for i in range(w):
+            x, y = (self.el(c, i) for c in node.children)
+            m, e, s = (f"{k}{self.tag}{nid}_{i}" for k in "mes")
+            self.fwd += [f"  const float {m} = fmaxf({x}, {y});",
+                         f"  const float {e} = expf(({x} - {m}) + "
+                         f"({y} - {m}));",
+                         f"  const float {s} = 1.0f + {e};"]
+            outs.append(f"{m} + logf({s})")
+        self.fops += n * 4 * 2
+        self.define(node, outs, 2, n)
+        self.lse[nid] = None
+
+    def _lse_pair_adj(self, node, i, a) -> None:
+        """The adjoints of _lse_pair's value: the larger term's share
+        1 / s and the other's e / s (at a tie both 1 / 2), from one
+        reciprocal of s and a correction for each term that takes an
+        adjoint (rt_lse_pair_share)."""
+        nid = node.id
+        x, y = (self.el(c, i) for c in node.children)
+        e, s, r, c = (f"{k}{self.tag}{nid}_{i}" for k in "esrc")
+        self.rev += [f"  const float {r} = rt_recip({s});",
+                     f"  const bool {c} = {x} >= {y};"]
+        first, second = node.children
+        for child, num in ((first, f"{c} ? 1.0f : {e}"),
+                           (second, f"{c} ? {e} : 1.0f")):
+            self.acc(child, i,
+                     f"{a} * rt_lse_pair_share({num}, {s}, {r})", 2)
 
     def _whole_column(self, node) -> None:
         """A column read whole, outside the rows of a top-level RowSum: a
@@ -933,7 +1105,10 @@ class _Emitter:
     # -- reverse ----------------------------------------------------------
     def backward(self, node) -> None:
         nid = node.id
-        if not self.grad.get(nid) or self.leaf(node):
+        if not self.grad.get(nid) or self.leaf(node) or nid in self.grouped:
+            return
+        if nid in self.groups:
+            self._group_backward(node)
             return
         for i in range(len(self.vals[nid])):
             a = self.adj[nid][i]
@@ -949,6 +1124,8 @@ class _Emitter:
             elif isinstance(node, R.NArySum):
                 for c in node.children:
                     self.acc(c, i, a, 0)
+            elif isinstance(node, R.LogSumExp) and self.lse[nid] is None:
+                self._lse_pair_adj(node, i, a)
             elif isinstance(node, R.LogSumExp):
                 es, ss = self.lse[nid]
                 # in a row the division without a branch (rt_lse_share:
@@ -991,9 +1168,9 @@ class _Emitter:
                 elif j is not None and src.id in self.mv:
                     if self.grad[src.id]:
                         self.rev.append(_add_to(
-                            self, src.id, self.addr[src.id][1].format(j),
-                            a))
-                        self.rops += 1
+                            self, src.id, self.addr[src.id][1].format(
+                                self.group_at.get(nid, j)), a))
+                        self.rops += self.mult
                 elif j is not None and src.id in self.loop_len:
                     pass        # seeded in the source's loop
                 elif j is not None:
@@ -1091,10 +1268,11 @@ def _seeds(em, roots) -> list[str]:
 
 
 def _decls(em, nodes) -> list[str]:
-    """The scalar adjoints (a loop's are declared in its body)."""
+    """The scalar adjoints (a loop's are declared in its body, a grouped
+    term's in its group's)."""
     return [f"  float {a} = 0.0f;" for node in nodes
             if em.grad.get(node.id) and node.id not in em.loop_len
-            and not em.leaf(node)
+            and not em.leaf(node) and node.id not in em.grouped
             for a in em.adj[node.id]]
 
 
@@ -1114,8 +1292,116 @@ class _Loop:
         self.body = []       # the nodes computed in the body, in order
 
 
+class _TermGroup(NamedTuple):
+    """Terms of one NArySum that have one shape (_term_groups), emitted as
+    one loop over them: its first term by entry stands for all."""
+
+    name: str          # the NArySum's value
+    rep: object        # the first term's root
+    nodes: list        # the first term's nodes, children first
+    gather: object     # its Gather of the held vector
+    base: int          # the entry that element 0 of the loop reads
+    k: int             # terms
+    varying: list      # its Constants whose value differs between terms
+    table: int         # the group's table among the density's (cols.l<t>)
+    roots: frozenset   # every term's root
+
+
+def _term_shape(em, t, parents, owner):
+    """(shape, literal values, entry, Gather, nodes children first) of the
+    term t of the NArySum `owner`, or None where it cannot be grouped: a
+    term groups where it is scalar arithmetic (Unary, Binary, NArySum)
+    over literals and one Gather at a constant index of a vector held in
+    scr past the unroll (_held_product), no node of it read outside it."""
+    nodes, seen, stack = [], set(), [(t, False)]
+    while stack:
+        n, done = stack.pop()
+        if done:
+            nodes.append(n)
+            continue
+        if n.id in seen:
+            continue
+        seen.add(n.id)
+        stack.append((n, True))
+        if not isinstance(n, R.Gather):
+            stack += [(c, False) for c in reversed(R.children_of(n))
+                      if c.id not in seen]
+    if parents.get(t.id) != [owner.id]:
+        return None
+    index = {n.id: k for k, n in enumerate(nodes)}
+    shape, values, gathers = [], [], []
+    for n in nodes:
+        if isinstance(n, R.Constant):
+            shape.append(("C",))
+            values.append(n.value)
+            continue
+        if n is not t and not set(parents[n.id]) <= seen:
+            return None
+        if isinstance(n, R.Gather):
+            if not (isinstance(n.index, R.Constant) and n.source.id in em.mv
+                    and n.source.id in em.loop_len):
+                return None
+            gathers.append(n)
+            shape.append(("G", n.source.id))
+        elif isinstance(n, (R.Unary, R.Binary, R.NArySum)) \
+                and n.id not in em.loop_len:
+            shape.append((type(n).__name__, getattr(n, "op", None),
+                          tuple(index[c.id] for c in R.children_of(n))))
+        else:
+            return None
+    if len(gathers) != 1:
+        return None
+    g = gathers[0]
+    return (tuple(shape), values, _static_slot(g, em.size(g.source)), g,
+            nodes)
+
+
+def _term_groups(em, order) -> None:
+    """Over a slot (em.ws), the terms of an NArySum that have one shape
+    and differ only in their literals and in the entry of one held vector
+    they read, at least GROUP_MIN of them reading distinct entries that
+    make one run (the latent GP's Normal(f_i, σ) of y_i, one per input): each
+    such group becomes a loop over its terms that the chain's lanes
+    split (_group_forward, _group_backward), where every lane would run
+    each term as straight-line code; its literals that differ are a
+    table that the wrapper binds after the columns (em.tables)."""
+    parents = {}
+    for node in order:
+        for c in set(R.children_of(node)):
+            parents.setdefault(c.id, []).append(node.id)
+    for node in order:
+        if not isinstance(node, R.NArySum) or node.id in em.loop_len:
+            continue
+        by = {}
+        for t in node.children:
+            found = _term_shape(em, t, parents, node)
+            if found is not None:
+                by.setdefault(found[0], []).append(found[1:])
+        for terms in by.values():
+            entries = sorted(j for _, j, _, _ in terms)
+            if len(terms) < GROUP_MIN or entries != list(range(
+                    entries[0], entries[0] + len(terms))):
+                continue
+            terms.sort(key=lambda term: term[1])
+            values = np.array([v for v, _, _, _ in terms], dtype=np.float32)
+            vary = [k for k in range(values.shape[1])
+                    if np.any(values[:, k] != values[0, k])]
+            rep = terms[0][3]
+            consts = [n for n in rep if isinstance(n, R.Constant)]
+            if vary:
+                em.tables.append(tuple(float(v) for v in
+                                       values[:, vary].T.ravel()))
+            em.groups.setdefault(node.id, []).append(_TermGroup(
+                f"v{node.id}", rep[-1], rep, terms[0][2], entries[0],
+                len(terms), [consts[k] for k in vary],
+                len(em.tables) - 1 if vary else -1,
+                frozenset(nodes[-1].id for _, _, _, nodes in terms)))
+            em.grouped.update(n.id for _, _, _, nodes in terms for n in nodes
+                              if not isinstance(n, R.Constant))
+
+
 def _program(em, roots, total=False, store=None, seed=None,
-             reverse=True):
+             reverse=True, group=False):
     """Code of one function over `roots` on the emitter `em`:
     (forward lines, reverse lines, terms of the roots' sum).
 
@@ -1135,11 +1421,14 @@ def _program(em, roots, total=False, store=None, seed=None,
     there.  A looped root adds to the total through an f64 sum (`total`),
     or `store(node, "i", value)` writes it out; `seed(node, "i")` is added
     to its adjoint (with `total`, 1).  `reverse=False` emits the forward
-    pass only."""
+    pass only; `group` emits the terms of an NArySum that have one shape
+    as loops (_term_groups)."""
     order = R.topological(roots)
     for node in order:                 # lengths and gradient flags
         em.forward(node)
     looped = dict(em.loop_len)
+    if group and em.ws:
+        _term_groups(em, order)
     whole = {}                         # reader id → the input it reads whole
     for node in order:
         if node.id in em.mv:
@@ -1310,11 +1599,16 @@ def _product_pass(em, node, transpose=False):
     reading row r of L from its device pointer would touch 32 cache
     lines a load), and the inner loops are unrolled by eight, so that
     several loads are in flight; each sum keeps its order, so the bits
-    are those of the loop without the unroll."""
+    are those of the loop without the unroll.  A matrix that does not fit
+    the block's shared memory is read in tiles of its rows
+    (_tiled_pass)."""
     mo, ma = em.mv[node.id]
     n, p = node.mat.n_rows, node.mat.n_cols
     c = em.wmats[node.mat.id]
     val, adj = em.addr[node.vec.id]
+    if em.ws and c in em.tiled:
+        em.products[c] = (n, p)
+        return _tiled_pass(em, node, transpose)
     sync = ["  RT_WARP_SYNC();"] if em.ws else []
     head = "  for (int {v} = RT_LANE; {v} < {n}; {v} += RT_LSTEP) {{" \
         if em.ws else "  for (int {v} = 0; {v} < {n}; ++{v}) {{"
@@ -1341,42 +1635,170 @@ def _product_pass(em, node, transpose=False):
             f"    {adj.format('j')} += acc;", "  }", *sync]
 
 
-def _mat_layout(products, block, budget=SMEM_BYTES_MAX):
+def _tile_stride(p: int) -> int:
+    """Floats from one row of a matrix's tile to the next: p + 1, so that
+    the forward pass's lanes, each reading its row, and the transpose's,
+    each its column, hit distinct banks; with MAT_VEC4 and p a multiple
+    of 4, the least multiple of 4 from p that is 4 mod 8, so that eight
+    lanes' 16-byte loads of their rows, or of their four columns, hit
+    distinct banks."""
+    if MAT_VEC4 and p % 4 == 0:
+        return p + (4 if p % 8 == 0 else 8)
+    return p + 1
+
+
+def _tiled_pass(em, node, transpose=False):
+    """A product pass over a slot whose matrix (n × p) is read in tiles
+    of T = em.tiled[c] rows that the block's threads copy into two slots
+    of its shared memory at a row stride of S floats (_tile_stride;
+    rt_mat_tile, csrc/rt_math.cuh: tile t + 1's copies in flight while
+    tile t is read), so each tile crosses L2 once for the block's
+    chains, where each chain read all of L: the forward pass's lanes
+    split each tile's rows, each a sum over the columns; the transpose's
+    lanes keep their columns' sums over every tile, rows in ascending
+    order (lane l columns l, l + 32, ...; at a stride of 4 mod 8, four
+    columns 4g, ..., 4g + 3 for g = l, l + 32, ..., read as one 16-byte
+    load).  Every sum keeps its order, so the bits are those of the
+    staged passes.  Every warp of the block runs every pass: the chains
+    of a block call the density the same number of times."""
+    mo, ma = em.mv[node.id]
+    n, p = node.mat.n_rows, node.mat.n_cols
+    c = em.wmats[node.mat.id]
+    val, adj = em.addr[node.vec.id]
+    t_rows, stride = em.tiled[c], _tile_stride(p)
+    vec4 = stride % 4 == 0
+    n_tiles = -(-n // t_rows)
+    tile = (f"    const float* m{c} = rt_mat_tile<{p}, {t_rows}, {stride}>("
+            f"cols.s{c}, cols.c{c}, t, {n});")
+    rows = f"r < {n} && r < (t + 1) * {t_rows}"
+    row = f"r - t * {t_rows}"
+    if not transpose:
+        em.fops += 2 * n * p
+        if vec4:
+            inner = ["#pragma unroll 4", f"      for (int j = 0; j < {p}; "
+                     "j += 4) {",
+                     f"        const rt_f4 l4 = RT_MAT{c}_4({row}, j);",
+                     *[f"        acc += l4.{x} * {val.format(j)};" for x, j in
+                       zip("xyzw", ("j", "j + 1", "j + 2", "j + 3"))],
+                     "      }"]
+        else:
+            inner = ["#pragma unroll 8", f"      for (int j = 0; j < {p}; ++j)",
+                     f"        acc += RT_MAT{c}({row}, j) * "
+                     f"{val.format('j')};"]
+        return ["  RT_WARP_SYNC();",
+                f"  for (int t = 0; t < {n_tiles}; ++t) {{", tile,
+                f"    for (int r = t * {t_rows} + RT_LANE; {rows}; "
+                "r += RT_LSTEP) {", "      float acc = 0.0f;", *inner,
+                f"      scr[{mo} + r] = acc;", f"      scr[{ma} + r] = 0.0f;",
+                "    }", "  }", "  RT_BLOCK_SYNC();", "  RT_WARP_SYNC();"]
+    if not em.grad[node.vec.id]:
+        return []
+    em.rops += 2 * n * p + p
+    if vec4:
+        k = f"({p // 4} + RT_LSTEP - 1) / RT_LSTEP"
+        acc, col = f"acc{c}[{k} * 4]", "4 * (RT_LANE + k * RT_LSTEP)"
+        body = [f"            const rt_f4 l4 = RT_MAT{c}_4({row}, j);",
+                *[f"            acc{c}[4 * k + {i}] += l4.{x} * a;"
+                  for i, x in enumerate("xyzw")]]
+        flush = [f"        {adj.format(f'j + {i}' if i else 'j')} += "
+                 f"acc{c}[4 * k + {i}];" for i in range(4)]
+        zero = f"    for (int k = 0; k < {k} * 4; ++k) acc{c}[k] = 0.0f;"
+    else:
+        k = f"({p} + RT_LSTEP - 1) / RT_LSTEP"
+        acc, col = f"acc{c}[{k}]", "RT_LANE + k * RT_LSTEP"
+        body = [f"            acc{c}[k] += RT_MAT{c}_T({row}, j) * a;"]
+        flush = [f"        {adj.format('j')} += acc{c}[k];"]
+        zero = f"    for (int k = 0; k < {k}; ++k) acc{c}[k] = 0.0f;"
+    return ["  RT_WARP_SYNC();", "  {", f"    float {acc};",
+            "#pragma unroll", zero,
+            f"    for (int t = 0; t < {n_tiles}; ++t) {{", "  " + tile,
+            f"      for (int r = t * {t_rows}; {rows}; ++r) {{",
+            f"        const float a = scr[{ma} + r];", "#pragma unroll",
+            f"        for (int k = 0; k < {k}; ++k) {{",
+            f"          const int j = {col};",
+            f"          if (j < {p}) {{", *body, "          }", "        }",
+            "      }", "    }", "    RT_BLOCK_SYNC();", "#pragma unroll",
+            f"    for (int k = 0; k < {k}; ++k) {{",
+            f"      const int j = {col};", f"      if (j < {p}) {{", *flush,
+            "      }", "    }", "  }", "  RT_WARP_SYNC();"]
+
+
+def _mat_tiles(products, block):
+    """Rows of each matrix's tiles where the product passes read them in
+    tiles (_tiled_pass): MAT_TILE_ROWS, halved until the `block` bytes of
+    the block's slots or row tiles and two tiles of every matrix fit
+    SMEM_BYTES_MAX."""
+    rows = MAT_TILE_ROWS
+
+    def need(t):
+        return block + 4 * sum(2 * t * _tile_stride(p)
+                               for _, p in products.values())
+    while rows > 1 and need(rows) > SMEM_BYTES_MAX:
+        rows //= 2
+    need = need(rows)
+    if need > SMEM_BYTES_MAX:
+        raise UnsupportedNode(
+            f"the product passes' matrices need {need} bytes of shared "
+            f"memory even in tiles of one row, over the {SMEM_BYTES_MAX} a "
+            "block can use")
+    return {c: rows for c in products}
+
+
+def _mat_layout(products, block, budget=SMEM_BYTES_MAX, tiled=None):
     """Where the product passes of a workspace model read each matrix
     (`products`: column index → (rows n, columns p)): where the `block`
     bytes of the block's slots or tiles and the matrices at a row stride
     of p + 1 floats fit `budget` bytes of shared memory, staged there
     once a launch, where lane r of the forward pass, reading row r, and
     lane j of the transpose, reading column j, hit distinct banks; else
-    the forward pass reads a transposed copy that the wrapper binds after
-    the columns (cols.t<c>), and the transpose the matrix, both with
-    neighbouring lanes on neighbouring addresses.  Returns (the header's
-    lines: RT_MAT<c>, RT_MAT<c>_T, and where staged RT_SMEM_MATS and
-    rt_stage_mats; the staged floats; the columns whose transposed
-    copies are bound)."""
+    in tiles of their rows, two slots of each in the block's shared
+    memory at a row stride of _tile_stride(p) floats (`tiled`, {column:
+    rows a tile}: the passes
+    were emitted so, _tiled_pass), which rt_stage_mats points at.
+    Returns (the header's lines: RT_MAT<c>, RT_MAT<c>_T, RT_SMEM_MATS and
+    rt_stage_mats; the floats of shared memory they take; the rows a tile
+    of each tiled matrix).  Lines are None where the passes were emitted
+    for staging and the matrices do not fit: the density is emitted
+    again with those tiles."""
     if not products:
-        return [], 0, ()
-    if block + 4 * sum(n * (p + 1) for n, p in products.values()) > budget:
-        return [line for c, (n, p) in sorted(products.items()) for line in (
-            f"#define RT_MAT{c}(r, j) cols.t{c}[(j) * {n} + (r)]",
-            f"#define RT_MAT{c}_T(r, j) cols.c{c}[(r) * {p} + (j)]")], 0, \
-            tuple(sorted(products))
-    defs, copies, off = [], [], 0
+        return [], 0, {}
+    if not tiled and block + 4 * sum(
+            n * (p + 1) for n, p in products.values()) <= budget:
+        defs, copies, off = [], [], 0
+        for c, (n, p) in sorted(products.items()):
+            defs += [f"#define RT_MAT{c}(r, j) cols.s{c}[(r) * {p + 1} + (j)]",
+                     f"#define RT_MAT{c}_T(r, j) RT_MAT{c}(r, j)"]
+            copies += [f"  for (int i = tid; i < {n * p}; i += nt)",
+                       f"    smem[{off} + i / {p} * {p + 1} + i % {p}] = "
+                       f"cols.c{c}[i];",
+                       f"  cols.s{c} = smem + {off};"]
+            off += n * (p + 1)
+        return [
+            *defs, f"#define RT_SMEM_MATS {off}", "",
+            "// the matrices of the product passes, copied into the block's",
+            "// shared memory by its threads tid of nt (csrc/fused_hmc.cu "
+            "calls",
+            "// it once a launch, then a barrier)",
+            "RT_HD void rt_stage_mats(RtCols& cols, float* smem, int tid, "
+            "int nt) {", *copies, "}"], off, {}
+    if not tiled:
+        return None, 0, _mat_tiles(products, block)
+    defs, sets, off = [], [], 0
     for c, (n, p) in sorted(products.items()):
-        defs += [f"#define RT_MAT{c}(r, j) cols.s{c}[(r) * {p + 1} + (j)]",
+        stride = _tile_stride(p)
+        defs += [f"#define RT_MAT{c}(r, j) m{c}[(r) * {stride} + (j)]",
                  f"#define RT_MAT{c}_T(r, j) RT_MAT{c}(r, j)"]
-        copies += [f"  for (int i = tid; i < {n * p}; i += nt)",
-                   f"    smem[{off} + i / {p} * {p + 1} + i % {p}] = "
-                   f"cols.c{c}[i];",
-                   f"  cols.s{c} = smem + {off};"]
-        off += n * (p + 1)
+        if stride % 4 == 0:
+            defs.append(f"#define RT_MAT{c}_4(r, j) rt_ld4(&RT_MAT{c}(r, j))")
+        sets.append(f"  cols.s{c} = smem + {off};")
+        off += 2 * tiled[c] * stride
     return [
         *defs, f"#define RT_SMEM_MATS {off}", "",
-        "// the matrices of the product passes, copied into the block's",
-        "// shared memory by its threads tid of nt (csrc/fused_hmc.cu calls",
-        "// it once a launch, then a barrier)",
+        "// the two tile slots of each matrix of the product passes in the",
+        "// block's shared memory, which the passes fill (rt_mat_tile;",
+        "// csrc/fused_hmc.cu calls this once a launch)",
         "RT_HD void rt_stage_mats(RtCols& cols, float* smem, int tid, "
-        "int nt) {", *copies, "}"], off, ()
+        "int nt) {", *sets, "  (void)tid, (void)nt;", "}"], off, tiled
 
 
 def _gather_sums(em, node, flush=False):
@@ -1966,7 +2388,8 @@ def _row_step(fwd, rev, total, step, gathers=0):
                   for k in range(step)]
 
 
-def _emit_rows(cd, spaces, ws, whole, scratch, consts, gather_step=1):
+def _emit_rows(cd, spaces, ws, whole, scratch, consts, gather_step=1,
+               tiled=None):
     """The per-row part of a data model: (C lines, invariant ops, the
     row-invariant values' count, the count of those some row reads other
     than by a per-row gather, SpaceTiles per row space).  One row space
@@ -2050,11 +2473,11 @@ def _emit_rows(cd, spaces, ws, whole, scratch, consts, gather_step=1):
     n_inv = k
     n_dense = sum(size[f] for f in dense)
 
-    pre = _Emitter(cd, ws)
+    pre = _Emitter(cd, ws, tiled=tiled)
     pre_fwd, _, _ = _program(
         pre, frontier, reverse=False,
         store=lambda f, i, v: f"  inv[{base[f.id]} + {i}] = {v};")
-    post = _Emitter(cd, ws)
+    post = _Emitter(cd, ws, tiled=tiled)
     post_fwd, post_rev, _ = _program(
         post, frontier,
         seed=lambda f, i: f"ainv[{base[f.id]} + {i}]")
@@ -2209,13 +2632,13 @@ def _emit_rows(cd, spaces, ws, whole, scratch, consts, gather_step=1):
             {**pre.products, **post.products})
 
 
-def _cols_struct(columns, staged=(), transposed=()):
+def _cols_struct(columns, staged=(), tables=0):
     """RtCols, one pointer of its own type per column (int32 for an
     IntColumn), and rt_cols, which fills it from the launch's pointer
     array on the host; a pointer to the copy in shared memory of each
-    `staged` column (s<c>, set by rt_stage_mats), and one to each
-    `transposed` column's transposed copy, which the pointer array holds
-    after the columns (t<c>)."""
+    `staged` column (s<c>, set by rt_stage_mats: the matrix, or its tiles'
+    slots), and one to each of the `tables` groups' tables of literals,
+    which the pointer array holds after the columns (l<k>)."""
     types = ["const int*" if isinstance(c, R.IntColumn) else "const float*"
              for c in columns]
     return [
@@ -2224,14 +2647,14 @@ def _cols_struct(columns, staged=(), transposed=()):
         *[f"  {t} c{j};" for j, t in enumerate(types)],
         *(["  const float* unused;"] if not columns else []),
         *[f"  const float* s{c};" for c in staged],
-        *[f"  const float* t{c};" for c in transposed],
+        *[f"  const float* l{k};" for k in range(tables)],
         "};",
         "",
         "static inline RtCols rt_cols(const void* const* cols) {",
         "  RtCols out = {};",
         *[f"  out.c{j} = ({t})cols[{j}];" for j, t in enumerate(types)],
-        *[f"  out.t{c} = (const float*)cols[{len(columns) + k}];"
-          for k, c in enumerate(transposed)],
+        *[f"  out.l{k} = (const float*)cols[{len(columns) + k}];"
+          for k in range(tables)],
         "  (void)cols;",
         "  return out;",
         "}",
@@ -2251,8 +2674,8 @@ def emit(cd, stage_budget=None) -> EmittedDensity:
     model has over LANE_STATE_MAX parameters or row-invariant values.
     With `stage_budget`, the density is emitted anew with its product
     passes' matrices staged in shared memory only where the block's
-    slots or tiles and they fit that many bytes (0: never, the
-    transposed copy's layout at any size), and kept as cd's emission."""
+    slots or tiles and they fit that many bytes (0: never, their tiles
+    at any size), and kept as cd's emission."""
     if cd not in _EMITTED or stage_budget is not None:
         budget = SMEM_BYTES_MAX if stage_budget is None else stage_budget
         em = _emit(cd, cd.n_vars > LANE_STATE_MAX, budget)
@@ -2297,7 +2720,7 @@ def workspace_floats(n_vars: int, n_inv: int, rows: bool,
     return n + n % 2
 
 
-def _emit(cd, ws: bool, stage_budget: int) -> EmittedDensity:
+def _emit(cd, ws: bool, stage_budget: int, tiled=None) -> EmittedDensity:
     try:
         split = cd.row_split()
     except NoRowSplit as e:
@@ -2316,13 +2739,15 @@ def _emit(cd, ws: bool, stage_budget: int) -> EmittedDensity:
     whole = bool(find_columns(split.base)) or any(
         find_columns(list(sp.frontier)) for sp in rows_of)
     roots = list(split.base)
-    em = _Emitter(cd, ws, unroll)
-    fwd, rev, total = _program(em, roots, total=True)
+    em = _Emitter(cd, ws, unroll, tiled)
+    fwd, rev, total = _program(em, roots, total=True, group=True)
+    # a group's table of literals is bound after the columns
+    whole = whole or bool(em.tables)
     lp_ops = max(len(total) - 1, 0)
     n = cd.n_vars
     def rows_at(step):
         return _emit_rows(cd, rows_of, ws, whole, em.scratch,
-                          [sp.consts for sp in split.spaces], step) \
+                          [sp.consts for sp in split.spaces], step, tiled) \
             if split.spaces else \
             ([], 0, 0, 0, (), em.scratch, False, False, False, {})
 
@@ -2346,7 +2771,9 @@ def _emit(cd, ws: bool, stage_budget: int) -> EmittedDensity:
     # tile slots, where they fit
     block = 4 * (2 * top.tile_rows * top.row_width) + (
         slots_bytes(slot) if shared else 0)
-    mats, staged, transposed = _mat_layout(products, block, stage_budget)
+    mats, staged, tiles = _mat_layout(products, block, stage_budget, tiled)
+    if mats is None:
+        return _emit(cd, ws, stage_budget, tiles)
     src = "\n".join([
         "// Generated by rainier_tpu_torch.compute.emit_cuda: the model's",
         "// log-density and its reverse-mode gradient for one chain.",
@@ -2373,7 +2800,7 @@ def _emit(cd, ws: bool, stage_budget: int) -> EmittedDensity:
         *(["#define RT_ROW_STATE 1"] if row_state else []),
         "",
         *_cols_struct(cd.columns, tuple(sorted(products)) if staged
-                      else (), transposed),
+                      else (), len(em.tables)),
         "",
         *([*mats, ""] if mats else []),
         f"RT_HD float rt_logp_grad(const float*{r} q, float*{r} g"
@@ -2397,4 +2824,5 @@ def _emit(cd, ws: bool, stage_budget: int) -> EmittedDensity:
                           ops=em.fops + lp_ops + em.rops + inv_ops,
                           spaces=spaces, n_inv=n_inv, workspace=slot,
                           shared=shared, scratch=scratch, staged=staged,
-                          transposed=transposed)
+                          mat_tiles=min(tiles.values(), default=0),
+                          tables=tuple(em.tables))

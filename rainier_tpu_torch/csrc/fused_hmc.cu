@@ -470,10 +470,16 @@ RT_HD double rt_consts_sum(const RtRows& rows) {
 // forms, PERF.md §6).  Where it fits beside the block's slots or tiles, L is
 // copied into the block's shared memory once a launch (rt_stage_mats,
 // RT_SMEM_MATS floats after them) at a row stride of p + 1 floats, so
-// that both passes' lanes hit distinct banks; else the forward pass reads
-// a transposed copy that the wrapper binds after the columns, and both
-// passes read neighbouring addresses in neighbouring lanes
-// (compute/emit_cuda.py, _mat_layout).
+// that both passes' lanes hit distinct banks; else the passes read it in
+// tiles of its rows at that stride, through two slots there (RT_SMEM_MATS
+// floats, which rt_stage_mats points at) that the block's threads fill
+// with cp.async as each pass runs, tile t + 1 in flight while tile t is
+// read (rt_mat_tile, csrc/rt_math.cuh): each tile crosses L2 once for the
+// block's chains, where each chain's warp read all of L from a transposed
+// copy (the 256-input GP's kernel: L's reads 8.3 of its 11.9 ms,
+// tools/kernel_ab.py gp-split, PERF.md §6).  Every warp of a block runs
+// every pass, so the tiles' barriers are reached by all
+// (compute/emit_cuda.py, _mat_layout, _tiled_pass).
 #ifndef RT_SMEM_MATS
 #define RT_SMEM_MATS 0
 #endif

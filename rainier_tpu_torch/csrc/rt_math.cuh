@@ -85,6 +85,25 @@ RT_HD float rt_recip(float d) {
 #endif
 }
 
+// A LogSumExp of two terms in a row (the emitter's _lse_pair): with m the
+// larger term, e = exp(min - m) in [0, 1] and s = 1 + e in [1, 2], the
+// larger term's share is 1 / s and the other's e / s.  On the card each is
+// q = e·r from r = rt_recip(s) and one f32 correction, q + r·(e − s·q),
+// the residual exact in an FMA: no f64 and no branch, where rt_lse_share
+// converts to f64 and back.  For every f32 e in [0, 1] both shares have
+// the bits of the IEEE f32 quotient on an H100 (csrc/lse_probe.cu, run by
+// chip_smoke.py's phase "LogSumExp pair shares"); a NaN e or s gives NaN.
+// Host code divides.
+RT_HD float rt_lse_pair_share(float e, float s, float r) {
+#ifdef __CUDA_ARCH__
+  const float q = e * r;
+  return fmaf(r, fmaf(-s, q, e), q);
+#else
+  (void)r;
+  return e / s;
+#endif
+}
+
 // float index -> int32 by truncation toward zero (jnp astype(int32));
 // NaN maps to 0 and out-of-range values saturate, as the device
 // conversion does
@@ -153,6 +172,90 @@ RT_HD void rt_copy_wait_all() {
 #ifdef __CUDA_ARCH__
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 #endif
+}
+
+// the block's barrier on the card; nothing in host code, where the block
+// is one thread
+#ifdef __CUDA_ARCH__
+#define RT_BLOCK_SYNC() __syncthreads()
+#else
+#define RT_BLOCK_SYNC() \
+  do {                  \
+  } while (0)
+#endif
+
+// 16 bytes from device memory into shared memory, both 16-byte aligned,
+// as one asynchronous copy (a plain copy in host code)
+RT_HD void rt_copy_async16(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+#else
+  memcpy(dst, src, 4 * sizeof(float));
+#endif
+}
+
+// four floats read as one 16-byte load (p 16-byte aligned on the card)
+struct rt_f4 {
+  float x, y, z, w;
+};
+RT_HD rt_f4 rt_ld4(const float* p) {
+#ifdef __CUDA_ARCH__
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  return {v.x, v.y, v.z, v.w};
+#else
+  rt_f4 v;
+  memcpy(&v, p, sizeof v);
+  return v;
+#endif
+}
+
+// Rows [r0, r0 + T) of the n x P row-major matrix m, cut at n, as the
+// block's threads' asynchronous copies into `slot` at a row stride of S
+// floats, committed as one group in every thread (an empty one past the
+// last row): 16 bytes a copy where P and S are multiples of 4 (m and the
+// slot 16-byte aligned), else 4; host code copies them all
+template <int P, int T, int S>
+RT_HD void rt_mat_rows_async(float* slot, const float* m, int r0, int n) {
+#ifdef __CUDA_ARCH__
+  const int tid = (int)threadIdx.x, nt = (int)blockDim.x;
+#else
+  const int tid = 0, nt = 1;
+#endif
+  const int rows = n - r0 < T ? n - r0 : T;
+  if constexpr (P % 4 == 0 && S % 4 == 0) {
+    for (int k = tid; k < rows * (P / 4); k += nt)
+      rt_copy_async16(slot + k / (P / 4) * S + k % (P / 4) * 4,
+                      m + (size_t)r0 * P + 4 * (size_t)k);
+  } else {
+    for (int k = tid; k < rows * P; k += nt)
+      rt_copy_async(slot + k / P * S + k % P, m + (size_t)r0 * P + k);
+  }
+  rt_copy_commit();
+}
+
+// Tile t of the n x P matrix m, T rows at a row stride of S floats, read
+// through the two slots of `ring` (T·S floats each, in the block's shared
+// memory), for t = 0, 1, ... in turn by every thread of the block (the
+// emitter's _tiled_pass): tile t + 1's copies are issued into the other
+// slot once every warp has passed tile t - 1, then tile t's are waited
+// for and a barrier shows them to the block.  Returns tile t's slot.  The
+// pass ends with a barrier, after which the ring may be filled again.
+template <int P, int T, int S>
+RT_HD const float* rt_mat_tile(const float* ring, const float* m, int t,
+                               int n) {
+  float* const slots = (float*)ring;
+  if (t == 0)
+    rt_mat_rows_async<P, T, S>(slots, m, 0, n);
+  else
+    RT_BLOCK_SYNC();
+  rt_mat_rows_async<P, T, S>(slots + ((t + 1) & 1) * (T * S), m,
+                             (t + 1) * T, n);
+  rt_copy_wait_prior1();
+  RT_BLOCK_SYNC();
+  return slots + (t & 1) * (T * S);
 }
 
 // Lanes.  A chain with rows runs on the RT_LANES = 32 lanes of one warp

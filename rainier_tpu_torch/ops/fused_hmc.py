@@ -53,8 +53,10 @@ dimensions, the source of a gather by an index column read whole) holds
 it in a scratch array of ``EmittedDensity.scratch`` floats, in the
 chain's slot where there is one, which this wrapper's workspace then
 includes; over the workspace the product passes read L from the block's
-shared memory, staged there once a launch, or, where it does not fit, a
-transposed copy that this wrapper binds after the columns
+shared memory, staged there once a launch, or, where it does not fit, in
+tiles of its rows that the block's threads copy there as the passes run.
+The literals of a group of scalar terms that the chain's lanes split (the
+latent GP's y) are a table that this wrapper binds after the columns
 (:func:`column_pointers`).  The wrapper refuses, naming the bytes, a
 launch whose workspace does not fit the card's free memory.
 ``collect_idx`` stores only the chosen coordinates of each draw, so a
@@ -524,10 +526,16 @@ def lanes_per_chain(em, n: int) -> int:
 
 def chains_per_block(em, n: int) -> int:
     """Chains of each block for a launch over n chains: for a model with
-    rows, warps that share each row tile (WIDE_BLOCK or NARROW_BLOCK);
-    without rows, 128 threads' worth, or 32 to spread a small launch
-    over more SMs."""
-    if em.spaces:
+    rows, or whose product passes read their matrices in tiles
+    (``em.mat_tiles``), warps that share each tile (WIDE_BLOCK or
+    NARROW_BLOCK); else, without rows, 128 threads' worth, or 32 to
+    spread a small launch over more SMs.  The 256-input GP's kernel took
+    2.845 ms at 8 chains a block and tiles of 64 rows of L, 2.935 at 8
+    and 32 rows, 3.870 at 4 and 32, 6.163 at 4 and 64 (one block an SM:
+    4 warps), its 64-input one 0.895 / 0.899 ms at 4 / 8 with L staged
+    (1024 chains, H100 at 700 W, tools/kernel_ab.py gp-blocks, PERF.md
+    §6; L read 4 bytes at a time)."""
+    if em.spaces or em.mat_tiles:
         return WIDE_BLOCK if n >= WIDE_BLOCK * BLOCKS_MIN else NARROW_BLOCK
     lanes = lanes_per_chain(em, n)
     return (128 if n * lanes >= WIDE_THREADS else 32) // lanes
@@ -599,13 +607,16 @@ def streams(density, stream_columns, device) -> bool:
     return bool(stream_columns)
 
 
-def column_pointers(em, columns):
+def column_pointers(em, columns, device=None):
     """The pointer array the kernel's entry points take for `columns`
-    (the tensors of the emitted density `em`'s columns), with the
-    transposed copy of each matrix that its product passes read so
-    after them (``em.transposed``), and the tensors that the pointers
-    point into, to be kept alive while the kernel runs."""
-    held = (*columns, *[columns[c].T.contiguous() for c in em.transposed])
+    (the tensors of the emitted density `em`'s columns), with each group
+    of scalar terms' table of literals after them (``em.tables``, made on
+    `device`, by default the columns'), and the tensors that the
+    pointers point into, to be kept alive while the kernel runs."""
+    dev = device if device is not None else (
+        columns[0].device if columns else "cpu")
+    held = (*columns, *[torch.tensor(t, dtype=torch.float32, device=dev)
+                        for t in em.tables])
     return (ctypes.c_void_p * max(len(held), 1))(
         *[c.data_ptr() for c in held]), held
 
@@ -637,7 +648,7 @@ def _launch_setup(density, columns, n, dev, stream_columns=None):
         raise ValueError(reason)
     stream = streams(density, stream_columns, dev)
     kernels = build(density, lanes_per_chain(em, n))[0]
-    ptrs, held = column_pointers(em, columns)
+    ptrs, held = column_pointers(em, columns, dev)
     ws = torch.empty(workspace_bytes(em, n) // 4, dtype=torch.float32,
                      device=dev) if workspace_bytes(em, n) else None
     consts = torch.empty(max(len(em.spaces), 1), dtype=torch.float64,

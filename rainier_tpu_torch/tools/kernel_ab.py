@@ -30,6 +30,10 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 rainier_tpu_torch/tools/kernel_ab.py counts LABEL [MODEL ...]
     python3 rainier_tpu_torch/tools/kernel_ab.py row-sass LABEL [MODEL ...]
     python3 rainier_tpu_torch/tools/kernel_ab.py row-loads LABEL [MODEL ...]
+    python3 rainier_tpu_torch/tools/kernel_ab.py lse-probe LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py gp-split LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py gp-blocks LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py kernel-sass LABEL MODEL [MODEL ...]
 
 ``row-sums``: the kernels of the README regression, the 100k-row
 logistic regression and GLMMPoisson2 (``chip_smoke.py``'s models), whose
@@ -112,9 +116,11 @@ thread a chain), the emitter's own layouts run as their launch decides,
 tagged "as built": run both checkouts in one call to compare trees.
 Prints one line per shape, lanes and order, tagged LABEL.
 
-``forms``: the kernels of the five density forms the emitter took last
+``forms``: the kernels of the density forms the emitter took last
 (``chip_smoke.py``'s latent GP at 64 inputs, 1024 chains × 25 iterations
-of HMC(12); its MVNormal logistic at 32 features, × 100 of HMC(5), from
+of HMC(12), and at 256 inputs ("latent GP 256", L past the shared
+memory, × 5 of HMC(12)); its MVNormal logistic at 32 features, × 100 of
+HMC(5), from
 points around its Laplace mode; and each row form of ``form_models`` at
 100,000 rows, × 20 of HMC(4)), from a short scan-path warmup's states
 where not named, each the median of 20 launches alone, built from the
@@ -136,15 +142,16 @@ loops gave the same bits.
 
 ``gp-layouts``: ``chip_smoke.py``'s latent GP (64 inputs, 1024 chains ×
 25 iterations of HMC(12), as ``forms`` times it) with the product
-passes' L staged in the block's shared memory and read from a
-transposed copy in device memory (emitted with a ``stage_budget`` of 0
-bytes), in the order A B B A, and the density alone at 576
-states.  Prints one line per layout, tagged LABEL, with whether its
-draws are the first layout's bit for bit (both sum in one order).
+passes' L staged in the block's shared memory and read in tiles of its
+rows (emitted with a ``stage_budget`` of 0 bytes), in the order A B B A,
+and the density alone at 576 states.  Prints one line per layout,
+tagged LABEL, with whether its draws are the first layout's bit for bit
+(both sum in one order).
 
-``split``: the row loop's time split into its parts on three models of
-``tiles`` (the 32-feature MVNormal logistic, the marginalized mixture and
-the 100k logistic, 1024 chains × SPLIT_ITERS iterations), each built from
+``split``: the row loop's time split into its parts on four models of
+``tiles`` (the 32-feature MVNormal logistic, the marginalized mixture,
+the 100k logistic and the zoo's zero-inflated geometric, 1024 chains ×
+SPLIT_ITERS iterations), each built from
 a copy of ``csrc/`` with one part removed (``SPLIT_PARTS``: the tile fill
 past the first two tiles, the rows, the butterflies, the tile loop's
 barriers), each loop as its launch decides, in the order base, parts,
@@ -198,9 +205,9 @@ model written to DIR (default ``profiles/eadd``, which git ignores).
 ``steps``: the kernels of the mixture, the zoo's negative binomial,
 large Poisson and zero-inflated geometric, the README regression, the
 100k logistic and the 32-feature MVNormal logistic (``STEP_MODELS``, at
-TILE_ITERS iterations) with each lane summing 1, 2 and 4 rows a step
+TILE_ITERS iterations) with each lane summing 1, 2, 4 and 8 rows a step
 (``emit_cuda.ROW_STEP`` replaced for their emission, whatever the row's
-width and operations), in the order 1 2 4 4 2 1, each held to the first
+width and operations), in the order 1 2 4 8 8 4 2 1, each held to the first
 run's bits; or only the models named after LABEL.
 
 ``loaders``: the synchronous tile loop (``stream_columns=False``) of
@@ -239,9 +246,10 @@ alone at CHECK_POINTS of those states.  Prints one line per model,
 build and order, tagged LABEL.
 
 ``row-sass``: the SASS of the row functions of each model named (zoo
-families by name, default the four of ``counts``, and ``SASS_MODELS``:
-the 100k logistic, the MVNormal logistic and the logistic in two row
-spaces, whose rows are Bernoulli-logit rows), compiled on their own:
+families by name, default the four of ``counts``, ``SASS_MODELS``: the
+100k logistic, the MVNormal logistic and the logistic in two row
+spaces, whose rows are Bernoulli-logit rows, and the marginalized
+mixture, whose row is a LogSumExp of two terms), compiled on their own:
 for each row space S a probe kernel that sums ``RtSpace<S>::row`` over a
 lane's rows of a tile, one that sums ``RtSpace<S>::step`` over its steps
 where the space sums several rows a step, and, where the header has
@@ -261,6 +269,40 @@ stride of w + 1 floats, 8 lanes a phase without a bank conflict), at
 TILE_ITERS iterations, in the order A B B A, each held to the first
 run's bits, with ptxas's registers, and each build's density alone at
 CHECK_POINTS states.
+
+``lse-probe``: ``csrc/lse_probe.cu`` on the card: the shares of a
+LogSumExp of two terms as the rows compute them (``rt_lse_pair_share``
+over ``rt_recip``) against the IEEE f32 quotient, for every f32 e in
+[0, 1], and the f64 form (``rt_lse_share``) beside them.  Prints how
+many e differ for each, and the least and most of them, tagged LABEL.
+
+``gp-split``: ``chip_smoke.py``'s latent GP at 256 inputs (1024 chains ×
+5 iterations of HMC(12)) built as emitted and from headers with its
+product passes reading a constant in place of L, with its scalar
+likelihood terms removed (their straight-line code, or their lane
+loop's count made 0), and with both (``GP_SPLIT``), in the order A B C D
+D C B A from one scan-path warmup's states; ptxas's report of each
+build's functions and each build's density alone at DENSITY_POINTS
+states.  Runs on any tree since the GP's, as ``split`` does.  Prints
+one line per build and order, tagged LABEL.
+
+``gp-blocks``: the latent GP at 256 inputs (5 iterations of HMC(12))
+with 4 and 8 chains a block, tiles of 32 and 64 rows of L, and L copied
+and read 16 bytes at a time or 4 (``GP_BLOCKS``:
+``fused_hmc.chains_per_block`` replaced for the run, as ``lanes`` does,
+``emit_cuda.MAT_TILE_ROWS`` and ``MAT_VEC4`` for the emission), and at 64
+inputs (L staged, 25 iterations) with 4 and 8, each order A B ... B A,
+each run's final q summed (a tile's rows and the chains a block leave
+the sums' order as it is, so the bits agree).  Prints one line per
+build and order, tagged LABEL.
+
+``kernel-sass``: each model named (a model of ``tiles``, or a form of
+``forms`` as "form NAME") built as the tree the import finds emits it:
+its library's SASS (``cuobjdump -sass``, addresses stripped) counted and
+hashed, then its kernel timed twice, as ``tiles`` or ``forms`` times it.
+Run with another checkout's root on PYTHONPATH and with this one's, A B
+B A, it tells a kernel whose code two trees share (the same hash) from
+one that moved.  Prints one line per model and run, tagged LABEL.
 
 ``zoo``: the goldset zoo of ``chip_smoke.py`` (each family's 100,000
 rows synthesized on the card, seed ``ZOO_SEED``), every family or those
@@ -314,7 +356,7 @@ TILE_STEPS = {"marginalized mixture": 4, "zoo zero_inflated_geometric": 4,
 # (text, replacement) of fused_hmc.cu; the first whose texts the tree
 # holds is applied
 SPLIT_MODELS = ("MVNormal logistic 32", "marginalized mixture",
-                "logistic regression")
+                "logistic regression", "zoo zero_inflated_geometric")
 SPLIT_ITERS = 20
 _SYNC_FILL = "      rt_block_fill<S>(tile, cols, row0, n);\n"
 _SYNC_FILL_OLD = ("      RtSpace<S>::fill(tile, cols, row0, n, RT_TID, "
@@ -426,7 +468,8 @@ SLOT_MODELS = ("GLMMPoisson2", "glmm_large")
 # the five forms that ``forms`` times: (iterations, leapfrog steps) at
 # PERF.md §6's shapes, the launches each timed over, and the scan-path
 # warmup iterations of HMC(5) their states come from
-FORM_RUNS = {"latent GP": (25, 12), "MVNormal logistic 32": (100, 5),
+FORM_RUNS = {"latent GP": (25, 12), "latent GP 256": (5, 12),
+             "MVNormal logistic 32": (100, 5),
              "form index column read whole": (20, 4),
              "form vector per row": (20, 4),
              "form row-varying gather": (20, 4)}
@@ -436,8 +479,8 @@ FORM_REPS, FORM_WARMUP = 20, 100
 # with (None: the emitter's own), in order; both also time the density
 # alone at DENSITY_POINTS states
 GATHER_TILES = (256, 1024, 2048, 4096, 4096, 2048, 1024, 256)
-GP_LAYOUTS = {"shared memory": None, "transposed copy": 0}
-GP_ORDER = ("shared memory", "transposed copy", "transposed copy",
+GP_LAYOUTS = {"shared memory": None, "tiles": 0}
+GP_ORDER = ("shared memory", "tiles", "tiles",
             "shared memory")
 DENSITY_POINTS = 576
 # the density alone in ``tiles`` and ``tile-sizes``: at chip_smoke.py's
@@ -1097,7 +1140,7 @@ STEP_MODELS = ("marginalized mixture", "zoo neg_binomial",
                "zoo large_poisson", "zoo zero_inflated_geometric",
                "README regression", "logistic regression",
                "MVNormal logistic 32")
-STEP_ORDER = (1, 2, 4, 4, 2, 1)
+STEP_ORDER = (1, 2, 4, 8, 8, 4, 2, 1)
 
 
 def steps(label: str, names=()) -> None:
@@ -1160,6 +1203,227 @@ LSE_GUARD = (r"\((e\w+) / (s\w+)\)",
 LSE_FORMS = {"f64 share (the tree's)": (),
              "f32 division": (LSE_DIVIDE,),
              "f32 division, zero not divided": (LSE_DIVIDE, LSE_GUARD)}
+
+
+def lse_pair_probe():
+    """csrc/lse_probe.cu built (nvcc, a plain C interface, cached by
+    content hash like the kernel) and run once on the card: ({"e / s",
+    "1 / s", "f64 e / s"}: (values of e in [0, 1] whose bits differ from
+    the IEEE quotient's, the least such e, the most), ms of the launch)."""
+    import ctypes
+    import hashlib
+    import subprocess
+
+    import torch
+
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    h = hashlib.sha256()
+    for name in ("lse_probe.cu", "rt_math.cuh"):
+        h.update((F.CSRC / name).read_bytes())
+    so = F.BUILD_DIR / f"lse_probe_{h.hexdigest()[:24]}.so"
+    if not so.exists():
+        F.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f".{so.name}.{os.getpid()}")
+        subprocess.run([F._nvcc(), *F.NVCC_FLAGS[:-1], "-I", str(F.CSRC),
+                        "-o", str(tmp), str(F.CSRC / "lse_probe.cu")],
+                       check=True, capture_output=True)
+        os.replace(tmp, so)
+    fn = ctypes.CDLL(str(so)).rt_lse_probe_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 2, ctypes.c_int
+    out = torch.empty(9, dtype=torch.int32, device="cuda")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    rc = fn(out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    end.record()
+    if rc != 0:
+        raise RuntimeError(f"lse probe launch failed: cudaError {rc}")
+    torch.cuda.synchronize()
+    v = [int(x) & 0xFFFFFFFF for x in out.cpu().tolist()]
+
+    def e_of(bits):
+        return float(np.array([bits], dtype=np.uint32).view(np.float32)[0])
+
+    return ({what: (v[k], e_of(v[3 + k]) if v[k] else None,
+                    e_of(v[6 + k]) if v[k] else None)
+             for k, what in enumerate(("e / s", "1 / s", "f64 e / s"))},
+            start.elapsed_time(end))
+
+
+def lse_probe(label: str) -> None:
+    counts, ms = lse_pair_probe()
+    for what, (n, lo, hi) in counts.items():
+        print(f"RESULT lse-probe {label} {what}: {n} of the 1065353217 f32 e "
+              f"in [0, 1] differ from the IEEE quotient (least e {lo}, most "
+              f"{hi}); the probe {ms:.3f} ms", flush=True)
+
+
+# ``gp-split``: the latent GP at 256 inputs (FORM_RUNS "latent GP 256")
+# built as emitted and from headers with (a) its product passes reading a
+# constant in place of L, (b) its scalar likelihood terms removed, (c)
+# both (_gp_parts), in the order base a b c c b a base
+GP_SPLIT = ("base", "constant L", "no scalar terms", "both")
+
+
+def _constant_l(src):
+    """The header `src` with every RT_MAT<c> read of L a constant (four
+    at a time where the tiles are read so)."""
+    import re
+
+    src = re.sub(r"#define (RT_MAT\d+_4)\(r, j\) .*",
+                 r"#define \1(r, j) rt_f4{0.0625f, 0.0625f, 0.0625f, "
+                 r"0.0625f}", src)
+    return re.sub(r"#define (RT_MAT\d+(?:_T)?)\(r, j\) .*",
+                  r"#define \1(r, j) 0.0625f", src)
+
+
+def _without_terms(src):
+    """The header `src` with the scalar likelihood terms of rt_logp_grad
+    removed: as straight-line code, every top-level value of the function
+    other than a loop's sum, its adjoint and every line that reads them;
+    as a lane loop (the terms grouped), that loop's count made 0."""
+    import re
+
+    if "// the scalar terms of " in src:
+        return re.sub(r"(// the scalar terms of [^\n]*\n(?:[^\n]*\n)*?"
+                      r"\s*for \(int i = RT_LANE; i < )\d+", r"\g<1>0", src)
+    head = src.index("RT_HD float rt_logp_grad(")
+    end = src.index("  return lp;\n}", head)
+    body = src[head:end].split("\n")
+    gone = {m.group(1) for line in body for m in [re.match(
+        r"  const float v(\d+) = (?!\(float\)r\d+;)", line)] if m}
+    ref = re.compile(r"\b[va](" + "|".join(sorted(gone)) + r")\b")
+    out = []
+    for line in body:
+        if line.startswith("  const float lp = "):
+            terms = [t for t in line[len("  const float lp = "):-1].split(
+                " + ") if not ref.fullmatch(t)]
+            out.append("  const float lp = " + (" + ".join(terms) or "0.0f")
+                       + ";")
+        elif not (line.startswith("  ") and not line.startswith("   ")
+                  and ref.search(line)):
+            out.append(line)
+    return src[:head] + "\n".join(out) + src[end:]
+
+
+def gp_split(label: str) -> None:
+    import dataclasses
+
+    import torch
+
+    from rainier_tpu_torch.compute import emit_cuda
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+
+    device = torch.device(DEVICE)
+    name = "latent GP 256"
+    models = {what: cs.latent_gp(rt, cs.GP_WIDE_INPUTS)[0]
+              for what in GP_SPLIT}
+    start = _warm(models["base"], CHAINS, device, FORM_WARMUP)
+    parts = {"base": (), "constant L": (_constant_l,),
+             "no scalar terms": (_without_terms,),
+             "both": (_constant_l, _without_terms)}
+    runs = {}
+    for what, model in models.items():
+        cd = model.density()
+        em = emit_cuda.emit(cd)
+        src = em.source
+        for f in parts[what]:
+            src = f(src)
+        emit_cuda._EMITTED[cd] = dataclasses.replace(em, source=src)
+        runs[what] = (model, start, *FORM_RUNS[name])
+    _build_runs(runs)
+    q = start[0][:, :DENSITY_POINTS].contiguous()
+    for what, (model, *_rest) in runs.items():
+        print(f"RESULT gp-split {label} {what}: ptxas " + " | ".join(
+            _ptxas(F.build(model.density(), emit_cuda.LANES)[0].log)),
+            flush=True)
+    for what in (*GP_SPLIT, *GP_SPLIT[::-1]):
+        _time_runs({name: runs[what]}, device, f"gp-split {label} {what},",
+                   reps=FORM_REPS)
+    for what in GP_SPLIT:
+        _density_alone(runs[what][0], q, device, f"gp-split {label} {what}")
+
+
+# ``gp-blocks``: the latent GP at 256 inputs with W chains a block, tiles
+# of T rows of L and L copied and read 16 bytes at a time or not ((W, T,
+# 16-byte) in order, A B C D D C B A), and at 64 inputs (L staged) with W
+# chains a block
+GP_BLOCKS = ((8, 64, False), (8, 64, True), (4, 32, False), (8, 32, True))
+GP64_BLOCKS = (4, 8, 8, 4)
+
+
+def gp_blocks(label: str) -> None:
+    import torch
+
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    device = torch.device(DEVICE)
+    wide = {(t, v): cs.latent_gp(rt, cs.GP_WIDE_INPUTS)[0]
+            for _, t, v in GP_BLOCKS}
+    start = _warm(next(iter(wide.values())), CHAINS, device, FORM_WARMUP)
+    for (t, v), model in wide.items():
+        _emit_as(model.density(), {"MAT_TILE_ROWS": t, "MAT_VEC4": v})
+    gp = cs.latent_gp(rt)[0]
+    runs = {**{key: (model, start, *FORM_RUNS["latent GP 256"])
+               for key, model in wide.items()},
+            "64": (gp, _warm(gp, CHAINS, device, FORM_WARMUP),
+                   *FORM_RUNS["latent GP"])}
+    _build_runs(runs)
+    rule = F.chains_per_block
+    try:
+        for w, t, v in (*GP_BLOCKS, *GP_BLOCKS[::-1],
+                        *((w, None, None) for w in GP64_BLOCKS)):
+            F.chains_per_block = lambda em, n, w=w: w
+            what = f"latent GP {'64' if t is None else 256}, W={w}" + (
+                f", tiles of {t} rows{', 16-byte' if v else ''}" if t
+                else "")
+            out = _time_runs({what: runs["64" if t is None else (t, v)]},
+                             device, f"gp-blocks {label}", reps=FORM_REPS)
+            print(f"RESULT gp-blocks {label} {what}: final q sum "
+                  f"{float(out[0].double().sum())!r}", flush=True)
+    finally:
+        F.chains_per_block = rule
+
+
+def kernel_sass(label: str, names=()) -> None:
+    import hashlib
+    import re
+    import subprocess
+
+    import torch
+
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    device = torch.device(DEVICE)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in names:
+        if name.startswith("form "):
+            model = cs.form_models(rt)[name[len("form "):]][0]
+            run = (model, _warm(model, CHAINS, device, FORM_WARMUP),
+                   *FORM_RUNS[name])
+        else:
+            run = _row_runs(device, (name,))[name]
+        _build(run[0].density())
+        so = max(F.BUILD_DIR.glob("fused_hmc_*.so"),
+                 key=lambda path: path.stat().st_mtime)
+        sass = subprocess.run([cuobjdump, "-sass", str(so)], check=True,
+                              capture_output=True, text=True).stdout
+        body = [re.sub(r"/\*[0-9a-f]+\*/", "", line).strip()
+                for line in sass.splitlines()
+                if re.search(r"/\*[0-9a-f]{4,}\*/", line)]
+        print(f"RESULT kernel-sass {label} {name}: {len(body)} SASS lines, "
+              f"hash {hashlib.sha256(chr(10).join(body).encode()).hexdigest()[:16]}",
+              flush=True)
+        for _ in range(2):
+            _time_runs({name: run}, device, f"kernel-sass {label}",
+                       reps=FORM_REPS)
 
 
 def lse(label: str) -> None:
@@ -1481,8 +1745,9 @@ def _sass_counts(sass):
 
 def _sass_models(rt, cs, device, names):
     """{name: model} of ``row-sass``'s names: zoo families by name, the
-    models of SASS_MODELS by theirs."""
-    zoo = [n for n in names if n not in SASS_MODELS]
+    models of SASS_MODELS and the marginalized mixture by theirs."""
+    zoo = [n for n in names if n not in SASS_MODELS
+           and n != "marginalized mixture"]
     out = {n: m for n, m in ((n, _more_row_models(
         rt, cs, device, [f"zoo {n}"])[f"zoo {n}"]) for n in zoo)}
     if set(names) & set(SASS_MODELS):
@@ -1491,6 +1756,8 @@ def _sass_models(rt, cs, device, names):
                     "MVNormal logistic": cs.mvnormal_logistic(rt, x, ys)[0],
                     "logistic regression, two row spaces":
                         cs.split_logistic(rt, x, ys)})
+    if "marginalized mixture" in names:
+        out["marginalized mixture"] = cs.marginal_mixture(rt)[0]
     return {n: out[n] for n in names}
 
 
@@ -1683,14 +1950,17 @@ def loaders(label: str) -> None:
 
 def _form_runs(device):
     """{name: (model, (q0, ε, Σ̂), iterations, leapfrog steps)} for the
-    five forms of FORM_RUNS at CHAINS chains."""
+    forms of FORM_RUNS at CHAINS chains."""
     import chip_smoke as cs
     import rainier_tpu_torch as rt
 
     gp = cs.latent_gp(rt)[0]
+    gpw = cs.latent_gp(rt, cs.GP_WIDE_INPUTS)[0]
     _, x, ys = cs.logistic_regression(rt, p=cs.MV32_FEATURES)
     mv, alpha, betas = cs.mvnormal_logistic(rt, x, ys)
     starts = {"latent GP": (gp, _warm(gp, CHAINS, device, FORM_WARMUP)),
+              "latent GP 256": (gpw, _warm(gpw, CHAINS, device,
+                                           FORM_WARMUP)),
               "MVNormal logistic 32": (mv, _laplace_start(
                   cs.mv_design(mv.density(), x, alpha, betas), ys, CHAINS,
                   device))}
@@ -2192,6 +2462,14 @@ def main(argv) -> int:
         loaders(argv[1])
     elif argv[:1] == ["lse"] and len(argv) == 2:
         lse(argv[1])
+    elif argv[:1] == ["lse-probe"] and len(argv) == 2:
+        lse_probe(argv[1])
+    elif argv[:1] == ["gp-split"] and len(argv) == 2:
+        gp_split(argv[1])
+    elif argv[:1] == ["gp-blocks"] and len(argv) == 2:
+        gp_blocks(argv[1])
+    elif argv[:1] == ["kernel-sass"] and len(argv) >= 3:
+        kernel_sass(argv[1], argv[2:])
     elif argv[:1] == ["counts"] and len(argv) >= 2:
         counts(argv[1], argv[2:])
     elif argv[:1] == ["row-sass"] and len(argv) >= 2:

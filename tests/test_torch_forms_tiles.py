@@ -11,10 +11,10 @@ build runs them, held against the JAX package's lanes evaluator
 * the product pass of a workspace model (L·z of an ``MVNormal`` past 16
   dimensions held in the scratch): L staged in the block's shared memory
   at a row stride of p + 1 floats (``rt_stage_mats``), or, where it does
-  not fit (a GP of 256 inputs), read by the forward pass from a
-  transposed copy bound after the columns; the models whose L fits are
-  also emitted with a staging budget of 0 bytes, so that the kernel's
-  loop runs the transposed layout on them too.
+  not fit (a GP of 256 inputs), read in tiles of its rows through two
+  slots there at the same stride (``rt_mat_tile``); the models whose L
+  fits are also emitted with a staging budget of 0 bytes, so that the
+  kernel's loop runs the tiled layout on them too.
 
 Every model is built through both packages by one ``build(rt)`` from the
 same numpy data.  The g++ host build stages L into a host buffer, walks
@@ -88,16 +88,18 @@ GATHER = {
     "gather nested, 301 rows": (gather_nested, False, True),
 }
 # the product pass: (builder, L's rows and columns), L fitting beside
-# the slots or tiles
+# the slots or tiles; at 42 columns, not a multiple of 4, its tiles are
+# copied and read 4 bytes at a time
 PRODUCT = {"gp 40": (lambda rt: latent_gp(rt, 40), 40),
+           "gp 42": (lambda rt: latent_gp(rt, 42), 42),
            "gp 64": (lambda rt: latent_gp(rt, 64), 64),
            "mvnormal logistic 32": (mvnormal_logistic, 32)}
-# L in shared memory, as the emitter chooses, or a transposed copy in
-# device memory, emitted with a staging budget of 0 bytes
+# L in shared memory, as the emitter chooses, or in tiles of its rows,
+# emitted with a staging budget of 0 bytes
 LAYOUTS = {"staged": None, "transposed": 0}
-# a GP whose L (256 x 257 floats, 263 KB) does not fit: the transposed
-# copy by its size (its density alone: each sampling step of its plain
-# version on the CPU costs 256 scalar terms)
+# a GP whose L (256 x 257 floats, 263 KB) does not fit: its tiles by its
+# size (its density alone: each sampling step of its plain version on the
+# CPU costs 256 scalar terms)
 WIDE = "gp 256"
 CASES = {**{name: (build, None) for name, (build, _, _) in GATHER.items()},
          **{f"{name}, {layout}": (build, budget)
@@ -176,58 +178,96 @@ def test_gather_reads_its_source_from_the_tile(name):
 @pytest.mark.parametrize("name", sorted(PRODUCT))
 def test_product_pass_layouts(name):
     """Staged: L at a row stride of p + 1 floats in the block's shared
-    memory, RT_SMEM_MATS floats, both passes through RT_MAT0; transposed:
-    the forward pass reads cols.t0 (the copy the wrapper binds after the
-    columns), the transpose cols.c0; in both the inner loops unrolled by
-    eight."""
+    memory, RT_SMEM_MATS floats, both passes through RT_MAT0, their inner
+    loops unrolled by eight; with a staging budget of 0 ("transposed",
+    the name of the layout it replaced): tiles of MAT_TILE_ROWS rows
+    through two slots at the tiles' stride (RT_SMEM_MATS = 2·T·S floats,
+    which rt_stage_mats points at and rt_mat_tile fills), the forward
+    pass's lanes splitting each tile's rows, the transpose's lanes
+    keeping their columns' sums over the tiles (four columns a 16-byte
+    load where the stride is a multiple of 4), no copy of L bound after
+    the columns."""
     p = PRODUCT[name][1]
-    _, _, em_t = _case(f"{name}, transposed")
-    (c,) = em_t.transposed
-    assert em_t.staged == 0
-    assert f"cols.t{c}[(j) * {p} + (r)]" in em_t.source
-    assert "RT_SMEM_MATS" not in em_t.source
+    _, cd, em_t = _case(f"{name}, transposed")
+    c = next(j for j, col in enumerate(cd.columns) if col.n_cols == p)
+    t, st = emit_cuda.MAT_TILE_ROWS, emit_cuda._tile_stride(p)
+    assert st in (p + 1, p + 4, p + 8)
+    assert em_t.mat_tiles == t and em_t.staged == 2 * t * st
+    assert f"#define RT_MAT{c}(r, j) m{c}[(r) * {st} + (j)]" in em_t.source
+    assert f"#define RT_SMEM_MATS {2 * t * st}" in em_t.source
+    assert f"rt_mat_tile<{p}, {t}, {st}>(cols.s{c}, cols.c{c}, t, {p})" \
+        in em_t.source
+    if st % 4:
+        assert f"acc += RT_MAT{c}(r - t * {t}, j) * " in em_t.source
+        assert f"acc{c}[k] += RT_MAT{c}_T(r - t * {t}, j) * a;" \
+            in em_t.source
+    else:
+        assert st % 8 == 4
+        # the forward pass may come again where a reverse pass needs it
+        assert em_t.source.count(f"= RT_MAT{c}_4(r - t * {t}, j);") >= 2
+        assert f"acc{c}[4 * k + 3] += l4.w * a;" in em_t.source
+    assert "cols.t" not in em_t.source
     _, _, em = _case(f"{name}, staged")
-    assert em.staged == p * (p + 1) and em.transposed == ()
+    assert em.staged == p * (p + 1) and em.mat_tiles == 0
     assert f"cols.s{c}[(r) * {p + 1} + (j)]" in em.source
     assert f"#define RT_SMEM_MATS {p * (p + 1)}" in em.source
     assert "rt_stage_mats(RtCols& cols" in em.source
-    for src in (em.source, em_t.source):
-        # the forward pass may come again where a reverse pass needs it
-        assert src.count(f"acc += RT_MAT{c}(r, j) * ") >= 1
-        assert src.count(f"acc += RT_MAT{c}_T(r, j) * ") == 1
-        for v in ("j", "r"):
-            assert f"#pragma unroll 8\n    for (int {v} = 0; {v} < {p}; " \
-                f"++{v})" in src
+    src = em.source
+    # the forward pass may come again where a reverse pass needs it
+    assert src.count(f"acc += RT_MAT{c}(r, j) * ") >= 1
+    assert src.count(f"acc += RT_MAT{c}_T(r, j) * ") == 1
+    for v in ("j", "r"):
+        assert f"#pragma unroll 8\n    for (int {v} = 0; {v} < {p}; " \
+            f"++{v})" in src
 
 
 def test_wide_matrix_takes_the_transposed_copy():
     """Where L does not fit beside the block's slots, the emitter itself
-    binds the transposed copy: the 256-input GP's 256 × 257 floats are
-    over the 227 KB that a block may use."""
-    _, _, em = _case(WIDE)
-    (c,) = em.transposed
-    assert em.staged == 0 and 4 * 256 * 257 > emit_cuda.SMEM_BYTES_MAX
-    assert "cols.t%d[(j) * 256 + (r)]" % c in em.source
-    assert "RT_SMEM_MATS" not in em.source
+    reads it in tiles, where it bound a transposed copy before: the
+    256-input GP's 256 × 257 floats are over the 227 KB that a block may
+    use, and its block's 8 slots and two tiles of MAT_TILE_ROWS rows
+    fit."""
+    _, cd, em = _case(WIDE)
+    t, st = emit_cuda.MAT_TILE_ROWS, emit_cuda._tile_stride(256)
+    assert 4 * 256 * 257 > emit_cuda.SMEM_BYTES_MAX
+    assert em.mat_tiles == t and em.staged == 2 * t * st
+    assert emit_cuda.slots_bytes(em.workspace) + 4 * em.staged <= \
+        emit_cuda.SMEM_BYTES_MAX and em.shared
+    assert f"rt_mat_tile<256, {t}, {st}>(cols.s0, cols.c0, t, 256)" \
+        in em.source
+    assert "cols.t" not in em.source
+    ptrs, held = F.column_pointers(em, cd.column_values(torch.float32,
+                                                        "cpu"))
+    assert len(held) == len(cd.columns) + len(em.tables)
 
 
 @pytest.mark.parametrize("block", [0, 4 * 4 * 576])
 def test_mat_layout_stages_up_to_its_budget(block):
     """_mat_layout stages L where the block's bytes and L at a row stride
-    of p + 1 floats fit the budget, to the byte, and binds the transposed
-    copy past it."""
+    of p + 1 floats fit the budget, to the byte, and past it asks for the
+    passes in tiles of MAT_TILE_ROWS rows (no lines: the density is
+    emitted again), whose lines then point two slots of them at the
+    shared memory; tiles of fewer rows where two of MAT_TILE_ROWS do not
+    fit beside the block's bytes."""
     products = {2: (64, 64)}
+    t, st = emit_cuda.MAT_TILE_ROWS, emit_cuda._tile_stride(64)
     need = block + 4 * 64 * 65
-    lines, staged, transposed = emit_cuda._mat_layout(products, block, need)
-    assert staged == 64 * 65 and transposed == ()
+    lines, staged, tiles = emit_cuda._mat_layout(products, block, need)
+    assert staged == 64 * 65 and tiles == {}
     assert "#define RT_MAT2(r, j) cols.s2[(r) * 65 + (j)]" in lines
     assert "#define RT_SMEM_MATS 4160" in lines
-    lines, staged, transposed = emit_cuda._mat_layout(products, block,
-                                                      need - 1)
-    assert staged == 0 and transposed == (2,)
-    assert lines == ["#define RT_MAT2(r, j) cols.t2[(j) * 64 + (r)]",
-                     "#define RT_MAT2_T(r, j) cols.c2[(r) * 64 + (j)]"]
-    assert emit_cuda._mat_layout({}, block) == ([], 0, ())
+    lines, staged, tiles = emit_cuda._mat_layout(products, block, need - 1)
+    assert lines is None and staged == 0 and tiles == {2: t}
+    lines, staged, tiles = emit_cuda._mat_layout(products, block, need - 1,
+                                                 tiles)
+    assert staged == 2 * t * st and tiles == {2: t}
+    assert f"#define RT_MAT2(r, j) m2[(r) * {st} + (j)]" in lines
+    assert f"#define RT_SMEM_MATS {2 * t * st}" in lines
+    assert "  cols.s2 = smem + 0;" in lines
+    full = emit_cuda.SMEM_BYTES_MAX - 4 * 2 * t * st
+    assert emit_cuda._mat_tiles(products, full) == {2: t}
+    assert emit_cuda._mat_tiles(products, full + 1) == {2: t // 2}
+    assert emit_cuda._mat_layout({}, block) == ([], 0, {})
 
 
 # -- against JAX and the plain version ---------------------------------------

@@ -337,7 +337,7 @@ KEPT_HEADERS = {
     "ehmc eight schools": "a72f808d17008132a2eb",
     "forms gather source per row": "cd3e447e78c7e5d12f93",
     "forms gather source per row ws": "66ee8e0ef0a1ad405a0f",
-    "forms gp 40": "04edbb9497e5bcc8ee44",
+    "forms gp 40": "490c1380508a5c3f3757",
     "forms mvnormal logistic 32": "9007c4faaf68ae66f740",
     "forms mvnormal past 16": "39dd171e46eabd68b1fb",
     "forms vector per row 3": "11f883fe2a847eaf70a1",
@@ -347,7 +347,7 @@ KEPT_HEADERS = {
     "gather lookup": "eab98bba675f1a74f432",
     "lanes small logistic": "75221c05354cab9deeb0",
     "large glmm 300": "f27d54b368c26e19d203",
-    "marginal mixture": "88b2c406b95d507430b6",
+    "marginal mixture": "904560767b6a0e17c2f8",
     "progress regression": "86772ac83c95f6967495",
     "sampler gather": "2c92d089255cc36da2fe",
     "trace column": "a7c4f1b812ab1aaa8b20",

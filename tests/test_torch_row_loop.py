@@ -247,19 +247,22 @@ def test_loader_fills_every_float_of_a_ragged_tile(threads, tmp_path,
 
 
 def test_emitted_rows():
-    """The mixture's row: each shifted exponential of its LogSumExp is
-    computed once and its adjoint reads it (two expf a row, none in the
-    reverse pass) and divides it by the sum without a branch
-    (rt_lse_share), and four rows make a step whose forward passes come
-    before their reverse passes; the 32-feature MVNormal logistic's
+    """The mixture's row: its LogSumExp of two terms takes one shifted
+    exponential, of the lesser term, and its adjoint reads it (one expf a
+    row, none in the reverse pass) and takes both shares from one
+    reciprocal of the sum without a branch or f64 (rt_recip,
+    rt_lse_pair_share), and four rows make a step whose forward passes
+    come before their reverse passes; the 32-feature MVNormal logistic's
     33-float row is summed one row at a time, too wide for a step's
     registers."""
     em = emit_cuda.emit(_case("mixture", 5000).density())
     src = em.source
     row = src[src.index("RT_HD float rt_row("):src.index("#define RT_ROW_STEP")]
-    assert row.count("expf(") == 2 and row.count("logf(") == 1
+    assert row.count("expf(") == 1 and row.count("logf(") == 1
     rev = row[row.index("+= 1.0f;"):]
-    assert "expf(" not in rev and rev.count("rt_lse_share(e") == 2
+    assert "expf(" not in rev and "rt_lse_share" not in rev
+    assert rev.count("rt_recip(s") == 1
+    assert rev.count("rt_lse_pair_share(") == 2
     assert emit_cuda.row_step(em.row_width, em.row_ops) == 4
     assert em.row_ops >= emit_cuda.ROW_STEP_OPS
     assert "#define RT_ROW_STEP 4" in src
