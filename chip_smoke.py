@@ -145,6 +145,7 @@ import re
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1136,27 +1137,42 @@ def nvidia_smi() -> str:
 
 def layout(F, em, n_chains):
     """How a launch over n_chains lays out the chains: lanes a chain and
-    chains a block, and where a chain's state lives."""
+    chains a block, where a chain's state lives, and whether its lanes
+    split the Philox groups (a chain of several lanes does, but one with
+    rows, its state in registers and one group, a model of one
+    parameter)."""
     where = ("in registers" if not em.workspace else
              "in a slot in shared memory" if em.shared else
              "in a workspace slot")
-    return (f"{F.lanes_per_chain(em, n_chains)} lanes a chain, "
+    lanes = F.lanes_per_chain(em, n_chains)
+    split = lanes > 1 and (em.workspace or not em.spaces or em.n_vars > 1)
+    return (f"{lanes} lanes a chain, "
             f"{F.chains_per_block(em, n_chains)} chains a block of "
-            f"{F.threads_per_block(em, n_chains)} threads, state {where}")
+            f"{F.threads_per_block(em, n_chains)} threads, state {where}, "
+            f"Philox groups {'split over the lanes' if split else 'in every lane'}")
 
 
-def build_all(F, models, launches):
+# The Philox groups of a register model with rows drawn in every lane, as
+# before they were split over its lanes: the copy of csrc/ that builds the
+# twins the split draw is held to (philox_bits)
+EVERY_LANE_PHILOX = [[("    (RT_ROW_W == 0 || RT_GROUPS > 1)\n",
+                        "    RT_ROW_W == 0\n")]]
+
+
+def build_all(F, models, launches, csrcs=None):
     """Build every model's kernel for each chain count its launches use
-    (`launches`: {name: counts}), one nvcc each, all started together;
-    print each build's layout, sizes and what ptxas reports.  Returns
-    each model's emitted density."""
+    (`launches`: {name: counts}), one nvcc each, all started together,
+    from the sources `csrcs` names for it ({name: directory}; default
+    the package's); print each build's layout, sizes and what ptxas
+    reports.  Returns each model's emitted density."""
     from concurrent.futures import ThreadPoolExecutor
 
     from rainier_tpu_torch.compute import emit_cuda
 
     def build(job):
         cd = models[job[0]]
-        return F.build(cd, F.lanes_per_chain(emit_cuda.emit(cd), job[1]))
+        return F.build(cd, F.lanes_per_chain(emit_cuda.emit(cd), job[1]),
+                       (csrcs or {}).get(job[0]))
 
     jobs = [(name, n) for name in models for n in launches.get(
         name, (MAIN_CHAINS,))]
@@ -1174,7 +1190,9 @@ def build_all(F, models, launches):
         spaces = "; ".join(f"{sp.n_rows} rows of {sp.row_width} floats, "
                            f"{sp.row_ops} ops a row, tile {sp.tile_rows} "
                            f"rows" for sp in em.spaces) or "no rows"
-        print(f"phase build: {name} at {n} chains: {layout(F, em, n)}; "
+        built_as = layout(F, em, n) if name not in (csrcs or {}) else \
+            "from a copy of csrc/ (its phase says what differs)"
+        print(f"phase build: {name} at {n} chains: {built_as}; "
               f"{em.n_vars} dims, {em.ops} ops per "
               f"logp+grad apart from rows, row spaces: {spaces}, "
               f"{whole_bytes(models[name])} bytes of columns read whole, "
@@ -1636,7 +1654,8 @@ def readme_phases(F, readme, em, device):
     print(f"phase main path, README regression: Model.sample(kernel="
           f"'fused!') {MAIN_CHAINS} chains x ({README_WARMUP} warmup + "
           f"{N_DRAWS}"
-          f" draws), HMC({N_STEPS}): fused_hmc launches {launches}, "
+          f" draws), HMC({N_STEPS}), {layout(F, em, MAIN_CHAINS)}: "
+          f"fused_hmc launches {launches}, "
           f"rank-r_hat max {rhat:.5f}, (alpha, betas) means "
           f"{np.round(mean, 5).tolist()} vs least squares "
           f"{np.round(coef, 5).tolist()}: max {float(z.max()):.4f} "
@@ -2543,6 +2562,36 @@ def f64_shares(model):
     check(src != em.source, "no LogSumExp pair in the rows")
     emit_cuda._EMITTED[cd] = dataclasses.replace(em, source=src)
     return cd
+
+
+def philox_bits(F, cd, twin, tr, n_steps, what, device, n_iters):
+    """The kernel, its lanes splitting the Philox groups, against its twin
+    built from EVERY_LANE_PHILOX's copy of csrc/ (every lane draws every
+    group), from a main path's final states, ε and Σ̂ with on-device Philox
+    from one seed (n_iters iterations of HMC(n_steps), every draw
+    collected): every output the same bits, as each lane's momenta are.
+    The two must be different libraries, or the bits prove nothing."""
+    import torch
+
+    q0, kw = parity_inputs(
+        cd, device, tr.final_q.shape[0], n_iters, False,
+        start=(tr.final_q.T, tr.step_size, tr.mass.diag), n_steps=n_steps)
+    lanes = F.lanes_per_chain(F.emit_cuda.emit(cd), q0.shape[1])
+    libs = [F.build(d, lanes)[0].path for d in (cd, twin)]
+    check(libs[0] != libs[1], (what, "the twin is the kernel's library",
+                               libs))
+    a = [x.clone() for x in F.fused_hmc(cd, q0, **kw)]
+    b = F.fused_hmc(twin, q0, **kw)
+    same = [bool(torch.equal(x, y)) for x, y in zip(a, b)]
+    em = F.emit_cuda.emit(cd)
+    print(f"phase Philox split with rows, {what}: the kernel "
+          f"({layout(F, em, q0.shape[1])}) and its twin whose lanes each "
+          f"draw every Philox group, from the main path's states and seed "
+          f"{kw['seed']} ({q0.shape[1]} chains x {n_iters} it x {n_steps} "
+          f"steps, accept {float(a[2].mean()):.4f}): final q, draws, "
+          f"accept, divergences equal {same}", flush=True)
+    check(F.lanes_per_chain(em, q0.shape[1]) > 1 and all(same),
+          (what, same))
 
 
 def pair_bits(F, cd, twin, tr, n_steps, what, device, n_iters):
@@ -3681,10 +3730,23 @@ def main(argv=()) -> int:
     sbcs = {name: sbc for name, sbc in zoo(rt) if name in SBC_FAMILIES}
     cds.update({f"SBC {name}": sbc._fit_template(SBC_ROWS)[0].density()
                 for name, sbc in sbcs.items()})
-    with phase("build", device):
+    # the register models with rows whose lanes split the Philox groups,
+    # and their twins whose lanes each draw every group
+    every_lane = ("README regression", "logistic regression")
+    cds["README regression, every lane's Philox"] = readme_regression(
+        rt)[0].density()
+    cds["logistic regression, every lane's Philox"] = logistic_regression(
+        rt)[0].density()
+    with phase("build", device), tempfile.TemporaryDirectory() as tmp:
+        from rainier_tpu_torch.tools.kernel_ab import _variant_csrc
+
+        twin_csrc = _variant_csrc(F.CSRC, os.path.join(tmp, "csrc"),
+                                  EVERY_LANE_PHILOX)
         ems = build_all(F, cds, {"funnel": (MAIN_CHAINS, THROUGHPUT_CHAINS),
                                  "logistic regression 2M": (
-                                     LOGIT2M_CHAINS,)})
+                                     LOGIT2M_CHAINS,)},
+                        {f"{name}, every lane's Philox": twin_csrc
+                         for name in every_lane})
     with phase("LogSumExp pair shares", device):
         exact = lse_pair_phase()
 
@@ -3728,6 +3790,12 @@ def main(argv=()) -> int:
                     "replaces": "rainier_tpu/ops/hmc_pallas.py:302",
                     **entry})
     kernels.append({**density_entry, "launches": 0})
+    with phase("Philox split with rows", device):
+        for what, run, iters in (("README regression", readme_tr, N_DRAWS),
+                                 ("logistic regression", tr,
+                                  LOGIT_PARITY_ITERS)):
+            philox_bits(F, cds[what], cds[f"{what}, every lane's Philox"],
+                        run, N_STEPS, what, device, iters)
 
     # -- the untiled density: columns read whole, several row spaces ---------
     with phase("MVNormal logistic", device):

@@ -557,6 +557,10 @@ class _Emitter:
                                # it reads
         self.tables = []       # each group's literals, by term and kind
                                # (cols.l<k>)
+        self.recip = {}        # in a row function, a division by a
+                               # row-invariant scalar → that scalar's
+                               # reciprocal, a row-invariant value the
+                               # row multiplies by (_reciprocals)
 
     # -- helpers ----------------------------------------------------------
     def size(self, node) -> int:
@@ -693,6 +697,9 @@ class _Emitter:
                               or self.grad[node.if_false.id])
         elif isinstance(node, R.Lookup):
             self.grad[nid] = any(self.grad[t.id] for t in node.table)
+        elif nid in self.recip:
+            self.grad[nid] = (self.grad[node.left.id]
+                              or self.grad[self.recip[nid].id])
         else:
             self.grad[nid] = any(self.grad[k.id] for k in kids)
 
@@ -703,6 +710,9 @@ class _Emitter:
             n, m = self.width([node.child])
             self.define(node, [fmt.format(x=self.el(node.child, i))
                                for i in range(m)], ops, n)
+        elif isinstance(node, R.Binary) and nid in self.recip:
+            self.define(node, [_BINARY["mul"].format(
+                x=self.el(node.left, 0), y=self.el(self.recip[nid], 0))], 1)
         elif isinstance(node, R.Binary):
             n, m = self.width([node.left, node.right])
             self.define(node, [_BINARY[node.op].format(
@@ -1201,6 +1211,13 @@ class _Emitter:
                     self.rops += 2
 
     def _binary_adj(self, node, i, a, v):
+        if node.id in self.recip:
+            # x · r for x / y, r = 1 / y: the adjoint of r, not of y, whose
+            # reverse pass rt_rows_post runs once a call
+            x, r = self.el(node.left, 0), self.recip[node.id]
+            self.acc(node.left, 0, f"{a} * {self.el(r, 0)}", 1)
+            self.acc(r, 0, f"{a} * {x}", 1)
+            return
         x, y = self.el(node.left, i), self.el(node.right, i)
         L, Rt = node.left, node.right
         op = node.op
@@ -2264,7 +2281,7 @@ def _row_const(cd, consts):
 
 def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
                 at_row=frozenset(), params=(), inline=frozenset(),
-                steps=False, gather_step=1):
+                steps=False, gather_step=1, recips=None):
     """One row space's row function and tile loader: (body lines,
     SpaceTiles, the loader's lines, per-row gathers, the row-step
     function's body (None: one row at a time) and its rows,
@@ -2277,7 +2294,9 @@ def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
     (`aligned`) is read at the row's index, which the tile then holds,
     and its adjoint handed on as a gather's; `row_w` names the tile's
     row width (None: the number); the first `n_dense` of inv are those
-    some row reads other than by a per-row gather or at its index."""
+    some row reads other than by a per-row gather or at its index;
+    `recips`: each division by a row-invariant scalar that the row takes
+    as a product with that scalar's reciprocal (_reciprocals)."""
     own = [cd.columns[j] for j in space.columns]
     offs, widths, width = _row_layout(own, bool(aligned))
     gathered, loads, width = _gathered_fields(cd, space, width)
@@ -2285,6 +2304,7 @@ def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
                   frozenset(aligned), n_dense, tuple(own), offs,
                   at_row, tuple(params), inline, gathered)
     row = _Emitter(cd, ws)
+    row.recip = dict(recips or {})
     _bind_row(row, ctx, "rix")
     order = R.topological(list(space.roots))
     dep = {k: v or k in inline for k, v in space.dep.items()}
@@ -2319,6 +2339,36 @@ def _space_rows(cd, space, ws, grad, base, size, row_w, n_dense, aligned,
             row.scatters,
             _row_step([*head, *row.fwd], rev, total, step, row.scatters)
             if step > 1 else None, step, row.row_cols)
+
+
+def _reciprocals(spaces, frontier, size):
+    """({division node id: reciprocal node}, frontier ids no row reads
+    any more) for the row spaces `spaces`: each per-row division x / y by
+    a row-invariant scalar y (one of `frontier`, `size` its elements)
+    becomes x · r, r = 1 / y a row-invariant value computed once a
+    density call, whose reverse pass runs there too; y leaves the rows'
+    inputs where nothing else of a row reads it.  An IEEE f32 division is
+    a reciprocal, four fused multiply-adds, a test and a branch to a slow
+    path, and its branch keeps the rows of a lane apart: the README
+    regression's row held three, 38% of its kernel's time on an H100
+    (tools/kernel_ab.py split, PERF.md §6).  The quotient x · r rounds
+    twice, within an ulp of x / y."""
+    scalar = {f.id: f for f in frontier if size[f.id] == 1}
+    recips, made, other = {}, {}, set()
+    for space in spaces:
+        for node in R.topological(list(space.roots)):
+            if not space.dep[node.id]:
+                continue
+            divides = (isinstance(node, R.Binary) and node.op == "div"
+                       and node.right.id in scalar
+                       and node.left.id != node.right.id)
+            if divides:
+                y = node.right
+                recips[node.id] = made.setdefault(
+                    y.id, R.Binary(R.const(1.0), y, "div"))
+            other |= {k.id for k in R.children_of(node)
+                      if not (divides and k is node.right)}
+    return recips, set(made) - other
 
 
 def _unsigned(x):
@@ -2426,6 +2476,20 @@ def _emit_rows(cd, spaces, ws, whole, scratch, consts, gather_step=1,
     for node in R.topological(frontier):
         sizer.forward(node)
     size = {f.id: sizer.size(f) for f in frontier}
+    # a row's division by a row-invariant scalar: a product with the
+    # scalar's reciprocal, a row-invariant value of its own in its place
+    recips, gone = _reciprocals(spaces, frontier, size)
+    frontier = [f for f in frontier if f.id not in gone]
+    for f in gone:
+        del reads[f]
+    for node in dict.fromkeys(recips.values()):
+        frontier.append(node)
+        reads[node.id] = {(s, "elem") for s, space in enumerate(spaces)
+                          if any(space.dep.get(d) for d, r in recips.items()
+                                 if r is node)}
+        for m in R.topological([node]):
+            sizer.forward(m)
+        size[node.id] = 1
     # `aligned[s]`: the vectors of space s's row count that its rows read
     # by element, each row its own element (the lanes evaluator's (n, C)
     # against (n, C)); `dense`: the values some row reads other than by a
@@ -2504,7 +2568,7 @@ def _emit_rows(cd, spaces, ws, whole, scratch, consts, gather_step=1,
     made = [_space_rows(cd, space, ws, pre.grad, base, size,
                         "RT_ROW_W" if one else None, n_dense, aligned[s],
                         at_row[s], params[s], frozenset(inline[s]),
-                        not ws or inv_regs, gather_step)
+                        not ws or inv_regs, gather_step, recips)
             for s, space in enumerate(spaces)]
     # a row that rebuilds a source inside a rebuilt source reads columns
     # from their device pointers: then every row function takes them

@@ -21,13 +21,15 @@
 // float[RT_DIM] in registers and local memory, and every lane holds all
 // of them (past it, a slot: below): whatever lies
 // outside the rows (the column-free terms, the row-invariant passes
-// rt_rows_pre and rt_rows_post, Philox, the leapfrog and the accept) runs
+// rt_rows_pre and rt_rows_post, the leapfrog and the accept) runs
 // redundantly in every lane, with no broadcast.  The lanes split the
-// rows alone.  The design rests on one invariant: every value that
-// decides control flow (lp, lpn, k0, k1, u and the accept) has the same
-// bits in the 32 lanes of a warp, so the lanes never part, and every
-// shuffle and barrier is reached by all of them.  Each stored element is stored by one lane
-// (rt_mine: element d by lane d mod 32), the scalars by lane 0; nothing
+// rows and, where there are several, the Philox groups (rt_lane_momenta).
+// The design rests on one invariant: every value that decides control
+// flow (lp, lpn, k0, k1, u and the accept) has the same bits in the lanes
+// of a chain, so the lanes never part, and every shuffle and barrier is
+// reached by all of them.  Each stored element is stored by one lane
+// (rt_mine: element d by lane d mod RT_LANES), the scalars by lane 0;
+// nothing
 // touches device memory between the load of q0 and the final stores
 // except the collected draws, samples[it / collect_every][j][chain] for
 // the j-th collected coordinate, and the data columns.
@@ -49,9 +51,11 @@
 // straight-line code, so that their dependent chains overlap, and their
 // reverse passes add the adjoints in row order, so the bits are those of
 // one row at a time.  At the end of the density call an xor butterfly
-// (five __shfl_xor_sync stages, rt_acc_sum) adds the lanes' f64 sums.  Each
-// stage adds a pair of values in both of its lanes, and addition commutes,
-// so every lane ends with the same bits.  A second barrier ends the tile.
+// (five __shfl_xor_sync stages, rt_acc_sums) adds the lanes' f64 sums
+// (a resident register model: one reduce-scatter of them all, with the
+// same bits).  Each stage adds a pair of values in both of its lanes,
+// and addition commutes, so every lane ends with the same bits.  A
+// second barrier ends the tile.
 // Fixed-step
 // HMC gives every chain the same number of density calls (n_steps per
 // iteration, plus one), so all warps of a block reach every barrier
@@ -1077,7 +1081,7 @@ RT_HD void rt_lane_rows(const float* slot, int rows, int lane,
 
 // The lanes' f64 sums of their rows' lp and dense adjoints over every
 // tile of a density call, which the butterfly adds once a call
-// (rt_acc_sum): one lane's on the card, lane l's at l (lp) and at
+// (rt_acc_sums): one lane's on the card, lane l's at l (lp) and at
 // l·RT_NINV_DENSE_ALLOC + k (adjoint k) in host code.  Summing the lanes
 // once a call, not once a tile, saves a tile's butterfly over every
 // dense adjoint (the 32-feature MVNormal logistic's kernel: 34 values,
@@ -1089,16 +1093,46 @@ RT_HD void rt_lane_rows(const float* slot, int rows, int lane,
 #define RT_ACC_LANES RT_LANES
 #endif
 
-// entry k of the lanes' sums `acc` (n entries a lane) summed over the
-// lanes in the butterfly's order, the same bits in every lane
-RT_HD double rt_acc_sum(const double* acc, int n, int k) {
-#ifdef __CUDA_ARCH__
-  (void)n;
-  return rt_warp_sum<RT_LANES>(acc[k]);
+// The lanes' sums of lp (lp[0] on the card, lp[l] in host code) and of
+// the dense adjoints (`acc`, RT_NINV_DENSE a lane) over the lanes: tot[0]
+// lp, tot[1 + k] adjoint k, the same bits in every lane.  The card adds
+// each value in a butterfly (rt_warp_sum), and host code in its order
+// (rt_lane_tree).  A register model whose rows are one tile loaded once a
+// launch (the README regression) adds them all in one reduce-scatter of
+// RT_ACC_P values a lane, the padding zeros (rt_lane_sums), which adds
+// the lanes in the butterfly's pairs and so keeps its bits: its density
+// call is short, and the butterflies took 28% of the README regression's
+// kernel once its rows' divisions were gone.  Given to every model with
+// rows in a trial, it made the streamed ones 0.1-49% slower and the
+// 32-feature slot model 5.5% (their code laid out anew), so it is not
+// theirs (H100, tools/kernel_ab.py split and tiles, PERF.md §6).
+#define RT_ACC_N (1 + RT_NINV_DENSE)
+#if defined(__CUDA_ARCH__) && defined(RT_RESIDENT) && !defined(RT_WS_FLOATS)
+#define RT_LANE_SUMS 1
+constexpr int rt_pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * rt_pow2_at_least((n + 1) / 2);
+}
+#define RT_ACC_P rt_pow2_at_least(RT_ACC_N)
+#endif
+
+RT_HD void rt_acc_sums(const double* lp, const double* acc, double* tot) {
+#ifdef RT_LANE_SUMS
+  double v[RT_ACC_P];
+#pragma unroll
+  for (int k = 0; k < RT_ACC_P; ++k)
+    v[k] = k == 0 ? lp[0] : k < RT_ACC_N ? acc[k - 1] : 0.0;
+  rt_lane_sums<RT_LANES, RT_ACC_P, RT_ACC_N>(v, tot);
+#elif defined(__CUDA_ARCH__)
+#pragma unroll
+  for (int k = 0; k < RT_ACC_N; ++k)
+    tot[k] = rt_warp_sum<RT_LANES>(k == 0 ? lp[0] : acc[k - 1]);
 #else
   double v[RT_LANES];
-  for (int l = 0; l < RT_LANES; ++l) v[l] = acc[(size_t)l * n + k];
-  return rt_lane_tree<RT_LANES>(v);
+  for (int k = 0; k < RT_ACC_N; ++k) {
+    for (int l = 0; l < RT_LANES; ++l)
+      v[l] = k == 0 ? lp[l] : acc[(size_t)l * RT_NINV_DENSE_ALLOC + k - 1];
+    tot[k] = rt_lane_tree<RT_LANES>(v);
+  }
 #endif
 }
 
@@ -1365,14 +1399,15 @@ RT_HD float rt_density(const float* x, float* g, const RtCols& cols,
   rt_gathered_sum(lanes, ainv);
   // the butterfly, once a call: the lanes' sums in every lane; and the
   // rows' data-only terms, summed once a launch
+  double tot[RT_ACC_N];
+  rt_acc_sums(lp_lanes, ainv_acc, tot);
 #ifdef RT_ROW_CONSTS
-  const double lp_acc = rt_acc_sum(lp_lanes, 1, 0) + rt_consts_sum(rows);
+  const double lp_acc = tot[0] + rt_consts_sum(rows);
 #else
-  const double lp_acc = rt_acc_sum(lp_lanes, 1, 0);
+  const double lp_acc = tot[0];
 #endif
 #pragma unroll
-  for (int k = 0; k < RT_NINV_DENSE; ++k)
-    ainv[k] = (float)rt_acc_sum(ainv_acc, RT_NINV_DENSE_ALLOC, k);
+  for (int k = 0; k < RT_NINV_DENSE; ++k) ainv[k] = (float)tot[1 + k];
   RT_WS_SYNC();
   rt_rows_post(x, ainv, g RT_WHOLE(cols) RT_SCR(scr));
 #if defined(RT_WS_FLOATS) || defined(RT_ROW_CONSTS)
@@ -1407,15 +1442,20 @@ RT_HD float rt_lp_grad(const float* q, const float* sc, float* g,
   return lp;
 }
 
-// A chain without rows of several lanes, each holding its whole state in
-// registers, draws its momenta on the card as the workspace does: lane l
-// runs the Philox groups l, l + RT_LANES, ..., and p[d] and u come from
-// the lane that drew their group, so every lane holds the bits that
-// drawing every group would give, at the cost of one group where there
-// are RT_LANES groups or fewer (the host build draws them all, the same
-// bits).  A register model with rows draws every group in every lane.
-#if defined(__CUDA_ARCH__) && !defined(RT_WS_FLOATS) && RT_ROW_W == 0 && \
-    RT_LANES > 1
+// A chain of several lanes, each holding its whole state in registers
+// (with rows or without), draws its momenta on the card as the workspace
+// does: lane l runs the Philox groups l, l + RT_LANES, ..., and p[d] and u
+// come from the lane that drew their group, so every lane holds the bits
+// that drawing every group would give, at the cost of one group where
+// there are RT_LANES groups or fewer (the host build draws them all, the
+// same bits): drawn in every lane of its warp, the README regression's 3
+// groups, each 10 Philox rounds and a Box-Muller pair, made its kernel 13%
+// slower on an H100 (tools/kernel_ab.py philox-split, PERF.md §6).  A
+// model with rows and one group (a parameter) has nothing to split: its
+// lanes each draw it, with no shuffle (split, the zoo's large Poisson's
+// kernel took 12% longer, its code laid out anew; kernel_ab.py tiles).
+#if defined(__CUDA_ARCH__) && !defined(RT_WS_FLOATS) && RT_LANES > 1 && \
+    (RT_ROW_W == 0 || RT_GROUPS > 1)
 #define RT_LANE_RNG 1
 #define RT_LANE_GROUPS ((RT_GROUPS + RT_LANES - 1) / RT_LANES)
 __device__ __forceinline__ void rt_lane_momenta(float* p, float& u, int it,

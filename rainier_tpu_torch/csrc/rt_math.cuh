@@ -336,6 +336,62 @@ RT_HD T rt_lane_bcast(T x, int src) {
   return x;
 }
 
+#ifdef __CUDA_ARCH__
+// The sums over an aligned group of L lanes of each lane's P values (P a
+// power of two), the first N of them (N <= P; the others padding), the
+// same bits in every lane, as a reduce-scatter and broadcasts: at the
+// stage of offset o (L / 2, L / 4, ..., 1) a lane that holds w > 1 values
+// keeps their first half where its bit o is clear and their last half
+// where it is set, and adds its partner's copy of the half it keeps; a
+// lane that holds one value adds its partner's, as the butterfly does;
+// then total k comes from a lane that holds it (every lane, P = 1).  Each
+// total adds the lanes in the butterfly's pairs, x + y in one lane and
+// y + x in its partner, so it has the bits of rt_warp_sum and of
+// rt_lane_tree, which host code adds.  P values over 32 lanes: P - 1 + 5 -
+// log2 P additions and as many shuffles, then N broadcasts, where a
+// butterfly of each value takes 5 of each (the README regression's lp
+// and 6 adjoints, P = 8, N = 7: 9 additions and 16 shuffles of a double
+// against 35 and 35).  rt_lane_sums_src(k) is the lane that holds total
+// k, at v[k % W] there, W = max(P / L, 1).
+template <int L, int P>
+__device__ constexpr int rt_lane_sums_src(int k) {
+  constexpr int W = P / L > 1 ? P / L : 1;
+  int src = 0, bit = L / 2;
+  for (int half = P / 2; half >= W; half /= 2, bit /= 2)
+    if ((k / W * W) & half) src += bit;
+  return src;
+}
+
+// this lane's P values v (overwritten), the totals out[0, N)
+template <int L, int P, int N = P>
+__device__ __forceinline__ void rt_lane_sums(double* v, double* out) {
+  constexpr int W = P / L > 1 ? P / L : 1;
+  const int lane = (int)(threadIdx.x % L);
+  int w = P;
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) {
+    if (w > 1) {
+      const int h = w / 2;
+      const bool hi = (lane & o) != 0;
+#pragma unroll
+      for (int j = 0; j < h; ++j) {
+        const double keep = hi ? v[j + h] : v[j];
+        const double send = hi ? v[j] : v[j + h];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      }
+      w = h;
+    } else {
+      v[0] = v[0] + __shfl_xor_sync(0xffffffffu, v[0], o);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    out[k] = L > 1 && P > 1 ? __shfl_sync(0xffffffffu, v[k % W],
+                                          rt_lane_sums_src<L, P>(k), L)
+                            : v[k];
+}
+#endif
+
 // The f64 adjoint sums, by source entry, of a gather by an index column
 // read whole, in a loop split over the lanes (compute/emit_cuda.py,
 // _gather_sums): each lane adds its elements' adjoints into sums of its

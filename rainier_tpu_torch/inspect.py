@@ -54,14 +54,15 @@ def source(model) -> str:
     return emit_cuda.emit(model.density()).source
 
 
-def ptx(model, lanes: int | None = None) -> str:
+def ptx(model, lanes: int | None = None, csrc=None) -> str:
     """PTX of the model's fused kernel for ``sm_90a``, built by nvcc from
-    csrc/fused_hmc.cu and the emitted header as ``ops/fused_hmc.build``
-    builds the library (`lanes`: a model without rows' lanes a chain;
-    default that of a 1024-chain launch).  Raises where there is no
-    nvcc."""
+    fused_hmc.cu in `csrc` (default the package's csrc/) and the emitted
+    header as ``ops/fused_hmc.build`` builds the library (`lanes`: a
+    model without rows' lanes a chain; default that of a 1024-chain
+    launch).  Raises where there is no nvcc."""
     from .ops import fused_hmc as F
 
+    csrc = F.CSRC if csrc is None else csrc
     em = emit_cuda.emit(model.density())
     lanes = lanes or F.lanes_per_chain(em, 1024)
     defines = () if em.spaces else (f"-DRT_LANES={lanes}",)
@@ -71,8 +72,8 @@ def ptx(model, lanes: int | None = None) -> str:
             f.write(em.source)
         out = os.path.join(d, "fused_hmc.ptx")
         cmd = [nvcc, "-ptx", "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", *defines, "-I", d, "-I", str(F.CSRC),
-               "-o", out, str(F.CSRC / "fused_hmc.cu")]
+               "-std=c++17", "-O3", *defines, "-I", d, "-I", str(csrc),
+               "-o", out, os.path.join(csrc, "fused_hmc.cu")]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"

@@ -28,7 +28,7 @@ each chain one warp:
 its RowSum likelihoods are summed over row tiles that the block's
 threads load into shared memory together, and within a tile the warp's
 32 lanes split the rows (lane l takes rows l, l + 32, ...), their
-sums met once a density call by an xor butterfly that leaves the same
+sums met once a density call by a reduce-scatter that leaves the same
 bits in every lane; a block holds ``chains_per_block`` such warps, which all read each
 tile.  Up to ``emit_cuda.LANE_STATE_MAX`` parameters and row-invariant
 values every lane holds the whole chain state and runs the rest of the
@@ -419,6 +419,7 @@ class Kernels(NamedTuple):
     fused_hmc: object
     logp_grad: object
     log: str        # nvcc's output for the build: registers, spills
+    path: str       # the library's file
 
 
 @functools.lru_cache(maxsize=None)
@@ -431,31 +432,39 @@ def _load(so_path: str) -> Kernels:
     lpg.argtypes = LOGP_GRAD_ARGTYPES + [ctypes.c_void_p] * 2
     lpg.restype = ctypes.c_int
     log = Path(so_path).with_suffix(".log")
-    return Kernels(hmc, lpg, log.read_text() if log.exists() else "")
+    return Kernels(hmc, lpg, log.read_text() if log.exists() else "",
+                   so_path)
 
 
-# density -> {lanes a chain: (Kernels, emitted)} of its builds in this
-# process
+# density -> (the directory of sources it is built from, {lanes a chain:
+# (Kernels, emitted)} of its builds in this process)
 _BUILT = weakref.WeakKeyDictionary()
 
 
-def build(density, lanes):
+def build(density, lanes, csrc=None):
     """Emit the model's rt_model.h and compile the kernel for `lanes`
     lanes a chain, which a model without rows takes as the build's
     ``RT_LANES`` (a model with rows is a warp a chain whatever it is
-    given), cached by the content hash on disk, and per density and lanes
-    in the process, so a launch neither emits nor hashes again.  Returns
-    (Kernels, build seconds, emitted)."""
+    given), from the sources in `csrc` (default CSRC), cached by the
+    content hash on disk, and per density and lanes in the process, so a
+    launch neither emits nor hashes again.  A density is built from one
+    directory of sources in a process, its first build's: a build that
+    names none (a launch's) takes it, one that names another is refused.
+    Returns (Kernels, build seconds, emitted)."""
     em = emit_cuda.emit(density)
     lanes = emit_cuda.LANES if em.spaces else lanes
-    built = _BUILT.setdefault(density, {})
+    src, built = _BUILT.setdefault(
+        density, (CSRC if csrc is None else Path(csrc), {}))
+    if csrc is not None and Path(csrc) != src:
+        raise ValueError(f"the density is built from {src}, not {csrc}")
+    csrc = src
     if lanes in built:
         return built[lanes][0], 0.0, em
     defines = () if em.spaces else (f"-DRT_LANES={lanes}",)
     t0 = time.perf_counter()
     h = hashlib.sha256()
     for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     h.update(em.source.encode())
     h.update(" ".join(NVCC_FLAGS + defines).encode())
     key = h.hexdigest()[:24]
@@ -466,7 +475,7 @@ def build(density, lanes):
         (inc / emit_cuda.HEADER_NAME).write_text(em.source)
         tmp = BUILD_DIR / f".fused_hmc_{key}.{os.getpid()}.so"
         cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-I", str(inc), "-I",
-               str(CSRC), "-o", str(tmp), str(CSRC / "fused_hmc.cu")]
+               str(csrc), "-o", str(tmp), str(csrc / "fused_hmc.cu")]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"

@@ -15,6 +15,8 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 rainier_tpu_torch/tools/kernel_ab.py layouts
     python3 rainier_tpu_torch/tools/kernel_ab.py adapt
     python3 rainier_tpu_torch/tools/kernel_ab.py columnfree LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py resident-lanes LABEL
+    python3 rainier_tpu_torch/tools/kernel_ab.py philox-split LABEL [MODEL ...]
     python3 rainier_tpu_torch/tools/kernel_ab.py forms LABEL
     python3 rainier_tpu_torch/tools/kernel_ab.py gather-tiles LABEL
     python3 rainier_tpu_torch/tools/kernel_ab.py gp-layouts LABEL
@@ -63,7 +65,8 @@ drives (``row-sums``' three, the MVNormal logistic, the logistic in two
 row spaces, glmm_large, the 32-feature MVNormal logistic, the
 marginalized mixture, the three zoo families of its kernel-vs-plain
 phases, and the 2M-row logistic at 512 chains × 5 iterations of HMC(8)),
-each as its launch decides, built from the ``rainier_tpu_torch`` that
+each as its launch decides (built at the lanes a chain of the wrapper's
+rule for its chains), built from the ``rainier_tpu_torch`` that
 the import finds, as ``plain`` does: run it with another checkout's root
 on PYTHONPATH and with this one's, in turns, to compare two trees; then
 each model's density alone (``rt_logp_grad_launch``) at CHECK_POINTS
@@ -73,6 +76,31 @@ Prints one line per model tagged LABEL, with its tile's rows and
 whether the launch streamed, after ptxas's report of each function of
 its build (stack frame, spills, a kernel's registers: a device function
 reported apart is called, not inlined).
+
+``resident-lanes``: the resident register models (``RESIDENT_MODELS``:
+the README regression and SBC's two families at SBC_ROWS rows, each
+synthesized from ZOO_SEED) at 1024, 4096 and 16,384 chains × 1000
+iterations × 5 steps, every draw collected, from a short scan-path
+warmup's states repeated to the chains, at each (lanes a chain, chains
+a block) of ``RESIDENT_LAYOUTS`` (the wrapper's ``lanes_per_chain`` and
+``chains_per_block`` replaced for the run, as ``columnfree`` does), in
+order and back; each width is a model of its own, built from a copy of
+``csrc/`` whose chains with rows run on that many lanes
+(``_rows_on_lanes``; the package runs them on a warp).  Prints each build's ptxas report, then one line per
+model, chains and layout, tagged LABEL: ms, the fraction of chains
+within 1e-4 relative of the first layout's (a width sums the rows in
+another order), and whether the run has the bits of that width's first
+(the chains a block leave a chain's arithmetic as it is).
+
+``philox-split``: the register models with rows whose chains split
+their Philox groups over their lanes (``PHILOX_MODELS``: the README
+regression, the logistics, the mixture and the zoo's negative binomial,
+or the models of ``tiles`` named after LABEL), at ``tiles``' shapes,
+built as the tree stands and from a copy of ``csrc/`` whose such models
+draw every group in every lane (``chip_smoke.EVERY_LANE_PHILOX``), in
+the order A B B A.  Prints one line per model and build, tagged LABEL,
+with whether its outputs are the first run's bits and ptxas's report
+of the build's ``fused_hmc`` kernels.
 
 ``lanes``: the same kernels of this checkout at W = 2, 4 and 8 chains a
 block (the wrapper's rule ``fused_hmc.chains_per_block`` replaced for
@@ -148,14 +176,21 @@ and the density alone at 576 states.  Prints one line per layout,
 tagged LABEL, with whether its draws are the first layout's bit for bit
 (both sum in one order).
 
-``split``: the row loop's time split into its parts on four models of
+``split``: the row loop's time split into its parts on five models of
 ``tiles`` (the 32-feature MVNormal logistic, the marginalized mixture,
-the 100k logistic and the zoo's zero-inflated geometric, 1024 chains ×
-SPLIT_ITERS iterations), each built from
+the 100k logistic, the zoo's zero-inflated geometric and the README
+regression, 1024 chains × SPLIT_ITERS iterations, the README the median
+of SPLIT_REPS launches), each built from
 a copy of ``csrc/`` with one part removed (``SPLIT_PARTS``: the tile fill
-past the first two tiles, the rows, the butterflies, the tile loop's
-barriers), each loop as its launch decides, in the order base, parts,
-parts reversed, base.  The slot models (``SLOT_MODELS``: GLMMPoisson2 and
+past the first two tiles, the rows, the butterflies or the lanes'
+reduce-scatter, the tile loop's barriers, Philox and Box-Muller (the
+momenta a constant), the scalar passes (``rt_logp_grad``,
+``rt_rows_pre`` and ``rt_rows_post`` as constants of their types, the
+rows' adjoints kept live), each constant one the compiler cannot see
+through), or from a header whose rows' divisions by a value that is not
+a literal are products (``HEADER_PARTS``, "no divisions": timing only),
+each loop as its launch decides, in the order base, parts, parts
+reversed, base.  The slot models (``SLOT_MODELS``: GLMMPoisson2 and
 glmm_large, named after LABEL, apart from the others) are split into
 ``SLOT_SPLIT``'s parts instead: the passes over the chain's state, its
 rows' row-invariant passes, the clears of its gathered adjoints, the
@@ -246,19 +281,23 @@ alone at CHECK_POINTS of those states.  Prints one line per model,
 build and order, tagged LABEL.
 
 ``row-sass``: the SASS of the row functions of each model named (zoo
-families by name, default the four of ``counts``, ``SASS_MODELS``: the
-100k logistic, the MVNormal logistic and the logistic in two row
-spaces, whose rows are Bernoulli-logit rows, and the marginalized
-mixture, whose row is a LogSumExp of two terms), compiled on their own:
+families by name, default the four of ``counts`` and the README
+regression, ``SASS_MODELS``: the 100k logistic, the MVNormal logistic
+and the logistic in two row spaces, whose rows are Bernoulli-logit rows,
+the marginalized mixture, whose row is a LogSumExp of two terms, and the
+README regression, whose row divided by σ three times), compiled on
+their own:
 for each row space S a probe kernel that sums ``RtSpace<S>::row`` over a
 lane's rows of a tile, one that sums ``RtSpace<S>::step`` over its steps
 where the space sums several rows a step, and, where the header has
 them, one that sums ``RtSpace<S>::row_const`` over the rows' columns,
 each built with nvcc for sm_90a and read by ``cuobjdump -sass``.
 Prints, for each probe, its instructions (and a step's a row), MUFU
-operations by kind (EX2, LG2, RCP, ...) and branches (BRA and CALL),
-static counts of the function, whose loop body is one row or step plus
-the loop's own few instructions, tagged LABEL.
+operations by kind (EX2, LG2, RCP, ...), branches (BRA and CALL) and
+FCHK (an IEEE division's test for its slow path), static counts of the
+function, whose loop body is one row or step, or several rows where
+nvcc unrolls it, plus the loop's own few instructions, tagged LABEL;
+each model's SASS is written to ROW_SASS_DIR.
 
 ``row-loads``: the logistic regressions of ``SASS_MODELS`` (or the
 models of ``tiles`` named after LABEL) with each row of w floats, w one
@@ -356,8 +395,12 @@ TILE_STEPS = {"marginalized mixture": 4, "zoo zero_inflated_geometric": 4,
 # (text, replacement) of fused_hmc.cu; the first whose texts the tree
 # holds is applied
 SPLIT_MODELS = ("MVNormal logistic 32", "marginalized mixture",
-                "logistic regression", "zoo zero_inflated_geometric")
+                "logistic regression", "zoo zero_inflated_geometric",
+                "README regression")
 SPLIT_ITERS = 20
+# launches timed a build in ``split`` (others: 3): the README
+# regression's 20 iterations take a few tenths of a millisecond
+SPLIT_REPS = {"README regression": 20}
 _SYNC_FILL = "      rt_block_fill<S>(tile, cols, row0, n);\n"
 _SYNC_FILL_OLD = ("      RtSpace<S>::fill(tile, cols, row0, n, RT_TID, "
                    "RT_NTHREADS);\n")
@@ -398,6 +441,38 @@ _SCATTER_K = ("        rt_scatter_steps<kK, kG>(ainv, sidx, sval, g);\n"
               "      }\n      RT_WARP_SYNC();\n")
 
 
+# a value the compiler cannot see through (the split's constants), so that
+# a constant in place of a part folds nothing of what follows it
+_OPAQUE = ('#include "philox.cuh"\n', '#include "philox.cuh"\n'
+           '#ifdef __CUDA_ARCH__\n#define RT_OPAQUE(v, bits) '
+           'asm volatile("mov.f32 %0, " #bits ";" : "=f"(v))\n#else\n'
+           '#define RT_OPAQUE(v, bits) ((v) = 0.5f)\n#endif\n')
+_PHILOX = ("        rt_philox4x32_10(w, seed, (uint32_t)c);\n"
+           "#pragma unroll\n"
+           "        for (int j = 0; j < 2; ++j) {\n"
+           "          const int d = 2 * k + j;\n"
+           "          if (d < RT_DIM)\n"
+           "            p[d] = rt_box_muller(rt_uniform_from_bits(w[2 * j]),\n"
+           "                                       rt_uniform_from_bits(w[2 * j + 1]));\n"
+           "          else if (d == RT_DIM)\n"
+           "            u = rt_uniform_from_bits(w[2 * j]);\n"
+           "        }\n")
+_PHILOX_CONST = ("        (void)w;\n"
+                 "#pragma unroll\n"
+                 "        for (int j = 0; j < 2; ++j) {\n"
+                 "          const int d = 2 * k + j;\n"
+                 "          if (d < RT_DIM)\n"
+                 "            RT_OPAQUE(p[d], 0f3F000000);\n"
+                 "          else if (d == RT_DIM)\n"
+                 "            RT_OPAQUE(u, 0f3F000000);\n"
+                 "        }\n")
+_LANE_PHILOX = "      rt_lane_momenta(p, u, it, seed, (uint32_t)c);\n"
+_LANE_PHILOX_CONST = ("#pragma unroll\n"
+                      "      for (int d = 0; d < RT_DIM; ++d) "
+                      "RT_OPAQUE(p[d], 0f3F000000);\n"
+                      "      RT_OPAQUE(u, 0f3F000000);\n")
+
+
 SPLIT_PARTS = {
     "no fill": [
         [(fill, "      if (row0 == 0)\n  " + fill),
@@ -408,6 +483,11 @@ SPLIT_PARTS = {
         [("  typedef RtSpace<S> Sp;\n  enum { kG",
           "  typedef RtSpace<S> Sp;\n  rows >>= 30;\n  enum { kG")]],
     "no butterfly": [
+        [("    v[k] = k == 0 ? lp[0] : k < RT_ACC_N ? acc[k - 1] : 0.0;\n"
+          "  rt_lane_sums<RT_LANES, RT_ACC_P, RT_ACC_N>(v, tot);\n",
+          "    if (k < RT_ACC_N) tot[k] = k == 0 ? lp[0] : acc[k - 1];\n"),
+         ("    tot[k] = rt_warp_sum<RT_LANES>(k == 0 ? lp[0] : acc[k - 1]);\n",
+          "    tot[k] = k == 0 ? lp[0] : acc[k - 1];\n")],
         [("  const double lp_acc = rt_acc_sum(lp_lanes, 1, 0) + "
           "rt_consts_sum(rows);\n",
           "  const double lp_acc = lp_lanes[0] + rt_consts_sum(rows);\n"),
@@ -451,6 +531,24 @@ SPLIT_PARTS = {
                      [(_SCATTER_1, _SCATTER_1.replace(_ROW_SYNC, "")),
                       (_SCATTER_K, _SCATTER_K.replace(
                           "      RT_WARP_SYNC();\n", ""))]],
+    # the momenta and the uniform a constant, in place of Philox and
+    # Box-Muller (every lane's draw, and the lanes' split draw)
+    "no Philox": [[_OPAQUE, (_PHILOX, _PHILOX_CONST),
+                   (_LANE_PHILOX, _LANE_PHILOX_CONST)]],
+    # rt_logp_grad, rt_rows_pre and rt_rows_post as constants of their
+    # types: lp 0 and g 0, every row-invariant value 1, and the rows'
+    # adjoints kept live by a vanishing share of them in g
+    "no scalar passes": [[
+        _OPAQUE,
+        ("  float lp = rt_logp_grad(x, g RT_WHOLE(cols) RT_SCR(scr));\n",
+         "  float lp;\n  RT_OPAQUE(lp, 0f00000000);\n#pragma unroll\n"
+         "  for (int d_ = 0; d_ < RT_DIM; ++d_) g[d_] = 0.0f;\n"),
+        ("  rt_rows_pre(x, inv RT_WHOLE(cols) RT_SCR(scr));\n",
+         "#pragma unroll\n  for (int k_ = 0; k_ < RT_NINV_ALLOC; ++k_)\n"
+         "    RT_OPAQUE(inv[k_], 0f3F800000);\n"),
+        ("  rt_rows_post(x, ainv, g RT_WHOLE(cols) RT_SCR(scr));\n",
+         "#pragma unroll\n  for (int k_ = 0; k_ < RT_NINV; ++k_)\n"
+         "    g[k_ % RT_DIM] += 1e-30f * ainv[k_];\n")]],
 }
 # ``split`` of a model whose chain state lies in a slot (SLOT_MODELS):
 # the passes over the state (the momenta, kicks, drifts, p·p and the
@@ -458,7 +556,8 @@ SPLIT_PARTS = {
 # gathered adjoints, the rows, their scatters and the warp barrier after
 # each step, each removed in a build of its own; the other models'
 # parts are ROW_SPLIT
-ROW_SPLIT = ("no fill", "no rows", "no butterfly", "no barriers")
+ROW_SPLIT = ("no fill", "no rows", "no butterfly", "no barriers",
+             "no Philox", "no scalar passes", "no divisions")
 SLOT_SPLIT = ("no state passes", "no pre/post", "no clears", "no rows",
               "no scatters", "no row syncs")
 # after the slot's redesign, also the merge of several steps' scatters
@@ -711,18 +810,34 @@ def _start(model, name, device):
     return _warm(model, CHAINS, device, FORM_WARMUP)
 
 
-def _build(cd):
-    """The kernel of a model with rows (a warp a chain)."""
+def _build(cd, n=CHAINS, csrc=None):
+    """The kernel of a model with rows at the lanes a chain of the
+    wrapper's rule for a launch over n chains, from the sources in `csrc`
+    (default the package's; ``F.build``)."""
     from rainier_tpu_torch.compute import emit_cuda
     from rainier_tpu_torch.ops import fused_hmc as F
 
-    return F.build(cd, emit_cuda.LANES)
+    lanes = F.lanes_per_chain(emit_cuda.emit(cd), n)
+    return F.build(cd, lanes) if csrc is None else F.build(cd, lanes, csrc)
 
 
-def _build_runs(runs):
-    """Every run's kernel, one nvcc each, all started together."""
+def _as_built(F, cd, build, n=CHAINS, csrc=None):
+    """The build `build` (``F.build``'s, from the sources in `csrc`,
+    default the package's) as the kernel that a launch of `cd` over n
+    chains takes."""
+    kernels, _, em = build
+    F._BUILT[cd] = (F.CSRC if csrc is None else Path(csrc),
+                    {F.lanes_per_chain(em, n): (kernels, em)})
+
+
+def _build_runs(runs, csrc=None):
+    """Every run's kernel at its chains' lanes, from the sources in
+    `csrc` (default the package's), one nvcc each, all started
+    together."""
     with ThreadPoolExecutor(len(runs)) as pool:
-        list(pool.map(_build, [run[0].density() for run in runs.values()]))
+        list(pool.map(lambda run: _build(run[0].density(),
+                                         run[1][0].shape[1], csrc),
+                      runs.values()))
 
 
 def _time_runs(runs, device, label, built=None, reps=3, stream=None):
@@ -740,8 +855,7 @@ def _time_runs(runs, device, label, built=None, reps=3, stream=None):
         if stream is not None:
             kw["stream_columns"] = stream
         if built is not None:
-            kernels, _, em = built[name]
-            F._BUILT[cd] = {F.emit_cuda.LANES: (kernels, em)}
+            _as_built(F, cd, built[name], q0.shape[1])
         streamed = F.fused_hmc.streamed
         out, ms = kernel_ms(F, cd, q0, kw, device, reps)
         how = "streamed" if F.fused_hmc.streamed > streamed else \
@@ -773,15 +887,14 @@ def row_sums() -> None:
         (variant / "fused_hmc.cu").write_text(src)
         built = {}
         for label, path in (("f32 tiles", csrc), ("f64 rows", variant)):
-            F.CSRC = path
             cds = [run[0].density() for run in runs.values()]
             for cd in cds:
                 F._BUILT.pop(cd, None)
             with ThreadPoolExecutor(len(cds)) as pool:
-                for name, b in zip(runs, pool.map(_build, cds)):
+                for name, b in zip(runs, pool.map(
+                        lambda cd, path=path: _build(cd, csrc=path), cds)):
                     built[label, name] = b
                     print(f"built {label}, {name}: {b[1]:.2f} s", flush=True)
-        F.CSRC = csrc
     for name, run in runs.items():
         for label in ("f32 tiles", "f64 rows", "f64 rows", "f32 tiles"):
             _time_runs({name: run}, device, f"row-sums {label},",
@@ -824,7 +937,7 @@ def tiles(label: str, names=()) -> None:
     _build_runs(runs)
     if device.type == "cuda":
         for name, run in runs.items():
-            kernels = F.build(run[0].density(), F.emit_cuda.LANES)[0]
+            kernels = _build(run[0].density(), run[1][0].shape[1])[0]
             for line in _ptxas(kernels.log):
                 print(f"RESULT tiles {label} {name}: ptxas {line}",
                       flush=True)
@@ -873,7 +986,30 @@ def _run_kernel(F, cd, start, n_it, n_steps, device, reps=3, stream=None):
     return out, ms, F.fused_hmc.streamed > streamed
 
 
+def _row_mults(src):
+    """The header `src` with every division of its row functions by a
+    value that is not a literal a multiplication (timing only: the bits
+    differ)."""
+    import re
+
+    out = src
+    for head in _ROW_FUNCTIONS:
+        at = out.find(head)
+        while at >= 0:
+            end = out.index("\n}\n", at)
+            out = out[:at] + re.sub(r" / (?![-\d])", " * ",
+                                    out[at:end]) + out[end:]
+            at = out.find(head, end)
+    return out
+
+
+# ``split``'s parts that change the model's header, not ``csrc/``
+HEADER_PARTS = {"no divisions": _row_mults}
+
+
 def split(label: str, names=()) -> None:
+    import dataclasses
+
     import torch
 
     from rainier_tpu_torch.compute import emit_cuda
@@ -895,15 +1031,24 @@ def split(label: str, names=()) -> None:
     built = {}
     with tempfile.TemporaryDirectory() as tmp:
         for what in builds:
-            F.CSRC = csrc if what == "base" else _variant_csrc(
-                csrc, Path(tmp) / what.replace(" ", "_"), SPLIT_PARTS[what])
+            path = csrc if what in ("base", *HEADER_PARTS) else \
+                _variant_csrc(csrc, Path(tmp) / what.replace(" ", "_"),
+                              SPLIT_PARTS[what])
             cds = [models[name].density() for name in names]
+            ems = {cd: emit_cuda.emit(cd) for cd in cds}
             for cd in cds:
                 F._BUILT.pop(cd, None)
-            with ThreadPoolExecutor(len(cds)) as pool:
-                for name, b in zip(names, pool.map(_build, cds)):
-                    built[what, name] = b
-        F.CSRC = csrc
+                if what in HEADER_PARTS:
+                    emit_cuda._EMITTED[cd] = dataclasses.replace(
+                        ems[cd], source=HEADER_PARTS[what](ems[cd].source))
+            try:
+                with ThreadPoolExecutor(len(cds)) as pool:
+                    for name, b in zip(names, pool.map(
+                            lambda cd, path=path: _build(cd, csrc=path),
+                            cds)):
+                        built[what, name] = b
+            finally:
+                emit_cuda._EMITTED.update(ems)
     for name in names:
         cd = models[name].density()
         log = built["base", name][0].log
@@ -912,11 +1057,12 @@ def split(label: str, names=()) -> None:
             for line in log.splitlines()
             if "registers" in line or "spill" in line), flush=True)
         for what in (*builds, *builds[::-1]):
-            kernels, _, em = built[what, name]
-            F._BUILT[cd] = {emit_cuda.LANES: (kernels, em)}
+            _as_built(F, cd, built[what, name])
+            em = built[what, name][2]
             steps = TILE_STEPS.get(name, 5)
             out, ms, streamed = _run_kernel(F, cd, starts[name], SPLIT_ITERS,
-                                            steps, device)
+                                            steps, device,
+                                            SPLIT_REPS.get(name, 3))
             print(f"RESULT split {label} {name}, {what}: {CHAINS} chains x "
                   f"{SPLIT_ITERS} it x {steps} steps {ms:.3f} ms, tiles of "
                   f"{em.tile_rows} rows, "
@@ -1049,20 +1195,19 @@ def gather_paths(label: str, names=()) -> None:
     builds, csrc, built = ("as built", "general paths"), F.CSRC, {}
     with tempfile.TemporaryDirectory() as tmp:
         for what in builds:
-            F.CSRC = csrc if what == builds[0] else _variant_csrc(
+            path = csrc if what == builds[0] else _variant_csrc(
                 csrc, Path(tmp) / "general", GENERAL_PATHS)
             cds = [models[name].density() for name in names]
             for cd in cds:
                 F._BUILT.pop(cd, None)
             with ThreadPoolExecutor(len(cds)) as pool:
-                for name, b in zip(names, pool.map(_build, cds)):
+                for name, b in zip(names, pool.map(
+                        lambda cd, path=path: _build(cd, csrc=path), cds)):
                     built[what, name] = b
-        F.CSRC = csrc
     for name in names:
         cd, first = models[name].density(), None
         for what in (*builds, *builds[::-1]):
-            kernels, _, em = built[what, name]
-            F._BUILT[cd] = {emit_cuda.LANES: (kernels, em)}
+            _as_built(F, cd, built[what, name])
             out, ms, streamed = _run_kernel(F, cd, starts[name],
                                             TILE_ITERS[name], 5, device)
             out = [x if x is None else x.clone() for x in out]
@@ -1104,13 +1249,13 @@ def eadd_select(label: str, out_dir: str = "profiles/eadd") -> None:
     csrc = F.CSRC
     with tempfile.TemporaryDirectory() as tmp:
         for what in ("as emitted", "select"):
-            F.CSRC = csrc if what == "as emitted" else _variant_csrc(
+            path = csrc if what == "as emitted" else _variant_csrc(
                 csrc, Path(tmp) / "select", EADD_SELECT, "rt_math.cuh")
             for rows in EADD_ROWS:
                 cs.FORM_ROWS, cs.FORM_GROUPS = rows, 3
                 model = cs.form_models(rt)["index column read whole"][0]
                 cd = model.density()
-                _build(cd)
+                kernels = _build(cd, csrc=path)[0]
                 q = torch.as_tensor(np.random.default_rng(0).normal(
                     size=(cd.n_vars, EADD_POINTS)), dtype=torch.float32,
                     device=device)
@@ -1125,14 +1270,12 @@ def eadd_select(label: str, out_dir: str = "profiles/eadd") -> None:
                 if rows != EADD_ROWS[0]:
                     continue
                 stem = Path(out_dir) / f"eadd_{what.replace(' ', '_')}"
-                stem.with_suffix(".ptx").write_text(rt.inspection.ptx(model))
-                # the library just built: the newest in the build directory
-                so = max(F.BUILD_DIR.glob("*.so"),
-                         key=lambda f: f.stat().st_mtime)
+                stem.with_suffix(".ptx").write_text(
+                    rt.inspection.ptx(model, csrc=path))
                 stem.with_suffix(".sass").write_text(subprocess.run(
                     [str(Path(F._nvcc()).parent / "cuobjdump"), "-sass",
-                     str(so)], capture_output=True, text=True).stdout)
-        F.CSRC = csrc
+                     kernels.path], capture_output=True,
+                    text=True).stdout)
 
 
 # ``steps``: the models and the rows a step each is timed at, in order
@@ -1601,14 +1744,13 @@ def counts(label: str, names=()) -> None:
     csrc = F.CSRC
     with tempfile.TemporaryDirectory() as tmp:
         for what in (None, *sums):
-            F.CSRC = csrc if what is None else _variant_csrc(
+            path = csrc if what is None else _variant_csrc(
                 csrc, Path(tmp) / what.replace(" ", "_"), COUNT_SUMS[what])
             group = {key: run for key, run in runs.items()
                      if key[1] == what or what is None
                      and key[1] not in sums}
             if group:
-                _build_runs(group)
-        F.CSRC = csrc
+                _build_runs(group, path)
     for name in names:
         first, n_it, n_steps = shapes[name]
         start = first(runs[name, COUNT_BUILDS[0]][0])
@@ -1718,8 +1860,9 @@ def _probe_source(em):
 
 
 def _sass_counts(sass):
-    """{function: (instructions, {MUFU kind: count}, BRA, CALL)} of
-    ``cuobjdump -sass`` output, NOPs not counted."""
+    """{function: (instructions, {MUFU kind: count}, BRA, CALL, FCHK)} of
+    ``cuobjdump -sass`` output, NOPs not counted (FCHK: an IEEE f32
+    division's test for its slow path)."""
     import re
 
     out, name = {}, None
@@ -1727,7 +1870,7 @@ def _sass_counts(sass):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            out[name] = [0, {}, 0, 0]
+            out[name] = [0, {}, 0, 0, 0]
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
                       line)
@@ -1740,14 +1883,16 @@ def _sass_counts(sass):
             rec[1][op] = rec[1].get(op, 0) + 1
         rec[2] += op.startswith("BRA")
         rec[3] += op.startswith("CALL")
+        rec[4] += op.startswith("FCHK")
     return {k: tuple(v) for k, v in out.items()}
 
 
 def _sass_models(rt, cs, device, names):
     """{name: model} of ``row-sass``'s names: zoo families by name, the
-    models of SASS_MODELS and the marginalized mixture by theirs."""
+    models of SASS_MODELS, the marginalized mixture and the README
+    regression by theirs."""
     zoo = [n for n in names if n not in SASS_MODELS
-           and n != "marginalized mixture"]
+           and n not in ("marginalized mixture", "README regression")]
     out = {n: m for n, m in ((n, _more_row_models(
         rt, cs, device, [f"zoo {n}"])[f"zoo {n}"]) for n in zoo)}
     if set(names) & set(SASS_MODELS):
@@ -1758,7 +1903,13 @@ def _sass_models(rt, cs, device, names):
                         cs.split_logistic(rt, x, ys)})
     if "marginalized mixture" in names:
         out["marginalized mixture"] = cs.marginal_mixture(rt)[0]
+    if "README regression" in names:
+        out["README regression"] = cs.readme_regression(rt)[0]
     return {n: out[n] for n in names}
+
+
+# where ``row-sass`` writes each model's probe SASS (git ignores it)
+ROW_SASS_DIR = "profiles/row_sass"
 
 
 def row_sass(label: str, names=()) -> None:
@@ -1773,7 +1924,8 @@ def row_sass(label: str, names=()) -> None:
 
     device = torch.device(DEVICE)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    models = _sass_models(rt, cs, device, tuple(names) or COUNT_FAMILIES)
+    models = _sass_models(rt, cs, device, tuple(names) or (
+        *COUNT_FAMILIES, "README regression"))
     for name, model in models.items():
         em = emit_cuda.emit(model.density())
         if em.workspace or not em.spaces or any(
@@ -1793,8 +1945,12 @@ def row_sass(label: str, names=()) -> None:
             sass = subprocess.run([cuobjdump, "-sass",
                                    str(d / "probe.cubin")], check=True,
                                   capture_output=True, text=True).stdout
+        out = Path(ROW_SASS_DIR) / f"{name.replace(' ', '_')}.sass"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(sass)
         steps = _space_steps(em)
-        for fn, (n, mufu, bra, call) in sorted(_sass_counts(sass).items()):
+        for fn, (n, mufu, bra, call, fchk) in sorted(
+                _sass_counts(sass).items()):
             if "probe" not in fn:
                 continue
             s = int(fn.rsplit("_s", 1)[1])
@@ -1803,8 +1959,8 @@ def row_sass(label: str, names=()) -> None:
             print(f"RESULT row-sass {label} {name}, {fn}: {n} instructions"
                   f" ({n / rows:.1f} a row over {rows} row"
                   f"{'s' if rows > 1 else ''}), MUFU {sum(mufu.values())} "
-                  f"{mufu}, BRA {bra}, CALL {call} (row {sp.row_ops} "
-                  f"operations as emitted)", flush=True)
+                  f"{mufu}, BRA {bra}, CALL {call}, FCHK {fchk} (row "
+                  f"{sp.row_ops} operations as emitted)", flush=True)
 
 
 # ``loaders``: the models (and the synchronous loop's loaders: LOADERS)
@@ -2389,6 +2545,157 @@ def columnfree(label: str) -> None:
             F.lanes_per_chain = rule
 
 
+# ``resident-lanes``: the resident register models (the README regression
+# and SBC's two families at SBC_ROWS rows), the chain counts, the layouts
+# (lanes a chain, chains a block) timed at each in order and back, and the
+# iterations of HMC(5) each run takes, every draw collected
+RESIDENT_MODELS = ("README regression", "SBC binomial",
+                   "SBC zero_inflated_geometric")
+RESIDENT_CHAINS = (1024, 4096, 16384)
+RESIDENT_LAYOUTS = ((32, 8), (16, 8), (16, 16), (8, 8), (8, 32))
+RESIDENT_ITERS, RESIDENT_REPS = 1000, 5
+
+
+def _rows_on_lanes(lanes):
+    """``_variant_csrc``'s change that runs a chain with rows on `lanes`
+    lanes, 32 / lanes chains a warp, in place of a warp."""
+    return [[("#define RT_LANES 32\n#endif\n"
+              "static_assert(RT_LANES == 32, \"a chain with rows is one "
+              "warp\");\n",
+              f"#define RT_LANES {lanes}\n#endif\n")]]
+
+
+def _resident_models(rt, cs, device):
+    """{name: model} of RESIDENT_MODELS: the README regression, and each
+    SBC family observing SBC_ROWS rows synthesized on `device`."""
+    out = {"README regression": cs.readme_regression(rt)[0]}
+    for name, sbc in cs.zoo(rt):
+        if f"SBC {name}" in RESIDENT_MODELS:
+            data = sbc.synthesize(cs.SBC_ROWS, cs.ZOO_SEED, device)[0]
+            dist, _ = sbc.fn([p.latent() for p in sbc.priors])
+            out[f"SBC {name}"] = rt.Model.observe(data.astype(np.float64),
+                                                  dist)
+    return out
+
+
+def _tiled_start(start, n):
+    """A warmup's (q0 (dim, m), ε (m,), Σ̂ (m, dim)) repeated to n chains."""
+    q0, eps, imd = start
+    reps = -(-n // q0.shape[1])
+    return (q0.repeat(1, reps)[:, :n].contiguous(), eps.repeat(reps)[:n],
+            imd.repeat(reps, 1)[:n])
+
+
+def resident_lanes(label: str) -> None:
+    import torch
+
+    import chip_smoke as cs
+    import rainier_tpu_torch as rt
+    from rainier_tpu_torch.compute import emit_cuda
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    device = torch.device(DEVICE)
+    widths = sorted({lanes for lanes, _ in RESIDENT_LAYOUTS})
+    # a model of its own for each width, each built from its sources
+    models = {lanes: _resident_models(rt, cs, device) for lanes in widths}
+    names = list(models[widths[0]])
+    starts = {name: _warm(models[widths[0]][name], CHAINS, device,
+                          FORM_WARMUP) for name in names}
+    jobs = [(name, lanes) for lanes in widths for name in names]
+    with tempfile.TemporaryDirectory() as tmp:
+        srcs = {lanes: F.CSRC if lanes == emit_cuda.LANES else _variant_csrc(
+            F.CSRC, Path(tmp) / f"lanes_{lanes}", _rows_on_lanes(lanes))
+            for lanes in widths}
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            built = dict(zip(jobs, pool.map(lambda job: F.build(
+                models[job[1]][job[0]].density(), emit_cuda.LANES,
+                srcs[job[1]]), jobs)))
+    for (name, lanes), (kernels, _, em) in built.items():
+        print(f"RESULT resident-lanes {label} {name}, L={lanes}: "
+              f"{em.n_rows} rows, state "
+              f"{'in a slot' if em.workspace else 'in registers'}, ptxas "
+              + " | ".join(_ptxas(kernels.log)), flush=True)
+    rules = (F.lanes_per_chain, F.chains_per_block)
+    try:
+        for name in names:
+            for n in RESIDENT_CHAINS:
+                q0, eps, imd = _tiled_start(starts[name], n)
+                kw = dict(step_size=eps, inv_mass_diag=imd, n_steps=5,
+                          n_iterations=RESIDENT_ITERS, seed=1,
+                          collect_every=1)
+                first, by_lanes = None, {}
+                for lanes, w in (*RESIDENT_LAYOUTS,
+                                 *RESIDENT_LAYOUTS[::-1]):
+                    F.lanes_per_chain = lambda em, n, lanes=lanes: lanes
+                    F.chains_per_block = lambda em, n, w=w: w
+                    out, ms = kernel_ms(F, models[lanes][name].density(),
+                                        q0, kw, device, RESIDENT_REPS)
+                    first = out if first is None else first
+                    same = by_lanes.setdefault(lanes, out)
+                    bits = all(bool(torch.equal(a, b))
+                               for a, b in zip(out, same))
+                    print(f"RESULT resident-lanes {label} {name}, L={lanes},"
+                          f" W={w}: {n} chains x {RESIDENT_ITERS} it x 5 "
+                          f"steps {ms:.4f} ms, accept "
+                          f"{float(out[2].mean()):.4f}, "
+                          f"{cs.agreement(out, first)[0]:.4f} of chains "
+                          f"within 1e-4 rel of L=32, the bits of L={lanes}'s"
+                          f" first run {bits}", flush=True)
+    finally:
+        F.lanes_per_chain, F.chains_per_block = rules
+
+
+# ``philox-split``: the register models with rows whose chains split
+# their Philox groups over their lanes, timed as built and as built from
+# a copy of ``csrc/`` whose such models draw every group in every lane
+# (chip_smoke.EVERY_LANE_PHILOX), at ``tiles``' shapes
+PHILOX_MODELS = ("README regression", "logistic regression",
+                 "MVNormal logistic", "logistic regression, two row spaces",
+                 "marginalized mixture", "zoo neg_binomial")
+PHILOX_BUILDS = ("split", "every lane")
+
+
+def philox_split(label: str, names=()) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from rainier_tpu_torch.compute import emit_cuda
+    from rainier_tpu_torch.ops import fused_hmc as F
+
+    device = torch.device(DEVICE)
+    runs = _row_runs(device, tuple(names) or PHILOX_MODELS)
+    csrc = F.CSRC
+    built = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        every = _variant_csrc(csrc, Path(tmp) / "csrc", cs.EVERY_LANE_PHILOX)
+        for what, path in zip(PHILOX_BUILDS, (csrc, every)):
+            jobs = [(name, run[0].density(), F.lanes_per_chain(
+                emit_cuda.emit(run[0].density()), run[1][0].shape[1]))
+                for name, run in runs.items()]
+            for _, cd, _ in jobs:
+                F._BUILT.pop(cd, None)
+            with ThreadPoolExecutor(len(jobs)) as pool:
+                for (name, _, _), b in zip(jobs, pool.map(
+                        lambda job, path=path: F.build(job[1], job[2], path),
+                        jobs)):
+                    built[what, name] = b
+    for name, (model, start, n_it, n_steps) in runs.items():
+        cd = model.density()
+        first = None
+        for what in (*PHILOX_BUILDS, *PHILOX_BUILDS[::-1]):
+            _as_built(F, cd, built[what, name], start[0].shape[1])
+            out, ms, _ = _run_kernel(F, cd, start, n_it, n_steps, device)
+            first = out if first is None else first
+            same = all(a is b or bool(torch.equal(a, b))
+                       for a, b in zip(out, first))
+            print(f"RESULT philox-split {label} {name}, {what}: "
+                  f"{start[0].shape[1]} chains x {n_it} it x {n_steps} steps"
+                  f" {ms:.3f} ms, the bits of the first run {same}; ptxas "
+                  + " | ".join(line for line in _ptxas(
+                      built[what, name][0].log) if "fused_hmc" in line),
+                  flush=True)
+
+
 def zoo(n_steps: int, n_draws: int, dtype: str, families) -> None:
     import torch
 
@@ -2440,6 +2747,10 @@ def main(argv) -> int:
         adapt()
     elif argv[:1] == ["columnfree"] and len(argv) == 2:
         columnfree(argv[1])
+    elif argv[:1] == ["resident-lanes"] and len(argv) == 2:
+        resident_lanes(argv[1])
+    elif argv[:1] == ["philox-split"] and len(argv) >= 2:
+        philox_split(argv[1], argv[2:])
     elif argv[:1] == ["forms"] and len(argv) == 2:
         forms(argv[1])
     elif argv[:1] == ["gather-tiles"] and len(argv) == 2:

@@ -408,9 +408,10 @@ def _canonical(src):
 # workspace emitted it; the two with rows as the row loop's redesign for
 # the H100 emits them (its loader, its tile sizes, its rows a step and
 # its tile loaded once a launch), the logistic's row with its softplus
-# pair sharing exp(-|v|), log1p and one reciprocal
+# pair sharing exp(-|v|), log1p and one reciprocal, the README's row
+# multiplying by 1/σ, computed once a call (emit_cuda._reciprocals)
 SMALL_HEADERS = {"funnel": "a5ff30fef7ba2450c660",
-                 "readme_regression": "e90a229c23b8f6f1785b",
+                 "readme_regression": "dbd775baf5d6aafd257a",
                  "logistic": "947c5613c41ed0539705"}
 
 

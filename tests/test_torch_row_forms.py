@@ -283,7 +283,9 @@ def _canonical(src):
 # of those forms' own redesign (the source's columns loaded into the
 # tile at the gathered row; L read where _mat_layout puts it), and the
 # three GLMMs to the headers whose rows leave their lgamma(y + 1) to the
-# kernel's pass once a launch (rt_row_const)
+# kernel's pass once a launch (rt_row_const), and the six whose rows
+# divide by a row-invariant scale to the headers whose rows multiply by
+# its reciprocal, computed once a call (emit_cuda._reciprocals)
 KEPT = {
     "columnfree funnel": ("test_torch_columnfree", "funnel", ()),
     "columnfree funnel 300": ("test_torch_columnfree", "funnel", (300,)),
@@ -330,9 +332,9 @@ KEPT_HEADERS = {
     "columnfree matvec": "5cf954660acfd2a2d2e8",
     "columns base with columns": "f68d4fdb880a430b58e1",
     "columns logistic": "fc6bc198d2ee55a255bd",
-    "columns matrix views": "0d834d93515150391895",
-    "columns readme": "985026ac5a7dc60d6de1",
-    "dense_mass normal": "ce52c192e67c874d6eb5",
+    "columns matrix views": "11bccf3a1094b8bb7aaa",
+    "columns readme": "23cd9d407fda8b492263",
+    "dense_mass normal": "0be276711018ab493876",
     "density lse select lookup": "d517c83c12811a7a87c1",
     "ehmc eight schools": "a72f808d17008132a2eb",
     "forms gather source per row": "cd3e447e78c7e5d12f93",
@@ -348,15 +350,15 @@ KEPT_HEADERS = {
     "lanes small logistic": "75221c05354cab9deeb0",
     "large glmm 300": "f27d54b368c26e19d203",
     "marginal mixture": "904560767b6a0e17c2f8",
-    "progress regression": "86772ac83c95f6967495",
+    "progress regression": "d79989ff4c4b33e6e9ff",
     "sampler gather": "2c92d089255cc36da2fe",
     "trace column": "a7c4f1b812ab1aaa8b20",
     "trace mvnormal": "afe5804f1ec2616449ca",
     "untiled data vec dot": "5b0a8ee42351a61dd212",
     "untiled logistic blocks": "b8aa68a88e381e462e1e",
     "untiled mvnormal logistic": "6b311af7dd3a1eb0c8da",
-    "untiled two blocks": "2b1e60e20eec0fa59bec",
-    "variational normal": "b92c3476001ed3bcb723",
+    "untiled two blocks": "db428ba490b9c7f7f794",
+    "variational normal": "4e5d4e44444c4ca7f52f",
 }
 
 
